@@ -3,18 +3,22 @@
 The counterpart of ``online_convex_optimization_tpu`` (JAX on a TPU), for
 one NVIDIA H100: FTL, FTRL, single-switch SMART and empirical-g SMART
 evaluated for cumulative regret across the reference's four sequence
-families, plus the empirical g(T) curve.  It imports ``torch`` and never
+families, plus the empirical g(T) curve; eta and SMART-threshold sweeps;
+long-horizon streaming with checkpoint/resume.  It imports ``torch`` and never
 ``jax``; the JAX package stays the reference it is tested against.
 
 - ``ops``        : step math and the hand-written CUDA kernels (``csrc/``)
                    with their plain PyTorch versions.
-- ``models``     : simulators and the reference-compatible API.
+- ``models``     : simulators, the reference-compatible API, the sweeps
+                   and the streamed games.
 - ``data``       : host-NumPy sequence families with the reference's PCG64
-                   seed schedules, bitwise equal to the JAX package's.
+                   seed schedules, bitwise equal to the JAX package's, and
+                   on-device generation.
 - ``experiments``: config/CLI, g(T) estimation, per-case evaluation,
                    figures, the experiment driver.
-- ``utils``      : stats, logging, the CUDA build.
-- ``testing``    : f64 golden oracle and the NumPy-to-tensor helper.
+- ``utils``      : stats, logging, checkpointing, the CUDA build.
+- ``testing``    : f64 golden oracle and the helpers from the JAX package.
+- ``examples``   : the sweep and streaming examples (``python -m``).
 """
 
 from online_convex_optimization_tpu_torch.models.api import (

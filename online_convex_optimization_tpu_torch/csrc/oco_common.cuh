@@ -1,4 +1,8 @@
-// Device helpers shared by the regret (K1) and SMART (K2) kernels.
+// Device helpers shared by the port's kernels: the regret game (K1), SMART
+// (K2), the carried stream (K4), the eta sweep (K5) and the SMART
+// threshold sweep (K6).  K1, K4 and K5 play the same game_round; K2 and K6
+// the same smart_round, so a sweep column or a chunked stream reproduces
+// the one-shot kernel bit for bit.
 //
 // Every helper follows the order of operations of ops/actions.py and
 // ops/hinge.py (and of the reference's fast_algorithms.py:19-66): a true
@@ -103,8 +107,119 @@ __device__ __forceinline__ S replay_comparator(const S* __restrict__ z,
   return comp;
 }
 
+// One round of the FTRL (ftrl) or FTL game: the action x from the
+// pre-update theta (FTRL with the 1-based round index t1), the hinge loss
+// of q = <z_t, x> added to cum, the tie-exact subgradient update of theta,
+// and the identity statistic w += y_t z_t.
+template <typename S, int D>
+__device__ __forceinline__ void game_round(S* th, S* w, S* x, const S* zr,
+                                           S yt, bool ftrl, S eta, S t1,
+                                           int n, S& cum) {
+  if (ftrl)
+    ftrl_action<S, D>(th, x, n, eta, t1);
+  else
+    ftl_action<S, D>(th, x, n);
+  const S diff = dot<S, D>(zr, x, n) - yt;
+  cum = cum + S(0.5) * oabs(diff);
+  const S g = half_sign(diff);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    th[j] = th[j] + g * zr[j];
+    w[j] = w[j] + yt * zr[j];
+  }
+}
+
+// Loss of the final FTL action x_c = ftl_action(theta) (written to x) over
+// cnt contract rows, by the hinge identity 0.5 * (cnt - <x_c, w>).
+template <typename S, int D>
+__device__ __forceinline__ S identity_comparator(const S* th, const S* w,
+                                                 S* x, int n, S cnt) {
+  ftl_action<S, D>(th, x, n);
+  return S(0.5) * (cnt - dot<S, D>(x, w, n));
+}
+
+// State of one single-switch SMART run (models/smart.py semantics).
+template <typename S, int D>
+struct SmartState {
+  S th[Cap<D>::value];   // always-on FTL track
+  S w[Cap<D>::value];    // identity statistic sum y_t z_t
+  S thr[Cap<D>::value];  // FTRL track, fresh at the switch
+  S xr[Cap<D>::value];   // the FTRL track's last action
+  S F, total, cnt;       // FTL losses, played losses, rounds
+  bool switched;
+  long long tau;         // switch round, T when it never fires
+};
+
+template <typename S, int D>
+__device__ __forceinline__ void smart_begin(SmartState<S, D>& st, int n,
+                                            long long T) {
+#pragma unroll
+  for (int j = 0; j < n; ++j) st.th[j] = st.w[j] = st.thr[j] = st.xr[j] = S(0);
+  st.F = st.total = st.cnt = S(0);
+  st.switched = false;
+  st.tau = T;
+}
+
+// One SMART round t (0-based), shared by K2 and K6:
+//   1. the always-on FTL track plays its pre-update action and updates;
+//      F accumulates its losses, (w, cnt) the identity statistics;
+//   2. once switched (the round AFTER the test first passed), the FTRL
+//      track plays with the GLOBAL round index t+1 and its losses count;
+//      before that the FTL loss counts;
+//   3. before the switch, the post-update FTL action s is scored on the
+//      prefix by the hinge identity L = 0.5 * (cnt - <s, w>), and the
+//      switch fires at the first round with F - L >= thresh.
+template <typename S, int D>
+__device__ __forceinline__ void smart_round(SmartState<S, D>& st,
+                                            const S* zr, S yt, int t, int n,
+                                            S thresh, S eta) {
+  S x[Cap<D>::value];
+  ftl_action<S, D>(st.th, x, n);
+  const S diffF = dot<S, D>(zr, x, n) - yt;
+  const S lossF = S(0.5) * oabs(diffF);
+  const S gF = half_sign(diffF);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    st.th[j] = st.th[j] + gF * zr[j];
+    st.w[j] = st.w[j] + yt * zr[j];
+  }
+  st.F = st.F + lossF;
+  st.cnt = st.cnt + S(1);
+
+  if (st.switched) {
+    ftrl_action<S, D>(st.thr, x, n, eta, S(t + 1));
+    const S diffR = dot<S, D>(zr, x, n) - yt;
+    st.total = st.total + S(0.5) * oabs(diffR);
+    const S gR = half_sign(diffR);
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      st.thr[j] = st.thr[j] + gR * zr[j];
+      st.xr[j] = x[j];
+    }
+  } else {
+    st.total = st.total + lossF;
+    ftl_action<S, D>(st.th, x, n);  // post-update action s_t
+    const S L = S(0.5) * (st.cnt - dot<S, D>(x, st.w, n));
+    if (st.F - L >= thresh) {
+      st.switched = true;
+      st.tau = t;
+    }
+  }
+}
+
 inline unsigned int grid_for(long long B) {
   return static_cast<unsigned int>((B + OCO_THREADS - 1) / OCO_THREADS);
+}
+
+// Sweep grids (K5, K6): block k serves setting k % n_settings of sequence
+// block k / n_settings, so the settings of one block of sequences are
+// launched next to each other and read the same z rows while they are
+// still in L2.
+__device__ __forceinline__ void sweep_coords(long long n_settings,
+                                             long long* b, long long* e) {
+  const long long k = blockIdx.x;
+  *e = k % n_settings;
+  *b = (k / n_settings) * blockDim.x + threadIdx.x;
 }
 
 }  // namespace oco

@@ -7,9 +7,10 @@
 //
 // One thread per sequence, state in registers, a loop over the sequence's
 // own rounds (it stops at its own length, so ragged horizons and mixed
-// FTRL/FTL flags share one launch).  Per round: the action (FTRL with the
-// ball projection, or FTL), q = <z_t, x>, the hinge loss, the tie-exact
-// subgradient update, and the identity statistic w += y_t z_t.  The final
+// FTRL/FTL flags share one launch).  Per round (oco::game_round, shared
+// with K4 and K5): the action (FTRL with the ball projection, or FTL),
+// q = <z_t, x>, the hinge loss, the tie-exact subgradient update, and the
+// identity statistic w += y_t z_t.  The final
 // comparator is the final FTL action x_c scored by the hinge identity
 // comp = 0.5 * (len - <x_c, w>), exact when every row has ||z_t|| <= 1 and
 // y_t = +-1; for other data the wrapper picks the replay mode, which scores
@@ -51,26 +52,15 @@ regret_kernel(const S* __restrict__ z, const S* __restrict__ y,
 
   for (int t = 0; t < len; ++t) {
     oco::load_row<S, D>(z, t, b, B, n, zr);
-    const S yt = y[t * B + b];
-    if (ftrl)
-      oco::ftrl_action<S, D>(th, x, n, eta_b, S(t + 1));
-    else
-      oco::ftl_action<S, D>(th, x, n);
-    const S diff = oco::dot<S, D>(zr, x, n) - yt;
-    cum = cum + S(0.5) * oco::oabs(diff);
-    const S g = oco::half_sign(diff);
+    oco::game_round<S, D>(th, w, x, zr, y[t * B + b], ftrl, eta_b, S(t + 1),
+                          n, cum);
 #pragma unroll
-    for (int j = 0; j < n; ++j) {
-      th[j] = th[j] + g * zr[j];
-      w[j] = w[j] + yt * zr[j];
-      xl[j] = x[j];
-    }
+    for (int j = 0; j < n; ++j) xl[j] = x[j];
   }
 
-  oco::ftl_action<S, D>(th, x, n);  // comparator: the final FTL action
-  const S comp = replay
-      ? oco::replay_comparator<S, D>(z, y, b, B, n, len, x)
-      : S(0.5) * (S(len) - oco::dot<S, D>(x, w, n));
+  // Comparator: the final FTL action, by the identity or by a replay.
+  S comp = oco::identity_comparator<S, D>(th, w, x, n, S(len));
+  if (replay) comp = oco::replay_comparator<S, D>(z, y, b, B, n, len, x);
   cum_out[b] = cum;
   comp_out[b] = comp;
 #pragma unroll

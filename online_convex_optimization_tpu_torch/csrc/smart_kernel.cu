@@ -6,7 +6,8 @@
 // online_convex_optimization_tpu_torch/ops/smart.py.
 //
 // One thread per sequence, state in registers, a loop over the sequence's
-// own rounds.  Per round (models/smart.py semantics):
+// own rounds.  The round step is oco::smart_round (oco_common.cuh, shared
+// with the threshold sweep K6; models/smart.py semantics):
 //   1. the always-on FTL track plays its pre-update action and updates;
 //      F accumulates its losses, (w, cnt) the identity statistics;
 //   2. once switched (the round AFTER the test first passed), a fresh FTRL
@@ -48,62 +49,24 @@ smart_kernel(const S* __restrict__ z, const S* __restrict__ y,
   const S thr_b = threshold[b];
   const S eta_b = eta[b];
 
-  S th[C], w[C], thr[C], xr[C], x[C], zr[C];
-#pragma unroll
-  for (int j = 0; j < n; ++j) th[j] = w[j] = thr[j] = xr[j] = S(0);
-  S F = S(0), total = S(0), cnt = S(0);
-  bool switched = false;
-  long long tau = T;
-
+  oco::SmartState<S, D> st;
+  oco::smart_begin<S, D>(st, n, T);
+  S x[C], zr[C];
   for (int t = 0; t < len; ++t) {
     oco::load_row<S, D>(z, t, b, B, n, zr);
-    const S yt = y[t * B + b];
-
-    // FTL track: pre-update action, then the update.
-    oco::ftl_action<S, D>(th, x, n);
-    const S diffF = oco::dot<S, D>(zr, x, n) - yt;
-    const S lossF = S(0.5) * oco::oabs(diffF);
-    const S gF = oco::half_sign(diffF);
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      th[j] = th[j] + gF * zr[j];
-      w[j] = w[j] + yt * zr[j];
-    }
-    F = F + lossF;
-    cnt = cnt + S(1);
-
-    if (switched) {
-      oco::ftrl_action<S, D>(thr, x, n, eta_b, S(t + 1));
-      const S diffR = oco::dot<S, D>(zr, x, n) - yt;
-      total = total + S(0.5) * oco::oabs(diffR);
-      const S gR = oco::half_sign(diffR);
-#pragma unroll
-      for (int j = 0; j < n; ++j) {
-        thr[j] = thr[j] + gR * zr[j];
-        xr[j] = x[j];
-      }
-    } else {
-      total = total + lossF;
-      oco::ftl_action<S, D>(th, x, n);  // post-update action s_t
-      const S L = S(0.5) * (cnt - oco::dot<S, D>(x, w, n));
-      if (F - L >= thr_b) {
-        switched = true;
-        tau = t;
-      }
-    }
+    oco::smart_round<S, D>(st, zr, y[t * B + b], t, n, thr_b, eta_b);
   }
 
-  oco::ftl_action<S, D>(th, x, n);  // comparator: the final FTL action
-  const S comp = replay
-      ? oco::replay_comparator<S, D>(z, y, b, B, n, len, x)
-      : S(0.5) * (cnt - oco::dot<S, D>(x, w, n));
-  cum_out[b] = total;
+  // Comparator: the final FTL action, by the identity or by a replay.
+  S comp = oco::identity_comparator<S, D>(st.th, st.w, x, n, st.cnt);
+  if (replay) comp = oco::replay_comparator<S, D>(z, y, b, B, n, len, x);
+  cum_out[b] = st.total;
   comp_out[b] = comp;
-  switch_t[b] = tau;
+  switch_t[b] = st.tau;
   // x_last: the FTRL track's last action once switched (zero if it never
   // played), the final FTL action otherwise (models/smart.py).
 #pragma unroll
-  for (int j = 0; j < n; ++j) x_last[j * B + b] = switched ? xr[j] : x[j];
+  for (int j = 0; j < n; ++j) x_last[j * B + b] = st.switched ? st.xr[j] : x[j];
 }
 
 template <typename S>

@@ -1,6 +1,13 @@
 """Sequence generation: host-NumPy builders with the reference's PCG64 seed
-schedules (counterpart of ``online_convex_optimization_tpu/data``)."""
+schedules, and on-device generation on a ``torch.Generator`` (counterpart
+of ``online_convex_optimization_tpu/data``)."""
 
+from online_convex_optimization_tpu_torch.data.device import (
+    random_game_batch,
+    random_time_major_batch,
+    separable_stream_batch,
+    shard_generators,
+)
 from online_convex_optimization_tpu_torch.data.rng import rng_stream, run_seed_schedule
 from online_convex_optimization_tpu_torch.data.sequences import (
     CASES,
@@ -32,4 +39,8 @@ __all__ = [
     "sample_g_instance",
     "sample_g_batch",
     "stack_replicates",
+    "random_game_batch",
+    "random_time_major_batch",
+    "separable_stream_batch",
+    "shard_generators",
 ]

@@ -1,5 +1,6 @@
 """Algorithm simulators (counterpart of ``online_convex_optimization_tpu/models``):
-FTRL/FTL and SMART, each one pass of a CUDA kernel on the card."""
+FTRL/FTL and SMART, each one pass of a CUDA kernel on the card; the eta
+and threshold sweeps; the streamed game for long horizons."""
 
 from online_convex_optimization_tpu_torch.models.base import RunResult
 from online_convex_optimization_tpu_torch.models.linear import (
@@ -13,6 +14,14 @@ from online_convex_optimization_tpu_torch.models.smart import (
     simulate_smart,
     simulate_smart_batch,
 )
+from online_convex_optimization_tpu_torch.models.streaming import (
+    StreamingGame,
+    StreamingKernelGame,
+)
+from online_convex_optimization_tpu_torch.models.sweep_api import (
+    ftrl_eta_sweep,
+    smart_threshold_sweep,
+)
 
 __all__ = [
     "RunResult",
@@ -23,4 +32,8 @@ __all__ = [
     "simulate_smart_batch",
     "ALG_FTRL",
     "ALG_FTL",
+    "ftrl_eta_sweep",
+    "smart_threshold_sweep",
+    "StreamingGame",
+    "StreamingKernelGame",
 ]

@@ -1,5 +1,7 @@
 """Parity oracles: the f64 golden restatement of the reference semantics
-(counterpart of ``online_convex_optimization_tpu/testing``)."""
+(counterpart of ``online_convex_optimization_tpu/testing``), and the
+helpers that carry the JAX package's inputs and stream state into the port
+(``from_jax``)."""
 
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_empirical_thresholds,

@@ -1,2 +1,2 @@
-"""Stats, logging and the CUDA build (counterpart of
+"""Stats, logging, checkpointing and the CUDA build (counterpart of
 ``online_convex_optimization_tpu/utils``)."""

@@ -35,22 +35,27 @@ LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 MAX_D = 64
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_D = ctypes.c_double
 
 # Every pointer and the stream are c_void_p; see the extern "C" blocks.
-_SIGNATURES = {
-    "oco_regrets_fused_f64": [_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P],
-    "oco_regrets_fused_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P],
-    "oco_smart_regrets_f64": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                              _P, _P, _P, _P, _P],
-    "oco_smart_regrets_f32": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                              _P, _P, _P, _P, _P],
-}
+_SIGNATURES = {}
+for _ty in ("f64", "f32"):
+    _SIGNATURES.update({
+        f"oco_regrets_fused_{_ty}": [_P, _P, _P, _P, _P, _LL, _I, _I,
+                                     _P, _P, _P, _P],
+        f"oco_smart_regrets_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                     _P, _P, _P, _P, _P],
+        f"oco_eta_sweep_{_ty}": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+        f"oco_smart_sweep_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _D, _I,
+                                   _P, _P, _P],
+        f"oco_play_stream_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    })
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -82,10 +87,28 @@ def _nvcc() -> str:
                        "toolkit (CUDA_HOME or nvcc on PATH)")
 
 
+def _run_all(cmds, log):
+    """Start every command at once, wait for all, log their output; raise
+    with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        log.write(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, err)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n"
+                           f"{failed[1]}")
+
+
 def build(force: bool = False) -> str:
     """Compile the library unless a build of the same sources exists (or
-    ``force``); return its path.  nvcc's output (ptxas register and spill
-    counts) goes to ``build/torch_kernels/build.log``."""
+    ``force``); return its path.  Each ``.cu`` file is compiled by its own
+    nvcc, all started together, then linked.  nvcc's output (ptxas register
+    and spill counts) goes to ``build/torch_kernels/build.log``."""
     key = source_hash()
     stamp = LIB_PATH + ".sha256"
     if not force and os.path.exists(LIB_PATH) and os.path.exists(stamp):
@@ -93,15 +116,20 @@ def build(force: bool = False) -> str:
             if f.read().strip() == key:
                 return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr}")
+    srcs = [p for p in _sources() if p.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(p)}.{os.getpid()}.o")
+            for p in srcs]
+    try:
+        with open(LOG_PATH, "w") as log:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                      for src, obj in zip(srcs, objs)], log)
+            _run_all([[nvcc, "-shared", "-o", tmp, *objs]], log)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(key)

@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1, K2, K4, K5 and K6 on the card against their plain PyTorch
+versions, and the sweeps and the stream against K1 and K2.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports only
 torch, numpy and the port, so it also runs where JAX is not installed:
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from online_convex_optimization_tpu_torch.data.sequences import CASES
+from online_convex_optimization_tpu_torch.models.streaming import (
+    StreamingKernelGame,
+)
 from online_convex_optimization_tpu_torch.ops import game, smart
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_simulate_alg,
@@ -113,3 +117,126 @@ def test_kernel_rejects_d_above_max(cuda):
     with pytest.raises(ValueError):
         game.regrets_fused(z, torch.ones((2, 4), dtype=torch.float64,
                                          device=cuda), 0, 1.0)
+
+
+def _max_err(got, want) -> float:
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 3])
+@pytest.mark.parametrize("contract", [True, False])
+def test_eta_sweep_kernel_matches_plain(cuda, dtype, d, contract):
+    z, y, lengths = _batch(200, 97, d, seed=20 + d, contract=contract)
+    grid = np.array([0.05, 0.4, 1.3, 4.0])
+    zt, yt = _to((z, y), cuda, dtype)
+    before = game.SWEEP_LAUNCHES
+    got = game.eta_sweep(zt, yt, grid, lengths)
+    torch.cuda.synchronize()
+    assert game.SWEEP_LAUNCHES == before + 1
+    assert got.shape == (200, 4) and got.dtype == dtype
+    want = game.eta_sweep_reference(
+        zt, yt, torch.as_tensor(grid, dtype=dtype, device=cuda),
+        game.per_sequence(lengths, 200, torch.int32, cuda),
+        replay=not contract)
+    assert _max_err((got,), (want,)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 3])
+@pytest.mark.parametrize("contract", [True, False])
+def test_smart_sweep_kernel_matches_plain(cuda, dtype, d, contract):
+    z, y, lengths = _batch(200, 113, d, seed=40 + d, contract=contract)
+    grid = np.array([1.0, 2.5, 6.0, 1e9])
+    zt, yt = _to((z, y), cuda, dtype)
+    before = smart.SWEEP_LAUNCHES
+    got, tau = smart.smart_sweep(zt, yt, grid, 1.3, lengths)
+    torch.cuda.synchronize()
+    assert smart.SWEEP_LAUNCHES == before + 1
+    assert got.shape == tau.shape == (200, 4)
+    want, want_tau = smart.smart_sweep_reference(
+        zt, yt, torch.as_tensor(grid, dtype=dtype, device=cuda),
+        torch.tensor(1.3, dtype=dtype, device=cuda),
+        game.per_sequence(lengths, 200, torch.int32, cuda),
+        replay=not contract)
+    assert _max_err((got,), (want,)) <= TOL[dtype]
+    assert torch.equal(tau, want_tau)
+    assert bool((tau < 113).any()) and bool((tau[:, 3] == 113).all())
+
+
+@pytest.mark.parametrize("contract", [True, False])
+def test_sweep_columns_equal_k1_and_k2_on_the_cross_product(cuda, contract):
+    """In f64 a sweep column is bit for bit K1 (K2) run on the repeated
+    sequences with that setting."""
+    z, y, lengths = _batch(64, 90, 5, seed=7, contract=contract)
+    zt, yt = _to((z, y), cuda, torch.float64)
+    etas = np.array([0.3, 1.0, math.sqrt(2.0), 3.1])
+    reg = game.eta_sweep(zt, yt, etas, lengths)
+    rep = lambda t: t.repeat_interleave(4, 0)
+    ln = np.repeat(lengths, 4)
+    cum, comp, _ = game.regrets_fused(rep(zt), rep(yt), 0, np.tile(etas, 64),
+                                      ln)
+    assert torch.equal(reg.reshape(-1), cum - comp)
+    ths = np.array([1.0, 2.5, 6.0, 10.0])
+    reg, tau = smart.smart_sweep(zt, yt, ths, math.sqrt(2.0), lengths)
+    cum, comp, _, tau1 = smart.smart_regrets(rep(zt), rep(yt),
+                                             np.tile(ths, 64),
+                                             math.sqrt(2.0), ln)
+    assert torch.equal(reg.reshape(-1), cum - comp)
+    assert torch.equal(tau.reshape(-1), tau1)
+
+
+@pytest.mark.parametrize("title", ["Label flips", "Switching leaders"])
+@pytest.mark.parametrize("T", [200, 800])
+def test_smart_sweep_families_match_golden_on_card(cuda, title, T):
+    z, y, _ = CASES[title](run_seed=2025)(T)
+    zt, yt = _to((z[None], y[None]), cuda, torch.float64)
+    ths = [math.sqrt(2.0 * T), 10.0]
+    reg, tau = smart.smart_sweep(zt, yt, ths, math.sqrt(2.0))
+    for g, thr in enumerate(ths):
+        want, want_tau = golden_simulate_smart(z, y, thr, math.sqrt(2.0),
+                                               return_switch=True)
+        assert abs(float(reg[0, g]) - want) <= 1e-9
+        assert int(tau[0, g]) == want_tau
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 3])
+def test_stream_kernel_matches_plain(cuda, dtype, d):
+    z, y, _ = _batch(200, 96, d, seed=60 + d)
+    ztm = torch.as_tensor(z.transpose(1, 2, 0), dtype=dtype,
+                          device=cuda).contiguous()
+    ytm = torch.as_tensor(y.T, dtype=dtype, device=cuda).contiguous()
+    flags = game.per_sequence(np.arange(200) % 2, 200, torch.int32, cuda)
+    eta = game.per_sequence(np.linspace(0.3, 2.0, 200), 200, dtype, cuda)
+    carry = ref = game.zero_stream_carry(200, d, dtype, cuda)
+    before = game.STREAM_LAUNCHES
+    for lo, hi in ((0, 40), (40, 41), (41, 96)):
+        carry = game.play_stream(ztm[lo:hi], ytm[lo:hi], eta, lo, carry,
+                                 alg_flag=flags)
+        ref = game.play_stream_reference(ztm[lo:hi], ytm[lo:hi], flags, eta,
+                                         lo, ref)
+    torch.cuda.synchronize()
+    assert game.STREAM_LAUNCHES == before + 3
+    assert _max_err(carry, ref) <= TOL[dtype]
+    assert _max_err(game.stream_result(carry),
+                    game.stream_result(ref)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_stream_chunked_equals_one_k1_launch(cuda, alg_flag):
+    """Fed in chunks through K4 in f64, the regret is bit for bit one K1
+    launch over the whole sequences."""
+    z, y, _ = _batch(300, 130, 5, seed=70 + alg_flag)
+    kg = StreamingKernelGame(300, 5, alg_flag=alg_flag, eta0=1.3,
+                             dtype=torch.float64, device=cuda, validate=True)
+    ztm, ytm = z.transpose(1, 0, 2), y.T
+    for lo, hi in ((0, 64), (64, 65), (65, 130)):
+        kg.feed(ztm[lo:hi], ytm[lo:hi])
+    got = kg.result()
+    zt, yt = _to((z, y), cuda, torch.float64)
+    cum, comp, _ = game.regrets_fused(zt, yt, alg_flag, 1.3)
+    assert torch.equal(got.cum_loss, cum)
+    assert torch.equal(got.comp_loss, comp)
+    assert torch.equal(got.regret, cum - comp)

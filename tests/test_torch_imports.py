@@ -28,10 +28,25 @@ z, y, _ = CASES["Random i.i.d. (separable)"](run_seed=2025)(60, rep=0)
 r = oco.simulate_alg(z, y, 0, 2 ** 0.5, device="cpu")
 s = oco.simulate_SMART(z, y, device="cpu")
 assert np.isfinite(r) and np.isfinite(s)
+
+# The sweep and streaming slice, through its examples, on the CPU.
+import online_convex_optimization_tpu_torch.testing.from_jax
+import online_convex_optimization_tpu_torch.utils.checkpointing
+from online_convex_optimization_tpu_torch.examples import (
+    kernel_batch_sweep, streaming_long_horizon)
+out = kernel_batch_sweep.main(["--device", "cpu", "--batch", "16",
+                               "--horizon", "32"])
+assert out["eta_regret"].shape == (16, 16)
+assert out["threshold_regret"].shape == (16, 4)
+res = streaming_long_horizon.main(["--device", "cpu", "--batch", "8",
+                                   "--chunk", "8", "--chunks", "4"])
+assert res.regret.shape == (8,) and bool(np.isfinite(res.regret).all())
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("online_convex_optimization_tpu.")
                or m == "online_convex_optimization_tpu" for m in sys.modules)
 assert game.LAUNCHES == 0 and smart.LAUNCHES == 0
+assert game.SWEEP_LAUNCHES == game.STREAM_LAUNCHES == smart.SWEEP_LAUNCHES == 0
 print("OK")
 """
 
