@@ -43,9 +43,32 @@ non-zero without printing a result):
                bit and its plain version within 1e-9; f32 K4 against its
                plain version from a zero carry (B=16,384, 2 chunks of
                1,024) within 5e-4.
+  8. packed  — simulate_linear_auto at the JAX pallas_v2 cell's width
+               (B=131,072 T=1024 d=5, f32, generated on the card) with
+               eta=sqrt(2) (K3) and eta on linspace(0.05, 4) (K3e): both
+               launch counters must rise; K3 and K3e against their plain
+               versions there (5e-4) and timed; in f64 at B=16,384 against
+               their plain versions (1e-9), their cum against K1's bit for
+               bit and the replayed regret against K1's (1e-9); K1, K2 and
+               K3 at d=256 (B=8,192 T=256, f32 and f64) against their
+               plain versions; kernel_envelope at d=512 and 513.
+  9. quadratic — the study at its default config on --device cuda (f32;
+               K8's counter must rise); its f64 statistics on cuda and cpu
+               within 1e-9; K8 at the JAX bench shape (B=4,096 T=1,024
+               d=5, half FTRL half FTL, regression streams generated on
+               the card) against its plain version (1e-9 f64, 5e-4 f32);
+               ball_ls_action (K9) on all 4,194,304 prefix statistics of
+               that batch against trs_solve_reference, its counter
+               rising; K8's x_c against K9 on the final statistics bit for
+               bit; K8 and K9 timed.
 
-The line before the last lists the kernels as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The kernels' line carries, for every kernel, its launches on its path, its
+error against its plain version, its kernel and plain times, its bound
+(the larger of the bytes over 3.35 TB/s and the operations over the peak
+for the type) and the library call's time (none computes these
+recurrences: null).  The line before the last lists the kernels as JSON;
+the last line is ``{"ok": true, "device": {...}}``.  About 3 minutes on
+an H100.
 """
 
 from __future__ import annotations
@@ -60,15 +83,26 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from online_convex_optimization_tpu_torch.data.device import (
     random_game_batch,
     random_time_major_batch,
+    regression_stream_batch,
 )
 from online_convex_optimization_tpu_torch.data.sequences import CASES
 from online_convex_optimization_tpu_torch.experiments.config import ExperimentConfig
 from online_convex_optimization_tpu_torch.experiments.driver import run_experiment
+from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
+    QuadraticConfig,
+    evaluate_quadratic_stream,
+    run_study,
+)
+from online_convex_optimization_tpu_torch.models.quadratic import (
+    ball_ls_action,
+    simulate_quadratic_batch,
+)
 from online_convex_optimization_tpu_torch.models.streaming import (
     StreamingKernelGame,
 )
@@ -76,7 +110,7 @@ from online_convex_optimization_tpu_torch.models.sweep_api import (
     ftrl_eta_sweep,
     smart_threshold_sweep,
 )
-from online_convex_optimization_tpu_torch.ops import game, smart
+from online_convex_optimization_tpu_torch.ops import game, smart, trs
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
@@ -93,10 +127,62 @@ PARITY_TOL = 1e-9
 ETA = math.sqrt(2.0)
 T_GRID = tuple(range(100, 1001, 100))
 
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet): HBM bytes
+# per second, and operations per second off the tensor cores, by working
+# type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+# ------------------------------------------------------------------ bounds
+# Operation counts per unit of work, each add, multiply, divide, sqrt, abs,
+# max and compare counted as one.
+
+def hinge_round_ops(d: int, with_w: bool = True) -> int:
+    """K1's round: the action (3d + 3), the hinge step (2d + 4), the theta
+    update (2d) and, with the identity statistic, its update (2d)."""
+    return 7 * d + 7 + (2 * d if with_w else 0)
+
+
+def smart_round_ops(d: int) -> int:
+    """K2's round: the FTL track's round with w, F and cnt (9d + 9), then
+    the switch test (post-update action and identity, 5d + 4) or the FTRL
+    track's round (7d + 7), counted as the larger."""
+    return 9 * d + 9 + 7 * d + 7
+
+
+def trs_ops(d: int, iters: int) -> int:
+    """One trust-region solve: trace, floor and bracket (2d + 2); per Newton
+    iteration the ridge, a Cholesky (d(d+1)(2d+1)/6), three triangular
+    solves (d^2 each), three squared norms and the step (about 10); the
+    final factor, two solves, the norm and the scaling."""
+    chol = d * (d + 1) * (2 * d + 1) // 6
+    per_iter = d + chol + 3 * d * d + 3 * (2 * d - 1) + 10
+    return 2 * d + 2 + iters * per_iter + d + chol + 2 * d * d + 3 * d + 2
+
+
+def quad_round_ops(d: int, iters: int, ftl: bool) -> int:
+    """K8's round: the action (a solve for FTL; scale, projection and the
+    theta update for FTRL), r and 0.5 r^2 into cum, and the statistics."""
+    stats = d * (d + 1) + 2 * d + 2
+    loss = 2 * d + 3
+    action = trs_ops(d, iters) if ftl else 4 * d + 4 + 2 * d
+    return action + loss + stats
+
+
+def bound(n_bytes: float, ops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak for the type."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def max_err(got, want) -> float:
@@ -298,11 +384,16 @@ def time_kernels():
     check(bool(torch.equal(got2[3], want2[3])), "K2 switch rounds at the "
           "main path's shape")
     shape = "B=8192 T=1000 d=5 f64 (one evaluation chunk)"
+    rows = float(lengths.double().sum())
+    out["K1"].update(bound(rows * 6 * 8 + 8192 * (16 + 8 * 7),
+                           rows * hinge_round_ops(5), torch.float64))
+    out["K2"].update(bound(rows * 6 * 8 + 8192 * (20 + 8 * 8),
+                           rows * smart_round_ops(5), torch.float64))
     for key, kern, wrap, plain in (("K1", k1, w1, p1), ("K2", k2, w2, p2)):
         k_ms = time_ms(kern, reps=5, inner=10)
         w_ms = time_ms(wrap, reps=5)
         p_ms = time_ms(plain, reps=3)
-        out[key].update(ms=k_ms[0], plain_ms=p_ms[0])
+        out[key].update(ms=k_ms[0], plain_ms=p_ms[0], library_ms=None)
         print(f"[4 main] {key} {shape}: kernel {k_ms[0]:.4f} ms "
               f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}); wrapper with contract "
               f"check and repack {w_ms[0]:.4f} ms; plain PyTorch "
@@ -592,8 +683,15 @@ def phase_sweeps():
                   f"sequence-setting-steps/s); wrapper {w_ms[0]:.4f} ms; "
                   f"plain PyTorch {p_ms:.1f} ms (one call)")
             if dtype == torch.float64:
+                rows = float(lengths.double().sum())
+                n_set = len(ETA_GRID) if key == "K5" else len(THRESH_GRID)
+                ops = rows * n_set * (hinge_round_ops(D) if key == "K5"
+                                      else smart_round_ops(D))
+                n_bytes = (rows * (D + 1) * 8 + SWEEP_B * 4
+                           + n_set * SWEEP_B * (8 if key == "K5" else 16))
                 timing[key] = {"max_abs_err": err, "ms": k_ms[0],
-                               "plain_ms": p_ms}
+                               "plain_ms": p_ms, "library_ms": None,
+                               **bound(n_bytes, ops, dtype)}
         del z_tm, y_tm
     return launches, timing
 
@@ -674,7 +772,12 @@ def stream_last_chunk_vs_plain(last, before, after):
           f"kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, max {k_ms[2]:.4f}; "
           f"{steps / k_ms[0] * 1e3:.4g} sequence-steps/s); wrapper "
           f"{w_ms[0]:.4f} ms; plain PyTorch {p_ms:.1f} ms (one call)")
-    return {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms}
+    n_bytes = (steps * (D + 1) * 4 + STREAM_B * 8
+               + 2 * STREAM_B * (2 * D + 2) * 4)
+    return {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
+            "library_ms": None,
+            **bound(n_bytes, steps * (hinge_round_ops(D) + 2),
+                    torch.float32)}
 
 
 def stream_vs_one_shot():
@@ -736,6 +839,310 @@ def phase_stream(tmp):
     return launches, timing
 
 
+# ---------------------------------------------------------------- phase 8
+PACKED_B, PACKED_T = 131_072, 1024
+PACKED_F64_B = 16_384
+BIG_D, BIG_B, BIG_T = 256, 8192, 256
+
+
+def packed_main_path(z_tm, y_tm, etas):
+    """The packed front end as a user calls it, at full width in f32:
+    simulate_linear_auto with a scalar eta (K3) and a per-sequence one
+    (K3e), on the (B, T, d) view of the card-generated batch."""
+    z, y = z_tm.permute(2, 0, 1), y_tm.t()
+    game.PACKED_LAUNCHES = game.PACKED_ETA_LAUNCHES = 0
+    t0 = time.perf_counter()
+    reg = game.simulate_linear_auto(z, y, 0, ETA)
+    reg_eta = game.simulate_linear_auto(z, y, 0, etas)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K3": game.PACKED_LAUNCHES, "K3e": game.PACKED_ETA_LAUNCHES}
+    print(f"[8 packed] simulate_linear_auto B={PACKED_B} T={PACKED_T} d={D} "
+          f"f32, eta=sqrt(2) and eta on linspace(0.05, 4): wall {wall:.3f} s, "
+          f"launches {json.dumps(launches)}; mean regret "
+          f"{float(reg.double().mean()):.4f} and "
+          f"{float(reg_eta.double().mean()):.4f}")
+    check(launches["K3"] > 0 and launches["K3e"] > 0,
+          f"packed path did not launch K3 and K3e: {launches}")
+    check(all(r.shape == (PACKED_B,) and bool(torch.isfinite(r).all())
+              for r in (reg, reg_eta)), "packed regrets not finite")
+    return launches
+
+
+def packed_vs_plain(z_tm, y_tm, etas):
+    """f32 at the main path's shape: K3 and K3e against their plain versions
+    on the same tensors, then kernel, wrapper and plain times."""
+    scales = game.ftrl_scales(PACKED_T, ETA, device="cuda")
+    out = {}
+    cases = (
+        ("K3", lambda: game.launch_play_packed(z_tm, y_tm, scales, 0),
+         lambda: game.play_packed(z_tm, y_tm, scales),
+         lambda: game.play_packed_reference(z_tm, y_tm, scales, 0),
+         PACKED_T * 4),
+        ("K3e", lambda: game.launch_play_packed_eta(z_tm, y_tm, etas),
+         lambda: game.play_packed_eta(z_tm, y_tm, etas),
+         lambda: game.play_packed_eta_reference(z_tm, y_tm, etas),
+         PACKED_B * 4))
+    for key, kern, wrap, plain, extra_bytes in cases:
+        got = wrap()
+        want, p_ms = timed_once(plain)
+        err = max_err(got + (game.comparator_epilogue(z_tm, y_tm, *got),),
+                      want + (game.comparator_epilogue(z_tm, y_tm, *want),))
+        k_ms = time_ms(kern, reps=5, inner=2)
+        w_ms = time_ms(wrap, reps=3)
+        steps = PACKED_B * PACKED_T
+        n_bytes = steps * (D + 1) * 4 + extra_bytes + PACKED_B * (D + 1) * 4
+        out[key] = {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
+                    "library_ms": None,
+                    **bound(n_bytes, steps * hinge_round_ops(D, False),
+                            torch.float32)}
+        print(f"[8 packed] {key} B={PACKED_B} T={PACKED_T} d={D} f32: vs "
+              f"plain (cum, theta, replayed regret) max_abs_err={err:.3e} "
+              f"(bound 5e-4); kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, "
+              f"max {k_ms[2]:.4f}; {steps / k_ms[0] * 1e3:.4g} "
+              f"sequence-steps/s; bound {out[key]['bound_ms']:.4f} ms by "
+              f"{out[key]['bound_by']}); wrapper {w_ms[0]:.4f} ms; plain "
+              f"PyTorch {p_ms:.1f} ms (one call)")
+        check(err <= TOL[torch.float32], f"{key} f32 vs plain")
+    return out
+
+
+def packed_f64_vs_k1():
+    """f64 at B = 16,384: K3 and K3e against their plain versions within
+    1e-9; their cum against K1's bit for bit (ftrl_scales and FTL through
+    K3, the per-sequence eta through K3e); the replayed regret against
+    K1's within 1e-9."""
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    z_tm, y_tm = random_time_major_batch(gen, PACKED_T, PACKED_F64_B, D,
+                                         dtype=torch.float64)
+    z, y = z_tm.permute(2, 0, 1), y_tm.t()
+    etas = torch.linspace(0.05, 4.0, PACKED_F64_B, dtype=torch.float64,
+                          device="cuda")
+    scales = game.ftrl_scales(PACKED_T, ETA, dtype=torch.float64,
+                              device="cuda")
+    err, diff = 0.0, 0
+    for flag in (0, 1):
+        got = game.play_packed(z_tm, y_tm, scales, alg_flag=flag)
+        want = game.play_packed_reference(z_tm, y_tm, scales, flag)
+        cum, comp, _ = game.regrets_fused(z, y, flag, ETA)
+        reg = game.regrets_packed(z_tm, y_tm, scales, alg_flag=flag)
+        err = max(err, max_err(got + (reg,), want + (cum - comp,)))
+        diff += int((got[0] != cum).sum())
+    got = game.play_packed_eta(z_tm, y_tm, etas)
+    want = game.play_packed_eta_reference(z_tm, y_tm, etas)
+    cum, comp, _ = game.regrets_fused(z, y, 0, etas)
+    reg = game.regrets_packed_eta(z_tm, y_tm, etas)
+    err = max(err, max_err(got + (reg,), want + (cum - comp,)))
+    diff += int((got[0] != cum).sum())
+    torch.cuda.synchronize()
+    print(f"[8 packed] f64 B={PACKED_F64_B} T={PACKED_T}: K3 (FTRL, FTL) and "
+          f"K3e vs plain and replayed regret vs K1's max_abs_err={err:.3e} "
+          f"(bound 1e-9); cum vs K1's: {diff} values differ in any bit")
+    check(err <= TOL[torch.float64], "K3/K3e f64 vs plain or K1's regret")
+    check(diff == 0, "K3/K3e cum differs from K1's")
+
+
+def packed_large_d():
+    """K1, K2 and K3 at d = 256 (the large-d instances), B = 8,192,
+    T = 256, f32 and f64, against their plain versions, timed; and the
+    envelope at d = 512 and 513."""
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(81)
+        z, y = random_game_batch(gen, BIG_B, BIG_T, BIG_D, dtype=dtype)
+        lengths = torch.full((BIG_B,), BIG_T, dtype=torch.int32,
+                             device="cuda")
+        flags = (torch.arange(BIG_B, device="cuda") % 2).to(torch.int32)
+        eta = game.per_sequence(ETA, BIG_B, dtype, "cuda")
+        thr = game.per_sequence(math.sqrt(2.0 * BIG_T), BIG_B, dtype, "cuda")
+        z_tm, y_tm = game.time_major(z, y)
+        scales = game.ftrl_scales(BIG_T, ETA, dtype=dtype, device="cuda")
+        cases = (
+            ("K1", lambda: game.launch_time_major(z_tm, y_tm, flags, eta,
+                                                  lengths, False),
+             lambda: game.regrets_fused_reference(z, y, flags, eta, lengths)),
+            ("K2", lambda: smart.launch_time_major(z_tm, y_tm, thr, eta,
+                                                   lengths, False)[:3],
+             lambda: smart.smart_regrets_reference(z, y, thr, eta,
+                                                   lengths)[:3]),
+            ("K3", lambda: game.launch_play_packed(z_tm, y_tm, scales, 0),
+             lambda: game.play_packed_reference(z_tm, y_tm, scales, 0)))
+        steps = BIG_B * BIG_T
+        z_bound = bound(steps * (BIG_D + 1) * z.element_size(),
+                        steps * hinge_round_ops(BIG_D), dtype)
+        for key, kern, plain in cases:
+            got = kern()
+            want, p_ms = timed_once(plain)
+            got = tuple(g.t() if g.ndim == 2 and key != "K3" else g
+                        for g in got)
+            err = max_err(got, want)
+            k_ms = time_ms(kern, reps=3)
+            print(f"[8 packed] large d: {key} d={BIG_D} B={BIG_B} "
+                  f"T={BIG_T} {dtype}: vs plain max_abs_err={err:.3e} "
+                  f"(bound {TOL[dtype]:g}); kernel {k_ms[0]:.3f} ms (min "
+                  f"{k_ms[1]:.3f}, max {k_ms[2]:.3f}; K1's bound "
+                  f"{z_bound['bound_ms']:.3f} ms by {z_bound['bound_by']}); "
+                  f"plain PyTorch {p_ms:.1f} ms")
+            check(err <= TOL[dtype], f"{key} at d={BIG_D} {dtype} vs plain")
+        del z, y, z_tm, y_tm
+    at_max = game.kernel_envelope(BIG_B, BIG_T, 512)
+    past = game.kernel_envelope(BIG_B, BIG_T, 513)
+    print(f"[8 packed] kernel_envelope: d=512 -> {at_max!r}; d=513 -> "
+          f"{past!r}")
+    check(at_max is None and past is not None and "512" in past,
+          "kernel_envelope boundaries")
+
+
+def phase_packed():
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    z_tm, y_tm = random_time_major_batch(gen, PACKED_T, PACKED_B, D)
+    etas = torch.linspace(0.05, 4.0, PACKED_B, device="cuda")
+    launches = packed_main_path(z_tm, y_tm, etas)
+    timing = packed_vs_plain(z_tm, y_tm, etas)
+    del z_tm, y_tm
+    packed_f64_vs_k1()
+    packed_large_d()
+    return launches, timing
+
+
+# ---------------------------------------------------------------- phase 9
+QUAD_B, QUAD_T = 4096, 1024
+
+
+def quad_study(tmp):
+    """(a) the study at its default config on the card (f32): K8 must
+    launch; (b) its f64 statistics on cuda and on cpu within 1e-9."""
+    cfg = QuadraticConfig(out_dir=os.path.join(tmp, "quad"), dpi=100,
+                          device="cuda")
+    trs.QUAD_LAUNCHES = 0
+    res = run_study(cfg)
+    launches = trs.QUAD_LAUNCHES
+    ftl = res["stats"]["FTL (exact LS)"]["mean"]
+    ftrl = res["stats"]["FTRL"]["mean"]
+    print(f"[9 quadratic] run_study default config (T={cfg.t_min}..."
+          f"{cfg.t_max} step {cfg.t_step}, {cfg.runs} runs x "
+          f"{cfg.replicates} replicates, d={cfg.d}, f32) --device cuda: "
+          f"wall {res['wall_s']:.2f} s, K8 launches {launches}; regret at "
+          f"T={cfg.t_max}: FTL {ftl[-1]:.4f}, FTRL {ftrl[-1]:.4f}")
+    check(launches > 0, "the quadratic study did not launch K8")
+    check(all(math.isfinite(v) for v in ftl + ftrl) and ftl[-1] < ftrl[-1],
+          "quadratic study results not finite, or FTL not below FTRL")
+    stats = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        stats[device] = evaluate_quadratic_stream(
+            cfg.T_grid, runs=cfg.runs, replicates=cfg.replicates,
+            dtype=np.float64, device=device)
+        print(f"[9 quadratic] evaluate_quadratic_stream f64 --device "
+              f"{device}: {time.perf_counter() - t0:.2f} s")
+    err = max(float(np.abs(a - b).max())
+              for k in stats["cuda"]
+              for a, b in zip(stats["cuda"][k], stats["cpu"][k]))
+    print(f"[9 quadratic] f64 study, max |cuda - cpu| over every mean and CI "
+          f"= {err:.3e} (bound {PARITY_TOL:g})")
+    check(err <= PARITY_TOL, "f64 quadratic study differs between devices")
+    return launches
+
+
+def prefix_statistics(z, y):
+    """The running (A, b) before every round, (T, B, d, d) and (T, B, d),
+    summed in K8's order, and the final ones."""
+    B, T, d = z.shape
+    A_pre = z.new_empty((T, B, d, d))
+    b_pre = z.new_empty((T, B, d))
+    A = z.new_zeros((B, d, d))
+    b = z.new_zeros((B, d))
+    for t in range(T):
+        A_pre[t], b_pre[t] = A, b
+        A = A + z[:, t, :, None] * z[:, t, None, :]
+        b = b + y[:, t, None] * z[:, t]
+    return A_pre, b_pre, A, b
+
+
+def quad_kernels(dtype):
+    """(c) K8 at the bench shape against its plain version; (d) K9 on all
+    B * T prefix statistics through ball_ls_action against
+    trs_solve_reference; (e) K8's x_c against K9 on the final statistics,
+    bit for bit; (f) times."""
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    z, y, _ = regression_stream_batch(gen, QUAD_B, QUAD_T, D, dtype=dtype)
+    flags = (torch.arange(QUAD_B, device="cuda") >= QUAD_B // 2).to(
+        torch.int32)
+    eta = game.per_sequence(1.0, QUAD_B, dtype, "cuda")
+    z_tm, y_tm = game.time_major(z, y)
+    res = simulate_quadratic_batch(z, y, flags, eta)
+    got = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+    want, p8 = timed_once(lambda: trs.quadratic_regrets_reference(
+        z_tm, y_tm, flags, eta))
+    e8 = max_err(got, want)
+    check(bool(torch.equal(res.cum_loss, got[0])), "simulate_quadratic_batch "
+          "and quadratic_regrets disagree")
+    print(f"[9 quadratic] K8 B={QUAD_B} T={QUAD_T} d={D} {dtype}, half FTRL "
+          f"half FTL: vs plain (cum, comp, x_c, x_last) max_abs_err="
+          f"{e8:.3e} (bound {TOL[dtype]:g}); mean regret FTL "
+          f"{float(res.regret[flags == 1].double().mean()):.4f}, FTRL "
+          f"{float(res.regret[flags == 0].double().mean()):.4f}")
+    check(e8 <= TOL[dtype], f"K8 {dtype} vs plain")
+    A_pre, b_pre, A_fin, b_fin = prefix_statistics(z, y)
+    A_all = A_pre.reshape(-1, D, D)
+    b_all = b_pre.reshape(-1, D)
+    trs.TRS_LAUNCHES = 0
+    x9 = ball_ls_action(A_pre, b_pre)
+    torch.cuda.synchronize()
+    launches = trs.TRS_LAUNCHES
+    want9, p9 = timed_once(lambda: trs.trs_solve_reference(A_all, b_all))
+    e9 = max_err((x9.reshape(-1, D),), (want9,))
+    n = A_all.shape[0]
+    size = (A_all.numel() + b_all.numel()) * A_all.element_size()
+    print(f"[9 quadratic] ball_ls_action (K9) on all {n} prefix statistics "
+          f"({size / 1e6:.1f} MB of input) {dtype}: launches {launches}; vs "
+          f"plain max_abs_err={e9:.3e} (bound {TOL[dtype]:g}); max ||x|| "
+          f"{float(torch.linalg.vector_norm(x9, dim=-1).max()):.9f}")
+    check(launches > 0, "ball_ls_action did not launch K9")
+    check(e9 <= TOL[dtype], f"K9 {dtype} vs plain")
+    xc9 = trs.trs_solve(A_fin, b_fin)
+    diff = int((got[2].t() != xc9).sum())
+    print(f"[9 quadratic] {dtype}: K8's x_c vs K9 on the final statistics: "
+          f"{diff} values differ in any bit")
+    check(diff == 0, f"K8's x_c differs from K9 in {dtype}")
+    del want, want9
+    out = {}
+    if dtype == torch.float32:
+        iters = trs.TRS_PARAMS[dtype][1]
+        k8 = time_ms(lambda: trs.launch_quadratic_regrets(z_tm, y_tm, flags,
+                                                          eta), reps=3)
+        w8 = time_ms(lambda: simulate_quadratic_batch(z, y, flags, eta),
+                     reps=3)
+        k9 = time_ms(lambda: trs.launch_trs_solve(A_all, b_all), reps=3)
+        steps = QUAD_B * QUAD_T
+        ops8 = (steps // 2 * (quad_round_ops(D, iters, True)
+                              + quad_round_ops(D, iters, False))
+                + QUAD_B * (trs_ops(D, iters) + 2 * D * D + 2 * D + 4))
+        out["K8"] = {"max_abs_err": e8, "ms": k8[0], "plain_ms": p8,
+                     "library_ms": None,
+                     **bound(steps * (D + 1) * 4 + QUAD_B * (8 + 4 * (2 + 2 * D)),
+                             ops8, dtype)}
+        out["K9"] = {"max_abs_err": e9, "ms": k9[0], "plain_ms": p9,
+                     "library_ms": None,
+                     **bound(size + n * D * 4, n * trs_ops(D, iters), dtype)}
+        for key, k_ms, extra in (("K8", k8, f"; wrapper {w8[0]:.4f} ms"),
+                                 ("K9", k9, "")):
+            o = out[key]
+            print(f"[9 quadratic] {key} {dtype}: kernel {k_ms[0]:.4f} ms "
+                  f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}; bound "
+                  f"{o['bound_ms']:.4f} ms by {o['bound_by']}){extra}; plain "
+                  f"PyTorch {o['plain_ms']:.1f} ms (one call)")
+    return launches, out
+
+
+def phase_quadratic(tmp):
+    k8_launches = quad_study(tmp)
+    timing = {}
+    for dtype in (torch.float64, torch.float32):
+        k9_launches, out = quad_kernels(dtype)
+        timing.update(out)
+    return {"K8": k8_launches, "K9": k9_launches}, timing
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -746,6 +1153,8 @@ def main() -> int:
         phase_parity(cfg, res, tmp)
         sweep_launches, sweep_timing = phase_sweeps()
         stream_launches, stream_timing = phase_stream(tmp)
+        packed_launches, packed_timing = phase_packed()
+        quad_launches, quad_timing = phase_quadratic(tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -773,6 +1182,28 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/smart_sweep_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:248",
          "launches": sweep_launches["K6"], **sweep_timing["K6"]},
+        {"name": "game_kernel (K3: packed game from a table of FTRL scales)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/game_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:363",
+         "launches": packed_launches["K3"], **packed_timing["K3"]},
+        {"name": "game_kernel (K3e: packed FTRL game, per-sequence eta)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/game_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:467",
+         "launches": packed_launches["K3e"], **packed_timing["K3e"]},
+        {"name": "quad_game_kernel (K8: quadratic game, in-kernel trust "
+                 "region)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/quad_game_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:206",
+         "launches": quad_launches["K8"], **quad_timing["K8"]},
+        {"name": "trs_kernel (K9: batched ball-constrained least squares)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/trs_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:62",
+         "launches": quad_launches["K9"], **quad_timing["K9"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ The counterpart of ``online_convex_optimization_tpu`` (JAX on a TPU), for
 one NVIDIA H100: FTL, FTRL, single-switch SMART and empirical-g SMART
 evaluated for cumulative regret across the reference's four sequence
 families, plus the empirical g(T) curve; eta and SMART-threshold sweeps;
-long-horizon streaming with checkpoint/resume.  It imports ``torch`` and never
+long-horizon streaming with checkpoint/resume; the packed game API
+(``ops.simulate_linear_auto``); the quadratic-loss track (exact
+least-squares FTL and FTRL, ``models.quadratic`` and
+``experiments.quadratic_study``).  It imports ``torch`` and never
 ``jax``; the JAX package stays the reference it is tested against.
 
 - ``ops``        : step math and the hand-written CUDA kernels (``csrc/``)
@@ -15,8 +18,9 @@ long-horizon streaming with checkpoint/resume.  It imports ``torch`` and never
                    seed schedules, bitwise equal to the JAX package's, and
                    on-device generation.
 - ``experiments``: config/CLI, g(T) estimation, per-case evaluation,
-                   figures, the experiment driver.
-- ``utils``      : stats, logging, checkpointing, the CUDA build.
+                   figures, the experiment driver, the quadratic study.
+- ``utils``      : stats, logging, checkpointing, the CUDA build, the
+                   device entry points default to (``cuda``).
 - ``testing``    : f64 golden oracle and the helpers from the JAX package.
 - ``examples``   : the sweep and streaming examples (``python -m``).
 """

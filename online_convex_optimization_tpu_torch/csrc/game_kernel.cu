@@ -1,0 +1,130 @@
+// K3 and K3e: the hinge game on the packed API, cum and theta out, no
+// comparator.
+//
+// Replaces the TPU kernels online_convex_optimization_tpu/ops/pallas_game.py
+// _game_kernel (and its VMEM-state twin _game_kernel_dloop), entry
+// play_packed, and _game_eta_kernel, entry play_packed_eta.  Python wrappers
+// and plain PyTorch versions: online_convex_optimization_tpu_torch/ops/game.py
+// (play_packed, play_packed_eta, play_packed_reference,
+// play_packed_eta_reference).
+//
+// One thread per sequence, state in registers (in local memory for the
+// runtime-d instances, see oco_common.cuh), a loop over all T rounds: zero
+// rows are inert (the loss is 0.5*|0 - 0| and the update 0), so callers pad
+// ragged horizons with them.  Each round plays K1's action and hinge step:
+//   K3:  the action's scale is read from a (T,) table, scales[t]; FTL
+//        (alg_flag 1) ignores it.  ftrl_scales builds the table in the
+//        working type as -(eta / sqrt(t)), the expression K1 evaluates, so
+//        K3 with that table gives K1's FTRL cum bit for bit.
+//   K3e: FTRL with the sequence's own eta, scale -(eta_b / sqrt(t)) in K1's
+//        rounding order (the TPU kernel's -eta * isqrt[t] rounds otherwise),
+//        so it gives K1's cum with the same per-sequence eta bit for bit.
+// The comparator is the caller's (ops/game.py replays the final FTL action
+// in plain PyTorch, as the JAX package does in XLA), so neither kernel
+// carries the identity statistic w.
+//
+// What bounds it on an H100: each round reads (d+1) values once (24 bytes
+// in f32 at d = 5, plus 4 for the table entry, shared by the whole batch
+// and served from L1/L2) against a serial chain of about 3d + 10 flops with
+// a sqrt and a divide.  At the main path's B = 131,072 there are 1,024
+// blocks of 128 threads, about 8 per SM, so many chains are in flight and
+// the time approaches the bytes bound; the design relies on that and on
+// coalesced time-major (T, d, B) loads, with no staging in shared memory.
+#include "oco_common.cuh"
+
+namespace {
+
+template <typename S, int D, bool PER_SEQ_ETA>
+__global__ void __launch_bounds__(OCO_THREADS)
+game_kernel(const S* __restrict__ z, const S* __restrict__ y,
+            const S* __restrict__ scales, const S* __restrict__ eta,
+            long long T, long long B, int d, int alg_flag,
+            S* __restrict__ cum_out, S* __restrict__ theta_out) {
+  constexpr int C = oco::Cap<D>::value;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (b >= B) return;
+  const int n = D > 0 ? D : d;
+  const bool ftrl = PER_SEQ_ETA || alg_flag == 0;
+  const S eta_b = PER_SEQ_ETA ? eta[b] : S(0);
+
+  S th[C], x[C], zr[C];
+#pragma unroll
+  for (int j = 0; j < n; ++j) th[j] = S(0);
+  S cum = S(0);
+  for (long long t = 0; t < T; ++t) {
+    oco::load_row<S, D>(z, t, b, B, n, zr);
+    if (PER_SEQ_ETA)
+      oco::ftrl_action<S, D>(th, x, n, eta_b, S(t + 1));
+    else if (ftrl)
+      oco::ftrl_action_scaled<S, D>(th, x, n, scales[t]);
+    else
+      oco::ftl_action<S, D>(th, x, n);
+    const S g = oco::hinge_step<S, D>(x, zr, y[t * B + b], n, cum);
+#pragma unroll
+    for (int j = 0; j < n; ++j) th[j] = th[j] + g * zr[j];
+  }
+  cum_out[b] = cum;
+#pragma unroll
+  for (int j = 0; j < n; ++j) theta_out[j * B + b] = th[j];
+}
+
+template <typename S, bool PER_SEQ_ETA>
+int launch(const void* z, const void* y, const void* scales, const void* eta,
+           long long T, long long B, int d, int alg_flag, void* cum,
+           void* theta, void* stream) {
+  if (B < 1 || T < 0) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const unsigned int grid = oco::grid_for(B);
+  const auto* zp = static_cast<const S*>(z);
+  const auto* yp = static_cast<const S*>(y);
+  const auto* sp = static_cast<const S*>(scales);
+  const auto* ep = static_cast<const S*>(eta);
+  auto* cp = static_cast<S*>(cum);
+  auto* tp = static_cast<S*>(theta);
+  return oco::launch_for_d(d, [&](auto dc) {
+    game_kernel<S, decltype(dc)::value, PER_SEQ_ETA>
+        <<<grid, OCO_THREADS, 0, s>>>(zp, yp, sp, ep, T, B, d, alg_flag, cp,
+                                      tp);
+  });
+}
+
+}  // namespace
+
+// K3.  Inputs: z (T, d, B) and y (T, B) time-major, scales (T,) the FTRL
+// scale of each round, alg_flag 0 (FTRL) or 1 (FTL) for the whole batch.
+// Outputs: cum (B,), theta (d, B).  Returns the cudaError_t of the launch.
+extern "C" int oco_play_packed_f64(const void* z, const void* y,
+                                   const void* scales, long long T,
+                                   long long B, int d, int alg_flag,
+                                   void* cum, void* theta, void* stream) {
+  return launch<double, false>(z, y, scales, nullptr, T, B, d, alg_flag, cum,
+                               theta, stream);
+}
+
+extern "C" int oco_play_packed_f32(const void* z, const void* y,
+                                   const void* scales, long long T,
+                                   long long B, int d, int alg_flag,
+                                   void* cum, void* theta, void* stream) {
+  return launch<float, false>(z, y, scales, nullptr, T, B, d, alg_flag, cum,
+                              theta, stream);
+}
+
+// K3e.  Inputs: z (T, d, B) and y (T, B) time-major, eta (B,) the FTRL step
+// scale of each sequence.  Outputs: cum (B,), theta (d, B).  Returns the
+// cudaError_t of the launch.
+extern "C" int oco_play_packed_eta_f64(const void* z, const void* y,
+                                       const void* eta, long long T,
+                                       long long B, int d, void* cum,
+                                       void* theta, void* stream) {
+  return launch<double, true>(z, y, nullptr, eta, T, B, d, 0, cum, theta,
+                              stream);
+}
+
+extern "C" int oco_play_packed_eta_f32(const void* z, const void* y,
+                                       const void* eta, long long T,
+                                       long long B, int d, void* cum,
+                                       void* theta, void* stream) {
+  return launch<float, true>(z, y, nullptr, eta, T, B, d, 0, cum, theta,
+                             stream);
+}

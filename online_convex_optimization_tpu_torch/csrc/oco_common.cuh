@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels: the regret game (K1), SMART
-// (K2), the carried stream (K4), the eta sweep (K5) and the SMART
-// threshold sweep (K6).  K1, K4 and K5 play the same game_round; K2 and K6
-// the same smart_round, so a sweep column or a chunked stream reproduces
-// the one-shot kernel bit for bit.
+// (K2), the packed game (K3, K3e), the carried stream (K4), the eta sweep
+// (K5) and the SMART threshold sweep (K6).  K1, K4 and K5 play the same
+// game_round, K3 and K3e its action and hinge step; K2 and K6 the same
+// smart_round, so a sweep column, a chunked stream or a packed game
+// reproduces the one-shot kernel bit for bit.
 //
 // Every helper follows the order of operations of ops/actions.py and
 // ops/hinge.py (and of the reference's fast_algorithms.py:19-66): a true
@@ -15,25 +16,56 @@
 
 #include <cuda_runtime.h>
 
-// Largest feature dimension of the generic (runtime-d) instances; d = 5,
-// the main path's, has its own fully unrolled instance.  The Python
-// wrappers raise above it (utils/cuda_build.py MAX_D).
+#include <type_traits>
+
+// Instances by feature dimension: d = 5, the main path's, is fully
+// unrolled in registers; the generic instance (D == 0) takes d <= 64 and
+// the large-d instance (D == -1) 64 < d <= 512, the JAX package's
+// _D_KERNEL_MAX.  The Python wrappers raise above OCO_LARGE_D
+// (utils/cuda_build.py MAX_D).
+//
+// The state of the runtime-d instances (theta, w, x, the row) is indexed by
+// a runtime j, so it lives in local memory, not in registers: the hardware
+// interleaves local memory by thread, so a warp's access to element j is
+// one coalesced transaction, and L1 caches it.  That needs no scratch
+// buffer and no change of signature.  Its cost is the reservation: the
+// driver sets aside the largest frame (up to ~28 KB per thread for the
+// large f64 SMART instance) for every thread the card can hold, about 7 GB
+// of the 80, from the first launch of a large instance on.
 #define OCO_MAX_D 64
+#define OCO_LARGE_D 512
 #define OCO_THREADS 128
 
 namespace oco {
 
-// Register capacity of an instance: D > 0 is a compile-time d, D == 0 the
-// generic instance.
+// Array capacity of an instance: D > 0 is a compile-time d, D == 0 the
+// generic instance, D == -1 the large-d one.
 template <int D>
 struct Cap {
-  static constexpr int value = D > 0 ? D : OCO_MAX_D;
+  static constexpr int value = D > 0 ? D : (D == 0 ? OCO_MAX_D : OCO_LARGE_D);
 };
+
+// Calls launch(std::integral_constant<int, D>()) with the instance that
+// takes d; returns the launch's cudaError_t, cudaErrorInvalidValue for d
+// outside [1, OCO_LARGE_D].
+template <typename F>
+inline int launch_for_d(int d, F&& launch) {
+  if (d < 1 || d > OCO_LARGE_D) return cudaErrorInvalidValue;
+  if (d == 5)
+    launch(std::integral_constant<int, 5>());
+  else if (d <= OCO_MAX_D)
+    launch(std::integral_constant<int, 0>());
+  else
+    launch(std::integral_constant<int, -1>());
+  return static_cast<int>(cudaGetLastError());
+}
 
 __device__ __forceinline__ double osqrt(double v) { return sqrt(v); }
 __device__ __forceinline__ float osqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double oabs(double v) { return fabs(v); }
 __device__ __forceinline__ float oabs(float v) { return fabsf(v); }
+__device__ __forceinline__ double omax(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float omax(float a, float b) { return fmaxf(a, b); }
 
 // 0.5 * sign(diff), exactly 0 at the tie.
 template <typename S>
@@ -60,12 +92,11 @@ __device__ __forceinline__ void ftl_action(const S* th, S* x, int n) {
     x[j] = scale * th[j];
 }
 
-// x = -(eta / sqrt(t)) * theta, rescaled by 1/sqrt(||x||^2) iff
-// ||x||^2 > 1 (ftrl_action); t >= 1 is the 1-based round index.
+// x = scale * theta, rescaled by 1/sqrt(||x||^2) iff ||x||^2 > 1: the FTRL
+// action for a given round scale (K3 reads it from a table).
 template <typename S, int D>
-__device__ __forceinline__ void ftrl_action(const S* th, S* x, int n, S eta,
-                                            S t) {
-  const S scale = -(eta / osqrt(t));
+__device__ __forceinline__ void ftrl_action_scaled(const S* th, S* x, int n,
+                                                   S scale) {
 #pragma unroll
   for (int j = 0; j < n; ++j)
     x[j] = scale * th[j];
@@ -76,6 +107,24 @@ __device__ __forceinline__ void ftrl_action(const S* th, S* x, int n, S eta,
     for (int j = 0; j < n; ++j)
       x[j] = x[j] * f;
   }
+}
+
+// x = -(eta / sqrt(t)) * theta, projected as above (ftrl_action); t >= 1 is
+// the 1-based round index.
+template <typename S, int D>
+__device__ __forceinline__ void ftrl_action(const S* th, S* x, int n, S eta,
+                                            S t) {
+  ftrl_action_scaled<S, D>(th, x, n, -(eta / osqrt(t)));
+}
+
+// The hinge step once the action x is chosen: cum += 0.5 * |<z_t, x> - y_t|;
+// returns the tie-exact subgradient coefficient 0.5 * sign.
+template <typename S, int D>
+__device__ __forceinline__ S hinge_step(const S* x, const S* zr, S yt, int n,
+                                        S& cum) {
+  const S diff = dot<S, D>(zr, x, n) - yt;
+  cum = cum + S(0.5) * oabs(diff);
+  return half_sign(diff);
 }
 
 // Loads row t of one sequence from the time-major (T, d, B) layout:
@@ -119,9 +168,7 @@ __device__ __forceinline__ void game_round(S* th, S* w, S* x, const S* zr,
     ftrl_action<S, D>(th, x, n, eta, t1);
   else
     ftl_action<S, D>(th, x, n);
-  const S diff = dot<S, D>(zr, x, n) - yt;
-  cum = cum + S(0.5) * oabs(diff);
-  const S g = half_sign(diff);
+  const S g = hinge_step<S, D>(x, zr, yt, n, cum);
 #pragma unroll
   for (int j = 0; j < n; ++j) {
     th[j] = th[j] + g * zr[j];

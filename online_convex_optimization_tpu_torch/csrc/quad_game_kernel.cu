@@ -1,0 +1,160 @@
+// K8: the quadratic-loss game (exact ball-constrained least-squares FTL, or
+// projected FTRL), its exact comparator and the whole RunResult in one pass.
+//
+// Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_trs.py
+// _quad_game_kernel, entry quadratic_regrets_packed.  Python wrapper and
+// plain PyTorch version: online_convex_optimization_tpu_torch/ops/trs.py
+// (quadratic_regrets, quadratic_regrets_reference).
+//
+// One thread per sequence keeps the running statistics in registers (in
+// local memory for the runtime-d instance): the lower triangle of
+// A = sum z z^T, b = sum y z, c = sum y^2, and cum.  Each round
+// (loss_t(x) = 0.5 * (<z_t, x> - y_t)^2, ||x|| <= 1):
+//   alg_flag 1 (FTL): x is the trust-region action of the statistics
+//     before the update (oco::trs_action, shared with K9);
+//   alg_flag 0 (FTRL): the JAX scan's projected gradient leader
+//     (models/quadratic.py), x = xf / max(||xf||, 1) with
+//     xf = -(eta / sqrt(t)) * theta and theta += r z.  This is not the
+//     hinge FTRL round: it projects every round, and its step is r, not
+//     half a sign.
+// then cum += 0.5 * r^2 with r = <z_t, x> - y_t, and the statistics take
+// row t.  At the end the exact comparator x_c = trs_action(A, b) is scored
+// from the statistics, 0.5 * (x_c^T A x_c - 2 b^T x_c + c), so the
+// outputs are cum, comp, x_c and the last action played: the JAX fused
+// path's epilogue (a Gram reduction and two more solves) is not needed.
+// The flag is per sequence, so the study's FTRL and FTL runs share one
+// launch.
+//
+// What bounds it on an H100: operations.  Each FTL round runs Newton
+// iterations of a d x d Cholesky and three triangular solves (about 250
+// flops at d = 5, with 5 sqrts and 20 divides on the chain), 12 of them in
+// f32, against 4*(d+1) bytes of input.  The chain is serial within a
+// thread, and the bench shape has only B = 4,096 sequences: with 128-thread
+// blocks they would fill 32 SMs, so the kernel launches blocks of 32
+// threads (128 blocks) to put a warp on nearly every one of the 132 SMs.
+// The card stays latency-bound at that B; the design does not try to
+// split one sequence's chain across threads.
+#include "oco_trs.cuh"
+
+#define OCO_QUAD_THREADS 32
+
+namespace {
+
+template <typename S, int D>
+__global__ void __launch_bounds__(OCO_QUAD_THREADS)
+quad_game_kernel(const S* __restrict__ z, const S* __restrict__ y,
+                 const int* __restrict__ alg_flag, const S* __restrict__ eta,
+                 long long T, long long B, int d, S* __restrict__ cum_out,
+                 S* __restrict__ comp_out, S* __restrict__ xc_out,
+                 S* __restrict__ xlast_out) {
+  constexpr int C = oco::QCap<D>::value;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (b >= B) return;
+  const int n = D > 0 ? D : d;
+  const bool ftrl = alg_flag[b] == 0;
+  const S eta_b = eta[b];
+
+  S A[oco::QCap<D>::tri], bv[C], th[C], x[C], zr[C];
+#pragma unroll
+  for (int i = 0; i < oco::tri(n, 0); ++i) A[i] = S(0);
+#pragma unroll
+  for (int i = 0; i < n; ++i) bv[i] = th[i] = x[i] = S(0);
+  S c = S(0), cum = S(0);
+
+  for (long long t = 0; t < T; ++t) {
+    oco::load_row<S, D>(z, t, b, B, n, zr);
+    const S yt = y[t * B + b];
+    if (ftrl) {
+      const S scale = -(eta_b / oco::osqrt(S(t + 1)));
+#pragma unroll
+      for (int i = 0; i < n; ++i) x[i] = scale * th[i];
+      const S den = oco::omax(oco::osqrt(oco::dot<S, D>(x, x, n)), S(1));
+#pragma unroll
+      for (int i = 0; i < n; ++i) x[i] = x[i] / den;
+    } else {
+      oco::trs_action<S, D>(A, bv, x, n);
+    }
+    const S r = oco::dot<S, D>(zr, x, n) - yt;
+    cum = cum + S(0.5) * r * r;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      th[i] = th[i] + r * zr[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j)
+        A[oco::tri(i, j)] = A[oco::tri(i, j)] + zr[i] * zr[j];
+      bv[i] = bv[i] + yt * zr[i];
+    }
+    c = c + yt * yt;
+  }
+
+  // The exact comparator from the final statistics; zr holds x_c.
+  oco::trs_action<S, D>(A, bv, zr, n);
+  S quad = S(0), dotb = S(0);
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    S xa = S(0);
+#pragma unroll
+    for (int j = 0; j < n; ++j)
+      xa = xa + (j <= i ? A[oco::tri(i, j)] : A[oco::tri(j, i)]) * zr[j];
+    quad = quad + zr[i] * xa;
+    dotb = dotb + bv[i] * zr[i];
+  }
+  cum_out[b] = cum;
+  comp_out[b] = S(0.5) * ((quad - S(2) * dotb) + c);
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    xc_out[i * B + b] = zr[i];
+    xlast_out[i * B + b] = x[i];
+  }
+}
+
+template <typename S>
+int launch(const void* z, const void* y, const void* alg_flag,
+           const void* eta, long long T, long long B, int d, void* cum,
+           void* comp, void* x_c, void* x_last, void* stream) {
+  if (B < 1 || T < 0 || d < 1 || d > OCO_QUAD_MAX_D)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned int>(
+      (B + OCO_QUAD_THREADS - 1) / OCO_QUAD_THREADS);
+  const auto* zp = static_cast<const S*>(z);
+  const auto* yp = static_cast<const S*>(y);
+  const auto* fp = static_cast<const int*>(alg_flag);
+  const auto* ep = static_cast<const S*>(eta);
+  auto* cp = static_cast<S*>(cum);
+  auto* kp = static_cast<S*>(comp);
+  auto* xp = static_cast<S*>(x_c);
+  auto* lp = static_cast<S*>(x_last);
+  if (d == 5)
+    quad_game_kernel<S, 5><<<grid, OCO_QUAD_THREADS, 0, s>>>(
+        zp, yp, fp, ep, T, B, d, cp, kp, xp, lp);
+  else
+    quad_game_kernel<S, 0><<<grid, OCO_QUAD_THREADS, 0, s>>>(
+        zp, yp, fp, ep, T, B, d, cp, kp, xp, lp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Inputs: z (T, d, B) and y (T, B) time-major, alg_flag (B,) int32
+// (0 = FTRL, 1 = FTL), eta (B,) the FTRL step scale.  Outputs: cum (B,),
+// comp (B,), x_c (d, B) the exact comparator, x_last (d, B) the last
+// action played.  Returns the cudaError_t of the launch.
+extern "C" int oco_quad_game_f64(const void* z, const void* y,
+                                 const void* alg_flag, const void* eta,
+                                 long long T, long long B, int d, void* cum,
+                                 void* comp, void* x_c, void* x_last,
+                                 void* stream) {
+  return launch<double>(z, y, alg_flag, eta, T, B, d, cum, comp, x_c, x_last,
+                        stream);
+}
+
+extern "C" int oco_quad_game_f32(const void* z, const void* y,
+                                 const void* alg_flag, const void* eta,
+                                 long long T, long long B, int d, void* cum,
+                                 void* comp, void* x_c, void* x_last,
+                                 void* stream) {
+  return launch<float>(z, y, alg_flag, eta, T, B, d, cum, comp, x_c, x_last,
+                       stream);
+}

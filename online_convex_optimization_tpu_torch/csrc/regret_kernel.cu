@@ -71,7 +71,7 @@ template <typename S>
 int launch(const void* z, const void* y, const void* alg_flag,
            const void* eta, const void* lengths, long long B, int d,
            int replay, void* cum, void* comp, void* x_last, void* stream) {
-  if (B < 1 || d < 1 || d > OCO_MAX_D) return cudaErrorInvalidValue;
+  if (B < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = oco::grid_for(B);
   const auto* zp = static_cast<const S*>(z);
@@ -82,13 +82,10 @@ int launch(const void* z, const void* y, const void* alg_flag,
   auto* cp = static_cast<S*>(cum);
   auto* kp = static_cast<S*>(comp);
   auto* xp = static_cast<S*>(x_last);
-  if (d == 5)
-    regret_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(
+  return oco::launch_for_d(d, [&](auto dc) {
+    regret_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
         zp, yp, fp, ep, lp, B, d, replay, cp, kp, xp);
-  else
-    regret_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, fp, ep, lp, B, d, replay, cp, kp, xp);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

@@ -74,7 +74,7 @@ int launch(const void* z, const void* y, const void* threshold,
            const void* eta, const void* lengths, long long B, long long T,
            int d, int replay, void* cum, void* comp, void* x_last,
            void* switch_t, void* stream) {
-  if (B < 1 || d < 1 || d > OCO_MAX_D) return cudaErrorInvalidValue;
+  if (B < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = oco::grid_for(B);
   const auto* zp = static_cast<const S*>(z);
@@ -86,13 +86,10 @@ int launch(const void* z, const void* y, const void* threshold,
   auto* kp = static_cast<S*>(comp);
   auto* xp = static_cast<S*>(x_last);
   auto* tp = static_cast<long long*>(switch_t);
-  if (d == 5)
-    smart_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(
+  return oco::launch_for_d(d, [&](auto dc) {
+    smart_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
         zp, yp, hp, ep, lp, B, T, d, replay, cp, kp, xp, tp);
-  else
-    smart_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, hp, ep, lp, B, T, d, replay, cp, kp, xp, tp);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

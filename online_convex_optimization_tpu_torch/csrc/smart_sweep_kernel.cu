@@ -58,7 +58,7 @@ int launch(const void* z, const void* y, const void* thresholds,
            const void* lengths, long long B, long long G, long long T, int d,
            double eta, int replay, void* regret, void* switch_t,
            void* stream) {
-  if (B < 1 || G < 1 || d < 1 || d > OCO_MAX_D) return cudaErrorInvalidValue;
+  if (B < 1 || G < 1) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(oco::grid_for(B)) * G;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -70,13 +70,10 @@ int launch(const void* z, const void* y, const void* thresholds,
   auto* rp = static_cast<S*>(regret);
   auto* tp = static_cast<long long*>(switch_t);
   const S eta_s = static_cast<S>(eta);
-  if (d == 5)
-    smart_sweep_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(
+  return oco::launch_for_d(d, [&](auto dc) {
+    smart_sweep_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
         zp, yp, hp, lp, B, G, T, d, eta_s, replay, rp, tp);
-  else
-    smart_sweep_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, hp, lp, B, G, T, d, eta_s, replay, rp, tp);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

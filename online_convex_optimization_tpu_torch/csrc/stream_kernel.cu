@@ -76,8 +76,7 @@ int launch(const void* z, const void* y, const void* alg_flag,
            const void* th_in, const void* w_in, const void* cum_in,
            const void* cnt_in, void* th_out, void* w_out, void* cum_out,
            void* cnt_out, void* stream) {
-  if (B < 1 || CT < 0 || t0 < 0 || d < 1 || d > OCO_MAX_D)
-    return cudaErrorInvalidValue;
+  if (B < 1 || CT < 0 || t0 < 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = oco::grid_for(B);
   const auto* zp = static_cast<const S*>(z);
@@ -92,13 +91,10 @@ int launch(const void* z, const void* y, const void* alg_flag,
   auto* wo = static_cast<S*>(w_out);
   auto* co = static_cast<S*>(cum_out);
   auto* no = static_cast<S*>(cnt_out);
-  if (d == 5)
-    stream_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(
+  return oco::launch_for_d(d, [&](auto dc) {
+    stream_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
         zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no);
-  else
-    stream_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

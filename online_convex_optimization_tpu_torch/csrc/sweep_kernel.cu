@@ -58,7 +58,7 @@ template <typename S>
 int launch(const void* z, const void* y, const void* eta_grid,
            const void* lengths, long long B, long long E, int d, int replay,
            void* regret, void* stream) {
-  if (B < 1 || E < 1 || d < 1 || d > OCO_MAX_D) return cudaErrorInvalidValue;
+  if (B < 1 || E < 1) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(oco::grid_for(B)) * E;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -68,13 +68,10 @@ int launch(const void* z, const void* y, const void* eta_grid,
   const auto* ep = static_cast<const S*>(eta_grid);
   const auto* lp = static_cast<const int*>(lengths);
   auto* rp = static_cast<S*>(regret);
-  if (d == 5)
-    sweep_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(zp, yp, ep, lp, B, E, d,
-                                                    replay, rp);
-  else
-    sweep_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(zp, yp, ep, lp, B, E, d,
-                                                    replay, rp);
-  return static_cast<int>(cudaGetLastError());
+  return oco::launch_for_d(d, [&](auto dc) {
+    sweep_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
+        zp, yp, ep, lp, B, E, d, replay, rp);
+  });
 }
 
 }  // namespace

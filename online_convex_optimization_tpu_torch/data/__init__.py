@@ -5,6 +5,7 @@ of ``online_convex_optimization_tpu/data``)."""
 from online_convex_optimization_tpu_torch.data.device import (
     random_game_batch,
     random_time_major_batch,
+    regression_stream_batch,
     separable_stream_batch,
     shard_generators,
 )
@@ -19,6 +20,7 @@ from online_convex_optimization_tpu_torch.data.sequences import (
     make_noisy_iid_stream,
     make_flip_stream,
     make_switching_two_leaders_stream,
+    make_regression_stream,
     sample_g_instance,
     sample_g_batch,
     stack_replicates,
@@ -36,11 +38,13 @@ __all__ = [
     "make_noisy_iid_stream",
     "make_flip_stream",
     "make_switching_two_leaders_stream",
+    "make_regression_stream",
     "sample_g_instance",
     "sample_g_batch",
     "stack_replicates",
     "random_game_batch",
     "random_time_major_batch",
+    "regression_stream_batch",
     "separable_stream_batch",
     "shard_generators",
 ]

@@ -10,6 +10,8 @@ host:
     Rademacher labels (``random_game_batch``);
   - separable / Massart-noise streams with per-sequence ground truths
     (``separable_stream_batch``);
+  - the quadratic track's regression streams
+    (``regression_stream_batch``);
   - direct generation in the kernels' time-major ``(T, d, B)`` layout
     (``random_time_major_batch``, the counterpart of
     ``random_packed_batch``'s packed TPU layout), which the wrappers and
@@ -85,6 +87,24 @@ def separable_stream_batch(generator: torch.Generator, B: int, T: int,
         flips = torch.rand((B, T), generator=generator, device=dev) < noise_p
         y = torch.where(flips, -y, y)
     return z, y, u
+
+
+def regression_stream_batch(generator: torch.Generator, B: int, T: int,
+                            d: int = 5, sigma: float = 0.1, *,
+                            dtype=torch.float32):
+    """Quadratic-track regression streams, the device twin of
+    ``sequences.make_regression_stream``: returns ``(z, y, u)`` with unit
+    ground truths ``u (B, d)``, rows strictly in the unit ball and real
+    targets ``y = <z_t, u> + sigma * N(0, 1)``."""
+    _check_dtype(dtype)
+    dev = generator.device
+    u = torch.randn((B, d), generator=generator, device=dev, dtype=dtype)
+    u = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True),
+                        min=1e-30)
+    z = _clip_rows(torch.randn((B, T, d), generator=generator, device=dev,
+                               dtype=dtype))
+    noise = torch.randn((B, T), generator=generator, device=dev, dtype=dtype)
+    return z, sum_last(z * u[:, None, :]) + sigma * noise, u
 
 
 def random_time_major_batch(generator: torch.Generator, T: int, B: int,

@@ -1,7 +1,8 @@
 """Sequence families and stream builders (host NumPy).
 
 Counterpart of ``online_convex_optimization_tpu/data/sequences.py``: the
-four families of the reference's sequence_generation.py, the ``CASES`` /
+four families of the reference's sequence_generation.py and the quadratic
+track's regression stream, the ``CASES`` /
 ``RUNS_BY_TITLE`` / ``REPLICATES_BY_TITLE`` registries, ``sample_g_instance``,
 ``sample_g_batch`` and ``stack_replicates``, with the same PCG64 consumption
 order so every array is bitwise equal to the JAX package's (the tests check
@@ -98,6 +99,25 @@ def make_noisy_iid_stream(*, p: float, d: int = 5, run_seed: int = 0) -> Sampler
         y[y == 0.0] = 1.0
         flips = gen.random(T) < p
         y[flips] *= -1.0
+        return z, y, u
+
+    return sample
+
+
+def make_regression_stream(*, sigma: float = 0.1, d: int = 5,
+                           run_seed: int = 0) -> SamplerFn:
+    """Regression stream for the quadratic-loss track (BASELINE.json
+    config 1; no reference analog): real-valued targets
+    y = <z, u> + sigma * N(0, 1) with clipped-Gaussian rows.  Seed streams
+    31 (ground truth) / 33+rep (data), as in the JAX package."""
+    u = _unit_ground_truth(run_seed, 31, d)
+
+    def sample(T: int, rep: int = 0) -> Sample:
+        gen = rng_stream(run_seed, T, 33 + rep)
+        z = gen.standard_normal((T, d)).astype(np.float32, copy=False)
+        z = _clip_rows_to_unit_ball(z)
+        y = (z @ u + sigma * gen.standard_normal(T)).astype(np.float32,
+                                                            copy=False)
         return z, y, u
 
     return sample

@@ -50,6 +50,7 @@ from online_convex_optimization_tpu_torch.experiments.plotting import (
     plot_comparisons,
     plot_empirical_g,
 )
+from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 from online_convex_optimization_tpu_torch.utils.logging_utils import (
     get_logger,
     log_metrics,
@@ -59,16 +60,6 @@ from online_convex_optimization_tpu_torch.utils.logging_utils import (
 def resolve_dtype(cfg: ExperimentConfig):
     """``f32`` -> float32; ``auto`` and ``x64`` -> float64 on every device."""
     return np.float32 if cfg.precision == "f32" else np.float64
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device ``name`` names; ``cuda`` without a card raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
-                           "False; pass --device cpu to run the plain "
-                           "PyTorch versions")
-    return device
 
 
 def device_record(device: torch.device) -> Dict:

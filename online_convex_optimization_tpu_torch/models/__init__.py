@@ -1,6 +1,8 @@
 """Algorithm simulators (counterpart of ``online_convex_optimization_tpu/models``):
 FTRL/FTL and SMART, each one pass of a CUDA kernel on the card; the eta
-and threshold sweeps; the streamed game for long horizons."""
+and threshold sweeps; the streamed game for long horizons; the
+quadratic-loss track (exact least-squares FTL and FTRL, one pass of
+kernel K8)."""
 
 from online_convex_optimization_tpu_torch.models.base import RunResult
 from online_convex_optimization_tpu_torch.models.linear import (
@@ -8,6 +10,12 @@ from online_convex_optimization_tpu_torch.models.linear import (
     ALG_FTRL,
     simulate_linear,
     simulate_linear_batch,
+)
+from online_convex_optimization_tpu_torch.models.quadratic import (
+    ball_ls_action,
+    quadratic_comparator_loss,
+    simulate_quadratic,
+    simulate_quadratic_batch,
 )
 from online_convex_optimization_tpu_torch.models.smart import (
     SmartRunResult,
@@ -36,4 +44,8 @@ __all__ = [
     "smart_threshold_sweep",
     "StreamingGame",
     "StreamingKernelGame",
+    "ball_ls_action",
+    "quadratic_comparator_loss",
+    "simulate_quadratic",
+    "simulate_quadratic_batch",
 ]

@@ -9,8 +9,9 @@ Counterpart of ``online_convex_optimization_tpu/models/api.py``:
   - ``empirical_worst_case_thresholds(T_grid, ...)``  : algorithms.py:135-171
 
 Each takes NumPy inputs (a ``(T, d)`` sequence or a ``(B, T, d)`` batch)
-and a ``device`` (``"cpu"`` runs the plain PyTorch versions, ``"cuda"`` the
-kernels), and computes in float64, the reference's precision: unlike the
+and a ``device``: ``"cuda"``, the default, runs the kernels (and raises
+without a card), ``"cpu"`` the plain PyTorch versions.  Each computes in
+float64, the reference's precision: unlike the
 JAX package, whose precision follows its global x64 flag, the port has f64
 on every device it runs on.
 """
@@ -26,9 +27,11 @@ import torch
 from online_convex_optimization_tpu_torch.data.sequences import sample_g_batch
 from online_convex_optimization_tpu_torch.models.linear import simulate_linear_batch
 from online_convex_optimization_tpu_torch.models.smart import simulate_smart_batch
+from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 
 
 def _as_batch(z, y, device):
+    device = resolve_device(device)
     z = torch.as_tensor(np.asarray(z, dtype=np.float64), device=device)
     y = torch.as_tensor(np.asarray(y, dtype=np.float64), device=device)
     if z.ndim == 2:
@@ -41,7 +44,7 @@ def _out(regret: torch.Tensor, single: bool):
     return float(reg[0]) if single else reg
 
 
-def simulate_alg(z, y, alg_flag: int, eta0: float, *, device="cpu"):
+def simulate_alg(z, y, alg_flag: int, eta0: float, *, device="cuda"):
     """Regret of FTRL (``alg_flag == 0``) / FTL (``alg_flag == 1``): a float
     for one ``(T, d)`` sequence, a ``(B,)`` array for a batch."""
     zb, yb, single = _as_batch(z, y, device)
@@ -50,7 +53,7 @@ def simulate_alg(z, y, alg_flag: int, eta0: float, *, device="cpu"):
 
 
 def simulate_SMART_like(z, y, theta_thresh: float, eta0: float, *,
-                        device="cpu"):
+                        device="cuda"):
     """Single-switch SMART: FTL until its regret lead reaches
     ``theta_thresh``, then an independent FTRL track."""
     zb, yb, single = _as_batch(z, y, device)
@@ -58,7 +61,7 @@ def simulate_SMART_like(z, y, theta_thresh: float, eta0: float, *,
     return _out(res.regret, single)
 
 
-def simulate_SMART(z, y, *, eta0: float = math.sqrt(2), device="cpu"):
+def simulate_SMART(z, y, *, eta0: float = math.sqrt(2), device="cuda"):
     """SMART with the theoretical threshold ``sqrt(2T)``."""
     T = np.asarray(z).shape[-2]
     return simulate_SMART_like(z, y, theta_thresh=math.sqrt(2 * T),
@@ -66,7 +69,7 @@ def simulate_SMART(z, y, *, eta0: float = math.sqrt(2), device="cpu"):
 
 
 def simulate_empirical_g_SMART(z, y, theta_emp: float, *,
-                               eta0: float = math.sqrt(2), device="cpu"):
+                               eta0: float = math.sqrt(2), device="cuda"):
     """SMART with an empirically estimated threshold g(T)."""
     return simulate_SMART_like(z, y, theta_thresh=theta_emp, eta0=eta0,
                                device=device)
@@ -80,7 +83,7 @@ def empirical_worst_case_thresholds(
     eta0: float = math.sqrt(2),
     d: int = 5,
     progress: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Dict[int, float]:
     """Empirical worst-case FTRL regret g(T) per horizon: ``runs`` instances
     with the reference's seed schedule, run as one batch, max regret with

@@ -5,9 +5,10 @@ Counterpart of ``online_convex_optimization_tpu/models/streaming.py``
 cnt) is O(B d), so only the active chunk of (z, y) needs to be resident:
 T = 10^6 and more per sequence at constant device memory, with results
 equal to the one-shot simulator.  Both classes advance through kernel K4
-(``ops/game.py::play_stream``) on a CUDA device and through its plain
-version on the CPU; the carry checkpoints and resumes through
-``carry_state`` / ``resume`` (``utils/checkpointing.py``).
+(``ops/game.py::play_stream``) on a CUDA device, the default, and through
+its plain version on the CPU (``device="cpu"``); the carry checkpoints
+and resumes through ``carry_state`` / ``resume``
+(``utils/checkpointing.py``).
 
 - ``StreamingGame.result(replay_feed)`` keeps the JAX semantics: the final
   FTL comparator is scored by replaying the fed chunks, with an elementwise
@@ -45,6 +46,7 @@ from online_convex_optimization_tpu_torch.ops.game import (
     zero_stream_carry,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import normalized_hinge
+from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 
 
 class _Stream:
@@ -52,10 +54,10 @@ class _Stream:
     games."""
 
     def __init__(self, B: int, d: int, *, alg_flag=ALG_FTRL, eta0=1.0,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.B, self.d = B, d
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.flags = per_sequence(alg_flag, B, torch.int32, self.device)
         self.eta0 = per_sequence(eta0, B, dtype, self.device)
         self.carry = zero_stream_carry(B, d, dtype, self.device)
@@ -152,7 +154,7 @@ class StreamingKernelGame(_Stream):
     """
 
     def __init__(self, B: int, d: int, *, alg_flag=ALG_FTRL, eta0=1.0,
-                 dtype=torch.float32, device="cpu", validate: bool = False):
+                 dtype=torch.float32, device="cuda", validate: bool = False):
         super().__init__(B, d, alg_flag=alg_flag, eta0=eta0, dtype=dtype,
                          device=device)
         self.validate = validate

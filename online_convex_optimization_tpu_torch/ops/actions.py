@@ -53,7 +53,16 @@ def ftrl_action(theta: torch.Tensor, t, eta0) -> torch.Tensor:
     """
     t = torch.as_tensor(t, dtype=theta.dtype, device=theta.device)
     eta0 = torch.as_tensor(eta0, dtype=theta.dtype, device=theta.device)
-    scale = -torch.div(eta0, torch.sqrt(torch.clamp(t, min=1.0)))
+    return ftrl_action_scaled(
+        theta, -torch.div(eta0, torch.sqrt(torch.clamp(t, min=1.0))))
+
+
+def ftrl_action_scaled(theta: torch.Tensor, scale) -> torch.Tensor:
+    """FTRL action for a given round scale: ``scale * theta``, rescaled by
+    ``1/sqrt(||x||^2)`` iff ``||x||^2 > 1``.  ``scale`` is a scalar or one
+    value per leading index of ``theta`` (kernel K3 reads it from a
+    table)."""
+    scale = torch.as_tensor(scale, dtype=theta.dtype, device=theta.device)
     if scale.ndim == theta.ndim - 1:
         scale = scale[..., None]
     x = scale * theta

@@ -1,4 +1,5 @@
-"""Kernels K1 (regret game), K5 (eta sweep) and K4 (carried stream).
+"""Kernels K1 (regret game), K5 (eta sweep), K4 (carried stream) and K3,
+K3e (the packed game API).
 
 Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
 
@@ -13,13 +14,27 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
   over one time chunk, CUDA kernel ``csrc/stream_kernel.cu``, plain version
   ``play_stream_reference``; ``zero_stream_carry``, ``stream_result`` and
   ``validate_stream_chunk`` (the ``pack_time_major(validate=True)`` check)
-  around them.
+  around them;
+- ``play_packed`` (TPU ``play_packed`` / ``_game_kernel`` and its VMEM-state
+  twin ``_game_kernel_dloop``) and ``play_packed_eta`` (TPU
+  ``play_packed_eta`` / ``_game_eta_kernel``): cum and theta of the game on
+  time-major inputs, from a ``(T,)`` table of FTRL scales (``ftrl_scales``)
+  or with a per-sequence eta; CUDA kernel ``csrc/game_kernel.cu``, plain
+  versions ``play_packed_reference`` and ``play_packed_eta_reference``;
+  ``regrets_packed`` / ``regrets_packed_eta`` add the comparator by a plain
+  PyTorch replay (the JAX ``_comparator_epilogue``), and
+  ``simulate_linear_packed`` (the JAX ``simulate_linear_pallas_v2``),
+  ``simulate_linear_auto`` and ``kernel_envelope`` take the ``(B, T, d)``
+  API.
 
 Each plain version is a loop over T vectorized over the batch, in its
-kernel's order of operations.  A wrapper runs the plain version on a CPU
-tensor and launches the kernel on a CUDA tensor; there is no fallback
-between them.  All three kernels play the same round (``oco::game_round``),
-so a sweep column, or a sequence fed in chunks, equals K1 bit for bit.
+kernel's order of operations, sharing K1's step (``hinge_round``).  A
+wrapper runs the plain version on a CPU tensor, at any d, and launches the
+kernel on a CUDA tensor, for d up to ``cuda_build.MAX_D`` = 512 (raising
+above it); there is no fallback between them.  K1, K4 and K5 play the same
+round (``oco::game_round``), K3 and K3e its action and hinge step, so a
+sweep column, a sequence fed in chunks or a packed game equals K1 bit for
+bit.
 
 What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round against a serial chain of about 3d+10 flops per round (action with
@@ -54,6 +69,7 @@ import torch
 from online_convex_optimization_tpu_torch.ops.actions import (
     ftl_action,
     ftrl_action,
+    ftrl_action_scaled,
     sum_last,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import (
@@ -61,15 +77,18 @@ from online_convex_optimization_tpu_torch.ops.hinge import (
     normalized_hinge,
 )
 from online_convex_optimization_tpu_torch.utils import cuda_build
+from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 
 ALG_FTRL = 0
 ALG_FTL = 1
 
 # Launches of each CUDA kernel in this process (counted where it launches):
-# K1, K5 and K4.
+# K1, K5, K4, K3 and K3e.
 LAUNCHES = 0
 SWEEP_LAUNCHES = 0
 STREAM_LAUNCHES = 0
+PACKED_LAUNCHES = 0
+PACKED_ETA_LAUNCHES = 0
 
 # Squared row norms up to 1 + CONTRACT_TOL count as inside the unit ball:
 # rows clipped in f32 and upcast carry ~1e-7 of rounding (the JAX package's
@@ -92,10 +111,16 @@ def check_batch(z: torch.Tensor, y: torch.Tensor):
     B, T, d = z.shape
     if B < 1 or d < 1:
         raise ValueError(f"empty batch: z has shape {tuple(z.shape)}")
-    if d > cuda_build.MAX_D:
-        raise ValueError(f"d = {d} exceeds the kernels' maximum "
-                         f"{cuda_build.MAX_D}")
     return B, T, d
+
+
+def check_kernel_d(d: int) -> None:
+    """Raise for a feature dimension the CUDA kernels K1-K6 have no
+    instance of (the plain versions on the CPU take any d)."""
+    if d > cuda_build.MAX_D:
+        raise ValueError(f"d = {d} exceeds the CUDA kernels' limit d <= "
+                         f"{cuda_build.MAX_D} (the JAX package's "
+                         f"_D_KERNEL_MAX); larger d runs only on the CPU")
 
 
 def per_sequence(value, B: int, dtype, device) -> torch.Tensor:
@@ -127,6 +152,18 @@ def in_contract(z: torch.Tensor, y: torch.Tensor,
     return bool((row_ok | ~valid).all())
 
 
+def hinge_round(theta, cum, x, z_t, y_t, v=None):
+    """K1's hinge step once the action ``x`` is chosen: the loss of
+    ``q = <z_t, x>`` added to ``cum`` and the tie-exact update of ``theta``.
+    ``v`` (1 or 0 per sequence) masks the rounds past a sequence's length.
+    Returns ``(theta, cum)``."""
+    q = sum_last(z_t * x)
+    loss, g = normalized_hinge(q, y_t), hinge_subgradient(q, y_t)
+    if v is not None:
+        loss, g = v * loss, v * g
+    return theta + g[:, None] * z_t, cum + loss
+
+
 def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
     """Plain PyTorch version of kernel K1, the same arithmetic in the same
     order: a loop over T vectorized over B.
@@ -154,9 +191,7 @@ def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
         z_t, y_t = z[:, t], y[:, t]
         x = torch.where(is_ftrl, ftrl_action(theta, t + 1, eta),
                         ftl_action(theta))
-        q = sum_last(z_t * x)
-        cum = cum + v * normalized_hinge(q, y_t)
-        theta = theta + (v * hinge_subgradient(q, y_t))[:, None] * z_t
+        theta, cum = hinge_round(theta, cum, x, z_t, y_t, v)
         w = w + (v * y_t)[:, None] * z_t
         x_last = torch.where(valid[:, None], x, x_last)
     x_c = ftl_action(theta)
@@ -178,6 +213,7 @@ def launch_time_major(z_tm, y_tm, flags, eta, lengths, replay: bool):
     ``(cum_loss (B,), comp_loss (B,), x_last (d, B))``."""
     global LAUNCHES
     T, d, B = z_tm.shape
+    check_kernel_d(d)
     lib = cuda_build.load()
     fn = (lib.oco_regrets_fused_f64 if z_tm.dtype == torch.float64
           else lib.oco_regrets_fused_f32)
@@ -297,6 +333,7 @@ def launch_eta_sweep_time_major(z_tm, y_tm, eta_grid, lengths, replay: bool):
     global SWEEP_LAUNCHES
     T, d, B = z_tm.shape
     E = eta_grid.shape[0]
+    check_kernel_d(d)
     lib = cuda_build.load()
     fn = (lib.oco_eta_sweep_f64 if z_tm.dtype == torch.float64
           else lib.oco_eta_sweep_f32)
@@ -351,32 +388,41 @@ class StreamCarry(NamedTuple):
 
 
 def zero_stream_carry(B: int, d: int, dtype=torch.float32,
-                      device="cpu") -> StreamCarry:
+                      device="cuda") -> StreamCarry:
     """Fresh carry for ``B`` sequences of dimension ``d`` (B is the number
-    of sequences: the port's layout needs no lane padding)."""
+    of sequences: the port's layout needs no lane padding), on the card
+    unless ``device`` says otherwise."""
     if dtype not in _FLOATS:
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    device = resolve_device(device)
     return StreamCarry(torch.zeros((d, B), dtype=dtype, device=device),
                        torch.zeros((d, B), dtype=dtype, device=device),
                        torch.zeros((B,), dtype=dtype, device=device),
                        torch.zeros((B,), dtype=dtype, device=device))
 
 
+def check_time_major(z_tm: torch.Tensor, y_tm: torch.Tensor):
+    """Validate a time-major ``(T, d, B)`` / ``(T, B)`` batch (shapes, dtype,
+    device; no device sync); return ``(T, d, B)``."""
+    if z_tm.ndim != 3 or y_tm.shape != (z_tm.shape[0], z_tm.shape[2]):
+        raise ValueError(f"expected z (T, d, B) and y (T, B), got "
+                         f"{tuple(z_tm.shape)} and {tuple(y_tm.shape)}")
+    T, d, B = z_tm.shape
+    if z_tm.dtype not in _FLOATS or y_tm.dtype != z_tm.dtype:
+        raise TypeError(f"z and y must share dtype float32 or float64, got "
+                        f"{z_tm.dtype} and {y_tm.dtype}")
+    if y_tm.device != z_tm.device:
+        raise ValueError(f"z on {z_tm.device} but y on {y_tm.device}")
+    if B < 1 or d < 1:
+        raise ValueError(f"empty batch: z has shape {tuple(z_tm.shape)}")
+    return T, d, B
+
+
 def check_stream_chunk(z_chunk: torch.Tensor, y_chunk: torch.Tensor,
                        carry: StreamCarry):
     """Validate a time-major ``(CT, d, B)`` / ``(CT, B)`` chunk against its
     carry (shapes, dtype, device; no device sync); return ``(CT, d, B)``."""
-    if z_chunk.ndim != 3 or y_chunk.shape != (z_chunk.shape[0],
-                                              z_chunk.shape[2]):
-        raise ValueError(f"expected z (CT, d, B) and y (CT, B), got "
-                         f"{tuple(z_chunk.shape)} and {tuple(y_chunk.shape)}")
-    CT, d, B = z_chunk.shape
-    if z_chunk.dtype not in _FLOATS or y_chunk.dtype != z_chunk.dtype:
-        raise TypeError(f"z and y must share dtype float32 or float64, got "
-                        f"{z_chunk.dtype} and {y_chunk.dtype}")
-    if d > cuda_build.MAX_D:
-        raise ValueError(f"d = {d} exceeds the kernels' maximum "
-                         f"{cuda_build.MAX_D}")
+    CT, d, B = check_time_major(z_chunk, y_chunk)
     want = {"theta": (d, B), "w": (d, B), "cum": (B,), "cnt": (B,)}
     for name, shape in want.items():
         t = getattr(carry, name)
@@ -385,8 +431,6 @@ def check_stream_chunk(z_chunk: torch.Tensor, y_chunk: torch.Tensor,
             raise ValueError(f"carry {name} is {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}; the chunk needs "
                              f"{shape} {z_chunk.dtype} on {z_chunk.device}")
-    if y_chunk.device != z_chunk.device:
-        raise ValueError(f"z on {z_chunk.device} but y on {y_chunk.device}")
     return CT, d, B
 
 
@@ -428,9 +472,7 @@ def play_stream_reference(z_chunk, y_chunk, alg_flag, eta, t0: int,
         z_t, y_t = z_chunk[k].t(), y_chunk[k]
         x = torch.where(is_ftrl, ftrl_action(theta, t0 + k + 1, eta),
                         ftl_action(theta))
-        q = sum_last(z_t * x)
-        cum = cum + normalized_hinge(q, y_t)
-        theta = theta + hinge_subgradient(q, y_t)[:, None] * z_t
+        theta, cum = hinge_round(theta, cum, x, z_t, y_t)
         w = w + y_t[:, None] * z_t
         cnt = cnt + y_t * y_t
     return StreamCarry(theta.t().contiguous(), w.t().contiguous(), cum, cnt)
@@ -443,6 +485,7 @@ def launch_stream_time_major(z_tm, y_tm, flags, eta, t0: int,
     in new tensors."""
     global STREAM_LAUNCHES
     CT, d, B = z_tm.shape
+    check_kernel_d(d)
     lib = cuda_build.load()
     fn = (lib.oco_play_stream_f64 if z_tm.dtype == torch.float64
           else lib.oco_play_stream_f32)
@@ -523,3 +566,224 @@ def stream_result(carry: StreamCarry):
     x_c = ftl_action(carry.theta.t())
     comp = 0.5 * (carry.cnt - sum_last(x_c * carry.w.t()))
     return carry.cum - comp, carry.cum, comp
+
+
+# ------------------------------------------------ K3, K3e: the packed game
+
+def ftrl_scales(T: int, eta0, *, dtype=torch.float32,
+                device="cuda") -> torch.Tensor:
+    """Per-round FTRL scales ``-(eta0 / sqrt(max(1, t)))``, t = 1..T, in the
+    working dtype: the ``(T,)`` table kernel K3 reads.
+
+    The table is a tensor/tensor division of correctly rounded values, the
+    expression K1 evaluates each round (``number / tensor`` would multiply
+    by a reciprocal), so K3 with it plays K1's FTRL game bit for bit.  The
+    JAX ``ftrl_scales`` builds it in float32 NumPy.
+    """
+    device = resolve_device(device)
+    t = torch.arange(1, T + 1, dtype=dtype, device=device)
+    return -torch.div(torch.full_like(t, float(eta0)),
+                      torch.sqrt(torch.clamp(t, min=1.0)))
+
+
+def _packed_reference(z_tm, y_tm, action):
+    """K1's rounds over all T rows of a time-major batch, with the action
+    ``action(theta, t)`` (0-based t); no comparator.  Zero rows are inert.
+    Returns ``(cum (B,), theta (d, B))``."""
+    T, d, B = z_tm.shape
+    theta = z_tm.new_zeros((B, d))
+    cum = z_tm.new_zeros((B,))
+    for t in range(T):
+        theta, cum = hinge_round(theta, cum, action(theta, t), z_tm[t].t(),
+                                 y_tm[t])
+    return cum, theta.t().contiguous()
+
+
+def play_packed_reference(z_tm, y_tm, scales, alg_flag: int):
+    """Plain PyTorch version of kernel K3: ``(cum (B,), theta (d, B))`` of
+    the game on ``(T, d, B)`` / ``(T, B)`` with FTRL scales ``scales``
+    ``(T,)`` (alg_flag 0) or FTL (alg_flag 1)."""
+    if alg_flag == ALG_FTRL:
+        return _packed_reference(
+            z_tm, y_tm, lambda theta, t: ftrl_action_scaled(theta, scales[t]))
+    return _packed_reference(z_tm, y_tm, lambda theta, t: ftl_action(theta))
+
+
+def play_packed_eta_reference(z_tm, y_tm, eta):
+    """Plain PyTorch version of kernel K3e: the FTRL game with a
+    per-sequence ``eta`` ``(B,)``, K1's FTRL round."""
+    return _packed_reference(
+        z_tm, y_tm, lambda theta, t: ftrl_action(theta, t + 1, eta))
+
+
+def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
+    """Launch K3 (``alg_flag`` an int, ``extra`` the scale table) or K3e
+    (``alg_flag`` None, ``extra`` the per-sequence eta) on contiguous CUDA
+    inputs; returns ``(cum (B,), theta (d, B))``."""
+    global PACKED_LAUNCHES, PACKED_ETA_LAUNCHES
+    T, d, B = z_tm.shape
+    check_kernel_d(d)
+    lib = cuda_build.load()
+    suffix = "f64" if z_tm.dtype == torch.float64 else "f32"
+    fn = getattr(lib, f"{fn_name}_{suffix}")
+    flag = () if alg_flag is None else (int(alg_flag),)
+    with torch.cuda.device(z_tm.device):
+        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
+        theta = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
+        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), extra.data_ptr(), T, B, d,
+                 *flag, cum.data_ptr(), theta.data_ptr(),
+                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"packed game kernel launch failed: CUDA "
+                               f"error {err}")
+        if alg_flag is None:
+            PACKED_ETA_LAUNCHES += 1
+        else:
+            PACKED_LAUNCHES += 1
+    return cum, theta
+
+
+def launch_play_packed(z_tm, y_tm, scales, alg_flag: int):
+    """Launch kernel K3 on contiguous time-major CUDA inputs with a
+    ``(T,)`` scale table; returns ``(cum (B,), theta (d, B))``."""
+    return _launch_packed("oco_play_packed", z_tm, y_tm, scales, alg_flag)
+
+
+def launch_play_packed_eta(z_tm, y_tm, eta):
+    """Launch kernel K3e on contiguous time-major CUDA inputs with a
+    per-sequence ``eta`` ``(B,)``; returns ``(cum (B,), theta (d, B))``."""
+    return _launch_packed("oco_play_packed_eta", z_tm, y_tm, eta, None)
+
+
+def play_packed(z_tm: torch.Tensor, y_tm: torch.Tensor, scales, *,
+                alg_flag: int = ALG_FTRL):
+    """The game on time-major inputs from a table of FTRL scales.
+
+    Args:
+      z_tm: ``(T, d, B)`` float32/float64; y_tm: ``(T, B)``.  Zero rows are
+        inert padding.
+      scales: ``(T,)`` per-round FTRL scales (``ftrl_scales``).
+      alg_flag: 0 = FTRL, 1 = FTL, for the whole batch.
+
+    Returns:
+      ``(cum_loss (B,), theta (d, B))`` on ``z_tm``'s device, no
+      comparator.  On a CUDA tensor this launches kernel K3 (or raises); on
+      a CPU tensor it runs ``play_packed_reference``.
+    """
+    T, d, B = check_time_major(z_tm, y_tm)
+    if alg_flag not in (ALG_FTRL, ALG_FTL):
+        raise ValueError(f"alg_flag must be 0 (FTRL) or 1 (FTL), got "
+                         f"{alg_flag}")
+    scales = torch.as_tensor(scales, dtype=z_tm.dtype,
+                             device=z_tm.device).contiguous()
+    if scales.shape != (T,):
+        raise ValueError(f"scales must have shape ({T},), got "
+                         f"{tuple(scales.shape)}")
+    if z_tm.device.type == "cuda":
+        return launch_play_packed(z_tm.contiguous(), y_tm.contiguous(),
+                                  scales, alg_flag)
+    if z_tm.device.type == "cpu":
+        return play_packed_reference(z_tm, y_tm, scales, alg_flag)
+    raise ValueError(f"unsupported device {z_tm.device}")
+
+
+def play_packed_eta(z_tm: torch.Tensor, y_tm: torch.Tensor, eta):
+    """FTRL on time-major inputs with a per-sequence step scale.
+
+    Args:
+      z_tm: ``(T, d, B)`` float32/float64; y_tm: ``(T, B)``.
+      eta: a scalar or ``(B,)``.
+
+    Returns:
+      ``(cum_loss (B,), theta (d, B))``.  On a CUDA tensor this launches
+      kernel K3e (or raises); on a CPU tensor it runs
+      ``play_packed_eta_reference``.
+    """
+    T, d, B = check_time_major(z_tm, y_tm)
+    eta = per_sequence(eta, B, z_tm.dtype, z_tm.device)
+    if z_tm.device.type == "cuda":
+        return launch_play_packed_eta(z_tm.contiguous(), y_tm.contiguous(),
+                                      eta)
+    if z_tm.device.type == "cpu":
+        return play_packed_eta_reference(z_tm, y_tm, eta)
+    raise ValueError(f"unsupported device {z_tm.device}")
+
+
+def comparator_epilogue(z_tm, y_tm, cum, theta):
+    """``cum - comp``: the final FTL action ``x_c = ftl_action(theta)``
+    replayed over every row, ``comp = 0.5 * sum_t |<z_t, x_c> - y_t|``.
+    Plain PyTorch, as the JAX ``_comparator_epilogue`` is XLA; zero padding
+    rows add nothing.  Returns ``(B,)`` regrets."""
+    x_c = ftl_action(theta.t()).t()                            # (d, B)
+    q = z_tm[:, 0] * x_c[0]
+    for j in range(1, z_tm.shape[1]):
+        q = q + z_tm[:, j] * x_c[j]
+    return cum - 0.5 * torch.sum(torch.abs(q - y_tm), dim=0)
+
+
+def regrets_packed(z_tm, y_tm, scales, *, alg_flag: int = ALG_FTRL):
+    """K3's cum and theta plus the comparator epilogue: ``(B,)`` regrets."""
+    cum, theta = play_packed(z_tm, y_tm, scales, alg_flag=alg_flag)
+    return comparator_epilogue(z_tm, y_tm, cum, theta)
+
+
+def regrets_packed_eta(z_tm, y_tm, eta):
+    """K3e's per-sequence-eta FTRL regrets, ``(B,)``."""
+    cum, theta = play_packed_eta(z_tm, y_tm, eta)
+    return comparator_epilogue(z_tm, y_tm, cum, theta)
+
+
+def kernel_envelope(B: int, T: int, d: int, dtype=torch.float32,
+                    per_lane_eta: bool = False):
+    """None where the port's packed kernels take the shape, else the
+    reason they do not.
+
+    Derived from the port's own kernels: K3 and K3e both have instances
+    through d = ``cuda_build.MAX_D`` (512) in float32 and float64, with no
+    budget of on-chip memory (a thread's state is in registers, or in local
+    memory past d = 64).  ``T`` and ``per_lane_eta`` (the JAX signature's)
+    set no limit: unlike the TPU's register-only per-lane kernel, K3e has
+    the large-d instance too.
+    """
+    del per_lane_eta, T
+    if dtype not in _FLOATS:
+        return f"dtype {dtype}: the kernels take float32 and float64"
+    if B < 1 or d < 1:
+        return f"empty batch (B={B}, d={d})"
+    if d > cuda_build.MAX_D:
+        return (f"d={d} past the CUDA kernels' limit d <= "
+                f"{cuda_build.MAX_D}")
+    return None
+
+
+def simulate_linear_packed(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
+                           eta0):
+    """Batched regret through the packed kernels, the ``(B, T, d)`` API
+    (counterpart of the JAX ``simulate_linear_pallas_v2``).
+
+    ``eta0`` is a scalar (a shared step size: K3 with ``ftrl_scales``) or a
+    ``(B,)`` tensor (per-sequence step sizes: K3e, FTRL only).  Computes in
+    ``z``'s dtype on ``z``'s device; returns ``(B,)`` regrets.
+    """
+    B, T, d = check_batch(z, y)
+    z_tm, y_tm = time_major(z, y)
+    if torch.as_tensor(eta0).ndim == 1:
+        if alg_flag != ALG_FTRL:
+            raise ValueError("per-sequence eta is FTRL-only")
+        return regrets_packed_eta(z_tm, y_tm, eta0)
+    scales = ftrl_scales(T, float(eta0), dtype=z.dtype, device=z.device)
+    return regrets_packed(z_tm, y_tm, scales, alg_flag=alg_flag)
+
+
+def simulate_linear_auto(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
+                         eta0):
+    """``simulate_linear_packed`` inside ``kernel_envelope``: on a CUDA
+    tensor a shape outside it raises with the reason (there is no scan to
+    route to); on a CPU tensor the plain version runs at any shape.
+    Returns ``(B,)`` regrets."""
+    B, T, d = check_batch(z, y)
+    if z.device.type == "cuda":
+        reason = kernel_envelope(B, T, d, z.dtype)
+        if reason is not None:
+            raise ValueError(f"simulate_linear_auto: {reason}")
+    return simulate_linear_packed(z, y, alg_flag, eta0)

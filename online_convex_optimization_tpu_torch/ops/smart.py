@@ -12,9 +12,10 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
 
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
-tensor and launches the kernel on a CUDA tensor; there is no fallback
-between them.  K2 and K6 share one round step (``oco::smart_round`` in
-``csrc/oco_common.cuh``), so a sweep column equals K2 bit for bit.
+tensor, at any d, and launches the kernel on a CUDA tensor, for d up to
+512 (raising above it); there is no fallback between them.  K2 and K6
+share one round step (``oco::smart_round`` in ``csrc/oco_common.cuh``), so
+a sweep column equals K2 bit for bit.
 
 Semantics are those of ``models/smart.py`` (the scan the JAX package holds
 against the golden oracle): an always-on FTL track; before the switch, the
@@ -44,6 +45,7 @@ from online_convex_optimization_tpu_torch.ops.actions import (
 )
 from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
+    check_kernel_d,
     in_contract,
     per_sequence,
     per_sequence_lengths,
@@ -132,6 +134,7 @@ def launch_time_major(z_tm, y_tm, threshold, eta, lengths, replay: bool):
     comp_loss (B,), x_last (d, B), switch_t (B,))``."""
     global LAUNCHES
     T, d, B = z_tm.shape
+    check_kernel_d(d)
     lib = cuda_build.load()
     fn = (lib.oco_smart_regrets_f64 if z_tm.dtype == torch.float64
           else lib.oco_smart_regrets_f32)
@@ -262,6 +265,7 @@ def launch_smart_sweep_time_major(z_tm, y_tm, thresholds, eta: float,
     global SWEEP_LAUNCHES
     T, d, B = z_tm.shape
     G = thresholds.shape[0]
+    check_kernel_d(d)
     lib = cuda_build.load()
     fn = (lib.oco_smart_sweep_f64 if z_tm.dtype == torch.float64
           else lib.oco_smart_sweep_f32)

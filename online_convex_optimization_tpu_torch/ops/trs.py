@@ -1,0 +1,402 @@
+"""Kernels K9 (batched trust-region solve) and K8 (the quadratic game).
+
+Counterpart of ``online_convex_optimization_tpu/ops/pallas_trs.py``:
+
+- ``trs_solve`` (TPU ``trs_solve_packed`` / ``_trs_kernel``, behind
+  ``ball_ls_action_pallas``): ``argmin_{||x|| <= 1} 0.5 x^T A x - b^T x``
+  for ``(N, d, d)`` A and ``(N, d)`` b, CUDA kernel ``csrc/trs_kernel.cu``,
+  plain version ``trs_solve_reference``;
+- ``quadratic_regrets`` (TPU ``quadratic_regrets_packed`` /
+  ``_quad_game_kernel``): the quadratic-loss game with a per-sequence
+  flag (exact ball-constrained least-squares FTL, or the projected FTRL of
+  ``models/quadratic.py``) and its exact comparator, CUDA kernel
+  ``csrc/quad_game_kernel.cu``, plain version
+  ``quadratic_regrets_reference``.
+
+Both kernels solve with one device function (``oco::trs_action`` in
+``csrc/oco_trs.cuh``), so K8's comparator equals K9 on the same
+statistics bit for bit.  The algorithm is the TPU kernels' safeguarded
+More-Sorensen Newton on the multiplier, with the XLA path's ridge floor
+``eps_rel * (1 + tr/d)`` and final ``x / max(||x||, 1)`` (the source note of
+``oco_trs.cuh`` says why); ``trs_action_reference`` is its plain version,
+operation for operation.  Iterations: 12 in float32, the TPU kernels'
+count; 20 in float64, where the answer has stopped moving after 18 on the
+tests' and a regression stream's prefixes and on random PSD problems
+(``tests/test_torch_quadratic.py::test_f64_newton_has_converged``), and
+agrees with the JAX x64 bisection to 1e-12 wherever ``A + eps I`` is well
+conditioned.  On a singular prefix (t < d) the floor leaves a condition
+number near 1e12: there the two solvers' answers differ by up to ~1e-5
+in the null space (rounding noise amplified), with equal objectives.
+
+The plain version of K8 builds the running statistics with a loop over T
+in the kernel's order, then solves every (round, sequence) prefix in one
+batched Newton: the JAX XLA path's all-prefix pattern, with the same
+arithmetic per problem as K8's per-round solve.  (``torch.cumsum`` would
+sum in another order on CUDA.)
+
+A wrapper runs the plain version on a CPU tensor and launches the kernel
+on a CUDA tensor, for d up to ``MAX_D`` (raising above it).  The TPU
+packing (``pack_stats`` / ``unpack_x``, the (8, 128) tiling) is not
+ported: K9 reads the public ``(N, d, d)`` layout, K8 the time-major
+``(T, d, B)`` one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from online_convex_optimization_tpu_torch.ops.actions import sum_last
+from online_convex_optimization_tpu_torch.ops.game import (
+    ALG_FTL,
+    ALG_FTRL,
+    check_time_major,
+    per_sequence,
+)
+from online_convex_optimization_tpu_torch.utils import cuda_build
+
+# Largest d of the quadratic kernels' instances (csrc/oco_trs.cuh
+# OCO_QUAD_MAX_D); CUDA calls raise above it, the plain versions take any d.
+MAX_D = 32
+
+# (ridge floor eps_rel, Newton iterations) by working dtype.
+TRS_PARAMS = {torch.float32: (1e-6, 12), torch.float64: (1e-12, 20)}
+
+# Launches of each CUDA kernel in this process (counted where it launches):
+# K9 and K8.
+TRS_LAUNCHES = 0
+QUAD_LAUNCHES = 0
+
+_FLOATS = (torch.float32, torch.float64)
+
+
+# Veltkamp split factors 2^ceil(p/2) + 1 (p = 53, 24) for Dekker's
+# two-product.
+_SPLIT = {torch.float64: 134217729.0, torch.float32: 4097.0}
+
+
+def _two_product(a, b):
+    """``a * b = p + e`` exactly (Dekker), with no fused multiply-add."""
+    f = _SPLIT[a.dtype]
+    p = a * b
+    ta, tb = f * a, f * b
+    ah, bh = ta - (ta - a), tb - (tb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def correctly_rounded_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt`` rounded to nearest, as the kernels' is.
+
+    torch's CUDA sqrt is correctly rounded; its CPU sqrt is not in every
+    build (torch 2.13.0+cpu misses by one ulp on some inputs in f64 and
+    f32, sqrt(2) among them).  In a singular prefix one ulp
+    in a Cholesky pivot moves the f64 solution by up to ~1e-4 (the ridge
+    floor leaves A + eps I with a condition number near 1e12), so on the
+    CPU the faithful result ``s`` is replaced by its neighbour towards
+    ``sqrt(x)`` (the side the sign of ``s^2 - x`` points to) when that has
+    the smaller exact residual ``|c^2 - x|``.
+    """
+    s = torch.sqrt(x)
+    if x.device.type != "cpu":
+        return s
+    p, e = _two_product(s, s)
+    r = (p - x) + e
+    c = torch.nextafter(s, torch.where(r > 0, 0.0, float("inf")).to(s.dtype))
+    pc, ec = _two_product(c, c)
+    better = (torch.abs((pc - x) + ec) < torch.abs(r)) & (x > 0)
+    return torch.where(better, c, s)
+
+
+def tri_index(d: int):
+    """``(rows, cols)`` of the packed lower triangle, row by row: entry
+    ``(i, j)``, ``j <= i``, sits at ``i (i + 1) / 2 + j``."""
+    rows = [i for i in range(d) for _ in range(i + 1)]
+    cols = [j for i in range(d) for j in range(i + 1)]
+    return rows, cols
+
+
+def _tri(i: int, j: int) -> int:
+    return i * (i + 1) // 2 + j
+
+
+def _dot(a, b):
+    """Index-order sum of ``a[i] * b[i]`` over two lists of tensors."""
+    acc = a[0] * b[0]
+    for i in range(1, len(a)):
+        acc = acc + a[i] * b[i]
+    return acc
+
+
+def _chol_factor(A, lam, d):
+    """Lower factor of ``A + lam I`` as a list of entries (packed order)."""
+    L = [None] * len(A)
+    for i in range(d):
+        for j in range(i + 1):
+            s = A[_tri(i, j)] + lam if i == j else A[_tri(i, j)]
+            for k in range(j):
+                s = s - L[_tri(i, k)] * L[_tri(j, k)]
+            L[_tri(i, j)] = (correctly_rounded_sqrt(s) if i == j
+                             else s / L[_tri(j, j)])
+    return L
+
+
+def _fwd_solve(L, b, d):
+    v = []
+    for i in range(d):
+        s = b[i]
+        for k in range(i):
+            s = s - L[_tri(i, k)] * v[k]
+        v.append(s / L[_tri(i, i)])
+    return v
+
+
+def _bwd_solve(L, v, d):
+    x = [None] * d
+    for i in reversed(range(d)):
+        s = v[i]
+        for k in range(i + 1, d):
+            s = s - L[_tri(k, i)] * x[k]
+        x[i] = s / L[_tri(i, i)]
+    return x
+
+
+def trs_action_reference(A, b):
+    """Plain version of ``oco::trs_action``: the trust-region action of a
+    batch of problems given as a list of packed lower-triangle entries
+    ``A`` and a list of ``b`` components, each a tensor over the batch.
+    Returns the list of ``x`` components."""
+    d = len(b)
+    eps_rel, iters = TRS_PARAMS[b[0].dtype]
+    tr = A[0]
+    for i in range(1, d):
+        tr = tr + A[_tri(i, i)]
+    # tensor / tensor: a Python number divisor multiplies by a reciprocal.
+    eps = eps_rel * (1.0 + tr / torch.full_like(tr, d))
+    lam = torch.zeros_like(tr)
+    lo = torch.zeros_like(tr)
+    hi = correctly_rounded_sqrt(_dot(b, b))
+    for _ in range(iters):
+        L = _chol_factor(A, lam + eps, d)
+        x = _bwd_solve(L, _fwd_solve(L, b, d), d)
+        n2 = _dot(x, x)
+        q = _fwd_solve(L, x, d)
+        nq2 = _dot(q, q)
+        outside = n2 > 1.0
+        lo = torch.where(outside, lam, lo)
+        hi = torch.where(outside, hi, lam)
+        step = ((n2 / torch.clamp(nq2, min=1e-30))
+                * (correctly_rounded_sqrt(n2) - 1.0))
+        lam_n = lam + step
+        # Newton from below converges monotonically; a step that leaves the
+        # bracket strictly takes the midpoint instead.
+        lam = torch.where((lam_n < lo) | (lam_n > hi), 0.5 * (lo + hi), lam_n)
+    L = _chol_factor(A, lam + eps, d)
+    x = _bwd_solve(L, _fwd_solve(L, b, d), d)
+    den = torch.clamp(correctly_rounded_sqrt(_dot(x, x)), min=1.0)
+    return [xi / den for xi in x]
+
+
+def check_trs(A: torch.Tensor, b: torch.Tensor):
+    """Validate ``(N, d, d)`` / ``(N, d)`` problems; return ``(N, d)``."""
+    if A.ndim != 3 or b.ndim != 2 or A.shape != (*b.shape, b.shape[1]):
+        raise ValueError(f"expected A (N, d, d) and b (N, d), got "
+                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if A.dtype not in _FLOATS or b.dtype != A.dtype:
+        raise TypeError(f"A and b must share dtype float32 or float64, got "
+                        f"{A.dtype} and {b.dtype}")
+    if b.device != A.device:
+        raise ValueError(f"A on {A.device} but b on {b.device}")
+    N, d = b.shape
+    if N < 1 or d < 1:
+        raise ValueError(f"empty batch: b has shape {tuple(b.shape)}")
+    return N, d
+
+
+def check_quad_kernel_d(d: int) -> None:
+    """Raise for a d the CUDA kernels K8 and K9 have no instance of."""
+    if d > MAX_D:
+        raise ValueError(f"d = {d} exceeds the quadratic CUDA kernels' "
+                         f"limit d <= {MAX_D}; larger d runs only on the CPU")
+
+
+def trs_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel K9 on ``(N, d, d)`` / ``(N, d)``
+    (the lower triangle of A is read); returns ``(N, d)``."""
+    d = b.shape[-1]
+    rows, cols = tri_index(d)
+    A_tri = A[:, rows, cols]
+    x = trs_action_reference([A_tri[:, k] for k in range(len(rows))],
+                             [b[:, i] for i in range(d)])
+    return torch.stack(x, dim=-1)
+
+
+def launch_trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch kernel K9 on contiguous CUDA problems; returns ``(N, d)``."""
+    global TRS_LAUNCHES
+    N, d = b.shape
+    check_quad_kernel_d(d)
+    lib = cuda_build.load()
+    fn = lib.oco_trs_solve_f64 if A.dtype == torch.float64 else \
+        lib.oco_trs_solve_f32
+    with torch.cuda.device(A.device):
+        x = torch.empty((N, d), dtype=A.dtype, device=A.device)
+        err = fn(A.data_ptr(), b.data_ptr(), N, d, x.data_ptr(),
+                 torch.cuda.current_stream(A.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"trust-region kernel launch failed: CUDA "
+                               f"error {err}")
+        TRS_LAUNCHES += 1
+    return x
+
+
+def trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``argmin_{||x|| <= 1} 0.5 x^T A x - b^T x`` for PSD A.
+
+    Args:
+      A: ``(N, d, d)`` float32/float64 (its lower triangle is read);
+        b: ``(N, d)`` of the same dtype.
+
+    Returns:
+      ``(N, d)`` with ``||x|| <= 1``.  On a CUDA tensor this launches
+      kernel K9 (or raises); on a CPU tensor it runs
+      ``trs_solve_reference``.
+    """
+    check_trs(A, b)
+    if A.device.type == "cuda":
+        return launch_trs_solve(A.contiguous(), b.contiguous())
+    if A.device.type == "cpu":
+        return trs_solve_reference(A, b)
+    raise ValueError(f"unsupported device {A.device}")
+
+
+# --------------------------------------------------- K8: the quadratic game
+
+def quadratic_comparator_loss_tri(A, b, c, x, d):
+    """``0.5 * (x^T A x - 2 b^T x + c)`` from packed statistics (lists of
+    tensors), in K8's order: ``xa_i = sum_j a_ij x_j``, then the two
+    index-order sums."""
+    quad = torch.zeros_like(c)
+    dotb = torch.zeros_like(c)
+    for i in range(d):
+        xa = torch.zeros_like(c)
+        for j in range(d):
+            xa = xa + A[_tri(i, j) if j <= i else _tri(j, i)] * x[j]
+        quad = quad + x[i] * xa
+        dotb = dotb + b[i] * x[i]
+    return 0.5 * ((quad - 2.0 * dotb) + c)
+
+
+def quadratic_regrets_reference(z_tm, y_tm, alg_flag, eta):
+    """Plain PyTorch version of kernel K8.
+
+    Args:
+      z_tm: ``(T, d, B)``; y_tm: ``(T, B)``; alg_flag ``(B,)`` int (0 =
+        FTRL, 1 = FTL); eta ``(B,)``.
+
+    Returns:
+      ``(cum (B,), comp (B,), x_c (d, B), x_last (d, B))``: the played
+      losses, the exact comparator's loss and action, the last action.
+    """
+    T, d, B = z_tm.shape
+    rows, cols = tri_index(d)
+    # Running statistics in K8's order; A_pre[t] holds them before round t.
+    A_run = z_tm.new_zeros((B, len(rows)))
+    b_run = z_tm.new_zeros((B, d))
+    c = z_tm.new_zeros((B,))
+    A_pre = z_tm.new_empty((T, B, len(rows)))
+    b_pre = z_tm.new_empty((T, B, d))
+    # FTRL track, sequential and O(d) per round.
+    theta = z_tm.new_zeros((B, d))
+    cum_r = z_tm.new_zeros((B,))
+    x_r = z_tm.new_zeros((B, d))
+    rounds = torch.arange(1, T + 1, dtype=z_tm.dtype, device=z_tm.device)
+    scales = -torch.div(eta[None, :], correctly_rounded_sqrt(rounds)[:, None])
+    for t in range(T):
+        z_t, y_t = z_tm[t].t(), y_tm[t]
+        A_pre[t], b_pre[t] = A_run, b_run
+        x_r = scales[t][:, None] * theta
+        x_r = x_r / torch.clamp(correctly_rounded_sqrt(sum_last(x_r * x_r)),
+                                min=1.0)[:, None]
+        r = sum_last(z_t * x_r) - y_t
+        cum_r = cum_r + 0.5 * r * r
+        theta = theta + r[:, None] * z_t
+        A_run = A_run + z_t[:, rows] * z_t[:, cols]
+        b_run = b_run + y_t[:, None] * z_t
+        c = c + y_t * y_t
+    # Exact-FTL track: every prefix in one batched solve.
+    x_f = torch.stack(trs_action_reference(
+        [A_pre[..., k] for k in range(len(rows))],
+        [b_pre[..., i] for i in range(d)]), dim=-1)           # (T, B, d)
+    r = sum_last(z_tm.transpose(1, 2) * x_f) - y_tm              # (T, B)
+    loss = 0.5 * r * r
+    cum_f = z_tm.new_zeros((B,))
+    for t in range(T):                     # K8's order of summation
+        cum_f = cum_f + loss[t]
+    A_fin = [A_run[:, k] for k in range(len(rows))]
+    b_fin = [b_run[:, i] for i in range(d)]
+    x_c = trs_action_reference(A_fin, b_fin)
+    comp = quadratic_comparator_loss_tri(A_fin, b_fin, c, x_c, d)
+    is_ftrl = alg_flag == ALG_FTRL
+    cum = torch.where(is_ftrl, cum_r, cum_f)
+    x_f_last = x_f[-1] if T > 0 else torch.zeros_like(x_r)
+    x_last = torch.where(is_ftrl[:, None], x_r, x_f_last)
+    return cum, comp, torch.stack(x_c), x_last.t().contiguous()
+
+
+def launch_quadratic_regrets(z_tm, y_tm, flags, eta):
+    """Launch kernel K8 on contiguous time-major CUDA inputs with
+    per-sequence ``flags`` (int32) and ``eta``; returns ``(cum (B,),
+    comp (B,), x_c (d, B), x_last (d, B))``."""
+    global QUAD_LAUNCHES
+    T, d, B = z_tm.shape
+    check_quad_kernel_d(d)
+    lib = cuda_build.load()
+    fn = lib.oco_quad_game_f64 if z_tm.dtype == torch.float64 else \
+        lib.oco_quad_game_f32
+    with torch.cuda.device(z_tm.device):
+        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
+        comp = torch.empty_like(cum)
+        x_c = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
+        x_last = torch.empty_like(x_c)
+        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
+                 eta.data_ptr(), T, B, d, cum.data_ptr(), comp.data_ptr(),
+                 x_c.data_ptr(), x_last.data_ptr(),
+                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"quadratic game kernel launch failed: CUDA "
+                               f"error {err}")
+        QUAD_LAUNCHES += 1
+    return cum, comp, x_c, x_last
+
+
+def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
+                      eta=1.0):
+    """The quadratic-loss game, ``loss_t(x) = 0.5 (<z_t, x> - y_t)^2`` on the
+    unit ball, with the exact comparator from the carried statistics.
+
+    Args:
+      z_tm: ``(T, d, B)`` float32/float64; y_tm: ``(T, B)``.  Zero rows are
+        inert for the statistics and the losses.
+      alg_flag: 0 = FTRL (projected gradient leader), 1 = exact FTL; a
+        scalar or ``(B,)``.
+      eta: FTRL step scale, scalar or ``(B,)`` (ignored for FTL).
+
+    Returns:
+      ``(cum_loss (B,), comp_loss (B,), x_c (d, B), x_last (d, B))``.  On a
+      CUDA tensor this launches kernel K8 (or raises); on a CPU tensor it
+      runs ``quadratic_regrets_reference``.
+    """
+    T, d, B = check_time_major(z_tm, y_tm)
+    flags = per_sequence(alg_flag, B, torch.int32, z_tm.device)
+    eta = per_sequence(eta, B, z_tm.dtype, z_tm.device)
+    if z_tm.device.type == "cuda":
+        return launch_quadratic_regrets(z_tm.contiguous(), y_tm.contiguous(),
+                                        flags, eta)
+    if z_tm.device.type == "cpu":
+        return quadratic_regrets_reference(z_tm, y_tm, flags, eta)
+    raise ValueError(f"unsupported device {z_tm.device}")
+
+
+__all__ = ["ALG_FTL", "ALG_FTRL", "MAX_D", "trs_solve", "trs_solve_reference",
+           "trs_action_reference", "quadratic_regrets",
+           "quadratic_regrets_reference"]

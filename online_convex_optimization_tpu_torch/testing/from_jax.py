@@ -5,7 +5,10 @@ hyperparameters (z, y, lengths, eta, thresholds, flags).  They cross between
 the two packages as NumPy arrays; ``to_torch`` turns the arrays a JAX test
 builds into the port's tensors with the same bits, so both packages compute
 on identical inputs.  ``stream_carry_from_jax`` carries a streamed game's
-state across: a run begun in the JAX package finishes in the port.
+state across: a run begun in the JAX package finishes in the port.  The packed
+game (K3, K3e) and the quadratic game (K8) carry nothing across: the JAX
+package exposes no carry for them and both start from zero state, so they
+need no function here.
 """
 
 from __future__ import annotations

@@ -30,9 +30,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "liboco_torch_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 
-# Feature dimensions above this have no kernel instance (csrc/oco_common.cuh
-# OCO_MAX_D); the wrappers raise.
-MAX_D = 64
+# Feature dimensions above this have no instance of the hinge-game kernels
+# K1-K6 (csrc/oco_common.cuh OCO_LARGE_D, the JAX package's
+# _D_KERNEL_MAX); their wrappers raise on a CUDA tensor.  The quadratic
+# kernels K8 and K9 have their own limit (ops/trs.py MAX_D).
+MAX_D = 512
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +57,12 @@ for _ty in ("f64", "f32"):
                                    _P, _P, _P],
         f"oco_play_stream_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
+        f"oco_play_packed_eta_{_ty}": [_P, _P, _P, _LL, _LL, _I, _P, _P,
+                                       _P],
+        f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P,
+                                 _P, _P],
+        f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P],
     })
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,7 @@
-"""Kernels K1, K2, K4, K5 and K6 on the card against their plain PyTorch
-versions, and the sweeps and the stream against K1 and K2.
+"""Kernels K1-K6, K8 and K9 on the card against their plain PyTorch
+versions; the sweeps, the stream and the packed game (K3, K3e) against K1
+and K2; K8's comparator against K9; the quadratic study against its CPU
+run.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports only
 torch, numpy and the port, so it also runs where JAX is not installed:
@@ -17,7 +19,10 @@ from online_convex_optimization_tpu_torch.data.sequences import CASES
 from online_convex_optimization_tpu_torch.models.streaming import (
     StreamingKernelGame,
 )
-from online_convex_optimization_tpu_torch.ops import game, smart
+from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
+    evaluate_quadratic_stream,
+)
+from online_convex_optimization_tpu_torch.ops import game, smart, trs
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
@@ -113,8 +118,8 @@ def test_deterministic_families_match_golden_on_card(cuda, title, T):
 
 
 def test_kernel_rejects_d_above_max(cuda):
-    z = torch.zeros((2, 4, 65), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
+    z = torch.zeros((2, 4, 513), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="d <= 512"):
         game.regrets_fused(z, torch.ones((2, 4), dtype=torch.float64,
                                          device=cuda), 0, 1.0)
 
@@ -240,3 +245,87 @@ def test_stream_chunked_equals_one_k1_launch(cuda, alg_flag):
     assert torch.equal(got.cum_loss, cum)
     assert torch.equal(got.comp_loss, comp)
     assert torch.equal(got.regret, cum - comp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 3, 96])
+def test_packed_kernels_match_plain_and_k1(cuda, dtype, d):
+    """K3 (both flags) and K3e against their plain versions; their cum
+    against K1's bit for bit."""
+    z, y, _ = _batch(300, 90, d, seed=80 + d)
+    zt, yt = _to((z, y), cuda, dtype)
+    z_tm, y_tm = game.time_major(zt, yt)
+    scales = game.ftrl_scales(90, 1.3, dtype=dtype, device=cuda)
+    etas = torch.linspace(0.05, 4.0, 300, dtype=dtype, device=cuda)
+    before = (game.PACKED_LAUNCHES, game.PACKED_ETA_LAUNCHES)
+    for flag in (0, 1):
+        got = game.play_packed(z_tm, y_tm, scales, alg_flag=flag)
+        want = game.play_packed_reference(z_tm, y_tm, scales, flag)
+        assert _max_err(got, want) <= TOL[dtype]
+        assert torch.equal(got[0], game.regrets_fused(zt, yt, flag, 1.3)[0])
+    got = game.play_packed_eta(z_tm, y_tm, etas)
+    assert _max_err(got, game.play_packed_eta_reference(z_tm, y_tm, etas)
+                    ) <= TOL[dtype]
+    assert torch.equal(got[0], game.regrets_fused(zt, yt, 0, etas)[0])
+    torch.cuda.synchronize()
+    assert (game.PACKED_LAUNCHES, game.PACKED_ETA_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_large_d_instances_match_plain(cuda, dtype):
+    """K1 and K2 at d = 256 (the large-d instance) and d = 512, the limit."""
+    for d in (256, 512):
+        z, y, lengths = _batch(64, 24, d, seed=d)
+        zt, yt = _to((z, y), cuda, dtype)
+        ln = game.per_sequence(lengths, 64, torch.int32, cuda)
+        fl = game.per_sequence(np.arange(64) % 2, 64, torch.int32, cuda)
+        et = game.per_sequence(1.3, 64, dtype, cuda)
+        assert _max_err(game.regrets_fused(zt, yt, fl, et, ln),
+                        game.regrets_fused_reference(zt, yt, fl, et, ln)
+                        ) <= TOL[dtype]
+        th = game.per_sequence(2.0, 64, dtype, cuda)
+        got = smart.smart_regrets(zt, yt, th, et, ln)
+        want = smart.smart_regrets_reference(zt, yt, th, et, ln)
+        assert _max_err(got[:3], want[:3]) <= TOL[dtype]
+        assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 3])
+def test_quadratic_kernels_match_plain(cuda, dtype, d):
+    """K8 (mixed flags) and K9 against their plain versions; K8's x_c is K9
+    on the final statistics bit for bit."""
+    rng = np.random.default_rng(90 + d)
+    B, T = 200, 120
+    z = rng.normal(size=(B, T, d))
+    z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
+    y = z @ (np.ones(d) / np.sqrt(d)) + 0.2 * rng.normal(size=(B, T))
+    zt, yt = _to((z, y), cuda, dtype)
+    z_tm, y_tm = game.time_major(zt, yt)
+    flags = game.per_sequence(np.arange(B) % 2, B, torch.int32, cuda)
+    eta = game.per_sequence(np.linspace(0.5, 2.0, B), B, dtype, cuda)
+    before = trs.QUAD_LAUNCHES
+    got = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+    want = trs.quadratic_regrets_reference(z_tm, y_tm, flags, eta)
+    assert _max_err(got, want) <= TOL[dtype]
+    A = torch.zeros((B, d, d), dtype=dtype, device=cuda)
+    b = torch.zeros((B, d), dtype=dtype, device=cuda)
+    for t in range(T):
+        A = A + zt[:, t, :, None] * zt[:, t, None, :]
+        b = b + yt[:, t, None] * zt[:, t]
+    x9 = trs.trs_solve(A, b)
+    assert _max_err((x9,), (trs.trs_solve_reference(A, b),)) <= TOL[dtype]
+    torch.cuda.synchronize()
+    assert trs.QUAD_LAUNCHES == before + 1
+    if dtype == torch.float64:
+        assert torch.equal(got[2], x9.t())
+
+
+def test_quadratic_study_cuda_equals_cpu(cuda):
+    kw = dict(runs=2, replicates=2, dtype=np.float64)
+    got = evaluate_quadratic_stream((100, 200), device=cuda, **kw)
+    want = evaluate_quadratic_stream((100, 200), device="cpu", **kw)
+    for k in got:
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)

@@ -42,19 +42,35 @@ res = streaming_long_horizon.main(["--device", "cpu", "--batch", "8",
                                    "--chunk", "8", "--chunks", "4"])
 assert res.regret.shape == (8,) and bool(np.isfinite(res.regret).all())
 
+# The quadratic track and the packed game API, on the CPU.
+import torch
+from online_convex_optimization_tpu_torch.experiments import quadratic_study
+from online_convex_optimization_tpu_torch.ops import trs
+study = quadratic_study.main(["--t-min", "20", "--t-max", "40", "--t-step",
+                              "20", "--runs", "2", "--replicates", "2",
+                              "--out-dir", sys.argv[1], "--device", "cpu"])
+assert np.isfinite(study["stats"]["FTL (exact LS)"]["mean"]).all()
+zb = torch.from_numpy(np.stack([z] * 3))
+yb = torch.from_numpy(np.stack([y] * 3))
+assert game.simulate_linear_auto(zb, yb, 0, 1.0).shape == (3,)
+assert game.kernel_envelope(3, 60, 5) is None
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("online_convex_optimization_tpu.")
                or m == "online_convex_optimization_tpu" for m in sys.modules)
 assert game.LAUNCHES == 0 and smart.LAUNCHES == 0
 assert game.SWEEP_LAUNCHES == game.STREAM_LAUNCHES == smart.SWEEP_LAUNCHES == 0
+assert game.PACKED_LAUNCHES == game.PACKED_ETA_LAUNCHES == 0
+assert trs.TRS_LAUNCHES == trs.QUAD_LAUNCHES == 0
 print("OK")
 """
 
 
-def test_port_runs_without_jax_and_launches_nothing_on_cpu():
+def test_port_runs_without_jax_and_launches_nothing_on_cpu(tmp_path):
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(ROOT),
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
+                         cwd=str(ROOT), env=env, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
 

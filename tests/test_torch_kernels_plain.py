@@ -169,6 +169,11 @@ def test_wrappers_reject_bad_inputs():
         game.regrets_fused(z, y, 0, 1.0, [5, 4])           # length > T
     with pytest.raises(TypeError):
         game.regrets_fused(z, y.float(), 0, 1.0)            # mixed dtypes
-    with pytest.raises(ValueError):
-        smart.smart_regrets(torch.zeros((2, 4, 65), dtype=torch.float64),
-                            y, 1.0, 1.0)                    # d above MAX_D
+    # The plain versions take any d; a kernel launch refuses d above 512
+    # (the JAX package's _D_KERNEL_MAX) before it reaches the library.
+    z = torch.zeros((2, 4, 513), dtype=torch.float64)
+    assert bool(torch.isfinite(smart.smart_regrets(z, y, 1.0, 1.0)[0]).all())
+    args = (*game.time_major(z, y), *(torch.ones(2, dtype=torch.float64),) * 2,
+            torch.full((2,), 4, dtype=torch.int32), False)
+    with pytest.raises(ValueError, match="d <= 512"):
+        smart.launch_time_major(*args)

@@ -95,22 +95,40 @@ def test_api_matches_jax_api():
     sampler_args = {"run_seed": 2025}
     z, y, _ = CASES["Massart noise 10%"](**sampler_args)(150, rep=2)
     for flag in (0, 1):
-        assert abs(pt_oco.simulate_alg(z, y, flag, ETA) -
+        assert abs(pt_oco.simulate_alg(z, y, flag, ETA, device="cpu") -
                    jax_oco.simulate_alg(z, y, flag, ETA)) <= TOL
-    assert abs(pt_oco.simulate_SMART(z, y) - jax_oco.simulate_SMART(z, y)) <= TOL
-    assert abs(pt_oco.simulate_empirical_g_SMART(z, y, 4.5) -
+    assert abs(pt_oco.simulate_SMART(z, y, device="cpu") - jax_oco.simulate_SMART(z, y)) <= TOL
+    assert abs(pt_oco.simulate_empirical_g_SMART(z, y, 4.5, device="cpu") -
                jax_oco.simulate_empirical_g_SMART(z, y, 4.5)) <= TOL
-    assert abs(pt_oco.simulate_SMART_like(z, y, 2.5, 0.8) -
+    assert abs(pt_oco.simulate_SMART_like(z, y, 2.5, 0.8, device="cpu") -
                jax_oco.simulate_SMART_like(z, y, 2.5, 0.8)) <= TOL
     zb, yb, _ = _batch(B=6, T=40, seed=4)
-    np.testing.assert_allclose(pt_oco.simulate_alg(zb, yb, 0, ETA),
+    np.testing.assert_allclose(pt_oco.simulate_alg(zb, yb, 0, ETA, device="cpu"),
                                jax_oco.simulate_alg(zb, yb, 0, ETA),
                                rtol=0, atol=TOL)
-    got = pt_oco.empirical_worst_case_thresholds([50, 120], runs=7)
+    got = pt_oco.empirical_worst_case_thresholds([50, 120], runs=7,
+                                               device="cpu")
     want = jax_oco.empirical_worst_case_thresholds([50, 120], runs=7)
     assert got.keys() == want.keys()
     for T in got:
         assert abs(got[T] - want[T]) <= TOL
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card, an entry point called without a device raises; it
+    does not quietly run on the CPU."""
+    from online_convex_optimization_tpu_torch.models.streaming import (
+        StreamingKernelGame)
+    from online_convex_optimization_tpu_torch.ops import game
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z, y, _ = _batch(B=2, T=8, seed=1)
+    for call in (lambda: pt_oco.simulate_alg(z[0], y[0], 0, 1.0),
+                 lambda: pt_oco.simulate_SMART(z, y),
+                 lambda: StreamingKernelGame(2, 5),
+                 lambda: game.zero_stream_carry(2, 5)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
 
 
 @pytest.mark.parametrize("title", ["Label flips", "Switching leaders"])
@@ -118,7 +136,7 @@ def test_api_matches_jax_api():
 def test_deterministic_families_equal_golden(title, T):
     z, y, _ = CASES[title](run_seed=2025)(T)
     for flag in (0, 1):
-        assert abs(pt_oco.simulate_alg(z, y, flag, ETA) -
+        assert abs(pt_oco.simulate_alg(z, y, flag, ETA, device="cpu") -
                    pt_golden.golden_simulate_alg(z, y, flag, ETA)) <= TOL
     zt, yt = to_torch((z, y), "cpu", torch.float64)
     for thr in (math.sqrt(2.0 * T), 10.0, 2.75):

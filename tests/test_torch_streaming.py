@@ -77,7 +77,7 @@ def _one_shot(z, y, alg_flag, eta):
 def test_kernel_game_chunked_equals_one_shot_bitwise(alg_flag):
     z, y = _contract_batch(24, 90, seed=1)
     kg = StreamingKernelGame(24, 5, alg_flag=alg_flag, eta0=ETA,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     for zc, yc in _chunks(z, y, (0, 32, 64, 90)):
         kg.feed(zc, yc)
     assert kg.t == 90
@@ -90,7 +90,7 @@ def test_kernel_game_chunked_equals_one_shot_bitwise(alg_flag):
 @pytest.mark.parametrize("alg_flag", [0, 1])
 def test_streaming_game_replay_matches_one_shot(alg_flag):
     z, y = _contract_batch(20, 80, seed=2)
-    sg = StreamingGame(20, 5, alg_flag=alg_flag, eta0=ETA, dtype=torch.float64)
+    sg = StreamingGame(20, 5, alg_flag=alg_flag, eta0=ETA, dtype=torch.float64, device="cpu")
     feed = _chunks(z, y, (0, 40, 80))
     for zc, yc in feed:
         sg.feed(zc, yc)
@@ -102,7 +102,7 @@ def test_streaming_game_replay_matches_one_shot(alg_flag):
 
 def test_d8_odd_chunk_lengths():
     z, y = _contract_batch(16, 70, d=8, seed=31)
-    kg = StreamingKernelGame(16, 8, eta0=1.3, dtype=torch.float64)
+    kg = StreamingKernelGame(16, 8, eta0=1.3, dtype=torch.float64, device="cpu")
     for zc, yc in _chunks(z, y, (0, 25, 70)):       # chunks of 25 and 45 rows
         kg.feed(zc, yc)
     got = kg.result()
@@ -116,7 +116,7 @@ def test_zero_sequences_stay_inert():
     z, y = _contract_batch(6, 40, seed=5)
     z[2], y[2] = 0.0, 0.0                    # an all-zero padding sequence
     kg = StreamingKernelGame(6, 5, eta0=ETA, dtype=torch.float64,
-                             validate=True)
+                             validate=True, device="cpu")
     for zc, yc in _chunks(z, y, (0, 17, 40)):
         kg.feed(zc, yc)
     for t in kg.carry:
@@ -138,9 +138,9 @@ def test_matches_jax_streaming_game_x64(alg_flag):
     feed = _chunks(z, y, (0, 30, 60, 75))
     jg = JaxStreamingGame(12, 5, alg_flag=alg_flag, eta0=ETA,
                           dtype=jnp.float64)
-    sg = StreamingGame(12, 5, alg_flag=alg_flag, eta0=ETA, dtype=torch.float64)
+    sg = StreamingGame(12, 5, alg_flag=alg_flag, eta0=ETA, dtype=torch.float64, device="cpu")
     kg = StreamingKernelGame(12, 5, alg_flag=alg_flag, eta0=ETA,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     for zc, yc in feed:
         jg.feed(zc, yc)
         sg.feed(zc, yc)
@@ -159,7 +159,7 @@ def test_matches_jax_kernel_game_interpret_f32(alg_flag):
     feed = _chunks(z, y, (0, 32, 64))
     jg = JaxStreamingKernelGame(40, 5, alg_flag=alg_flag, eta0=1.3,
                                 interpret=True)
-    kg = StreamingKernelGame(40, 5, alg_flag=alg_flag, eta0=1.3)
+    kg = StreamingKernelGame(40, 5, alg_flag=alg_flag, eta0=1.3, device="cpu")
     for zc, yc in feed:
         jg.feed(zc, yc)
         kg.feed(zc, yc)
@@ -178,7 +178,7 @@ def test_carry_from_jax_finishes_in_the_port():
     jg = JaxStreamingKernelGame(B, 5, eta0=1.1, interpret=True)
     jg.feed(*first)
     saved = jg.carry_state()
-    kg = StreamingKernelGame(B, 5, eta0=1.1)
+    kg = StreamingKernelGame(B, 5, eta0=1.1, device="cpu")
     kg.resume(stream_carry_from_jax(saved, B))
     assert kg.t == 32
     jg.feed(*second)
@@ -196,15 +196,15 @@ def test_carry_from_jax_finishes_in_the_port():
 def test_checkpoint_resume_is_bitwise(tmp_path, cls):
     z, y = _contract_batch(16, 96, seed=22)
     feed = _chunks(z, y, (0, 32, 64, 96))
-    full = cls(16, 5, eta0=0.9, dtype=torch.float64)
+    full = cls(16, 5, eta0=0.9, dtype=torch.float64, device="cpu")
     for zc, yc in feed:
         full.feed(zc, yc)
-    first = cls(16, 5, eta0=0.9, dtype=torch.float64)
+    first = cls(16, 5, eta0=0.9, dtype=torch.float64, device="cpu")
     for zc, yc in feed[:2]:
         first.feed(zc, yc)
     path = str(tmp_path / "ckpt" / "carry.npz")
     save_pytree(path, first.carry_state())
-    second = cls(16, 5, eta0=0.9, dtype=torch.float64)
+    second = cls(16, 5, eta0=0.9, dtype=torch.float64, device="cpu")
     second.resume(load_pytree(path))
     assert second.t == 64
     second.feed(*feed[2])
@@ -214,8 +214,8 @@ def test_checkpoint_resume_is_bitwise(tmp_path, cls):
 
 
 def test_resume_rejects_a_carry_of_another_shape():
-    kg = StreamingKernelGame(8, 5)
-    state = StreamingKernelGame(9, 5).carry_state()
+    kg = StreamingKernelGame(8, 5, device="cpu")
+    state = StreamingKernelGame(9, 5, device="cpu").carry_state()
     with pytest.raises(ValueError, match="theta"):
         kg.resume(state)
 
@@ -224,24 +224,24 @@ def test_feed_many_packed_equals_sequential_feeds():
     z, y = _contract_batch(16, 96, seed=41, dtype=np.float32)
     ztm = torch.as_tensor(z).permute(1, 2, 0).contiguous()   # (T, d, B)
     ytm = torch.as_tensor(y).t().contiguous()
-    a = StreamingKernelGame(16, 5, eta0=1.2)
+    a = StreamingKernelGame(16, 5, eta0=1.2, device="cpu")
     for c in range(0, 96, 32):
         a.feed_packed(ztm[c:c + 32], ytm[c:c + 32])
-    b = StreamingKernelGame(16, 5, eta0=1.2)
+    b = StreamingKernelGame(16, 5, eta0=1.2, device="cpu")
     b.feed_many_packed(ztm.reshape(3, 32, 5, 16), ytm.reshape(3, 32, 16))
     assert a.t == b.t == 96
     for u, v in zip(a.carry, b.carry):
         assert torch.equal(u, v)
     many = game.play_stream_many(ztm.reshape(3, 32, 5, 16),
                                  ytm.reshape(3, 32, 16), 1.2, 0,
-                                 game.zero_stream_carry(16, 5))
+                                 game.zero_stream_carry(16, 5, device="cpu"))
     assert torch.equal(game.stream_result(many)[0], a.result().regret)
 
 
 def test_validate_rejects_rows_outside_the_contract():
     z, y = _contract_batch(8, 32, seed=23)
     (zc, yc), = _chunks(z, y, (0, 32))
-    kg = StreamingKernelGame(8, 5, dtype=torch.float64, validate=True)
+    kg = StreamingKernelGame(8, 5, dtype=torch.float64, validate=True, device="cpu")
     with pytest.raises(ValueError, match="unit L2 ball"):
         kg.feed(3.0 * zc, yc)
     with pytest.raises(ValueError, match="labels"):
@@ -251,7 +251,7 @@ def test_validate_rejects_rows_outside_the_contract():
     with pytest.raises(ValueError, match="labels"):
         kg.feed(zc, y_zero)
     assert kg.t == 0                          # nothing was played
-    loose = StreamingKernelGame(8, 5, dtype=torch.float64)
+    loose = StreamingKernelGame(8, 5, dtype=torch.float64, device="cpu")
     loose.feed(3.0 * zc, yc)                  # without validate: caller's
     assert loose.t == 32
 
@@ -262,7 +262,7 @@ def test_feed_many_packed_validates_every_chunk_before_playing():
     ytm = torch.as_tensor(y).t().contiguous()
     z_stack = ztm.reshape(2, 32, 5, 8).clone()
     z_stack[1, 7] *= 3.0                      # second chunk leaves the ball
-    kg = StreamingKernelGame(8, 5, dtype=torch.float64, validate=True)
+    kg = StreamingKernelGame(8, 5, dtype=torch.float64, validate=True, device="cpu")
     with pytest.raises(ValueError, match="unit L2 ball"):
         kg.feed_many_packed(z_stack, ytm.reshape(2, 32, 8))
     assert kg.t == 0                          # not even the first chunk
@@ -272,18 +272,18 @@ def test_feed_many_packed_validates_every_chunk_before_playing():
 
 
 def test_play_stream_checks_its_carry():
-    carry = game.zero_stream_carry(4, 5, torch.float64)
+    carry = game.zero_stream_carry(4, 5, torch.float64, device="cpu")
     z = torch.zeros((3, 5, 4), dtype=torch.float64)
     y = torch.zeros((3, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="carry"):
         game.play_stream(z, y, 1.0, 0, game.zero_stream_carry(4, 6,
-                                                              torch.float64))
+                                                              torch.float64, device="cpu"))
     with pytest.raises(ValueError, match="carry"):
         game.play_stream(z.float(), y.float(), 1.0, 0, carry)
     with pytest.raises(ValueError, match="t0"):
         game.play_stream(z, y, 1.0, -1, carry)
     with pytest.raises(TypeError):
-        game.zero_stream_carry(4, 5, torch.float16)
+        game.zero_stream_carry(4, 5, torch.float16, device="cpu")
 
 
 def test_play_stream_round_index_is_global():
@@ -292,7 +292,7 @@ def test_play_stream_round_index_is_global():
     z, y = _contract_batch(10, 64, seed=7)
     ztm = torch.as_tensor(z).permute(1, 2, 0).contiguous()
     ytm = torch.as_tensor(y).t().contiguous()
-    carry = game.zero_stream_carry(10, 5, torch.float64)
+    carry = game.zero_stream_carry(10, 5, torch.float64, device="cpu")
     whole = game.play_stream(ztm, ytm, ETA, 0, carry)
     half = game.play_stream(ztm[:32], ytm[:32], ETA, 0, carry)
     rest = game.play_stream(ztm[32:], ytm[32:], ETA, 32, half)
