@@ -61,14 +61,32 @@ non-zero without printing a result):
                that batch against trs_solve_reference, its counter
                rising; K8's x_c against K9 on the final statistics bit for
                bit; K8 and K9 timed.
+  10. pod     — the pod-scale g(T) sweep as a user runs it:
+               ``experiments/pod_demo.py --t 1000 --seqs 1048576 --device
+               cuda`` (8 etas, 2^20 sequences each, lane_batch 16,384:
+               8 K7 launches per eta, warm-up and timed run); K7's counter
+               must rise; K7 against its plain version bit for bit (0.0) at
+               lane_batch 1,024 T=1000 d=5, FTRL and FTL, and at the
+               demo's launch shape (timed there); K7 against K1 on
+               synthetic_stream's rows bit for bit; K7 at d=256 against its
+               plain version; one launch at T=2^20 (lane_batch 128);
+               then, on a one-rank NCCL process group, sharded_synthetic_g
+               against the max of direct K7 calls, resumable_synthetic_g
+               stopped after a slice and resumed from its checkpoint
+               against one sweep (bit for bit), run_worker (T=1000,
+               131,072 sequences, K1), run_stream_handoff (bitwise, the
+               carry through an NCCL broadcast) and measure_scaling([1]).
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
 (the larger of the bytes over 3.35 TB/s and the operations over the peak
 for the type) and the library call's time (none computes these
-recurrences: null).  The line before the last lists the kernels as JSON;
-the last line is ``{"ok": true, "device": {...}}``.  About 3 minutes on
-an H100.
+recurrences: null); K7 reads nothing, so its bound is the busier of the
+two pipes its work issues on: the integer ALU (the Philox xors, the bit
+tests and selects) and the FMA pipe (the Philox multiplies and the float
+operations of the game).  The line before the last lists the kernels as
+JSON; the last line is ``{"ok": true, "device": {...}}``.  About 3.5
+minutes on an H100.
 """
 
 from __future__ import annotations
@@ -93,6 +111,7 @@ from online_convex_optimization_tpu_torch.data.device import (
 )
 from online_convex_optimization_tpu_torch.data.sequences import CASES
 from online_convex_optimization_tpu_torch.experiments.config import ExperimentConfig
+from online_convex_optimization_tpu_torch.experiments import pod_demo
 from online_convex_optimization_tpu_torch.experiments.driver import run_experiment
 from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     QuadraticConfig,
@@ -111,6 +130,12 @@ from online_convex_optimization_tpu_torch.models.sweep_api import (
     smart_threshold_sweep,
 )
 from online_convex_optimization_tpu_torch.ops import game, smart, trs
+from online_convex_optimization_tpu_torch.parallel import (
+    mesh as pmesh,
+    multihost,
+    scaling,
+    sweep,
+)
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
@@ -132,6 +157,14 @@ T_GRID = tuple(range(100, 1001, 100))
 # type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}
+# 32-bit integer operations per second on one sm_90 pipe: 132 SMs x 64
+# lanes x 1.98 GHz, the clock of the data sheet's 67 TFLOP/s.  Two pipes
+# take integer work and issue side by side: the ALU (logical, add, shift,
+# select) and the FMA pipe, whose integer multiplies (IMAD, IMAD.HI,
+# IMAD.WIDE) run on 64 of its 128 lanes an SM; the float32 peak is all 128
+# doing a two-operation FMA each clock.
+INT_PIPE_OPS = 132 * 64 * 1.98e9
+PHILOX_ROUNDS = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -173,6 +206,36 @@ def quad_round_ops(d: int, iters: int, ftl: bool) -> int:
     loss = 2 * d + 3
     action = trs_ops(d, iters) if ftl else 4 * d + 4 + 2 * d
     return action + loss + stats
+
+
+def philox_step_ops(d: int) -> tuple:
+    """K7's 32-bit integer work per sequence-step, by pipe: (ALU,
+    multiplies).
+
+    A Philox4x32-10 call per 128 of the d + 1 bits a round uses, at counter
+    (t, b, k, 0) under a key schedule that depends on the seed alone: a
+    step needs only the work that changes with t, and only what the used
+    output words depend on.  A round maps (c0, c1, c2, c3) to (hi(M1 c2) ^
+    c1 ^ k0, lo(M1 c2), hi(M0 c0) ^ c3 ^ k1, lo(M0 c0)); each 32 x 32-bit
+    product (one or both halves) is one multiply, each xor of two or three
+    words one LOP3.  Each used bit adds a shift and a select."""
+    alu = mul = 0
+    for k in range((d + 1 + 127) // 128):
+        bits = min(128, d + 1 - 128 * k)
+        varies = [(True, False, False, False)]   # which words change with t
+        for _ in range(PHILOX_ROUNDS):
+            c0, c1, c2, c3 = varies[-1]
+            varies.append((c2 or c1, c2, c0 or c3, c0))
+        need = set(range((bits + 31) // 32))     # output words used
+        for r in reversed(range(PHILOX_ROUNDS)):
+            c0, c1, c2, c3 = varies[r]
+            p0, p1 = bool(need & {2, 3}), bool(need & {0, 1})
+            mul += (p0 and c0) + (p1 and c2)
+            alu += (0 in need and (c2 or c1)) + (2 in need and (c0 or c3))
+            need = ({0} if p0 else set()) | ({2} if p1 else set()) | (
+                {1} if 0 in need else set()) | ({3} if 2 in need else set())
+        alu += 2 * bits
+    return alu, mul
 
 
 def bound(n_bytes: float, ops: float, dtype) -> dict:
@@ -1143,6 +1206,197 @@ def phase_quadratic(tmp):
     return {"K8": k8_launches, "K9": k9_launches}, timing
 
 
+# --------------------------------------------------------------- phase 10
+POD_T, POD_SEQS, POD_LANES = 1000, 1 << 20, 16_384
+K7_LANES, K7_BIG_D = 1024, 256
+
+
+def synthetic_bound(steps: float, d: int, n_out: int) -> dict:
+    """K7's least time: it reads nothing and writes its regrets, and its
+    work issues on two pipes side by side, so the larger of the bytes
+    written and the busier pipe: the ALU with the integer xors, shifts and
+    selects, and the FMA pipe with the integer multiplies (on 64 of its 128
+    lanes) and the game's float operations (at the float32 peak)."""
+    alu, mul = philox_step_ops(d)
+    flops = hinge_round_ops(d)
+    by_alu = steps * alu / INT_PIPE_OPS * 1e3
+    by_fma = steps * max(mul / INT_PIPE_OPS, mul / (2 * INT_PIPE_OPS)
+                         + flops / PEAK_OPS[torch.float32]) * 1e3
+    by_bytes = n_out * 4 / HBM_BYTES_PER_S * 1e3
+    ms, by = max((by_bytes, "bytes"), (by_alu, "operations"),
+                 (by_fma, "operations"))
+    print(f"[10 pod] K7 bound per launch of {steps:.4g} sequence-steps "
+          f"({alu} ALU, {mul} multiplies, {flops} float operations a step): "
+          f"ALU {by_alu:.4f} ms, FMA pipe {by_fma:.4f} ms, bytes "
+          f"{by_bytes:.6f} ms")
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def pod_main_path():
+    """The pod demo as a user runs it, at its full default width."""
+    game.SYNTHETIC_LAUNCHES = 0
+    res = pod_demo.main(["--t", str(POD_T), "--seqs", str(POD_SEQS),
+                         "--lane-batch", str(POD_LANES), "--device", "cuda"])
+    launches = game.SYNTHETIC_LAUNCHES
+    print(f"[10 pod] pod_demo --t {POD_T} --seqs {POD_SEQS} --device cuda: "
+          f"wall {res['wall_s']:.4f} s, {res['steps_per_s']:.4g} "
+          f"sequence-steps/s over {res['total_steps']} steps, K7 launches "
+          f"{launches} (warm-up and timed run); g per eta "
+          f"{json.dumps(res['g_max'])}; device {json.dumps(res['device'])}")
+    check(launches > 0, "the pod demo did not launch K7")
+    check(res["n_sequences_per_eta"] == POD_SEQS and len(res["g_max"]) == 8
+          and all(math.isfinite(v) and 0 < v < POD_T
+                  for v in res["g_max"].values()),
+          "pod demo g values missing or out of range")
+    check(res["device"]["name"] == torch.cuda.get_device_name(0)
+          and res["device"]["power_limit"] is not None,
+          "the pod demo record does not name the card and its power limit")
+    return launches
+
+
+def k7_vs_plain():
+    """K7 against its plain version (0.0) at lane_batch 1,024, T = 1000,
+    d = 5, FTRL and FTL, and against K1 on the materialized rows; at d =
+    256 against the plain version; one launch at T = 2^20."""
+    for alg in (0, 1):
+        got = game.synthetic_regrets(7 << 20, ETA, T=POD_T,
+                                     lane_batch=K7_LANES, alg_flag=alg)
+        want = game.synthetic_regrets_reference(
+            7 << 20, ETA, T=POD_T, lane_batch=K7_LANES, alg_flag=alg,
+            device="cuda")
+        z, y = game.synthetic_stream(7 << 20, T=POD_T, lane_batch=K7_LANES,
+                                     device="cuda")
+        cum, comp, _ = game.regrets_fused(z, y, alg, ETA)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        diff1 = int((got.reshape(-1) != cum - comp).sum())
+        print(f"[10 pod] K7 {'FTL' if alg else 'FTRL'} lane_batch "
+              f"{K7_LANES} T={POD_T} d={D} f32: vs plain max_abs_err="
+              f"{err:.3e} ({int((got != want).sum())} differ in any bit; "
+              f"bound 0); vs K1 on synthetic_stream's rows {diff1} differ "
+              f"in any bit; mean regret {float(got.double().mean()):.4f}")
+        check(torch.equal(got, want), "K7 differs from its plain version")
+        check(diff1 == 0, "K7 differs from K1 on the materialized stream")
+        del z, y, cum, comp
+    got = game.synthetic_regrets(9, ETA, T=256, lane_batch=16, d=K7_BIG_D)
+    want = game.synthetic_regrets_reference(9, ETA, T=256, lane_batch=16,
+                                            d=K7_BIG_D, device="cuda")
+    print(f"[10 pod] K7 d={K7_BIG_D} lane_batch 16 T=256: vs plain "
+          f"{int((got != want).sum())} differ in any bit")
+    check(torch.equal(got, want), "K7 at large d differs from plain")
+    (out, ms) = timed_once(lambda: game.synthetic_regrets(
+        11, ETA, T=1 << 20, lane_batch=128))
+    mean = float(out.double().mean())
+    print(f"[10 pod] K7 one launch T=2^20 lane_batch 128 (1,024 sequences): "
+          f"{ms:.1f} ms, mean regret {mean:.2f} (10 sqrt(T) = "
+          f"{10 * math.sqrt(1 << 20):.0f}), finite "
+          f"{bool(torch.isfinite(out).all())}")
+    check(bool(torch.isfinite(out).all()) and 0 < mean < 10 * math.sqrt(
+        1 << 20), "K7 at T = 2^20 not finite or out of range")
+
+
+def k7_timing():
+    """K7 at the demo's launch shape (131,072 sequences, T = 1000, FTRL,
+    eta = sqrt 2) against its plain version bit for bit, and timed."""
+    kern = lambda: game.synthetic_regrets(0, ETA, T=POD_T,
+                                          lane_batch=POD_LANES)
+    got = kern()
+    want, p_ms = timed_once(lambda: game.synthetic_regrets_reference(
+        0, ETA, T=POD_T, lane_batch=POD_LANES, device="cuda"))
+    err = float((got - want).abs().max())
+    del want
+    torch.cuda.empty_cache()
+    k_ms = time_ms(kern, reps=5, inner=4)
+    steps = 8 * POD_LANES * POD_T
+    out = {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
+           "library_ms": None, **synthetic_bound(steps, D, 8 * POD_LANES)}
+    print(f"[10 pod] K7 lane_batch {POD_LANES} T={POD_T} d={D} f32: vs plain "
+          f"max_abs_err={err:.3e} (bound 0); kernel {k_ms[0]:.4f} ms (min "
+          f"{k_ms[1]:.4f}, max {k_ms[2]:.4f}; {steps / k_ms[0] * 1e3:.4g} "
+          f"sequence-steps/s; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}); plain PyTorch {p_ms:.1f} ms (one call)")
+    check(err == 0.0, "K7 differs from plain at the demo's shape")
+    return out
+
+
+class _Preempted(Exception):
+    pass
+
+
+def nccl_sweeps(tmp):
+    """The sharded sweeps on a one-rank NCCL process group."""
+    pmesh.initialize_distributed(f"127.0.0.1:{pmesh.free_port()}", 1, 0,
+                                 device="cuda")
+    try:
+        mesh = pmesh.make_mesh(1, 1, device="cuda")
+        etas = [0.5, 1.0, ETA, 2.0]
+        kw = dict(T=POD_T, eta_grid=etas, lane_batch=K7_LANES)
+        g = sweep.sharded_synthetic_g(mesh, blocks_per_device=4, **kw)
+        want = torch.stack([torch.stack([game.synthetic_regrets(
+            b << 20, float(np.float32(e)), T=POD_T,
+            lane_batch=K7_LANES).max() for b in range(4)]).max()
+            for e in etas])
+        print(f"[10 pod] NCCL (1 rank): sharded_synthetic_g {g.tolist()} vs "
+              f"the max of direct K7 calls: equal {torch.equal(g, want)}")
+        check(torch.equal(g, want), "sharded_synthetic_g differs from K7")
+        path = os.path.join(tmp, "g_sweep.npz")
+        calls = [0]
+
+        def preempted_after_one_slice(*args, **kwargs):
+            calls[0] += 1
+            if calls[0] > 2 * len(etas):
+                raise _Preempted
+            return game.synthetic_regrets(*args, **kwargs)
+
+        try:
+            sweep.resumable_synthetic_g(mesh, blocks_per_device=4,
+                                        blocks_per_step=2,
+                                        checkpoint_path=path,
+                                        regret_fn=preempted_after_one_slice,
+                                        **kw)
+        except _Preempted:
+            pass
+        done = int(load_pytree(path)["done"])
+        resumed = sweep.resumable_synthetic_g(mesh, blocks_per_device=4,
+                                              blocks_per_step=2,
+                                              checkpoint_path=path, **kw)
+        print(f"[10 pod] NCCL: resumable_synthetic_g stopped after {done} of "
+              f"4 blocks and resumed from its checkpoint: equal to one sweep "
+              f"{bool((resumed == g.cpu().numpy()).all())}")
+        check(done == 2 and bool((resumed == g.cpu().numpy()).all()),
+              "resumed sweep differs from one sweep")
+        game.LAUNCHES = 0
+        t0 = time.perf_counter()
+        w = multihost.run_worker(POD_T, 131_072, eta0=ETA)
+        wall = time.perf_counter() - t0
+        print(f"[10 pod] NCCL: run_worker T={POD_T} 131,072 sequences: "
+              f"{wall:.2f} s, K1 launches {game.LAUNCHES}, g_max "
+              f"{w['g_max']:.4f}, mean {w['mean_regret']:.4f} +- "
+              f"{w['sem']:.2e}")
+        check(game.LAUNCHES > 0 and w["total_scenarios"] == 131_072
+              and math.isfinite(w["g_max"]), "run_worker on the card")
+        h = multihost.run_stream_handoff(4096, 1024, eta0=ETA)
+        print(f"[10 pod] NCCL: run_stream_handoff T=4096 B=1024 (carry "
+              f"through an NCCL broadcast): bitwise cum {h['bitwise_cum']}, "
+              f"regret {h['bitwise_regret']}")
+        check(h["bitwise_cum"] and h["bitwise_regret"],
+              "stream hand-off not bitwise")
+        pts = scaling.measure_scaling([1], B_per_dev=16_384, T=1024)
+        print(f"[10 pod] NCCL: measure_scaling([1]) B_per_dev=16,384 T=1024: "
+              f"{pts[0].steps_per_s:.4g} sequence-steps/s")
+        check(pts[0].steps_per_s > 0, "measure_scaling")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_pod(tmp):
+    launches = pod_main_path()
+    k7_vs_plain()
+    timing = k7_timing()
+    nccl_sweeps(tmp)
+    return launches, timing
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1155,6 +1409,7 @@ def main() -> int:
         stream_launches, stream_timing = phase_stream(tmp)
         packed_launches, packed_timing = phase_packed()
         quad_launches, quad_timing = phase_quadratic(tmp)
+        pod_launches, pod_timing = phase_pod(tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -1204,6 +1459,13 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/trs_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:62",
          "launches": quad_launches["K9"], **quad_timing["K9"]},
+        {"name": "synthetic_kernel (K7: generation-fused FTRL/FTL game, "
+                 "in-kernel Philox4x32-10)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/synthetic_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:1115",
+         "launches": pod_launches, **pod_timing},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

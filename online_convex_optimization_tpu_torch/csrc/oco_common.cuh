@@ -1,9 +1,10 @@
 // Device helpers shared by the port's kernels: the regret game (K1), SMART
 // (K2), the packed game (K3, K3e), the carried stream (K4), the eta sweep
-// (K5) and the SMART threshold sweep (K6).  K1, K4 and K5 play the same
-// game_round, K3 and K3e its action and hinge step; K2 and K6 the same
-// smart_round, so a sweep column, a chunked stream or a packed game
-// reproduces the one-shot kernel bit for bit.
+// (K5), the SMART threshold sweep (K6) and the generation-fused game (K7).
+// K1, K4, K5 and K7 play the same game_round, K3 and K3e its action and
+// hinge step; K2 and K6 the same smart_round, so a sweep column, a chunked
+// stream, a packed game or a generated game reproduces the one-shot kernel
+// bit for bit.
 //
 // Every helper follows the order of operations of ops/actions.py and
 // ops/hinge.py (and of the reference's fast_algorithms.py:19-66): a true

@@ -46,6 +46,7 @@ class ExperimentConfig:
     batch_chunk: int = 4096       # max sequences per device batch
     check: bool = True            # isfinite guard on the g(T) regrets
     device: str = "cuda"
+    profile_dir: str = ""         # write a torch.profiler trace of the eval
 
     @property
     def T_grid(self) -> Tuple[int, ...]:
@@ -95,6 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default=d.device,
                    help="cuda: the CUDA kernels; cpu: their plain PyTorch "
                         "versions")
+    p.add_argument("--profile-dir", default="",
+                   help="capture a torch.profiler trace of the evaluation")
     return p
 
 
@@ -108,4 +111,4 @@ def config_from_args(argv: Optional[Sequence[str]] = None) -> ExperimentConfig:
         precision=args.precision, exact=args.exact,
         out_dir=args.out_dir, dpi=args.dpi,
         checkpoint=not args.no_checkpoint, batch_chunk=args.batch_chunk,
-        check=args.check, device=args.device)
+        check=args.check, device=args.device, profile_dir=args.profile_dir)

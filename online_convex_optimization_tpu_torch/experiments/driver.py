@@ -18,20 +18,21 @@ Outputs in --out-dir:
                                 ``null``, where matplotlib is not installed)
   - empirical_g_T.png         : g(T) vs theory curves
   - algorithm_comparison.png  : per-case regret comparison grid
+  - <--profile-dir>/trace.json: with --profile-dir, a torch.profiler trace
+                                of the per-case evaluation
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
-import subprocess
 import time
 from typing import Dict
 
 import numpy as np
-import torch
 
 from online_convex_optimization_tpu_torch.data.sequences import (
     CASES,
@@ -50,34 +51,20 @@ from online_convex_optimization_tpu_torch.experiments.plotting import (
     plot_comparisons,
     plot_empirical_g,
 )
-from online_convex_optimization_tpu_torch.utils.devices import resolve_device
+from online_convex_optimization_tpu_torch.utils.devices import (
+    device_record,
+    resolve_device,
+)
 from online_convex_optimization_tpu_torch.utils.logging_utils import (
     get_logger,
     log_metrics,
 )
+from online_convex_optimization_tpu_torch.utils.profiling import trace
 
 
 def resolve_dtype(cfg: ExperimentConfig):
     """``f32`` -> float32; ``auto`` and ``x64`` -> float64 on every device."""
     return np.float32 if cfg.precision == "f32" else np.float64
-
-
-def device_record(device: torch.device) -> Dict:
-    """The device a run used: the card's name and power limit as
-    ``nvidia-smi --query-gpu=name,power.limit`` prints them."""
-    if device.type != "cuda":
-        return {"type": device.type}
-    index = device.index if device.index is not None else 0
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", f"--id={index}",
-             "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired):
-        smi = ""
-    return {"type": "cuda", "name": torch.cuda.get_device_name(index),
-            "power_limit": smi.rpartition(", ")[2] or None,
-            "nvidia_smi": smi or None}
 
 
 def run_experiment(cfg: ExperimentConfig) -> Dict:
@@ -101,18 +88,23 @@ def run_experiment(cfg: ExperimentConfig) -> Dict:
                        cache_path=cache, check=cfg.check, device=device)
     t_g = time.time()
 
-    # 2) per-case evaluation
+    # 2) per-case evaluation (optionally under a torch.profiler trace)
+    prof = (trace(cfg.profile_dir) if cfg.profile_dir
+            else contextlib.nullcontext())
     titles = cfg.cases or tuple(CASES)
     stats_by_case = {}
     eff_runs, eff_reps = {}, {}
-    for title in titles:
-        runs = cfg.runs_override or RUNS_BY_TITLE.get(title, 1)
-        reps = cfg.replicates_override or REPLICATES_BY_TITLE.get(title, 1)
-        eff_runs[title], eff_reps[title] = runs, reps
-        stats_by_case[title] = evaluate_stream_with_stats(
-            CASES[title], cfg.T_grid, g_emp, runs=runs, replicates=reps,
-            base_seed=cfg.base_seed, eta0=cfg.eta0, dtype=dtype,
-            batch_chunk=cfg.batch_chunk, stream_name=title, device=device)
+    with prof:
+        for title in titles:
+            runs = cfg.runs_override or RUNS_BY_TITLE.get(title, 1)
+            reps = cfg.replicates_override or REPLICATES_BY_TITLE.get(title,
+                                                                      1)
+            eff_runs[title], eff_reps[title] = runs, reps
+            stats_by_case[title] = evaluate_stream_with_stats(
+                CASES[title], cfg.T_grid, g_emp, runs=runs, replicates=reps,
+                base_seed=cfg.base_seed, eta0=cfg.eta0, dtype=dtype,
+                batch_chunk=cfg.batch_chunk, stream_name=title,
+                device=device)
     t_eval = time.time()  # the regrets reached the host: the device is done
 
     # 3) figures; matplotlib is an optional dependency (the "plots" extra)

@@ -11,7 +11,8 @@ per horizon with the value-determining config as provenance, so an
 interrupted sweep resumes and a sweep under another config recomputes.
 
 ``check=True`` is the port's form of the JAX package's checkify guard: a
-non-finite regret raises and names its horizon.
+non-finite regret raises ``FloatingPointError`` (``utils/debug.py``) and
+names its horizon.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from online_convex_optimization_tpu_torch.data.sequences import sample_g_instance
 from online_convex_optimization_tpu_torch.models.linear import simulate_linear_batch
+from online_convex_optimization_tpu_torch.utils.debug import assert_finite
 
 
 def _load_g_cache(cache_path: Optional[str], key: dict) -> Dict[int, float]:
@@ -103,10 +105,9 @@ def estimate_g(
             res = simulate_linear_batch(torch.from_numpy(z).to(device),
                                         torch.from_numpy(y).to(device),
                                         0, eta0)
-            if check and not bool(torch.isfinite(res.regret).all()):
-                raise FloatingPointError(
-                    f"non-finite FTRL regret in the g(T) batch at T={T} "
-                    f"(runs {start}..{start + n - 1})")
+            if check:
+                assert_finite(res.regret, f"FTRL regret of the g(T) batch "
+                              f"at T={T} (runs {start}..{start + n - 1})")
             max_regret = max(max_regret, float(res.regret.max()))
         g[T] = max_regret
         if cache_path:

@@ -1,7 +1,8 @@
 """Step math (hinge loss, tie-exact subgradient, FTL/FTRL actions, ball
 projections) and the CUDA kernels with their plain PyTorch versions
 (counterpart of ``online_convex_optimization_tpu/ops``): the hinge game
-(K1-K6, with the packed API K3/K3e) and the quadratic track (K8, K9)."""
+(K1-K6, with the packed API K3/K3e), the generation-fused game (K7) and
+the quadratic track (K8, K9)."""
 
 from online_convex_optimization_tpu_torch.ops.actions import (
     ftl_action,
@@ -31,6 +32,9 @@ from online_convex_optimization_tpu_torch.ops.game import (
     simulate_linear_auto,
     simulate_linear_packed,
     stream_result,
+    synthetic_regrets,
+    synthetic_regrets_reference,
+    synthetic_stream,
     validate_stream_chunk,
     zero_stream_carry,
 )
@@ -79,6 +83,9 @@ __all__ = [
     "kernel_envelope",
     "simulate_linear_packed",
     "simulate_linear_auto",
+    "synthetic_regrets",
+    "synthetic_regrets_reference",
+    "synthetic_stream",
     "hinge_subgradient",
     "normalized_hinge",
     "smart_regrets",

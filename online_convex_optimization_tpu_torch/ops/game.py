@@ -1,5 +1,5 @@
-"""Kernels K1 (regret game), K5 (eta sweep), K4 (carried stream) and K3,
-K3e (the packed game API).
+"""Kernels K1 (regret game), K5 (eta sweep), K4 (carried stream), K3,
+K3e (the packed game API) and K7 (the generation-fused game).
 
 Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
 
@@ -25,7 +25,13 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
   PyTorch replay (the JAX ``_comparator_epilogue``), and
   ``simulate_linear_packed`` (the JAX ``simulate_linear_pallas_v2``),
   ``simulate_linear_auto`` and ``kernel_envelope`` take the ``(B, T, d)``
-  API.
+  API;
+- ``synthetic_regrets`` (TPU ``synthetic_regrets`` / ``_synthetic_kernel``):
+  the FTRL/FTL game on Rademacher rows ``+-1/sqrt(d)`` and labels ``+-1``
+  drawn inside the kernel from Philox4x32-10 (``ops/philox.py``), CUDA
+  kernel ``csrc/synthetic_kernel.cu``; ``synthetic_stream`` materializes
+  the same rows, and the plain version ``synthetic_regrets_reference`` is
+  K1's plain version on them.
 
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations, sharing K1's step (``hinge_round``).  A
@@ -64,6 +70,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from online_convex_optimization_tpu_torch.ops.actions import (
@@ -76,6 +84,7 @@ from online_convex_optimization_tpu_torch.ops.hinge import (
     hinge_subgradient,
     normalized_hinge,
 )
+from online_convex_optimization_tpu_torch.ops.philox import round_bits
 from online_convex_optimization_tpu_torch.utils import cuda_build
 from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 
@@ -83,12 +92,13 @@ ALG_FTRL = 0
 ALG_FTL = 1
 
 # Launches of each CUDA kernel in this process (counted where it launches):
-# K1, K5, K4, K3 and K3e.
+# K1, K5, K4, K3, K3e and K7.
 LAUNCHES = 0
 SWEEP_LAUNCHES = 0
 STREAM_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 PACKED_ETA_LAUNCHES = 0
+SYNTHETIC_LAUNCHES = 0
 
 # Squared row norms up to 1 + CONTRACT_TOL count as inside the unit ball:
 # rows clipped in f32 and upcast carry ~1e-7 of rounding (the JAX package's
@@ -115,7 +125,7 @@ def check_batch(z: torch.Tensor, y: torch.Tensor):
 
 
 def check_kernel_d(d: int) -> None:
-    """Raise for a feature dimension the CUDA kernels K1-K6 have no
+    """Raise for a feature dimension the CUDA kernels K1-K7 have no
     instance of (the plain versions on the CPU take any d)."""
     if d > cuda_build.MAX_D:
         raise ValueError(f"d = {d} exceeds the CUDA kernels' limit d <= "
@@ -787,3 +797,109 @@ def simulate_linear_auto(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
         if reason is not None:
             raise ValueError(f"simulate_linear_auto: {reason}")
     return simulate_linear_packed(z, y, alg_flag, eta0)
+
+
+# --------------------------------------------- K7: the generation-fused game
+
+# The TPU kernel serves 8 sublanes of ``lane_batch`` lanes: sequence b of a
+# call is entry b of its (SYNTHETIC_ROWS, lane_batch) result, row-major.
+SYNTHETIC_ROWS = 8
+
+
+def synthetic_row_scale(d: int) -> float:
+    """The rows' entry magnitude: ``1 / sqrt(d)`` as a double, rounded to
+    float32, as the TPU kernel computes ``1.0 / float(np.sqrt(d))``."""
+    return torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).item()
+
+
+def check_synthetic(T: int, lane_batch: int, d: int, alg_flag) -> int:
+    """Validate a synthetic game's shape; return its number of sequences."""
+    if not 1 <= T < 2 ** 32:
+        raise ValueError(f"T must lie in [1, 2^32), got {T}")
+    if lane_batch < 1 or d < 1:
+        raise ValueError(f"lane_batch and d must be >= 1, got {lane_batch} "
+                         f"and {d}")
+    if alg_flag not in (ALG_FTRL, ALG_FTL):
+        raise ValueError(f"alg_flag must be 0 (FTRL) or 1 (FTL), got "
+                         f"{alg_flag}")
+    return SYNTHETIC_ROWS * lane_batch
+
+
+def synthetic_stream(seed: int, *, T: int, lane_batch: int, d: int = 5,
+                     device="cuda"):
+    """The sequences kernel K7 plays for ``seed``, materialized: ``(B, T, d)``
+    float32 z with entries ``+-synthetic_row_scale(d)`` and ``(B, T)``
+    labels ``+-1``, ``B = 8 * lane_batch``.  Sequence b's rows depend on
+    (seed, b, t) only (``ops/philox.py``), so a call with a larger
+    ``lane_batch`` extends the same population."""
+    B = check_synthetic(T, lane_batch, d, ALG_FTRL)
+    bits = round_bits(seed, T, B, d + 1, resolve_device(device))
+    sign = (2 * bits - 1).to(torch.float32)              # (T, B, d + 1)
+    z = sign[..., :d] * synthetic_row_scale(d)
+    return z.permute(1, 0, 2).contiguous(), sign[..., d].t().contiguous()
+
+
+def synthetic_regrets_reference(seed: int, eta0, *, T: int, lane_batch: int,
+                                d: int = 5, alg_flag: int = ALG_FTRL,
+                                device="cuda"):
+    """Plain PyTorch version of kernel K7: ``synthetic_stream`` played by
+    K1's plain version with the identity comparator (cnt = T).  Returns
+    ``(8, lane_batch)`` float32 regrets."""
+    z, y = synthetic_stream(seed, T=T, lane_batch=lane_batch, d=d,
+                            device=device)
+    B = z.shape[0]
+    cum, comp, _ = regrets_fused_reference(
+        z, y, per_sequence(alg_flag, B, torch.int32, z.device),
+        per_sequence(float(eta0), B, torch.float32, z.device),
+        per_sequence_lengths(None, B, T, z.device))
+    return (cum - comp).reshape(SYNTHETIC_ROWS, lane_batch)
+
+
+def launch_synthetic(seed: int, eta0, T: int, lane_batch: int, d: int,
+                     alg_flag: int, device: torch.device) -> torch.Tensor:
+    """Launch kernel K7 on ``device``; returns ``(8, lane_batch)`` float32
+    regrets."""
+    global SYNTHETIC_LAUNCHES
+    check_kernel_d(d)
+    lib = cuda_build.load()
+    with torch.cuda.device(device):
+        out = torch.empty((SYNTHETIC_ROWS, lane_batch), dtype=torch.float32,
+                          device=device)
+        err = lib.oco_synthetic_regrets_f32(
+            int(seed) & (2 ** 64 - 1), float(eta0), T, out.numel(), d,
+            alg_flag, synthetic_row_scale(d), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"synthetic kernel launch failed: CUDA error "
+                               f"{err}")
+        SYNTHETIC_LAUNCHES += 1
+    return out
+
+
+def synthetic_regrets(seed: int, eta0, *, T: int, lane_batch: int,
+                      d: int = 5, alg_flag: int = ALG_FTRL, device="cuda"):
+    """Regrets of the FTRL (``alg_flag`` 0) or FTL (1) game on
+    ``8 * lane_batch`` Rademacher sequences generated from ``seed``, with
+    nothing read from memory.
+
+    Args:
+      seed: the generator's key (an integer, taken modulo 2^64).
+      eta0: the FTRL step scale (rounded to float32; ignored for FTL).
+      T: rounds, 1 <= T < 2^32: nothing in a launch scales with T.
+      lane_batch, d: ``8 * lane_batch`` sequences of dimension ``d``.
+      device: ``cuda`` (the default) launches kernel K7 (or raises: d > 512
+        has no instance); ``cpu`` runs ``synthetic_regrets_reference``.
+
+    Returns:
+      ``(8, lane_batch)`` float32 regrets (the JAX function's shape).
+    """
+    check_synthetic(T, lane_batch, d, alg_flag)
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return launch_synthetic(seed, eta0, T, lane_batch, d, alg_flag,
+                                device)
+    if device.type == "cpu":
+        return synthetic_regrets_reference(seed, eta0, T=T,
+                                           lane_batch=lane_batch, d=d,
+                                           alg_flag=alg_flag, device=device)
+    raise ValueError(f"unsupported device {device}")

@@ -5,7 +5,9 @@ hyperparameters (z, y, lengths, eta, thresholds, flags).  They cross between
 the two packages as NumPy arrays; ``to_torch`` turns the arrays a JAX test
 builds into the port's tensors with the same bits, so both packages compute
 on identical inputs.  ``stream_carry_from_jax`` carries a streamed game's
-state across: a run begun in the JAX package finishes in the port.  The packed
+state across: a run begun in the JAX package finishes in the port, and
+``synthetic_g_checkpoint_from_jax`` does the same for a resumable g sweep
+(``parallel/sweep.py::resumable_synthetic_g``).  The packed
 game (K3, K3e) and the quadratic game (K8) carry nothing across: the JAX
 package exposes no carry for them and both start from zero state, so they
 need no function here.
@@ -13,6 +15,7 @@ need no function here.
 
 from __future__ import annotations
 
+import re
 from typing import Sequence
 
 import numpy as np
@@ -48,6 +51,28 @@ def stream_carry_from_jax(saved: dict, B: int) -> dict:
             "cum": 0.5 * _unpack_lanes(sc[0], B),
             "cnt": _unpack_lanes(sc[1], B),
             "t": np.asarray(int(saved["t"]), dtype=np.int64)}
+
+
+def synthetic_g_checkpoint_from_jax(path: str) -> dict:
+    """A JAX ``resumable_synthetic_g`` checkpoint (``.npz``) -> the port's
+    checkpoint dict ``{"g", "done", "key"}``, for ``save_pytree``.
+
+    The JAX package saves the pytree's leaves as ``leaf_0``, ``leaf_1``, ...
+    in the order its ``treedef`` (saved beside them as a string) names the
+    dict's keys.  The values cross unchanged: the running per-eta max ``g``
+    (float32), the blocks done, and the provenance key, which the port
+    computes from the same config string (``sweep.synthetic_g_key``), so a
+    sweep the JAX package began on a mesh of the same shape resumes in the
+    port."""
+    with np.load(path) as data:
+        names = re.findall(r"'(\w+)'", str(data["treedef"]))
+        leaves = {name: data[f"leaf_{i}"] for i, name in enumerate(names)}
+    if sorted(leaves) != ["done", "g", "key"]:
+        raise ValueError(f"{path} is not a resumable_synthetic_g checkpoint "
+                         f"(leaves {sorted(leaves)})")
+    return {"g": np.asarray(leaves["g"], np.float32),
+            "done": np.asarray(int(leaves["done"])),
+            "key": np.asarray(int(leaves["key"]), np.int64)}
 
 
 def to_torch(arrays: Sequence[np.ndarray], device, dtype=None):

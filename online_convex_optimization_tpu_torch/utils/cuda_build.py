@@ -31,7 +31,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "liboco_torch_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 
 # Feature dimensions above this have no instance of the hinge-game kernels
-# K1-K6 (csrc/oco_common.cuh OCO_LARGE_D, the JAX package's
+# K1-K7 (csrc/oco_common.cuh OCO_LARGE_D, the JAX package's
 # _D_KERNEL_MAX); their wrappers raise on a CUDA tensor.  The quadratic
 # kernels K8 and K9 have their own limit (ops/trs.py MAX_D).
 MAX_D = 512
@@ -43,9 +43,13 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _D = ctypes.c_double
+_U64 = ctypes.c_ulonglong
+_F = ctypes.c_float
 
 # Every pointer and the stream are c_void_p; see the extern "C" blocks.
-_SIGNATURES = {}
+_SIGNATURES = {
+    "oco_synthetic_regrets_f32": [_U64, _F, _LL, _LL, _I, _I, _F, _P, _P],
+}
 for _ty in ("f64", "f32"):
     _SIGNATURES.update({
         f"oco_regrets_fused_{_ty}": [_P, _P, _P, _P, _P, _LL, _I, _I,

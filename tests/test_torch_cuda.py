@@ -1,7 +1,7 @@
-"""Kernels K1-K6, K8 and K9 on the card against their plain PyTorch
-versions; the sweeps, the stream and the packed game (K3, K3e) against K1
-and K2; K8's comparator against K9; the quadratic study against its CPU
-run.
+"""Kernels K1-K9 on the card against their plain PyTorch versions; the
+sweeps, the stream, the packed game (K3, K3e) and the generation-fused
+game (K7) against K1 and K2; K8's comparator against K9; the quadratic
+study against its CPU run.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports only
 torch, numpy and the port, so it also runs where JAX is not installed:
@@ -329,3 +329,35 @@ def test_quadratic_study_cuda_equals_cpu(cuda):
     for k in got:
         for g, w in zip(got[k], want[k]):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("d", [5, 3, 130])
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_synthetic_kernel_matches_plain_and_k1(cuda, d, alg_flag):
+    """K7 against its plain version on the card, bit for bit, and against
+    K1 on synthetic_stream's materialized rows, bit for bit; a larger
+    lane_batch extends the same population."""
+    before = game.SYNTHETIC_LAUNCHES
+    got = game.synthetic_regrets(3 << 20, 1.3, T=200, lane_batch=32, d=d,
+                                 alg_flag=alg_flag)
+    torch.cuda.synchronize()
+    assert game.SYNTHETIC_LAUNCHES == before + 1
+    assert got.shape == (8, 32) and got.device.type == "cuda"
+    want = game.synthetic_regrets_reference(3 << 20, 1.3, T=200,
+                                            lane_batch=32, d=d,
+                                            alg_flag=alg_flag, device=cuda)
+    assert torch.equal(got, want)
+    z, y = game.synthetic_stream(3 << 20, T=200, lane_batch=32, d=d,
+                                 device=cuda)
+    cum, comp, _ = game.regrets_fused(z, y, alg_flag, 1.3)
+    assert torch.equal(got.reshape(-1), cum - comp)
+    wider = game.synthetic_regrets(3 << 20, 1.3, T=200, lane_batch=64, d=d,
+                                   alg_flag=alg_flag)
+    assert torch.equal(wider.reshape(-1)[:256], got.reshape(-1))
+
+
+def test_synthetic_kernel_rejects_d_above_max(cuda):
+    with pytest.raises(ValueError, match="d <= 512"):
+        game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=513)
+    out = game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=512)
+    assert bool(torch.isfinite(out).all())

@@ -55,6 +55,18 @@ yb = torch.from_numpy(np.stack([y] * 3))
 assert game.simulate_linear_auto(zb, yb, 0, 1.0).shape == (3,)
 assert game.kernel_envelope(3, 60, 5) is None
 
+# The sharded sweeps, the worker and the pod-scale demo (K7's plain
+# version), on the CPU.
+from online_convex_optimization_tpu_torch.experiments import pod_demo
+from online_convex_optimization_tpu_torch.parallel import (
+    mesh, multihost, scaling, sweep)
+from online_convex_optimization_tpu_torch.utils import debug, profiling
+pod = pod_demo.main(["--t", "8", "--seqs", "16", "--lane-batch", "2",
+                     "--device", "cpu"])
+assert len(pod["g_max"]) == 8 and pod["n_sequences_per_eta"] == 16
+w = multihost.run_worker(8, 4, eta0=1.0, device="cpu")
+assert w["total_scenarios"] == 4
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("online_convex_optimization_tpu.")
                or m == "online_convex_optimization_tpu" for m in sys.modules)
@@ -62,6 +74,7 @@ assert game.LAUNCHES == 0 and smart.LAUNCHES == 0
 assert game.SWEEP_LAUNCHES == game.STREAM_LAUNCHES == smart.SWEEP_LAUNCHES == 0
 assert game.PACKED_LAUNCHES == game.PACKED_ETA_LAUNCHES == 0
 assert trs.TRS_LAUNCHES == trs.QUAD_LAUNCHES == 0
+assert game.SYNTHETIC_LAUNCHES == 0
 print("OK")
 """
 

@@ -116,6 +116,17 @@ def test_g_cache_resumes_only_on_matching_provenance(tmp_path):
     assert g3[40] != 123.0 and g1[80] > 0.0
 
 
+def test_profile_dir_traces_the_evaluation(tmp_path):
+    prof_dir = tmp_path / "prof"
+    pt_driver.main(["--t-min", "50", "--t-max", "100", "--t-step", "50",
+                    "--g-runs", "4", "--runs", "2", "--replicates", "1",
+                    "--cases", "Label flips", "--dpi", "20", "--device",
+                    "cpu", "--out-dir", str(tmp_path / "out"),
+                    "--profile-dir", str(prof_dir)])
+    with open(prof_dir / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+
+
 def test_check_names_the_horizon_of_a_non_finite_regret():
     with pytest.raises(FloatingPointError, match="T=30"):
         estimate_g((30,), runs=3, eta0=float("nan"), progress=False,
