@@ -76,6 +76,23 @@ non-zero without printing a result):
                against one sweep (bit for bit), run_worker (T=1000,
                131,072 sequences, K1), run_stream_handoff (bitwise, the
                carry through an NCCL broadcast) and measure_scaling([1]).
+  11. exact   — (a) K10 against its plain version at B=2 T=1000 d=5, 300
+               fixed iterations (f32 bound 5e-4), and 100 + 150 iterations
+               from the saved state against 250, bit for bit; (b) K10 at
+               the kernel route's shape (B=16 T=1000 d=5) timed at 2,000
+               fixed iterations (the bound's work) and at the route's
+               iters=6000 tol=2e-4, every residual <= 1e-3, and after the
+               host polish every 20th prefix's objective within 3e-6 above
+               the plain banded ADMM's; (c) ``driver --exact
+               --exact-solver kernel --precision f32 --device cuda`` cut to
+               ``--runs 2 --g-runs 50``: every random-family cell through
+               K10, K10's launches equal to the cells plus the escalations,
+               FTRL and FTL (exact) means within the f32 scoring bound
+               3T(T+d+3)2^-24 of ``--exact-solver auto`` (certified, host
+               f64) on the same cut; (d) the default ``--exact --g-runs
+               200`` (auto, canonical, f64, 48 runs) on the card against the
+               committed ``results/results_exact_canonical.json``: g_emp and
+               stats within 1e-9, the audit equal.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -84,8 +101,9 @@ for the type) and the library call's time (none computes these
 recurrences: null); K7 reads nothing, so its bound is the busier of the
 two pipes its work issues on: the integer ALU (the Philox xors, the bit
 tests and selects) and the FMA pipe (the Philox multiplies and the float
-operations of the game).  The line before the last lists the kernels as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  About 3.5
+operations of the game); K10's is its float operations at 2,000 fixed
+iterations (``admm_ops``).  The line before the last lists the kernels as
+JSON; the last line is ``{"ok": true, "device": {...}}``.  About 6
 minutes on an H100.
 """
 
@@ -110,13 +128,23 @@ from online_convex_optimization_tpu_torch.data.device import (
     regression_stream_batch,
 )
 from online_convex_optimization_tpu_torch.data.sequences import CASES
-from online_convex_optimization_tpu_torch.experiments.config import ExperimentConfig
+from online_convex_optimization_tpu_torch.experiments.config import (
+    ExperimentConfig,
+    config_from_args,
+)
 from online_convex_optimization_tpu_torch.experiments import pod_demo
 from online_convex_optimization_tpu_torch.experiments.driver import run_experiment
 from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     QuadraticConfig,
     evaluate_quadratic_stream,
     run_study,
+)
+from online_convex_optimization_tpu_torch.models.exact_ftl import (
+    _admm_all_prefixes,
+)
+from online_convex_optimization_tpu_torch.models.polish import (
+    objective as polish_objective,
+    polish_prefix_actions,
 )
 from online_convex_optimization_tpu_torch.models.quadratic import (
     ball_ls_action,
@@ -129,7 +157,7 @@ from online_convex_optimization_tpu_torch.models.sweep_api import (
     ftrl_eta_sweep,
     smart_threshold_sweep,
 )
-from online_convex_optimization_tpu_torch.ops import game, smart, trs
+from online_convex_optimization_tpu_torch.ops import admm, game, smart, trs
 from online_convex_optimization_tpu_torch.parallel import (
     mesh as pmesh,
     multihost,
@@ -1397,6 +1425,216 @@ def phase_pod(tmp):
     return launches, timing
 
 
+# --------------------------------------------------------------- phase 11
+EXACT_B, EXACT_T = 16, 1000
+EXACT_FIXED, EXACT_ITERS, EXACT_TOL = 2000, 6000, 2e-4
+RANDOM_FAMILIES = ("Random i.i.d. (separable)", "Massart noise 10%")
+F32_UNIT = 2.0 ** -24
+
+
+def admm_ops(B: int, T: int, d: int, iters: int) -> int:
+    """K10's operations for ``iters`` iterations of all B*T rows.  Per
+    active (row, t) entry 4d + 13: the prediction <x, z_t> (2d - 1), r, the
+    over-relaxation (3), r^ + u, the soft threshold (abs, minus kappa,
+    clamp, sign, product: 5), the u update (2), the next rhs term (2) and
+    its d products and sums (2d).  Per row 2d^2 + 12d + 1: the rhs (2d),
+    the two substitutions (2d^2) and the projection (10d + 1).  Row p has
+    p + 1 active entries."""
+    per_entry = 4 * d + 13
+    per_row = 2 * d * d + 12 * d + 1
+    return iters * B * (per_entry * T * (T + 1) // 2 + per_row * T)
+
+
+def exact_batch(B, T, d, seed):
+    """Contract data on the card (rows in the unit ball, labels
+    sign(<z, u> + 0.3 noise)), float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn((B, T, d), generator=g, device="cuda", dtype=torch.float64)
+    z = z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True),
+                        min=1.0)
+    u = torch.randn((B, d), generator=g, device="cuda", dtype=torch.float64)
+    noise = torch.randn((B, T), generator=g, device="cuda",
+                        dtype=torch.float64)
+    y = torch.sign((z * u[:, None, :]).sum(-1) + 0.3 * noise)
+    return z.float().contiguous(), y.float().contiguous()
+
+
+def k10_vs_plain():
+    """(a) K10 against its plain version at B = 2, T = 1000, 300 fixed
+    iterations; continuation bit for bit."""
+    z, y = exact_batch(2, EXACT_T, D, 110)
+    X, res, state = admm.admm_all_prefixes_l2(z, y, iters=300, tol=0.0)
+    res_p, state_p = admm.admm_all_prefixes_l2_reference(
+        z, y, admm.admm_prologue(z), iters=300, tol=0.0, check_every=100,
+        rho=1.0, alpha=1.7)
+    torch.cuda.synchronize()
+    err = max_err(state + (res.reshape(-1),), state_p + (res_p,))
+    print(f"[11 exact] K10 B=2 T={EXACT_T} d={D} f32, 300 fixed iterations: "
+          f"vs plain (s, u, x, w, v, res) max_abs_err={err:.3e} (bound "
+          f"{TOL[torch.float32]:g})")
+    check(err <= TOL[torch.float32], "K10 vs plain at B=2 T=1000")
+    _, _, st = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
+    Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=150, tol=0.0,
+                                            state0=st)
+    Xl, rl, stl = admm.admm_all_prefixes_l2(z, y, iters=250, tol=0.0)
+    same = (torch.equal(Xc, Xl) and torch.equal(rc, rl)
+            and all(torch.equal(a, b) for a, b in zip(stc, stl)))
+    print(f"[11 exact] K10 100 + 150 iterations from the saved state equal "
+          f"250 in every bit: {same}")
+    check(same, "K10 continuation is not bit for bit")
+
+
+def k10_path_shape():
+    """(b) K10 at the kernel route's shape: times at fixed 2000 iterations
+    and at the route's iters / tol; residuals; polished objectives at every
+    20th prefix against the plain banded ADMM's."""
+    z, y = exact_batch(EXACT_B, EXACT_T, D, 111)
+    Lpk = admm.admm_prologue(z)
+    kw = dict(tol=0.0, check_every=100, rho=1.0, alpha=1.7)
+    fixed = lambda: admm.launch_admm(z, y, Lpk, iters=EXACT_FIXED, **kw)
+    res_k, state_k = fixed()
+    (res_p, state_p), p_ms = timed_once(
+        lambda: admm.admm_all_prefixes_l2_reference(z, y, Lpk,
+                                                    iters=EXACT_FIXED, **kw))
+    err = max_err(state_k + (res_k,), state_p + (res_p,))
+    del state_p, res_p
+    k_ms = time_ms(fixed, reps=5)
+    route = lambda: admm.admm_all_prefixes_l2(z, y, iters=EXACT_ITERS,
+                                              tol=EXACT_TOL)
+    r_ms = time_ms(route, reps=5)
+    X, res, _ = route()
+    worst = float(res.max())
+    ops = admm_ops(EXACT_B, EXACT_T, D, EXACT_FIXED)
+    n_bytes = 4 * (z.numel() + y.numel() + Lpk.numel()
+                   + sum(a.numel() for a in state_k) + res_k.numel())
+    out = {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
+           "library_ms": None, **bound(n_bytes, ops, torch.float32)}
+    print(f"[11 exact] K10 B={EXACT_B} T={EXACT_T} d={D} f32, {EXACT_FIXED} "
+          f"fixed iterations: kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, "
+          f"max {k_ms[2]:.4f}; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}, {ops:.4g} operations); vs plain max_abs_err="
+          f"{err:.3e} (bound {TOL[torch.float32]:g}); plain PyTorch "
+          f"{p_ms:.1f} ms (one call)")
+    print(f"[11 exact] K10 route iters={EXACT_ITERS} tol={EXACT_TOL:g} with "
+          f"the prologue: {r_ms[0]:.4f} ms (min {r_ms[1]:.4f}, max "
+          f"{r_ms[2]:.4f}); worst residual {worst:.3e} (bound 1e-3)")
+    check(err <= TOL[torch.float32], "K10 vs plain at the path shape")
+    check(worst <= 1e-3, "K10 residuals at the route's tol")
+    Xx, _, _ = _admm_all_prefixes(z, y, iters=EXACT_ITERS, tol=EXACT_TOL)
+    zh, yh = z.double().cpu().numpy(), y.double().cpu().numpy()
+    lengths = range(20, EXACT_T + 1, 20)
+    gap = -math.inf
+    # Both scaled into the ball first: an f32 iterate a few ulps outside it
+    # scores below the constrained optimum (admm.feasible_actions).
+    Xk, Xp = admm.feasible_actions(X), admm.feasible_actions(Xx)
+    for b in range(EXACT_B):
+        acts = [polish_prefix_actions(zh[b], yh[b], np.concatenate(
+            [np.zeros((1, D)), a[b]]), "l2", lengths=lengths)
+            for a in (Xk, Xp)]
+        for p in lengths:
+            fk, fx = (polish_objective(zh[b][:p], yh[b][:p], a[p])
+                      for a in acts)
+            gap = max(gap, fk - fx)
+    print(f"[11 exact] polished objectives at every 20th prefix of the "
+          f"{EXACT_B} replicates: max (K10 - plain banded ADMM) = {gap:.3e} "
+          f"(bound 3e-6)")
+    check(gap <= 3e-6, "K10's polished objectives above the plain ADMM's")
+    return out
+
+
+def ftrl_f32_bound(T: int) -> float:
+    """What f32 scoring can move a mean regret by at horizon T, to first
+    order in the unit roundoff u = 2^-24: a regret is the difference of two
+    sums of T hinge losses, each loss at most 1.  Each sum's recursive
+    rounding is at most T u times its value (<= T); each loss carries at
+    most (d + 3) u of its own; FTRL's f32 leader, a running sum, is off by
+    at most t u times its norm at round t, which moves its loss by as much
+    (at most T^2 u / 2 over the game).  3 T (T + d + 3) u covers the three;
+    a mean over replicates and runs keeps the bound."""
+    return 3.0 * T * (T + D + 3) * F32_UNIT
+
+
+def exact_kernel_route(tmp):
+    """(c) the --exact kernel route through the driver, cut to 2 runs and
+    50 g runs, against the auto route (certified, host f64) on the same
+    cut."""
+    cut = ["--runs", "2", "--g-runs", "50"]
+    argv = ["--exact", "--exact-solver", "kernel", "--precision", "f32",
+            "--device", "cuda", *cut, "--dpi", "100"]
+    admm.LAUNCHES = 0
+    game.LAUNCHES = 0
+    res = run_experiment(config_from_args(
+        argv + ["--out-dir", os.path.join(tmp, "exact_kernel")]))
+    launches, k1 = admm.LAUNCHES, game.LAUNCHES
+    audit = res["audit"]
+    cells = sum(a["cells_kernel"] for a in audit.values())
+    escalated = sum(a["replicates_escalated"] for a in audit.values())
+    print(f"[11 exact] driver {' '.join(argv)} (cut from the full 48 runs "
+          f"and --g-runs 200 to {' '.join(cut)}): wall {res['wall_s']:.2f} "
+          f"s, phases {json.dumps(res['phase_s'])}; K10 launches {launches} "
+          f"for {cells} kernel cells and {escalated} escalated replicates; "
+          f"K1 launches {k1}; audit {json.dumps(audit)}; host seconds by "
+          f"step {json.dumps(res['exact_time_s'])}")
+    check(all(audit[t]["cells_kernel"] == audit[t]["cells"] == 20
+              for t in RANDOM_FAMILIES),
+          "a random-family cell did not go through K10")
+    check(launches == cells if escalated == 0
+          else cells < launches <= cells + escalated,
+          f"K10 launches {launches} do not match {cells} cells plus the "
+          f"escalations")
+    check(k1 > 0, "the kernel route did not score FTRL through K1")
+    auto = run_experiment(config_from_args(
+        ["--exact", "--precision", "f32", "--device", "cuda", *cut,
+         "--cases", *RANDOM_FAMILIES,
+         "--out-dir", os.path.join(tmp, "exact_auto")]))
+    worst = {}
+    for title in RANDOM_FAMILIES:
+        for alg in ("FTRL", "FTL (exact)"):
+            got = res["stats"][title][alg]["mean"]
+            want = auto["stats"][title][alg]["mean"]
+            for T, u, v in zip(T_GRID, got, want):
+                check(math.isfinite(u) and abs(u - v) <= ftrl_f32_bound(T),
+                      f"{title} {alg} T={T}: kernel route {u} vs auto {v}")
+                worst[alg] = max(worst.get(alg, 0.0), abs(u - v))
+    print(f"[11 exact] kernel route vs --exact-solver auto (certified, host "
+          f"f64; wall {auto['wall_s']:.2f} s) on the same cut, random "
+          f"families: max |mean difference| FTRL {worst['FTRL']:.3e}, FTL "
+          f"(exact) {worst['FTL (exact)']:.3e}; bound 3T(T+d+3)u from f32 "
+          f"scoring, {ftrl_f32_bound(100):.3e} at T=100 to "
+          f"{ftrl_f32_bound(1000):.3e} at T=1000")
+    return launches
+
+
+def exact_default(tmp):
+    """(d) the default --exact pipeline at full scale against the committed
+    results/results_exact_canonical.json."""
+    argv = ["--exact", "--g-runs", "200", "--device", "cuda", "--dpi", "100"]
+    admm.LAUNCHES = 0
+    res = run_experiment(config_from_args(
+        argv + ["--out-dir", os.path.join(tmp, "exact_default")]))
+    with open(os.path.join(REPO, "results",
+                           "results_exact_canonical.json")) as f:
+        committed = json.load(f)
+    err = results_diff(res, committed)
+    print(f"[11 exact] driver {' '.join(argv)} (auto, canonical, f64, 48 "
+          f"runs): wall {res['wall_s']:.2f} s, phases "
+          f"{json.dumps(res['phase_s'])}, K10 launches {admm.LAUNCHES}; max "
+          f"|cuda - results/results_exact_canonical.json| over g_emp and "
+          f"stats = {err:.3e} (bound {PARITY_TOL:g}); audit equal "
+          f"{res['audit'] == committed['audit']}")
+    check(err <= PARITY_TOL, "default --exact differs from the committed run")
+    check(res["audit"] == committed["audit"],
+          "default --exact audit differs from the committed run")
+
+
+def phase_exact(tmp):
+    k10_vs_plain()
+    timing = k10_path_shape()
+    launches = exact_kernel_route(tmp)
+    exact_default(tmp)
+    return launches, timing
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1410,6 +1648,7 @@ def main() -> int:
         packed_launches, packed_timing = phase_packed()
         quad_launches, quad_timing = phase_quadratic(tmp)
         pod_launches, pod_timing = phase_pod(tmp)
+        exact_launches, exact_timing = phase_exact(tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -1466,6 +1705,11 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/synthetic_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:1115",
          "launches": pod_launches, **pod_timing},
+        {"name": "admm_kernel (K10: all-prefix exact-FTL ADMM, l2 ball)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/admm_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": exact_launches, **exact_timing},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,15 @@ families, plus the empirical g(T) curve; eta and SMART-threshold sweeps;
 long-horizon streaming with checkpoint/resume; the packed game API
 (``ops.simulate_linear_auto``); the quadratic-loss track (exact
 least-squares FTL and FTRL, ``models.quadratic`` and
-``experiments.quadratic_study``).  It imports ``torch`` and never
+``experiments.quadratic_study``); the exact-FTL track (all-prefix ADMM with
+kernel K10, active-set polish, certified and canonical closed forms,
+``models.exact_ftl`` and the driver's ``--exact``).  It imports ``torch`` and never
 ``jax``; the JAX package stays the reference it is tested against.
 
 - ``ops``        : step math and the hand-written CUDA kernels (``csrc/``)
                    with their plain PyTorch versions.
-- ``models``     : simulators, the reference-compatible API, the sweeps
-                   and the streamed games.
+- ``models``     : simulators, the reference-compatible API, the sweeps,
+                   the streamed games and the exact-FTL oracle.
 - ``data``       : host-NumPy sequence families with the reference's PCG64
                    seed schedules, bitwise equal to the JAX package's, and
                    on-device generation.

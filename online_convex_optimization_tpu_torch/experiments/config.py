@@ -1,17 +1,21 @@
 """Experiment configuration with CLI overrides.
 
 Counterpart of ``online_convex_optimization_tpu/experiments/config.py``
-(``ExperimentConfig``, ``build_parser``, ``config_from_args``) for the plain
-pipeline.  Differences from the JAX package:
+(``ExperimentConfig``, ``build_parser``, ``config_from_args``).
+Differences from the JAX package:
 
   - ``--device`` (``cuda`` or ``cpu``, default ``cuda``) names where the
     simulators run; ``cuda`` without a card raises, it never falls back.
   - ``precision="auto"`` means float64 on every device (the H100 computes
     f64 natively); ``f32`` keeps the JAX package's TPU behaviour, routing
     the two 1x1 deterministic families to the f64 golden oracle.
-  - ``--exact`` is parsed and raises ``NotImplementedError``: the exact-FTL
-    track is not ported yet (ROADMAP.md queue 1, item 14, "The exact
-    track").
+  - ``--exact`` runs the exact-FTL mode with the JAX package's flags and
+    defaults (``--exact-iters``, ``--exact-solver``, ``--exact-selection``,
+    ``--norm``, ``--exact-admm-precision``).  ``--exact-solver kernel`` is
+    kernel K10 (l2, ``--precision f32``); ``--exact-solver ssn`` raises
+    ``NotImplementedError`` (the semismooth Newton is ROADMAP item 14b), and
+    so does ``--exact-admm-precision high`` (``ValueError``: the TPU's
+    bf16x3 products have no IEEE counterpart on the card).
   - ``--check`` is an explicit ``torch.isfinite`` guard on every g(T)
     batch, on by default.
 """
@@ -39,7 +43,19 @@ class ExperimentConfig:
     runs_override: Optional[int] = None
     replicates_override: Optional[int] = None
     precision: str = "auto"       # auto/x64: float64 on every device; f32
-    exact: bool = False           # exact-FTL mode: not ported, raises
+    exact: bool = False           # exact-FTL comparison mode (exact driver)
+    exact_iters: int = 2000
+    # ADMM iterate products: "highest" (IEEE) only; "high" raises.
+    exact_admm_precision: str = "highest"
+    # Exact solve: "auto" = certified closed form, banded ADMM for the
+    # uncertified in-contract cells; "linear" = require the certificate;
+    # "xla" = force the banded ADMM; "kernel" = force K10 (l2, f32);
+    # "ssn" raises (ROADMAP item 14b).
+    exact_solver: str = "auto"
+    # Degenerate-optima selection: "canonical" (min-l2-norm point of the
+    # optimal face, models/canonical.py) or "committed" (the solver's).
+    exact_selection: str = "canonical"
+    norm: str = "l2"              # exact oracle ball (exact_ftl.py:72)
     out_dir: str = "results"
     dpi: int = 600                # matches the reference (driver.py:158)
     checkpoint: bool = True
@@ -58,6 +74,11 @@ class ExperimentConfig:
             "runs": self.g_runs, "eta0": self.eta0,
             "precision": self.precision, "device": self.device,
         }
+        if self.exact:  # plain-pipeline keys predate (and ignore) these
+            fields.update(exact=True, norm=self.norm,
+                          iters=self.exact_iters,
+                          admm_prec=self.exact_admm_precision,
+                          solver=self.exact_solver)
         payload = json.dumps(fields, sort_keys=True)
         return hashlib.sha1(payload.encode()).hexdigest()[:12]
 
@@ -83,7 +104,26 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.precision,
                    help="auto and x64: float64 on every device")
     p.add_argument("--exact", action="store_true",
-                   help="exact-FTL comparison mode (not ported yet: raises)")
+                   help="exact-FTL comparison mode (exact_ftl_driver.py)")
+    p.add_argument("--exact-iters", type=int, default=d.exact_iters)
+    p.add_argument("--exact-admm-precision", choices=["highest", "high"],
+                   default=d.exact_admm_precision,
+                   help="ADMM iterate products: highest = IEEE; high (the "
+                        "TPU's bf16x3) raises on this port")
+    p.add_argument("--exact-solver",
+                   choices=["auto", "linear", "xla", "kernel", "ssn"],
+                   default=d.exact_solver,
+                   help="exact solve: auto = certified closed form where "
+                        "the optimality certificate holds, banded ADMM "
+                        "otherwise; linear = require the certificate; xla = "
+                        "force the banded ADMM; kernel = force kernel K10 "
+                        "(l2, --precision f32); ssn = not ported (raises)")
+    p.add_argument("--exact-selection", choices=["committed", "canonical"],
+                   default=d.exact_selection,
+                   help="degenerate-optima selection: canonical = min-l2-"
+                        "norm point of the optimal face; committed = the "
+                        "solver's selection")
+    p.add_argument("--norm", choices=["l2", "linf", "l1"], default=d.norm)
     p.add_argument("--out-dir", default=d.out_dir)
     p.add_argument("--dpi", type=int, default=d.dpi)
     p.add_argument("--no-checkpoint", action="store_true")
@@ -109,6 +149,10 @@ def config_from_args(argv: Optional[Sequence[str]] = None) -> ExperimentConfig:
         cases=tuple(args.cases) if args.cases else (),
         runs_override=args.runs, replicates_override=args.replicates,
         precision=args.precision, exact=args.exact,
+        exact_iters=args.exact_iters,
+        exact_admm_precision=args.exact_admm_precision,
+        exact_solver=args.exact_solver,
+        exact_selection=args.exact_selection, norm=args.norm,
         out_dir=args.out_dir, dpi=args.dpi,
         checkpoint=not args.no_checkpoint, batch_chunk=args.batch_chunk,
         check=args.check, device=args.device, profile_dir=args.profile_dir)

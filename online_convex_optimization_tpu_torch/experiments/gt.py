@@ -1,8 +1,9 @@
 """Empirical worst-case g(T) estimation with a provenance-keyed cache.
 
 Counterpart of ``online_convex_optimization_tpu/experiments/gt.py``
-``estimate_g`` (with ``_load_g_cache`` / ``_save_g_cache``); reference
-algorithms.py:135-171.  Per horizon, all runs go through FTRL as device
+``estimate_g`` and ``estimate_g_exact`` (with ``_load_g_cache`` /
+``_save_g_cache``); reference algorithms.py:135-171 and
+exact_ftl_driver.py:64-117.  Per horizon, all runs go through FTRL as device
 batches of at most ``chunk`` sequences, and the maximum regret is kept with
 the reference's 0.0 floor.  Horizons are not padded to the grid's largest
 as in the JAX package, where padding let the grid share one compiled
@@ -26,7 +27,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from online_convex_optimization_tpu_torch.data.sequences import sample_g_instance
+from online_convex_optimization_tpu_torch.data.sequences import (
+    sample_g_batch,
+    sample_g_instance,
+)
 from online_convex_optimization_tpu_torch.models.linear import simulate_linear_batch
 from online_convex_optimization_tpu_torch.utils.debug import assert_finite
 
@@ -113,4 +117,143 @@ def estimate_g(
         if cache_path:
             _save_g_cache(cache_path, g, meta_key,
                           {"chunk": int(chunk), "check": bool(check)})
+    return {int(t): g[int(t)] for t in T_grid}
+
+
+def estimate_g_exact(
+    T_grid,
+    *,
+    runs: int,
+    base_seed: int = 0,
+    eta0: float = math.sqrt(2.0),
+    norm: str = "l2",
+    iters: int = 2000,
+    dtype=np.float64,
+    cache_path: Optional[str] = None,
+    progress: bool = True,
+    admm_precision: str = "highest",
+    solver: str = "auto",
+    device="cuda",
+) -> Dict[int, float]:
+    """g(T) with the exact comparator (reference exact_ftl_driver.py:
+    64-117): regret = FTRL cum_loss - loss of the exact full-sequence
+    minimizer, maximized over ``runs`` instances per horizon.
+
+    ``solver='auto'`` takes each run's comparator from the certified
+    closed form (``models/linear_regime.py``; the g sampler's data is
+    contract data) and scores FTRL on the host in f64; only uncertified
+    runs go to the ADMM.  ``solver='linear'`` raises on an uncertified
+    run; any other value solves every comparator by the ADMM
+    (``models/exact_ftl.py::_admm_full``, batched on ``device``, with one
+    continuation at twice the budget for unconverged runs) and plays FTRL
+    through K1 on ``device``.  ADMM solutions are polished on the host, and
+    every comparator loss is computed there in f64; a run whose solve
+    diverges is dropped from the maximum with a warning."""
+    from online_convex_optimization_tpu_torch.experiments.evaluate import (
+        _host_ftrl_cum_loss)
+    from online_convex_optimization_tpu_torch.models.exact_ftl import (
+        _admm_full, check_precision)
+    from online_convex_optimization_tpu_torch.models.linear_regime import (
+        certified_full_solution_batch)
+    from online_convex_optimization_tpu_torch.models.polish import (
+        polish_solution)
+    from online_convex_optimization_tpu_torch.utils.devices import (
+        resolve_device)
+
+    check_precision(admm_precision)
+    try_linear = solver in ("auto", "linear")
+    meta_key = {"kind": "g_exact", "runs": int(runs),
+                "base_seed": int(base_seed), "eta0": float(eta0),
+                "norm": norm, "dtype": np.dtype(dtype).name,
+                "device": torch.device(device).type}
+    meta_info = {"solver": solver, "iters": int(iters),
+                 "admm_precision": admm_precision}
+    g = _load_g_cache(cache_path, meta_key)
+    todo = [int(t) for t in T_grid if int(t) not in g]
+    iterator = todo
+    if progress and todo:
+        try:
+            from tqdm import tqdm
+            iterator = tqdm(todo, desc="Estimating g(T) with exact FTRL")
+        except ImportError:
+            pass
+    device = resolve_device(device)
+
+    def solve(zc, yc, st=None, budget=iters):
+        return _admm_full(zc, yc, norm=norm, iters=budget, tol=2e-4,
+                          precision=admm_precision, state0=st)
+
+    T_max = max(int(t) for t in T_grid)
+    for T in iterator:
+        z, y = sample_g_batch(base_seed, T, runs, dtype=dtype)
+        # Zero-padded to T_max: padded rows are inert in the FTRL game and
+        # in the exact solve.
+        if T < T_max:
+            z = np.concatenate(
+                [z, np.zeros((runs, T_max - T, z.shape[2]), z.dtype)], axis=1)
+            y = np.concatenate(
+                [y, np.zeros((runs, T_max - T), y.dtype)], axis=1)
+        if try_linear:
+            cum = _host_ftrl_cum_loss(z[:, :T], y[:, :T], eta0)
+        else:
+            cum = simulate_linear_batch(
+                torch.from_numpy(z).to(device), torch.from_numpy(y).to(device),
+                0, eta0, T).cum_loss.cpu().numpy()
+        max_regret = 0.0
+        chunk = 50  # divides the reference's 200-run default
+        for start in range(0, runs, chunk):
+            n = min(chunk, runs - start)
+            x_np = np.full((n, z.shape[2]), np.nan)
+            ok_mask = np.zeros(n, bool)
+            if try_linear:
+                x_lin, ok_lin = certified_full_solution_batch(
+                    z[start:start + chunk, :T], y[start:start + chunk, :T],
+                    norm)
+                x_np[ok_lin] = x_lin[ok_lin]
+                ok_mask |= ok_lin
+                if solver == "linear" and not ok_lin.all():
+                    raise RuntimeError(
+                        "solver='linear': uncertified g(T) run at "
+                        f"T={T}, chunk={start}")
+            need = ~ok_mask
+            if need.any():
+                # The whole chunk goes to the ADMM; certified members'
+                # results are ignored.
+                zc = torch.from_numpy(z[start:start + chunk]).to(device)
+                yc = torch.from_numpy(y[start:start + chunk]).to(device)
+                x_c, res, st = solve(zc, yc)
+                x_dev = x_c.cpu().numpy().astype(np.float64)
+                ok_dev = res.cpu().numpy() <= 1e-3
+                if not (ok_dev | ~need).all():
+                    # Continue from the state with twice the budget; a
+                    # recovered run stays a candidate for the maximum.
+                    x2, res2, _ = solve(zc, yc, st, 2 * iters)
+                    x2 = x2.cpu().numpy().astype(np.float64)
+                    ok2 = res2.cpu().numpy() <= 1e-3
+                    take = (~ok_dev) & ok2
+                    x_dev[take] = x2[take]
+                    ok_dev = ok_dev | ok2
+                del st
+                for i in np.flatnonzero(need & ok_dev):  # host polish
+                    x_dev[i] = polish_solution(z[start + i], y[start + i],
+                                               x_dev[i], norm)
+                    x_np[i] = x_dev[i]
+                ok_mask |= need & ok_dev
+            # Comparator losses in host f64.
+            zh = np.asarray(z[start:start + chunk, :T], np.float64)
+            yh = np.asarray(y[start:start + chunk, :T], np.float64)
+            comp = 0.5 * np.abs(
+                np.einsum("ntd,nd->nt", zh, x_np) - yh).sum(axis=-1)
+            regs = cum[start:start + chunk] - comp
+            finite = np.isfinite(regs)
+            n_ok = int(finite.sum())
+            if n_ok < regs.shape[0]:
+                logging.getLogger("oco").warning(
+                    "estimate_g_exact T=%d: dropped %d/%d diverged solves",
+                    T, regs.shape[0] - n_ok, regs.shape[0])
+            if n_ok:
+                max_regret = max(max_regret, float(regs[finite].max()))
+        g[T] = max_regret
+        if cache_path:
+            _save_g_cache(cache_path, g, meta_key, meta_info)
     return {int(t): g[int(t)] for t in T_grid}

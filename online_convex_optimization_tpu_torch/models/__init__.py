@@ -2,9 +2,18 @@
 FTRL/FTL and SMART, each one pass of a CUDA kernel on the card; the eta
 and threshold sweeps; the streamed game for long horizons; the
 quadratic-loss track (exact least-squares FTL and FTRL, one pass of
-kernel K8)."""
+kernel K8); the exact-FTL oracle (all-prefix ADMM, certified closed form,
+canonical selection, active-set polish)."""
 
 from online_convex_optimization_tpu_torch.models.base import RunResult
+from online_convex_optimization_tpu_torch.models.exact_ftl import (
+    ExactFTL,
+    compute_prefix_actions,
+    replay_exact_ftl,
+    run_ftl_exact,
+    run_ftrl,
+    simulate,
+)
 from online_convex_optimization_tpu_torch.models.linear import (
     ALG_FTL,
     ALG_FTRL,
@@ -48,4 +57,10 @@ __all__ = [
     "quadratic_comparator_loss",
     "simulate_quadratic",
     "simulate_quadratic_batch",
+    "ExactFTL",
+    "compute_prefix_actions",
+    "replay_exact_ftl",
+    "run_ftl_exact",
+    "run_ftrl",
+    "simulate",
 ]

@@ -7,7 +7,8 @@ builds into the port's tensors with the same bits, so both packages compute
 on identical inputs.  ``stream_carry_from_jax`` carries a streamed game's
 state across: a run begun in the JAX package finishes in the port, and
 ``synthetic_g_checkpoint_from_jax`` does the same for a resumable g sweep
-(``parallel/sweep.py::resumable_synthetic_g``).  The packed
+(``parallel/sweep.py::resumable_synthetic_g``), and
+``admm_state_from_jax`` for an all-prefix exact-FTL ADMM solve.  The packed
 game (K3, K3e) and the quadratic game (K8) carry nothing across: the JAX
 package exposes no carry for them and both start from zero state, so they
 need no function here.
@@ -73,6 +74,40 @@ def synthetic_g_checkpoint_from_jax(path: str) -> dict:
     return {"g": np.asarray(leaves["g"], np.float32),
             "done": np.asarray(int(leaves["done"])),
             "key": np.asarray(int(leaves["key"]), np.int64)}
+
+
+def admm_state_from_jax(state, B: int, T: int, d: int):
+    """A JAX all-prefix ADMM state -> the port's K10 state ``(s, u, x, w,
+    v)`` as float32 NumPy arrays (``s``, ``u`` ``(B*T, T)``, ``x``, ``w``,
+    ``v`` ``(B*T, d)``), for ``ops/admm.py::admm_all_prefixes_l2(...,
+    state0=...)``, so a solve begun in the JAX package continues in the
+    port.
+
+    ``state`` is either the JAX kernel's ``(s1, u1, vec1)``
+    (``ops/pallas_admm.py``: rows and columns padded to ``tp = ceil(T/128)
+    * 128``, row ``b*tp + p``; ``vec1`` packs x in lanes 0..d-1, w in 8..,
+    v in 16..) or the XLA path's ``(X, S, U, W, V)`` of
+    ``models/exact_ftl.py::_admm_all_prefixes`` on all T prefixes, one
+    replicate ``(T, ...)`` or a batch of them ``(B, T, ...)``.  Padding
+    rows and columns are dropped; entries past a row's length are zero in
+    both packages."""
+    if len(state) == 3:
+        s1, u1, vec1 = (np.asarray(a) for a in state)
+        tp = s1.shape[-1]
+        s = s1.reshape(B, tp, tp)[:, :T, :T].reshape(B * T, T)
+        u = u1.reshape(B, tp, tp)[:, :T, :T].reshape(B * T, T)
+        vec = vec1.reshape(B, tp, -1)[:, :T]
+        x, w, v = (vec[..., lane:lane + d].reshape(B * T, d)
+                   for lane in (0, 8, 16))
+    elif len(state) == 5:
+        X, S, U, W, V = (np.asarray(a) for a in state)
+        s, u = S.reshape(B * T, T), U.reshape(B * T, T)
+        x, w, v = (a.reshape(B * T, d) for a in (X, W, V))
+    else:
+        raise ValueError("expected the JAX kernel's (s1, u1, vec1) or the "
+                         "XLA path's (X, S, U, W, V)")
+    return tuple(np.array(a, dtype=np.float32, order="C")
+                 for a in (s, u, x, w, v))
 
 
 def to_torch(arrays: Sequence[np.ndarray], device, dtype=None):

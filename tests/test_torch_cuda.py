@@ -1,7 +1,7 @@
-"""Kernels K1-K9 on the card against their plain PyTorch versions; the
+"""Kernels K1-K10 on the card against their plain PyTorch versions; the
 sweeps, the stream, the packed game (K3, K3e) and the generation-fused
 game (K7) against K1 and K2; K8's comparator against K9; the quadratic
-study against its CPU run.
+study and the exact track's kernel route against their CPU runs.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports only
 torch, numpy and the port, so it also runs where JAX is not installed:
@@ -22,7 +22,7 @@ from online_convex_optimization_tpu_torch.models.streaming import (
 from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     evaluate_quadratic_stream,
 )
-from online_convex_optimization_tpu_torch.ops import game, smart, trs
+from online_convex_optimization_tpu_torch.ops import admm, game, smart, trs
 from online_convex_optimization_tpu_torch.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
@@ -361,3 +361,103 @@ def test_synthetic_kernel_rejects_d_above_max(cuda):
         game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=513)
     out = game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=512)
     assert bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------- K10
+
+def _admm_batch(B, T, d, seed, cuda):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(B, T, d))
+    z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
+    u = rng.normal(size=(B, d))
+    y = np.sign(np.einsum("btd,bd->bt", z, u) + 0.3 * rng.normal(size=(B, T)))
+    return _to((z, y), cuda, torch.float32)
+
+
+@pytest.mark.parametrize("B,T,d", [(2, 70, 5), (2, 1000, 5), (3, 300, 3),
+                                   (2, 500, 8)])
+def test_admm_kernel_matches_plain_fixed_iterations(cuda, B, T, d):
+    """K10 against its plain version on the same factor: 300 fixed
+    iterations, state and residuals within the f32 bound."""
+    z, y = _admm_batch(B, T, d, seed=T + d, cuda=cuda)
+    before = admm.LAUNCHES
+    X, res, state = admm.admm_all_prefixes_l2(z, y, iters=300, tol=0.0)
+    torch.cuda.synchronize()
+    assert admm.LAUNCHES == before + 1
+    res_p, state_p = admm.admm_all_prefixes_l2_reference(
+        z, y, admm.admm_prologue(z), iters=300, tol=0.0, check_every=100,
+        rho=1.0, alpha=1.7)
+    assert _max_err(state, state_p) <= TOL[torch.float32]
+    assert _max_err((res.reshape(-1),), (res_p,)) <= TOL[torch.float32]
+    assert torch.equal(X, state[3].reshape(B, T, d))
+
+
+def test_admm_kernel_continuation_and_subset_are_bit_for_bit(cuda):
+    z, y = _admm_batch(3, 400, 5, seed=1, cuda=cuda)
+    _, _, st = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
+    Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=150, tol=0.0,
+                                            state0=st)
+    Xl, rl, stl = admm.admm_all_prefixes_l2(z, y, iters=250, tol=0.0)
+    assert torch.equal(Xc, Xl) and torch.equal(rc, rl)
+    assert all(torch.equal(a, b) for a, b in zip(stc, stl))
+    X, res, _ = admm.admm_all_prefixes_l2(z, y, iters=6000, tol=2e-4)
+    X1, res1, _ = admm.admm_all_prefixes_l2(z[1:2].contiguous(),
+                                            y[1:2].contiguous(), iters=6000,
+                                            tol=2e-4)
+    assert torch.equal(X[1], X1[0]) and torch.equal(res[1], res1[0])
+    assert float(res.max()) <= 2e-4
+
+
+def test_admm_kernel_polished_objectives_match_plain_route(cuda):
+    """At the route's tol, after the host polish (both scaled into the ball
+    first), every 10th prefix's objective within 3e-6 above the plain
+    banded ADMM's (the on-chip bar of the JAX package's
+    tests/test_pallas_admm.py)."""
+    from online_convex_optimization_tpu_torch.models.exact_ftl import (
+        _admm_all_prefixes)
+    from online_convex_optimization_tpu_torch.models.polish import (
+        objective, polish_prefix_actions)
+    z, y = _admm_batch(2, 300, 5, seed=7, cuda=cuda)
+    X, res, _ = admm.admm_all_prefixes_l2(z, y, iters=6000, tol=2e-4)
+    assert float(res.max()) <= 1e-3
+    Xx, _, _ = _admm_all_prefixes(z, y, iters=6000, tol=2e-4)
+    zh, yh = z.double().cpu().numpy(), y.double().cpu().numpy()
+    for b in range(2):
+        acts = [polish_prefix_actions(zh[b], yh[b], np.concatenate(
+            [np.zeros((1, 5)), admm.feasible_actions(a)[b]]), "l2")
+            for a in (X, Xx)]
+        for p in range(10, 301, 10):
+            fk, fx = (objective(zh[b][:p], yh[b][:p], a[p]) for a in acts)
+            assert fk <= fx + 3e-6, (b, p)
+
+
+def test_admm_kernel_refuses_its_envelope(cuda):
+    z, y = _admm_batch(1, 1025, 5, seed=2, cuda=cuda)
+    with pytest.raises(ValueError, match="T <= 1024"):
+        admm.admm_all_prefixes_l2(z, y)
+    z, y = _admm_batch(1, 20, 9, seed=2, cuda=cuda)
+    with pytest.raises(ValueError, match="d <= 8"):
+        admm.admm_all_prefixes_l2(z, y)
+    with pytest.raises(TypeError, match="float32"):
+        admm.admm_all_prefixes_l2(z.double(), y.double())
+
+
+def test_exact_kernel_route_on_the_card(cuda):
+    """evaluate_stream_exact(solver='kernel') on the card: one K10 launch a
+    cell (no escalation here), and the same statistics as the route's CPU
+    run within the f32 bound."""
+    from online_convex_optimization_tpu_torch.experiments.evaluate import (
+        evaluate_stream_exact)
+    kw = dict(T_grid=[60, 120], runs=2, replicates=3, dtype=np.float32,
+              solver="kernel", progress=False)
+    audit = {}
+    before = admm.LAUNCHES
+    got = evaluate_stream_exact(CASES["Massart noise 10%"], audit_out=audit,
+                                device=cuda, **kw)
+    assert audit["cells_kernel"] == 4 and audit["replicates_escalated"] == 0
+    assert admm.LAUNCHES == before + 4
+    want = evaluate_stream_exact(CASES["Massart noise 10%"], device="cpu",
+                                 **kw)
+    for k in want:
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_allclose(g, w, rtol=0, atol=TOL[torch.float32])

@@ -67,6 +67,20 @@ assert len(pod["g_max"]) == 8 and pod["n_sequences_per_eta"] == 16
 w = multihost.run_worker(8, 4, eta0=1.0, device="cpu")
 assert w["total_scenarios"] == 4
 
+# The exact-FTL track: the --exact driver through the banded ADMM and
+# K10's plain version, on the CPU.
+from online_convex_optimization_tpu_torch.models import exact_ftl
+from online_convex_optimization_tpu_torch.ops import admm
+for solver, precision in (("auto", "x64"), ("xla", "x64"), ("kernel", "f32")):
+    driver.main(["--exact", "--exact-solver", solver, "--precision",
+                      precision, "--t-min", "20", "--t-max", "40",
+                      "--t-step", "20", "--g-runs", "3", "--runs", "2",
+                      "--replicates", "2", "--dpi", "20", "--device", "cpu",
+                      "--cases", "Massart noise 10%", "Label flips",
+                      "--out-dir", sys.argv[1] + "/exact_" + solver])
+res = exact_ftl.run_ftl_exact(z[:30], y[:30], device="cpu")
+assert np.isfinite(res.regret)
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("online_convex_optimization_tpu.")
                or m == "online_convex_optimization_tpu" for m in sys.modules)
@@ -75,6 +89,7 @@ assert game.SWEEP_LAUNCHES == game.STREAM_LAUNCHES == smart.SWEEP_LAUNCHES == 0
 assert game.PACKED_LAUNCHES == game.PACKED_ETA_LAUNCHES == 0
 assert trs.TRS_LAUNCHES == trs.QUAD_LAUNCHES == 0
 assert game.SYNTHETIC_LAUNCHES == 0
+assert admm.LAUNCHES == 0
 print("OK")
 """
 
