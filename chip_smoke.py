@@ -76,11 +76,17 @@ non-zero without printing a result):
                against one sweep (bit for bit), run_worker (T=1000,
                131,072 sequences, K1), run_stream_handoff (bitwise, the
                carry through an NCCL broadcast) and measure_scaling([1]).
-  11. exact   — (a) K10 against its plain version at B=2 T=1000 d=5, 300
-               fixed iterations (f32 bound 5e-4), and 100 + 150 iterations
-               from the saved state against 250, bit for bit; (b) K10 at
-               the kernel route's shape (B=16 T=1000 d=5) timed at 2,000
-               fixed iterations (the bound's work) and at the route's
+  11. exact   — (a) K10 against its plain version, 300 fixed iterations
+               (f32 bound 5e-4), at B=2 T=1000 d=5 and at B=1 T=1100 and
+               T=4096 (rows over several warps; past 2,048 the
+               16-entries-a-lane instance); 100 + 150 iterations from the
+               saved state against 250 at T=1000 and 1100, and one
+               replicate alone against its rows in the batch at T=1100,
+               bit for bit; the route's launch on z[:, :600] against rows
+               [:600] of the launch padded to T=1000, bit for bit; (b) K10
+               at the kernel route's shape (B=16 T=1000 d=5) timed at 2,000
+               fixed iterations (the bound's work; with the --fmad=false
+               issue floor, registers and warps an SM) and at the route's
                iters=6000 tol=2e-4, every residual <= 1e-3, and after the
                host polish every 20th prefix's objective within 3e-6 above
                the plain banded ADMM's; (c) ``driver --exact
@@ -89,10 +95,12 @@ non-zero without printing a result):
                K10, K10's launches equal to the cells plus the escalations,
                FTRL and FTL (exact) means within the f32 scoring bound
                3T(T+d+3)2^-24 of ``--exact-solver auto`` (certified, host
-               f64) on the same cut; (d) the default ``--exact --g-runs
-               200`` (auto, canonical, f64, 48 runs) on the card against the
-               committed ``results/results_exact_canonical.json``: g_emp and
-               stats within 1e-9, the audit equal.
+               f64) on the same cut; the same at one horizon T=1100 (one
+               run, one family, --g-runs 10), past PR 5's limit T <= 1024;
+               (d) the default ``--exact --g-runs 200`` (auto, canonical,
+               f64, 48 runs) on the card against the committed
+               ``results/results_exact_canonical.json``: g_emp and stats
+               within 1e-9, the audit equal.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -102,7 +110,10 @@ recurrences: null); K7 reads nothing, so its bound is the busier of the
 two pipes its work issues on: the integer ALU (the Philox xors, the bit
 tests and selects) and the FMA pipe (the Philox multiplies and the float
 operations of the game); K10's is its float operations at 2,000 fixed
-iterations (``admm_ops``).  The line before the last lists the kernels as
+iterations (``admm_ops``), and its entry adds its registers a thread and
+resident warps an SM (its text line also prints the --fmad=false issue
+floor, the same operations at one a lane and clock, which is arithmetic
+and stays out of the kernels line).  The line before the last lists the kernels as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  About 6
 minutes on an H100.
 """
@@ -192,6 +203,10 @@ PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}
 # IMAD.WIDE) run on 64 of its 128 lanes an SM; the float32 peak is all 128
 # doing a two-operation FMA each clock.
 INT_PIPE_OPS = 132 * 64 * 1.98e9
+# float32 instructions per second with every multiply and add issued alone
+# (--fmad=false): 132 SMs x 128 lanes x 1.98 GHz, half the data sheet's
+# 67 TFLOP/s, which counts an FMA as two operations.
+FP32_ISSUE_PER_S = 132 * 128 * 1.98e9
 PHILOX_ROUNDS = 10
 
 
@@ -1460,28 +1475,73 @@ def exact_batch(B, T, d, seed):
 
 
 def k10_vs_plain():
-    """(a) K10 against its plain version at B = 2, T = 1000, 300 fixed
-    iterations; continuation bit for bit."""
-    z, y = exact_batch(2, EXACT_T, D, 110)
-    X, res, state = admm.admm_all_prefixes_l2(z, y, iters=300, tol=0.0)
-    res_p, state_p = admm.admm_all_prefixes_l2_reference(
-        z, y, admm.admm_prologue(z), iters=300, tol=0.0, check_every=100,
-        rho=1.0, alpha=1.7)
-    torch.cuda.synchronize()
-    err = max_err(state + (res.reshape(-1),), state_p + (res_p,))
-    print(f"[11 exact] K10 B=2 T={EXACT_T} d={D} f32, 300 fixed iterations: "
-          f"vs plain (s, u, x, w, v, res) max_abs_err={err:.3e} (bound "
-          f"{TOL[torch.float32]:g})")
-    check(err <= TOL[torch.float32], "K10 vs plain at B=2 T=1000")
-    _, _, st = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
-    Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=150, tol=0.0,
-                                            state0=st)
-    Xl, rl, stl = admm.admm_all_prefixes_l2(z, y, iters=250, tol=0.0)
-    same = (torch.equal(Xc, Xl) and torch.equal(rc, rl)
-            and all(torch.equal(a, b) for a, b in zip(stc, stl)))
-    print(f"[11 exact] K10 100 + 150 iterations from the saved state equal "
-          f"250 in every bit: {same}")
-    check(same, "K10 continuation is not bit for bit")
+    """(a) K10 against its plain version at 300 fixed iterations: B = 2, T
+    = 1000, and B = 1 at T = 1100 and 4096, where rows span up to 8 warps
+    (T = 4096 takes the 16-entries-a-lane instance past 2,048); at T =
+    1000 and 1100 the continuation and, at 1100, one replicate alone
+    against its rows in the batch, bit for bit."""
+    worst = 0.0
+    for B, T in ((2, EXACT_T), (1, 1100), (1, 4096)):
+        z, y = exact_batch(B, T, D, 110 + T)
+        X, res, state = admm.admm_all_prefixes_l2(z, y, iters=300, tol=0.0)
+        res_p, state_p = admm.admm_all_prefixes_l2_reference(
+            z, y, admm.admm_prologue(z), iters=300, tol=0.0,
+            check_every=100, rho=1.0, alpha=1.7)
+        torch.cuda.synchronize()
+        err = max_err(state + (res.reshape(-1),), state_p + (res_p,))
+        worst = max(worst, err)
+        del state, state_p
+        print(f"[11 exact] K10 B={B} T={T} d={D} f32, 300 fixed iterations: "
+              f"vs plain (s, u, x, w, v, res) max_abs_err={err:.3e} (bound "
+              f"{TOL[torch.float32]:g})")
+        check(err <= TOL[torch.float32], f"K10 vs plain at B={B} T={T}")
+    for T in (EXACT_T, 1100):
+        z, y = exact_batch(2, T, D, 120 + T)
+        _, _, st = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
+        Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=150, tol=0.0,
+                                                state0=st)
+        Xl, rl, stl = admm.admm_all_prefixes_l2(z, y, iters=250, tol=0.0)
+        same = (torch.equal(Xc, Xl) and torch.equal(rc, rl)
+                and all(torch.equal(a, b) for a, b in zip(stc, stl)))
+        print(f"[11 exact] K10 T={T}: 100 + 150 iterations from the saved "
+              f"state equal 250 in every bit: {same}")
+        check(same, f"K10 continuation at T={T} is not bit for bit")
+    X, res, _ = admm.admm_all_prefixes_l2(z, y, iters=EXACT_ITERS,
+                                          tol=EXACT_TOL)
+    X1, res1, _ = admm.admm_all_prefixes_l2(
+        z[1:].contiguous(), y[1:].contiguous(), iters=EXACT_ITERS,
+        tol=EXACT_TOL)
+    same = torch.equal(X[1:], X1) and torch.equal(res[1:], res1)
+    print(f"[11 exact] K10 T=1100 iters={EXACT_ITERS} tol={EXACT_TOL:g}: "
+          f"replicate 1 alone equals its rows in the batch in every bit: "
+          f"{same}")
+    check(same, "K10 replicate subset is not bit for bit")
+    return worst
+
+
+def k10_sliced_route():
+    """(a) The kernel route's sliced launch: K10 on z[:, :T] at the route's
+    iters and tol equals rows p < T of the launch on z zero-padded to
+    T_max = 1000 (what the route launched before), in every bit."""
+    z, y = exact_batch(EXACT_B, EXACT_T, D, 112)
+    T = 600
+    z[:, T:] = 0.0
+    y[:, T:] = 0.0
+    kw = dict(iters=EXACT_ITERS, tol=EXACT_TOL)
+    X, res, st = admm.admm_all_prefixes_l2(z[:, :T].contiguous(),
+                                           y[:, :T].contiguous(), **kw)
+    Xp, resp, stp = admm.admm_all_prefixes_l2(z, y, **kw)
+    same = torch.equal(X, Xp[:, :T]) and torch.equal(res, resp[:, :T])
+    for a, ap in zip(st, stp):
+        ap = ap.reshape(EXACT_B, EXACT_T, -1)[:, :T]
+        if a.shape[-1] == T:
+            same = same and bool((ap[..., T:] == 0).all())
+            ap = ap[..., :T]
+        same = same and torch.equal(a.reshape(EXACT_B, T, -1), ap)
+    print(f"[11 exact] K10 B={EXACT_B} route iters/tol: launch on z[:, :{T}] "
+          f"equals rows [:{T}] of the launch padded to T={EXACT_T} in every "
+          f"bit: {same}")
+    check(same, "K10's sliced launch differs from the padded rows")
 
 
 def k10_path_shape():
@@ -1507,14 +1567,22 @@ def k10_path_shape():
     ops = admm_ops(EXACT_B, EXACT_T, D, EXACT_FIXED)
     n_bytes = 4 * (z.numel() + y.numel() + Lpk.numel()
                    + sum(a.numel() for a in state_k) + res_k.numel())
+    regs, warps = admm.kernel_occupancy(EXACT_T, D)[8]
     out = {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
-           "library_ms": None, **bound(n_bytes, ops, torch.float32)}
+           "library_ms": None, **bound(n_bytes, ops, torch.float32),
+           "registers": regs, "warps_per_sm": warps}
+    # The --fmad=false issue floor is arithmetic, not a measurement: it is
+    # printed here and stays out of the kernels line.
+    issue_floor_ms = ops / FP32_ISSUE_PER_S * 1e3
     print(f"[11 exact] K10 B={EXACT_B} T={EXACT_T} d={D} f32, {EXACT_FIXED} "
           f"fixed iterations: kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, "
           f"max {k_ms[2]:.4f}; bound {out['bound_ms']:.4f} ms by "
-          f"{out['bound_by']}, {ops:.4g} operations); vs plain max_abs_err="
-          f"{err:.3e} (bound {TOL[torch.float32]:g}); plain PyTorch "
-          f"{p_ms:.1f} ms (one call)")
+          f"{out['bound_by']}, {ops:.4g} operations; --fmad=false issue "
+          f"floor {issue_floor_ms:.4f} ms); {regs} registers a "
+          f"thread, {warps} warps an SM (the 8-entries-a-lane instance, "
+          f"every row at T={EXACT_T}); vs plain max_abs_err={err:.3e} "
+          f"(bound {TOL[torch.float32]:g}); plain PyTorch {p_ms:.1f} ms "
+          f"(one call)")
     print(f"[11 exact] K10 route iters={EXACT_ITERS} tol={EXACT_TOL:g} with "
           f"the prologue: {r_ms[0]:.4f} ms (min {r_ms[1]:.4f}, max "
           f"{r_ms[2]:.4f}); worst residual {worst:.3e} (bound 1e-3)")
@@ -1605,6 +1673,34 @@ def exact_kernel_route(tmp):
     return launches
 
 
+def exact_kernel_route_past_1024(tmp):
+    """(c) The kernel route past the PR 5 limit T <= 1024: one horizon T =
+    1100, one run, one random family, against the auto route on the same
+    cut."""
+    cut = ["--t-min", "1100", "--t-max", "1100", "--runs", "1", "--g-runs",
+           "10", "--cases", RANDOM_FAMILIES[0], "--device", "cuda"]
+    admm.LAUNCHES = 0
+    res = run_experiment(config_from_args(
+        ["--exact", "--exact-solver", "kernel", "--precision", "f32", *cut,
+         "--out-dir", os.path.join(tmp, "exact_kernel_1100")]))
+    launches = admm.LAUNCHES
+    auto = run_experiment(config_from_args(
+        ["--exact", "--precision", "f32", *cut,
+         "--out-dir", os.path.join(tmp, "exact_auto_1100")]))
+    diff = {alg: abs(res["stats"][RANDOM_FAMILIES[0]][alg]["mean"][0]
+                     - auto["stats"][RANDOM_FAMILIES[0]][alg]["mean"][0])
+            for alg in ("FTRL", "FTL (exact)")}
+    print(f"[11 exact] driver --exact --exact-solver kernel {' '.join(cut)}: "
+          f"wall {res['wall_s']:.2f} s, K10 launches {launches}, audit "
+          f"{json.dumps(res['audit'])}; vs auto |mean difference| FTRL "
+          f"{diff['FTRL']:.3e}, FTL (exact) {diff['FTL (exact)']:.3e} "
+          f"(bound {ftrl_f32_bound(1100):.3e})")
+    check(launches >= 1, "the kernel route at T=1100 did not launch K10")
+    check(all(math.isfinite(v) and v <= ftrl_f32_bound(1100)
+              for v in diff.values()),
+          "the kernel route at T=1100 differs from the auto route")
+
+
 def exact_default(tmp):
     """(d) the default --exact pipeline at full scale against the committed
     results/results_exact_canonical.json."""
@@ -1628,27 +1724,39 @@ def exact_default(tmp):
 
 
 def phase_exact(tmp):
-    k10_vs_plain()
+    err = k10_vs_plain()
+    k10_sliced_route()
     timing = k10_path_shape()
+    timing["max_abs_err"] = max(timing["max_abs_err"], err)
     launches = exact_kernel_route(tmp)
+    exact_kernel_route_past_1024(tmp)
     exact_default(tmp)
     return launches, timing
 
 
 def main() -> int:
-    name = phase_device()
-    phase_build()
-    phase_kernels()
+    walls = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    name = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    timed("3 kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, res, launches = phase_main(tmp)
-        timing = time_kernels()
-        phase_parity(cfg, res, tmp)
-        sweep_launches, sweep_timing = phase_sweeps()
-        stream_launches, stream_timing = phase_stream(tmp)
-        packed_launches, packed_timing = phase_packed()
-        quad_launches, quad_timing = phase_quadratic(tmp)
-        pod_launches, pod_timing = phase_pod(tmp)
-        exact_launches, exact_timing = phase_exact(tmp)
+        cfg, res, launches = timed("4 main", phase_main, tmp)
+        timing = timed("4 times", time_kernels)
+        timed("5 parity", phase_parity, cfg, res, tmp)
+        sweep_launches, sweep_timing = timed("6 sweeps", phase_sweeps)
+        stream_launches, stream_timing = timed("7 stream", phase_stream, tmp)
+        packed_launches, packed_timing = timed("8 packed", phase_packed)
+        quad_launches, quad_timing = timed("9 quadratic", phase_quadratic,
+                                           tmp)
+        pod_launches, pod_timing = timed("10 pod", phase_pod, tmp)
+        exact_launches, exact_timing = timed("11 exact", phase_exact, tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -1711,6 +1819,8 @@ def main() -> int:
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": exact_launches, **exact_timing},
     ]
+    print(f"[walls] seconds by phase {json.dumps(walls)}, total "
+          f"{sum(walls.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

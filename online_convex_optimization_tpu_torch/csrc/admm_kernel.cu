@@ -1,5 +1,6 @@
-// K10: all-prefix exact-FTL hinge ADMM on the l2 ball, one warp per
-// (replicate, prefix) row.
+// K10: all-prefix exact-FTL hinge ADMM on the l2 ball; each (replicate,
+// prefix) row's entries are split across 1-8 warps by the row's own length,
+// and each row's d x d step runs on one lane.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_admm.py
 // _admm_kernel, entry admm_all_prefixes_l2.  Python wrapper, prologue and
@@ -25,40 +26,76 @@
 // The TPU kernel exits per 256-row VMEM block; here each row exits on its
 // own residual, and the plain version applies the same per-row rule.
 //
-// Design.  A block holds OCO_ADMM_WARPS rows of one replicate and stages
-// that replicate's z (transposed, z_j[t]) and y in shared memory, (d + 1) T
-// floats: 24 KB at T = 1000, d = 5.  Each lane keeps its share of the row's
-// s and u in registers, NT = ceil(T_max / 32) of each, and touches only the
-// entries below the row's length (they are 0 past it throughout, as in the
-// TPU kernel, where the mask keeps them so).  The d partial sums of rhs go
-// through a butterfly of warp shuffles, after which every lane holds the
-// same sums (a + b == b + a in IEEE arithmetic), so every lane does the
-// d x d substitution and the projection redundantly: no __syncthreads in
-// the iteration loop.  The pass that updates s and u also accumulates the
-// next iteration's rhs partial sums, in the same order a fresh pass would,
-// so a continued solve equals a longer one bit for bit.  Blocks of the
-// longest rows are scheduled first (blockIdx.y 0 holds them).
+// Design.  The work of an iteration has two parts: the pass over a row's
+// entries (about 4d + 13 operations each, parallel over t) and the row's
+// d x d step (the rhs sum, two substitutions and the projection with its
+// sqrt and d true divides: about 200 instructions, serial).  A row of
+// length L keeps its entries of s and u in registers, NT a lane: NT = 8 for
+// L <= kSplit and NT = 16 above, two template instances with their
+// own register counts, launched one after the other (the long rows first).
+// Its entries take W warps, the least power of two with W * 32 * NT >= L
+// (W <= 8); chunk c of 32 entries (t = 32 c + lane) belongs to warp c % W,
+// so the row's warps differ by at most one chunk.  Rows of one W form a
+// class: a block of 8 warps holds 8 / W rows of one class and one replicate
+// (the blocks of the longest rows first in the grid), and stages that
+// replicate's y and z up to its longest row in shared memory, chunk by
+// chunk (y[32], z_0[32], ..., z_{d-1}[32]), so an entry's d + 1 loads share
+// one address with constant offsets.  The rows' factors and (x, w, v) live
+// in shared memory too.  A warp passes over its full chunks two at a time,
+// in one basic block each, so the two entries' dependency chains
+// interleave; only the row's last chunk tests each lane against L.
+//
+// An iteration of a block: lane r of warp 0 takes row r's d x d step (the
+// rows side by side in its lanes, where a warp a row would repeat it on 32
+// lanes and W warps), writes x, and a barrier later every warp of the row
+// reads x and passes over its entries; each warp then reduces its d
+// partial sums of the next rhs by a reduce-scatter butterfly (9 shuffles
+// for up to 8 sums) into the block's slots, and a second barrier hands them
+// to the d x d step, which adds a row's W warp sums in warp order.  A row
+// that has stopped keeps its state; its warps wait at the barriers until
+// the block's last row stops.  A row's arithmetic depends on L alone, so
+// its result does not depend on T, on B or on the other rows of its launch:
+// a launch on z[:, :T] gives rows p < T of a launch on longer z bit for
+// bit.  The pass over the entries also accumulates the next iteration's
+// rhs partial sums in the order a fresh pass would, so a continued solve
+// equals a longer one bit for bit.  The entries of a row past its length
+// are never touched (they stay 0, as in the TPU kernel, where the mask
+// keeps them so).
 //
 // Numerics: exact sqrt and a true divide in the projection, never rsqrt
 // (pallas_admm.py:112-116: a ~1e-6 projection bias broke the polish's
 // active-set identification); no tensor cores (bf16/TF32 dots stalled the
 // TPU's residual at ~8e-2); --fmad=false.  Maxima propagate NaN and
 // sign(NaN) = 0, as torch.maximum, amax, clamp and sign do in the plain
-// version.
+// version; the soft threshold is one copysign (shrink), equal in value to
+// the sign times the max.
 //
-// What bounds it on an H100: operations.  About 4d + 16 float operations
-// per active (row, t) entry per iteration, with d + 1 shared-memory loads;
-// the state never leaves the chip while the row iterates (s and u are read
-// and written once per launch).
+// What bounds it on an H100: operations.  About 4d + 13 float operations
+// per active (row, t) entry per iteration; under --fmad=false each multiply
+// and add issues alone, so the issue floor is the operation count over 132
+// SMs x 128 lanes x 1.98 GHz, twice the bound's time at 67 TFLOP/s.  The
+// state never leaves the chip while the row iterates (s and u are read and
+// written once per launch).  What keeps it above that floor is the block's
+// serial part of an iteration (the d x d step on one warp, the two
+// barriers, the butterfly), during which the block's other warps wait.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #define OCO_ADMM_MAX_D 8
-#define OCO_ADMM_MAX_T 1024
+#define OCO_ADMM_MAX_T 4096
 #define OCO_ADMM_WARPS 8
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 32 * OCO_ADMM_WARPS;
+// Rows up to this length take the NT = 8 instance, longer rows NT = 16.
+// On an H100 at T = 1000, NT = 8 for every row (64 registers, 32 warps an
+// SM) measured faster than NT = 16 (96 registers, 16 warps an SM); 2,048
+// is the longest row NT = 8 covers with 8 warps.  A row's arithmetic
+// depends on its NT, so this constant is part of what a row computes.
+constexpr int kSplit = 2048;
 
 __device__ __forceinline__ int tri(int j, int k) { return j * (j + 1) / 2 + k; }
 
@@ -67,21 +104,9 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// torch.sign: 0 at 0 and at NaN.
-__device__ __forceinline__ float sgn(float a) {
-  return a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
-}
-
 // torch.clamp(a, min=0): NaN stays NaN.
 __device__ __forceinline__ float relu(float a) {
   return (a > 0.f || a != a) ? a : 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = v + __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -91,250 +116,465 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Sums v[j], j < 8, over the warp; lanes 4 j .. 4 j + 3 return the sum of
+// v[j] (the same bits on the four: a + b == b + a in IEEE arithmetic).
+// Each level halves the sums a lane keeps and sends the other half across.
+__device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
+                                                 int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (h16 ? v[i + 4] : v[i]) +
+           __shfl_xor_sync(kFull, h16 ? v[i] : v[i + 4], 16);
+  float c[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (h8 ? a[i + 2] : a[i]) +
+           __shfl_xor_sync(kFull, h8 ? a[i] : a[i + 2], 8);
+  float e = (h4 ? c[1] : c[0]) + __shfl_xor_sync(kFull, h4 ? c[0] : c[1], 4);
+  e = e + __shfl_xor_sync(kFull, e, 2);
+  return e + __shfl_xor_sync(kFull, e, 1);
+}
+
 template <int D>
 struct Dim {
   static constexpr int cap = D > 0 ? D : OCO_ADMM_MAX_D;
   static constexpr int ntri = cap * (cap + 1) / 2;
 };
 
+// Resident blocks an SM that each instance asks ptxas to fit.
+constexpr int min_blocks(int D, int NT) {
+  return D > 0 ? (NT == 8 ? 4 : 2) : (NT == 8 ? 2 : 1);
+}
+
+// Row groups of a launch over the rows with L_lo < L <= L_hi, longest
+// first: class W = 8, 4, 2, 1 holds the rows whose length needs W warps of
+// 32 NT entries, 8 / W rows a group.  Sets group g's W and the lengths
+// (bot, top] of its rows; returns the number of groups.
+__host__ __device__ inline int row_groups(int g, int L_lo, int L_hi, int NT,
+                                          int* W_out, int* top, int* bot) {
+  int count = 0;
+  for (int W = OCO_ADMM_WARPS; W >= 1; W >>= 1) {
+    const int hi = L_hi < 32 * NT * W ? L_hi : 32 * NT * W;
+    const int lo_w = W == 1 ? 0 : 16 * NT * W;
+    const int lo = L_lo > lo_w ? L_lo : lo_w;
+    if (hi <= lo) continue;
+    const int R = OCO_ADMM_WARPS / W;
+    const int n = (hi - lo + R - 1) / R;
+    if (g >= count && g < count + n) {
+      *W_out = W;
+      *top = hi - (g - count) * R;
+      *bot = *top - R > lo ? *top - R : lo;
+    }
+    count += n;
+  }
+  return count;
+}
+
 // <x, z_t> summed in index order.
 template <int D>
-__device__ __forceinline__ float predict(const float* x, const float* zs,
-                                         int T, int t, int n) {
-  float q = x[0] * zs[t];
+__device__ __forceinline__ float predict(const float* x, const float* zt,
+                                         int n) {
+  float q = x[0] * zt[0];
 #pragma unroll
   for (int j = 1; j < Dim<D>::cap; ++j)
-    if (j < n) q = q + x[j] * zs[j * T + t];
+    if (j < n) q = q + x[j] * zt[j];
   return q;
 }
 
-// The row's residual max(max_t |r_t - s_t|, max_j |x_j - w_j|), the same on
-// every lane.  Entries past the length hold r = s = 0.
-template <int D, int NT>
-__device__ __forceinline__ float residual(const float (&s)[NT],
-                                          const float* x, const float* w,
-                                          const float* zs, const float* ys,
-                                          int T, int L, int n, int lane) {
-  float pri = 0.f;
+// An entry of the staged replicate: y at e[0], z_j at e[32 (j + 1)].
+template <int D>
+__device__ __forceinline__ void load_entry(const float* e, int n, float* zt) {
 #pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    if (k * 32 >= L) break;
-    const int t = k * 32 + lane;
-    if (t < L) {
-      const float r = predict<D>(x, zs, T, t, n) - ys[t];
-      pri = nan_max(pri, fabsf(r - s[k]));
+  for (int j = 0; j < Dim<D>::cap; ++j)
+    if (j < n) zt[j] = e[32 * (j + 1)];
+}
+
+template <int K>
+using Chunk = std::integral_constant<int, K>;
+
+// Calls f(Chunk<k>(), full) for this warp's chunks k in order: the nfull
+// full ones two to a basic block (so their dependency chains interleave),
+// then the row's partial last chunk with full = false when the warp holds
+// it.  k is a compile-time constant, so s[k] and u[k] stay in registers.
+template <int K, int NT, typename F>
+__device__ __forceinline__ void each_chunk(int nfull, bool partial, F&& f) {
+  if constexpr (K < NT) {
+    if (K + 2 <= nfull) {
+      f(Chunk<K>(), true);
+      f(Chunk<K + 1>(), true);
+      each_chunk<K + 2, NT>(nfull, partial, f);
+    } else if (K < nfull) {
+      f(Chunk<K>(), true);
+      if (partial) f(Chunk<K + 1>(), false);
+    } else if (partial) {
+      f(Chunk<K>(), false);
     }
   }
-  pri = warp_max(pri);
-  float cons = fabsf(x[0] - w[0]);
+}
+
+// The soft threshold sign(sp) max(|sp| - kappa, 0) as one copysign: the
+// same value (max propagates NaN, and sign(NaN) = 0 times NaN is NaN), with
+// the sign of a zero taken from sp.
+__device__ __forceinline__ float shrink(float sp, float kappa) {
+  return copysignf(relu(fabsf(sp) - kappa), sp);
+}
+
+// A block's rows in shared memory, row slot r for the row of length top - r.
+template <int D>
+struct Rows {
+  float L[OCO_ADMM_WARPS][Dim<D>::ntri];  // packed factor, inverted diagonal
+  float x[OCO_ADMM_WARPS][Dim<D>::cap];
+  float w[OCO_ADMM_WARPS][Dim<D>::cap];
+  float v[OCO_ADMM_WARPS][Dim<D>::cap];
+  float part[OCO_ADMM_WARPS][8];  // each warp's sums of the next rhs
+  float pri[OCO_ADMM_WARPS];      // each warp's residual maximum
+  float res[OCO_ADMM_WARPS];
+  int live[OCO_ADMM_WARPS];       // the row still iterates
+};
+
+// Row r's d x d step on one lane: rhs from its W warps' sums in warp order,
+// x by the two substitutions, then the over-relaxed ball projection.  Its
+// inputs are loaded from shared memory up front, in unrolled loops, so the
+// loads overlap and the serial chain runs in registers.
+template <int D>
+__device__ __forceinline__ void row_step(Rows<D>& S, int r, int W, int n,
+                                         float alpha, float beta) {
+  constexpr int C = Dim<D>::cap;
+  float rhs[C], w[C], v[C], Lf[Dim<D>::ntri];
 #pragma unroll
-  for (int j = 1; j < Dim<D>::cap; ++j)
-    if (j < n) cons = nan_max(cons, fabsf(x[j] - w[j]));
-  return nan_max(pri, cons);
+  for (int j = 0; j < C; ++j) {
+    rhs[j] = S.part[r * W][j];
+    w[j] = S.w[r][j];
+    v[j] = S.v[r][j];
+  }
+#pragma unroll
+  for (int i = 1; i < OCO_ADMM_WARPS; ++i) {
+    if (i < W) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) rhs[j] = rhs[j] + S.part[r * W + i][j];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < Dim<D>::ntri; ++k) Lf[k] = S.L[r][k];
+  float a[C], x[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (j < n) {
+      float sj = rhs[j] + (w[j] - v[j]);
+#pragma unroll
+      for (int k = 0; k < j; ++k) sj = sj - Lf[tri(j, k)] * a[k];
+      a[j] = sj * Lf[tri(j, j)];
+    }
+  }
+#pragma unroll
+  for (int j = C - 1; j >= 0; --j) {
+    if (j < n) {
+      float sj = a[j];
+#pragma unroll
+      for (int k = j + 1; k < C; ++k)
+        if (k < n) sj = sj - Lf[tri(k, j)] * x[k];
+      x[j] = sj * Lf[tri(j, j)];
+    }
+  }
+  float xh[C], tv[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (j < n) {
+      xh[j] = alpha * x[j] + beta * w[j];
+      tv[j] = xh[j] + v[j];
+    }
+  }
+  float n2 = tv[0] * tv[0];
+#pragma unroll
+  for (int j = 1; j < C; ++j)
+    if (j < n) n2 = n2 + tv[j] * tv[j];
+  const float nrm = sqrtf(nan_max(n2, 1.f));
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (j < n) {
+      const float wj = tv[j] / nrm;
+      S.x[r][j] = x[j];
+      S.v[r][j] = (v[j] + xh[j]) - wj;
+      S.w[r][j] = wj;
+    }
+  }
 }
 
 template <int D, int NT>
-__global__ void __launch_bounds__(32 * OCO_ADMM_WARPS)
+__global__ void __launch_bounds__(kThreads, min_blocks(D, NT))
 admm_kernel(const float* __restrict__ z, const float* __restrict__ y,
             const float* __restrict__ Lpk, const float* __restrict__ s0,
             const float* __restrict__ u0, const float* __restrict__ x0,
             const float* __restrict__ w0, const float* __restrict__ v0,
-            int T, int d, int iters, int check_every, float tol, float kappa,
-            float alpha, float beta, float* __restrict__ s_out,
-            float* __restrict__ u_out, float* __restrict__ x_out,
-            float* __restrict__ w_out, float* __restrict__ v_out,
-            float* __restrict__ res_out) {
+            int B, int T, int d, int L_lo, int L_hi, int iters,
+            int check_every, float tol, float kappa, float alpha, float beta,
+            float* __restrict__ s_out, float* __restrict__ u_out,
+            float* __restrict__ x_out, float* __restrict__ w_out,
+            float* __restrict__ v_out, float* __restrict__ res_out) {
   constexpr int C = Dim<D>::cap;
-  extern __shared__ float smem[];
+  extern __shared__ float zs[];   // y and z chunk by chunk (load_entry)
+  __shared__ Rows<D> S;
   const int n = D > 0 ? D : d;
-  const int b = blockIdx.x;
-  const int p0 = (gridDim.y - 1 - blockIdx.y) * OCO_ADMM_WARPS;
-  const int t_need = min(T, p0 + OCO_ADMM_WARPS);
-  float* zs = smem;           // zs[j * T + t] = z[b, t, j]
-  float* ys = smem + n * T;   // ys[t] = y[b, t]
-  const float* zb = z + static_cast<long long>(b) * T * n;
-  for (int i = threadIdx.x; i < t_need * n; i += blockDim.x) {
-    const int t = i / n;
-    zs[(i - t * n) * T + t] = zb[i];
-  }
-  for (int t = threadIdx.x; t < t_need; t += blockDim.x)
-    ys[t] = y[static_cast<long long>(b) * T + t];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int p = p0 + (threadIdx.x >> 5);
-  if (p >= T) return;
-  const int L = p + 1;
-  const long long row = static_cast<long long>(b) * T + p;
   const int ntri = n * (n + 1) / 2;
+  const int b = blockIdx.x % B;
+  int W = 1, top = 0, bot = 0;
+  row_groups(blockIdx.x / B, L_lo, L_hi, NT, &W, &top, &bot);
+  const int rows = top - bot;
+  // Row slot r is prefix p = top - 1 - r of replicate b.
+  const long long row0 = static_cast<long long>(b) * T + top - 1;
 
-  float Lf[Dim<D>::ntri];
-#pragma unroll
-  for (int k = 0; k < Dim<D>::ntri; ++k)
-    Lf[k] = k < ntri ? Lpk[row * ntri + k] : 0.f;
+  const float* zb = z + static_cast<long long>(b) * T * n;
+  for (int i = threadIdx.x; i < top * n; i += kThreads) {
+    const int t = i / n;
+    zs[(t >> 5) * ((n + 1) * 32) + 32 * (i - t * n + 1) + (t & 31)] = zb[i];
+  }
+  for (int t = threadIdx.x; t < top; t += kThreads)
+    zs[(t >> 5) * ((n + 1) * 32) + (t & 31)] =
+        y[static_cast<long long>(b) * T + t];
+  for (int i = threadIdx.x; i < rows * ntri; i += kThreads) {
+    const int r = i / ntri;
+    S.L[r][i - r * ntri] = Lpk[(row0 - r) * ntri + i - r * ntri];
+  }
+  for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+    const int r = i / n, j = i - r * n;
+    const long long at = (row0 - r) * n + j;
+    S.x[r][j] = x0 != nullptr ? x0[at] : 0.f;
+    S.w[r][j] = x0 != nullptr ? w0[at] : 0.f;
+    S.v[r][j] = x0 != nullptr ? v0[at] : 0.f;
+  }
+  if (threadIdx.x < OCO_ADMM_WARPS) S.live[threadIdx.x] = threadIdx.x < rows;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slot = warp / W;        // the warp's row in the block
+  const int wr = warp - slot * W;   // the warp's place in its row
+  const bool mine = slot < rows;    // the warp has a row
+  const int L = top - slot;
+  const long long row = row0 - slot;
+  // This warp's chunks c = k W + wr: the first nfull are full, the next is
+  // the row's partial last chunk when `partial`; chunk k's entry of this
+  // lane is at first + k * kstep.
+  const int nfull = (L >> 5) > wr ? ((L >> 5) - wr + W - 1) / W : 0;
+  const bool partial = (L & 31) != 0 && wr + nfull * W == (L >> 5);
+  const float* first = zs + wr * ((n + 1) * 32) + lane;
+  const int kstep = W * ((n + 1) * 32);
+
   float s[NT], u[NT];
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
-    const int t = k * 32 + lane;
-    const bool in = s0 != nullptr && t < L;
+    const int t = (k * W + wr) * 32 + lane;
+    const bool in = mine && s0 != nullptr && t < L;
     s[k] = in ? s0[row * T + t] : 0.f;
     u[k] = in ? u0[row * T + t] : 0.f;
   }
-  float x[C], w[C], v[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const bool in = x0 != nullptr && j < n;
-    x[j] = in ? x0[row * n + j] : 0.f;
-    w[j] = in ? w0[row * n + j] : 0.f;
-    v[j] = in ? v0[row * n + j] : 0.f;
-  }
+  __syncthreads();
 
-  // This lane's partial sums of rhs for the current state.
-  float acc[C];
+  // Reduces this warp's partial sums of rhs into its slot.
+  const auto publish = [&](const float (&acc)[C]) {
+    float p8[8];
 #pragma unroll
-  for (int j = 0; j < C; ++j) acc[j] = 0.f;
+    for (int j = 0; j < 8; ++j) p8[j] = 0.f;
 #pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    if (k * 32 >= L) break;
-    const int t = k * 32 + lane;
-    if (t < L) {
-      const float ysu = (ys[t] + s[k]) - u[k];
+    for (int j = 0; j < C; ++j) p8[j] = acc[j];   // 0 past n
+    const float e = reduce_scatter8(p8, lane);
+    if ((lane & 3) == 0 && (lane >> 2) < n) S.part[warp][lane >> 2] = e;
+  };
+
+  // The rhs partial sums of the initial state.
+  if (mine) {
+    float acc[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] = 0.f;
+    each_chunk<0, NT>(nfull, partial, [&](auto kc, bool full) {
+      constexpr int k = decltype(kc)::value;
+      if (full || (k * W + wr) * 32 + lane < L) {
+        const float* e = first + k * kstep;
+        float zt[C];
+        load_entry<D>(e, n, zt);
+        const float ysu = (e[0] + s[k]) - u[k];
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+          if (j < n) acc[j] = acc[j] + ysu * zt[j];
+      }
+    });
+    publish(acc);
+  }
+  __syncthreads();
+
+  // Every row's residual max(max_t |r_t - s_t|, max_j |x_j - w_j|) into
+  // S.res; with `stop`, rows whose residual is not above tol stop.
+  // Returns whether a row of the block still iterates.
+  const auto residuals = [&](bool stop) {
+    if (mine && S.live[slot]) {
+      float x[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) x[j] = j < n ? S.x[slot][j] : 0.f;
+      float pri = 0.f;
+      each_chunk<0, NT>(nfull, partial, [&](auto kc, bool full) {
+        constexpr int k = decltype(kc)::value;
+        if (full || (k * W + wr) * 32 + lane < L) {
+          const float* e = first + k * kstep;
+          float zt[C];
+          load_entry<D>(e, n, zt);
+          pri = nan_max(pri, fabsf((predict<D>(x, zt, n) - e[0]) - s[k]));
+        }
+      });
+      pri = warp_max(pri);
+      if (lane == 0) S.pri[warp] = pri;
+    }
+    __syncthreads();
+    if (warp == 0 && lane < rows && S.live[lane]) {
+      float res = S.pri[lane * W];
+      for (int i = 1; i < W; ++i) res = nan_max(res, S.pri[lane * W + i]);
 #pragma unroll
       for (int j = 0; j < C; ++j)
-        if (j < n) acc[j] = acc[j] + ysu * zs[j * T + t];
+        if (j < n) res = nan_max(res, fabsf(S.x[lane][j] - S.w[lane][j]));
+      S.res[lane] = res;
+      if (stop && !(res > tol)) S.live[lane] = 0;
     }
-  }
+    __syncthreads();
+    int any = 0;
+    for (int r = 0; r < rows; ++r) any |= S.live[r];
+    return any != 0;
+  };
 
   const bool checked = tol > 0.f;
   const int n_blocks = checked ? (iters + check_every - 1) / check_every
                                : (iters > 0 ? 1 : 0);
   const int per_block = checked ? check_every : iters;
+  bool fresh = false;   // S.res holds the residuals of the current state
   for (int blk = 0; blk < n_blocks; ++blk) {
     for (int it = 0; it < per_block; ++it) {
-      // x-step: forward then backward substitution, multiply-only.
-      float a[C];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if (j < n) {
-          float sj = warp_sum(acc[j]) + (w[j] - v[j]);
-#pragma unroll
-          for (int k = 0; k < j; ++k) sj = sj - Lf[tri(j, k)] * a[k];
-          a[j] = sj * Lf[tri(j, j)];
-        }
-      }
-#pragma unroll
-      for (int j = C - 1; j >= 0; --j) {
-        if (j < n) {
-          float sj = a[j];
-#pragma unroll
-          for (int k = j + 1; k < C; ++k)
-            if (k < n) sj = sj - Lf[tri(k, j)] * x[k];
-          x[j] = sj * Lf[tri(j, j)];
-        }
-      }
+      if (warp == 0 && lane < rows && S.live[lane])
+        row_step<D>(S, lane, W, n, alpha, beta);
+      __syncthreads();
       // Residual split: soft threshold, dual update, next rhs partials.
+      if (mine && S.live[slot]) {
+        float x[C], acc[C];
 #pragma unroll
-      for (int j = 0; j < C; ++j) acc[j] = 0.f;
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        if (k * 32 >= L) break;
-        const int t = k * 32 + lane;
-        if (t < L) {
-          const float yt = ys[t];
-          const float r = predict<D>(x, zs, T, t, n) - yt;
-          const float rh = alpha * r + beta * s[k];
-          const float sp = rh + u[k];
-          const float sn = sgn(sp) * relu(fabsf(sp) - kappa);
-          u[k] = (u[k] + rh) - sn;
-          s[k] = sn;
-          const float ysu = (yt + sn) - u[k];
-#pragma unroll
-          for (int j = 0; j < C; ++j)
-            if (j < n) acc[j] = acc[j] + ysu * zs[j * T + t];
+        for (int j = 0; j < C; ++j) {
+          x[j] = j < n ? S.x[slot][j] : 0.f;
+          acc[j] = 0.f;
         }
-      }
-      // Ball split: over-relaxed projection onto the unit l2 ball.
-      float xh[C], tv[C];
+        each_chunk<0, NT>(nfull, partial, [&](auto kc, bool full) {
+          constexpr int k = decltype(kc)::value;
+          if (full || (k * W + wr) * 32 + lane < L) {
+            const float* e = first + k * kstep;
+            float zt[C];
+            load_entry<D>(e, n, zt);
+            const float yt = e[0];
+            const float r = predict<D>(x, zt, n) - yt;
+            const float rh = alpha * r + beta * s[k];
+            const float sp = rh + u[k];
+            const float sn = shrink(sp, kappa);
+            u[k] = (u[k] + rh) - sn;
+            s[k] = sn;
+            const float ysu = (yt + sn) - u[k];
 #pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if (j < n) {
-          xh[j] = alpha * x[j] + beta * w[j];
-          tv[j] = xh[j] + v[j];
-        }
+            for (int j = 0; j < C; ++j)
+              if (j < n) acc[j] = acc[j] + ysu * zt[j];
+          }
+        });
+        publish(acc);
       }
-      float n2 = tv[0] * tv[0];
-#pragma unroll
-      for (int j = 1; j < C; ++j)
-        if (j < n) n2 = n2 + tv[j] * tv[j];
-      const float nrm = sqrtf(nan_max(n2, 1.f));
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if (j < n) {
-          w[j] = tv[j] / nrm;
-          v[j] = (v[j] + xh[j]) - w[j];
-        }
-      }
+      __syncthreads();
     }
-    if (checked &&
-        !(residual<D, NT>(s, x, w, zs, ys, T, L, n, lane) > tol))
-      break;
+    if (checked) {
+      fresh = true;
+      if (!residuals(true)) break;
+    }
   }
+  if (!fresh) residuals(false);
 
-  const float res = residual<D, NT>(s, x, w, zs, ys, T, L, n, lane);
+  if (mine) {
 #pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    const int t = k * 32 + lane;
-    if (t < T) {
-      s_out[row * T + t] = t < L ? s[k] : 0.f;
-      u_out[row * T + t] = t < L ? u[k] : 0.f;
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      if (j < n) {
-        x_out[row * n + j] = x[j];
-        w_out[row * n + j] = w[j];
-        v_out[row * n + j] = v[j];
+    for (int k = 0; k < NT; ++k) {
+      const int t = (k * W + wr) * 32 + lane;
+      if (t < L) {
+        s_out[row * T + t] = s[k];
+        u_out[row * T + t] = u[k];
       }
     }
-    res_out[row] = res;
+    for (int t = L + wr * 32 + lane; t < T; t += 32 * W) {
+      s_out[row * T + t] = 0.f;
+      u_out[row * T + t] = 0.f;
+    }
   }
+  for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+    const int r = i / n, j = i - r * n;
+    const long long at = (row0 - r) * n + j;
+    x_out[at] = S.x[r][j];
+    w_out[at] = S.w[r][j];
+    v_out[at] = S.v[r][j];
+  }
+  if (threadIdx.x < rows) res_out[row0 - threadIdx.x] = S.res[threadIdx.x];
 }
 
+struct Args {
+  const float *z, *y, *Lpk, *s0, *u0, *x0, *w0, *v0;
+  int B, T, d, iters, check_every;
+  float tol, kappa, alpha, beta;
+  float *s, *u, *x, *w, *v, *res;
+};
+
+// Dynamic shared memory of an instance whose longest row has length L_hi
+// (whole chunks of d + 1 floats an entry); opts the instance in to it.
 template <int D, int NT>
-int launch_nt(const float* z, const float* y, const float* Lpk,
-              const float* s0, const float* u0, const float* x0,
-              const float* w0, const float* v0, int B, int T, int d,
-              int iters, int check_every, float tol, float kappa,
-              float alpha, float beta, float* s, float* u, float* x,
-              float* w, float* v, float* res, cudaStream_t stream) {
-  const dim3 grid(B, (T + OCO_ADMM_WARPS - 1) / OCO_ADMM_WARPS);
-  const size_t smem = static_cast<size_t>(d + 1) * T * sizeof(float);
-  admm_kernel<D, NT><<<grid, 32 * OCO_ADMM_WARPS, smem, stream>>>(
-      z, y, Lpk, s0, u0, x0, w0, v0, T, d, iters, check_every, tol, kappa,
-      alpha, beta, s, u, x, w, v, res);
-  return static_cast<int>(cudaGetLastError());
+int prepare(int d, int L_hi, size_t* smem) {
+  *smem = static_cast<size_t>(d + 1) * 32 * ((L_hi + 31) / 32) *
+          sizeof(float);
+  return static_cast<int>(cudaFuncSetAttribute(
+      admm_kernel<D, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem)));
+}
+
+// Launches the rows with L_lo < L <= L_hi of every replicate (no launch
+// where there are none); adds its launch to *launched.
+template <int D, int NT>
+int launch_rows(const Args& a, int L_lo, int L_hi, cudaStream_t stream,
+                int* launched) {
+  if (L_hi <= L_lo) return cudaSuccess;
+  int W, top, bot;
+  const int groups = row_groups(-1, L_lo, L_hi, NT, &W, &top, &bot);
+  if (static_cast<long long>(groups) * a.B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  size_t smem;
+  const int err = prepare<D, NT>(a.d, L_hi, &smem);
+  if (err != cudaSuccess) return err;
+  admm_kernel<D, NT><<<groups * a.B, kThreads, smem, stream>>>(
+      a.z, a.y, a.Lpk, a.s0, a.u0, a.x0, a.w0, a.v0, a.B, a.T, a.d, L_lo,
+      L_hi, a.iters, a.check_every, a.tol, a.kappa, a.alpha, a.beta, a.s,
+      a.u, a.x, a.w, a.v, a.res);
+  const int launch_err = static_cast<int>(cudaGetLastError());
+  if (launch_err == cudaSuccess) ++*launched;
+  return launch_err;
 }
 
 template <int D>
-int launch_d(const float* z, const float* y, const float* Lpk,
-             const float* s0, const float* u0, const float* x0,
-             const float* w0, const float* v0, int B, int T, int d,
-             int iters, int check_every, float tol, float kappa, float alpha,
-             float beta, float* s, float* u, float* x, float* w, float* v,
-             float* res, cudaStream_t stream) {
-  if (T <= 256)
-    return launch_nt<D, 8>(z, y, Lpk, s0, u0, x0, w0, v0, B, T, d, iters,
-                           check_every, tol, kappa, alpha, beta, s, u, x, w,
-                           v, res, stream);
-  if (T <= 512)
-    return launch_nt<D, 16>(z, y, Lpk, s0, u0, x0, w0, v0, B, T, d, iters,
-                            check_every, tol, kappa, alpha, beta, s, u, x, w,
-                            v, res, stream);
-  return launch_nt<D, 32>(z, y, Lpk, s0, u0, x0, w0, v0, B, T, d, iters,
-                          check_every, tol, kappa, alpha, beta, s, u, x, w, v,
-                          res, stream);
+int launch_d(const Args& a, cudaStream_t stream, int* launched) {
+  const int split = a.T < kSplit ? a.T : kSplit;
+  const int err = launch_rows<D, 16>(a, split, a.T, stream, launched);
+  if (err != cudaSuccess) return err;
+  return launch_rows<D, 8>(a, 0, split, stream, launched);
+}
+
+// Registers a thread and resident warps an SM of one instance.
+template <int D, int NT>
+int occupancy(int d, int L_hi, int* out) {
+  size_t smem;
+  int err = prepare<D, NT>(d, L_hi, &smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = static_cast<int>(cudaFuncGetAttributes(&attr, admm_kernel<D, NT>));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, admm_kernel<D, NT>, kThreads, smem));
+  out[0] = err == cudaSuccess ? attr.numRegs : 0;
+  out[1] = blocks * OCO_ADMM_WARPS;
+  return err;
 }
 
 }  // namespace
@@ -344,25 +584,43 @@ int launch_d(const float* z, const float* y, const float* Lpk,
 // for the length-(p+1) prefix; the state s0, u0 (B*T, T) and x0, w0, v0
 // (B*T, d), all five null for the zero state.  Outputs: the state after the
 // solve, s, u (B*T, T) (zero past each row's length) and x, w, v (B*T, d),
-// and res (B*T) the final residuals.  1 <= d <= 8, 1 <= T <= 1024,
-// check_every >= 1.  Returns the cudaError_t of the launch.
+// and res (B*T) the final residuals; *launched the number of kernels
+// launched (1, or 2 for T > 2048: the NT = 16 rows, then the NT = 8 ones).
+// 1 <= d <= 8, 1 <= T <= 4096, check_every >= 1.  Returns the cudaError_t
+// of the launches.
 extern "C" int oco_admm_all_prefixes_f32(
     const void* z, const void* y, const void* Lpk, const void* s0,
     const void* u0, const void* x0, const void* w0, const void* v0, int B,
     int T, int d, int iters, int check_every, float tol, float kappa,
     float alpha, float beta, void* s, void* u, void* x, void* w, void* v,
-    void* res, void* stream) {
+    void* res, void* stream, int* launched) {
+  *launched = 0;
   if (B < 1 || T < 1 || T > OCO_ADMM_MAX_T || d < 1 ||
       d > OCO_ADMM_MAX_D || iters < 0 || check_every < 1)
     return cudaErrorInvalidValue;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto g = [](void* p) { return static_cast<float*>(p); };
+  const Args a{f(z), f(y), f(Lpk), f(s0), f(u0), f(x0), f(w0), f(v0),
+               B, T, d, iters, check_every, tol, kappa, alpha, beta,
+               g(s), g(u), g(x), g(w), g(v), g(res)};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (d == 5)
-    return launch_d<5>(f(z), f(y), f(Lpk), f(s0), f(u0), f(x0), f(w0),
-                       f(v0), B, T, d, iters, check_every, tol, kappa, alpha,
-                       beta, g(s), g(u), g(x), g(w), g(v), g(res), st);
-  return launch_d<0>(f(z), f(y), f(Lpk), f(s0), f(u0), f(x0), f(w0), f(v0),
-                     B, T, d, iters, check_every, tol, kappa, alpha, beta,
-                     g(s), g(u), g(x), g(w), g(v), g(res), st);
+  return d == 5 ? launch_d<5>(a, st, launched)
+                : launch_d<0>(a, st, launched);
+}
+
+// For a launch at T with feature dimension d: out[0], out[1] the registers
+// a thread and resident warps an SM of the NT = 8 instance (rows up to
+// kSplit), out[2], out[3] those of the NT = 16 instance (0 warps
+// where T needs none of its rows).  Returns a cudaError_t.
+extern "C" int oco_admm_occupancy_f32(int d, int T, int* out) {
+  if (T < 1 || T > OCO_ADMM_MAX_T || d < 1 || d > OCO_ADMM_MAX_D)
+    return cudaErrorInvalidValue;
+  const int split = T < kSplit ? T : kSplit;
+  int err = d == 5 ? occupancy<5, 8>(d, split, out)
+                   : occupancy<0, 8>(d, split, out);
+  if (err != cudaSuccess) return err;
+  err = d == 5 ? occupancy<5, 16>(d, T, out + 2)
+               : occupancy<0, 16>(d, T, out + 2);
+  if (T <= split) out[3] = 0;
+  return err;
 }

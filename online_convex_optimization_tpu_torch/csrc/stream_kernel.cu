@@ -20,18 +20,64 @@
 // gives K1's regret.
 //
 // What bounds it on an H100: each round reads 8*(d+1) bytes of f64 (4*(d+1)
-// in f32) once, against K1's serial chain of about 3d + 10 flops with a
-// sqrt and divide.  Like K1 the chain is latency-bound per thread and the
-// card is bound by the number of sequences in flight; the carry costs
-// 8*(2d+2) bytes per sequence per launch, nothing next to a chunk of
-// thousands of rounds.  The design keeps one thread per sequence with
-// coalesced time-major (CT, d, B) loads.
+// in f32) once; the carry costs 8*(2d+2) bytes per sequence per launch,
+// nothing next to a chunk of thousands of rounds.  A round's own work is
+// K1's serial chain of about 3d + 10 flops with a sqrt and divide, so a
+// thread that waits for each row before it plays it is bound by the HBM
+// round trip, not by the chain.  The design keeps rows in flight: each
+// thread copies its own rows of the time-major (CT, d, B) layout (coalesced
+// across the warp) with cp.async into its own slots of a shared-memory
+// ring, kRingBytes of rows ahead of the round it plays (8
+// rounds of d = 5 in f32, 4 in f64), and waits on its own copy groups
+// (cp.async.wait_group), so no thread waits for another and the block needs
+// no barrier.  Blocks of kStreamThreads = 64 threads spread a chunk of
+// 16,384 sequences over 256 blocks, every SM of the card.  The large-d
+// instance (d > 64), whose rows do not fit a ring, loads each row as it
+// plays it.  With the loads hidden, a thread's time is the latency of
+// game_round's serial chain (the FTRL scale's sqrt and divide, the
+// projection's sqrt and reciprocal, two dot products) times CT; all of a
+// chunk's sequences are resident at once, so nothing else can hide it.
 #include "oco_common.cuh"
 
 namespace {
 
+// Threads a block, and bytes of rows in flight a thread.  On an H100 at
+// B = 16,384, CT = 8,192, d = 5, a ring of twice the bytes and blocks of 32
+// threads were each measured no faster (the ring hides the loads at 8
+// rounds ahead, so a round costs game_round's chain).
+constexpr int kStreamThreads = 64;
+constexpr int kRingBytes = 192;
+
+// Rounds in flight for one instance: kRingBytes of d = 5 rows,
+// 4 rounds of the generic instance (d <= 64), none for the large-d one.
 template <typename S, int D>
-__global__ void __launch_bounds__(OCO_THREADS)
+struct Ring {
+  static constexpr int depth =
+      D > 0 ? kRingBytes / ((D + 1) * static_cast<int>(sizeof(S)))
+            : (D == 0 ? 4 : 0);
+  static_assert(depth == 0 || depth >= 2, "a ring needs two slots");
+};
+
+template <typename S>
+__device__ __forceinline__ void copy_async(S* dst, const S* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(addr),
+               "l"(src), "n"(static_cast<int>(sizeof(S)))
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest copy groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__(kStreamThreads)
 stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
               const int* __restrict__ alg_flag, const S* __restrict__ eta,
               long long t0, long long CT, long long B, int d,
@@ -40,9 +86,11 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
               S* __restrict__ th_out, S* __restrict__ w_out,
               S* __restrict__ cum_out, S* __restrict__ cnt_out) {
   constexpr int C = oco::Cap<D>::value;
+  constexpr int P = Ring<S, D>::depth;
+  extern __shared__ __align__(16) unsigned char ring_bytes[];
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (b >= B) return;
+  if (b >= B) return;   // the ring is per thread: no barrier to keep
   const int n = D > 0 ? D : d;
   const bool ftrl = alg_flag[b] == 0;
   const S eta_b = eta[b];
@@ -54,12 +102,45 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
     w[j] = w_in[j * B + b];
   }
   S cum = cum_in[b], cnt = cnt_in[b];
-  for (long long k = 0; k < CT; ++k) {
-    oco::load_row<S, D>(z, k, b, B, n, zr);
-    const S yt = y[k * B + b];
-    oco::game_round<S, D>(th, w, x, zr, yt, ftrl, eta_b, S(t0 + k + 1), n,
-                          cum);
-    cnt = cnt + yt * yt;
+  if constexpr (P == 0) {
+    for (long long k = 0; k < CT; ++k) {
+      oco::load_row<S, D>(z, k, b, B, n, zr);
+      const S yt = y[k * B + b];
+      oco::game_round<S, D>(th, w, x, zr, yt, ftrl, eta_b, S(t0 + k + 1), n,
+                            cum);
+      cnt = cnt + yt * yt;
+    }
+  } else {
+    // Slot i of this thread holds a round's z_0..z_{n-1}, y at stride
+    // blockDim.x: ring[(i * (n + 1) + j) * blockDim.x + threadIdx.x].
+    S* mine = reinterpret_cast<S*>(ring_bytes) + threadIdx.x;
+    const int step = blockDim.x;
+    const auto fetch = [&](long long k) {
+      S* dst = mine + static_cast<int>(k % P) * (n + 1) * step;
+      const S* src = z + k * n * B + b;
+      for (int j = 0; j < n; ++j) copy_async(dst + j * step, src + j * B);
+      copy_async(dst + n * step, y + k * B + b);
+    };
+    // One copy group a round, empty past the chunk, so that group k is
+    // complete once at most P - 1 newer ones are pending.
+#pragma unroll
+    for (int i = 0; i < P - 1; ++i) {
+      if (i < CT) fetch(i);
+      commit_copies();
+    }
+    for (long long k = 0; k < CT; ++k) {
+      // Slot (k - 1) % P was read last round, so it can be refilled.
+      if (k + P - 1 < CT) fetch(k + P - 1);
+      commit_copies();
+      wait_copies<P - 1>();
+      const S* src = mine + static_cast<int>(k % P) * (n + 1) * step;
+#pragma unroll
+      for (int j = 0; j < n; ++j) zr[j] = src[j * step];
+      const S yt = src[n * step];
+      oco::game_round<S, D>(th, w, x, zr, yt, ftrl, eta_b, S(t0 + k + 1), n,
+                            cum);
+      cnt = cnt + yt * yt;
+    }
   }
 #pragma unroll
   for (int j = 0; j < n; ++j) {
@@ -78,7 +159,8 @@ int launch(const void* z, const void* y, const void* alg_flag,
            void* cnt_out, void* stream) {
   if (B < 1 || CT < 0 || t0 < 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = oco::grid_for(B);
+  const unsigned int grid = static_cast<unsigned int>(
+      (B + kStreamThreads - 1) / kStreamThreads);
   const auto* zp = static_cast<const S*>(z);
   const auto* yp = static_cast<const S*>(y);
   const auto* fp = static_cast<const int*>(alg_flag);
@@ -91,10 +173,21 @@ int launch(const void* z, const void* y, const void* alg_flag,
   auto* wo = static_cast<S*>(w_out);
   auto* co = static_cast<S*>(cum_out);
   auto* no = static_cast<S*>(cnt_out);
-  return oco::launch_for_d(d, [&](auto dc) {
-    stream_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no);
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const auto kernel = stream_kernel<S, D>;
+    const size_t smem = static_cast<size_t>(Ring<S, D>::depth) * (d + 1) *
+                        sizeof(S) * kStreamThreads;
+    if (smem > 48 * 1024)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)));
+    if (err == cudaSuccess)
+      kernel<<<grid, kStreamThreads, smem, s>>>(
+          zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no);
   });
+  return err != cudaSuccess ? err : launched;
 }
 
 }  // namespace

@@ -275,8 +275,8 @@ def evaluate_stream_exact(
     which the JAX package sends to its semismooth Newton, raises
     ``NotImplementedError`` here (ROADMAP item 14b).  "linear" requires the
     certificate; "xla" forces the banded ADMM on every cell; "kernel" (l2,
-    float32) forces kernel K10 (``ops/admm.py``), continuing a cell's state
-    once for unconverged replicates; "ssn" raises ``NotImplementedError``.
+    float32) forces kernel K10 (``ops/admm.py``) on each horizon's own
+    rows, continuing a cell's state once for unconverged replicates; "ssn" raises ``NotImplementedError``.
     Certified and canonical cells are scored on the host in f64, general
     cells on ``device`` with the polished actions in f64 and FTRL through
     K1 in ``dtype``.
@@ -346,6 +346,15 @@ def evaluate_stream_exact(
     else:
         prefix_solve, prefix_solve_hard, band_los = _band_programs(
             T_max, norm, int(iters), admm_precision)
+
+    def horizon(zz, yy, T):
+        # K10 solves each horizon at its own length: a row's result does
+        # not depend on T, so rows p < T equal the padded launch's bit for
+        # bit, and the padded rows' work is saved.  The banded ADMM keeps
+        # one shape at T_max, as the JAX package does.
+        if not use_kernel:
+            return zz, yy
+        return zz[:, :T].contiguous(), yy[:, :T].contiguous()
 
     def _general_programs(z_cell, T):
         if solver == "auto" and norm == "l2" and bool(np.any(
@@ -429,12 +438,15 @@ def evaluate_stream_exact(
             solve, hard, kind = _general_programs(z, T)
             audit["cells"] += 1
             audit["cells_" + kind] += 1
-            pending.append((T, z, y, zj, yj, solve(zj, yj), hard))
+            pending.append((T, z, y, zj, yj, solve(*horizon(zj, yj, T)),
+                            hard))
         return pending
 
-    # Two runs in flight keep two runs' ADMM states alive ((reps, T_max,
-    # T_max) S/U per horizon); above ~4 GB of state, one run at a time.
-    state_bytes = (2 * len(T_grid) * replicates * 2 * T_max * T_max
+    # Two runs in flight keep two runs' ADMM states alive ((reps, T, T) S/U
+    # per horizon on the kernel route, T = T_max on the banded ADMM's);
+    # above ~4 GB of state, one run at a time.
+    lengths = T_grid if use_kernel else [T_max] * len(T_grid)
+    state_bytes = (2 * replicates * 2 * sum(t * t for t in lengths)
                    * np.dtype(dtype).itemsize)
     prefetch = state_bytes <= (4 << 30)
 
@@ -466,18 +478,26 @@ def evaluate_stream_exact(
             t0 = time.perf_counter()
             if use_kernel:
                 X_dev, res_dev, st_dev = solved
-                X = feasible_actions(X_dev)                  # (B, T_max, d)
+                X = feasible_actions(X_dev)                  # (B, T, d)
                 # NaN-safe direction: a NaN residual counts as bad.
                 bad = ~(res_dev.cpu().numpy().max(axis=1) <= fail_tol)
                 if bad.any():
                     audit["replicates_escalated"] += int(bad.sum())
-                    X2, res2, _ = prefix_continue(zj, yj, st_dev)
+                    X2, res2, _ = prefix_continue(*horizon(zj, yj, T),
+                                                  st_dev)
                     X2 = feasible_actions(X2)
                     bad2 = ~(res2.cpu().numpy().max(axis=1) <= fail_tol)
                     take = bad & ~bad2          # recovered replicates
                     audit["replicates_recovered"] += int(take.sum())
                     X[take] = X2[take]
                     bad = bad & bad2
+                # Back to T_max by repeating row T - 1: a padded launch's
+                # rows past T solve the same problem, and X[:, T:] is
+                # pinned to the polished row T - 1 below.  (The residuals
+                # are only read through their maximum, which the repeated
+                # row does not change.)
+                X = np.concatenate(
+                    [X, np.repeat(X[:, T - 1:T], T_max - T, axis=1)], axis=1)
             else:
                 X_dev, res_dev, st_dev = solved
                 X_all = X_dev.cpu().numpy().astype(np.float64)

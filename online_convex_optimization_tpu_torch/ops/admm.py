@@ -28,10 +28,14 @@ converts the JAX package's states into it.
 Float32 only, like the TPU kernel.  A wrapper runs the plain version on a
 CPU tensor and launches the kernel on a CUDA tensor, for ``d <= MAX_D`` and
 ``T <= MAX_T`` (raising above them); there is no fallback between them.
+The kernel splits each row across warps by the row's own length, so a
+row's result does not depend on T: a launch on ``z[:, :T]`` gives rows
+``p < T`` of a launch on longer ``z`` bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -41,11 +45,13 @@ from online_convex_optimization_tpu_torch.utils import cuda_build
 
 # The CUDA kernel's envelope (csrc/admm_kernel.cu OCO_ADMM_MAX_D, _MAX_T):
 # d <= 8 is the TPU kernel's contract (x in lanes 0-7, y at row 8); T is
-# bounded by the per-lane register share of s and u (32 of each).
+# bounded by a row's 8 warps of 32 lanes with 16 entries of s and u each,
+# and by the replicate's z and y in shared memory (147 KB at d = 8).
 MAX_D = 8
-MAX_T = 1024
+MAX_T = 4096
 
-# Launches of K10 in this process (counted where it launches).
+# Kernel launches of K10 in this process, as the C entry reports them (one
+# a call, two past T = 2048: the 16-entries-a-lane rows, then the rest).
 LAUNCHES = 0
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -118,9 +124,10 @@ def check_kernel_envelope(T: int, d: int) -> None:
                          f"kernel's contract); the CPU plain version takes "
                          f"any d")
     if T > MAX_T:
-        raise ValueError(f"T = {T} exceeds K10's limit T <= {MAX_T} (each "
-                         f"lane keeps ceil(T/32) entries of s and u in "
-                         f"registers); the CPU plain version takes any T")
+        raise ValueError(f"T = {T} exceeds K10's limit T <= {MAX_T} (a row "
+                         f"spans at most 8 warps of 32 lanes with 16 "
+                         f"entries of s and u each); the CPU plain version "
+                         f"takes any T")
 
 
 def _cho_solve_rows(L, rhs, d):
@@ -257,16 +264,31 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
         st0 = ([a.contiguous() for a in state0] if state0 is not None
                else None)
         ptrs0 = [a.data_ptr() for a in st0] if st0 is not None else [None] * 5
+        launched = (ctypes.c_int * 1)()
         err = lib.oco_admm_all_prefixes_f32(
             z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *ptrs0, B, T, d,
             iters, check_every, tol, 0.5 / rho, alpha, 1.0 - alpha,
             s.data_ptr(), u.data_ptr(), x.data_ptr(), w.data_ptr(),
             v.data_ptr(), res.data_ptr(),
-            torch.cuda.current_stream(z.device).cuda_stream)
+            torch.cuda.current_stream(z.device).cuda_stream, launched)
+        LAUNCHES += launched[0]
         if err != 0:
             raise RuntimeError(f"ADMM kernel launch failed: CUDA error {err}")
-        LAUNCHES += 1
     return res, (s, u, x, w, v)
+
+
+def kernel_occupancy(T: int, d: int) -> dict:
+    """Registers a thread and resident warps an SM of K10's two instances
+    for a launch at ``(T, d)`` on the current card: ``{8: (regs, warps),
+    16: (regs, warps)}``, keyed by the entries of s and u a lane (NT = 8
+    for rows up to 2,048 entries, 16 above; 0 warps where T has no such
+    row)."""
+    check_kernel_envelope(T, d)
+    out = (ctypes.c_int * 4)()
+    err = cuda_build.load().oco_admm_occupancy_f32(d, T, out)
+    if err != 0:
+        raise RuntimeError(f"K10 occupancy query failed: CUDA error {err}")
+    return {8: (out[0], out[1]), 16: (out[2], out[3])}
 
 
 def admm_all_prefixes_l2(z: torch.Tensor, y: torch.Tensor, *,
@@ -326,4 +348,4 @@ def feasible_actions(X) -> np.ndarray:
 
 __all__ = ["MAX_D", "MAX_T", "admm_all_prefixes_l2",
            "admm_all_prefixes_l2_reference", "admm_prologue",
-           "feasible_actions"]
+           "feasible_actions", "kernel_occupancy"]

@@ -49,7 +49,8 @@ _F = ctypes.c_float
 # Every pointer and the stream are c_void_p; see the extern "C" blocks.
 _SIGNATURES = {
     "oco_synthetic_regrets_f32": [_U64, _F, _LL, _LL, _I, _I, _F, _P, _P],
-    "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 7,
+    "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
+    "oco_admm_occupancy_f32": [_I, _I, _P],
 }
 for _ty in ("f64", "f32"):
     _SIGNATURES.update({

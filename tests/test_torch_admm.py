@@ -181,9 +181,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         admm.admm_all_prefixes_l2(zt, yt, state0=(torch.zeros(3, 3),) * 5)
     with pytest.raises(ValueError, match=r"d <= 8"):
         admm.check_kernel_envelope(100, 9)
-    with pytest.raises(ValueError, match=r"T <= 1024"):
-        admm.check_kernel_envelope(1025, 5)
-    admm.check_kernel_envelope(1024, 8)
+    with pytest.raises(ValueError, match=r"T <= 4096"):
+        admm.check_kernel_envelope(4097, 5)
+    admm.check_kernel_envelope(4096, 8)
     # The plain version takes what the kernel does not: d = 9 on the CPU.
     z9, y9 = _batch(1, 12, d=9)
     X, _, _ = _port(z9, y9, iters=50, tol=0.0)
@@ -195,4 +195,5 @@ def test_kernel_source_is_built_and_hashed_with_the_rest():
     from online_convex_optimization_tpu_torch.utils import cuda_build
     assert any(p.endswith("admm_kernel.cu") for p in cuda_build._sources())
     argtypes = cuda_build._SIGNATURES["oco_admm_all_prefixes_f32"]
-    assert len(argtypes) == 24       # 8 inputs, 9 scalars, 6 outputs, stream
+    # 8 inputs, 9 scalars, 6 outputs, the stream, the launch count
+    assert len(argtypes) == 25

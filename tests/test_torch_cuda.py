@@ -248,6 +248,35 @@ def test_stream_chunked_equals_one_k1_launch(cuda, alg_flag):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("CT", [1, 7, 1000])
+def test_stream_ragged_chunks_equal_one_k1_launch(cuda, dtype, CT):
+    """B = 1000 (not a multiple of the block width), T = 1000 fed in chunks
+    of CT rounds (CT = 7 leaves a chunk of 6; CT = 1 is shorter than the
+    load pipeline): the regret equals one K1 launch bit for bit and the
+    carry its plain version's."""
+    B, T = 1000, 1000
+    z, y, _ = _batch(B, T, 5, seed=80 + CT)
+    ztm = torch.as_tensor(z.transpose(1, 2, 0), dtype=dtype,
+                          device=cuda).contiguous()
+    ytm = torch.as_tensor(y.T, dtype=dtype, device=cuda).contiguous()
+    flags = game.per_sequence(np.arange(B) % 2, B, torch.int32, cuda)
+    eta = game.per_sequence(1.3, B, dtype, cuda)
+    carry = ref = game.zero_stream_carry(B, 5, dtype, cuda)
+    for lo in range(0, T, CT):
+        hi = min(lo + CT, T)
+        carry = game.play_stream(ztm[lo:hi], ytm[lo:hi], 1.3, lo, carry,
+                                 alg_flag=flags)
+        ref = game.play_stream_reference(ztm[lo:hi], ytm[lo:hi], flags, eta,
+                                         lo, ref)
+    regret, cum_s, comp_s = game.stream_result(carry)
+    zt, yt = _to((z, y), cuda, dtype)
+    cum, comp, _ = game.regrets_fused(zt, yt, flags, 1.3)
+    assert torch.equal(cum_s, cum) and torch.equal(comp_s, comp)
+    assert torch.equal(regret, cum - comp)
+    assert _max_err(carry, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("d", [5, 3, 96])
 def test_packed_kernels_match_plain_and_k1(cuda, dtype, d):
     """K3 (both flags) and K3e against their plain versions; their cum
@@ -375,7 +404,8 @@ def _admm_batch(B, T, d, seed, cuda):
 
 
 @pytest.mark.parametrize("B,T,d", [(2, 70, 5), (2, 1000, 5), (3, 300, 3),
-                                   (2, 500, 8)])
+                                   (2, 500, 8), (1, 1100, 5), (1, 4096, 5),
+                                   (1, 2500, 8)])
 def test_admm_kernel_matches_plain_fixed_iterations(cuda, B, T, d):
     """K10 against its plain version on the same factor: 300 fixed
     iterations, state and residuals within the f32 bound."""
@@ -383,7 +413,8 @@ def test_admm_kernel_matches_plain_fixed_iterations(cuda, B, T, d):
     before = admm.LAUNCHES
     X, res, state = admm.admm_all_prefixes_l2(z, y, iters=300, tol=0.0)
     torch.cuda.synchronize()
-    assert admm.LAUNCHES == before + 1
+    # Past T = 2048 the rows of 16 entries a lane take a launch of their own.
+    assert admm.LAUNCHES == before + (2 if T > 2048 else 1)
     res_p, state_p = admm.admm_all_prefixes_l2_reference(
         z, y, admm.admm_prologue(z), iters=300, tol=0.0, check_every=100,
         rho=1.0, alpha=1.7)
@@ -392,8 +423,10 @@ def test_admm_kernel_matches_plain_fixed_iterations(cuda, B, T, d):
     assert torch.equal(X, state[3].reshape(B, T, d))
 
 
-def test_admm_kernel_continuation_and_subset_are_bit_for_bit(cuda):
-    z, y = _admm_batch(3, 400, 5, seed=1, cuda=cuda)
+@pytest.mark.parametrize("T", [400, 1100])
+def test_admm_kernel_continuation_and_subset_are_bit_for_bit(cuda, T):
+    """At T = 1100 the long rows span several warps."""
+    z, y = _admm_batch(3, T, 5, seed=1, cuda=cuda)
     _, _, st = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
     Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=150, tol=0.0,
                                             state0=st)
@@ -431,9 +464,32 @@ def test_admm_kernel_polished_objectives_match_plain_route(cuda):
             assert fk <= fx + 3e-6, (b, p)
 
 
+@pytest.mark.parametrize("T,T_max,tol", [(600, 1000, 0.0),
+                                         (600, 1000, 2e-4),
+                                         (2100, 2600, 0.0)])
+def test_admm_kernel_sliced_equals_padded(cuda, T, T_max, tol):
+    """The kernel route's launch on z[:, :T] equals rows p < T of the
+    launch on z zero-padded to T_max, bit for bit (a row's split across
+    warps depends on its own length only)."""
+    z, y = _admm_batch(2, T_max, 5, seed=T, cuda=cuda)
+    z[:, T:] = 0.0
+    y[:, T:] = 0.0
+    kw = dict(iters=300 if tol == 0.0 else 6000, tol=tol)
+    X, res, st = admm.admm_all_prefixes_l2(z[:, :T].contiguous(),
+                                           y[:, :T].contiguous(), **kw)
+    Xp, resp, stp = admm.admm_all_prefixes_l2(z, y, **kw)
+    assert torch.equal(X, Xp[:, :T]) and torch.equal(res, resp[:, :T])
+    for a, ap in zip(st, stp):
+        ap = ap.reshape(2, T_max, -1)[:, :T]
+        if a.shape[-1] == T:          # s, u: entries past T are 0 in both
+            assert bool((ap[..., T:] == 0).all())
+            ap = ap[..., :T]
+        assert torch.equal(a.reshape(2, T, -1), ap)
+
+
 def test_admm_kernel_refuses_its_envelope(cuda):
-    z, y = _admm_batch(1, 1025, 5, seed=2, cuda=cuda)
-    with pytest.raises(ValueError, match="T <= 1024"):
+    z, y = _admm_batch(1, 4097, 5, seed=2, cuda=cuda)
+    with pytest.raises(ValueError, match="T <= 4096"):
         admm.admm_all_prefixes_l2(z, y)
     z, y = _admm_batch(1, 20, 9, seed=2, cuda=cuda)
     with pytest.raises(ValueError, match="d <= 8"):

@@ -417,6 +417,36 @@ def test_evaluate_stream_exact_matches_jax(title, route):
         np.testing.assert_allclose(got[key][1], want[key][1], atol=tol, rtol=0)
 
 
+def test_kernel_route_solves_each_horizon_at_its_length(monkeypatch):
+    """The kernel route hands K10 (its plain version here) each horizon's
+    own rows, not the rows padded to T_max, and stays within the JAX
+    kernel route's bar (1e-5) with the same audit."""
+    from online_convex_optimization_tpu_torch.ops import admm as pt_admm
+    shapes = []
+    solve = pt_admm.admm_all_prefixes_l2
+
+    def spy(z, y, **kw):
+        shapes.append(tuple(z.shape))
+        return solve(z, y, **kw)
+
+    monkeypatch.setattr(pt_admm, "admm_all_prefixes_l2", spy)
+    title = "Massart noise 10%"
+    kw = dict(T_grid=[20, 45], runs=1, replicates=3, iters=1200,
+              dtype=np.float32, stream_name=title, progress=False,
+              solver="kernel")
+    audit_pt, audit_jax = {}, {}
+    got = pt_evaluate.evaluate_stream_exact(CASES[title], audit_out=audit_pt,
+                                            device="cpu", **kw)
+    want = jax_evaluate.evaluate_stream_exact(JAX_CASES[title],
+                                              audit_out=audit_jax, **kw)
+    assert audit_pt == audit_jax and audit_pt["cells_kernel"] == 2
+    assert shapes[:2] == [(3, 20, 5), (3, 45, 5)]
+    assert {s[1] for s in shapes} == {20, 45}
+    for key in want:
+        for g, w in zip(got[key], want[key]):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
 def test_xla_route_polished_objectives_match_jax():
     """Where the xla route's statistics move at 1e-9 (degenerate faces),
     the polished objective of every prefix agrees to 1e-12."""
