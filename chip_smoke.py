@@ -53,14 +53,21 @@ non-zero without printing a result):
                K3 at d=256 (B=8,192 T=256, f32 and f64) against their
                plain versions; kernel_envelope at d=512 and 513.
   9. quadratic — the study at its default config on --device cuda (f32;
-               K8's counter must rise); its f64 statistics on cuda and cpu
-               within 1e-9; K8 at the JAX bench shape (B=4,096 T=1,024
-               d=5, half FTRL half FTL, regression streams generated on
-               the card) against its plain version (1e-9 f64, 5e-4 f32);
-               ball_ls_action (K9) on all 4,194,304 prefix statistics of
-               that batch against trs_solve_reference, its counter
-               rising; K8's x_c against K9 on the final statistics bit for
-               bit; K8 and K9 timed.
+               one K8 launch for every (run, horizon)); its f32 and f64
+               statistics equal in every bit to a call per (run, horizon);
+               its f64 statistics on cuda and cpu within 1e-9; K8 at the
+               study's launch timed, with a digest of its outputs; K8 at
+               the JAX bench shape (B=4,096 T=1,024 d=5, half FTRL half
+               FTL, regression streams generated on the card) against its
+               plain version (1e-9 f64, 5e-4 f32), with a digest of its
+               outputs; ball_ls_action (K9) on all 4,194,304 prefix
+               statistics of that batch against trs_solve_reference, its
+               counter rising; K8's x_c against K9 on the final
+               statistics bit for bit; the Newton passes each solve needs
+               there (the plain mirror of the kernels' exit, on the card),
+               with K8's per-lane and warp-max totals; K8 and K9 timed,
+               K8 also on one warp (its time a Newton pass); their bounds
+               count each solve at its own passes.
   10. pod     — the pod-scale g(T) sweep as a user runs it:
                ``experiments/pod_demo.py --t 1000 --seqs 1048576 --device
                cuda`` (8 etas, 2^20 sequences each, lane_batch 16,384:
@@ -69,7 +76,9 @@ non-zero without printing a result):
                lane_batch 1,024 T=1000 d=5, FTRL and FTL, and at the
                demo's launch shape (timed there); K7 against K1 on
                synthetic_stream's rows bit for bit; K7 at d=256 against its
-               plain version; one launch at T=2^20 (lane_batch 128);
+               plain version; at T=2500 (past two chunks of its FTRL scale
+               table) against its plain version bit for bit, FTRL and FTL;
+               one launch at T=2^20 (lane_batch 128);
                then, on a one-rank NCCL process group, sharded_synthetic_g
                against the max of direct K7 calls, resumable_synthetic_g
                stopped after a slice and resumed from its checkpoint
@@ -109,18 +118,21 @@ for the type) and the library call's time (none computes these
 recurrences: null); K7 reads nothing, so its bound is the busier of the
 two pipes its work issues on: the integer ALU (the Philox xors, the bit
 tests and selects) and the FMA pipe (the Philox multiplies and the float
-operations of the game); K10's is its float operations at 2,000 fixed
+operations of the game); K8's and K9's count each trust-region solve at
+the Newton passes these inputs need (``trs_ops``); K10's is its float
+operations at 2,000 fixed
 iterations (``admm_ops``), and its entry adds its registers a thread and
 resident warps an SM (its text line also prints the --fmad=false issue
 floor, the same operations at one a lane and clock, which is arithmetic
 and stays out of the kernels line).  The line before the last lists the kernels as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  About 6
+JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8
 minutes on an H100.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -148,7 +160,10 @@ from online_convex_optimization_tpu_torch.experiments.driver import run_experime
 from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     QuadraticConfig,
     evaluate_quadratic_stream,
+    horizon_batches,
+    quadratic_stats,
     run_study,
+    study_batch,
 )
 from online_convex_optimization_tpu_torch.models.exact_ftl import (
     _admm_all_prefixes,
@@ -208,6 +223,8 @@ INT_PIPE_OPS = 132 * 64 * 1.98e9
 # 67 TFLOP/s, which counts an FMA as two operations.
 FP32_ISSUE_PER_S = 132 * 128 * 1.98e9
 PHILOX_ROUNDS = 10
+# The card's maximum SM clock (nvidia-smi clocks.max.sm), read in phase 1.
+SM_CLOCK_HZ = 1.98e9
 
 
 def check(ok: bool, what: str) -> None:
@@ -232,23 +249,30 @@ def smart_round_ops(d: int) -> int:
     return 9 * d + 9 + 7 * d + 7
 
 
-def trs_ops(d: int, iters: int) -> int:
-    """One trust-region solve: trace, floor and bracket (2d + 2); per Newton
-    iteration the ridge, a Cholesky (d(d+1)(2d+1)/6), three triangular
-    solves (d^2 each), three squared norms and the step (about 10); the
-    final factor, two solves, the norm and the scaling."""
+def trs_ops(d: int, passes: torch.Tensor, iters: int) -> int:
+    """The trust-region solves of ``passes`` (one entry a solve: its ridge
+    solves, ``iters + 1`` where the Newton loop ran its full count, as
+    ``ops/trs.py::trs_action_settled`` counts them).  A solve's trace,
+    floor and bracket (2d + 2) and its final scaling (3d + 2); a full pass
+    is a ridge solve (the ridge, a Cholesky of d(d+1)(2d+1)/6 operations,
+    two triangular solves of d^2), a third triangular solve, three squared
+    norms and the step (about 10); the fixed count's last pass is the
+    ridge solve alone, and an exit reuses its pass's solve."""
     chol = d * (d + 1) * (2 * d + 1) // 6
-    per_iter = d + chol + 3 * d * d + 3 * (2 * d - 1) + 10
-    return 2 * d + 2 + iters * per_iter + d + chol + 2 * d * d + 3 * d + 2
+    ridge = d + chol + 2 * d * d
+    full = ridge + d * d + 3 * (2 * d - 1) + 10
+    capped = passes == iters + 1
+    n_full = int(torch.where(capped, iters, passes).sum())
+    return (passes.numel() * (5 * d + 4) + n_full * full
+            + int(capped.sum()) * ridge)
 
 
-def quad_round_ops(d: int, iters: int, ftl: bool) -> int:
-    """K8's round: the action (a solve for FTL; scale, projection and the
-    theta update for FTRL), r and 0.5 r^2 into cum, and the statistics."""
+def quad_round_ops(d: int, ftl: bool) -> int:
+    """K8's round outside the solve: the FTRL action (scale, projection),
+    r and 0.5 r^2 into cum, the theta update and the statistics."""
     stats = d * (d + 1) + 2 * d + 2
     loss = 2 * d + 3
-    action = trs_ops(d, iters) if ftl else 4 * d + 4 + 2 * d
-    return action + loss + stats
+    return loss + stats + (0 if ftl else 4 * d + 4 + 2 * d)
 
 
 def philox_step_ops(d: int) -> tuple:
@@ -306,8 +330,15 @@ def phase_device():
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(clock.strip()) * 1e6
     print(f"[1 device] {name}; devices={torch.cuda.device_count()} "
-          f"torch={torch.__version__} cuda={torch.version.cuda}")
+          f"torch={torch.__version__} cuda={torch.version.cuda}; max SM clock "
+          f"{SM_CLOCK_HZ / 1e6:.0f} MHz")
     print(smi)
     return name
 
@@ -1114,9 +1145,44 @@ def phase_packed():
 QUAD_B, QUAD_T = 4096, 1024
 
 
+def output_digest(outs) -> str:
+    """sha256 of the outputs' bytes, in order (first 16 hex digits)."""
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def per_call_study(cfg, dtype):
+    """The study's statistics with one simulate_quadratic_batch call per
+    (run, horizon), as the JAX package makes them."""
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    reps, T_max = cfg.replicates, max(cfg.T_grid)
+    flags = torch.tensor([0] * reps + [1] * reps, dtype=torch.int32)
+    by_T = {k: np.empty((cfg.runs, len(cfg.T_grid), reps))
+            for k in ("FTRL", "FTL (exact LS)")}
+    batches = horizon_batches(cfg.T_grid, runs=cfg.runs, replicates=reps,
+                              dtype=dtype)
+    for i, (z, y) in enumerate(batches):
+        run, ti = divmod(i, len(cfg.T_grid))
+        z2 = np.zeros((2 * reps, T_max, z.shape[2]), z.dtype)
+        y2 = np.zeros((2 * reps, T_max), y.dtype)
+        z2[:reps, :z.shape[1]] = z2[reps:, :z.shape[1]] = z
+        y2[:reps, :y.shape[1]] = y2[reps:, :y.shape[1]] = y
+        reg = simulate_quadratic_batch(
+            torch.as_tensor(z2, dtype=tdtype, device="cuda"),
+            torch.as_tensor(y2, dtype=tdtype, device="cuda"), flags,
+            1.0).regret.double().cpu().numpy()
+        by_T["FTRL"][run, ti] = reg[:reps]
+        by_T["FTL (exact LS)"][run, ti] = reg[reps:]
+    return quadratic_stats(by_T)
+
+
 def quad_study(tmp):
-    """(a) the study at its default config on the card (f32): K8 must
-    launch; (b) its f64 statistics on cuda and on cpu within 1e-9."""
+    """(a) the study at its default config on the card (f32): one K8
+    launch; (b) its f32 and f64 statistics equal to a call per (run,
+    horizon); its f64 statistics on cuda and on cpu within 1e-9; (c) the
+    study's launch timed, with a digest of K8's outputs there."""
     cfg = QuadraticConfig(out_dir=os.path.join(tmp, "quad"), dpi=100,
                           device="cuda")
     trs.QUAD_LAUNCHES = 0
@@ -1127,25 +1193,53 @@ def quad_study(tmp):
     print(f"[9 quadratic] run_study default config (T={cfg.t_min}..."
           f"{cfg.t_max} step {cfg.t_step}, {cfg.runs} runs x "
           f"{cfg.replicates} replicates, d={cfg.d}, f32) --device cuda: "
-          f"wall {res['wall_s']:.2f} s, K8 launches {launches}; regret at "
+          f"wall {res['wall_s']:.4f} s, K8 launches {launches}; regret at "
           f"T={cfg.t_max}: FTL {ftl[-1]:.4f}, FTRL {ftrl[-1]:.4f}")
-    check(launches > 0, "the quadratic study did not launch K8")
+    check(launches == 1, "the quadratic study did not make one K8 launch")
     check(all(math.isfinite(v) for v in ftl + ftrl) and ftl[-1] < ftrl[-1],
           "quadratic study results not finite, or FTL not below FTRL")
     stats = {}
-    for device in ("cuda", "cpu"):
+    for dtype in (np.float32, np.float64):
         t0 = time.perf_counter()
-        stats[device] = evaluate_quadratic_stream(
-            cfg.T_grid, runs=cfg.runs, replicates=cfg.replicates,
-            dtype=np.float64, device=device)
-        print(f"[9 quadratic] evaluate_quadratic_stream f64 --device "
-              f"{device}: {time.perf_counter() - t0:.2f} s")
+        one = evaluate_quadratic_stream(cfg.T_grid, runs=cfg.runs,
+                                        replicates=cfg.replicates,
+                                        dtype=dtype, device="cuda")
+        t1 = time.perf_counter()
+        many = per_call_study(cfg, dtype)
+        t2 = time.perf_counter()
+        same = all(np.array_equal(a, b) for k in one
+                   for a, b in zip(one[k], many[k]))
+        print(f"[9 quadratic] evaluate_quadratic_stream {np.dtype(dtype)} "
+              f"--device cuda, one call {t1 - t0:.4f} s against a call per "
+              f"(run, horizon) {t2 - t1:.4f} s: statistics equal in every "
+              f"bit {same}")
+        check(same, f"the study's single call differs from a call per "
+                    f"(run, horizon) in {np.dtype(dtype)}")
+        stats["cuda"] = one
+    t0 = time.perf_counter()
+    stats["cpu"] = evaluate_quadratic_stream(
+        cfg.T_grid, runs=cfg.runs, replicates=cfg.replicates,
+        dtype=np.float64, device="cpu")
+    print(f"[9 quadratic] evaluate_quadratic_stream f64 --device cpu: "
+          f"{time.perf_counter() - t0:.2f} s")
     err = max(float(np.abs(a - b).max())
               for k in stats["cuda"]
               for a, b in zip(stats["cuda"][k], stats["cpu"][k]))
     print(f"[9 quadratic] f64 study, max |cuda - cpu| over every mean and CI "
           f"= {err:.3e} (bound {PARITY_TOL:g})")
     check(err <= PARITY_TOL, "f64 quadratic study differs between devices")
+    z, y, flags = study_batch(cfg.T_grid, runs=cfg.runs,
+                              replicates=cfg.replicates, device="cuda")
+    z_tm, y_tm = game.time_major(z, y)
+    eta = game.per_sequence(1.0, z.shape[0], z.dtype, "cuda")
+    outs = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+    k_ms = time_ms(lambda: trs.launch_quadratic_regrets(z_tm, y_tm, flags,
+                                                        eta), reps=3)
+    print(f"[9 quadratic] K8 at the study's launch (B={z.shape[0]} "
+          f"T={z.shape[1]} d={cfg.d} f32): kernel {k_ms[0]:.4f} ms (min "
+          f"{k_ms[1]:.4f}, max {k_ms[2]:.4f}); digest of (cum, comp, x_c, "
+          f"x_last) {output_digest(outs)}")
+    k8_widths("study launch", z_tm, y_tm, flags, eta, outs)
     return launches
 
 
@@ -1164,11 +1258,70 @@ def prefix_statistics(z, y):
     return A_pre, b_pre, A, b
 
 
+K8_WIDTHS = (32, 16, 8, 4, 2, 1)
+
+
+def k8_widths(label, z_tm, y_tm, flags, eta, want):
+    """K8 with 32 down to 1 FTL sequences a warp: each launch's outputs
+    equal ``want`` in every bit, and its time."""
+    times = []
+    for w in K8_WIDTHS:
+        got = trs.launch_quadratic_regrets(z_tm, y_tm, flags, eta, w)
+        check(all(torch.equal(g, h) for g, h in zip(got, want)),
+              f"K8 at {w} FTL sequences a warp differs ({label})")
+        times.append(time_ms(lambda: trs.launch_quadratic_regrets(
+            z_tm, y_tm, flags, eta, w), reps=3)[0])
+    choice = trs.ftl_width(flags.numel(), flags.device)
+    print(f"[9 quadratic] K8 {label} by FTL sequences a warp (outputs equal "
+          f"in every bit): " + ", ".join(
+              f"{w}: {t:.4f} ms" for w, t in zip(K8_WIDTHS, times))
+          + f"; the wrapper's choice {choice}")
+
+
+def newton_counts(A_pre, b_pre, A_fin, b_fin, flags):
+    """Ridge solves a solve needs on these inputs (the plain mirror of the
+    kernels' exit, run on the card): ``(T, B)`` for every prefix and
+    ``(B,)`` for the final statistics; with the per-lane and warp-max
+    totals of K8's FTL lanes printed against the fixed count's."""
+    T, B, d = b_pre.shape
+    rows, cols = trs.tri_index(d)
+    _, passes = trs.trs_action_settled(
+        [A_pre[..., i, j] for i, j in zip(rows, cols)],
+        [b_pre[..., i] for i in range(d)])
+    _, final = trs.trs_action_settled(
+        [A_fin[..., i, j] for i, j in zip(rows, cols)],
+        [b_fin[..., i] for i in range(d)])
+    iters = trs.TRS_PARAMS[b_pre.dtype][1]
+    lanes = trs.quad_lanes(flags, trs.ftl_width(B, flags.device)).long()
+    per_seq = passes.sum(0)
+    lane_tot = torch.where(lanes >= 0, per_seq[lanes.clamp(min=0)], 0)
+    ftl_lane = torch.where(lanes >= 0, flags[lanes.clamp(min=0)] != 0,
+                           False)
+    warps = ftl_lane.view(-1, trs.WARP).any(1)
+    warp_max = lane_tot.view(-1, trs.WARP).max(1).values[warps].double()
+    ftl = passes[:, flags != 0].double()
+    lockstep = ftl.view(T, -1, trs.WARP).max(2).values.sum(0)
+    tot = lane_tot[ftl_lane].double()
+    print(f"[9 quadratic] Newton exit {b_pre.dtype}, FTL rounds: "
+          f"{float(ftl.mean()):.4f} ridge solves a solve on average "
+          f"(fixed count {iters + 1}), "
+          f"{float((ftl == iters + 1).double().mean()):.4%} "
+          f"at the cap; per FTL lane over T={T}: min {int(tot.min())}, mean "
+          f"{float(tot.mean()):.1f}, max {int(tot.max())}; warp max: mean "
+          f"{float(warp_max.mean()):.1f}, max {int(warp_max.max())} over "
+          f"{warp_max.numel()} warps of {trs.ftl_width(B, flags.device)} "
+          f"(fixed count {T * (iters + 1)}); round "
+          f"by round in lockstep (the sum of each round's warp max over "
+          f"32 lanes) {float(lockstep.mean()):.1f}")
+    return passes, final
+
+
 def quad_kernels(dtype):
-    """(c) K8 at the bench shape against its plain version; (d) K9 on all
-    B * T prefix statistics through ball_ls_action against
-    trs_solve_reference; (e) K8's x_c against K9 on the final statistics,
-    bit for bit; (f) times."""
+    """(c) K8 at the bench shape against its plain version, with a digest
+    of its outputs; (d) K9 on all B * T prefix statistics through
+    ball_ls_action against trs_solve_reference; (e) K8's x_c against K9 on
+    the final statistics, bit for bit; (f) the solves' Newton passes on
+    these inputs, times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(90)
     z, y, _ = regression_stream_batch(gen, QUAD_B, QUAD_T, D, dtype=dtype)
     flags = (torch.arange(QUAD_B, device="cuda") >= QUAD_B // 2).to(
@@ -1186,7 +1339,8 @@ def quad_kernels(dtype):
           f"half FTL: vs plain (cum, comp, x_c, x_last) max_abs_err="
           f"{e8:.3e} (bound {TOL[dtype]:g}); mean regret FTL "
           f"{float(res.regret[flags == 1].double().mean()):.4f}, FTRL "
-          f"{float(res.regret[flags == 0].double().mean()):.4f}")
+          f"{float(res.regret[flags == 0].double().mean()):.4f}; digest "
+          f"{output_digest(got)}")
     check(e8 <= TOL[dtype], f"K8 {dtype} vs plain")
     A_pre, b_pre, A_fin, b_fin = prefix_statistics(z, y)
     A_all = A_pre.reshape(-1, D, D)
@@ -1210,33 +1364,57 @@ def quad_kernels(dtype):
     print(f"[9 quadratic] {dtype}: K8's x_c vs K9 on the final statistics: "
           f"{diff} values differ in any bit")
     check(diff == 0, f"K8's x_c differs from K9 in {dtype}")
-    del want, want9
+    del want, want9, x9
+    if dtype == torch.float32:
+        k9 = time_ms(lambda: trs.launch_trs_solve(A_all, b_all), reps=3)
+    passes, final = newton_counts(A_pre, b_pre, A_fin, b_fin, flags)
+    del A_pre, b_pre, A_all, b_all
+    torch.cuda.empty_cache()
+    iters = trs.TRS_PARAMS[dtype][1]
+    k8 = time_ms(lambda: trs.launch_quadratic_regrets(z_tm, y_tm, flags,
+                                                      eta), reps=3)
+    w8 = time_ms(lambda: simulate_quadratic_batch(z, y, flags, eta), reps=3)
+    print(f"[9 quadratic] K8 {dtype}: kernel {k8[0]:.4f} ms (min "
+          f"{k8[1]:.4f}, max {k8[2]:.4f}); wrapper {w8[0]:.4f} ms; plain "
+          f"PyTorch {p8:.1f} ms (one call)")
+    k8_widths(f"B={QUAD_B} T={QUAD_T} {dtype}", z_tm, y_tm, flags, eta, got)
+    # 32 FTL sequences alone, in one warp and in a warp each: the chain's
+    # time a Newton pass, with and without the hand-over's divergence.
+    ftl32 = torch.ones(trs.WARP, dtype=torch.int32, device="cuda")
+    one = slice(QUAD_B - trs.WARP, QUAD_B)
+    z1, y1 = z_tm[..., one].contiguous(), y_tm[:, one].contiguous()
+    worst = int(passes[:, one].sum(0).max())
+    for w in (trs.WARP, 1):
+        k1 = time_ms(lambda: trs.launch_quadratic_regrets(
+            z1, y1, ftl32, eta[one], w), reps=3)
+        print(f"[9 quadratic] K8 {dtype}, the last 32 FTL sequences alone, "
+              f"{w} a warp: {k1[0]:.4f} ms for the slowest lane's {worst} "
+              f"Newton passes: {k1[0] * 1e3 / worst:.4f} us a pass, "
+              f"{k1[0] * 1e-3 / worst * SM_CLOCK_HZ:.0f} clocks at "
+              f"{SM_CLOCK_HZ / 1e6:.0f} MHz, {k1[0] * 1e3 / QUAD_T:.3f} us a "
+              f"round")
     out = {}
     if dtype == torch.float32:
-        iters = trs.TRS_PARAMS[dtype][1]
-        k8 = time_ms(lambda: trs.launch_quadratic_regrets(z_tm, y_tm, flags,
-                                                          eta), reps=3)
-        w8 = time_ms(lambda: simulate_quadratic_batch(z, y, flags, eta),
-                     reps=3)
-        k9 = time_ms(lambda: trs.launch_trs_solve(A_all, b_all), reps=3)
         steps = QUAD_B * QUAD_T
-        ops8 = (steps // 2 * (quad_round_ops(D, iters, True)
-                              + quad_round_ops(D, iters, False))
-                + QUAD_B * (trs_ops(D, iters) + 2 * D * D + 2 * D + 4))
+        ftl = flags != 0
+        ops8 = (int(ftl.sum()) * QUAD_T * quad_round_ops(D, True)
+                + int((~ftl).sum()) * QUAD_T * quad_round_ops(D, False)
+                + trs_ops(D, passes[:, ftl], iters)
+                + trs_ops(D, final, iters) + QUAD_B * (2 * D * D + 2 * D + 4))
+        bytes8 = steps * (D + 1) * 4 + QUAD_B * (8 + 4 * (2 + 2 * D))
         out["K8"] = {"max_abs_err": e8, "ms": k8[0], "plain_ms": p8,
-                     "library_ms": None,
-                     **bound(steps * (D + 1) * 4 + QUAD_B * (8 + 4 * (2 + 2 * D)),
-                             ops8, dtype)}
+                     "library_ms": None, **bound(bytes8, ops8, dtype)}
         out["K9"] = {"max_abs_err": e9, "ms": k9[0], "plain_ms": p9,
                      "library_ms": None,
-                     **bound(size + n * D * 4, n * trs_ops(D, iters), dtype)}
-        for key, k_ms, extra in (("K8", k8, f"; wrapper {w8[0]:.4f} ms"),
-                                 ("K9", k9, "")):
-            o = out[key]
-            print(f"[9 quadratic] {key} {dtype}: kernel {k_ms[0]:.4f} ms "
-                  f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}; bound "
-                  f"{o['bound_ms']:.4f} ms by {o['bound_by']}){extra}; plain "
-                  f"PyTorch {o['plain_ms']:.1f} ms (one call)")
+                     **bound(size + n * D * 4, trs_ops(D, passes, iters),
+                             dtype)}
+        print(f"[9 quadratic] K8 {dtype} bound {out['K8']['bound_ms']:.4f} "
+              f"ms by {out['K8']['bound_by']} ({ops8:.4g} operations, each "
+              f"solve at its own Newton passes); K9 bound "
+              f"{out['K9']['bound_ms']:.4f} ms by {out['K9']['bound_by']}")
+        print(f"[9 quadratic] K9 {dtype}: kernel {k9[0]:.4f} ms (min "
+              f"{k9[1]:.4f}, max {k9[2]:.4f}); plain PyTorch {p9:.1f} ms (one "
+              f"call)")
     return launches, out
 
 
@@ -1251,7 +1429,7 @@ def phase_quadratic(tmp):
 
 # --------------------------------------------------------------- phase 10
 POD_T, POD_SEQS, POD_LANES = 1000, 1 << 20, 16_384
-K7_LANES, K7_BIG_D = 1024, 256
+K7_LANES, K7_BIG_D, K7_ODD_T = 1024, 256, 2500
 
 
 def synthetic_bound(steps: float, d: int, n_out: int) -> dict:
@@ -1327,6 +1505,16 @@ def k7_vs_plain():
     print(f"[10 pod] K7 d={K7_BIG_D} lane_batch 16 T=256: vs plain "
           f"{int((got != want).sum())} differ in any bit")
     check(torch.equal(got, want), "K7 at large d differs from plain")
+    for alg in (0, 1):
+        got = game.synthetic_regrets(13, ETA, T=K7_ODD_T, lane_batch=20,
+                                     alg_flag=alg)
+        want = game.synthetic_regrets_reference(
+            13, ETA, T=K7_ODD_T, lane_batch=20, alg_flag=alg, device="cuda")
+        print(f"[10 pod] K7 {'FTL' if alg else 'FTRL'} T={K7_ODD_T} (the "
+              f"scale table's chunks: 2 full, 1 partial) lane_batch 20 (a "
+              f"block partly past B): vs plain {int((got != want).sum())} "
+              f"differ in any bit")
+        check(torch.equal(got, want), "K7 differs from plain past a chunk")
     (out, ms) = timed_once(lambda: game.synthetic_regrets(
         11, ETA, T=1 << 20, lane_batch=128))
     mean = float(out.double().mean())

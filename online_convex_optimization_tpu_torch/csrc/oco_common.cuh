@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels: the regret game (K1), SMART
 // (K2), the packed game (K3, K3e), the carried stream (K4), the eta sweep
 // (K5), the SMART threshold sweep (K6) and the generation-fused game (K7).
-// K1, K4, K5 and K7 play the same game_round, K3 and K3e its action and
-// hinge step; K2 and K6 the same smart_round, so a sweep column, a chunked
+// K1, K4 and K5 play the same game_round, K7 its actions (the FTRL scale
+// read from a table) and play_action, K3 and K3e its action and hinge
+// step; K2 and K6 the same smart_round, so a sweep column, a chunked
 // stream, a packed game or a generated game reproduces the one-shot kernel
 // bit for bit.
 //
@@ -157,6 +158,21 @@ __device__ __forceinline__ S replay_comparator(const S* __restrict__ z,
   return comp;
 }
 
+// The round once the action x is chosen: the hinge loss of q = <z_t, x>
+// added to cum, the tie-exact subgradient update of theta, and the
+// identity statistic w += y_t z_t.
+template <typename S, int D>
+__device__ __forceinline__ void play_action(S* th, S* w, const S* x,
+                                            const S* zr, S yt, int n,
+                                            S& cum) {
+  const S g = hinge_step<S, D>(x, zr, yt, n, cum);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    th[j] = th[j] + g * zr[j];
+    w[j] = w[j] + yt * zr[j];
+  }
+}
+
 // One round of the FTRL (ftrl) or FTL game: the action x from the
 // pre-update theta (FTRL with the 1-based round index t1), the hinge loss
 // of q = <z_t, x> added to cum, the tie-exact subgradient update of theta,
@@ -169,12 +185,7 @@ __device__ __forceinline__ void game_round(S* th, S* w, S* x, const S* zr,
     ftrl_action<S, D>(th, x, n, eta, t1);
   else
     ftl_action<S, D>(th, x, n);
-  const S g = hinge_step<S, D>(x, zr, yt, n, cum);
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    th[j] = th[j] + g * zr[j];
-    w[j] = w[j] + yt * zr[j];
-  }
+  play_action<S, D>(th, w, x, zr, yt, n, cum);
 }
 
 // Loss of the final FTL action x_c = ftl_action(theta) (written to x) over

@@ -16,7 +16,11 @@
 // bisection (floor eps_rel*(1 + tr/d), a final x / max(||x||, 1)).  The port
 // runs one: the Newton with its bracket safeguard, the XLA floor for the
 // working type (eps_rel 1e-6 in f32, 1e-12 in f64), and the correctly
-// rounded x / max(sqrt(||x||^2), 1) at the end.
+// rounded x / max(sqrt(||x||^2), 1) at the end.  The Newton loop stops
+// where the fixed count would add nothing, with the same bits (trs_pass;
+// its plain mirror is ops/trs.py trs_action_settled), and K8 runs it one
+// pass at a time, so that each of its lanes starts its next round as soon
+// as its own solve is done.
 //
 // Numerical traps, kept as the JAX kernels keep them:
 //   - the first rounds of a game have a singular A (t < d), and at t = 0
@@ -46,10 +50,11 @@ struct QCap {
 // Position of (i, j), j <= i, in a packed lower triangle.
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
-// Ridge floor and Newton iterations by working type.  12 in f32 is the TPU
-// kernels' count; in f64 the answer stops moving after 18 iterations on the
-// tests' and a regression stream's prefixes (tests/test_torch_quadratic.py,
-// through trs_solve_reference), and 20 leaves a margin.
+// Ridge floor and Newton iterations by working type: the cap of
+// trs_pass's exit.  12 in f32 is the TPU kernels' count; in f64 the answer
+// stops moving after 18 iterations on the tests' and a regression stream's
+// prefixes (tests/test_torch_quadratic.py, through trs_solve_reference),
+// and 20 leaves a margin.
 template <typename S>
 struct TrsParams;
 template <>
@@ -113,36 +118,105 @@ __device__ __forceinline__ void ridge_solve(const S* A, const S* b, S lam,
   bwd_solve<S, D>(L, v, x, n);
 }
 
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ bool same_bits(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// One trust-region solve in flight: the floor, the Newton carry (lam, lo,
+// hi), the carry one pass back with that pass's x, and the pass count k.
+template <typename S, int D>
+struct TrsSolve {
+  S eps, lam, lo, hi, lam1, lo1, hi1;
+  S x1[QCap<D>::value];
+  int k;
+};
+
+// The floor and the starting carry of the solve of (A, b).
+template <typename S, int D>
+__device__ __forceinline__ void trs_begin(TrsSolve<S, D>& s, const S* A,
+                                          const S* b, int n) {
+  S tr = A[0];
+#pragma unroll
+  for (int i = 1; i < n; ++i) tr = tr + A[tri(i, i)];
+  s.eps = TrsParams<S>::eps_rel * (S(1) + tr / S(n));
+  s.lam = s.lo = S(0);
+  s.hi = osqrt(dot<S, D>(b, b, n));
+  s.k = 0;
+}
+
+// One Newton pass: x = (A + (lam + eps) I)^{-1} b, then the safeguarded
+// step of the carry.  Returns true once x is the fixed count's final ridge
+// solution (the action before its scaling into the ball), with the same
+// bits as running all TrsParams<S>::iters iterations:
+//   - at pass iters, the solve at the last multiplier;
+//   - when the step leaves the carry unchanged in every bit: a pass reads
+//     only A, b, eps and the carry, so every later pass repeats it, and
+//     this pass's x is the final solve;
+//   - when the step returns the carry of two passes back: the carries
+//     then alternate, and the parity of the passes left picks this
+//     pass's x or the one before.
+// A comparison that never holds (a NaN carry, say) runs the full count.
+template <typename S, int D>
+__device__ __forceinline__ bool trs_pass(TrsSolve<S, D>& s, const S* A,
+                                         const S* b, S* x, int n) {
+  constexpr int iters = TrsParams<S>::iters;
+  S L[QCap<D>::tri], v[QCap<D>::value];
+  ridge_solve<S, D>(A, b, s.lam + s.eps, L, v, x, n);
+  if (s.k == iters) return true;
+  const S n2 = dot<S, D>(x, x, n);
+  fwd_solve<S, D>(L, x, v, n);               // q = L^{-1} x
+  const S nq2 = dot<S, D>(v, v, n);
+  const bool outside = n2 > S(1);
+  const S lo = outside ? s.lam : s.lo;
+  const S hi = outside ? s.hi : s.lam;
+  const S step = (n2 / omax(nq2, S(1e-30))) * (osqrt(n2) - S(1));
+  const S lam_n = s.lam + step;
+  // Newton from below converges monotonically; a step that leaves the
+  // bracket strictly (also the interior case, lam -> lo = 0) takes the
+  // midpoint instead.
+  const S lam = (lam_n < lo || lam_n > hi) ? S(0.5) * (lo + hi) : lam_n;
+  if (same_bits(lam, s.lam) && same_bits(lo, s.lo) && same_bits(hi, s.hi))
+    return true;
+  if (s.k > 0 && same_bits(lam, s.lam1) && same_bits(lo, s.lo1) &&
+      same_bits(hi, s.hi1)) {
+    if (((iters - s.k + 1) & 1) == 0) {
+#pragma unroll
+      for (int i = 0; i < n; ++i) x[i] = s.x1[i];
+    }
+    return true;
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) s.x1[i] = x[i];
+  s.lam1 = s.lam;
+  s.lo1 = s.lo;
+  s.hi1 = s.hi;
+  s.lam = lam;
+  s.lo = lo;
+  s.hi = hi;
+  ++s.k;
+  return false;
+}
+
+// x / max(sqrt(||x||^2), 1), correctly rounded.
+template <typename S, int D>
+__device__ __forceinline__ void to_ball(S* x, int n) {
+  const S den = omax(osqrt(dot<S, D>(x, x, n)), S(1));
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = x[i] / den;
+}
+
 // The trust-region action of (A packed lower triangle, b) into x.
 template <typename S, int D>
 __device__ __forceinline__ void trs_action(const S* A, const S* b, S* x,
                                            int n) {
-  constexpr int C = QCap<D>::value;
-  S L[QCap<D>::tri], v[C];
-  S tr = A[0];
-#pragma unroll
-  for (int i = 1; i < n; ++i) tr = tr + A[tri(i, i)];
-  const S eps = TrsParams<S>::eps_rel * (S(1) + tr / S(n));
-  S lam = S(0), lo = S(0), hi = osqrt(dot<S, D>(b, b, n));
-  for (int it = 0; it < TrsParams<S>::iters; ++it) {
-    ridge_solve<S, D>(A, b, lam + eps, L, v, x, n);
-    const S n2 = dot<S, D>(x, x, n);
-    fwd_solve<S, D>(L, x, v, n);               // q = L^{-1} x
-    const S nq2 = dot<S, D>(v, v, n);
-    const bool outside = n2 > S(1);
-    lo = outside ? lam : lo;
-    hi = outside ? hi : lam;
-    const S step = (n2 / omax(nq2, S(1e-30))) * (osqrt(n2) - S(1));
-    const S lam_n = lam + step;
-    // Newton from below converges monotonically; a step that leaves the
-    // bracket strictly (also the interior case, lam -> lo = 0) takes the
-    // midpoint instead.
-    lam = (lam_n < lo || lam_n > hi) ? S(0.5) * (lo + hi) : lam_n;
+  TrsSolve<S, D> s;
+  trs_begin<S, D>(s, A, b, n);
+  while (!trs_pass<S, D>(s, A, b, x, n)) {
   }
-  ridge_solve<S, D>(A, b, lam + eps, L, v, x, n);
-  const S den = omax(osqrt(dot<S, D>(x, x, n)), S(1));
-#pragma unroll
-  for (int i = 0; i < n; ++i) x[i] = x[i] / den;
+  to_ball<S, D>(x, n);
 }
 
 }  // namespace oco

@@ -25,32 +25,70 @@
 // The flag is per sequence, so the study's FTRL and FTL runs share one
 // launch.
 //
-// What bounds it on an H100: operations.  Each FTL round runs Newton
-// iterations of a d x d Cholesky and three triangular solves (about 250
-// flops at d = 5, with 5 sqrts and 20 divides on the chain), 12 of them in
-// f32, against 4*(d+1) bytes of input.  The chain is serial within a
-// thread, and the bench shape has only B = 4,096 sequences: with 128-thread
-// blocks they would fill 32 SMs, so the kernel launches blocks of 32
-// threads (128 blocks) to put a warp on nearly every one of the 132 SMs.
-// The card stays latency-bound at that B; the design does not try to
-// split one sequence's chain across threads.
+// What bounds it on an H100: the latency of one thread's chain.  An FTL
+// round's solve is a run of Newton passes, each a d x d Cholesky and three
+// triangular solves (about 250 flops at d = 5, with 5 sqrts and 20
+// divides on the chain, each correctly rounded in its own basic block),
+// against 4*(d+1) bytes of input; the bench shape has only B = 4,096
+// sequences (2,048 FTL), in blocks of one warp.  The design cuts the
+// chain's length, exactly:
+//   - a solve stops once its Newton carry settles (oco::trs_pass), after
+//     about 4 passes on average where the fixed count takes 13 solves in
+//     f32 and 21 in f64 (PERF.md counts them on the bench shape);
+//   - each lane plays its own rounds: every pass of the loop below runs
+//     one Newton pass for each lane of the warp, convergent, and a lane
+//     whose solve is done finishes its round and starts the next in a
+//     divergent branch (the loop's comment says how it is kept one loop).
+//     A warp thus takes its slowest lane's passes, not the sum over rounds
+//     of each round's slowest.  Nothing assumes lockstep: no shuffle, no
+//     vote;
+//   - the wrapper hands the kernel a lane map that puts FTRL and FTL
+//     sequences in warps of their own (ops/trs.py quad_lanes): an FTRL
+//     round is a few operations, an FTL round a solve.  An FTL warp holds
+//     only as many sequences as spread them over ~8 warps an SM
+//     (ops/trs.py ftl_width): a warp of fewer lanes waits on a less slow
+//     slowest lane, and the SM's warps hide each other's latency.
+// Each thread reads and writes only its own sequence's columns, so the
+// outputs need no unpermuting.
 #include "oco_trs.cuh"
 
 #define OCO_QUAD_THREADS 32
 
 namespace {
 
+// The round's update once the action x is chosen: cum += 0.5 r^2 with
+// r = <z_t, x> - y_t, theta += r z_t (FTRL), and the statistics take the
+// row.
+template <typename S, int D>
+__device__ __forceinline__ void quad_update(S* A, S* bv, S* th, S& c, S& cum,
+                                            const S* x, const S* zr, S yt,
+                                            int n) {
+  const S r = oco::dot<S, D>(zr, x, n) - yt;
+  cum = cum + S(0.5) * r * r;
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    th[i] = th[i] + r * zr[i];
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      A[oco::tri(i, j)] = A[oco::tri(i, j)] + zr[i] * zr[j];
+    bv[i] = bv[i] + yt * zr[i];
+  }
+  c = c + yt * yt;
+}
+
 template <typename S, int D>
 __global__ void __launch_bounds__(OCO_QUAD_THREADS)
 quad_game_kernel(const S* __restrict__ z, const S* __restrict__ y,
                  const int* __restrict__ alg_flag, const S* __restrict__ eta,
+                 const int* __restrict__ lanes, long long n_lanes,
                  long long T, long long B, int d, S* __restrict__ cum_out,
                  S* __restrict__ comp_out, S* __restrict__ xc_out,
                  S* __restrict__ xlast_out) {
   constexpr int C = oco::QCap<D>::value;
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
+  const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+  if (lane >= n_lanes || lanes[lane] < 0) return;
+  const long long b = lanes[lane];
   const int n = D > 0 ? D : d;
   const bool ftrl = alg_flag[b] == 0;
   const S eta_b = eta[b];
@@ -62,30 +100,42 @@ quad_game_kernel(const S* __restrict__ z, const S* __restrict__ y,
   for (int i = 0; i < n; ++i) bv[i] = th[i] = x[i] = S(0);
   S c = S(0), cum = S(0);
 
-  for (long long t = 0; t < T; ++t) {
-    oco::load_row<S, D>(z, t, b, B, n, zr);
-    const S yt = y[t * B + b];
-    if (ftrl) {
+  if (ftrl) {
+    for (long long t = 0; t < T; ++t) {
+      oco::load_row<S, D>(z, t, b, B, n, zr);
+      const S yt = y[t * B + b];
       const S scale = -(eta_b / oco::osqrt(S(t + 1)));
 #pragma unroll
       for (int i = 0; i < n; ++i) x[i] = scale * th[i];
-      const S den = oco::omax(oco::osqrt(oco::dot<S, D>(x, x, n)), S(1));
-#pragma unroll
-      for (int i = 0; i < n; ++i) x[i] = x[i] / den;
-    } else {
-      oco::trs_action<S, D>(A, bv, x, n);
+      oco::to_ball<S, D>(x, n);
+      quad_update<S, D>(A, bv, th, c, cum, x, zr, yt, n);
     }
-    const S r = oco::dot<S, D>(zr, x, n) - yt;
-    cum = cum + S(0.5) * r * r;
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-      th[i] = th[i] + r * zr[i];
-#pragma unroll
-      for (int j = 0; j <= i; ++j)
-        A[oco::tri(i, j)] = A[oco::tri(i, j)] + zr[i] * zr[j];
-      bv[i] = bv[i] + yt * zr[i];
+  } else if (T > 0) {
+    // Round t's solve is in flight on the statistics of rounds < t; row t
+    // waits in zr.  Each pass of the loop first lets the lanes whose solve
+    // ended on the last pass play their round and begin the next (the
+    // divergent branch), then runs one Newton pass on every lane, where
+    // the warp meets again.  The order matters: with the hand-over after
+    // the pass, the compiler made the passes an inner loop, and the warp
+    // waited at its exit for the round's slowest lane (scripts/
+    // sass_census.py reports the loops).
+    long long t = 0;
+    oco::load_row<S, D>(z, 0, b, B, n, zr);
+    S yt = y[b];
+    oco::TrsSolve<S, D> s;
+    oco::trs_begin<S, D>(s, A, bv, n);
+    bool solved = false;
+    for (;;) {
+      if (solved) {
+        oco::to_ball<S, D>(x, n);
+        quad_update<S, D>(A, bv, th, c, cum, x, zr, yt, n);
+        if (++t == T) break;
+        oco::load_row<S, D>(z, t, b, B, n, zr);
+        yt = y[t * B + b];
+        oco::trs_begin<S, D>(s, A, bv, n);
+      }
+      solved = oco::trs_pass<S, D>(s, A, bv, x, n);
     }
-    c = c + yt * yt;
   }
 
   // The exact comparator from the final statistics; zr holds x_c.
@@ -111,50 +161,56 @@ quad_game_kernel(const S* __restrict__ z, const S* __restrict__ y,
 
 template <typename S>
 int launch(const void* z, const void* y, const void* alg_flag,
-           const void* eta, long long T, long long B, int d, void* cum,
-           void* comp, void* x_c, void* x_last, void* stream) {
-  if (B < 1 || T < 0 || d < 1 || d > OCO_QUAD_MAX_D)
+           const void* eta, const void* lanes, long long n_lanes,
+           long long T, long long B, int d, void* cum, void* comp, void* x_c,
+           void* x_last, void* stream) {
+  if (B < 1 || T < 0 || d < 1 || d > OCO_QUAD_MAX_D || n_lanes < B)
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto grid = static_cast<unsigned int>(
-      (B + OCO_QUAD_THREADS - 1) / OCO_QUAD_THREADS);
+      (n_lanes + OCO_QUAD_THREADS - 1) / OCO_QUAD_THREADS);
   const auto* zp = static_cast<const S*>(z);
   const auto* yp = static_cast<const S*>(y);
   const auto* fp = static_cast<const int*>(alg_flag);
   const auto* ep = static_cast<const S*>(eta);
+  const auto* mp = static_cast<const int*>(lanes);
   auto* cp = static_cast<S*>(cum);
   auto* kp = static_cast<S*>(comp);
   auto* xp = static_cast<S*>(x_c);
   auto* lp = static_cast<S*>(x_last);
   if (d == 5)
     quad_game_kernel<S, 5><<<grid, OCO_QUAD_THREADS, 0, s>>>(
-        zp, yp, fp, ep, T, B, d, cp, kp, xp, lp);
+        zp, yp, fp, ep, mp, n_lanes, T, B, d, cp, kp, xp, lp);
   else
     quad_game_kernel<S, 0><<<grid, OCO_QUAD_THREADS, 0, s>>>(
-        zp, yp, fp, ep, T, B, d, cp, kp, xp, lp);
+        zp, yp, fp, ep, mp, n_lanes, T, B, d, cp, kp, xp, lp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Inputs: z (T, d, B) and y (T, B) time-major, alg_flag (B,) int32
-// (0 = FTRL, 1 = FTL), eta (B,) the FTRL step scale.  Outputs: cum (B,),
-// comp (B,), x_c (d, B) the exact comparator, x_last (d, B) the last
-// action played.  Returns the cudaError_t of the launch.
+// (0 = FTRL, 1 = FTL), eta (B,) the FTRL step scale, lanes (n_lanes,)
+// int32: thread i plays sequence lanes[i], none where it is negative;
+// every sequence must appear once.  Outputs: cum (B,), comp (B,), x_c
+// (d, B) the exact comparator, x_last (d, B) the last action played.
+// Returns the cudaError_t of the launch.
 extern "C" int oco_quad_game_f64(const void* z, const void* y,
                                  const void* alg_flag, const void* eta,
+                                 const void* lanes, long long n_lanes,
                                  long long T, long long B, int d, void* cum,
                                  void* comp, void* x_c, void* x_last,
                                  void* stream) {
-  return launch<double>(z, y, alg_flag, eta, T, B, d, cum, comp, x_c, x_last,
-                        stream);
+  return launch<double>(z, y, alg_flag, eta, lanes, n_lanes, T, B, d, cum,
+                        comp, x_c, x_last, stream);
 }
 
 extern "C" int oco_quad_game_f32(const void* z, const void* y,
                                  const void* alg_flag, const void* eta,
+                                 const void* lanes, long long n_lanes,
                                  long long T, long long B, int d, void* cum,
                                  void* comp, void* x_c, void* x_last,
                                  void* stream) {
-  return launch<float>(z, y, alg_flag, eta, T, B, d, cum, comp, x_c, x_last,
-                       stream);
+  return launch<float>(z, y, alg_flag, eta, lanes, n_lanes, T, B, d, cum,
+                       comp, x_c, x_last, stream);
 }

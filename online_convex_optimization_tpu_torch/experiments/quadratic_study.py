@@ -4,10 +4,11 @@ ball-constrained least-squares FTL and FTRL on the regression stream.
 Counterpart of ``online_convex_optimization_tpu/experiments/quadratic_study.py``:
 zero-padded batches over a horizon grid, the reference aggregation
 (replicate mean per run, mean +- 1.96*SEM across runs), a JSON artifact and
-a figure.  Each (run, horizon) is one ``simulate_quadratic_batch`` call with
-the FTRL and FTL replicates side by side under a per-sequence flag: one
-launch of kernel K8 on ``--device cuda`` (the default), its plain PyTorch
-version on ``--device cpu``.
+a figure.  Every (run, horizon) batch, FTRL and FTL replicates under a
+per-sequence flag, rides one ``simulate_quadratic_batch`` call: one launch
+of kernel K8 on ``--device cuda`` (the default), its plain PyTorch version
+on ``--device cpu``.  (The JAX package makes one call per (run,
+horizon); the regrets are the same.)
 
 Run:  python -m online_convex_optimization_tpu_torch.experiments.quadratic_study
           --t-max 2000 --runs 5 --replicates 4 --out-dir results --device cuda
@@ -47,6 +48,60 @@ from online_convex_optimization_tpu_torch.utils.stats import mean_ci
 LABELS = ("FTRL", "FTL (exact LS)")
 
 
+def horizon_batches(T_grid, *, runs: int = 5, replicates: int = 4,
+                    base_seed: int = 0, sigma: float = 0.1, d: int = 5,
+                    dtype=np.float32):
+    """The study's regression streams: ``(z, y)`` of shapes ``(replicates,
+    T, d)`` and ``(replicates, T)`` for each (run, horizon), runs outer."""
+    out = []
+    for run in range(runs):
+        sampler = make_regression_stream(
+            sigma=sigma, d=d, run_seed=run_seed_schedule(base_seed, run))
+        out += [stack_replicates(sampler, int(T), replicates, dtype=dtype)
+                for T in T_grid]
+    return out
+
+
+def quadratic_stats(by_T) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Mean and 95% CI across runs of the replicate means, per horizon, from
+    ``{label: (runs, horizons, replicates)}`` regrets."""
+    stats: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    for k in LABELS:
+        run_means = np.nanmean(by_T[k], axis=2)
+        means, cis = zip(*(mean_ci(run_means[:, ti])
+                           for ti in range(run_means.shape[1])))
+        stats[k] = (np.asarray(means), np.asarray(cis))
+    return stats
+
+
+def study_batch(T_grid, *, runs: int = 5, replicates: int = 4,
+                base_seed: int = 0, sigma: float = 0.1, d: int = 5,
+                dtype=np.float32, device="cuda"):
+    """Every (run, horizon) batch of the study as one game batch: ``z``
+    ``(B, T_max, d)``, ``y`` ``(B, T_max)`` and ``flags`` ``(B,)``, with
+    ``B = 2 * runs * len(T_grid) * replicates``.  All FTRL replicates come
+    first, then the same sequences for FTL, each block (run, horizon,
+    replicate)-major, zero-padded to ``T_max = max(T_grid)``."""
+    device = resolve_device(device)
+    tdtype = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+    T_max = max(int(t) for t in T_grid)
+    batches = horizon_batches(T_grid, runs=runs, replicates=replicates,
+                              base_seed=base_seed, sigma=sigma, d=d,
+                              dtype=dtype)
+    n = len(batches) * replicates
+    z_all = np.zeros((n, T_max, d), batches[0][0].dtype)
+    y_all = np.zeros((n, T_max), batches[0][1].dtype)
+    for i, (z, y) in enumerate(batches):
+        rows = slice(i * replicates, (i + 1) * replicates)
+        z_all[rows, :z.shape[1]] = z
+        y_all[rows, :y.shape[1]] = y
+    z_t = torch.as_tensor(z_all, dtype=tdtype, device=device)
+    y_t = torch.as_tensor(y_all, dtype=tdtype, device=device)
+    flags = torch.cat([torch.zeros(n, dtype=torch.int32, device=device),
+                       torch.ones(n, dtype=torch.int32, device=device)])
+    return torch.cat([z_t, z_t]), torch.cat([y_t, y_t]), flags
+
+
 def evaluate_quadratic_stream(
     T_grid,
     *,
@@ -60,41 +115,21 @@ def evaluate_quadratic_stream(
     device="cuda",
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """Regret statistics for the quadratic track on the regression stream.
-    Zero-padding horizons to ``max(T_grid)`` is inert (padded rounds lose
-    0.5*(0-0)^2 = 0 and leave the statistics untouched), so every call has
-    one shape."""
-    device = resolve_device(device)
-    tdtype = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
-    T_grid = [int(t) for t in T_grid]
-    T_max = max(T_grid)
-    flags = torch.cat([torch.zeros(replicates, dtype=torch.int32),
-                       torch.ones(replicates, dtype=torch.int32)])
-    by_T = {k: np.empty((runs, len(T_grid), replicates)) for k in LABELS}
-    for run in range(runs):
-        sampler = make_regression_stream(
-            sigma=sigma, d=d, run_seed=run_seed_schedule(base_seed, run))
-        for ti, T in enumerate(T_grid):
-            z, y = stack_replicates(sampler, T, replicates, dtype=dtype)
-            z2 = np.zeros((2 * replicates, T_max, d), z.dtype)
-            y2 = np.zeros((2 * replicates, T_max), y.dtype)
-            # Both algorithms ride one batched call via the flag vector.
-            z2[:replicates, :T] = z2[replicates:, :T] = z
-            y2[:replicates, :T] = y2[replicates:, :T] = y
-            res = simulate_quadratic_batch(
-                torch.as_tensor(z2, dtype=tdtype, device=device),
-                torch.as_tensor(y2, dtype=tdtype, device=device), flags,
-                eta0)
-            reg = res.regret.double().cpu().numpy()
-            by_T["FTRL"][run, ti] = reg[:replicates]
-            by_T["FTL (exact LS)"][run, ti] = reg[replicates:]
 
-    stats: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-    for k in LABELS:
-        run_means = np.nanmean(by_T[k], axis=2)
-        means, cis = zip(*(mean_ci(run_means[:, ti])
-                           for ti in range(len(T_grid))))
-        stats[k] = (np.asarray(means), np.asarray(cis))
-    return stats
+    Every (run, horizon) batch rides one ``simulate_quadratic_batch`` call
+    (``study_batch``; one launch of K8 on a CUDA device).  Padded rounds
+    are inert (they lose 0.5*(0-0)^2 = 0 and leave the statistics
+    untouched) and each sequence is played on its own, so every regret is
+    the one a call per (run, horizon) would give, bit for bit.  At the
+    default config that is 400 sequences of T = 2000 (32 MB of f64 z): one
+    call, where K8 plays them side by side."""
+    z, y, flags = study_batch(T_grid, runs=runs, replicates=replicates,
+                              base_seed=base_seed, sigma=sigma, d=d,
+                              dtype=dtype, device=device)
+    reg = simulate_quadratic_batch(z, y, flags, eta0).regret
+    reg = reg.double().cpu().numpy().reshape(2, runs, len(T_grid),
+                                             replicates)
+    return quadratic_stats(dict(zip(LABELS, reg)))
 
 
 def plot_quadratic(T_grid, stats, *, out_path: str, dpi: int = 150) -> None:

@@ -68,9 +68,9 @@ and ``validate_stream_chunk`` checks a chunk against the contract.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -84,7 +84,10 @@ from online_convex_optimization_tpu_torch.ops.hinge import (
     hinge_subgradient,
     normalized_hinge,
 )
-from online_convex_optimization_tpu_torch.ops.philox import round_bits
+from online_convex_optimization_tpu_torch.ops.philox import (
+    round_bits,
+    round_keys,
+)
 from online_convex_optimization_tpu_torch.utils import cuda_build
 from online_convex_optimization_tpu_torch.utils.devices import resolve_device
 
@@ -865,9 +868,10 @@ def launch_synthetic(seed: int, eta0, T: int, lane_batch: int, d: int,
     with torch.cuda.device(device):
         out = torch.empty((SYNTHETIC_ROWS, lane_batch), dtype=torch.float32,
                           device=device)
+        keys = (ctypes.c_uint32 * 20)(*round_keys(int(seed)))
         err = lib.oco_synthetic_regrets_f32(
-            int(seed) & (2 ** 64 - 1), float(eta0), T, out.numel(), d,
-            alg_flag, synthetic_row_scale(d), out.data_ptr(),
+            keys, float(eta0), T, out.numel(), d, alg_flag,
+            synthetic_row_scale(d), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"synthetic kernel launch failed: CUDA error "

@@ -56,6 +56,16 @@ def philox4x32_10(c0, c1, c2, c3, key: int):
     return c0, c1, c2, c3
 
 
+def round_keys(key: int):
+    """The ten round keys of the 64-bit ``key``, as K7 takes them: the list
+    ``[k0_0, ..., k0_9, k1_0, ..., k1_9]`` with ``k0_i = (key mod 2^32) +
+    i * W0`` and ``k1_i = (key >> 32) + i * W1``, mod 2^32: the keys
+    ``philox4x32_10`` bumps to, round by round."""
+    key &= (1 << 64) - 1
+    return ([(key + i * PHILOX_W0) & MASK32 for i in range(ROUNDS)]
+            + [((key >> 32) + i * PHILOX_W1) & MASK32 for i in range(ROUNDS)])
+
+
 def round_bits(seed: int, T: int, B: int, n_bits: int,
                device="cpu") -> torch.Tensor:
     """The first ``n_bits`` bits of every (round, sequence) of K7's stream:

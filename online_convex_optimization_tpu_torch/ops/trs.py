@@ -28,6 +28,15 @@ conditioned.  On a singular prefix (t < d) the floor leaves a condition
 number near 1e12: there the two solvers' answers differ by up to ~1e-5
 in the null space (rounding noise amplified), with equal objectives.
 
+The kernels' Newton loop stops where the fixed count would add nothing:
+a pass whose carry comes back unchanged in every bit, or equal to the
+carry of two passes back (the parity of the passes left then picks the
+fixed count's last one).  ``trs_action_settled`` is the plain mirror of
+that exit, and equals ``trs_action_reference``, which runs the fixed
+count, bit for bit.  K8 runs the loop one pass at a time, so that each
+thread plays its next round as soon as its own solve is done;
+``quad_lanes`` keeps FTRL and FTL sequences in warps of their own.
+
 The plain version of K8 builds the running statistics with a loop over T
 in the kernel's order, then solves every (round, sequence) prefix in one
 batched Newton: the JAX XLA path's all-prefix pattern, with the same
@@ -160,40 +169,123 @@ def _bwd_solve(L, v, d):
     return x
 
 
-def trs_action_reference(A, b):
-    """Plain version of ``oco::trs_action``: the trust-region action of a
-    batch of problems given as a list of packed lower-triangle entries
-    ``A`` and a list of ``b`` components, each a tensor over the batch.
-    Returns the list of ``x`` components."""
+def _trs_setup(A, b):
+    """The floor and the starting carry ``(eps, lam, lo, hi)`` of a solve."""
     d = len(b)
-    eps_rel, iters = TRS_PARAMS[b[0].dtype]
+    eps_rel = TRS_PARAMS[b[0].dtype][0]
     tr = A[0]
     for i in range(1, d):
         tr = tr + A[_tri(i, i)]
     # tensor / tensor: a Python number divisor multiplies by a reciprocal.
     eps = eps_rel * (1.0 + tr / torch.full_like(tr, d))
     lam = torch.zeros_like(tr)
-    lo = torch.zeros_like(tr)
-    hi = correctly_rounded_sqrt(_dot(b, b))
-    for _ in range(iters):
-        L = _chol_factor(A, lam + eps, d)
-        x = _bwd_solve(L, _fwd_solve(L, b, d), d)
-        n2 = _dot(x, x)
-        q = _fwd_solve(L, x, d)
-        nq2 = _dot(q, q)
-        outside = n2 > 1.0
-        lo = torch.where(outside, lam, lo)
-        hi = torch.where(outside, hi, lam)
-        step = ((n2 / torch.clamp(nq2, min=1e-30))
-                * (correctly_rounded_sqrt(n2) - 1.0))
-        lam_n = lam + step
-        # Newton from below converges monotonically; a step that leaves the
-        # bracket strictly takes the midpoint instead.
-        lam = torch.where((lam_n < lo) | (lam_n > hi), 0.5 * (lo + hi), lam_n)
-    L = _chol_factor(A, lam + eps, d)
-    x = _bwd_solve(L, _fwd_solve(L, b, d), d)
+    return eps, lam, torch.zeros_like(tr), correctly_rounded_sqrt(_dot(b, b))
+
+
+def _ridge_x(A, b, mu, d):
+    """``x = (A + mu I)^{-1} b`` and the factor ``L``."""
+    L = _chol_factor(A, mu, d)
+    return _bwd_solve(L, _fwd_solve(L, b, d), d), L
+
+
+def _newton_step(L, x, lam, lo, hi, d):
+    """The safeguarded Newton update of the carry ``(lam, lo, hi)`` from
+    the ridge solution ``x`` at ``lam`` and its factor ``L``."""
+    n2 = _dot(x, x)
+    q = _fwd_solve(L, x, d)
+    nq2 = _dot(q, q)
+    outside = n2 > 1.0
+    lo = torch.where(outside, lam, lo)
+    hi = torch.where(outside, hi, lam)
+    step = ((n2 / torch.clamp(nq2, min=1e-30))
+            * (correctly_rounded_sqrt(n2) - 1.0))
+    lam_n = lam + step
+    # Newton from below converges monotonically; a step that leaves the
+    # bracket strictly takes the midpoint instead.
+    lam = torch.where((lam_n < lo) | (lam_n > hi), 0.5 * (lo + hi), lam_n)
+    return lam, lo, hi
+
+
+def _to_ball(x):
     den = torch.clamp(correctly_rounded_sqrt(_dot(x, x)), min=1.0)
     return [xi / den for xi in x]
+
+
+def trs_action_reference(A, b):
+    """Plain version of ``oco::trs_action``: the trust-region action of a
+    batch of problems given as a list of packed lower-triangle entries
+    ``A`` and a list of ``b`` components, each a tensor over the batch.
+    Returns the list of ``x`` components.  It runs the fixed count of
+    Newton iterations; the kernels stop early where that gives the same
+    bits (``trs_action_settled``)."""
+    d = len(b)
+    eps, lam, lo, hi = _trs_setup(A, b)
+    for _ in range(TRS_PARAMS[b[0].dtype][1]):
+        x, L = _ridge_x(A, b, lam + eps, d)
+        lam, lo, hi = _newton_step(L, x, lam, lo, hi, d)
+    return _to_ball(_ridge_x(A, b, lam + eps, d)[0])
+
+
+def _same_bits(u, v):
+    itype = torch.int32 if u.dtype == torch.float32 else torch.int64
+    return u.view(itype) == v.view(itype)
+
+
+def trs_action_settled(A, b):
+    """Plain mirror of the kernels' Newton loop (``oco::trs_action``),
+    which stops where the fixed count would add nothing.
+
+    A Newton pass reads only ``A``, ``b``, the floor and the carry
+    ``(lam, lo, hi)``.  Pass k solves at ``lam_k`` and forms the next
+    carry; once that carry equals the one it started from in every bit,
+    every later pass repeats it, so ``lam_k`` is the fixed count's last
+    multiplier and pass k's ``x`` its final ridge solve.  Once the carry
+    equals the one from two passes back, the carries alternate, and the
+    parity of the passes left picks the fixed count's last one: the x of
+    pass k or of pass k - 1.  A lane that settles in neither way takes
+    the fixed count, ``iters`` passes and the solve at the final
+    multiplier.
+
+    Each lane's answer is taken where its own exit fires, from what the
+    passes so far computed, and equals ``trs_action_reference`` bit for
+    bit.  Returns ``(x, passes)``: the list of ``x`` components and each
+    problem's ridge solves (``iters + 1`` where no exit fired).
+    """
+    d = len(b)
+    iters = TRS_PARAMS[b[0].dtype][1]
+    eps, lam, lo, hi = _trs_setup(A, b)
+    done = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    passes = torch.full(lam.shape, iters + 1, dtype=torch.int64,
+                        device=lam.device)
+    x_out = [torch.zeros_like(lam) for _ in range(d)]
+    prev = x_prev = None
+    for k in range(iters + 1):
+        x, L = _ridge_x(A, b, lam + eps, d)
+        x_end = x
+        if k == iters:
+            take = [~done] * d
+        else:
+            new = _newton_step(L, x, lam, lo, hi, d)
+            settled = ~done & _same_bits(new[0], lam) & _same_bits(
+                new[1], lo) & _same_bits(new[2], hi)
+            take = [settled] * d
+            if prev is not None:
+                cycle = ~done & ~settled & _same_bits(new[0], prev[0]) & \
+                    _same_bits(new[1], prev[1]) & _same_bits(new[2], prev[2])
+                # The carry after pass j >= k - 1 is pass k - 1's when
+                # iters - (k - 1) is even, else pass k's.
+                back = cycle & ((iters - k + 1) % 2 == 0)
+                x_end = [torch.where(back, xp, xi)
+                         for xp, xi in zip(x_prev, x)]
+                take = [settled | cycle] * d
+            passes = torch.where(take[0], k + 1, passes)
+            done = done | take[0]
+        x_out = [torch.where(t, xi, xo)
+                 for t, xi, xo in zip(take, x_end, x_out)]
+        if k < iters:
+            prev, x_prev = (lam, lo, hi), x
+            lam, lo, hi = new
+    return _to_ball(x_out), passes
 
 
 def check_trs(A: torch.Tensor, b: torch.Tensor):
@@ -343,10 +435,53 @@ def quadratic_regrets_reference(z_tm, y_tm, alg_flag, eta):
     return cum, comp, torch.stack(x_c), x_last.t().contiguous()
 
 
-def launch_quadratic_regrets(z_tm, y_tm, flags, eta):
+# Threads of a warp: K8's lane map keeps FTRL and FTL sequences in warps of
+# their own.
+WARP = 32
+# K8's FTL warps aimed at per SM: each FTL warp holds few enough sequences
+# to give every SM this many (at most 32 a warp, at least 1).  One thread's
+# Newton chain is latency-bound and a warp takes as long as its slowest
+# lane, so a warp of fewer lanes finishes sooner, while the SM's other
+# warps hide its latency; past about 8 warps an SM the issue slots run
+# out.  On an H100 this gives 4 sequences a warp at the bench shape and 1
+# on the quadratic study (PERF.md gives K8's time at each width).
+FTL_WARPS_PER_SM = 8
+
+
+def ftl_width(B: int, device) -> int:
+    """Sequences an FTL warp of K8 holds for a batch of B on ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(WARP, -(-B // (FTL_WARPS_PER_SM * sms))))
+
+
+def quad_lanes(flags: torch.Tensor, width: int = WARP) -> torch.Tensor:
+    """K8's lane map: thread i plays sequence ``lanes[i]`` (none where it
+    is -1), int32.  The FTRL sequences (flag 0) come first, in order, 32 a
+    warp; then the FTL ones, in order, ``width`` to a warp, so that no warp
+    mixes the two: an FTRL round is a few operations, an FTL round a Newton
+    solve.  The length, ``ceil(B / 32) * 32 + ceil(B / width) * 32``,
+    depends on B alone, so nothing is read back from the device."""
+    B = flags.shape[0]
+    ftl = (flags != ALG_FTRL).to(torch.int64)
+    order = torch.argsort(ftl, stable=True)
+    n_ftrl = B - ftl.sum()
+    start = (n_ftrl + WARP - 1) // WARP * WARP      # first FTL warp
+    rank = torch.arange(B, device=flags.device)
+    j = rank - n_ftrl                               # FTL rank
+    slot = torch.where(rank < n_ftrl, rank,
+                       start + j // width * WARP + j % width)
+    lanes = torch.full(((B + WARP - 1) // WARP * WARP
+                        + (B + width - 1) // width * WARP,), -1,
+                       dtype=torch.int32, device=flags.device)
+    lanes[slot] = order.to(torch.int32)
+    return lanes
+
+
+def launch_quadratic_regrets(z_tm, y_tm, flags, eta, width=None):
     """Launch kernel K8 on contiguous time-major CUDA inputs with
-    per-sequence ``flags`` (int32) and ``eta``; returns ``(cum (B,),
-    comp (B,), x_c (d, B), x_last (d, B))``."""
+    per-sequence ``flags`` (int32) and ``eta``, ``width`` FTL sequences a
+    warp (default ``ftl_width``; the outputs do not depend on it); returns
+    ``(cum (B,), comp (B,), x_c (d, B), x_last (d, B))``."""
     global QUAD_LAUNCHES
     T, d, B = z_tm.shape
     check_quad_kernel_d(d)
@@ -354,13 +489,15 @@ def launch_quadratic_regrets(z_tm, y_tm, flags, eta):
     fn = lib.oco_quad_game_f64 if z_tm.dtype == torch.float64 else \
         lib.oco_quad_game_f32
     with torch.cuda.device(z_tm.device):
+        lanes = quad_lanes(flags, width or ftl_width(B, z_tm.device))
         cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
         comp = torch.empty_like(cum)
         x_c = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
         x_last = torch.empty_like(x_c)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
-                 eta.data_ptr(), T, B, d, cum.data_ptr(), comp.data_ptr(),
-                 x_c.data_ptr(), x_last.data_ptr(),
+                 eta.data_ptr(), lanes.data_ptr(), lanes.numel(), T, B, d,
+                 cum.data_ptr(), comp.data_ptr(), x_c.data_ptr(),
+                 x_last.data_ptr(),
                  torch.cuda.current_stream(z_tm.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"quadratic game kernel launch failed: CUDA "
@@ -398,5 +535,6 @@ def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
 
 
 __all__ = ["ALG_FTL", "ALG_FTRL", "MAX_D", "trs_solve", "trs_solve_reference",
-           "trs_action_reference", "quadratic_regrets",
-           "quadratic_regrets_reference"]
+           "trs_action_reference", "trs_action_settled", "quad_lanes",
+           "ftl_width",
+           "quadratic_regrets", "quadratic_regrets_reference"]

@@ -43,12 +43,12 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _D = ctypes.c_double
-_U64 = ctypes.c_ulonglong
+_KEYS = ctypes.POINTER(ctypes.c_uint32)
 _F = ctypes.c_float
 
 # Every pointer and the stream are c_void_p; see the extern "C" blocks.
 _SIGNATURES = {
-    "oco_synthetic_regrets_f32": [_U64, _F, _LL, _LL, _I, _I, _F, _P, _P],
+    "oco_synthetic_regrets_f32": [_KEYS, _F, _LL, _LL, _I, _I, _F, _P, _P],
     "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
     "oco_admm_occupancy_f32": [_I, _I, _P],
 }
@@ -66,8 +66,8 @@ for _ty in ("f64", "f32"):
         f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
         f"oco_play_packed_eta_{_ty}": [_P, _P, _P, _LL, _LL, _I, _P, _P,
                                        _P],
-        f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P,
-                                 _P, _P],
+        f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                                 _P, _P, _P, _P, _P],
         f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P],
     })
 

@@ -360,6 +360,57 @@ def test_quadratic_study_cuda_equals_cpu(cuda):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 7, 32])
+@pytest.mark.parametrize("pattern", ["interleaved", "blocks"])
+def test_quadratic_kernel_lanes_match_plain(cuda, dtype, d, pattern):
+    """K8's per-lane rounds at an odd B with interleaved or blocked flags:
+    within the bound of its plain version; x_c equal to K9 on the final
+    statistics in every bit; the same sequences in another order, or
+    32, 3 or 1 FTL sequences a warp, give the same bits (each lane plays
+    its own sequence)."""
+    rng = np.random.default_rng(7 * d)
+    B, T = 77, 60
+    z = rng.normal(size=(B, T, d))
+    z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
+    y = z @ (np.ones(d) / np.sqrt(d)) + 0.1 * rng.normal(size=(B, T))
+    zt, yt = _to((z, y), cuda, dtype)
+    z_tm, y_tm = game.time_major(zt, yt)
+    f = np.arange(B) % 2 if pattern == "interleaved" else np.arange(B) >= 30
+    flags = game.per_sequence(f, B, torch.int32, cuda)
+    eta = game.per_sequence(np.linspace(0.5, 2.0, B), B, dtype, cuda)
+    got = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+    want = trs.quadratic_regrets_reference(z_tm, y_tm, flags, eta)
+    assert _max_err(got, want) <= TOL[dtype]
+    A = torch.zeros((B, d, d), dtype=dtype, device=cuda)
+    b = torch.zeros((B, d), dtype=dtype, device=cuda)
+    for t in range(T):
+        A = A + zt[:, t, :, None] * zt[:, t, None, :]
+        b = b + yt[:, t, None] * zt[:, t]
+    assert torch.equal(got[2], trs.trs_solve(A, b).t())
+    perm = torch.as_tensor(rng.permutation(B), device=cuda)
+    again = trs.quadratic_regrets(z_tm[..., perm].contiguous(),
+                                  y_tm[:, perm].contiguous(), flags[perm],
+                                  eta[perm])
+    for a, g in zip(again, got):
+        assert torch.equal(a, g[..., perm])
+    for width in (32, 3, 1):
+        wide = trs.launch_quadratic_regrets(z_tm, y_tm, flags, eta, width)
+        assert all(torch.equal(a, g) for a, g in zip(wide, got))
+
+
+@pytest.mark.parametrize("T", [1, 1023, 1024, 2500])
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_synthetic_kernel_scale_table_chunks(cuda, T, alg_flag):
+    """K7 bit for bit its plain version where T ends inside, at and past a
+    chunk of the FTRL scale table, with a block partly past B."""
+    got = game.synthetic_regrets(5, 0.7, T=T, lane_batch=20,
+                                 alg_flag=alg_flag)
+    want = game.synthetic_regrets_reference(5, 0.7, T=T, lane_batch=20,
+                                            alg_flag=alg_flag, device=cuda)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("d", [5, 3, 130])
 @pytest.mark.parametrize("alg_flag", [0, 1])
 def test_synthetic_kernel_matches_plain_and_k1(cuda, d, alg_flag):
