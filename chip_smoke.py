@@ -26,12 +26,18 @@ non-zero without printing a result):
                (models/sweep_api.py; B=32,768 T=1024 d=5, E=64 etas on
                linspace(0.05, 4, 64), G=16 thresholds with sqrt(2T),
                per-sequence lengths, generated on the card, f64 and f32):
-               K5, K6 and K1 (the FTL sweep) launch counters must rise; each
-               of the three path outputs against its plain version (f64
-               1e-9 with switch rounds equal, f32 5e-4); a 256-sequence f64
-               slice bit for bit against K1/K2 on the explicit cross
-               product; the deterministic families through K5/K6 against
-               the golden oracle; kernel, wrapper and plain times.
+               K5, K6a, K6b (K6's two launches) and K1 (the FTL sweep)
+               launch counters must rise; each of the path outputs against
+               its plain version (f64 1e-9 with switch rounds equal, f32
+               5e-4), K6a and K6b each against its part of the split
+               mirror, with the outputs' digests, the pairs switched and
+               their tail rounds; K5 and K6 at d = 3, 64 and 65 (the
+               generic and large-d instances) at B=77 T=203; a
+               256-sequence f64 slice bit for bit against K1/K2 on the
+               explicit cross product; the deterministic families through
+               K5/K6 against the golden oracle; replay mode; kernel (K6a
+               and K6b apart), wrapper and plain times against the bounds
+               counted from the run's switch rounds.
   7. stream  — StreamingKernelGame at full width (B=16,384 d=5, 128 chunks
                of 8,192 rounds: T=2^20, f32, chunks generated on the card):
                a run checkpointed and resumed halfway (utils/checkpointing)
@@ -222,6 +228,10 @@ INT_PIPE_OPS = 132 * 64 * 1.98e9
 # (--fmad=false): 132 SMs x 128 lanes x 1.98 GHz, half the data sheet's
 # 67 TFLOP/s, which counts an FMA as two operations.
 FP32_ISSUE_PER_S = 132 * 128 * 1.98e9
+# float64 instructions per second with every multiply and add issued alone
+# (--fmad=false): 132 SMs x 64 lanes x 1.98 GHz, half the data sheet's
+# 34 TFLOP/s.
+FP64_ISSUE_PER_S = 132 * 64 * 1.98e9
 PHILOX_ROUNDS = 10
 # The card's maximum SM clock (nvidia-smi clocks.max.sm), read in phase 1.
 SM_CLOCK_HZ = 1.98e9
@@ -643,6 +653,7 @@ def sweep_main_path(batches):
     sweep (one K1 launch) and the SMART threshold sweep, per dtype."""
     game.SWEEP_LAUNCHES = 0
     smart.SWEEP_LAUNCHES = 0
+    smart.SWEEP_TAIL_LAUNCHES = 0
     game.LAUNCHES = 0
     out = {}
     for dtype, (z, y, lengths) in batches.items():
@@ -652,13 +663,14 @@ def sweep_main_path(batches):
                                         length=lengths)
         out[dtype] = (eta_reg, ftl_reg, thr_reg)
     torch.cuda.synchronize()
-    launches = {"K5": game.SWEEP_LAUNCHES, "K6": smart.SWEEP_LAUNCHES,
+    launches = {"K5": game.SWEEP_LAUNCHES, "K6a": smart.SWEEP_LAUNCHES,
+                "K6b": smart.SWEEP_TAIL_LAUNCHES,
                 "K1 (FTL sweep)": game.LAUNCHES}
     print(f"[6 sweeps] ftrl_eta_sweep (E={len(ETA_GRID)}), FTL sweep and "
           f"smart_threshold_sweep (G={len(THRESH_GRID)}) at B={SWEEP_B} "
           f"T={SWEEP_T} d={D}, f64 and f32: launches {json.dumps(launches)}")
     check(all(v > 0 for v in launches.values()),
-          f"sweep path did not launch K5, K6 and K1: {launches}")
+          f"sweep path did not launch K5, K6a, K6b and K1: {launches}")
     for dtype, (eta_reg, ftl_reg, thr_reg) in out.items():
         check(eta_reg.shape == ftl_reg.shape == (SWEEP_B, len(ETA_GRID))
               and thr_reg.shape == (SWEEP_B, len(THRESH_GRID))
@@ -670,17 +682,40 @@ def sweep_main_path(batches):
     return out, launches
 
 
+def smart_sweep_counts(tau, lengths):
+    """What K6's inputs need, from the run's switch rounds tau (B, G): the
+    rows on which K6a evaluates the lead (up to the last threshold's
+    switch, or the whole sequence), the switched pairs with a tail and
+    their tail rounds, and the rows the tails read (from each sequence's
+    earliest tail)."""
+    ln = lengths.to(torch.int64)[:, None]
+    fired = tau < SWEEP_T
+    lead_rows = torch.where(fired.all(dim=1), tau.max(dim=1).values + 1,
+                            ln[:, 0])
+    tail = tau + 1 < ln
+    tail_rounds = torch.where(tail, ln - tau - 1, 0)
+    first = torch.where(tail, tau + 1, ln).min(dim=1).values
+    return {"lead_rows": float(lead_rows.double().sum()),
+            "tail_pairs": int(tail.sum()),
+            "tail_rounds": float(tail_rounds.double().sum()),
+            "tail_rows": float((ln[:, 0] - first).double().sum()),
+            "switched": float(fired.double().mean())}
+
+
 def sweep_vs_plain(batches, outs):
-    """K5, K6 and the FTL sweep's K1 against their plain versions on the
-    same CUDA tensors, at the sweep path's shapes."""
+    """K5, K6 (and K6a, K6b apart) and the FTL sweep's K1 against their
+    plain versions on the same CUDA tensors, at the sweep path's shapes;
+    the outputs' digests and what K6's inputs need."""
     res = {}
     for dtype, (z, y, lengths) in batches.items():
         eta_reg, ftl_reg, thr_reg = outs[dtype]
         grid = ETA_GRID.to("cuda", dtype)
         ths = THRESH_GRID.to("cuda", dtype)
+        eta = torch.tensor(ETA, dtype=dtype, device="cuda")
         want, p5 = timed_once(lambda: game.eta_sweep_reference(z, y, grid,
                                                                lengths))
         e5 = max_err((eta_reg,), (want,))
+        del want
         cum, comp, _ = game.regrets_fused_reference(
             z, y, game.per_sequence(1, SWEEP_B, torch.int32, "cuda"),
             game.per_sequence(ETA, SWEEP_B, dtype, "cuda"), lengths)
@@ -694,21 +729,76 @@ def sweep_vs_plain(batches, outs):
         check(bool(torch.equal(got, thr_reg)),
               "smart_sweep and smart_threshold_sweep disagree")
         (want, want_tau), p6 = timed_once(lambda: smart.smart_sweep_reference(
-            z, y, ths, torch.tensor(ETA, dtype=dtype, device="cuda"),
-            lengths))
+            z, y, ths, eta, lengths))
         e6 = max_err((got,), (want,))
         tau_diff = int((tau != want_tau).sum())
-        switched = float((tau < SWEEP_T).double().mean())
+        del want
+        # K6a and K6b apart, each against its part of the split mirror.
+        order = game.length_order(lengths)
+        ordered, perm = torch.sort(ths, stable=True)
+        perm = perm.to(torch.int32)
+        part, tau_a, comp = smart.launch_smart_prefix(
+            z, y, ordered, perm, order, lengths, False)
+        (want_part, want_tau_a, want_comp), p6a = timed_once(
+            lambda: smart.smart_prefix_reference(z, y, ths, lengths))
+        e6a = max_err((part.t(), comp), (want_part, want_comp))
+        tau_diff += int((tau_a.t() != want_tau_a).sum())
+        scales = game.sweep_scales(eta.reshape(1), SWEEP_T)
+        tails = part.clone()
+        smart.launch_smart_tails(z, y, scales, order, lengths, tau_a, comp,
+                                 tails)
+        want_tails, p6b = timed_once(lambda: smart.smart_tails_reference(
+            z, y, scales[0], lengths, want_tau_a, want_part, want_comp))
+        e6b = max_err((tails.t(),), (want_tails,))
+        del want_part, want_tails, part, tails
+        counts = smart_sweep_counts(tau, lengths)
+        digests = {"K5": output_digest((eta_reg,)),
+                   "K6": output_digest((thr_reg, tau))}
         print(f"[6 sweeps] {dtype}: K5 vs plain max_abs_err={e5:.3e}, K6 vs "
-              f"plain max_abs_err={e6:.3e} (bound {TOL[dtype]:g}), switch "
-              f"rounds differing: {tau_diff} (share switched {switched:.3f}); "
-              f"plain PyTorch {p5:.1f} ms (K5's), {p6:.1f} ms (K6's)")
-        check(e5 <= TOL[dtype] and e6 <= TOL[dtype],
+              f"plain max_abs_err={e6:.3e}, K6a vs its plain part "
+              f"{e6a:.3e}, K6b vs its plain part {e6b:.3e} (bound "
+              f"{TOL[dtype]:g}), switch rounds differing: {tau_diff} (share "
+              f"switched {counts['switched']:.3f}; {counts['tail_pairs']} "
+              f"pairs with a tail, {counts['tail_rounds']:.0f} tail rounds, "
+              f"{counts['lead_rows']:.0f} rows with the lead); digests "
+              f"{json.dumps(digests)}; plain PyTorch {p5:.1f} ms (K5's), "
+              f"{p6:.1f} ms (K6's), {p6a:.1f} + {p6b:.1f} ms (the split "
+              f"mirror's parts)")
+        check(max(e5, e6, e6a, e6b) <= TOL[dtype],
               f"sweep kernels vs plain in {dtype}")
         if dtype == torch.float64:
             check(tau_diff == 0, "K6 switch rounds differ from plain")
-        res[dtype] = {"K5": (e5, p5), "K6": (e6, p6)}
+        res[dtype] = {"K5": (e5, p5), "K6a": (e6a, p6a), "K6b": (e6b, p6b),
+                      "K6": (e6, p6), "counts": counts}
     return res
+
+
+def sweep_instances():
+    """K5 and K6 at every kernel instance but d = 5's (d = 3 and 64: the
+    generic one, staged; d = 65: the large-d one, rows from global memory)
+    at B=77 T=203 (no multiple of 32 or of a stage's chunk), E=11 and G=13
+    (no multiple of a block's 8 warps), against their plain versions."""
+    for dtype in (torch.float64, torch.float32):
+        for d in (3, 64, 65):
+            z, y, lengths = make_batch(77, 203, d, 70 + d, dtype)
+            grid = torch.linspace(0.05, 4.0, 11, dtype=dtype, device="cuda")
+            ths = torch.tensor([6.0, 1.0, 1e9, 2.5, -1e9, 2.5, 0.7, 10.0,
+                                3.7, 1.8, 4.4, 0.2, 14.0], dtype=dtype,
+                               device="cuda")
+            got5 = game.eta_sweep(z, y, grid, lengths)
+            got6, tau = smart.smart_sweep(z, y, ths, ETA, lengths)
+            want5 = game.eta_sweep_reference(z, y, grid, lengths)
+            want6, want_tau = smart.smart_sweep_reference(
+                z, y, ths, torch.tensor(ETA, dtype=dtype, device="cuda"),
+                lengths)
+            err = max_err((got5, got6), (want5, want6))
+            tau_diff = int((tau != want_tau).sum())
+            print(f"[6 sweeps] K5/K6 B=77 T=203 d={d} {dtype} E=11 G=13 vs "
+                  f"plain: max_abs_err={err:.3e} (bound {TOL[dtype]:g}), "
+                  f"switch rounds differing: {tau_diff}")
+            check(err <= TOL[dtype], f"K5/K6 at d={d} {dtype} vs plain")
+            if dtype == torch.float64:
+                check(tau_diff == 0, f"K6 switch rounds at d={d}")
 
 
 def sweep_vs_one_shot(z, y, lengths):
@@ -787,49 +877,93 @@ def sweep_replay():
           "sweep kernels in replay mode")
 
 
+def sweep_bounds(key, lengths, counts, dtype):
+    """Bound and operation count of K5, K6a or K6b at phase 6's inputs,
+    counting what they need: the rows once, K5's FTRL round per (row,
+    setting) without w and w once per row, K6a's FTL round once per row
+    (the action once, w, F, cnt: 9d + 9) and the lead (2d + 3) on the rows
+    before the last threshold's switch, K6b's FTRL round per tail round."""
+    item = 8 if dtype == torch.float64 else 4
+    rows = float(lengths.double().sum())
+    row_bytes = rows * (D + 1) * item
+    E, G = len(ETA_GRID), len(THRESH_GRID)
+    if key == "K5":
+        ops = rows * (E * hinge_round_ops(D, with_w=False) + 2 * D)
+        n_bytes = row_bytes + SWEEP_B * 4 + E * SWEEP_B * item
+    elif key == "K6a":
+        ops = rows * (9 * D + 9) + counts["lead_rows"] * (2 * D + 3)
+        n_bytes = (row_bytes + SWEEP_B * 4 + G * item
+                   + G * SWEEP_B * (8 + item) + SWEEP_B * item)
+    else:
+        ops = counts["tail_rounds"] * hinge_round_ops(D, with_w=False)
+        n_bytes = (counts["tail_rows"] * (D + 1) * item + SWEEP_B * 4
+                   + G * SWEEP_B * 8 + SWEEP_B * item
+                   + counts["tail_pairs"] * 2 * item)
+    return ops, bound(n_bytes, ops, dtype)
+
+
 def phase_sweeps():
     batches = {dtype: sweep_batch(dtype, 60) for dtype in
                (torch.float64, torch.float32)}
     outs, launches = sweep_main_path(batches)
     plain = sweep_vs_plain(batches, outs)
+    sweep_instances()
     sweep_vs_one_shot(*batches[torch.float64])
     sweep_golden()
     sweep_replay()
     timing = {}
     for dtype, (z, y, lengths) in batches.items():
-        z_tm, y_tm = game.time_major(z, y)
         grid = ETA_GRID.to("cuda", dtype)
         ths = THRESH_GRID.to("cuda", dtype)
-        cases = (
-            ("K5", lambda: game.launch_eta_sweep_time_major(
-                z_tm, y_tm, grid, lengths, False),
-             lambda: ftrl_eta_sweep(z, y, ETA_GRID, length=lengths)),
-            ("K6", lambda: smart.launch_smart_sweep_time_major(
-                z_tm, y_tm, ths, ETA, lengths, False),
-             lambda: smart_threshold_sweep(z, y, THRESH_GRID, eta0=ETA,
-                                           length=lengths)))
+        scales5 = game.sweep_scales(grid, SWEEP_T)
+        scales6 = game.sweep_scales(
+            torch.full((1,), ETA, dtype=dtype, device="cuda"), SWEEP_T)
+        order = game.length_order(lengths)
+        ordered, perm = torch.sort(ths, stable=True)
+        perm = perm.to(torch.int32)
+        prefix = lambda: smart.launch_smart_prefix(z, y, ordered, perm, order,
+                                                   lengths, False)
+        part, tau, comp = prefix()
+        # K6b turns its buffer into regrets in place: every timed launch
+        # plays the same tails (their starting sums drift, not their work).
+        buf = part.clone()
+        tails = lambda: smart.launch_smart_tails(z, y, scales6, order,
+                                                 lengths, tau, comp, buf)
+        both = lambda: (prefix(), tails())
+        sweep5 = lambda: ftrl_eta_sweep(z, y, ETA_GRID, length=lengths)
+        sweep6 = lambda: smart_threshold_sweep(z, y, THRESH_GRID, eta0=ETA,
+                                               length=lengths)
+        cases = (("K5", lambda: game.launch_eta_sweep(
+                      z, y, scales5, order, lengths, False), sweep5),
+                 ("K6a", prefix, None), ("K6b", tails, None),
+                 ("K6", both, sweep6))
+        counts = plain[dtype]["counts"]
         for key, kern, wrap in cases:
             k_ms = time_ms(kern, reps=5, inner=2)
-            w_ms = time_ms(wrap, reps=3)
             err, p_ms = plain[dtype][key]
-            steps = SWEEP_B * float(lengths.double().mean()) * (
-                len(ETA_GRID) if key == "K5" else len(THRESH_GRID))
-            print(f"[6 sweeps] {key} B={SWEEP_B} T={SWEEP_T} d={D} {dtype}: "
-                  f"kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, max "
-                  f"{k_ms[2]:.4f}; {steps / k_ms[0] * 1e3:.4g} "
-                  f"sequence-setting-steps/s); wrapper {w_ms[0]:.4f} ms; "
-                  f"plain PyTorch {p_ms:.1f} ms (one call)")
-            if dtype == torch.float64:
-                rows = float(lengths.double().sum())
-                n_set = len(ETA_GRID) if key == "K5" else len(THRESH_GRID)
-                ops = rows * n_set * (hinge_round_ops(D) if key == "K5"
-                                      else smart_round_ops(D))
-                n_bytes = (rows * (D + 1) * 8 + SWEEP_B * 4
-                           + n_set * SWEEP_B * (8 if key == "K5" else 16))
-                timing[key] = {"max_abs_err": err, "ms": k_ms[0],
-                               "plain_ms": p_ms, "library_ms": None,
-                               **bound(n_bytes, ops, dtype)}
-        del z_tm, y_tm
+            line = (f"[6 sweeps] {key} B={SWEEP_B} T={SWEEP_T} d={D} "
+                    f"{dtype}: kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, "
+                    f"max {k_ms[2]:.4f})")
+            if wrap is not None:
+                steps = SWEEP_B * float(lengths.double().mean()) * (
+                    len(ETA_GRID) if key == "K5" else len(THRESH_GRID))
+                w_ms = time_ms(wrap, reps=3)
+                line += (f"; {steps / k_ms[0] * 1e3:.4g} "
+                         f"sequence-setting-steps/s; wrapper {w_ms[0]:.4f} "
+                         f"ms (min {w_ms[1]:.4f}, max {w_ms[2]:.4f})")
+            if key != "K6":
+                ops, bnd = sweep_bounds(key, lengths, counts, dtype)
+                issue = ops / (FP64_ISSUE_PER_S if dtype == torch.float64
+                               else FP32_ISSUE_PER_S) * 1e3
+                line += (f"; bound {bnd['bound_ms']:.4f} ms by "
+                         f"{bnd['bound_by']}, {ops:.4g} operations; "
+                         f"--fmad=false issue floor {issue:.4f} ms")
+                if dtype == torch.float64:
+                    timing[key] = {"max_abs_err": err, "ms": k_ms[0],
+                                   "plain_ms": p_ms, "library_ms": None,
+                                   **bnd}
+            print(line + f"; plain PyTorch {p_ms:.1f} ms (one call)")
+        del part, tau, comp, buf
     return launches, timing
 
 
@@ -1966,12 +2100,22 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/sweep_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:556",
          "launches": sweep_launches["K5"], **sweep_timing["K5"]},
-        {"name": "smart_sweep_kernel (K6: SMART threshold sweep)",
+        {"name": "smart_prefix_kernel (K6a: SMART threshold sweep, the "
+                 "FTL prefix once per sequence; K6's first of 2 launches "
+                 "a call)",
          "route": "cuda",
          "source":
              "online_convex_optimization_tpu_torch/csrc/smart_sweep_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:248",
-         "launches": sweep_launches["K6"], **sweep_timing["K6"]},
+         "launches": sweep_launches["K6a"], **sweep_timing["K6a"]},
+        {"name": "smart_tail_kernel (K6b: SMART threshold sweep, the FTRL "
+                 "tails of the switched pairs; K6's second of 2 launches "
+                 "a call)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/smart_sweep_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:248",
+         "launches": sweep_launches["K6b"], **sweep_timing["K6b"]},
         {"name": "game_kernel (K3: packed game from a table of FTRL scales)",
          "route": "cuda",
          "source": "online_convex_optimization_tpu_torch/csrc/game_kernel.cu",

@@ -1,11 +1,12 @@
 // Device helpers shared by the port's kernels: the regret game (K1), SMART
 // (K2), the packed game (K3, K3e), the carried stream (K4), the eta sweep
 // (K5), the SMART threshold sweep (K6) and the generation-fused game (K7).
-// K1, K4 and K5 play the same game_round, K7 its actions (the FTRL scale
-// read from a table) and play_action, K3 and K3e its action and hinge
-// step; K2 and K6 the same smart_round, so a sweep column, a chunked
-// stream, a packed game or a generated game reproduces the one-shot kernel
-// bit for bit.
+// K1 and K4 play the same game_round, K5 and K7 its actions (the FTRL
+// scale read from a table) and hinge step, K3 and K3e its action and hinge
+// step; K2 plays smart_round, and K6 its two tracks in the same order (K6a
+// the FTL track, K6b the FTRL track), so a sweep column, a chunked stream,
+// a packed game or a generated game reproduces the one-shot kernel bit for
+// bit.
 //
 // Every helper follows the order of operations of ops/actions.py and
 // ops/hinge.py (and of the reference's fast_algorithms.py:19-66): a true
@@ -219,7 +220,7 @@ __device__ __forceinline__ void smart_begin(SmartState<S, D>& st, int n,
   st.tau = T;
 }
 
-// One SMART round t (0-based), shared by K2 and K6:
+// One SMART round t (0-based) of K2 (K6 splits it into its two tracks):
 //   1. the always-on FTL track plays its pre-update action and updates;
 //      F accumulates its losses, (w, cnt) the identity statistics;
 //   2. once switched (the round AFTER the test first passed), the FTRL
@@ -268,17 +269,6 @@ __device__ __forceinline__ void smart_round(SmartState<S, D>& st,
 
 inline unsigned int grid_for(long long B) {
   return static_cast<unsigned int>((B + OCO_THREADS - 1) / OCO_THREADS);
-}
-
-// Sweep grids (K5, K6): block k serves setting k % n_settings of sequence
-// block k / n_settings, so the settings of one block of sequences are
-// launched next to each other and read the same z rows while they are
-// still in L2.
-__device__ __forceinline__ void sweep_coords(long long n_settings,
-                                             long long* b, long long* e) {
-  const long long k = blockIdx.x;
-  *e = k % n_settings;
-  *b = (k / n_settings) * blockDim.x + threadIdx.x;
 }
 
 }  // namespace oco

@@ -37,7 +37,7 @@
 // game_round's serial chain (the FTRL scale's sqrt and divide, the
 // projection's sqrt and reciprocal, two dot products) times CT; all of a
 // chunk's sequences are resident at once, so nothing else can hide it.
-#include "oco_common.cuh"
+#include "oco_tiles.cuh"
 
 namespace {
 
@@ -57,24 +57,6 @@ struct Ring {
             : (D == 0 ? 4 : 0);
   static_assert(depth == 0 || depth >= 2, "a ring needs two slots");
 };
-
-template <typename S>
-__device__ __forceinline__ void copy_async(S* dst, const S* src) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(addr),
-               "l"(src), "n"(static_cast<int>(sizeof(S)))
-               : "memory");
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's newest copy groups are pending.
-template <int N>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename S, int D>
 __global__ void __launch_bounds__(kStreamThreads)
@@ -118,21 +100,22 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
     const auto fetch = [&](long long k) {
       S* dst = mine + static_cast<int>(k % P) * (n + 1) * step;
       const S* src = z + k * n * B + b;
-      for (int j = 0; j < n; ++j) copy_async(dst + j * step, src + j * B);
-      copy_async(dst + n * step, y + k * B + b);
+      for (int j = 0; j < n; ++j)
+        oco::copy_async(dst + j * step, src + j * B);
+      oco::copy_async(dst + n * step, y + k * B + b);
     };
     // One copy group a round, empty past the chunk, so that group k is
     // complete once at most P - 1 newer ones are pending.
 #pragma unroll
     for (int i = 0; i < P - 1; ++i) {
       if (i < CT) fetch(i);
-      commit_copies();
+      oco::commit_copies();
     }
     for (long long k = 0; k < CT; ++k) {
       // Slot (k - 1) % P was read last round, so it can be refilled.
       if (k + P - 1 < CT) fetch(k + P - 1);
-      commit_copies();
-      wait_copies<P - 1>();
+      oco::commit_copies();
+      oco::wait_copies<P - 1>();
       const S* src = mine + static_cast<int>(k % P) * (n + 1) * step;
 #pragma unroll
       for (int j = 0; j < n; ++j) zr[j] = src[j * step];

@@ -5,92 +5,170 @@
 // version: online_convex_optimization_tpu_torch/ops/game.py (eta_sweep,
 // eta_sweep_reference).
 //
-// One thread per (sequence b, setting e), state in registers, a loop over
-// the sequence's own rounds: the per-round step is K1's (oco::game_round),
-// in K1's order of operations (a true divide by a correctly rounded sqrt,
-// project iff ||x||^2 > 1), not the TPU kernel's folded
-// (eta*scaleh)*rsqrt(max(eta^2*s2*||theta2||^2, 1)).  So column e of the
-// sweep equals K1 run on the same sequences with eta = eta_grid[e], bit for
-// bit.  The comparator is the final FTL action scored by the hinge identity
-// on contract data and by a replay of the thread's own rows otherwise; the
+// Thread (lane, warp) of a block plays sequence order[32 k + lane] at
+// setting 16 m + warp, state in registers, over the sequence's own
+// rounds.  The round is K1's FTRL round in K1's order of operations (a true
+// divide by a correctly rounded sqrt, project iff ||x||^2 > 1), with the
+// round's scale -(eta_e / sqrt(t)) read from the wrapper's (E, T) table
+// (ops/game.py::sweep_scales, the expression K1 evaluates), so column e of
+// the sweep equals K1 run with eta = eta_grid[e], bit for bit.  The
+// comparator is the final FTL action scored by the hinge identity on
+// contract data and by a replay of the thread's own rows otherwise; the
 // wrapper chooses before the launch.
 //
-// What bounds it on an H100: every setting re-reads the sequence's rows,
-// 8*(d+1) bytes of f64 per round (E = 64 settings of 32,768 sequences at
-// T = 1,024 stream z 64 times: 43 GB in f64), against K1's serial chain of
-// about 3d + 10 flops and a sqrt and divide per round.  The design
-// duplicates no data: block k serves setting k % E of sequence block
-// k / E, so the E blocks that read one block of sequences are launched
-// together and find its rows in the 50 MB L2 rather than in HBM.
-#include "oco_common.cuh"
+// What bounds it on an H100.  One thread per pair reading its own rows
+// (this kernel's first design) streamed 8*(d+1) bytes a round per setting
+// through L2: ~77 GB at B = 32,768, E = 64, T <= 1,024 in f64, ~5.3 TB/s,
+// all that L2 feeds the SMs.  Once the rows cross L2 once per block, the
+// bound is the FP64 pipe's issue of the round (--fmad=false: every multiply
+// and add its own instruction).  The design:
+//   - a block holds 32 sequences (lane) x kSweepWarps = 16 settings (warp)
+//     and stages its sequences' rows chunk by chunk in shared memory
+//     (oco_tiles.cuh: the caller's (B, T, d) layout, a cp.async ring), so
+//     the rows cross L2 once per 16 settings;
+//   - the scale table takes the correctly rounded sqrt and the true divide
+//     out of every thread's round; the block stages its settings' entries
+//     beside the rows;
+//   - the identity statistic w is summed once per sequence, not once per
+//     setting: over each staged chunk, warp w sums components w, w + 16,
+//     ... of its lanes' rows (the same sums in the same order, so the same
+//     bits), and the warps exchange them through shared memory at the end;
+//   - the wrapper's order lists the sequences by descending length, so the
+//     lanes of a warp play about equally many rounds and the longest
+//     blocks start first; it changes no pair's arithmetic.
+// The large-d instance (d > 64) reads its rows from global memory, each
+// thread its own, and keeps its own w.
+#include "oco_tiles.cuh"
 
 namespace {
 
+// Settings a block serves from one staged tile, and bytes of rows a stage
+// holds (64 rounds of d = 5 in f64 and in f32).  On an H100 at the phase-6
+// cell, 16 warps and 64-round chunks were the fastest of 4-16 warps and
+// 16-64 rounds (PERF.md): a chunk's barrier and copies cost a few rounds'
+// time, and more warps share each staged row.
+constexpr int kSweepWarps = 16;
+constexpr size_t kSweepStageBytes = 96 * 1024;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(OCO_THREADS)
+__global__ void __launch_bounds__(kSweepWarps * 32)
 sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
-             const S* __restrict__ eta_grid, const int* __restrict__ lengths,
-             long long B, long long E, int d, int replay,
+             const S* __restrict__ scales, const int* __restrict__ order,
+             const int* __restrict__ lengths, long long B, long long E,
+             long long T, oco::TileShape ts, int replay,
              S* __restrict__ regret) {
   constexpr int C = oco::Cap<D>::value;
-  long long b, e;
-  oco::sweep_coords(E, &b, &e);
-  if (b >= B) return;
-  const int n = D > 0 ? D : d;
-  const int len = lengths[b];
-  const S eta = eta_grid[e];
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* ring = reinterpret_cast<S*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long setting_blocks = (E + kSweepWarps - 1) / kSweepWarps;
+  const long long slot = (blockIdx.x / setting_blocks) * 32 + lane;
+  const long long e = (blockIdx.x % setting_blocks) * kSweepWarps + warp;
+  const long long b = slot < B ? order[slot] : -1;
+  const bool on = b >= 0 && e < E;
+  const int len = on ? lengths[b] : 0;
+  const int n = D > 0 ? D : ts.n;
+  // The sequence's own length, over which w = sum y_t z_t runs (a warp
+  // past the last setting still sums its components).
+  const int seq_len = b >= 0 ? lengths[b] : 0;
 
-  S th[C], w[C], x[C], zr[C];
+  S th[C], w[C], x[C];
 #pragma unroll
   for (int j = 0; j < n; ++j) th[j] = w[j] = S(0);
   S cum = S(0);
-  for (int t = 0; t < len; ++t) {
-    oco::load_row<S, D>(z, t, b, B, n, zr);
-    oco::game_round<S, D>(th, w, x, zr, y[t * B + b], true, eta, S(t + 1),
-                          n, cum);
+  oco::play_rows<S, D>(
+      z, y, e < E ? scales + e * T : nullptr, b, T, ts, 0, len, ring,
+      [&](int, const S* zr, S yt, S scale) {
+        oco::ftrl_action_scaled<S, D>(th, x, n, scale);
+        const S g = oco::hinge_step<S, D>(x, zr, yt, n, cum);
+#pragma unroll
+        for (int j = 0; j < n; ++j) {
+          th[j] = th[j] + g * zr[j];
+          if constexpr (D < 0) w[j] = w[j] + yt * zr[j];
+        }
+      },
+      [&](int t0, const S* slot, int R) {
+        const int k_hi = min(seq_len - t0, R);
+#pragma unroll
+        for (int j = 0; j < n; ++j) {
+          if (j % kSweepWarps != warp) continue;
+          S wj = w[j];
+          for (int k = 0; k < k_hi; ++k)
+            wj = wj + slot[ts.chunk * n + k] * slot[k * n + j];
+          w[j] = wj;
+        }
+      });
+  S comp;
+  if (replay) {
+    oco::ftl_action<S, D>(th, x, n);
+    comp = oco::replay_comparator_rows<S, D>(z, y, b, T, n, len, x);
+  } else {
+    if constexpr (D >= 0) {
+      S* shared_w = ring + oco::kTileStages * ts.stage_words();
+#pragma unroll
+      for (int j = 0; j < n; ++j)
+        if (j % kSweepWarps == warp) shared_w[lane * n + j] = w[j];
+      __syncthreads();
+      for (int j = 0; j < n; ++j) w[j] = shared_w[lane * n + j];
+    }
+    comp = oco::identity_comparator<S, D>(th, w, x, n, S(len));
   }
-  S comp = oco::identity_comparator<S, D>(th, w, x, n, S(len));
-  if (replay) comp = oco::replay_comparator<S, D>(z, y, b, B, n, len, x);
-  regret[e * B + b] = cum - comp;
+  if (on) regret[e * B + b] = cum - comp;
 }
 
 template <typename S>
-int launch(const void* z, const void* y, const void* eta_grid,
-           const void* lengths, long long B, long long E, int d, int replay,
-           void* regret, void* stream) {
-  if (B < 1 || E < 1) return cudaErrorInvalidValue;
-  const long long blocks = static_cast<long long>(oco::grid_for(B)) * E;
+int launch(const void* z, const void* y, const void* scales,
+           const void* order, const void* lengths, long long B, long long E,
+           long long T, int d, int replay, void* regret, void* stream) {
+  if (B < 1 || E < 1 || T < 1) return cudaErrorInvalidValue;
+  const long long blocks =
+      (B + 31) / 32 * ((E + kSweepWarps - 1) / kSweepWarps);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const oco::TileShape ts =
+      oco::tile_shape<S>(d, kSweepWarps, kSweepStageBytes, kSweepWarps);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto grid = static_cast<unsigned int>(blocks);
   const auto* zp = static_cast<const S*>(z);
   const auto* yp = static_cast<const S*>(y);
-  const auto* ep = static_cast<const S*>(eta_grid);
+  const auto* sp = static_cast<const S*>(scales);
+  const auto* op = static_cast<const int*>(order);
   const auto* lp = static_cast<const int*>(lengths);
   auto* rp = static_cast<S*>(regret);
-  return oco::launch_for_d(d, [&](auto dc) {
-    sweep_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, ep, lp, B, E, d, replay, rp);
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    // The ring, then the warps' exchange of w.
+    const size_t smem = D < 0 ? 0
+                              : oco::ring_bytes<S, D>(ts) +
+                                    static_cast<size_t>(32) * d * sizeof(S);
+    err = oco::launch_with_smem(sweep_kernel<S, D>, grid, kSweepWarps * 32,
+                                smem, s, zp, yp, sp, op, lp, B, E, T, ts,
+                                replay, rp);
   });
+  return err != cudaSuccess ? err : launched;
 }
 
 }  // namespace
 
-// Inputs: z (T, d, B) and y (T, B) time-major, eta_grid (E,), lengths (B,)
-// int32 with 0 <= len <= T.  Output: regret (E, B).  Returns the
-// cudaError_t of the launch.
+// Inputs: z (B, T, d) and y (B, T) contiguous, scales (E, T) the per-round
+// FTRL scales -(eta_e / sqrt(t)), order (B,) int32 a permutation of the
+// sequences (blocks take them in this order), lengths (B,) int32 with
+// 0 <= len <= T.  Output: regret (E, B).  Returns the cudaError_t of the
+// launch.
 extern "C" int oco_eta_sweep_f64(const void* z, const void* y,
-                                 const void* eta_grid, const void* lengths,
-                                 long long B, long long E, int d, int replay,
+                                 const void* scales, const void* order,
+                                 const void* lengths, long long B,
+                                 long long E, long long T, int d, int replay,
                                  void* regret, void* stream) {
-  return launch<double>(z, y, eta_grid, lengths, B, E, d, replay, regret,
-                        stream);
+  return launch<double>(z, y, scales, order, lengths, B, E, T, d, replay,
+                        regret, stream);
 }
 
 extern "C" int oco_eta_sweep_f32(const void* z, const void* y,
-                                 const void* eta_grid, const void* lengths,
-                                 long long B, long long E, int d, int replay,
+                                 const void* scales, const void* order,
+                                 const void* lengths, long long B,
+                                 long long E, long long T, int d, int replay,
                                  void* regret, void* stream) {
-  return launch<float>(z, y, eta_grid, lengths, B, E, d, replay, regret,
-                       stream);
+  return launch<float>(z, y, scales, order, lengths, B, E, T, d, replay,
+                       regret, stream);
 }

@@ -7,8 +7,10 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
   twin ``_regret_kernel_dloop``): CUDA kernel ``csrc/regret_kernel.cu``,
   plain version ``regrets_fused_reference``;
 - ``eta_sweep`` (TPU ``eta_sweep_packed`` / ``_sweep_kernel``): the FTRL
-  regret of every (sequence, eta) pair, CUDA kernel ``csrc/sweep_kernel.cu``,
-  plain version ``eta_sweep_reference``;
+  regret of every (sequence, eta) pair, CUDA kernel ``csrc/sweep_kernel.cu``
+  on the caller's ``(B, T, d)`` layout with the ``(E, T)`` scale table
+  ``sweep_scales`` and the blocks' sequence order ``length_order``, plain
+  version ``eta_sweep_reference``;
 - ``play_stream`` and ``play_stream_many`` (TPU ``play_packed_stream`` /
   ``_stream_kernel`` and ``play_packed_stream_many``): advance a carried game
   over one time chunk, CUDA kernel ``csrc/stream_kernel.cu``, plain version
@@ -44,10 +46,13 @@ bit.
 
 What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round against a serial chain of about 3d+10 flops per round (action with
-its sqrt and divide, dot product, update).  The first design keeps that
-chain in the reference's rounding order, one thread per sequence (K5: per
-(sequence, setting)) with state in registers, and feeds it coalesced
-time-major ``(T, d, B)`` loads so that many chains are in flight at once.
+its sqrt and divide, dot product, update).  Every design keeps that chain
+in the reference's rounding order, one thread per sequence (K5: per
+(sequence, setting)) with state in registers.  K1, K3 and K4 feed it
+coalesced time-major ``(T, d, B)`` loads so that many chains are in flight
+at once; K5 stages the caller's rows in shared memory for several settings
+at once (``csrc/oco_tiles.cuh``), so its rows cross L2 once per block and
+its round is bound by the FP64 pipe's issue.
 
 The TPU packers and tile budget (``_choose_tiles``, ``sublanes_for``, the
 (S, 128) layouts) are not ported: they budget VMEM and the vreg tile.  A
@@ -339,22 +344,41 @@ def eta_sweep_reference(z, y, eta_grid, lengths, *, replay=False):
     return cum - comp
 
 
-def launch_eta_sweep_time_major(z_tm, y_tm, eta_grid, lengths, replay: bool):
-    """Launch kernel K5 on time-major CUDA inputs (``time_major``) with an
-    ``(E,)`` ``eta_grid`` and ``lengths`` (int32) as ``eta_sweep`` prepares
-    them.  Returns ``(E, B)`` regrets."""
+def sweep_scales(eta: torch.Tensor, T: int) -> torch.Tensor:
+    """``(E, T)`` per-setting FTRL scales ``-(eta_e / sqrt(max(1, t)))``,
+    t = 1..T, in ``eta``'s dtype and on its device: ``ftrl_scales``'
+    expression for each setting, the table kernels K5 and K6b read."""
+    t = torch.arange(1, T + 1, dtype=eta.dtype, device=eta.device)
+    return -torch.div(eta[:, None].expand(-1, T),
+                      torch.sqrt(torch.clamp(t, min=1.0)))
+
+
+def length_order(lengths: torch.Tensor) -> torch.Tensor:
+    """The sequences by descending length (int32): the order in which the
+    sweep kernels' blocks take them, so that a warp's lanes play about
+    equally many rounds and the longest blocks start first."""
+    return torch.argsort(lengths, descending=True, stable=True).to(
+        torch.int32)
+
+
+def launch_eta_sweep(z, y, scales, order, lengths, replay: bool):
+    """Launch kernel K5 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
+    with the ``(E, T)`` scale table (``sweep_scales``), the blocks'
+    sequence ``order`` (``length_order``) and ``lengths`` (int32) as
+    ``eta_sweep`` prepares them.  Returns ``(E, B)`` regrets."""
     global SWEEP_LAUNCHES
-    T, d, B = z_tm.shape
-    E = eta_grid.shape[0]
+    B, T, d = z.shape
+    E = scales.shape[0]
     check_kernel_d(d)
     lib = cuda_build.load()
-    fn = (lib.oco_eta_sweep_f64 if z_tm.dtype == torch.float64
+    fn = (lib.oco_eta_sweep_f64 if z.dtype == torch.float64
           else lib.oco_eta_sweep_f32)
-    with torch.cuda.device(z_tm.device):
-        regret = torch.empty((E, B), dtype=z_tm.dtype, device=z_tm.device)
-        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), eta_grid.data_ptr(),
-                 lengths.data_ptr(), B, E, d, int(replay), regret.data_ptr(),
-                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+    with torch.cuda.device(z.device):
+        regret = torch.empty((E, B), dtype=z.dtype, device=z.device)
+        err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
+                 order.data_ptr(), lengths.data_ptr(), B, E, T, d,
+                 int(replay), regret.data_ptr(),
+                 torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"eta sweep kernel launch failed: CUDA error "
                                f"{err}")
@@ -380,8 +404,9 @@ def eta_sweep(z: torch.Tensor, y: torch.Tensor, eta_grid, lengths=None):
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
-        return launch_eta_sweep_time_major(*time_major(z, y), eta_grid,
-                                           lengths, replay).t()
+        return launch_eta_sweep(z.contiguous(), y.contiguous(),
+                                sweep_scales(eta_grid, T),
+                                length_order(lengths), lengths, replay).t()
     if z.device.type == "cpu":
         return eta_sweep_reference(z, y, eta_grid, lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
@@ -593,10 +618,9 @@ def ftrl_scales(T: int, eta0, *, dtype=torch.float32,
     by a reciprocal), so K3 with it plays K1's FTRL game bit for bit.  The
     JAX ``ftrl_scales`` builds it in float32 NumPy.
     """
-    device = resolve_device(device)
-    t = torch.arange(1, T + 1, dtype=dtype, device=device)
-    return -torch.div(torch.full_like(t, float(eta0)),
-                      torch.sqrt(torch.clamp(t, min=1.0)))
+    eta = torch.full((1,), float(eta0), dtype=dtype,
+                     device=resolve_device(device))
+    return sweep_scales(eta, T)[0]
 
 
 def _packed_reference(z_tm, y_tm, action):

@@ -7,15 +7,21 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
   ``csrc/smart_kernel.cu``, plain version ``smart_regrets_reference``;
 - ``smart_sweep`` (TPU ``smart_sweep_packed``, kernel
   ``_smart_sweep_kernel``): the regret and switch round of every (sequence,
-  threshold) pair with a scalar eta, CUDA kernel
-  ``csrc/smart_sweep_kernel.cu``, plain version ``smart_sweep_reference``.
+  threshold) pair with a scalar eta, two launches of
+  ``csrc/smart_sweep_kernel.cu`` on the caller's ``(B, T, d)`` layout: K6a
+  (``launch_smart_prefix``), the FTL prefix once per sequence with a
+  pointer over the sorted thresholds, and K6b (``launch_smart_tails``),
+  the FTRL tails of the pairs that switched; plain version
+  ``smart_sweep_reference``, and ``smart_sweep_split_reference``
+  (``smart_prefix_reference`` then ``smart_tails_reference``), the plain
+  mirror of the split that the tests hold against it bit for bit.
 
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
 tensor, at any d, and launches the kernel on a CUDA tensor, for d up to
-512 (raising above it); there is no fallback between them.  K2 and K6
-share one round step (``oco::smart_round`` in ``csrc/oco_common.cuh``), so
-a sweep column equals K2 bit for bit.
+512 (raising above it); there is no fallback between them.  K6 computes
+what K2's round step (``oco::smart_round`` in ``csrc/oco_common.cuh``)
+computes, in the same order, so a sweep column equals K2 bit for bit.
 
 Semantics are those of ``models/smart.py`` (the scan the JAX package holds
 against the golden oracle): an always-on FTL track; before the switch, the
@@ -27,11 +33,12 @@ track with the global round index.  ``switch_t`` is that round, ``T`` when
 it never fires.  The final comparator is scored by the identity on contract
 data and by replaying the rows otherwise (``game.in_contract``).
 
-What bounds the kernel on an H100: about 8*(d+1) bytes of f64 input per
+What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round, read once, against a serial chain of about 3d+10 flops per track per
-round; the first design keeps the reference's rounding order, one thread
-per sequence with state in registers, and coalesced time-major
-``(T, d, B)`` loads.
+round.  K2 keeps the reference's rounding order, one thread per sequence
+with state in registers, and coalesced time-major ``(T, d, B)`` loads; K6's
+two launches are bound by the latency of their longest chains (the source
+note of ``csrc/smart_sweep_kernel.cu``).
 """
 
 from __future__ import annotations
@@ -41,15 +48,18 @@ import torch
 from online_convex_optimization_tpu_torch.ops.actions import (
     ftl_action,
     ftrl_action,
+    ftrl_action_scaled,
     sum_last,
 )
 from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
     check_kernel_d,
     in_contract,
+    length_order,
     per_sequence,
     per_sequence_lengths,
     settings_grid,
+    sweep_scales,
     time_major,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import (
@@ -59,9 +69,10 @@ from online_convex_optimization_tpu_torch.ops.hinge import (
 from online_convex_optimization_tpu_torch.utils import cuda_build
 
 # Launches of each CUDA kernel in this process (counted where it launches):
-# K2 and K6.
+# K2, K6a (the sweep's prefix) and K6b (its tails).
 LAUNCHES = 0
 SWEEP_LAUNCHES = 0
+SWEEP_TAIL_LAUNCHES = 0
 
 
 def smart_regrets_reference(z, y, threshold, eta, lengths, *, replay=False):
@@ -256,30 +267,179 @@ def smart_sweep_reference(z, y, thresholds, eta, lengths, *, replay=False):
     return total - comp[:, None], tau
 
 
-def launch_smart_sweep_time_major(z_tm, y_tm, thresholds, eta: float,
-                                  lengths, replay: bool):
-    """Launch kernel K6 on time-major CUDA inputs (``game.time_major``) with
-    a ``(G,)`` threshold grid, a scalar ``eta`` and ``lengths`` (int32) as
-    ``smart_sweep`` prepares them.  Returns ``(regret (G, B),
-    switch_t (G, B))``."""
-    global SWEEP_LAUNCHES
-    T, d, B = z_tm.shape
+def smart_prefix_reference(z, y, thresholds, lengths, *, replay=False):
+    """Plain mirror of kernel K6a, the threshold-independent prefix of the
+    SMART sweep: the FTL track once per sequence, its action computed once
+    a round (the post-update action of round t is round t + 1's
+    pre-update action), and a pointer per sequence over the thresholds
+    sorted ascending.
+
+    Args:
+      z: ``(B, T, d)``; y: ``(B, T)``; thresholds ``(G,)``; lengths
+        ``(B,)`` int.
+      replay: score the comparator by replaying the rows instead of by the
+        hinge identity.
+
+    Returns:
+      ``(partial (B, G), switch_t (B, G) int64, comp (B,))``: ``partial`` is
+      the final regret of every pair without a tail (never switched, or
+      switched at its last valid round) and the FTL losses F at the switch
+      round (the tail's starting sum) for the others.
+    """
+    B, T, d = z.shape
     G = thresholds.shape[0]
+    dtype = z.dtype
+    ordered, perm = torch.sort(thresholds, stable=True)
+    theta = z.new_zeros((B, d))
+    w = z.new_zeros((B, d))
+    x = z.new_zeros((B, d))            # the pre-update FTL action
+    F = z.new_zeros((B,))
+    cnt = z.new_zeros((B,))
+    k = torch.zeros((B,), dtype=torch.int64, device=z.device)
+    k_last = torch.zeros_like(k)       # thresholds passed before round len-1
+    partial = z.new_zeros((B, G))
+    tau = torch.full((B, G), T, dtype=torch.int64, device=z.device)
+    rows = torch.arange(B, device=z.device)
+    T_run = int(lengths.max())
+    for t in range(T_run):
+        valid = lengths > t
+        v = valid.to(dtype)
+        z_t, y_t = z[:, t], y[:, t]
+        q = sum_last(z_t * x)
+        theta = theta + (v * hinge_subgradient(q, y_t))[:, None] * z_t
+        F = F + v * normalized_hinge(q, y_t)
+        w = w + (v * y_t)[:, None] * z_t
+        cnt = cnt + v
+        x = ftl_action(theta)
+        k_last = torch.where(lengths == t + 1, k, k_last)
+        lead = F - 0.5 * (cnt - sum_last(x * w))
+        while True:
+            hit = valid & (k < G) & (lead >= ordered[k.clamp(max=G - 1)])
+            if not bool(hit.any()):
+                break
+            cols = perm[k[hit]]
+            tau[rows[hit], cols] = t
+            partial[rows[hit], cols] = F[hit]
+            k = k + hit.to(torch.int64)
+    if replay:
+        comp = z.new_zeros((B,))
+        for t in range(T_run):
+            v = (lengths > t).to(dtype)
+            comp = comp + v * normalized_hinge(sum_last(z[:, t] * x), y[:, t])
+    else:
+        comp = 0.5 * (cnt - sum_last(x * w))
+    sorted_pos = torch.empty_like(perm)
+    sorted_pos[perm] = torch.arange(G, device=z.device)
+    no_tail = sorted_pos[None, :] >= k_last[:, None]
+    partial = torch.where(no_tail, (F - comp)[:, None], partial)
+    return partial, tau, comp
+
+
+def smart_tails_reference(z, y, scales, lengths, switch_t, partial, comp):
+    """Plain mirror of kernel K6b: each switched pair's FTRL tail, rounds
+    ``switch_t + 1 .. len - 1``, from a fresh theta with the scale table's
+    entry of the global round (``scales`` ``(T,)``), from the starting sum
+    ``partial``; the regret is the tail's total less ``comp``.  Pairs
+    without a tail keep ``partial``.  Returns ``(B, G)`` regrets."""
+    B, T, d = z.shape
+    G = switch_t.shape[1]
+    dtype = z.dtype
+    tail = switch_t + 1 < lengths[:, None]
+    theta = z.new_zeros((B, G, d))
+    cum = partial
+    T_run = int(lengths.max())
+    for t in range(T_run):
+        on = tail & (t > switch_t) & (lengths[:, None] > t)
+        z_t, y_t = z[:, t], y[:, t]
+        x = ftrl_action_scaled(theta, scales[t])
+        q = sum_last(z_t[:, None, :] * x)
+        cum = torch.where(on, cum + normalized_hinge(q, y_t[:, None]), cum)
+        theta = theta + (on.to(dtype) * hinge_subgradient(q, y_t[:, None])
+                         )[..., None] * z_t[:, None, :]
+    return torch.where(tail, cum - comp[:, None], partial)
+
+
+def smart_sweep_split_reference(z, y, thresholds, eta, lengths, *,
+                                replay=False):
+    """Plain mirror of kernel K6's split: ``smart_prefix_reference`` then
+    ``smart_tails_reference`` with the scalar ``eta``'s scale table.  It
+    equals ``smart_sweep_reference`` bit for bit (tests hold it); the main
+    path does not use it.  Returns ``(regret (B, G), switch_t (B, G))``."""
+    partial, tau, comp = smart_prefix_reference(z, y, thresholds, lengths,
+                                                replay=replay)
+    scales = sweep_scales(eta.reshape(1), z.shape[1])[0]
+    return smart_tails_reference(z, y, scales, lengths, tau, partial,
+                                 comp), tau
+
+
+def launch_smart_prefix(z, y, ordered, perm, order, lengths,
+                        replay: bool):
+    """Launch kernel K6a on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA
+    inputs with the thresholds sorted ascending (``ordered``) and their
+    columns ``perm`` (int32), the blocks' sequence ``order``
+    (``game.length_order``) and ``lengths`` (int32).  Returns
+    ``(partial (G, B), switch_t (G, B), comp (B,))`` as
+    ``smart_prefix_reference`` defines them (transposed)."""
+    global SWEEP_LAUNCHES
+    B, T, d = z.shape
+    G = ordered.shape[0]
     check_kernel_d(d)
     lib = cuda_build.load()
-    fn = (lib.oco_smart_sweep_f64 if z_tm.dtype == torch.float64
-          else lib.oco_smart_sweep_f32)
-    with torch.cuda.device(z_tm.device):
-        regret = torch.empty((G, B), dtype=z_tm.dtype, device=z_tm.device)
-        tau = torch.empty((G, B), dtype=torch.int64, device=z_tm.device)
-        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), thresholds.data_ptr(),
-                 lengths.data_ptr(), B, G, T, d, float(eta), int(replay),
-                 regret.data_ptr(), tau.data_ptr(),
-                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+    fn = (lib.oco_smart_prefix_f64 if z.dtype == torch.float64
+          else lib.oco_smart_prefix_f32)
+    with torch.cuda.device(z.device):
+        partial = torch.empty((G, B), dtype=z.dtype, device=z.device)
+        tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
+        comp = torch.empty((B,), dtype=z.dtype, device=z.device)
+        err = fn(z.data_ptr(), y.data_ptr(), ordered.data_ptr(),
+                 perm.data_ptr(), order.data_ptr(), lengths.data_ptr(), B, G,
+                 T, d, int(replay), partial.data_ptr(), tau.data_ptr(),
+                 comp.data_ptr(),
+                 torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"SMART sweep kernel launch failed: CUDA "
-                               f"error {err}")
+            raise RuntimeError(f"SMART sweep prefix kernel launch failed: "
+                               f"CUDA error {err}")
         SWEEP_LAUNCHES += 1
+    return partial, tau, comp
+
+
+def launch_smart_tails(z, y, scales, order, lengths, switch_t, comp,
+                       regret) -> None:
+    """Launch kernel K6b on K6a's outputs (``launch_smart_prefix``, with the
+    same sequence ``order``) and the ``(1, T)`` scale table of the scalar
+    eta (``game.sweep_scales``): ``regret`` ``(G, B)`` holds K6a's
+    ``partial`` and is turned into the regrets in place."""
+    global SWEEP_TAIL_LAUNCHES
+    B, T, d = z.shape
+    G = switch_t.shape[0]
+    check_kernel_d(d)
+    lib = cuda_build.load()
+    fn = (lib.oco_smart_tails_f64 if z.dtype == torch.float64
+          else lib.oco_smart_tails_f32)
+    with torch.cuda.device(z.device):
+        err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
+                 order.data_ptr(), lengths.data_ptr(), switch_t.data_ptr(),
+                 comp.data_ptr(), B, G, T, d, regret.data_ptr(),
+                 torch.cuda.current_stream(z.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"SMART sweep tail kernel launch failed: "
+                               f"CUDA error {err}")
+        SWEEP_TAIL_LAUNCHES += 1
+
+
+def launch_smart_sweep(z, y, thresholds, eta: float, lengths, replay: bool):
+    """K6a then K6b on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
+    with a ``(G,)`` threshold grid, a scalar ``eta`` and ``lengths``
+    (int32) as ``smart_sweep`` prepares them.  Returns
+    ``(regret (G, B), switch_t (G, B))``."""
+    ordered, perm = torch.sort(thresholds, stable=True)
+    order = length_order(lengths)
+    regret, tau, comp = launch_smart_prefix(z, y, ordered,
+                                            perm.to(torch.int32), order,
+                                            lengths, replay)
+    scales = sweep_scales(torch.full((1,), eta, dtype=z.dtype,
+                                     device=z.device), z.shape[1])
+    launch_smart_tails(z, y, scales, order, lengths, tau, comp, regret)
     return regret, tau
 
 
@@ -296,16 +456,17 @@ def smart_sweep(z: torch.Tensor, y: torch.Tensor, thresholds, eta: float,
 
     Returns:
       ``(regret (B, G), switch_t (B, G))`` on ``z``'s device.  On a CUDA
-      tensor this launches kernel K6 (or raises); on a CPU tensor it runs
-      ``smart_sweep_reference``.
+      tensor this launches kernels K6a and K6b (or raises); on a CPU tensor
+      it runs ``smart_sweep_reference``.
     """
     B, T, d = check_batch(z, y)
     thresholds = settings_grid(thresholds, z.dtype, z.device, "thresholds")
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
-        regret, tau = launch_smart_sweep_time_major(
-            *time_major(z, y), thresholds, float(eta), lengths, replay)
+        regret, tau = launch_smart_sweep(z.contiguous(), y.contiguous(),
+                                         thresholds, float(eta), lengths,
+                                         replay)
         return regret.t(), tau.t()
     if z.device.type == "cpu":
         return smart_sweep_reference(

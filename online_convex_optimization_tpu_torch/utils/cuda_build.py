@@ -42,7 +42,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_D = ctypes.c_double
 _KEYS = ctypes.POINTER(ctypes.c_uint32)
 _F = ctypes.c_float
 
@@ -58,9 +57,10 @@ for _ty in ("f64", "f32"):
                                      _P, _P, _P, _P],
         f"oco_smart_regrets_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
                                      _P, _P, _P, _P, _P],
-        f"oco_eta_sweep_{_ty}": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
-        f"oco_smart_sweep_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _D, _I,
-                                   _P, _P, _P],
+        f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P, _P],
+        f"oco_smart_prefix_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
+                                   [_P] * 4,
+        f"oco_smart_tails_{_ty}": [_P] * 7 + [_LL] * 3 + [_I] + [_P, _P],
         f"oco_play_stream_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P],
         f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],

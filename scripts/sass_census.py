@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Census of the SASS of the port's K7 and K8 (and K9) main-path instances.
+"""Census of the SASS of the port's K5, K6, K7 and K8 (and K9) main-path
+instances.
 
     python3 scripts/sass_census.py                  # builds the kernels, reads
                                                     # cuobjdump -sass of them
@@ -23,6 +24,10 @@ one pass in instructions and in clocks at the latencies assumed below.
   pass): the warp would then wait at its exit for its slowest lane each
   round.  The chain in clocks is the dependent-chain floor of one pass.
 - K9 ``trs_kernel<float, 5>``: the Newton loop.
+- K5 ``sweep_kernel<S, 5>``, K6a ``smart_prefix_kernel<double, 5>`` and
+  K6b ``smart_tail_kernel<double, 5>``: the round loop (the innermost
+  loop holding the action's sqrt and divide seeds); for a build whose
+  K6 is one kernel, ``smart_sweep_kernel<double, 5>``.
 
 Latencies assumed for the chain (dependent issue to dependent issue, in
 clocks): 4 for a fixed-latency ALU or FMA-pipe instruction, 8 for a
@@ -52,6 +57,12 @@ KERNELS = {
     "K8 quad_game_kernel<float, 5>": "quad_game_kernelIfLi5E",
     "K8 quad_game_kernel<double, 5>": "quad_game_kernelIdLi5E",
     "K9 trs_kernel<float, 5>": "trs_kernelIfLi5E",
+    "K5 sweep_kernel<double, 5>": "12sweep_kernelIdLi5E",
+    "K5 sweep_kernel<float, 5>": "12sweep_kernelIfLi5E",
+    "K6a smart_prefix_kernel<double, 5>": "smart_prefix_kernelIdLi5E",
+    "K6b smart_tail_kernel<double, 5>": "smart_tail_kernelIdLi5E",
+    # a build whose K6 is one kernel
+    "K6 smart_sweep_kernel<double, 5>": "18smart_sweep_kernelIdLi5E",
 }
 PHILOX_M = ("-0x2daee0ad", "-0x326172a9", "0xd2511f53", "0xcd9e8d57")
 NO_DEST = ("ST", "BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BAR",
@@ -210,6 +221,8 @@ def census(label, ins):
         main = max(info, key=lambda x: (x[5], -len(x[2])))
     elif label.startswith("K8"):
         main = max((x for x in info if x[4]), key=lambda x: x[3])
+    elif label.startswith(("K5", "K6")):
+        main = min((x for x in info if x[3]), key=lambda x: len(x[2]))
     else:
         main = max(info, key=lambda x: x[3])
     lo, hi, body = main[:3]

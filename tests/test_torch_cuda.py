@@ -206,6 +206,63 @@ def test_smart_sweep_families_match_golden_on_card(cuda, title, T):
         assert int(tau[0, g]) == want_tau
 
 
+# Thresholds unsorted, with a duplicate, one that never fires and one that
+# fires at round 0; 13 of them and 11 etas: neither a multiple of the
+# 8 settings a K5 or K6b block serves.
+SWEEP_ETAS = np.array([0.05, 0.2, 0.4, 0.7, 1.0, 1.3, math.sqrt(2.0), 2.0,
+                       2.6, 3.3, 4.0])
+SWEEP_THS = np.array([6.0, 1.0, 1e9, 2.5, -1e9, 2.5, 0.7, 10.0, 3.7, 1.8,
+                      4.4, 0.2, 14.0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [3, 5, 64, 65])
+@pytest.mark.parametrize("contract", [True, False])
+def test_redesigned_sweeps_match_plain_at_ragged_shapes(cuda, dtype, d,
+                                                       contract):
+    """K5, K6a and K6b at B = 77 (not a multiple of 32), T = 203 (no
+    multiple of the staged chunk but 1), every kernel instance (d = 5, the
+    generic d <= 64, the large d), against their plain versions, K6a and K6b
+    each against its part of the split mirror; f64 bit for bit."""
+    z, y, lengths = _batch(77, 203, d, seed=60 + d, contract=contract)
+    zt, yt = _to((z, y), cuda, dtype)
+    lt = game.per_sequence(lengths, 77, torch.int32, cuda)
+    grid = torch.as_tensor(SWEEP_ETAS, dtype=dtype, device=cuda)
+    ths = torch.as_tensor(SWEEP_THS, dtype=dtype, device=cuda)
+    eta = torch.tensor(1.3, dtype=dtype, device=cuda)
+    counts = (game.SWEEP_LAUNCHES, smart.SWEEP_LAUNCHES,
+              smart.SWEEP_TAIL_LAUNCHES)
+    got5 = game.eta_sweep(zt, yt, grid, lengths)
+    got6, tau = smart.smart_sweep(zt, yt, ths, 1.3, lengths)
+    torch.cuda.synchronize()
+    assert (game.SWEEP_LAUNCHES, smart.SWEEP_LAUNCHES,
+            smart.SWEEP_TAIL_LAUNCHES) == tuple(c + 1 for c in counts)
+    want5 = game.eta_sweep_reference(zt, yt, grid, lt, replay=not contract)
+    want6, want_tau = smart.smart_sweep_reference(zt, yt, ths, eta, lt,
+                                                  replay=not contract)
+    assert torch.equal(tau, want_tau)
+    assert bool((tau[:, 2] == 203).all()) and bool((tau[:, 4] < 203).any())
+    order = game.length_order(lt)
+    ordered, perm = torch.sort(ths, stable=True)
+    perm = perm.to(torch.int32)
+    part, tau_a, comp = smart.launch_smart_prefix(
+        zt, yt, ordered, perm, order, lt, not contract)
+    want_part, _, want_comp = smart.smart_prefix_reference(
+        zt, yt, ths, lt, replay=not contract)
+    assert torch.equal(tau_a.t(), want_tau)
+    scales = game.sweep_scales(eta.reshape(1), 203)
+    tails = part.clone()
+    smart.launch_smart_tails(zt, yt, scales, order, lt, tau_a, comp, tails)
+    want_tails = smart.smart_tails_reference(zt, yt, scales[0], lt, want_tau,
+                                             want_part, want_comp)
+    pairs = ((got5, want5), (got6, want6), (part.t(), want_part),
+             (comp, want_comp), (tails.t(), want_tails))
+    if dtype == torch.float64:
+        assert all(torch.equal(g, w) for g, w in pairs)
+    else:
+        assert _max_err(*zip(*pairs)) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("d", [5, 3])
 def test_stream_kernel_matches_plain(cuda, dtype, d):
