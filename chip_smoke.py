@@ -10,16 +10,25 @@ non-zero without printing a result):
                ``nvidia-smi --query-gpu=name,power.limit`` prints them.
   2. build   — compile the CUDA kernels from ``csrc/`` (timed).
   3. kernels — K1 (regret) and K2 (SMART) against their plain PyTorch
-               versions on the same CUDA tensors, f64 (bound 1e-9, switch
-               rounds equal) and f32 (bound 5e-4), at B=10,000 T=1000 d=5
-               and B=37 T=129 d=3, ragged lengths, plus the replay mode on
-               data outside the identity contract; the deterministic
-               families at T in {200, 800, 1000} through the f64 kernels
-               against the golden oracle (bound 1e-9).
+               versions on the same CUDA tensors, bit for bit (max_abs_err
+               0, switch rounds equal), f64 and f32: through the wrappers
+               (one play or threshold a sequence) and the evaluation's
+               entries (FTRL and FTL as two plays of one copy of z; two
+               thresholds a sequence), at B=10,000 T=1000 d=5 and at
+               B=77 T=203 for d = 5, 3, 64 and 65 (the unrolled, generic
+               and large-d instances), ragged lengths, in contract and in
+               replay mode; the deterministic families at T in {200, 800,
+               1000} through the f64 kernels against the golden oracle
+               (bound 1e-9).
   4. main    — the experiment driver at full scale (--t-max 1000
-               --g-runs 1000, all four cases) on --device cuda; both kernels'
-               launch counters must rise; then kernel times against the
-               plain versions' at the main path's shapes.
+               --g-runs 1000, all four cases) on --device cuda: K1 must
+               launch 5 times (one g(T) launch, one a case) and K2 4
+               times; then K1 and K2 at the path's shapes (the g(T) launch
+               of 10,000 sequences; the largest case, 9,600 sequences with
+               two plays and two thresholds; the parent's 8,192-sequence
+               chunk) against their plain versions bit for bit, timed,
+               with their bounds and output digests (the digests that
+               ``scripts/k1k2_compare.py`` prints for any commit).
   5. parity  — the same config on --device cpu (the plain versions in
                f64): every g(T) and stats entry within 1e-9 of the CUDA run.
   6. sweeps  — the eta and SMART-threshold sweeps at full width
@@ -126,11 +135,13 @@ two pipes its work issues on: the integer ALU (the Philox xors, the bit
 tests and selects) and the FMA pipe (the Philox multiplies and the float
 operations of the game); K8's and K9's count each trust-region solve at
 the Newton passes these inputs need (``trs_ops``); K10's is its float
-operations at 2,000 fixed
-iterations (``admm_ops``), and its entry adds its registers a thread and
-resident warps an SM (its text line also prints the --fmad=false issue
-floor, the same operations at one a lane and clock, which is arithmetic
-and stays out of the kernels line).  The line before the last lists the kernels as
+operations at 2,000 fixed iterations (``admm_ops``); K2's counts the
+rounds this run's switch rounds need (the FTL track on every valid row,
+the switch test up to the last threshold's switch, each pair's tail).
+K1's, K2's and K10's entries add their registers a thread and resident
+warps an SM (K10's text line also prints the --fmad=false issue floor,
+the same operations at one a lane and clock, which is arithmetic and
+stays out of the kernels line).  The line before the last lists the kernels as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8
 minutes on an H100.
 """
@@ -396,8 +407,8 @@ def compare_k1(label, z, y, flags, eta, lengths, *, contract=True):
     torch.cuda.synchronize()
     err = max_err(got + (got[0] - got[1],), want + (want[0] - want[1],))
     print(f"[3 kernels] K1 {label} {z.dtype} B={B} T={z.shape[1]} "
-          f"d={z.shape[2]} max_abs_err={err:.3e} (bound {TOL[z.dtype]:g})")
-    check(err <= TOL[z.dtype], f"K1 {label} {z.dtype}: {err} > bound")
+          f"d={z.shape[2]} max_abs_err={err:.3e} (bound 0: bit for bit)")
+    check(err == 0.0, f"K1 {label} {z.dtype}: {err} != 0")
 
 
 def compare_k2(label, z, y, thresh, eta, lengths, *, contract=True):
@@ -413,11 +424,40 @@ def compare_k2(label, z, y, thresh, eta, lengths, *, contract=True):
     err = max_err(got[:3] + (got[0] - got[1],), want[:3] + (want[0] - want[1],))
     tau_diff = int((got[3] != want[3]).sum())
     print(f"[3 kernels] K2 {label} {z.dtype} B={B} T={z.shape[1]} "
-          f"d={z.shape[2]} max_abs_err={err:.3e} (bound {TOL[z.dtype]:g}) "
+          f"d={z.shape[2]} max_abs_err={err:.3e} (bound 0: bit for bit) "
           f"switch rounds differing: {tau_diff}")
-    check(err <= TOL[z.dtype], f"K2 {label} {z.dtype}: {err} > bound")
-    if z.dtype == torch.float64:
-        check(tau_diff == 0, f"K2 {label}: switch rounds differ")
+    check(err == 0.0 and tau_diff == 0, f"K2 {label} {z.dtype}: {err} != 0 "
+          f"or {tau_diff} switch rounds differ")
+
+
+def compare_plays(label, z, y, lengths, *, contract=True):
+    """The evaluation's entries: K1 with FTRL and FTL as two plays of one
+    copy of z, K2 with two thresholds a sequence, against their plain
+    versions on the same tensors, bit for bit."""
+    B = z.shape[0]
+    replay = not game.in_contract(z, y, lengths)
+    check(replay == (not contract), f"plays {label}: contract check")
+    got = game.regret_plays(z, y, (0, 1), ETA, lengths, replay)
+    flags = torch.tensor([[0] * B, [1] * B], dtype=torch.int32, device="cuda")
+    et = game.per_sequence(ETA, B, z.dtype, z.device)
+    want = game.regret_plays_reference(z, y, flags, et, lengths,
+                                       replay=replay)
+    err1 = max_err(got, want)
+    root = torch.sqrt(2.0 * lengths.to(z.dtype))
+    ths = torch.stack([root, 0.4 * root])
+    got = smart.smart_plays(z, y, ths, ETA, lengths, replay)
+    want = smart.smart_plays_reference(z, y, ths, et, lengths, replay=replay)
+    torch.cuda.synchronize()
+    err2 = max_err(got[:3], want[:3])
+    tau_diff = int((got[3] != want[3]).sum())
+    switched = int((got[3] < z.shape[1]).sum())
+    print(f"[3 kernels] plays {label} {z.dtype} B={B} T={z.shape[1]} "
+          f"d={z.shape[2]}: K1 (FTRL, FTL) max_abs_err={err1:.3e}, K2 two "
+          f"thresholds max_abs_err={err2:.3e} (bound 0: bit for bit), "
+          f"switch rounds differing: {tau_diff} ({switched} of {2 * B} "
+          f"pairs switched)")
+    check(err1 == 0.0 and err2 == 0.0 and tau_diff == 0,
+          f"plays {label} {z.dtype}: not bit for bit")
 
 
 def phase_kernels():
@@ -432,18 +472,22 @@ def phase_kernels():
         two = torch.where(mixed == 0, torch.sqrt(2.0 * lengths.double()),
                           0.8 * torch.sqrt(lengths.double()))
         compare_k2("two thresholds", z, y, two, ETA, lengths)
+        compare_plays("evaluation", z, y, lengths)
         del z, y
-        zs, ys, ls = make_batch(37, 129, 3, 2, dtype)
-        mixed = torch.arange(37, device="cuda") % 2
-        compare_k1("mixed flags", zs, ys, mixed, ETA, ls)
-        compare_k2("two thresholds", zs, ys,
-                   torch.where(mixed == 0, 2.0, 6.5), ETA, ls)
-    zr, yr, lr = make_batch(37, 129, 3, 3, torch.float64, contract=False)
-    mixed = torch.arange(37, device="cuda") % 2
-    compare_k1("replay (out of contract)", zr, yr, mixed, ETA, lr,
-               contract=False)
-    compare_k2("replay (out of contract)", zr, yr,
-               torch.where(mixed == 0, 2.0, 6.5), ETA, lr, contract=False)
+        # The unrolled (d = 5), generic (3, 64) and large-d (65) instances,
+        # in contract and in replay mode.
+        for d in (5, 3, 64, 65):
+            for contract in (True, False):
+                zs, ys, ls = make_batch(77, 203, d, 2 + d, dtype,
+                                        contract=contract)
+                mode = "contract" if contract else "replay (out of contract)"
+                mixed = torch.arange(77, device="cuda") % 2
+                compare_k1(f"mixed flags, {mode}", zs, ys, mixed, ETA, ls,
+                           contract=contract)
+                compare_k2(f"two thresholds, {mode}", zs, ys,
+                           torch.where(mixed == 0, 2.0, 6.5), ETA, ls,
+                           contract=contract)
+                compare_plays(mode, zs, ys, ls, contract=contract)
 
     # Deterministic (z = e1) families against the golden oracle: exact ties.
     seqs = [(title, T, *CASES[title](run_seed=2025)(T)[:2])
@@ -500,65 +544,153 @@ def time_ms(fn, *, reps: int, inner: int = 1):
     return statistics.median(times), min(times), max(times)
 
 
-def eval_chunk_inputs():
-    """One evaluation chunk as the main path builds it: 2 x 4096 sequences
-    padded to T=1000, horizons 100..1000, FTRL+FTL flags, two thresholds."""
-    z, y, _ = make_batch(8192, 1000, 5, 4, torch.float64)
-    lengths = torch.tensor(T_GRID, dtype=torch.int32,
-                           device="cuda").repeat_interleave(16).repeat(52)[:8192]
-    flags = (torch.arange(8192, device="cuda") >= 4096).to(torch.int32)
-    thresh = torch.where(flags == 0, torch.sqrt(2.0 * lengths.double()),
-                         0.9 * torch.sqrt(2.0 * lengths.double()))
-    eta = torch.full((8192,), ETA, dtype=torch.float64, device="cuda")
-    return z, y, lengths, flags, thresh, eta
+def path_batch(B, seed):
+    """f64 rows and labels of ``scripts/k1k2_compare.py`` (seed 90: the
+    g(T) launch, 91: the largest case, 92: the parent's chunk), so that the
+    digests here equal the ones that script prints for any commit."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return random_game_batch(gen, B, 1000, D, dtype=torch.float64)
+
+
+def path_lengths(runs, reps):
+    """A case's horizons as the evaluation stacks them: run, then horizon,
+    then replicate."""
+    return torch.tensor(T_GRID, dtype=torch.int32, device="cuda"
+                        ).repeat_interleave(reps).repeat(runs)
+
+
+def k1_bound(lengths, plays: int, dtype):
+    """K1's least time: each valid row and label read once, the flags,
+    lengths, table row index and the one-row table, the outputs written
+    once; the rounds' operations, w once a sequence."""
+    rows = float(lengths.double().sum())
+    B, s = lengths.shape[0], 8 if dtype == torch.float64 else 4
+    n_bytes = (rows * (D + 1) * s + B * 8 + plays * B * 4 + T_GRID[-1] * s
+               + plays * B * (2 + D) * s)
+    ops = rows * (plays * hinge_round_ops(D, with_w=False) + 2 * D)
+    return bound(n_bytes, ops, dtype)
+
+
+def k2_bound(lengths, tau, dtype):
+    """K2's least time from the run's switch rounds tau (G, B): every valid
+    row once through the FTL track (9d + 9), the switch test on the rows up
+    to the last threshold's switch (2d + 3 + G), each pair's tail rounds
+    (7d + 7); the inputs read once and the outputs written once."""
+    G, B = tau.shape
+    T = T_GRID[-1]
+    s = 8 if dtype == torch.float64 else 4
+    L = lengths.long()
+    rows = float(L.sum())
+    open_rows = float(torch.minimum(tau.max(0).values + 1, L).sum())
+    tail = float(torch.clamp(L[None] - tau - 1, min=0).sum())
+    n_bytes = (rows * (D + 1) * s + B * 8 + G * B * s + T * s
+               + G * B * (1 + D) * s + B * s + G * B * 8)
+    ops = (rows * (9 * D + 9) + open_rows * (2 * D + 3 + G)
+           + tail * hinge_round_ops(D, with_w=False))
+    return bound(n_bytes, ops, dtype)
 
 
 def time_kernels():
+    """K1 and K2 at the main path's shapes, f64: the g(T) launch (10
+    horizons x 1,000 FTRL runs, horizon after horizon, padded to T =
+    1,000) and the largest case's launch ("Massart noise 10%", 9,600
+    sequences: K1 with FTRL and FTL as two plays, K2 with the thresholds
+    sqrt(2T) and 0.9 sqrt(2T)); the parent's evaluation chunk (2 x 4,096
+    sequences, one play or threshold each) for continuity.  Each against
+    its plain version (bit for bit), timed, with its bound and the digests
+    of its outputs in the doubled layout that ``scripts/k1k2_compare.py``
+    prints for every commit."""
     out = {}
-    z, y, lengths, flags, thresh, eta = eval_chunk_inputs()
-    z_tm, y_tm = game.time_major(z, y)
-    k1 = lambda: game.launch_time_major(z_tm, y_tm, flags, eta, lengths, False)
-    k2 = lambda: smart.launch_time_major(z_tm, y_tm, thresh, eta, lengths,
-                                         False)
-    p1 = lambda: game.regrets_fused_reference(z, y, flags, eta, lengths)
-    p2 = lambda: smart.smart_regrets_reference(z, y, thresh, eta, lengths)
-    w1 = lambda: game.regrets_fused(z, y, flags, eta, lengths)
-    w2 = lambda: smart.smart_regrets(z, y, thresh, eta, lengths)
-    got1, want1 = w1(), p1()
-    got2, want2 = w2(), p2()
+    g_len = torch.tensor(T_GRID, dtype=torch.int32, device="cuda"
+                         ).repeat_interleave(1000)
+    zg, yg = path_batch(g_len.shape[0], 90)
+    tab = game.eta_table(ETA, g_len.shape[0], 1000, torch.float64, "cuda")
+    fg = torch.zeros((1, g_len.shape[0]), dtype=torch.int32, device="cuda")
+    k_ms = time_ms(lambda: game.launch_regrets(zg, yg, fg, *tab, g_len,
+                                               False), reps=5, inner=10)
+    got = game.launch_regrets(zg, yg, fg, *tab, g_len, False)
+    want = game.regret_plays_reference(
+        zg, yg, fg, game.per_sequence(ETA, g_len.shape[0], torch.float64,
+                                      "cuda"), g_len)
+    err = max_err(got, want)
+    gb = k1_bound(g_len, 1, torch.float64)
+    print(f"[4 main] K1 g(T) launch B={g_len.shape[0]} T=1000 (10 horizons "
+          f"x 1,000 FTRL runs) d=5 f64: kernel {k_ms[0]:.4f} ms (min "
+          f"{k_ms[1]:.4f}, max {k_ms[2]:.4f}); bound {gb['bound_ms']:.4f} ms "
+          f"by {gb['bound_by']}; max_abs_err={err:.3e} (bound 0); digest "
+          f"{output_digest([o[0] for o in got])}")
+    check(err == 0.0, "K1 at the g(T) launch vs plain")
+    del zg, yg, got, want
+
+    lengths = path_lengths(48, 20)
+    B = lengths.shape[0]
+    z, y = path_batch(B, 91)
+    eta = game.per_sequence(ETA, B, torch.float64, "cuda")
+    tab = game.eta_table(ETA, B, 1000, torch.float64, "cuda")
+    flags = torch.tensor([[0] * B, [1] * B], dtype=torch.int32, device="cuda")
+    root = torch.sqrt(2.0 * lengths.double())
+    ths = torch.stack([root, 0.9 * root])
+    k1 = lambda: game.launch_regrets(z, y, flags, *tab, lengths, False)
+    k2 = lambda: smart.launch_smart(z, y, ths, *tab, lengths, False)
+    p1 = lambda: game.regret_plays_reference(z, y, flags, eta, lengths)
+    p2 = lambda: smart.smart_plays_reference(z, y, ths, eta, lengths)
+    w1 = lambda: game.regret_plays(z, y, (0, 1), ETA, lengths, False)
+    w2 = lambda: smart.smart_plays(z, y, ths, ETA, lengths, False)
+    got1, want1 = k1(), p1()
+    got2, want2 = k2(), p2()
     out["K1"] = {"max_abs_err": max_err(got1, want1)}
     out["K2"] = {"max_abs_err": max_err(got2[:3], want2[:3])}
-    check(bool(torch.equal(got2[3], want2[3])), "K2 switch rounds at the "
-          "main path's shape")
-    shape = "B=8192 T=1000 d=5 f64 (one evaluation chunk)"
-    rows = float(lengths.double().sum())
-    out["K1"].update(bound(rows * 6 * 8 + 8192 * (16 + 8 * 7),
-                           rows * hinge_round_ops(5), torch.float64))
-    out["K2"].update(bound(rows * 6 * 8 + 8192 * (20 + 8 * 8),
-                           rows * smart_round_ops(5), torch.float64))
+    check(out["K1"]["max_abs_err"] == 0.0 and out["K2"]["max_abs_err"] == 0.0
+          and bool(torch.equal(got2[3], want2[3])),
+          "K1 or K2 at the main path's shape vs plain")
+    out["K1"].update(k1_bound(lengths, 2, torch.float64))
+    out["K2"].update(k2_bound(lengths, got2[3], torch.float64))
+    for key, (regs, warps) in (
+            ("K1", game.regret_occupancy(2, D, torch.float64)),
+            ("K2", smart.smart_occupancy(2, D, torch.float64))):
+        out[key].update(registers=regs, warps_per_sm=warps)
+    dig = {"K1": output_digest((got1[0].reshape(-1), got1[1].reshape(-1),
+                         got1[2].reshape(-1, D))),
+           "K2": output_digest((got2[0].reshape(-1), got2[1].repeat(2),
+                         got2[2].reshape(-1, D), got2[3].reshape(-1)))}
+    switched = int((got2[3] < 1000).sum())
+    shape = (f"B={B} T=1000 d=5 f64 (the largest case, one launch: two "
+             f"plays / two thresholds a sequence)")
     for key, kern, wrap, plain in (("K1", k1, w1, p1), ("K2", k2, w2, p2)):
         k_ms = time_ms(kern, reps=5, inner=10)
         w_ms = time_ms(wrap, reps=5)
         p_ms = time_ms(plain, reps=3)
         out[key].update(ms=k_ms[0], plain_ms=p_ms[0], library_ms=None)
         print(f"[4 main] {key} {shape}: kernel {k_ms[0]:.4f} ms "
-              f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}); wrapper with contract "
-              f"check and repack {w_ms[0]:.4f} ms; plain PyTorch "
-              f"{p_ms[0]:.2f} ms (min {p_ms[1]:.2f}, max {p_ms[2]:.2f}); "
-              f"max_abs_err={out[key]['max_abs_err']:.3e}")
-    # The g(T) batch: 1000 FTRL sequences of T = 1000.
-    zg, yg, _ = make_batch(1000, 1000, 5, 5, torch.float64)
-    lg = torch.full((1000,), 1000, dtype=torch.int32, device="cuda")
-    fg = torch.zeros((1000,), dtype=torch.int32, device="cuda")
-    eg = torch.full((1000,), ETA, dtype=torch.float64, device="cuda")
-    zg_tm, yg_tm = game.time_major(zg, yg)
-    k_ms = time_ms(lambda: game.launch_time_major(zg_tm, yg_tm, fg, eg, lg,
-                                                  False), reps=5, inner=10)
-    p_ms = time_ms(lambda: game.regrets_fused_reference(zg, yg, fg, eg, lg),
-                   reps=3)
-    print(f"[4 main] K1 B=1000 T=1000 d=5 f64 FTRL (one g(T) batch): kernel "
-          f"{k_ms[0]:.4f} ms (min {k_ms[1]:.4f}, max {k_ms[2]:.4f}); plain "
-          f"PyTorch {p_ms[0]:.2f} ms")
+              f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}); wrapper (the scale "
+              f"table) {w_ms[0]:.4f} ms; plain PyTorch {p_ms[0]:.2f} ms "
+              f"(min {p_ms[1]:.2f}, max {p_ms[2]:.2f}); bound "
+              f"{out[key]['bound_ms']:.4f} ms by {out[key]['bound_by']}; "
+              f"max_abs_err={out[key]['max_abs_err']:.3e} (bound 0); "
+              f"{out[key]['registers']} registers a thread, "
+              f"{out[key]['warps_per_sm']} warps an SM; digest {dig[key]}"
+              + (f"; {switched} of {2 * B} pairs switched" if key == "K2"
+                 else ""))
+    del got1, want1, got2, want2
+
+    # The parent's evaluation chunk, one play or threshold a sequence.
+    del z, y
+    zc, yc = path_batch(4096, 92)
+    zc, yc = torch.cat([zc, zc]), torch.cat([yc, yc])
+    lc = torch.cat([lengths[:4096], lengths[:4096]])
+    fc = (torch.arange(8192, device="cuda") >= 4096).to(torch.int32)[None]
+    tc = torch.cat([ths[0, :4096], ths[1, :4096]])[None]
+    tab = game.eta_table(ETA, 8192, 1000, torch.float64, "cuda")
+    for key, kern in (
+            ("K1", lambda: game.launch_regrets(zc, yc, fc, *tab, lc, False)),
+            ("K2", lambda: smart.launch_smart(zc, yc, tc, *tab, lc, False))):
+        k_ms = time_ms(kern, reps=5, inner=10)
+        outs = kern()
+        dg = output_digest((outs[0][0], outs[1][0] if key == "K1" else outs[1],
+                     outs[2][0]) + ((outs[3][0],) if key == "K2" else ()))
+        print(f"[4 main] {key} B=8192 T=1000 d=5 f64 (the parent's "
+              f"evaluation chunk, for continuity): kernel {k_ms[0]:.4f} ms "
+              f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}); digest {dg}")
     return out
 
 
@@ -572,8 +704,9 @@ def phase_main(tmp):
     print(f"[4 main] driver --t-max 1000 --g-runs 1000 --device cuda: wall "
           f"{res['wall_s']:.2f} s, phases {json.dumps(res['phase_s'])}, "
           f"launches {json.dumps(launches)}")
-    check(launches["K1"] > 0 and launches["K2"] > 0,
-          f"main path did not launch both kernels: {launches}")
+    check(launches == {"K1": 5, "K2": 4},
+          f"main path launched K1 and K2 {launches} times, not 5 and 4 (one "
+          f"g(T) launch, one a case)")
     stats = res["stats"]
     finite = all(math.isfinite(v) for c in stats.values() for a in c.values()
                  for v in a["mean"] + a["ci"])
@@ -1227,12 +1360,21 @@ def packed_large_d():
         thr = game.per_sequence(math.sqrt(2.0 * BIG_T), BIG_B, dtype, "cuda")
         z_tm, y_tm = game.time_major(z, y)
         scales = game.ftrl_scales(BIG_T, ETA, dtype=dtype, device="cuda")
+        tab = game.eta_table(ETA, BIG_B, BIG_T, dtype, "cuda")
+
+        def k1():
+            out = game.launch_regrets(z, y, flags[None], *tab, lengths,
+                                      False)
+            return tuple(o[0] for o in out)
+
+        def k2():
+            cum, comp, x_last, _ = smart.launch_smart(z, y, thr[None], *tab,
+                                                      lengths, False)
+            return cum[0], comp, x_last[0]
         cases = (
-            ("K1", lambda: game.launch_time_major(z_tm, y_tm, flags, eta,
-                                                  lengths, False),
+            ("K1", k1,
              lambda: game.regrets_fused_reference(z, y, flags, eta, lengths)),
-            ("K2", lambda: smart.launch_time_major(z_tm, y_tm, thr, eta,
-                                                   lengths, False)[:3],
+            ("K2", k2,
              lambda: smart.smart_regrets_reference(z, y, thr, eta,
                                                    lengths)[:3]),
             ("K3", lambda: game.launch_play_packed(z_tm, y_tm, scales, 0),
@@ -1243,8 +1385,6 @@ def packed_large_d():
         for key, kern, plain in cases:
             got = kern()
             want, p_ms = timed_once(plain)
-            got = tuple(g.t() if g.ndim == 2 and key != "K3" else g
-                        for g in got)
             err = max_err(got, want)
             k_ms = time_ms(kern, reps=3)
             print(f"[8 packed] large d: {key} d={BIG_D} B={BIG_B} "

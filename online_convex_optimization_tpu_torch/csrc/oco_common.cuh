@@ -1,12 +1,12 @@
 // Device helpers shared by the port's kernels: the regret game (K1), SMART
 // (K2), the packed game (K3, K3e), the carried stream (K4), the eta sweep
 // (K5), the SMART threshold sweep (K6) and the generation-fused game (K7).
-// K1 and K4 play the same game_round, K5 and K7 its actions (the FTRL
-// scale read from a table) and hinge step, K3 and K3e its action and hinge
-// step; K2 plays smart_round, and K6 its two tracks in the same order (K6a
-// the FTL track, K6b the FTRL track), so a sweep column, a chunked stream,
-// a packed game or a generated game reproduces the one-shot kernel bit for
-// bit.
+// K4 plays game_round; K1, K5 and K7 its actions (the FTRL scale read from
+// a table) and hinge step (play_action), K3 and K3e its action and hinge
+// step; K2 and K6 play SMART's two tracks with the same helpers in the
+// same order (K2's FTL warp and K6a the FTL track, K2's tail warps and K6b
+// the FTRL track), so a sweep column, a chunked stream, a packed game or a
+// generated game reproduces the one-shot kernel bit for bit.
 //
 // Every helper follows the order of operations of ops/actions.py and
 // ops/hinge.py (and of the reference's fast_algorithms.py:19-66): a true
@@ -142,23 +142,6 @@ __device__ __forceinline__ void load_row(const S* __restrict__ z, long long t,
     zr[j] = row[j * B];
 }
 
-// Final comparator loss 0.5 * sum_{t < len} |<z_t, x> - y_t|, replayed over
-// the thread's own rows (the mode for data outside the identity contract).
-template <typename S, int D>
-__device__ __forceinline__ S replay_comparator(const S* __restrict__ z,
-                                               const S* __restrict__ y,
-                                               long long b, long long B,
-                                               int n, int len, const S* x) {
-  S zr[Cap<D>::value];
-  S comp = S(0);
-  for (int t = 0; t < len; ++t) {
-    load_row<S, D>(z, t, b, B, n, zr);
-    const S q = dot<S, D>(zr, x, n);
-    comp = comp + S(0.5) * oabs(q - y[t * B + b]);
-  }
-  return comp;
-}
-
 // The round once the action x is chosen: the hinge loss of q = <z_t, x>
 // added to cum, the tie-exact subgradient update of theta, and the
 // identity statistic w += y_t z_t.
@@ -196,75 +179,6 @@ __device__ __forceinline__ S identity_comparator(const S* th, const S* w,
                                                  S* x, int n, S cnt) {
   ftl_action<S, D>(th, x, n);
   return S(0.5) * (cnt - dot<S, D>(x, w, n));
-}
-
-// State of one single-switch SMART run (models/smart.py semantics).
-template <typename S, int D>
-struct SmartState {
-  S th[Cap<D>::value];   // always-on FTL track
-  S w[Cap<D>::value];    // identity statistic sum y_t z_t
-  S thr[Cap<D>::value];  // FTRL track, fresh at the switch
-  S xr[Cap<D>::value];   // the FTRL track's last action
-  S F, total, cnt;       // FTL losses, played losses, rounds
-  bool switched;
-  long long tau;         // switch round, T when it never fires
-};
-
-template <typename S, int D>
-__device__ __forceinline__ void smart_begin(SmartState<S, D>& st, int n,
-                                            long long T) {
-#pragma unroll
-  for (int j = 0; j < n; ++j) st.th[j] = st.w[j] = st.thr[j] = st.xr[j] = S(0);
-  st.F = st.total = st.cnt = S(0);
-  st.switched = false;
-  st.tau = T;
-}
-
-// One SMART round t (0-based) of K2 (K6 splits it into its two tracks):
-//   1. the always-on FTL track plays its pre-update action and updates;
-//      F accumulates its losses, (w, cnt) the identity statistics;
-//   2. once switched (the round AFTER the test first passed), the FTRL
-//      track plays with the GLOBAL round index t+1 and its losses count;
-//      before that the FTL loss counts;
-//   3. before the switch, the post-update FTL action s is scored on the
-//      prefix by the hinge identity L = 0.5 * (cnt - <s, w>), and the
-//      switch fires at the first round with F - L >= thresh.
-template <typename S, int D>
-__device__ __forceinline__ void smart_round(SmartState<S, D>& st,
-                                            const S* zr, S yt, int t, int n,
-                                            S thresh, S eta) {
-  S x[Cap<D>::value];
-  ftl_action<S, D>(st.th, x, n);
-  const S diffF = dot<S, D>(zr, x, n) - yt;
-  const S lossF = S(0.5) * oabs(diffF);
-  const S gF = half_sign(diffF);
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    st.th[j] = st.th[j] + gF * zr[j];
-    st.w[j] = st.w[j] + yt * zr[j];
-  }
-  st.F = st.F + lossF;
-  st.cnt = st.cnt + S(1);
-
-  if (st.switched) {
-    ftrl_action<S, D>(st.thr, x, n, eta, S(t + 1));
-    const S diffR = dot<S, D>(zr, x, n) - yt;
-    st.total = st.total + S(0.5) * oabs(diffR);
-    const S gR = half_sign(diffR);
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      st.thr[j] = st.thr[j] + gR * zr[j];
-      st.xr[j] = x[j];
-    }
-  } else {
-    st.total = st.total + lossF;
-    ftl_action<S, D>(st.th, x, n);  // post-update action s_t
-    const S L = S(0.5) * (st.cnt - dot<S, D>(x, st.w, n));
-    if (st.F - L >= thresh) {
-      st.switched = true;
-      st.tau = t;
-    }
-  }
 }
 
 inline unsigned int grid_for(long long B) {

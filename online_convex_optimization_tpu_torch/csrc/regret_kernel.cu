@@ -3,111 +3,170 @@
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_game.py
 // _regret_kernel (and its VMEM-state twin _regret_kernel_dloop), entry
 // regrets_fused.  Python wrapper and plain PyTorch version:
-// online_convex_optimization_tpu_torch/ops/game.py.
+// online_convex_optimization_tpu_torch/ops/game.py (regrets_fused and
+// regret_plays; regrets_fused_reference and regret_plays_reference).
 //
-// One thread per sequence, state in registers, a loop over the sequence's
-// own rounds (it stops at its own length, so ragged horizons and mixed
-// FTRL/FTL flags share one launch).  Per round (oco::game_round, shared
-// with K4 and K5): the action (FTRL with the ball projection, or FTL),
-// q = <z_t, x>, the hinge loss, the tie-exact subgradient update, and the
-// identity statistic w += y_t z_t.  The final
-// comparator is the final FTL action x_c scored by the hinge identity
-// comp = 0.5 * (len - <x_c, w>), exact when every row has ||z_t|| <= 1 and
-// y_t = +-1; for other data the wrapper picks the replay mode, which scores
-// x_c by a second loop over the thread's own rows.
+// A launch plays P "plays" of every sequence: play p of sequence b is the
+// game with alg_flag flags[p, b] (0 = FTRL, 1 = FTL) and the FTRL scales of
+// row eidx[b] of an (E, T) table.  The main path's evaluation plays FTRL
+// and FTL of each sequence from one copy of its rows (P = 2); the g(T)
+// table and regrets_fused play once (P = 1).  Each play runs over the
+// sequence's own rounds (ragged horizons share a launch).  Per round, in
+// the reference's order of operations: the action (FTRL with the ball
+// projection, or FTL), q = <z_t, x>, the hinge loss, the tie-exact
+// subgradient update, and the identity statistic w += y_t z_t.  The final
+// comparator is the final FTL action x_c of the play's theta, scored by the
+// hinge identity comp = 0.5 * (len - <x_c, w>), exact when every row has
+// ||z_t|| <= 1 and y_t = +-1; for other data the wrapper picks the replay
+// mode, which scores x_c by a second pass over the sequence's own rows.
 //
 // What bounds it on an H100: each round reads 8*(d+1) bytes of f64 input
-// once (48 bytes at d = 5) against a serial dependency chain of about
-// 3d + 10 flops through the action, the dot product and the update, plus a
-// correctly rounded sqrt and divide.  Per thread the chain is latency-bound;
-// the card as a whole is bound by how many independent sequences are in
-// flight.  This first design leaves the dependency chain as the reference
-// writes it (the f64 instance must reproduce its rounding) and relies on
-// one thread per sequence with coalesced time-major loads (T, d, B) to keep
-// many chains in flight; it does not stage tiles in shared memory.
-#include "oco_common.cuh"
+// once (48 bytes at d = 5) against a serial chain of about 3d + 10 flops
+// and, for FTL every round and for FTRL when it projects, a correctly
+// rounded sqrt and divide; each of those sits in its own basic block, so
+// the chain's latency, not the card's rates, sets a launch's time, and a
+// launch costs its longest sequence.  The design:
+//   - a block holds 32 sequences (lane) x P play-warps, so the main path's
+//     FTRL and FTL plays read one copy of z, in the caller's (B, T, d)
+//     layout (no time-major copy);
+//   - a producer warp stages the sequences' rows chunk by chunk in shared
+//     memory (oco_tiles.cuh play_chunks: each of its lanes bulk-copies its
+//     own sequence's chunk with the TMA, completing on the stage's
+//     mbarrier), so no load and no copy sits in a play's round, and the
+//     play-warps meet it only at mbarriers, never at a block barrier;
+//   - the FTRL scale -(eta / sqrt(t)) comes from the table
+//     (ops/game.py::sweep_scales, the same tensor/tensor expression),
+//     loaded a round ahead: FTRL pays the sqrt and divide only when it
+//     projects;
+//   - the main path launches K1 once for the whole g(T) table and once a
+//     case, each launch as wide as the case (experiments/), where the
+//     parent launched 17 times with at most 8,192 threads.
+#include "oco_tiles.cuh"
 
 namespace {
 
+// Plays a block serves at most, and bytes of rows a stage holds: two stages
+// of 24 KB let four blocks share an SM (f64, d = 5: 16 rounds a chunk).
+constexpr int kMaxPlays = 8;
+constexpr int kStages = 2;
+constexpr size_t kStageBytes = 24 * 1024;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(OCO_THREADS)
+__global__ void __launch_bounds__((kMaxPlays + 1) * 32)
 regret_kernel(const S* __restrict__ z, const S* __restrict__ y,
-              const int* __restrict__ alg_flag, const S* __restrict__ eta,
-              const int* __restrict__ lengths, long long B, int d, int replay,
-              S* __restrict__ cum_out, S* __restrict__ comp_out,
+              const int* __restrict__ flags, const S* __restrict__ scales,
+              const int* __restrict__ eidx, const int* __restrict__ lengths,
+              long long B, long long T, int P, oco::ChunkShape ts,
+              int replay, S* __restrict__ cum_out, S* __restrict__ comp_out,
               S* __restrict__ x_last) {
   constexpr int C = oco::Cap<D>::value;
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
-  const int n = D > 0 ? D : d;
-  const int len = lengths[b];
-  const bool ftrl = alg_flag[b] == 0;
-  const S eta_b = eta[b];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Warp p < P plays play p; warp P fills the stages.
+  const int lane = threadIdx.x & 31, p = threadIdx.x >> 5;
+  const long long slot = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const long long b = slot < B ? slot : -1;
+  const int n = D > 0 ? D : ts.n;
+  const int len = b >= 0 ? lengths[b] : 0;
+  const long long i = p * B + b;
+  const bool player = p < P;
+  const bool ftrl = player && b >= 0 && flags[i] == 0;
+  oco::ScaleAhead<S> scale{scales + (b >= 0 ? eidx[b] * T : 0), T, S(0)};
+  if (ftrl) scale.start(0);
 
-  S th[C], w[C], x[C], xl[C], zr[C];
+  S th[C], w[C], x[C];
 #pragma unroll
-  for (int j = 0; j < n; ++j) th[j] = w[j] = xl[j] = S(0);
+  for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
   S cum = S(0);
-
-  for (int t = 0; t < len; ++t) {
-    oco::load_row<S, D>(z, t, b, B, n, zr);
-    oco::game_round<S, D>(th, w, x, zr, y[t * B + b], ftrl, eta_b, S(t + 1),
-                          n, cum);
+  oco::play_chunks<S, D, kStages>(
+      z, y, b, B, T, ts, len,
+      player ? oco::ChunkRole::kLead : oco::ChunkRole::kProducer, P, P, smem,
+      [](int) { return 0; },
+      [&](int t, const S* zr, S yt) {
+        if (ftrl)
+          oco::ftrl_action_scaled<S, D>(th, x, n, scale.take(t));
+        else
+          oco::ftl_action<S, D>(th, x, n);
+        oco::play_action<S, D>(th, w, x, zr, yt, n, cum);
+      });
+  if (!player || b < 0) return;
+  // x is the last action played (zero if none); then the comparator's.
 #pragma unroll
-    for (int j = 0; j < n; ++j) xl[j] = x[j];
-  }
-
-  // Comparator: the final FTL action, by the identity or by a replay.
+  for (int j = 0; j < n; ++j) x_last[i * n + j] = x[j];
   S comp = oco::identity_comparator<S, D>(th, w, x, n, S(len));
-  if (replay) comp = oco::replay_comparator<S, D>(z, y, b, B, n, len, x);
-  cum_out[b] = cum;
-  comp_out[b] = comp;
-#pragma unroll
-  for (int j = 0; j < n; ++j) x_last[j * B + b] = xl[j];
+  if (replay)
+    comp = oco::replay_comparator_rows<S, D>(z, y, b, T, n, len, x);
+  cum_out[i] = cum;
+  comp_out[i] = comp;
 }
 
 template <typename S>
-int launch(const void* z, const void* y, const void* alg_flag,
-           const void* eta, const void* lengths, long long B, int d,
-           int replay, void* cum, void* comp, void* x_last, void* stream) {
-  if (B < 1) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = oco::grid_for(B);
-  const auto* zp = static_cast<const S*>(z);
-  const auto* yp = static_cast<const S*>(y);
-  const auto* fp = static_cast<const int*>(alg_flag);
-  const auto* ep = static_cast<const S*>(eta);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* cp = static_cast<S*>(cum);
-  auto* kp = static_cast<S*>(comp);
-  auto* xp = static_cast<S*>(x_last);
-  return oco::launch_for_d(d, [&](auto dc) {
-    regret_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, fp, ep, lp, B, d, replay, cp, kp, xp);
+int launch(const void* z, const void* y, const void* flags,
+           const void* scales, const void* eidx, const void* lengths,
+           long long B, long long T, int P, int d, int replay, void* cum,
+           void* comp, void* x_last, void* stream) {
+  if (B < 1 || T < 1 || P < 1 || P > kMaxPlays) return cudaErrorInvalidValue;
+  const long long blocks = (B + 31) / 32;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    err = oco::launch_with_smem(
+        regret_kernel<S, D>, static_cast<unsigned int>(blocks), (P + 1) * 32,
+        oco::chunk_ring_bytes<S, D>(ts, kStages),
+        static_cast<cudaStream_t>(stream),
+        static_cast<const S*>(z), static_cast<const S*>(y),
+        static_cast<const int*>(flags), static_cast<const S*>(scales),
+        static_cast<const int*>(eidx), static_cast<const int*>(lengths), B,
+        T, P, ts, replay, static_cast<S*>(cum), static_cast<S*>(comp),
+        static_cast<S*>(x_last));
   });
+  return err != cudaSuccess ? err : launched;
+}
+
+template <typename S>
+int occupancy(int P, int d, int* out) {
+  if (P < 1 || P > kMaxPlays) return cudaErrorInvalidValue;
+  int err = cudaSuccess;
+  const int checked = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    err = oco::occupancy(regret_kernel<S, D>, (P + 1) * 32,
+                         oco::chunk_ring_bytes<S, D>(ts, kStages), out);
+  });
+  return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
 
-// Inputs: z (T, d, B) and y (T, B) time-major, alg_flag (B,) int32
-// (0 = FTRL, 1 = FTL), eta (B,), lengths (B,) int32 with 0 <= len <= T.
-// Outputs: cum_loss (B,), comp_loss (B,), x_last (d, B).  Returns the
-// cudaError_t of the launch.
+// Inputs: z (B, T, d) and y (B, T) contiguous, flags (P, B) int32
+// (0 = FTRL, 1 = FTL), scales (E, T) the FTRL scales -(eta_e / sqrt(t)),
+// eidx (B,) int32 each sequence's row of scales, lengths (B,) int32 with
+// 0 <= len <= T; 1 <= P <= 8.  Outputs: cum_loss (P, B), comp_loss (P, B),
+// x_last (P, B, d).  Returns the cudaError_t of the launch.
 extern "C" int oco_regrets_fused_f64(const void* z, const void* y,
-                                     const void* alg_flag, const void* eta,
-                                     const void* lengths, long long B, int d,
+                                     const void* flags, const void* scales,
+                                     const void* eidx, const void* lengths,
+                                     long long B, long long T, int P, int d,
                                      int replay, void* cum, void* comp,
                                      void* x_last, void* stream) {
-  return launch<double>(z, y, alg_flag, eta, lengths, B, d, replay, cum, comp,
-                        x_last, stream);
+  return launch<double>(z, y, flags, scales, eidx, lengths, B, T, P, d,
+                        replay, cum, comp, x_last, stream);
 }
 
 extern "C" int oco_regrets_fused_f32(const void* z, const void* y,
-                                     const void* alg_flag, const void* eta,
-                                     const void* lengths, long long B, int d,
+                                     const void* flags, const void* scales,
+                                     const void* eidx, const void* lengths,
+                                     long long B, long long T, int P, int d,
                                      int replay, void* cum, void* comp,
                                      void* x_last, void* stream) {
-  return launch<float>(z, y, alg_flag, eta, lengths, B, d, replay, cum, comp,
-                       x_last, stream);
+  return launch<float>(z, y, flags, scales, eidx, lengths, B, T, P, d,
+                       replay, cum, comp, x_last, stream);
+}
+
+// Registers a thread (out[0]) and resident warps an SM (out[1]) of a
+// launch with P plays at feature dimension d on the current card; f64
+// nonzero for the float64 instance.  Returns the cudaError_t.
+extern "C" int oco_regrets_occupancy(int f64, int P, int d, int* out) {
+  return f64 ? occupancy<double>(P, d, out) : occupancy<float>(P, d, out);
 }

@@ -1,119 +1,267 @@
-// K2: the whole single-switch SMART algorithm in one pass.
+// K2: the whole single-switch SMART algorithm in one pass, for one or more
+// thresholds of each sequence.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_smart.py
 // _smart_kernel (round step _smart_round), entry smart_regrets_packed.
-// Python wrapper and plain PyTorch version:
-// online_convex_optimization_tpu_torch/ops/smart.py.
+// Python wrapper and plain PyTorch versions:
+// online_convex_optimization_tpu_torch/ops/smart.py (smart_regrets and
+// smart_plays; smart_regrets_reference, and smart_plays_reference, the
+// plain mirror of this design).
 //
-// One thread per sequence, state in registers, a loop over the sequence's
-// own rounds.  The round step is oco::smart_round (oco_common.cuh, shared
-// with the threshold sweep K6; models/smart.py semantics):
-//   1. the always-on FTL track plays its pre-update action and updates;
-//      F accumulates its losses, (w, cnt) the identity statistics;
-//   2. once switched (the round AFTER the test first passed), a fresh FTRL
-//      track plays with the GLOBAL round index t+1 and its losses count;
-//      before that the FTL loss counts;
-//   3. before the switch, the post-update FTL action s is scored on the
-//      prefix by the hinge identity L = 0.5 * (cnt - <s, w>), and the switch
-//      fires at the first round with F - L >= threshold; tau is that round,
-//      T when it never fires.
-// The switch test always uses the identity statistics, as the scan does.
-// The final comparator (the final FTL action) is scored by the identity on
-// contract data (||z_t|| <= 1, y_t = +-1) and by a replay of the thread's own
-// rows otherwise; the wrapper chooses before the launch.
+// Semantics (models/smart.py): an always-on FTL track plays its pre-update
+// action and updates; F accumulates its losses, (w, cnt) the identity
+// statistics.  Before the switch the FTL loss counts, and the post-update
+// FTL action s is scored on the prefix by the hinge identity
+// L = 0.5 * (cnt - <s, w>); the switch fires at the first round with
+// F - L >= threshold (tau, T when it never fires) and takes effect the
+// round AFTER: a fresh FTRL track then plays with the GLOBAL round index
+// and its losses count.  The final comparator (the final FTL action) is
+// scored by the identity on contract data and by a replay of the
+// sequence's rows otherwise; the wrapper chooses before the launch.
 //
-// What bounds it on an H100: 8*(d+1) bytes of f64 input per round, read
-// once, against a serial chain of about 3d + 10 flops per track per round
-// (two actions with their sqrt and divide, two dot products, the identity
-// dot and two updates).  As for K1 the chain is latency-bound per thread and
-// the card is bound by the number of sequences in flight; this first design
-// keeps the reference's order of operations and relies on one thread per
-// sequence with coalesced time-major loads.
-#include "oco_common.cuh"
+// What bounds it on an H100: 8*(d+1) bytes of f64 input a round against
+// serial chains, each with a correctly rounded sqrt and divide a round in
+// its own basic block: the chains' latency sets the launch's time.  The
+// parent ran the FTL track and, once switched, the FTRL track in one
+// thread, with two FTL actions a round before the switch, so an early
+// switcher paid about two actions a round for ~1,000 rounds.  The design:
+//   - one FTL action a round: the post-update action that the switch test
+//     scores is the next round's pre-update action (the same function of
+//     the same theta), carried in registers, as K6a does;
+//   - a block holds 32 sequences (lane) and 2 + G warps, specialised: warp
+//     0 plays the FTL track once for all G thresholds of its sequences (the
+//     main path has two, sqrt(2T) and g(T)) and publishes each switch round
+//     and the FTL losses at it in shared memory; warp 1 + g plays the FTRL
+//     tails of threshold g on the same staged rows, each chunk once warp 0
+//     has played it, starting each tail once its switch round is known, so
+//     the tails run beside the FTL track instead of after it in the same
+//     thread; warp 1 + G, the producer, bulk-copies each lane's sequence's
+//     chunk of the caller's (B, T, d) rows with the TMA (oco_tiles.cuh
+//     play_chunks, kStages stages, mbarriers and no block barrier), so no
+//     load and no copy sits in a round;
+//   - the FTRL scale -(eta / sqrt(t)) comes from the (E, T) table
+//     (ops/game.py::sweep_scales), loaded a round ahead.
+// A switched pair's total is the FTL losses at the switch, F in every bit
+// (the same sums of the same terms), then the tail's losses: column g
+// equals the parent, and the plain version, bit for bit.
+#include <climits>
+
+#include "oco_tiles.cuh"
 
 namespace {
 
+// Thresholds a sequence has at most (warps a block: 2 + G), and bytes of
+// rows a stage holds: three stages of 12 KB (f64, d = 5: 8 rounds a chunk)
+// let the FTL warp run two chunks ahead of the tails; registers, not the
+// ring, then keep four blocks of the main path's G = 2 on an SM.
+constexpr int kMaxThresholds = 4;
+constexpr int kStages = 3;
+constexpr size_t kStageBytes = 12 * 1024;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(OCO_THREADS)
+__global__ void __launch_bounds__((2 + kMaxThresholds) * 32)
 smart_kernel(const S* __restrict__ z, const S* __restrict__ y,
-             const S* __restrict__ threshold, const S* __restrict__ eta,
-             const int* __restrict__ lengths, long long B, long long T, int d,
-             int replay, S* __restrict__ cum_out, S* __restrict__ comp_out,
+             const S* __restrict__ thresholds, const S* __restrict__ scales,
+             const int* __restrict__ eidx, const int* __restrict__ lengths,
+             long long B, long long T, int G, oco::ChunkShape ts, int replay,
+             S* __restrict__ cum_out, S* __restrict__ comp_out,
              S* __restrict__ x_last, long long* __restrict__ switch_t) {
   constexpr int C = oco::Cap<D>::value;
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
-  const int n = D > 0 ? D : d;
-  const int len = lengths[b];
-  const S thr_b = threshold[b];
-  const S eta_b = eta[b];
-
-  oco::SmartState<S, D> st;
-  oco::smart_begin<S, D>(st, n, T);
-  S x[C], zr[C];
-  for (int t = 0; t < len; ++t) {
-    oco::load_row<S, D>(z, t, b, B, n, zr);
-    oco::smart_round<S, D>(st, zr, y[t * B + b], t, n, thr_b, eta_b);
-  }
-
-  // Comparator: the final FTL action, by the identity or by a replay.
-  S comp = oco::identity_comparator<S, D>(st.th, st.w, x, n, st.cnt);
-  if (replay) comp = oco::replay_comparator<S, D>(z, y, b, B, n, len, x);
-  cum_out[b] = st.total;
-  comp_out[b] = comp;
-  switch_t[b] = st.tau;
-  // x_last: the FTRL track's last action once switched (zero if it never
-  // played), the final FTL action otherwise (models/smart.py).
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Warp 0's switch rounds (INT_MAX until a threshold is passed) and the
+  // FTL losses F at them, for the tails.
+  __shared__ int tau_sh[kMaxThresholds][32];
+  __shared__ S fsw_sh[kMaxThresholds][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long slot = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const long long b = slot < B ? slot : -1;
+  const int n = D > 0 ? D : ts.n;
+  const int len = b >= 0 ? lengths[b] : 0;
+  if (warp == 0) {
 #pragma unroll
-  for (int j = 0; j < n; ++j) x_last[j * B + b] = st.switched ? st.xr[j] : x[j];
+    for (int g = 0; g < kMaxThresholds; ++g) tau_sh[g][lane] = INT_MAX;
+  }
+  // (play_chunks opens with a block barrier, which publishes the INT_MAX.)
+  volatile int* tau_pub = &tau_sh[0][0];
+
+  // Warp 0 plays the FTL track once for every threshold: th, w, F, cnt,
+  // and x, the pre-update action of the next round (the post-update action
+  // of the last).  Warp 1 + g plays threshold g's FTRL tail, rounds
+  // tau + 1 .. len - 1, with a fresh theta (th), the table's scale of the
+  // global round and its total in cum, from the sum F at tau.  Warp 1 + G
+  // fills the stages.
+  const bool ftl = warp == 0;
+  const int g_tail = warp - 1;
+  const oco::ChunkRole role =
+      ftl ? oco::ChunkRole::kLead
+          : (g_tail < G ? oco::ChunkRole::kTrail : oco::ChunkRole::kProducer);
+  S th[C], w[C], x[C];
+#pragma unroll
+  for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
+  S F = S(0), cnt = S(0), cum = S(0);
+  S thr[kMaxThresholds];
+  long long tau[kMaxThresholds];
+  int open = 0;
+#pragma unroll
+  for (int g = 0; g < kMaxThresholds; ++g) {
+    tau[g] = T;
+    thr[g] = S(0);
+    if (ftl && b >= 0 && g < G) {
+      thr[g] = thresholds[g * B + b];
+      ++open;
+    }
+  }
+  int start = INT_MAX;
+  oco::ScaleAhead<S> scale{scales + (b >= 0 ? eidx[b] * T : 0), T, S(0)};
+  oco::play_chunks<S, D, kStages>(
+      z, y, b, B, T, ts, len, role, 1, 1 + G, smem,
+      [&](int t1) {
+        if (ftl) return 0;
+        // A switch round below t1 was published, with its F, before warp 0
+        // marked the chunk done; a later one (warp 0 may be a chunk or two
+        // ahead) is taken with its own chunk.
+        if (start == INT_MAX && b >= 0) {
+          const int t_sw = tau_pub[g_tail * 32 + lane];
+          if (t_sw < t1) {
+            start = t_sw + 1;
+            cum = fsw_sh[g_tail][lane];
+            scale.start(start);
+          }
+        }
+        return start;
+      },
+      [&](int t, const S* zr, S yt) {
+        if (ftl) {
+          const S diffF = oco::dot<S, D>(zr, x, n) - yt;
+          const S lossF = S(0.5) * oco::oabs(diffF);
+          const S gF = oco::half_sign(diffF);
+#pragma unroll
+          for (int j = 0; j < n; ++j) {
+            th[j] = th[j] + gF * zr[j];
+            w[j] = w[j] + yt * zr[j];
+          }
+          F = F + lossF;
+          cnt = cnt + S(1);
+          oco::ftl_action<S, D>(th, x, n);
+          if (open > 0) {
+            const S L = S(0.5) * (cnt - oco::dot<S, D>(x, w, n));
+            const S lead = F - L;
+#pragma unroll
+            for (int g = 0; g < kMaxThresholds; ++g) {
+              if (g < G && tau[g] == T && lead >= thr[g]) {
+                tau[g] = t;
+                fsw_sh[g][lane] = F;
+                tau_pub[g * 32 + lane] = t;
+                --open;
+              }
+            }
+          }
+        } else {
+          oco::ftrl_action_scaled<S, D>(th, x, n, scale.take(t));
+          const S gR = oco::hinge_step<S, D>(x, zr, yt, n, cum);
+#pragma unroll
+          for (int j = 0; j < n; ++j) th[j] = th[j] + gR * zr[j];
+        }
+      });
+  if (b < 0 || role == oco::ChunkRole::kProducer) return;
+  if (ftl) {
+    // x is now ftl_action(theta): the comparator's action.
+    const S comp =
+        replay ? oco::replay_comparator_rows<S, D>(z, y, b, T, n, len, x)
+               : S(0.5) * (cnt - oco::dot<S, D>(x, w, n));
+    comp_out[b] = comp;
+    for (int g = 0; g < G; ++g) {
+      const long long i = g * B + b;
+      switch_t[i] = tau[g];
+      if (tau[g] == T) {  // never switched: the FTL track's result
+        cum_out[i] = F;
+#pragma unroll
+        for (int j = 0; j < n; ++j) x_last[i * n + j] = x[j];
+      }
+    }
+  } else if (start != INT_MAX) {
+    // Switched: the FTRL track's total and last action (zero if the switch
+    // came at the last round and the track never played).
+    const long long i = g_tail * B + b;
+    cum_out[i] = cum;
+#pragma unroll
+    for (int j = 0; j < n; ++j) x_last[i * n + j] = x[j];
+  }
 }
 
 template <typename S>
-int launch(const void* z, const void* y, const void* threshold,
-           const void* eta, const void* lengths, long long B, long long T,
-           int d, int replay, void* cum, void* comp, void* x_last,
-           void* switch_t, void* stream) {
-  if (B < 1) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = oco::grid_for(B);
-  const auto* zp = static_cast<const S*>(z);
-  const auto* yp = static_cast<const S*>(y);
-  const auto* hp = static_cast<const S*>(threshold);
-  const auto* ep = static_cast<const S*>(eta);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* cp = static_cast<S*>(cum);
-  auto* kp = static_cast<S*>(comp);
-  auto* xp = static_cast<S*>(x_last);
-  auto* tp = static_cast<long long*>(switch_t);
-  return oco::launch_for_d(d, [&](auto dc) {
-    smart_kernel<S, decltype(dc)::value><<<grid, OCO_THREADS, 0, s>>>(
-        zp, yp, hp, ep, lp, B, T, d, replay, cp, kp, xp, tp);
+int launch(const void* z, const void* y, const void* thresholds,
+           const void* scales, const void* eidx, const void* lengths,
+           long long B, long long T, int G, int d, int replay, void* cum,
+           void* comp, void* x_last, void* switch_t, void* stream) {
+  if (B < 1 || T < 1 || T >= INT_MAX || G < 1 || G > kMaxThresholds)
+    return cudaErrorInvalidValue;
+  const long long blocks = (B + 31) / 32;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    err = oco::launch_with_smem(
+        smart_kernel<S, D>, static_cast<unsigned int>(blocks), (2 + G) * 32,
+        oco::chunk_ring_bytes<S, D>(ts, kStages),
+        static_cast<cudaStream_t>(stream), static_cast<const S*>(z),
+        static_cast<const S*>(y), static_cast<const S*>(thresholds),
+        static_cast<const S*>(scales), static_cast<const int*>(eidx),
+        static_cast<const int*>(lengths), B, T, G, ts, replay,
+        static_cast<S*>(cum), static_cast<S*>(comp), static_cast<S*>(x_last),
+        static_cast<long long*>(switch_t));
   });
+  return err != cudaSuccess ? err : launched;
+}
+
+template <typename S>
+int occupancy(int G, int d, int* out) {
+  if (G < 1 || G > kMaxThresholds) return cudaErrorInvalidValue;
+  int err = cudaSuccess;
+  const int checked = oco::launch_for_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    err = oco::occupancy(smart_kernel<S, D>, (2 + G) * 32,
+                         oco::chunk_ring_bytes<S, D>(ts, kStages), out);
+  });
+  return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
 
-// Inputs: z (T, d, B) and y (T, B) time-major, threshold (B,), eta (B,),
-// lengths (B,) int32 with 0 <= len <= T.  Outputs: cum_loss (B,),
-// comp_loss (B,), x_last (d, B), switch_t (B,) int64.  Returns the
+// Inputs: z (B, T, d) and y (B, T) contiguous, thresholds (G, B), scales
+// (E, T) the FTRL scales -(eta_e / sqrt(t)), eidx (B,) int32 each
+// sequence's row of scales, lengths (B,) int32 with 0 <= len <= T;
+// 1 <= G <= 4.  Outputs: cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
+// switch_t (G, B) int64 (T where a pair never switches).  Returns the
 // cudaError_t of the launch.
 extern "C" int oco_smart_regrets_f64(const void* z, const void* y,
-                                     const void* threshold, const void* eta,
+                                     const void* thresholds,
+                                     const void* scales, const void* eidx,
                                      const void* lengths, long long B,
-                                     long long T, int d, int replay,
+                                     long long T, int G, int d, int replay,
                                      void* cum, void* comp, void* x_last,
                                      void* switch_t, void* stream) {
-  return launch<double>(z, y, threshold, eta, lengths, B, T, d, replay, cum,
-                        comp, x_last, switch_t, stream);
+  return launch<double>(z, y, thresholds, scales, eidx, lengths, B, T, G, d,
+                        replay, cum, comp, x_last, switch_t, stream);
 }
 
 extern "C" int oco_smart_regrets_f32(const void* z, const void* y,
-                                     const void* threshold, const void* eta,
+                                     const void* thresholds,
+                                     const void* scales, const void* eidx,
                                      const void* lengths, long long B,
-                                     long long T, int d, int replay,
+                                     long long T, int G, int d, int replay,
                                      void* cum, void* comp, void* x_last,
                                      void* switch_t, void* stream) {
-  return launch<float>(z, y, threshold, eta, lengths, B, T, d, replay, cum,
-                       comp, x_last, switch_t, stream);
+  return launch<float>(z, y, thresholds, scales, eidx, lengths, B, T, G, d,
+                       replay, cum, comp, x_last, switch_t, stream);
+}
+
+// Registers a thread (out[0]) and resident warps an SM (out[1]) of a
+// launch with G thresholds a sequence at feature dimension d on the
+// current card; f64 nonzero for the float64 instance.  Returns the
+// cudaError_t.
+extern "C" int oco_smart_occupancy(int f64, int G, int d, int* out) {
+  return f64 ? occupancy<double>(G, d, out) : occupancy<float>(G, d, out);
 }

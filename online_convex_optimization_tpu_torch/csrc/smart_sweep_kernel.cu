@@ -14,7 +14,8 @@
 // track, adds the same FTL losses to its total and evaluates the same lead
 // F - L: only the threshold differs.  So:
 //   - K6a, one thread per sequence, plays the FTL track once with the round
-//     step of oco::smart_round, computing the FTL action once a round (the
+//     step of K2's FTL warp (smart_kernel.cu), computing the FTL action once
+//     a round (the
 //     post-update action of round t, which the switch test scores, is round
 //     t + 1's pre-update action: the same function of the same theta).  It
 //     walks a pointer over the thresholds sorted ascending: while

@@ -59,7 +59,9 @@ class ExperimentConfig:
     out_dir: str = "results"
     dpi: int = 600                # matches the reference (driver.py:158)
     checkpoint: bool = True
-    batch_chunk: int = 4096       # max sequences per device batch
+    # Max sequences a device batch: the largest case (9,600) and the g(T)
+    # table (10,000) each fit one launch.
+    batch_chunk: int = 16384
     check: bool = True            # isfinite guard on the g(T) regrets
     device: str = "cuda"
     profile_dir: str = ""         # write a torch.profiler trace of the eval

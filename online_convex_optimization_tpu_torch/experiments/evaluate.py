@@ -7,12 +7,15 @@ and the exact mode: ``evaluate_stream_exact``, ``_band_programs``,
 ``_host_ftrl_cum_loss``).  For one case, every (run, T, replicate) scenario
 is generated on the host with the reference's seed schedule, padded to the
 largest horizon with a per-sequence length, and evaluated in chunks of
-``batch_chunk`` sequences: FTRL and FTL ride one K1 call with a flag
-vector, SMART(sqrt(2T)) and SMART(g(T)) one K2 call with a threshold
-vector.  Aggregation reproduces the reference: mean over replicates per
-run, then mean +- 1.96 * SEM across runs.  The JAX package's double-buffered
-uploads (built for a slow link to the TPU) are not ported, nor is its
-compile prewarming of the exact mode (``warm_exact_fallback``).
+``batch_chunk`` sequences (by default the whole case, up to 16,384): FTRL
+and FTL as two plays of one K1 launch (``ops/game.py::regret_plays``),
+SMART(sqrt(2T)) and SMART(g(T)) as two thresholds of one K2 launch
+(``ops/smart.py::smart_plays``), both reading one copy of the chunk after
+one contract check.  Aggregation reproduces the reference: mean over
+replicates per run, then mean +- 1.96 * SEM across runs.  The JAX
+package's double-buffered uploads (built for a slow link to the TPU) are
+not ported, nor is its compile prewarming of the exact mode
+(``warm_exact_fallback``).
 """
 
 from __future__ import annotations
@@ -29,9 +32,15 @@ import torch
 from online_convex_optimization_tpu_torch.data.rng import run_seed_schedule
 from online_convex_optimization_tpu_torch.data.sequences import stack_replicates
 from online_convex_optimization_tpu_torch.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu_torch.models.smart import simulate_smart_batch
 from online_convex_optimization_tpu_torch.ops.actions import sum_last
+from online_convex_optimization_tpu_torch.ops.game import (
+    ALG_FTL,
+    ALG_FTRL,
+    in_contract,
+    regret_plays,
+)
 from online_convex_optimization_tpu_torch.ops.hinge import normalized_hinge
+from online_convex_optimization_tpu_torch.ops.smart import smart_plays
 from online_convex_optimization_tpu_torch.utils.stats import mean_ci
 
 ALGO_KEYS = ("FTRL", "FTL", "SMART", "EMP")  # driver.py:43
@@ -118,7 +127,7 @@ def evaluate_stream_with_stats(
     base_seed: int = 0,
     eta0: float = math.sqrt(2.0),
     dtype=np.float64,
-    batch_chunk: int = 4096,
+    batch_chunk: int = 16384,
     stream_name: str = "",
     progress: bool = True,
     device="cuda",
@@ -149,7 +158,8 @@ def evaluate_stream_with_stats(
     thresh_theory = np.sqrt(2.0 * lengths).astype(dtype)
     thresh_emp = np.asarray([g_emp[t] for t in all_T], dtype=dtype)
 
-    # ---- chunked device evaluation: four algorithms, two kernel calls ----
+    # ---- device evaluation: four algorithms, one K1 and one K2 launch a
+    # chunk ----
     regrets = {k: np.empty(B) for k in ALGO_KEYS}
     starts = range(0, B, batch_chunk)
     iterator = starts
@@ -161,21 +171,18 @@ def evaluate_stream_with_stats(
             pass
     for s in iterator:
         e = min(s + batch_chunk, B)
-        n = e - s
         zd = torch.from_numpy(z[s:e]).to(device)
         yd = torch.from_numpy(y[s:e]).to(device)
-        z2, y2 = torch.cat([zd, zd]), torch.cat([yd, yd])
-        len2 = np.concatenate([lengths[s:e], lengths[s:e]])
-        flags = np.concatenate([np.zeros(n, np.int32), np.ones(n, np.int32)])
-        lin = simulate_linear_batch(z2, y2, flags, eta0, len2)
-        th2 = np.concatenate([thresh_theory[s:e], thresh_emp[s:e]])
-        sm = simulate_smart_batch(z2, y2, th2, eta0, len2)
-        lin_reg = lin.regret.cpu().numpy()
-        sm_reg = sm.regret.cpu().numpy()
-        regrets["FTRL"][s:e] = lin_reg[:n]
-        regrets["FTL"][s:e] = lin_reg[n:]
-        regrets["SMART"][s:e] = sm_reg[:n]
-        regrets["EMP"][s:e] = sm_reg[n:]
+        ld = torch.from_numpy(lengths[s:e].astype(np.int32)).to(device)
+        replay = not in_contract(zd, yd, ld)
+        cum, comp, _ = regret_plays(zd, yd, (ALG_FTRL, ALG_FTL), eta0, ld,
+                                    replay)
+        ths = torch.from_numpy(np.stack([thresh_theory[s:e],
+                                         thresh_emp[s:e]])).to(device)
+        cum_s, comp_s, _, _ = smart_plays(zd, yd, ths, eta0, ld, replay)
+        out = torch.cat([cum - comp, cum_s - comp_s]).cpu().numpy()
+        for k, row in zip(ALGO_KEYS, out):
+            regrets[k][s:e] = row
 
     # ---- failure containment: a non-finite scenario is dropped, with a
     # warning, instead of poisoning a mean ----

@@ -3,11 +3,11 @@
 Counterpart of ``online_convex_optimization_tpu/experiments/gt.py``
 ``estimate_g`` and ``estimate_g_exact`` (with ``_load_g_cache`` /
 ``_save_g_cache``); reference algorithms.py:135-171 and
-exact_ftl_driver.py:64-117.  Per horizon, all runs go through FTRL as device
-batches of at most ``chunk`` sequences, and the maximum regret is kept with
-the reference's 0.0 floor.  Horizons are not padded to the grid's largest
-as in the JAX package, where padding let the grid share one compiled
-program: here nothing is compiled per shape.  The table is checkpointed
+exact_ftl_driver.py:64-117.  The runs of every missing horizon go through
+FTRL together, padded to the largest missing horizon with a per-sequence
+length, in device batches of at most ``chunk`` sequences (one K1 launch
+for the whole reference table), and each horizon's maximum regret is kept
+with the reference's 0.0 floor.  The table is checkpointed
 per horizon with the value-determining config as provenance, so an
 interrupted sweep resumes and a sweep under another config recomputes.
 
@@ -32,7 +32,11 @@ from online_convex_optimization_tpu_torch.data.sequences import (
     sample_g_instance,
 )
 from online_convex_optimization_tpu_torch.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu_torch.utils.debug import assert_finite
+from online_convex_optimization_tpu_torch.ops.game import (
+    ALG_FTRL,
+    in_contract,
+    regret_plays,
+)
 
 
 def _load_g_cache(cache_path: Optional[str], key: dict) -> Dict[int, float]:
@@ -74,7 +78,7 @@ def estimate_g(
     base_seed: int = 0,
     eta0: float = math.sqrt(2.0),
     dtype=np.float64,
-    chunk: int = 4096,
+    chunk: int = 16384,
     cache_path: Optional[str] = None,
     progress: bool = True,
     check: bool = True,
@@ -82,39 +86,73 @@ def estimate_g(
 ) -> Dict[int, float]:
     """g(T) table on ``device``, resuming from ``cache_path`` when its
     provenance matches.  ``dtype`` (NumPy) is the working precision: the
-    instances are generated in it and keep it on the device."""
+    instances are generated in it and keep it on the device.
+
+    Every missing horizon's runs go through FTRL together: the instances,
+    horizon after horizon, zero-padded to the largest missing horizon with
+    a per-sequence length, in launches of at most ``chunk`` sequences (one
+    launch for the reference's 10 x 1,000), and each horizon's maximum is
+    taken on the device."""
     meta_key = {"kind": "g_plain", "runs": int(runs),
                 "base_seed": int(base_seed), "eta0": float(eta0),
                 "dtype": np.dtype(dtype).name,
                 "device": torch.device(device).type}
     g = _load_g_cache(cache_path, meta_key)
     todo = [int(t) for t in T_grid if int(t) not in g]
-    iterator = todo
-    if progress and todo:
+    if runs < 1:
+        g.update((T, 0.0) for T in todo)
+        todo = []
+    if not todo:
+        return {int(t): g[int(t)] for t in T_grid}
+    # Instance k is run k % runs of horizon todo[k // runs].
+    n_all = len(todo) * runs
+    T_pad = max(todo)
+    starts = range(0, n_all, chunk)
+    if progress:
         try:
             from tqdm import tqdm
-            iterator = tqdm(todo, desc="Estimating g(T) on random sequences")
+            starts = tqdm(starts, desc="Estimating g(T) on random sequences")
         except ImportError:
             pass
-
-    for T in iterator:
-        max_regret = 0.0
-        for start in range(0, runs, chunk):
-            n = min(chunk, runs - start)
-            z = np.empty((n, T, 5), dtype=dtype)
-            y = np.empty((n, T), dtype=dtype)
-            for i in range(n):
-                z[i], y[i] = sample_g_instance(base_seed, T, start + i,
-                                               dtype=dtype)
-            res = simulate_linear_batch(torch.from_numpy(z).to(device),
-                                        torch.from_numpy(y).to(device),
-                                        0, eta0)
-            if check:
-                assert_finite(res.regret, f"FTRL regret of the g(T) batch "
-                              f"at T={T} (runs {start}..{start + n - 1})")
-            max_regret = max(max_regret, float(res.regret.max()))
-        g[T] = max_regret
-        if cache_path:
+    best = torch.zeros(len(todo), dtype=torch.float64)
+    for start in starts:
+        n = min(chunk, n_all - start)
+        z = np.zeros((n, T_pad, 5), dtype=dtype)
+        y = np.zeros((n, T_pad), dtype=dtype)
+        horizon = np.empty(n, np.int64)
+        for i in range(n):
+            h, run = divmod(start + i, runs)
+            T = todo[h]
+            z[i, :T], y[i, :T] = sample_g_instance(base_seed, T, run,
+                                                   dtype=dtype)
+            horizon[i] = h
+        lengths = np.asarray(todo)[horizon]
+        zd, yd = torch.from_numpy(z).to(device), torch.from_numpy(y).to(device)
+        ld = torch.from_numpy(lengths.astype(np.int32)).to(device)
+        cum, comp, _ = regret_plays(zd, yd, (ALG_FTRL,), eta0, ld,
+                                    not in_contract(zd, yd, ld))
+        regret = (cum[0] - comp[0]).double()
+        hd = torch.from_numpy(horizon).to(device)
+        if check:
+            bad = torch.zeros(len(todo), dtype=torch.int64, device=device)
+            bad.index_add_(0, hd, (~torch.isfinite(regret)).to(torch.int64))
+            for h in np.flatnonzero(bad.cpu().numpy()):
+                lo = max(start, h * runs) - h * runs
+                hi = min(start + n, (h + 1) * runs) - 1 - h * runs
+                raise FloatingPointError(
+                    f"FTRL regret of the g(T) batch at T={todo[h]} (runs "
+                    f"{lo}..{hi}): {int(bad[h])} of {hi - lo + 1} entries "
+                    f"are not finite")
+        # Each horizon's maximum over this launch's runs, floored at 0.0 as
+        # the reference's running maximum is.
+        part = torch.zeros(len(todo), dtype=torch.float64, device=device)
+        part.scatter_reduce_(0, hd, regret, reduce="amax")
+        best = torch.maximum(best, part.cpu())
+        done = [h for h in range(len(todo)) if (h + 1) * runs <= start + n
+                and (h + 1) * runs > start]
+        for h in done:
+            g[todo[h]] = float(best[h])
+        if cache_path and done:
             _save_g_cache(cache_path, g, meta_key,
                           {"chunk": int(chunk), "check": bool(check)})
     return {int(t): g[int(t)] for t in T_grid}

@@ -4,8 +4,12 @@ K3e (the packed game API) and K7 (the generation-fused game).
 Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
 
 - ``regrets_fused`` (TPU kernel ``_regret_kernel``, plus its VMEM-state
-  twin ``_regret_kernel_dloop``): CUDA kernel ``csrc/regret_kernel.cu``,
-  plain version ``regrets_fused_reference``;
+  twin ``_regret_kernel_dloop``): CUDA kernel ``csrc/regret_kernel.cu``
+  (``launch_regrets``) on the caller's ``(B, T, d)`` layout with the
+  ``(E, T)`` scale table of ``eta_table``, plain version
+  ``regrets_fused_reference``; ``regret_plays``, the evaluation's entry,
+  plays each sequence under P <= 8 flags in one launch from one copy of z,
+  plain version ``regret_plays_reference``;
 - ``eta_sweep`` (TPU ``eta_sweep_packed`` / ``_sweep_kernel``): the FTRL
   regret of every (sequence, eta) pair, CUDA kernel ``csrc/sweep_kernel.cu``
   on the caller's ``(B, T, d)`` layout with the ``(E, T)`` scale table
@@ -47,12 +51,13 @@ bit.
 What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round against a serial chain of about 3d+10 flops per round (action with
 its sqrt and divide, dot product, update).  Every design keeps that chain
-in the reference's rounding order, one thread per sequence (K5: per
-(sequence, setting)) with state in registers.  K1, K3 and K4 feed it
+in the reference's rounding order, one thread per play (K5: per
+(sequence, setting)) with state in registers.  K3 and K4 feed it
 coalesced time-major ``(T, d, B)`` loads so that many chains are in flight
-at once; K5 stages the caller's rows in shared memory for several settings
-at once (``csrc/oco_tiles.cuh``), so its rows cross L2 once per block and
-its round is bound by the FP64 pipe's issue.
+at once; K1 and K5 stage the caller's rows in shared memory for all the
+warps of a block (``csrc/oco_tiles.cuh``), so no load sits in a round and
+the rows cross L2 once per block; K5's round is then bound by the FP64
+pipe's issue, K1's by its chain.
 
 The TPU packers and tile budget (``_choose_tiles``, ``sublanes_for``, the
 (S, 128) layouts) are not ported: they budget VMEM and the vreg tile.  A
@@ -179,29 +184,33 @@ def hinge_round(theta, cum, x, z_t, y_t, v=None):
     loss, g = normalized_hinge(q, y_t), hinge_subgradient(q, y_t)
     if v is not None:
         loss, g = v * loss, v * g
-    return theta + g[:, None] * z_t, cum + loss
+    return theta + g[..., None] * z_t, cum + loss
 
 
-def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
+def regret_plays_reference(z, y, flags, eta, lengths, *, replay=False):
     """Plain PyTorch version of kernel K1, the same arithmetic in the same
-    order: a loop over T vectorized over B.
+    order: a loop over T vectorized over the plays and the sequences, play
+    p of sequence b being the game with ``flags[p, b]``.  z is never
+    repeated over the plays.
 
     Args:
-      z: ``(B, T, d)``; y: ``(B, T)``; alg_flag ``(B,)`` int (0 = FTRL,
+      z: ``(B, T, d)``; y: ``(B, T)``; flags ``(P, B)`` int (0 = FTRL,
         1 = FTL); eta ``(B,)``; lengths ``(B,)`` int.
       replay: score the comparator by replaying the rows instead of by
         the hinge identity.
 
     Returns:
-      ``(cum_loss (B,), comp_loss (B,), x_last (B, d))``.
+      ``(cum_loss (P, B), comp_loss (P, B), x_last (P, B, d))``.
     """
     B, T, d = z.shape
+    P = flags.shape[0]
     dtype = z.dtype
-    theta = z.new_zeros((B, d))
+    theta = z.new_zeros((P, B, d))
     w = z.new_zeros((B, d))
-    x_last = z.new_zeros((B, d))
-    cum = z.new_zeros((B,))
-    is_ftrl = (alg_flag == ALG_FTRL)[:, None]
+    x_last = z.new_zeros((P, B, d))
+    cum = z.new_zeros((P, B))
+    is_ftrl = (flags == ALG_FTRL)[..., None]
+    eta = eta[None, :]
     T_run = int(lengths.max())
     for t in range(T_run):
         valid = lengths > t
@@ -214,7 +223,7 @@ def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
         x_last = torch.where(valid[:, None], x, x_last)
     x_c = ftl_action(theta)
     if replay:
-        comp = z.new_zeros((B,))
+        comp = z.new_zeros((P, B))
         for t in range(T_run):
             v = (lengths > t).to(dtype)
             comp = comp + v * normalized_hinge(sum_last(z[:, t] * x_c),
@@ -224,35 +233,99 @@ def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
     return cum, comp, x_last
 
 
-def launch_time_major(z_tm, y_tm, flags, eta, lengths, replay: bool):
-    """Launch kernel K1 on time-major CUDA inputs: z_tm ``(T, d, B)``, y_tm
-    ``(T, B)``, contiguous, with per-sequence ``flags`` (int32), ``eta`` and
-    ``lengths`` (int32) as ``regrets_fused`` prepares them.  Returns
-    ``(cum_loss (B,), comp_loss (B,), x_last (d, B))``."""
+def regrets_fused_reference(z, y, alg_flag, eta, lengths, *, replay=False):
+    """``regret_plays_reference`` with one play a sequence: alg_flag
+    ``(B,)`` int (0 = FTRL, 1 = FTL).  Returns ``(cum_loss (B,),
+    comp_loss (B,), x_last (B, d))``."""
+    cum, comp, x_last = regret_plays_reference(z, y, alg_flag[None], eta,
+                                               lengths, replay=replay)
+    return cum[0], comp[0], x_last[0]
+
+
+def eta_table(eta, B: int, T: int, dtype, device):
+    """The ``(E, T)`` FTRL scale table of ``eta`` (a scalar or one value a
+    sequence) and each sequence's row, ``(B,)`` int32: E is the number of
+    distinct values (``torch.unique`` syncs with the host where eta is a
+    vector; a scalar makes one row)."""
+    eta = torch.as_tensor(eta, dtype=dtype, device=device)
+    if eta.ndim == 0:
+        return (sweep_scales(eta.reshape(1), T),
+                torch.zeros((B,), dtype=torch.int32, device=device))
+    values, index = torch.unique(per_sequence(eta, B, dtype, device),
+                                 return_inverse=True)
+    return sweep_scales(values, T), index.to(torch.int32)
+
+
+def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
+    """Launch kernel K1 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
+    with the plays' ``flags`` ``(P, B)`` (int32, P <= 8), the ``(E, T)``
+    scale table and each sequence's row ``eidx`` (``eta_table``), and
+    ``lengths`` (int32).  Returns ``(cum_loss (P, B), comp_loss (P, B),
+    x_last (P, B, d))``."""
     global LAUNCHES
-    T, d, B = z_tm.shape
+    B, T, d = z.shape
+    P = flags.shape[0]
     check_kernel_d(d)
     lib = cuda_build.load()
-    fn = (lib.oco_regrets_fused_f64 if z_tm.dtype == torch.float64
+    fn = (lib.oco_regrets_fused_f64 if z.dtype == torch.float64
           else lib.oco_regrets_fused_f32)
-    with torch.cuda.device(z_tm.device):
-        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
+    with torch.cuda.device(z.device):
+        cum = torch.empty((P, B), dtype=z.dtype, device=z.device)
         comp = torch.empty_like(cum)
-        x_last = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
-        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
-                 eta.data_ptr(), lengths.data_ptr(), B, d, int(replay),
-                 cum.data_ptr(), comp.data_ptr(), x_last.data_ptr(),
-                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+        x_last = torch.empty((P, B, d), dtype=z.dtype, device=z.device)
+        err = fn(z.data_ptr(), y.data_ptr(), flags.data_ptr(),
+                 scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
+                 P, d, int(replay), cum.data_ptr(), comp.data_ptr(),
+                 x_last.data_ptr(),
+                 torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"regret kernel launch failed: CUDA error {err}")
         LAUNCHES += 1
     return cum, comp, x_last
 
 
+def regret_occupancy(plays: int, d: int, dtype) -> tuple:
+    """Registers a thread and resident warps an SM of a K1 launch with
+    ``plays`` plays a sequence at feature dimension ``d`` on the current
+    card."""
+    out = (ctypes.c_int * 2)()
+    err = cuda_build.load().oco_regrets_occupancy(
+        int(dtype == torch.float64), plays, d, out)
+    if err != 0:
+        raise RuntimeError(f"K1 occupancy query failed: CUDA error {err}")
+    return out[0], out[1]
+
+
 def time_major(z: torch.Tensor, y: torch.Tensor):
     """``(B, T, d)`` / ``(B, T)`` -> contiguous ``(T, d, B)`` / ``(T, B)``:
     one thread per sequence then reads neighbouring addresses."""
     return z.permute(1, 2, 0).contiguous(), y.t().contiguous()
+
+
+def regret_plays(z: torch.Tensor, y: torch.Tensor, alg_flags, eta: float,
+                 lengths: torch.Tensor, replay: bool):
+    """Every sequence played once per flag of ``alg_flags`` (P <= 8 flags,
+    0 = FTRL, 1 = FTL) with the scalar ``eta``: one K1 launch on a CUDA
+    tensor, reading one copy of z, or ``regret_plays_reference`` on a CPU
+    tensor.  The evaluation's entry: ``lengths`` is a valid ``(B,)`` int32
+    tensor on z's device and ``replay`` the caller's ``in_contract``
+    verdict, so nothing here syncs with the host.
+
+    Returns:
+      ``(cum_loss (P, B), comp_loss (P, B), x_last (P, B, d))``.
+    """
+    B, T, d = check_batch(z, y)
+    flags = torch.tensor(alg_flags, dtype=torch.int32, device=z.device)
+    flags = flags[:, None].expand(-1, B).contiguous()
+    if z.device.type == "cuda":
+        return launch_regrets(z.contiguous(), y.contiguous(), flags,
+                              *eta_table(eta, B, T, z.dtype, z.device),
+                              lengths, replay)
+    if z.device.type == "cpu":
+        return regret_plays_reference(
+            z, y, flags, per_sequence(eta, B, z.dtype, z.device), lengths,
+            replay=replay)
+    raise ValueError(f"unsupported device {z.device}")
 
 
 def regrets_fused(z: torch.Tensor, y: torch.Tensor, alg_flag, eta,
@@ -273,16 +346,17 @@ def regrets_fused(z: torch.Tensor, y: torch.Tensor, alg_flag, eta,
     """
     B, T, d = check_batch(z, y)
     flags = per_sequence(alg_flag, B, torch.int32, z.device)
-    eta = per_sequence(eta, B, z.dtype, z.device)
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
-        cum, comp, x_last = launch_time_major(*time_major(z, y), flags, eta,
-                                              lengths, replay)
-        return cum, comp, x_last.t()
+        cum, comp, x_last = launch_regrets(
+            z.contiguous(), y.contiguous(), flags[None],
+            *eta_table(eta, B, T, z.dtype, z.device), lengths, replay)
+        return cum[0], comp[0], x_last[0]
     if z.device.type == "cpu":
-        return regrets_fused_reference(z, y, flags, eta, lengths,
-                                       replay=replay)
+        return regrets_fused_reference(
+            z, y, flags, per_sequence(eta, B, z.dtype, z.device), lengths,
+            replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
 

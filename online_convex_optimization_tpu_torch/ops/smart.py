@@ -4,7 +4,11 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
 
 - ``smart_regrets`` (TPU ``smart_regrets_packed``, kernel ``_smart_kernel``,
   round step ``_smart_round``): the whole algorithm in one pass, CUDA kernel
-  ``csrc/smart_kernel.cu``, plain version ``smart_regrets_reference``;
+  ``csrc/smart_kernel.cu`` (``launch_smart``) on the caller's ``(B, T, d)``
+  layout, plain version ``smart_regrets_reference``; ``smart_plays``, the
+  evaluation's entry, runs G <= 4 thresholds of each sequence in one
+  launch (the FTL track once, one FTL action a round, the FTRL tails in
+  warps of their own), plain mirror ``smart_plays_reference``;
 - ``smart_sweep`` (TPU ``smart_sweep_packed``, kernel
   ``_smart_sweep_kernel``): the regret and switch round of every (sequence,
   threshold) pair with a scalar eta, two launches of
@@ -20,8 +24,8 @@ Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
 tensor, at any d, and launches the kernel on a CUDA tensor, for d up to
 512 (raising above it); there is no fallback between them.  K6 computes
-what K2's round step (``oco::smart_round`` in ``csrc/oco_common.cuh``)
-computes, in the same order, so a sweep column equals K2 bit for bit.
+what K2's FTL and tail warps compute, in the same order, so a sweep column
+equals K2 bit for bit.
 
 Semantics are those of ``models/smart.py`` (the scan the JAX package holds
 against the golden oracle): an always-on FTL track; before the switch, the
@@ -35,13 +39,16 @@ data and by replaying the rows otherwise (``game.in_contract``).
 
 What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round, read once, against a serial chain of about 3d+10 flops per track per
-round.  K2 keeps the reference's rounding order, one thread per sequence
-with state in registers, and coalesced time-major ``(T, d, B)`` loads; K6's
+round, each with a correctly rounded sqrt and divide.  Every kernel keeps
+the reference's rounding order with state in registers; K2 runs the FTL
+track and the FTRL tails in warps of their own over staged rows, and K6's
 two launches are bound by the latency of their longest chains (the source
-note of ``csrc/smart_sweep_kernel.cu``).
+notes of ``csrc/smart_kernel.cu`` and ``csrc/smart_sweep_kernel.cu``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -54,13 +61,13 @@ from online_convex_optimization_tpu_torch.ops.actions import (
 from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
     check_kernel_d,
+    eta_table,
     in_contract,
     length_order,
     per_sequence,
     per_sequence_lengths,
     settings_grid,
     sweep_scales,
-    time_major,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import (
     hinge_subgradient,
@@ -138,31 +145,142 @@ def smart_regrets_reference(z, y, threshold, eta, lengths, *, replay=False):
     return total, comp, x_last, tau
 
 
-def launch_time_major(z_tm, y_tm, threshold, eta, lengths, replay: bool):
-    """Launch kernel K2 on time-major CUDA inputs (``game.time_major``) with
-    per-sequence ``threshold``, ``eta`` and ``lengths`` (int32) as
-    ``smart_regrets`` prepares them.  Returns ``(cum_loss (B,),
-    comp_loss (B,), x_last (d, B), switch_t (B,))``."""
+def smart_plays_reference(z, y, thresholds, eta, lengths, *, replay=False):
+    """Plain mirror of kernel K2's design: ``smart_regrets_reference``'s
+    arithmetic with G thresholds a sequence, the FTL track once per
+    sequence with one FTL action a round (the post-update action of round
+    t, which the switch test scores, is round t + 1's pre-update action),
+    and each switched pair's FTRL tail from the FTL losses F at its switch.
+    It equals ``smart_regrets_reference`` run once per threshold row bit for
+    bit (tests hold it).
+
+    Args:
+      z: ``(B, T, d)``; y: ``(B, T)``; thresholds ``(G, B)``; eta ``(B,)``;
+        lengths ``(B,)`` int.
+      replay: score the final comparator by replaying the rows instead of
+        by the hinge identity.
+
+    Returns:
+      ``(cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
+      switch_t (G, B) int64)``.
+    """
+    B, T, d = z.shape
+    G = thresholds.shape[0]
+    dtype = z.dtype
+    theta = z.new_zeros((B, d))        # FTL track
+    w = z.new_zeros((B, d))
+    x = z.new_zeros((B, d))            # the pre-update FTL action
+    F = z.new_zeros((B,))
+    cnt = z.new_zeros((B,))
+    theta_r = z.new_zeros((G, B, d))   # FTRL tails, fresh at the switch
+    total = z.new_zeros((G, B))
+    x_r = z.new_zeros((G, B, d))
+    tau = torch.full((G, B), T, dtype=torch.int64, device=z.device)
+    eta = eta[None, :]
+    T_run = int(lengths.max())
+    for t in range(T_run):
+        valid = lengths > t
+        v = valid.to(dtype)
+        z_t, y_t = z[:, t], y[:, t]
+        # FTL track: the carried action, the update, then the next action.
+        q = sum_last(z_t * x)
+        theta = theta + (v * hinge_subgradient(q, y_t))[:, None] * z_t
+        F = F + v * normalized_hinge(q, y_t)
+        w = w + (v * y_t)[:, None] * z_t
+        cnt = cnt + v
+        x = ftl_action(theta)
+        # Tails: the rounds after the switch.
+        active = (tau < t) & valid
+        x_a = ftrl_action(theta_r, t + 1, eta)
+        q_r = sum_last(z_t * x_a)
+        total = torch.where(active, total + normalized_hinge(q_r, y_t), total)
+        theta_r = theta_r + (active.to(dtype) * hinge_subgradient(q_r, y_t)
+                             )[..., None] * z_t
+        x_r = torch.where(active[..., None], x_a, x_r)
+        # Switch test on the post-update action (applies next round); a
+        # switched pair's tail starts from F.
+        lead = F - 0.5 * (cnt - sum_last(x * w))
+        hit = valid & (tau == T) & (lead >= thresholds)
+        tau = torch.where(hit, t, tau)
+        total = torch.where(hit, F, total)
+    switched = tau < T
+    if replay:
+        comp = z.new_zeros((B,))
+        for t in range(T_run):
+            v = (lengths > t).to(dtype)
+            comp = comp + v * normalized_hinge(sum_last(z[:, t] * x), y[:, t])
+    else:
+        comp = 0.5 * (cnt - sum_last(x * w))
+    cum = torch.where(switched, total, F)
+    x_last = torch.where(switched[..., None], x_r, x)
+    return cum, comp, x_last, tau
+
+
+def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
+    """Launch kernel K2 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
+    with ``thresholds`` ``(G, B)`` (G <= 4), the ``(E, T)`` scale table and
+    each sequence's row ``eidx`` (``game.eta_table``), and ``lengths``
+    (int32).  Returns ``(cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
+    switch_t (G, B))``."""
     global LAUNCHES
-    T, d, B = z_tm.shape
+    B, T, d = z.shape
+    G = thresholds.shape[0]
     check_kernel_d(d)
     lib = cuda_build.load()
-    fn = (lib.oco_smart_regrets_f64 if z_tm.dtype == torch.float64
+    fn = (lib.oco_smart_regrets_f64 if z.dtype == torch.float64
           else lib.oco_smart_regrets_f32)
-    with torch.cuda.device(z_tm.device):
-        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
-        comp = torch.empty_like(cum)
-        x_last = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
-        tau = torch.empty((B,), dtype=torch.int64, device=z_tm.device)
-        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), threshold.data_ptr(),
-                 eta.data_ptr(), lengths.data_ptr(), B, T, d, int(replay),
-                 cum.data_ptr(), comp.data_ptr(), x_last.data_ptr(),
-                 tau.data_ptr(),
-                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+    with torch.cuda.device(z.device):
+        cum = torch.empty((G, B), dtype=z.dtype, device=z.device)
+        comp = torch.empty((B,), dtype=z.dtype, device=z.device)
+        x_last = torch.empty((G, B, d), dtype=z.dtype, device=z.device)
+        tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
+        err = fn(z.data_ptr(), y.data_ptr(), thresholds.data_ptr(),
+                 scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
+                 G, d, int(replay), cum.data_ptr(), comp.data_ptr(),
+                 x_last.data_ptr(), tau.data_ptr(),
+                 torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"SMART kernel launch failed: CUDA error {err}")
         LAUNCHES += 1
     return cum, comp, x_last, tau
+
+
+def smart_occupancy(thresholds: int, d: int, dtype) -> tuple:
+    """Registers a thread and resident warps an SM of a K2 launch with
+    ``thresholds`` thresholds a sequence at feature dimension ``d`` on the
+    current card."""
+    out = (ctypes.c_int * 2)()
+    err = cuda_build.load().oco_smart_occupancy(
+        int(dtype == torch.float64), thresholds, d, out)
+    if err != 0:
+        raise RuntimeError(f"K2 occupancy query failed: CUDA error {err}")
+    return out[0], out[1]
+
+
+def smart_plays(z: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
+                eta: float, lengths: torch.Tensor, replay: bool):
+    """SMART with G thresholds a sequence (``thresholds`` ``(G, B)`` on z's
+    device, G <= 4) and the scalar ``eta``: one K2 launch on a CUDA tensor,
+    or ``smart_plays_reference`` on a CPU tensor.  The evaluation's entry:
+    ``lengths`` is a valid ``(B,)`` int32 tensor on z's device and
+    ``replay`` the caller's ``in_contract`` verdict, so nothing here syncs
+    with the host.
+
+    Returns:
+      ``(cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
+      switch_t (G, B))``.
+    """
+    B, T, d = check_batch(z, y)
+    thresholds = thresholds.to(z.dtype).contiguous()
+    if z.device.type == "cuda":
+        return launch_smart(z.contiguous(), y.contiguous(), thresholds,
+                            *eta_table(eta, B, T, z.dtype, z.device),
+                            lengths, replay)
+    if z.device.type == "cpu":
+        return smart_plays_reference(
+            z, y, thresholds, per_sequence(eta, B, z.dtype, z.device),
+            lengths, replay=replay)
+    raise ValueError(f"unsupported device {z.device}")
 
 
 def smart_regrets(z: torch.Tensor, y: torch.Tensor, threshold, eta,
@@ -183,16 +301,17 @@ def smart_regrets(z: torch.Tensor, y: torch.Tensor, threshold, eta,
     """
     B, T, d = check_batch(z, y)
     threshold = per_sequence(threshold, B, z.dtype, z.device)
-    eta = per_sequence(eta, B, z.dtype, z.device)
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
-        cum, comp, x_last, tau = launch_time_major(
-            *time_major(z, y), threshold, eta, lengths, replay)
-        return cum, comp, x_last.t(), tau
+        cum, comp, x_last, tau = launch_smart(
+            z.contiguous(), y.contiguous(), threshold[None],
+            *eta_table(eta, B, T, z.dtype, z.device), lengths, replay)
+        return cum[0], comp, x_last[0], tau[0]
     if z.device.type == "cpu":
-        return smart_regrets_reference(z, y, threshold, eta, lengths,
-                                       replay=replay)
+        return smart_regrets_reference(
+            z, y, threshold, per_sequence(eta, B, z.dtype, z.device),
+            lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
 

@@ -50,13 +50,15 @@ _SIGNATURES = {
     "oco_synthetic_regrets_f32": [_KEYS, _F, _LL, _LL, _I, _I, _F, _P, _P],
     "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
     "oco_admm_occupancy_f32": [_I, _I, _P],
+    "oco_regrets_occupancy": [_I, _I, _I, _P],
+    "oco_smart_occupancy": [_I, _I, _I, _P],
 }
 for _ty in ("f64", "f32"):
     _SIGNATURES.update({
-        f"oco_regrets_fused_{_ty}": [_P, _P, _P, _P, _P, _LL, _I, _I,
-                                     _P, _P, _P, _P],
-        f"oco_smart_regrets_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                                     _P, _P, _P, _P, _P],
+        f"oco_regrets_fused_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
+                                    [_P] * 4,
+        f"oco_smart_regrets_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
+                                    [_P] * 5,
         f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P, _P],
         f"oco_smart_prefix_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
                                    [_P] * 4,

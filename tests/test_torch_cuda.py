@@ -100,6 +100,57 @@ def test_smart_kernel_matches_plain(cuda, dtype, d, contract):
     assert torch.equal(got[3], want[3])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d,contract", [(5, True), (3, True), (65, True),
+                                        (5, False)])
+def test_plays_kernels_equal_plain_bit_for_bit(cuda, dtype, d, contract):
+    """The evaluation's entries: K1 with two plays a sequence and K2 with
+    two and four thresholds a sequence, one launch each, equal their plain
+    versions on the card in every bit."""
+    z, y, lengths = _batch(300, 129, d, seed=30 + d, contract=contract)
+    zt, yt = _to((z, y), cuda, dtype)
+    ln = game.per_sequence(lengths, 300, torch.int32, cuda)
+    replay = not game.in_contract(zt, yt, ln)
+    before = game.LAUNCHES
+    got = game.regret_plays(zt, yt, (0, 1), 1.3, ln, replay)
+    torch.cuda.synchronize()
+    assert game.LAUNCHES == before + 1
+    flags = torch.tensor([[0] * 300, [1] * 300], dtype=torch.int32,
+                         device=cuda)
+    eta = game.per_sequence(1.3, 300, dtype, cuda)
+    want = game.regret_plays_reference(zt, yt, flags, eta, ln, replay=replay)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for G in (2, 4):
+        ths = torch.stack([torch.full((300,), 0.5 + 2 * g, dtype=dtype,
+                                      device=cuda) for g in range(G - 1)]
+                          + [torch.sqrt(2.0 * ln.to(dtype))])
+        before = smart.LAUNCHES
+        got = smart.smart_plays(zt, yt, ths, 1.3, ln, replay)
+        torch.cuda.synchronize()
+        assert smart.LAUNCHES == before + 1
+        want = smart.smart_plays_reference(zt, yt, ths, eta, ln,
+                                           replay=replay)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_main_path_launches_once_a_case(cuda):
+    """The g(T) table is one K1 launch; a case is one K1 and one K2
+    launch."""
+    from online_convex_optimization_tpu_torch.experiments.evaluate import (
+        evaluate_stream_with_stats)
+    from online_convex_optimization_tpu_torch.experiments.gt import (
+        estimate_g)
+    k1, k2 = game.LAUNCHES, smart.LAUNCHES
+    g = estimate_g((40, 80), runs=20, progress=False, device="cuda")
+    assert (game.LAUNCHES, smart.LAUNCHES) == (k1 + 1, k2)
+    evaluate_stream_with_stats(CASES["Massart noise 10%"], (40, 80), g,
+                               runs=3, replicates=4, progress=False,
+                               device="cuda")
+    assert (game.LAUNCHES, smart.LAUNCHES) == (k1 + 2, k2 + 1)
+
+
 @pytest.mark.parametrize("title", ["Label flips", "Switching leaders"])
 @pytest.mark.parametrize("T", [200, 800])
 def test_deterministic_families_match_golden_on_card(cuda, title, T):

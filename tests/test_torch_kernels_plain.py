@@ -173,7 +173,8 @@ def test_wrappers_reject_bad_inputs():
     # (the JAX package's _D_KERNEL_MAX) before it reaches the library.
     z = torch.zeros((2, 4, 513), dtype=torch.float64)
     assert bool(torch.isfinite(smart.smart_regrets(z, y, 1.0, 1.0)[0]).all())
-    args = (*game.time_major(z, y), *(torch.ones(2, dtype=torch.float64),) * 2,
+    scales, eidx = game.eta_table(1.0, 2, 4, torch.float64, "cpu")
+    args = (z, y, torch.ones((1, 2), dtype=torch.float64), scales, eidx,
             torch.full((2,), 4, dtype=torch.int32), False)
     with pytest.raises(ValueError, match="d <= 512"):
-        smart.launch_time_major(*args)
+        smart.launch_smart(*args)
