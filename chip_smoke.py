@@ -76,13 +76,21 @@ non-zero without printing a result):
                FTL, regression streams generated on the card) against its
                plain version (1e-9 f64, 5e-4 f32), with a digest of its
                outputs; ball_ls_action (K9) on all 4,194,304 prefix
-               statistics of that batch against trs_solve_reference, its
-               counter rising; K8's x_c against K9 on the final
-               statistics bit for bit; the Newton passes each solve needs
-               there (the plain mirror of the kernels' exit, on the card),
-               with K8's per-lane and warp-max totals; K8 and K9 timed,
-               K8 also on one warp (its time a Newton pass); their bounds
-               count each solve at its own passes.
+               statistics of that batch against trs_solve_reference bit
+               for bit (torch.equal), its counter rising; K9 on the
+               prefixes in a random order equal to the permuted output;
+               K8's x_c against K9 on the final statistics bit for bit;
+               the Newton passes each solve needs there (the plain mirror
+               of the kernels' exit, on the card), with K8's per-lane and
+               warp-max totals, and K9's mean passes a solve against the
+               warp max of one problem a thread and the refill model's
+               loop passes; K8 and K9 timed (K9 f64 and f32), K8 also on
+               one warp (its time a Newton pass); their bounds count each
+               solve at its own passes; K9's --fmad=false issue floor
+               from the SASS census of this build (a pass, a pass at the
+               cap, the rest of the loop); K9's generic instance at d = 7
+               and 32 (16 x 257 prefixes) against its plain version bit
+               for bit.
   10. pod     — the pod-scale g(T) sweep as a user runs it:
                ``experiments/pod_demo.py --t 1000 --seqs 1048576 --device
                cuda`` (8 etas, 2^20 sequences each, lane_batch 16,384:
@@ -138,10 +146,10 @@ the Newton passes these inputs need (``trs_ops``); K10's is its float
 operations at 2,000 fixed iterations (``admm_ops``); K2's counts the
 rounds this run's switch rounds need (the FTL track on every valid row,
 the switch test up to the last threshold's switch, each pair's tail).
-K1's, K2's and K10's entries add their registers a thread and resident
-warps an SM (K10's text line also prints the --fmad=false issue floor,
-the same operations at one a lane and clock, which is arithmetic and
-stays out of the kernels line).  The line before the last lists the kernels as
+K1's, K2's, K9's and K10's entries add their registers a thread and
+resident warps an SM (K9's and K10's text lines also print the
+--fmad=false issue floor, which is arithmetic and stays out of the
+kernels line).  The line before the last lists the kernels as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8
 minutes on an H100.
 """
@@ -149,7 +157,9 @@ minutes on an H100.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -1624,23 +1634,32 @@ def quad_kernels(dtype):
     torch.cuda.synchronize()
     launches = trs.TRS_LAUNCHES
     want9, p9 = timed_once(lambda: trs.trs_solve_reference(A_all, b_all))
-    e9 = max_err((x9.reshape(-1, D),), (want9,))
+    x9 = x9.reshape(-1, D)
+    e9 = max_err((x9,), (want9,))
+    same9 = bool(torch.equal(x9, want9))
     n = A_all.shape[0]
     size = (A_all.numel() + b_all.numel()) * A_all.element_size()
     print(f"[9 quadratic] ball_ls_action (K9) on all {n} prefix statistics "
           f"({size / 1e6:.1f} MB of input) {dtype}: launches {launches}; vs "
-          f"plain max_abs_err={e9:.3e} (bound {TOL[dtype]:g}); max ||x|| "
+          f"plain max_abs_err={e9:.3e} (bound {TOL[dtype]:g}), equal in "
+          f"every bit {same9}; max ||x|| "
           f"{float(torch.linalg.vector_norm(x9, dim=-1).max()):.9f}")
     check(launches > 0, "ball_ls_action did not launch K9")
-    check(e9 <= TOL[dtype], f"K9 {dtype} vs plain")
+    check(e9 <= TOL[dtype] and same9, f"K9 {dtype} vs plain")
+    perm = torch.randperm(n, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(93))
+    shuffled = trs.trs_solve(A_all[perm], b_all[perm])
+    check(bool(torch.equal(shuffled, x9[perm])),
+          f"K9 {dtype} on a permuted batch is not the permuted output")
+    print(f"[9 quadratic] K9 {dtype} on the {n} prefixes in a random order: "
+          f"the permuted output in every bit")
     xc9 = trs.trs_solve(A_fin, b_fin)
     diff = int((got[2].t() != xc9).sum())
     print(f"[9 quadratic] {dtype}: K8's x_c vs K9 on the final statistics: "
           f"{diff} values differ in any bit")
     check(diff == 0, f"K8's x_c differs from K9 in {dtype}")
-    del want, want9, x9
-    if dtype == torch.float32:
-        k9 = time_ms(lambda: trs.launch_trs_solve(A_all, b_all), reps=3)
+    del want, want9, x9, shuffled, perm
+    k9 = time_ms(lambda: trs.launch_trs_solve(A_all, b_all), reps=5)
     passes, final = newton_counts(A_pre, b_pre, A_fin, b_fin, flags)
     del A_pre, b_pre, A_all, b_all
     torch.cuda.empty_cache()
@@ -1667,6 +1686,12 @@ def quad_kernels(dtype):
               f"{k1[0] * 1e-3 / worst * SM_CLOCK_HZ:.0f} clocks at "
               f"{SM_CLOCK_HZ / 1e6:.0f} MHz, {k1[0] * 1e3 / QUAD_T:.3f} us a "
               f"round")
+    regs, warps = trs.trs_occupancy(D, dtype)
+    floor = k9_schedule(dtype, passes.reshape(-1), warps)
+    print(f"[9 quadratic] K9 {dtype}: kernel {k9[0]:.4f} ms (min "
+          f"{k9[1]:.4f}, max {k9[2]:.4f}); --fmad=false issue floor "
+          f"{floor:.4f} ms; {regs} registers a thread, {warps} warps an SM; "
+          f"plain PyTorch {p9:.1f} ms (one call)")
     out = {}
     if dtype == torch.float32:
         steps = QUAD_B * QUAD_T
@@ -1681,15 +1706,92 @@ def quad_kernels(dtype):
         out["K9"] = {"max_abs_err": e9, "ms": k9[0], "plain_ms": p9,
                      "library_ms": None,
                      **bound(size + n * D * 4, trs_ops(D, passes, iters),
-                             dtype)}
+                             dtype),
+                     "registers": regs, "warps_per_sm": warps}
         print(f"[9 quadratic] K8 {dtype} bound {out['K8']['bound_ms']:.4f} "
               f"ms by {out['K8']['bound_by']} ({ops8:.4g} operations, each "
               f"solve at its own Newton passes); K9 bound "
               f"{out['K9']['bound_ms']:.4f} ms by {out['K9']['bound_by']}")
-        print(f"[9 quadratic] K9 {dtype}: kernel {k9[0]:.4f} ms (min "
-              f"{k9[1]:.4f}, max {k9[2]:.4f}); plain PyTorch {p9:.1f} ms (one "
-              f"call)")
     return launches, out
+
+
+@functools.lru_cache(maxsize=None)
+def k9_sass():
+    """``scripts/sass_census.py`` and its parse of K9's functions in this
+    build's SASS (cuobjdump of the library, ~13 s, read once)."""
+    spec = importlib.util.spec_from_file_location(
+        "sass_census", os.path.join(REPO, "scripts", "sass_census.py"))
+    census = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(census)
+    text = census.read_sass(None, cuda_build.LIB_PATH)
+    parts = [part for part in text.split("Function : ")[1:]
+             if "trs_refill_kernel" in part.split("\n", 1)[0]]
+    return census, census.functions(
+        "".join("\n\tFunction : " + part for part in parts))
+
+
+def k9_schedule(dtype, passes, warps_per_sm):
+    """K9's schedule on these inputs: the mean passes a solve against the
+    warp max of one problem a thread (the parent's K9: warps of 32
+    neighbouring prefixes), the loop passes of the refill schedule's model
+    (``trs.refill_iterations``) on the persistent grid, and the
+    ``--fmad=false`` issue floor: the instructions of a Newton pass, of a
+    pass at the cap and of the rest of the loop (``scripts/sass_census.py``
+    on this build's SASS), each solve at its own passes with every lane of
+    a warp busy, over 4 warp-instructions a clock on each SM.  Returns the
+    floor in ms."""
+    n = passes.numel()
+    iters = trs.TRS_PARAMS[dtype][1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_warps = min(sms * warps_per_sm,
+                     -(-n // trs.K9_THREADS) * trs.K9_THREADS // trs.WARP)
+    mean = float(passes.double().mean())
+    lockstep = passes.view(-1, trs.WARP).max(1).values.double().mean()
+    loops = trs.refill_iterations(passes, grid_warps)
+    print(f"[9 quadratic] K9 {dtype} schedule: {mean:.4f} ridge solves a "
+          f"solve on average; one problem a thread, a warp of "
+          f"32 neighbouring prefixes takes its slowest lane's "
+          f"{float(lockstep):.4f} (mean warp max); the refill model on "
+          f"{grid_warps} warps: {float(loops.sum()) * trs.WARP / n:.4f} lane "
+          f"passes a problem, {int(loops.min())}..{int(loops.max())} loop "
+          f"passes a warp")
+    key = ("trs_refill_kernelIfLi5E" if dtype == torch.float32
+           else "trs_refill_kernelIdLi5E")
+    t0 = time.perf_counter()
+    census, sass = k9_sass()
+    read_s = time.perf_counter() - t0
+    split = census.k9_split(next(v for k, v in sass.items() if key in k))
+    capped = passes == iters + 1
+    full = int(torch.where(capped, iters, passes).sum())
+    warp_ins = (full * split["pass"] + int(capped.sum()) * split["last"]
+                + n * split["handover"]) / trs.WARP
+    floor = warp_ins / (sms * 4 * SM_CLOCK_HZ) * 1e3
+    print(f"[9 quadratic] K9 {dtype} SASS fast path: {split['pass']} "
+          f"instructions a Newton pass, {split['last']} a pass at the cap, "
+          f"{split['handover']} the rest of the loop (ballot, claim, "
+          f"hand-over); at these inputs' passes {warp_ins:.4g} "
+          f"warp-instructions, --fmad=false issue floor {floor:.4f} ms "
+          f"({sms} SMs x 4 a clock at {SM_CLOCK_HZ / 1e6:.0f} MHz; SASS "
+          f"read in {read_s:.1f} s)")
+    return floor
+
+
+def k9_generic():
+    """K9's generic instance (local-memory state) at d = 7 and 32 against
+    its plain version, bit for bit, on regression streams' prefixes (N
+    not a multiple of 32)."""
+    for d in (7, 32):
+        for dtype in (torch.float64, torch.float32):
+            gen = torch.Generator(device="cuda").manual_seed(94)
+            z, y, _ = regression_stream_batch(gen, 16, 257, d, dtype=dtype)
+            A_pre, b_pre, _, _ = prefix_statistics(z, y)
+            A, b = A_pre.reshape(-1, d, d), b_pre.reshape(-1, d)
+            got = trs.trs_solve(A, b)
+            same = bool(torch.equal(got, trs.trs_solve_reference(A, b)))
+            print(f"[9 quadratic] K9 generic instance d={d} {dtype}, "
+                  f"{A.shape[0]} prefixes: equal to its plain version in "
+                  f"every bit {same}")
+            check(same, f"K9 d={d} {dtype} vs plain")
 
 
 def phase_quadratic(tmp):
@@ -1698,6 +1800,7 @@ def phase_quadratic(tmp):
     for dtype in (torch.float64, torch.float32):
         k9_launches, out = quad_kernels(dtype)
         timing.update(out)
+    k9_generic()
     return {"K8": k8_launches, "K9": k9_launches}, timing
 
 
@@ -2273,7 +2376,8 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/quad_game_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:206",
          "launches": quad_launches["K8"], **quad_timing["K8"]},
-        {"name": "trs_kernel (K9: batched ball-constrained least squares)",
+        {"name": "trs_refill_kernel (K9: batched ball-constrained least "
+                 "squares, lanes that refill)",
          "route": "cuda",
          "source": "online_convex_optimization_tpu_torch/csrc/trs_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:62",

@@ -18,9 +18,9 @@
 // working type (eps_rel 1e-6 in f32, 1e-12 in f64), and the correctly
 // rounded x / max(sqrt(||x||^2), 1) at the end.  The Newton loop stops
 // where the fixed count would add nothing, with the same bits (trs_pass;
-// its plain mirror is ops/trs.py trs_action_settled), and K8 runs it one
-// pass at a time, so that each of its lanes starts its next round as soon
-// as its own solve is done.
+// its plain mirror is ops/trs.py trs_action_settled), and K8 and K9 run it
+// one pass at a time, so that each of their lanes starts its next round or
+// problem as soon as its own solve is done.
 //
 // Numerical traps, kept as the JAX kernels keep them:
 //   - the first rounds of a game have a singular A (t < d), and at t = 0

@@ -1,79 +1,207 @@
-// K9: batched ball-constrained least squares, one trust-region solve per
-// thread.
+// K9: batched ball-constrained least squares, persistent lanes that each
+// keep one trust-region solve in flight and refill as soon as it ends.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_trs.py
 // _trs_kernel, entry trs_solve_packed (behind ball_ls_action_pallas).
 // Python wrapper and plain PyTorch version:
 // online_convex_optimization_tpu_torch/ops/trs.py (trs_solve,
-// trs_solve_reference).
+// trs_solve_reference; refill_iterations models the schedule below).
 //
-// Each thread loads its problem's lower triangle of A and its b once, into
-// registers (local memory for the runtime-d instance), and runs the whole
-// safeguarded Newton there (oco::trs_action, shared with K8, so K8's x_c is
-// this kernel's answer on the same statistics bit for bit).  The inputs are
-// the port's public layout, (N, d, d) and (N, d) row-major: no packing pass
-// (the TPU's pack_stats / (8, 128) tiling is not ported).  A warp's loads of
-// one entry are strided by d*d values, so each touches 32 sectors; the
-// problem's other entries then come from L1.
+// Every solve runs oco::trs_begin / trs_pass / to_ball (oco_trs.cuh, shared
+// with K8) on its own problem, so K8's x_c is this kernel's answer on the
+// same statistics bit for bit; the schedule decides only which lane
+// computes which problem.  The inputs are the port's public layout, (N, d,
+// d) and (N, d) row-major: no packing pass (the TPU's pack_stats / (8, 128)
+// tiling is not ported).
 //
-// What bounds it on an H100: operations.  12 Newton iterations in f32 (each
-// a d x d Cholesky and three triangular solves, about 250 flops at d = 5)
-// against 4*(d*d + d) = 120 bytes read per problem; with millions of
-// problems the card is full, and the correctly rounded sqrt and divide
-// sequences (--fmad=false, no fast math) are the most expensive part of
-// the chain.
+// What bounds it on an H100: each lane's chain of Newton passes (a d x d
+// Cholesky and three triangular solves, 26 correctly rounded divides and 6
+// sqrts a pass at d = 5 under --fmad=false), not the 4 (d d + 2 d) bytes a
+// problem moves.  The passes a solve needs vary (the exact exit of
+// trs_pass: ~4 on average, 13 in f32 at the cap), and a warp issues as long
+// as any lane computes, so one problem a thread made a warp cost its
+// slowest lane (~12 passes for 32 neighbouring prefixes).  Here a lane
+// whose solve ends waits only until kMinIdle lanes of its warp are idle:
+//   - each loop pass first hands over on the lanes whose solve has ended
+//     (to_ball, the store, the next problem's load, trs_begin; the
+//     divergent branch) once kMinIdle of them are idle, then runs one
+//     Newton pass on every lane that holds a solve, where the warp meets
+//     again.  The order matters (K8 found it first): with the hand-over
+//     after the pass the compiler built an inner loop of passes, which is
+//     lockstep again (scripts/sass_census.py reports the loops);
+//   - problems are claimed warp by warp: a ballot of the lanes that need
+//     one, consecutive indices handed out in lane order from the warp's
+//     range, and a new range from a global counter (one atomicAdd by lane
+//     0) when the range runs short: 32 problems the first time, kChunk
+//     after.  A claim a warp and pass would be ~1.5e9 atomics a second on
+//     one address;
+//   - the grid is persistent: as many blocks as the SMs hold at the
+//     kernel's registers, so the warps drain the counter together and
+//     finish within about one solve of each other.
+#include "oco_tiles.cuh"
 #include "oco_trs.cuh"
 
 namespace {
 
+constexpr int kThreads = 128;
+// Problems a warp claims from the counter at once: 2 a lane, ~8 loop
+// passes of hand-overs at ~4 passes a solve.
+constexpr int kChunk = 64;
+// Idle lanes a warp waits for before it hands over (at every pass once the
+// counter has passed N): a hand-over issues about half a Newton pass's
+// instructions in its divergent branch however few lanes it serves, and at
+// 8 the lanes' later start costs less than the hand-overs saved (PERF.md
+// gives the times at 1, 4, 8, 12 and 16).  At most 32, so that a warp with
+// no solve in flight hands over.
+constexpr int kMinIdle = 8;
+static_assert(kMinIdle >= 1 && kMinIdle <= 32, "kMinIdle: 1..32 lanes");
+
+// Blocks an SM is to hold, which caps the registers a thread: 8 (64
+// registers) in float32, 4 (128) in float64.  The Newton pass is issue-
+// and latency-bound with ~6 warps a scheduler, so more resident warps beat
+// the few spills the cap costs (PERF.md gives the times at other counts).
+template <typename S>
+constexpr int kMinBlocks = sizeof(S) == 4 ? 8 : 4;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(OCO_THREADS)
-trs_kernel(const S* __restrict__ A, const S* __restrict__ bvec, long long N,
-           int d, S* __restrict__ x_out) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
+trs_refill_kernel(const S* __restrict__ A, const S* __restrict__ bvec,
+                  long long N, int d, unsigned long long* __restrict__ counter,
+                  S* __restrict__ x_out) {
   constexpr int C = oco::QCap<D>::value;
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (p >= N) return;
   const int n = D > 0 ? D : d;
-  const S* Ap = A + p * n * n;
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   S At[oco::QCap<D>::tri], bv[C], x[C];
+  oco::TrsSolve<S, D> s;
+  long long p = -1;         // this lane's problem, -1 for none
+  bool done = true;         // no solve in flight: none yet, or it ended
+  // The warp's claimed range [cur, cur + left) (the same on every lane),
+  // and whether the counter has passed N.
+  long long cur = 0, left = 0;
+  bool drained = false;
+  for (;;) {
+    const unsigned idle = __ballot_sync(oco::kFullMask, done);
+    const bool hand = __popc(idle) >= kMinIdle || drained;
+    long long q = -1;
+    if (hand && !drained) {
+      const int need = __popc(idle);
+      const int rank = __popc(idle & below);
+      // A warp's first range is one problem a lane, so that a batch of at
+      // most 32 problems a warp spreads over every warp.
+      const int size = cur == 0 ? 32 : kChunk;
+      long long fresh = 0;
+      if (left < need) {
+        unsigned long long base = 0;
+        if ((threadIdx.x & 31) == 0)
+          base = atomicAdd(counter, static_cast<unsigned long long>(size));
+        fresh = static_cast<long long>(
+            __shfl_sync(oco::kFullMask, base, 0));
+      }
+      if (done) q = rank < left ? cur + rank : fresh + (rank - left);
+      if (left < need) {
+        cur = fresh + (need - left);
+        left = size - (need - left);
+      } else {
+        cur += need;
+        left -= need;
+      }
+      drained = cur >= N;
+    }
+    if (hand && done) {
+      if (p >= 0) {
+        oco::to_ball<S, D>(x, n);
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+        for (int i = 0; i < n; ++i) x_out[p * n + i] = x[i];
+      }
+      p = q < N ? q : -1;
+      if (p >= 0) {
+        const S* Ap = A + p * n * n;
 #pragma unroll
-    for (int j = 0; j <= i; ++j) At[oco::tri(i, j)] = Ap[i * n + j];
-    bv[i] = bvec[p * n + i];
+        for (int i = 0; i < n; ++i) {
+#pragma unroll
+          for (int j = 0; j <= i; ++j) At[oco::tri(i, j)] = Ap[i * n + j];
+          bv[i] = bvec[p * n + i];
+        }
+        oco::trs_begin<S, D>(s, At, bv, n);
+        done = false;
+      }
+    }
+    if (!__any_sync(oco::kFullMask, !done)) break;
+    if (!done) done = oco::trs_pass<S, D>(s, At, bv, x, n);
   }
-  oco::trs_action<S, D>(At, bv, x, n);
-#pragma unroll
-  for (int i = 0; i < n; ++i) x_out[p * n + i] = x[i];
+}
+
+// Blocks of the persistent grid: what the SMs hold at the instance's
+// registers, and no more than the problems fill.
+template <typename K>
+int persistent_grid(K kernel, long long N, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  const long long need = (N + kThreads - 1) / kThreads;
+  const long long full = static_cast<long long>(sms) * per_sm;
+  *grid = static_cast<unsigned>(need < full ? need : full);
+  return static_cast<int>(err);
+}
+
+template <typename S, int D>
+int launch_d(const S* A, const S* b, long long N, int d,
+             unsigned long long* counter, S* x, cudaStream_t s) {
+  unsigned grid = 0;
+  int err = persistent_grid(trs_refill_kernel<S, D>, N, &grid);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counter, 0, sizeof(*counter), s);
+  if (err != cudaSuccess) return err;
+  trs_refill_kernel<S, D><<<grid, kThreads, 0, s>>>(A, b, N, d, counter,
+                                                    x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
-int launch(const void* A, const void* b, long long N, int d, void* x,
-           void* stream) {
+int launch(const void* A, const void* b, long long N, int d, void* counter,
+           void* x, void* stream) {
   if (N < 1 || d < 1 || d > OCO_QUAD_MAX_D) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = oco::grid_for(N);
   const auto* ap = static_cast<const S*>(A);
   const auto* bp = static_cast<const S*>(b);
+  auto* cp = static_cast<unsigned long long*>(counter);
   auto* xp = static_cast<S*>(x);
-  if (d == 5)
-    trs_kernel<S, 5><<<grid, OCO_THREADS, 0, s>>>(ap, bp, N, d, xp);
-  else
-    trs_kernel<S, 0><<<grid, OCO_THREADS, 0, s>>>(ap, bp, N, d, xp);
-  return static_cast<int>(cudaGetLastError());
+  return d == 5 ? launch_d<S, 5>(ap, bp, N, d, cp, xp, s)
+                : launch_d<S, 0>(ap, bp, N, d, cp, xp, s);
+}
+
+template <typename S>
+int occupancy(int d, int* out) {
+  if (d < 1 || d > OCO_QUAD_MAX_D) return cudaErrorInvalidValue;
+  return d == 5
+             ? oco::occupancy(trs_refill_kernel<S, 5>, kThreads, 0, out)
+             : oco::occupancy(trs_refill_kernel<S, 0>, kThreads, 0, out);
 }
 
 }  // namespace
 
-// Inputs: A (N, d, d) row-major (its lower triangle is read), b (N, d).
+// Inputs: A (N, d, d) row-major (its lower triangle is read), b (N, d);
+// counter: 8 bytes of device scratch (the launch zeroes it on the stream).
 // Output: x (N, d) with ||x|| <= 1.  Returns the cudaError_t of the launch.
 extern "C" int oco_trs_solve_f64(const void* A, const void* b, long long N,
-                                 int d, void* x, void* stream) {
-  return launch<double>(A, b, N, d, x, stream);
+                                 int d, void* counter, void* x,
+                                 void* stream) {
+  return launch<double>(A, b, N, d, counter, x, stream);
 }
 
 extern "C" int oco_trs_solve_f32(const void* A, const void* b, long long N,
-                                 int d, void* x, void* stream) {
-  return launch<float>(A, b, N, d, x, stream);
+                                 int d, void* counter, void* x,
+                                 void* stream) {
+  return launch<float>(A, b, N, d, counter, x, stream);
+}
+
+// Registers a thread (out[0]) and resident warps an SM (out[1]) of the
+// instance for d on the current card; f64 nonzero for float64.  Returns
+// the cudaError_t.
+extern "C" int oco_trs_occupancy(int f64, int d, int* out) {
+  return f64 ? occupancy<double>(d, out) : occupancy<float>(d, out);
 }

@@ -35,7 +35,11 @@ fixed count's last one).  ``trs_action_settled`` is the plain mirror of
 that exit, and equals ``trs_action_reference``, which runs the fixed
 count, bit for bit.  K8 runs the loop one pass at a time, so that each
 thread plays its next round as soon as its own solve is done;
-``quad_lanes`` keeps FTRL and FTL sequences in warps of their own.
+``quad_lanes`` keeps FTRL and FTL sequences in warps of their own.  K9
+does the same over its problems: each lane of a persistent grid keeps one
+solve in flight and takes its warp's next problem once ``K9_MIN_IDLE``
+lanes are idle (``refill_iterations`` models that schedule's loop
+passes).
 
 The plain version of K8 builds the running statistics with a loop over T
 in the kernel's order, then solves every (round, sequence) prefix in one
@@ -51,6 +55,8 @@ ported: K9 reads the public ``(N, d, d)`` layout, K8 the time-major
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -332,13 +338,83 @@ def launch_trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lib.oco_trs_solve_f32
     with torch.cuda.device(A.device):
         x = torch.empty((N, d), dtype=A.dtype, device=A.device)
-        err = fn(A.data_ptr(), b.data_ptr(), N, d, x.data_ptr(),
-                 torch.cuda.current_stream(A.device).cuda_stream)
+        counter = torch.empty((1,), dtype=torch.int64, device=A.device)
+        err = fn(A.data_ptr(), b.data_ptr(), N, d, counter.data_ptr(),
+                 x.data_ptr(), torch.cuda.current_stream(A.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"trust-region kernel launch failed: CUDA "
                                f"error {err}")
         TRS_LAUNCHES += 1
     return x
+
+
+def trs_occupancy(d: int, dtype) -> tuple:
+    """Registers a thread and resident warps an SM of K9's instance for
+    ``d`` on the current card."""
+    out = (ctypes.c_int * 2)()
+    err = cuda_build.load().oco_trs_occupancy(int(dtype == torch.float64), d,
+                                              out)
+    if err != 0:
+        raise RuntimeError(f"K9 occupancy query failed: CUDA error {err}")
+    return out[0], out[1]
+
+
+# K9's schedule (csrc/trs_kernel.cu kThreads, kChunk, kMinIdle): threads a
+# block, problems a warp claims from the global counter at once, and idle
+# lanes a warp waits for before it hands over.
+K9_THREADS = 128
+K9_CHUNK = 64
+K9_MIN_IDLE = 8
+
+
+def refill_iterations(passes: torch.Tensor, warps: int) -> torch.Tensor:
+    """Loop passes of each warp of K9's refill schedule, in a model where
+    the ``warps`` warps step together and claim in warp order.
+
+    ``passes[p]`` is problem p's ridge solves (``trs_action_settled``'s
+    count: the ``trs_pass`` calls of its solve).  In each loop pass a warp
+    with ``K9_MIN_IDLE`` idle lanes (or whose counter is drained) first
+    hands over: its idle lanes take the next indices of its
+    range in lane order, and a warp whose range is shorter than its idle
+    lanes takes a new range from the shared counter (32 problems the first
+    time, ``K9_CHUNK`` after; the warps that do so in warp order) and
+    serves the rest of the old range first.  Then every lane that holds a
+    solve runs one pass; a warp whose lanes hold none stops.  Returns
+    ``(warps,)`` int64: the passes in which each warp ran a Newton pass
+    (lanes idle in them included)."""
+    n_prob = passes.numel()
+    passes = passes.reshape(-1).long()
+    dev = passes.device
+    rem = torch.zeros((warps, WARP), dtype=torch.int64, device=dev)
+    cur = torch.zeros(warps, dtype=torch.int64, device=dev)
+    left = torch.zeros_like(cur)
+    drained = torch.zeros(warps, dtype=torch.bool, device=dev)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    iters = torch.zeros_like(cur)
+    while True:
+        idle = rem == 0
+        need = idle.sum(1)
+        hand = (need >= K9_MIN_IDLE) | drained
+        claim = hand & ~drained
+        short = claim & (left < need)
+        size = torch.where(short, torch.where(cur == 0, WARP, K9_CHUNK), 0)
+        fresh = counter + torch.cumsum(size, 0) - size
+        counter = counter + size.sum()
+        rank = torch.cumsum(idle, 1) - idle.long()
+        q = torch.where(rank < left[:, None], cur[:, None] + rank,
+                        fresh[:, None] + rank - left[:, None])
+        take = idle & claim[:, None] & (q < n_prob)
+        cur = torch.where(claim, torch.where(short, fresh + need - left,
+                                             cur + need), cur)
+        left = torch.where(claim, torch.where(short, size - (need - left),
+                                              left - need), left)
+        drained = drained | (claim & (cur >= n_prob))
+        rem = torch.where(take, passes[q.clamp(0, n_prob - 1)], rem)
+        active = (rem > 0).any(1)
+        if not bool(active.any()):
+            return iters
+        iters += active
+        rem = (rem - 1).clamp(min=0)
 
 
 def trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -536,5 +612,5 @@ def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
 
 __all__ = ["ALG_FTL", "ALG_FTRL", "MAX_D", "trs_solve", "trs_solve_reference",
            "trs_action_reference", "trs_action_settled", "quad_lanes",
-           "ftl_width",
+           "ftl_width", "refill_iterations", "trs_occupancy",
            "quadratic_regrets", "quadratic_regrets_reference"]

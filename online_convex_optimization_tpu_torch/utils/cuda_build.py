@@ -52,6 +52,7 @@ _SIGNATURES = {
     "oco_admm_occupancy_f32": [_I, _I, _P],
     "oco_regrets_occupancy": [_I, _I, _I, _P],
     "oco_smart_occupancy": [_I, _I, _I, _P],
+    "oco_trs_occupancy": [_I, _I, _P],
 }
 for _ty in ("f64", "f32"):
     _SIGNATURES.update({
@@ -70,7 +71,7 @@ for _ty in ("f64", "f32"):
                                        _P],
         f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                                  _P, _P, _P, _P, _P],
-        f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P],
+        f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P, _P],
     })
 
 _lib: Optional[ctypes.CDLL] = None

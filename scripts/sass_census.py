@@ -23,7 +23,11 @@ one pass in instructions and in clocks at the latencies assumed below.
   There must be no loop of passes inside it (an inner back edge to the
   pass): the warp would then wait at its exit for its slowest lane each
   round.  The chain in clocks is the dependent-chain floor of one pass.
-- K9 ``trs_kernel<float, 5>``: the Newton loop.
+- K9 ``trs_refill_kernel<S, 5>``: the refill loop (hand-over branch, then
+  one Newton pass), with its fast path split into a pass, a pass at the
+  cap and the rest (``k9_split``, which ``chip_smoke.py`` phase 9 reads
+  for K9's issue floor); for a build whose K9 is one problem a thread,
+  ``trs_kernel<float, 5>``'s Newton loop.
 - K5 ``sweep_kernel<S, 5>``, K6a ``smart_prefix_kernel<double, 5>`` and
   K6b ``smart_tail_kernel<double, 5>``: the round loop (the innermost
   loop holding the action's sqrt and divide seeds); for a build whose
@@ -56,7 +60,10 @@ KERNELS = {
     "K7 synthetic_kernel<5>": "synthetic_kernelILi5EEEv",
     "K8 quad_game_kernel<float, 5>": "quad_game_kernelIfLi5E",
     "K8 quad_game_kernel<double, 5>": "quad_game_kernelIdLi5E",
-    "K9 trs_kernel<float, 5>": "trs_kernelIfLi5E",
+    "K9 trs_refill_kernel<float, 5>": "trs_refill_kernelIfLi5E",
+    "K9 trs_refill_kernel<double, 5>": "trs_refill_kernelIdLi5E",
+    # a build whose K9 is one problem a thread
+    "K9 trs_kernel<float, 5>": "10trs_kernelIfLi5E",
     "K5 sweep_kernel<double, 5>": "12sweep_kernelIdLi5E",
     "K5 sweep_kernel<float, 5>": "12sweep_kernelIfLi5E",
     "K6a smart_prefix_kernel<double, 5>": "smart_prefix_kernelIdLi5E",
@@ -201,6 +208,42 @@ def chain(body):
     return best
 
 
+def guarded_blocks(body, hi):
+    """(branch, target) of every guarded forward branch inside the loop
+    body ending at ``hi``."""
+    out = []
+    for addr, guard, op, args in body:
+        m = re.search(r"0x([0-9a-f]+)", args[-1]) if args else None
+        if op.startswith("BRA") and guard and m and addr < int(
+                m.group(1), 16) <= hi:
+            out.append((addr, int(m.group(1), 16)))
+    return out
+
+
+def k9_split(ins):
+    """Fast-path instructions of K9's refill loop by part: ``pass`` (the
+    block a lane without a solve skips: the most MUFU and no load),
+    ``last`` (a pass at the Newton cap, which skips the step: the pass
+    without the largest block inside it) and ``handover`` (the rest of the
+    loop: the ballot, the claim, the store, the load and trs_begin)."""
+    lo, hi = max(loops(ins), key=lambda b: sum(
+        i[2].startswith("MUFU") for i in ins if b[0] <= i[0] <= b[1]))
+    fast = fast_path([i for i in ins if lo <= i[0] <= hi])
+
+    def part(a, b):
+        return [i for i in fast if a < i[0] < b]
+
+    blocks = guarded_blocks([i for i in ins if lo <= i[0] <= hi], hi)
+    guard = max((b for b in blocks if not any(
+        i[2].startswith(("LDG", "STG")) for i in part(*b))),
+        key=lambda b: sum(i[2].startswith("MUFU") for i in part(*b)))
+    step = max((b for b in blocks if guard[0] < b[0] and b[1] <= guard[1]),
+               key=lambda b: len(part(*b)))
+    n_pass = len(part(*guard))
+    return {"pass": n_pass, "last": n_pass - len(part(*step)),
+            "handover": len(fast) - n_pass}
+
+
 def census(label, ins):
     k7 = label.startswith("K7")
     back = loops(ins)
@@ -237,13 +280,8 @@ def census(label, ins):
     by_op = collections.Counter(i[2].split(".")[0] for i in body)
     print("   by opcode: " + ", ".join(f"{k} {v}" for k, v in
                                         by_op.most_common()))
-    cond = []
-    for addr, guard, op, args in body:
-        if op.startswith("BRA") and guard and args:
-            m = re.search(r"0x([0-9a-f]+)", args[-1])
-            if m and addr < int(m.group(1), 16) <= hi:
-                n = sum(1 for i in body if addr < i[0] < int(m.group(1), 16))
-                cond.append(n)
+    cond = [sum(1 for i in body if a < i[0] < t)
+            for a, t in guarded_blocks(body, hi)]
     print(f"   conditional blocks (instructions skipped by a forward "
           f"branch): {len(cond)}, largest {sorted(cond)[-5:]}")
     fast = fast_path(body)
@@ -253,6 +291,11 @@ def census(label, ins):
     clocks, n = chain(body)
     print(f"   dependent chain through one pass: {n} instructions, {clocks} "
           f"clocks at the assumed latencies")
+    if "refill" in label:
+        split = k9_split(ins)
+        print(f"   fast path by part: a Newton pass {split['pass']}, a pass "
+              f"at the cap {split['last']}, the rest of the loop (ballot, "
+              f"claim, hand-over) {split['handover']}")
 
 
 def main(argv=None) -> int:

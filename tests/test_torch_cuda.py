@@ -459,6 +459,42 @@ def test_quadratic_kernels_match_plain(cuda, dtype, d):
         assert torch.equal(got[2], x9.t())
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 5, 7, 32])
+@pytest.mark.parametrize("N", [1, 31, 33, 4103])
+def test_trs_kernel_refill_matches_plain(cuda, dtype, d, N):
+    """K9's refilling lanes give trs_solve_reference's bits on every
+    prefix of regression streams (the t = 0 problem and the singular
+    prefixes first); a permuted batch gives the permuted output; K8's x_c
+    is K9 on the final statistics."""
+    rng = np.random.default_rng(N + d)
+    B, T = 8, max(1, -(-N // 8))
+    z = rng.normal(size=(B, T, d))
+    z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
+    y = z @ (np.ones(d) / np.sqrt(d)) + 0.1 * rng.normal(size=(B, T))
+    zt, yt = _to((z, y), cuda, dtype)
+    A_pre = torch.zeros((T, B, d, d), dtype=dtype, device=cuda)
+    b_pre = torch.zeros((T, B, d), dtype=dtype, device=cuda)
+    A = torch.zeros((B, d, d), dtype=dtype, device=cuda)
+    b = torch.zeros((B, d), dtype=dtype, device=cuda)
+    for t in range(T):
+        A_pre[t], b_pre[t] = A, b
+        A = A + zt[:, t, :, None] * zt[:, t, None, :]
+        b = b + yt[:, t, None] * zt[:, t]
+    A_all, b_all = A_pre.reshape(-1, d, d)[:N], b_pre.reshape(-1, d)[:N]
+    before = trs.TRS_LAUNCHES
+    got = trs.trs_solve(A_all, b_all)
+    torch.cuda.synchronize()
+    assert trs.TRS_LAUNCHES == before + 1
+    assert torch.equal(got, trs.trs_solve_reference(A_all, b_all))
+    perm = torch.as_tensor(rng.permutation(N), device=cuda)
+    assert torch.equal(trs.trs_solve(A_all[perm], b_all[perm]), got[perm])
+    z_tm, y_tm = game.time_major(zt, yt)
+    ftl = torch.ones(B, dtype=torch.int32, device=cuda)
+    x_c = trs.quadratic_regrets(z_tm, y_tm, ftl, 1.0)[2]
+    assert torch.equal(x_c, trs.trs_solve(A, b).t())
+
+
 def test_quadratic_study_cuda_equals_cpu(cuda):
     kw = dict(runs=2, replicates=2, dtype=np.float64)
     got = evaluate_quadratic_stream((100, 200), device=cuda, **kw)
