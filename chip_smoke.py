@@ -133,6 +133,28 @@ non-zero without printing a result):
                f64, 48 runs) on the card against the committed
                ``results/results_exact_canonical.json``: g_emp and stats
                within 1e-9, the audit equal.
+  12. ssn     — the semismooth Newton (``models/ssn.py``, plain PyTorch,
+               f64; no kernel of its own, K1 scores its cells) on the
+               out-of-contract family z = 2 N(0, I), y = sign(<z, w> + 0.3
+               noise): (a) on the card against the CPU at B=8 T=256 d=5:
+               10 fixed Newton steps, X and mu within 1e-9 on the
+               prefixes of at least d rows and every prefix objective
+               within 1e-9 (1 + f); at tol 2e-4 and a cap of 400 steps at
+               least 95% of the rows certified and every row within the
+               pipeline's fail_tol 1e-3 on both (the JAX package's bars),
+               the polished objectives of replicate 0 within 1e-9; the
+               band call at the pipeline's width (B=8, T_max=1000, four
+               256-row bands in one batch, iters 80): its Newton steps,
+               wall, ms a step, rows certified, and the ATen operations
+               and CUDA kernels of one eager step; (b) ``driver --exact
+               --exact-solver ssn`` against ``--exact-solver xla`` on
+               ``--runs 2 --g-runs 50 --t-max 300`` (the two random
+               families): means within 3e-6, every cell through the SSN, K1
+               scoring it, walls and ``exact_time_s``; (c) ``auto`` on the
+               OOC family at T_max=1000 B=8: the cell through the SSN,
+               statistics equal to ``solver="ssn"`` in every bit; (d) the
+               linf SSN at T=40 against HiGHS LP objectives at the bars of
+               ``tests/test_ssn.py::test_ssn_linf_matches_lp_objectives``.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -171,6 +193,8 @@ import time
 
 import numpy as np
 import torch
+from scipy.optimize import linprog
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from online_convex_optimization_tpu_torch.data.device import (
     random_game_batch,
@@ -192,6 +216,10 @@ from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     run_study,
     study_batch,
 )
+from online_convex_optimization_tpu_torch.experiments.evaluate import (
+    evaluate_stream_exact,
+)
+from online_convex_optimization_tpu_torch.models import ssn
 from online_convex_optimization_tpu_torch.models.exact_ftl import (
     _admm_all_prefixes,
 )
@@ -2299,6 +2327,292 @@ def phase_exact(tmp):
     return launches, timing
 
 
+# --------------------------------------------------------------- phase 12
+SSN_B, SSN_T, SSN_TOL = 8, 256, 2e-4
+SSN_BANDS = [0, 256, 512, 744]          # T_max = 1000: four 256-row bands
+
+
+def ooc_instance(B, T, seed):
+    """The out-of-contract family of tests/test_ssn.py: z = 2 N(0, I),
+    y = sign(<z, w> + 0.3 noise), float64 NumPy."""
+    rng = np.random.default_rng(seed)
+    z = 2.0 * rng.normal(size=(B, T, D))
+    y = np.sign(np.einsum("btd,bd->bt", z, rng.normal(size=(B, D)))
+                + 0.3 * rng.normal(size=(B, T)))
+    y[y == 0] = 1.0
+    return z, y
+
+
+def ooc_builder(run_seed=0):
+    """That family as a stream builder: replicate r of a run from seed
+    run_seed + 31 r."""
+    def sampler(T, rep=0):
+        z, y = ooc_instance(1, T, run_seed + 31 * rep)
+        return z[0], y[0]
+    return sampler
+
+
+class DispatchCounter(TorchDispatchMode):
+    """Counts the ATen operations dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def ssn_step_costs(z, y, **kw):
+    """ATen operations and CUDA kernels of one Newton step: a 2-step call
+    less a 1-step call (tol = 0).  Kernels from torch.profiler's device
+    events (None if it records none)."""
+    def ops(k):
+        with DispatchCounter() as c:
+            ssn.ssn_all_prefixes(z, y, iters=k, tol=0.0, **kw)
+        return c.n
+
+    def kernels(k):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ssn.ssn_all_prefixes(z, y, iters=k, tol=0.0, **kw)
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    k1, k2 = kernels(1), kernels(2)
+    return ops(2) - ops(1), (k2 - k1) if k2 > k1 else None
+
+
+def ssn_solve(z, y, solve=None, **kw):
+    """One ``solve`` (ssn_all_prefixes) call: its outputs, Newton steps and
+    wall (s, ending in a synchronize)."""
+    counts = {}
+    if z.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = (solve or ssn.ssn_all_prefixes)(z, y, counts=counts, **kw)
+    if z.is_cuda:
+        torch.cuda.synchronize()
+    return out, counts["steps"], time.perf_counter() - t0
+
+
+def prefix_objectives(z, y, X):
+    """f(X[b, p]) over the first p + 1 rows of replicate b, host f64."""
+    T = z.shape[1]
+    m = np.tril(np.ones((T, T)))
+    return 0.5 * (np.abs(np.einsum("btd,bpd->bpt", z, X) - y[:, None])
+                  * m).sum(-1)
+
+
+def ssn_card_vs_cpu():
+    """(a) The SSN on the card against itself on the CPU on the OOC
+    instance (B=8, T=256, d=5): fixed 10 steps, the certificates at tol
+    2e-4, and the polished prefix objectives."""
+    z, y = ooc_instance(SSN_B, SSN_T, 120)
+    zc, yc = torch.from_numpy(z), torch.from_numpy(y)
+    zg, yg = zc.cuda(), yc.cuda()
+    ssn_solve(zg, yg, iters=2, tol=0.0)                       # warm-up
+    (Xg, _, (_, mug)), _, _ = ssn_solve(zg, yg, iters=10, tol=0.0)
+    (Xc, _, (_, muc)), _, _ = ssn_solve(zc, yc, iters=10, tol=0.0)
+    Xg, mug, Xc, muc = (a.cpu().numpy() for a in (Xg, mug, Xc, muc))
+    # Prefixes shorter than d interpolate on a continuum: their iterate is
+    # rounding-determined, so they are held by objective only.
+    err_x = float(np.abs(Xg[:, D - 1:] - Xc[:, D - 1:]).max())
+    err_mu = float(np.abs(mug[:, D - 1:] - muc[:, D - 1:]).max())
+    fg, fc = prefix_objectives(z, y, Xg), prefix_objectives(z, y, Xc)
+    err_f = float((np.abs(fg - fc) / (1.0 + fc)).max())
+    print(f"[12 ssn] (a) B={SSN_B} T={SSN_T} d={D} OOC, 10 fixed Newton "
+          f"steps: card vs cpu max |X| {err_x:.3e}, |mu| {err_mu:.3e} on "
+          f"prefixes >= d; max |f| / (1 + f) {err_f:.3e} on all (bound 1e-9)")
+    check(max(err_x, err_mu, err_f) <= 1e-9, "SSN card vs cpu at 10 steps")
+    # Certified: the JAX package's bars, 95% of the rows at 2e-4
+    # (tests/test_ssn.py) and every row within the pipeline's fail_tol 1e-3,
+    # at a cap of 400 steps (some out-of-contract rows never reach 2e-4, in
+    # the JAX package as here).  The CPU solves replicate 0 alone.
+    (Xg, rg, _), steps_g, wall_g = ssn_solve(zg, yg, iters=400, tol=SSN_TOL)
+    (Xc, rc, _), steps_c, wall_c = ssn_solve(zc[:1], yc[:1], iters=400,
+                                             tol=SSN_TOL)
+    for label, r, steps, wall in (("card", rg, steps_g, wall_g),
+                                  ("cpu replicate 0", rc, steps_c, wall_c)):
+        frac = float((r <= SSN_TOL).double().mean())
+        print(f"[12 ssn] (a) tol {SSN_TOL:g}, cap 400, {label}: {steps} "
+              f"Newton steps, {wall:.3f} s, rows certified at 2e-4 "
+              f"{frac:.4f} (bound 0.95), max res {float(r.max()):.3e} "
+              f"(bound 1e-3)")
+        check(frac >= 0.95 and float(r.max()) <= 1e-3,
+              f"SSN certificates on the {label}")
+    acts = [polish_prefix_actions(z[0], y[0], np.concatenate(
+        [np.zeros((1, D)), X[0].cpu().numpy()]), "l2") for X in (Xg, Xc)]
+    worst = max(abs(fa - fb) / (1.0 + fb) for fa, fb in (
+        [polish_objective(z[0][:p], y[0][:p], a[p]) for a in acts]
+        for p in range(1, SSN_T + 1)))
+    print(f"[12 ssn] (a) polished prefix objectives of replicate 0, card vs "
+          f"cpu: max |f| / (1 + f) = {worst:.3e} (bound 1e-9)")
+    check(worst <= 1e-9, "SSN polished objectives card vs cpu")
+
+
+def ssn_band_call():
+    """The band call at the pipeline's full width: B=8 replicates, T_max
+    = 1000, four 256-row bands in one batch, iters 80 and tol 2e-4 (the
+    pipeline's first attempt); Newton steps, wall, and the operations and
+    kernels of one step."""
+    z, y = ooc_instance(SSN_B, 1000, 121)
+    zg, yg = torch.from_numpy(z).cuda(), torch.from_numpy(y).cuda()
+    kw = dict(band_lo=SSN_BANDS, band_rows=256)
+    ssn_solve(zg, yg, iters=2, tol=0.0, **kw)                 # warm-up
+    (_, res, _), steps, wall = ssn_solve(zg, yg, iters=80, tol=SSN_TOL, **kw)
+    (_, _, _), _, wall10 = ssn_solve(zg, yg, iters=10, tol=0.0, **kw)
+    ssn._CUDA_GRAPHS = False
+    ops, kernels = ssn_step_costs(zg, yg, **kw)
+    ssn._CUDA_GRAPHS = True
+    frac = float((res <= SSN_TOL).double().mean())
+    print(f"[12 ssn] band call B={SSN_B} T_max=1000 d={D} (4 bands x 256 rows "
+          f"in one batch), iters 80 tol {SSN_TOL:g}: {steps} Newton steps, "
+          f"{wall:.3f} s ({wall / max(steps, 1) * 1e3:.2f} ms a step; 10 "
+          f"fixed steps {wall10 * 100:.2f} ms a step), rows certified at "
+          f"2e-4 {frac:.4f}; one eager step dispatches {ops} ATen "
+          f"operations and "
+          f"launches {kernels if kernels is not None else 'not measured'} "
+          f"CUDA kernels")
+    return {"steps": steps, "wall_s": wall, "ops_per_step": ops,
+            "kernels_per_step": kernels}
+
+
+class BandCalls:
+    """Wraps ssn.ssn_all_prefixes to record each call's Newton steps and
+    wall while the pipeline runs."""
+
+    def __init__(self):
+        self.calls = []
+        self.orig = ssn.ssn_all_prefixes
+
+    def __enter__(self):
+        def wrapped(z, y, **kw):
+            out, steps, wall = ssn_solve(z, y, self.orig, **kw)
+            self.calls.append((steps, wall))
+            return out
+        ssn.ssn_all_prefixes = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        ssn.ssn_all_prefixes = self.orig
+
+
+def ssn_driver(tmp):
+    """(b) driver --exact --exact-solver ssn against --exact-solver xla on
+    the cut --runs 2 --g-runs 50 --t-max 300, the two random families (the
+    deterministic ones take the canonical closed forms in both routes), on
+    the card; at T = 100..1000 and all four cases the xla route alone takes
+    ~6 min (scripts/ssn_torch_probe.py --pipeline)."""
+    cut = ["--runs", "2", "--g-runs", "50", "--t-max", "300", "--device",
+           "cuda", "--dpi", "50", "--cases", *RANDOM_FAMILIES]
+    game.LAUNCHES = 0
+    with BandCalls() as calls:
+        res = run_experiment(config_from_args(
+            ["--exact", "--exact-solver", "ssn", *cut,
+             "--out-dir", os.path.join(tmp, "exact_ssn")]))
+    k1 = game.LAUNCHES
+    xla = run_experiment(config_from_args(
+        ["--exact", "--exact-solver", "xla", *cut,
+         "--out-dir", os.path.join(tmp, "exact_xla")]))
+    worst = 0.0
+    for title, algs in res["stats"].items():
+        for alg, fields in algs.items():
+            for u, v in zip(fields["mean"], xla["stats"][title][alg]["mean"]):
+                check(math.isfinite(u), f"ssn route {title} {alg} not finite")
+                worst = max(worst, abs(u - v))
+    audit = res["audit"]
+    steps = [c[0] for c in calls.calls]
+    walls = [c[1] for c in calls.calls]
+    print(f"[12 ssn] (b) driver --exact --exact-solver ssn {' '.join(cut)}: "
+          f"wall {res['wall_s']:.2f} s, phases {json.dumps(res['phase_s'])}, "
+          f"K1 launches {k1}; {len(steps)} SSN calls, Newton steps "
+          f"median {statistics.median(steps)} max {max(steps)}, wall a call "
+          f"median {statistics.median(walls):.3f} s max {max(walls):.3f} s; "
+          f"audit {json.dumps(audit)}; host seconds by step "
+          f"{json.dumps(res['exact_time_s'])}")
+    print(f"[12 ssn] (b) --exact-solver xla on the same cut: wall "
+          f"{xla['wall_s']:.2f} s, phases {json.dumps(xla['phase_s'])}, host "
+          f"seconds by step {json.dumps(xla['exact_time_s'])}; max |mean "
+          f"ssn - xla| = {worst:.3e} (bound 3e-6)")
+    check(worst <= 3e-6, "ssn route differs from the xla route")
+    check(all(a["cells_ssn"] == a["cells"] - a["cells_certified"]
+              - a["cells_canonical"] and a["cells_admm"] == 0
+              for a in audit.values()), "a general cell missed the SSN")
+    check(k1 > 0, "the ssn route did not score FTRL through K1")
+
+
+def ssn_auto_ooc():
+    """(c) solver='auto' on the OOC family at the pipeline's width (T_max
+    = 1000, 8 replicates) against solver='ssn' on the same inputs."""
+    kw = dict(T_grid=[1000], runs=1, replicates=SSN_B, progress=False,
+              device="cuda")
+    audit, seconds = {}, {}
+    t0 = time.perf_counter()
+    with BandCalls() as calls:
+        auto = evaluate_stream_exact(ooc_builder, solver="auto",
+                                     audit_out=audit, timing_out=seconds,
+                                     **kw)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forced = evaluate_stream_exact(ooc_builder, solver="ssn", **kw)
+    wall_s = time.perf_counter() - t0
+    same = all(np.array_equal(auto[k][i], forced[k][i])
+               for k in forced for i in (0, 1))
+    print(f"[12 ssn] (c) auto on the OOC family, T_max=1000 B={SSN_B}: wall "
+          f"{wall:.2f} s (solver='ssn' {wall_s:.2f} s), SSN calls (steps, "
+          f"s) {[(c[0], round(c[1], 3)) for c in calls.calls]}, host seconds "
+          f"by step {json.dumps(seconds)}; audit {json.dumps(audit)}; stats "
+          f"equal to solver='ssn' in every bit: {same}")
+    check(audit["cells_ssn"] > 0 and audit["cells_admm"] == 0,
+          "auto did not route the OOC cell to the SSN")
+    check(same, "auto and ssn differ on the OOC family")
+
+
+def ssn_linf_lp():
+    """(d) The linf SSN (the solve of ExactFTL(method='ssn', norm='linf'))
+    on the card at T=40 against HiGHS LP objectives, at the bars of
+    tests/test_ssn.py::test_ssn_linf_matches_lp_objectives."""
+    rng = np.random.default_rng(3)
+    T = 40
+    z = 2.0 * rng.normal(size=(T, D))
+    y = np.sign(z @ rng.normal(size=D) + 0.5 * rng.normal(size=T))
+    y[y == 0] = 1.0
+    (X, res, _), steps, wall = ssn_solve(
+        torch.from_numpy(z).cuda(), torch.from_numpy(y).cuda(), iters=300,
+        tol=1e-6, norm="linf")
+    X, res = X.cpu().numpy(), res.cpu().numpy()
+    ok = True
+    for t in range(1, T + 1):
+        f_ssn = 0.5 * np.abs(z[:t] @ X[t - 1] - y[:t]).sum()
+        A = np.block([[z[:t], -np.eye(t)], [-z[:t], -np.eye(t)]])
+        f_lp = linprog(np.concatenate([np.zeros(D), 0.5 * np.ones(t)]),
+                       A_ub=A, b_ub=np.concatenate([y[:t], -y[:t]]),
+                       bounds=[(-1, 1)] * D + [(0, None)] * t,
+                       method="highs").fun
+        ok &= bool(np.abs(X[t - 1]).max() <= 1.0 + 1e-10)
+        ok &= bool(res[t - 1] >= (f_ssn - f_lp) / (1.0 + f_ssn) - 1e-9)
+        if res[t - 1] <= 2e-4:
+            ok &= bool(f_ssn <= f_lp + 2e-4 * (1.0 + f_lp) + 1e-9)
+    frac, med = float((res <= 2e-4).mean()), float(np.median(res))
+    print(f"[12 ssn] (d) linf SSN T={T} on the card: {steps} Newton steps, "
+          f"{wall:.2f} s; certified at 2e-4 {frac:.3f} (bound >= 0.9), "
+          f"median gap {med:.2e} (bound 1e-6); gaps sound and certified "
+          f"objectives within 2e-4 (1 + f) of HiGHS: {ok}")
+    check(ok and frac >= 0.9 and med <= 1e-6, "linf SSN against HiGHS")
+
+
+def phase_ssn(tmp):
+    ssn_card_vs_cpu()
+    band = ssn_band_call()
+    ssn_driver(tmp)
+    ssn_auto_ooc()
+    ssn_linf_lp()
+    return band
+
+
 def main() -> int:
     walls = {}
 
@@ -2322,6 +2636,7 @@ def main() -> int:
                                            tmp)
         pod_launches, pod_timing = timed("10 pod", phase_pod, tmp)
         exact_launches, exact_timing = timed("11 exact", phase_exact, tmp)
+        timed("12 ssn", phase_ssn, tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",

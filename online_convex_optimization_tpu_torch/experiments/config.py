@@ -12,10 +12,11 @@ Differences from the JAX package:
   - ``--exact`` runs the exact-FTL mode with the JAX package's flags and
     defaults (``--exact-iters``, ``--exact-solver``, ``--exact-selection``,
     ``--norm``, ``--exact-admm-precision``).  ``--exact-solver kernel`` is
-    kernel K10 (l2, ``--precision f32``); ``--exact-solver ssn`` raises
-    ``NotImplementedError`` (the semismooth Newton is ROADMAP item 14b), and
-    so does ``--exact-admm-precision high`` (``ValueError``: the TPU's
-    bf16x3 products have no IEEE counterpart on the card).
+    kernel K10 (l2, ``--precision f32``); ``--exact-solver ssn`` is the
+    semismooth Newton (l2), which solves in float64 whatever
+    ``--precision`` is; ``--exact-admm-precision high`` raises
+    (``ValueError``: the TPU's bf16x3 products have no IEEE counterpart on
+    the card).
   - ``--check`` is an explicit ``torch.isfinite`` guard on every g(T)
     batch, on by default.
 """
@@ -47,10 +48,11 @@ class ExperimentConfig:
     exact_iters: int = 2000
     # ADMM iterate products: "highest" (IEEE) only; "high" raises.
     exact_admm_precision: str = "highest"
-    # Exact solve: "auto" = certified closed form, banded ADMM for the
-    # uncertified in-contract cells; "linear" = require the certificate;
-    # "xla" = force the banded ADMM; "kernel" = force K10 (l2, f32);
-    # "ssn" raises (ROADMAP item 14b).
+    # Exact solve: "auto" = certified closed form, semismooth Newton for the
+    # uncertified out-of-contract l2 cells, banded ADMM for the uncertified
+    # in-contract ones; "linear" = require the certificate; "xla" = force
+    # the banded ADMM; "kernel" = force K10 (l2, f32); "ssn" = force the
+    # semismooth Newton (l2, f64).
     exact_solver: str = "auto"
     # Degenerate-optima selection: "canonical" (min-l2-norm point of the
     # optimal face, models/canonical.py) or "committed" (the solver's).
@@ -116,10 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "linear", "xla", "kernel", "ssn"],
                    default=d.exact_solver,
                    help="exact solve: auto = certified closed form where "
-                        "the optimality certificate holds, banded ADMM "
-                        "otherwise; linear = require the certificate; xla = "
-                        "force the banded ADMM; kernel = force kernel K10 "
-                        "(l2, --precision f32); ssn = not ported (raises)")
+                        "the optimality certificate holds, else semismooth "
+                        "Newton for out-of-contract l2 cells and the banded "
+                        "ADMM for the rest; linear = require the "
+                        "certificate; xla = force the banded ADMM; kernel = "
+                        "force kernel K10 (l2, --precision f32); ssn = force "
+                        "the semismooth Newton (l2, float64)")
     p.add_argument("--exact-selection", choices=["committed", "canonical"],
                    default=d.exact_selection,
                    help="degenerate-optima selection: canonical = min-l2-"

@@ -61,7 +61,6 @@ from online_convex_optimization_tpu_torch.experiments.plotting import (
     plot_empirical_g,
 )
 from online_convex_optimization_tpu_torch.models.exact_ftl import (
-    SSN_NOT_PORTED,
     check_precision,
 )
 from online_convex_optimization_tpu_torch.utils.devices import (
@@ -84,8 +83,6 @@ def check_exact_config(cfg: ExperimentConfig, dtype) -> None:
     """Refuse an exact-mode configuration the port cannot run before any
     work starts."""
     check_precision(cfg.exact_admm_precision)
-    if cfg.exact_solver == "ssn":
-        raise NotImplementedError(f"--exact-solver ssn: {SSN_NOT_PORTED}")
     if cfg.exact_solver == "kernel" and (
             cfg.norm != "l2" or np.dtype(dtype) != np.float32):
         raise ValueError("--exact-solver kernel supports --norm l2 with "

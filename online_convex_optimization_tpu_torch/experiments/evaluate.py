@@ -210,10 +210,19 @@ def evaluate_stream_with_stats(
 
 # ------------------------------------------------------------ exact mode
 
+# SSN Newton-step budget of a band's first attempt (the escalation
+# continues with twice as many): converged prefixes take 27-49 steps, and
+# rows still uncertified at 80 essentially never certify with more.
+_SSN_NEWTON_BUDGET = 80
+
+
 @functools.lru_cache(maxsize=16)
-def _band_programs(T_max: int, norm: str, iters: int, admm_precision: str):
+def _band_programs(T_max: int, norm: str, iters: int, admm_precision: str,
+                   use_ssn: bool):
     """Band-solver closures ``(prefix_solve, prefix_solve_hard, band_los)``
-    of the banded ADMM (``models/exact_ftl.py::_admm_all_prefixes``).
+    of the banded ADMM (``models/exact_ftl.py::_admm_all_prefixes``) or,
+    with ``use_ssn``, of the semismooth Newton (``models/ssn.py``, l2,
+    float64).
 
     The per-prefix problems are independent, so the ``T_max`` rows split
     into 256-row bands (one band below ``T_max = 512``), each stopping at
@@ -221,14 +230,32 @@ def _band_programs(T_max: int, norm: str, iters: int, admm_precision: str):
     ``(B, T_max, d)`` batch, each replicate stopping on its own, and
     returns ``(X (n_bands, B, rows, d), res (n_bands, B, rows), states)``
     with one state per band; ``prefix_solve_hard(zz, yy, state, lo)``
-    continues one band from its state with 3x the budget (6x in all).
+    continues one band from its state with 3x the budget (6x in all; the
+    SSN: twice its first budget of ``_SSN_NEWTON_BUDGET`` Newton steps).
+    The ADMM solves the bands one after another; the SSN solves all of them
+    in one batch, every (band, replicate) member stopping on its own.
     """
+    from online_convex_optimization_tpu_torch.models import ssn
     from online_convex_optimization_tpu_torch.models.exact_ftl import (
         _admm_all_prefixes)
 
     band_rows = 256 if T_max >= 512 else T_max
     band_los = sorted({min(b * band_rows, T_max - band_rows)
                        for b in range(-(-T_max // band_rows))})
+
+    if use_ssn:
+        def prefix_solve(zz, yy):
+            X, res, (Xs, mu) = ssn.ssn_all_prefixes(
+                zz, yy, iters=_SSN_NEWTON_BUDGET, tol=2e-4, band_lo=band_los,
+                band_rows=band_rows, norm=norm)
+            return X, res, [(Xs[bi], mu[bi]) for bi in range(len(band_los))]
+
+        def prefix_solve_hard(zz, yy, st, lo):
+            return ssn.ssn_all_prefixes(
+                zz, yy, iters=2 * _SSN_NEWTON_BUDGET, tol=2e-4, state0=st,
+                band_lo=lo, band_rows=band_rows, norm=norm)
+
+        return prefix_solve, prefix_solve_hard, band_los
 
     def _band(zz, yy, lo, st=None, budget=None):
         return _admm_all_prefixes(
@@ -276,14 +303,16 @@ def evaluate_stream_exact(
     scored against the same exact comparator.
 
     ``solver``: "auto" takes the certified closed form
-    (``models/linear_regime.py``) where the optimality certificate holds
-    and the banded ADMM for the in-contract uncertified cells (the
-    deterministic w = 0 families); an out-of-contract uncertified cell,
-    which the JAX package sends to its semismooth Newton, raises
-    ``NotImplementedError`` here (ROADMAP item 14b).  "linear" requires the
-    certificate; "xla" forces the banded ADMM on every cell; "kernel" (l2,
-    float32) forces kernel K10 (``ops/admm.py``) on each horizon's own
-    rows, continuing a cell's state once for unconverged replicates; "ssn" raises ``NotImplementedError``.
+    (``models/linear_regime.py``) where the optimality certificate holds;
+    of the uncertified cells, an l2 cell with rows outside the unit ball
+    goes to the semismooth Newton (``models/ssn.py``) and the in-contract
+    ones (the deterministic w = 0 families) to the banded ADMM, whose
+    committed statistics depend on that path.  "linear" requires the
+    certificate; "xla" forces the banded ADMM on every cell; "ssn" (l2)
+    forces the semismooth Newton on every cell; "kernel" (l2, float32)
+    forces kernel K10 (``ops/admm.py``) on each horizon's own rows,
+    continuing a cell's state once for unconverged replicates.  The
+    semismooth Newton solves in float64 whatever ``dtype`` is.
     Certified and canonical cells are scored on the host in f64, general
     cells on ``device`` with the polished actions in f64 and FTRL through
     K1 in ``dtype``.
@@ -299,14 +328,16 @@ def evaluate_stream_exact(
     warning.  ``audit_out`` receives the solver-path accounting: cells by
     route and replicate escalation / recovery / drop counts.
     ``timing_out`` receives the host's seconds by step: ``prepare`` (data,
-    certificates, canonical closed forms, launching the solves),
+    certificates, canonical closed forms, launching the solves; the
+    semismooth Newton's solves, which read every Newton step's convergence
+    test on the host, run here),
     ``solve_wait`` (waiting for the device solves, escalations included),
     ``polish`` (the polish and canonicalization of general cells),
     ``score`` (scoring general cells on the device) and
     ``certified_score`` (scoring certified cells on the host).
     """
     from online_convex_optimization_tpu_torch.models.exact_ftl import (
-        SSN_NOT_PORTED, check_precision)
+        check_precision)
     from online_convex_optimization_tpu_torch.models.polish import (
         polish_prefix_actions)
     from online_convex_optimization_tpu_torch.utils.devices import (
@@ -330,11 +361,11 @@ def evaluate_stream_exact(
     if use_kernel and (norm != "l2" or np.dtype(dtype) != np.float32):
         raise ValueError("solver='kernel' supports norm='l2' with "
                          "float32 data only")
-    if solver == "ssn":
-        if norm != "l2":
-            raise ValueError("solver='ssn' supports norm='l2' only in the "
-                             "pipeline")
-        raise NotImplementedError(f"solver='ssn': {SSN_NOT_PORTED}")
+    use_ssn = solver == "ssn"
+    if use_ssn and norm != "l2":
+        raise ValueError("solver='ssn' supports norm='l2' only in the "
+                         "pipeline (linf SSN: use ExactFTL(method='ssn', "
+                         "norm='linf'); see docs/BENCHMARKS.md)")
     check_precision(admm_precision)
     device = resolve_device(device)
     if use_kernel:
@@ -352,7 +383,7 @@ def evaluate_stream_exact(
         band_los = []
     else:
         prefix_solve, prefix_solve_hard, band_los = _band_programs(
-            T_max, norm, int(iters), admm_precision)
+            T_max, norm, int(iters), admm_precision, use_ssn)
 
     def horizon(zz, yy, T):
         # K10 solves each horizon at its own length: a row's result does
@@ -363,16 +394,17 @@ def evaluate_stream_exact(
             return zz, yy
         return zz[:, :T].contiguous(), yy[:, :T].contiguous()
 
+    auto_ssn = solver == "auto" and norm == "l2"
+
     def _general_programs(z_cell, T):
-        if solver == "auto" and norm == "l2" and bool(np.any(
+        # Out-of-contract l2 cells (rows outside the unit ball) go to the
+        # semismooth Newton under "auto" as well.
+        if auto_ssn and bool(np.any(
                 np.linalg.norm(z_cell[:, :T], axis=-1) > 1.0 + 1e-9)):
-            raise NotImplementedError(
-                f"solver='auto': cell T={T} of {stream_name!r} has rows "
-                f"outside the unit ball and failed the certificate; the JAX "
-                f"package solves such cells by semismooth Newton, and "
-                f"{SSN_NOT_PORTED}")
+            return _band_programs(T_max, norm, int(iters), admm_precision,
+                                  True)[:2] + ("ssn",)
         return prefix_solve, prefix_solve_hard, (
-            "kernel" if use_kernel else "admm")
+            "ssn" if use_ssn else ("kernel" if use_kernel else "admm"))
 
     audit = {"cells": 0, "cells_certified": 0, "cells_canonical": 0,
              "cells_admm": 0, "cells_ssn": 0, "cells_kernel": 0,
@@ -450,8 +482,9 @@ def evaluate_stream_exact(
         return pending
 
     # Two runs in flight keep two runs' ADMM states alive ((reps, T, T) S/U
-    # per horizon on the kernel route, T = T_max on the banded ADMM's);
-    # above ~4 GB of state, one run at a time.
+    # per horizon on the kernel route, T = T_max on the banded ADMM's; the
+    # SSN's states are (X, mu) only); above ~4 GB of state, one run at a
+    # time.
     lengths = T_grid if use_kernel else [T_max] * len(T_grid)
     state_bytes = (2 * replicates * 2 * sum(t * t for t in lengths)
                    * np.dtype(dtype).itemsize)

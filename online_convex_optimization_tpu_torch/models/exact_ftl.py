@@ -8,9 +8,11 @@ Counterpart of ``online_convex_optimization_tpu/models/exact_ftl.py``
 (l2, linf or l1 ball).  Every prefix is solved at once by a consensus ADMM
 (residual copy ``s`` with a soft threshold, ball copy ``w`` with the
 projection, over-relaxed) whose x-step reuses the Cholesky factors of the
-cumulative Gram matrices; a host active-set polish (``models/polish.py``)
-then reaches ~1e-9 objective accuracy, and on binary-label contract data the
-certified closed form (``models/linear_regime.py``) replaces the solve.
+cumulative Gram matrices, or, with ``method="ssn"`` (l2 and linf), by the
+semismooth Newton of ``models/ssn.py``; a host active-set polish
+(``models/polish.py``) then reaches ~1e-9 objective accuracy, and on
+binary-label contract data the certified closed form
+(``models/linear_regime.py``) replaces the solve.
 
 The three XLA formulations of the JAX package are plain PyTorch here, on the
 tensors' device: ``_admm_all_prefixes`` (with prefix banding),
@@ -22,9 +24,10 @@ call raises when TF32 is enabled (``torch.backends.cuda.matmul.allow_tf32``
 or a float32 matmul precision other than ``"highest"``), the card's form of
 the TPU's bf16-truncated default (``_HI`` in the JAX module).  The
 iterate-precision option ``"high"`` (bf16x3 MXU passes on the TPU) has no
-IEEE counterpart on the card and raises; so does ``method="ssn"`` (the
-semismooth Newton of ``models/ssn.py`` is ROADMAP item 14b).  The TPU-only
-host pinning of f64 solves is not carried over: the card computes f64.
+IEEE counterpart on the card and raises.  The semismooth Newton solves in
+float64 on every device, as the JAX package does off the TPU; its TPU-only
+float32 certificate and host pinning of f64 solves are not carried over:
+the card computes f64.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ from online_convex_optimization_tpu_torch.models.polish import (
     polish_prefix_actions,
     polish_solution,
 )
+from online_convex_optimization_tpu_torch.models.ssn import (
+    ssn_all_prefixes,
+    ssn_full,
+)
 from online_convex_optimization_tpu_torch.ops.actions import (
     project_l1_ball,
     project_l2_ball,
@@ -61,9 +68,6 @@ _PROJECT = {
     "linf": project_linf_ball,
     "l1": project_l1_ball,
 }
-
-SSN_NOT_PORTED = ("the semismooth-Newton solver (models/ssn.py) is not "
-                  "ported yet: ROADMAP.md queue 1, item 14b")
 
 
 def check_precision(precision: str) -> None:
@@ -283,8 +287,9 @@ class ExactFTL:
     residuals above ``fail_tol`` raise ``RuntimeError`` or, with
     ``on_fail='sentinel'``, become NaN.  ``last_info`` holds the residual
     telemetry of the latest solve.  ``allow_linear`` tries the certified
-    closed form first.  ``method='ssn'`` raises ``NotImplementedError``
-    (ROADMAP item 14b).
+    closed form first.  ``method='ssn'`` (l2, linf) solves the general
+    path by semismooth Newton in float64, with a cap of at least 2000
+    Newton steps and a gap tolerance of at least 1e-6.
     """
 
     d: int
@@ -308,8 +313,6 @@ class ExactFTL:
             raise ValueError(f"unknown method {self.method!r}")
         if self.method == "ssn" and self.norm not in ("l2", "linf"):
             raise ValueError("method='ssn' supports norm in {'l2','linf'}")
-        if self.method == "ssn":
-            raise NotImplementedError(f"method='ssn': {SSN_NOT_PORTED}")
         check_precision(self.iter_precision)
         self._device = resolve_device(self.device)
         self._z_buf = np.zeros((self.T_max, self.d))
@@ -326,8 +329,14 @@ class ExactFTL:
         return torch.as_tensor(np.asarray(a), device=self._device)
 
     def _band_solve(self, z, y, lo, rows, state0=None, iters=None):
-        """General-path all-prefix band solve."""
+        """General-path all-prefix band solve via the configured method."""
         iters = self.iters if iters is None else iters
+        if self.method == "ssn":
+            # Newton steps: slow-tail rows need ~1e3; converged members
+            # stop early, so the generous cap costs nothing.
+            return ssn_all_prefixes(
+                z, y, iters=max(iters, 2000), tol=max(self.stop_tol, 1e-6),
+                state0=state0, band_lo=lo, band_rows=rows, norm=self.norm)
         return _admm_all_prefixes(
             z, y, norm=self.norm, iters=iters, rho=self.rho,
             alpha=self.alpha, tol=self.stop_tol,
@@ -335,8 +344,12 @@ class ExactFTL:
             band_lo=lo, band_rows=rows)
 
     def _full_solve(self, z, y, state0=None, iters=None):
-        """General-path full-sequence solve."""
+        """General-path full-sequence solve via the configured method."""
         iters = self.iters if iters is None else iters
+        if self.method == "ssn":
+            return ssn_full(z, y, iters=max(iters, 2000),
+                            tol=max(self.stop_tol, 1e-6), state0=state0,
+                            norm=self.norm)
         return _admm_full(z, y, norm=self.norm, iters=iters, rho=self.rho,
                           alpha=self.alpha, tol=self.stop_tol,
                           precision=self.iter_precision, state0=state0)

@@ -712,3 +712,54 @@ def test_exact_kernel_route_on_the_card(cuda):
     for k in want:
         for g, w in zip(got[k], want[k]):
             np.testing.assert_allclose(g, w, rtol=0, atol=TOL[torch.float32])
+
+
+def test_ssn_on_the_card_matches_cpu(cuda, monkeypatch):
+    """The semismooth Newton (plain PyTorch, float64) on the card against
+    its CPU run: at a fixed 10 steps X and mu within 1e-9 on the prefixes
+    of at least d rows (shorter ones interpolate on a continuum, where the
+    iterate is rounding-determined) and every prefix objective within
+    1e-9 (1 + f); the steps replayed from one CUDA graph equal the eager
+    steps in every bit; converged at tol 2e-4 on both; the pipeline's
+    "ssn" route through K1 within 1e-9 of its CPU run."""
+    from online_convex_optimization_tpu_torch.experiments.evaluate import (
+        evaluate_stream_exact)
+    from online_convex_optimization_tpu_torch.models import ssn
+    rng = np.random.default_rng(0)
+    B, T, d = 2, 60, 5
+    z = 2.0 * rng.normal(size=(B, T, d))
+    y = np.sign(np.einsum("btd,bd->bt", z, rng.normal(size=(B, d)))
+                + 0.3 * rng.normal(size=(B, T)))
+    zc, yc = (torch.from_numpy(a) for a in (z, y))
+    Xg, _, (_, mug) = ssn.ssn_all_prefixes(zc.to(cuda), yc.to(cuda),
+                                           iters=10, tol=0.0)
+    monkeypatch.setattr(ssn, "_CUDA_GRAPHS", False)
+    Xe, _, (_, mue) = ssn.ssn_all_prefixes(zc.to(cuda), yc.to(cuda),
+                                           iters=10, tol=0.0)
+    monkeypatch.undo()
+    assert torch.equal(Xg, Xe) and torch.equal(mug, mue)
+    Xc, _, (_, muc) = ssn.ssn_all_prefixes(zc, yc, iters=10, tol=0.0)
+    Xg, mug = Xg.cpu().numpy(), mug.cpu().numpy()
+    np.testing.assert_allclose(Xg[:, d - 1:], Xc.numpy()[:, d - 1:],
+                               atol=1e-9, rtol=0)
+    np.testing.assert_allclose(mug[:, d - 1:], muc.numpy()[:, d - 1:],
+                               atol=1e-9, rtol=0)
+    m = np.tril(np.ones((T, T)))
+    f = lambda X: 0.5 * (np.abs(np.einsum("btd,bpd->bpt", z, X)
+                                - y[:, None]) * m).sum(-1)
+    fg, fc = f(Xg), f(Xc.numpy())
+    assert (np.abs(fg - fc) <= 1e-9 * (1 + fc)).all()
+    for dev in (cuda, "cpu"):
+        _, res, _ = ssn.ssn_all_prefixes(zc.to(dev), yc.to(dev), iters=200,
+                                         tol=2e-4)
+        assert float(res.max()) <= 2e-4
+    kw = dict(T_grid=[40, 60], runs=1, replicates=2, solver="ssn",
+              progress=False)
+    before = game.LAUNCHES
+    got = evaluate_stream_exact(CASES["Random i.i.d. (separable)"],
+                                device=cuda, **kw)
+    assert game.LAUNCHES > before
+    want = evaluate_stream_exact(CASES["Random i.i.d. (separable)"],
+                                 device="cpu", **kw)
+    for k in want:
+        np.testing.assert_allclose(got[k][0], want[k][0], rtol=0, atol=1e-9)

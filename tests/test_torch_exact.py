@@ -342,8 +342,13 @@ def test_bad_shapes_ssn_and_high_precision_raise():
         _solver(d=3, T_max=20).prefix_actions(z, y)
     with pytest.raises(ValueError, match="unknown method"):
         _solver(d=5, T_max=20, method="newton")
-    with pytest.raises(NotImplementedError, match="14b"):
-        _solver(d=5, T_max=20, method="ssn")
+    # The semismooth Newton is ported (l2 and linf); the l1 ball stays
+    # ADMM-only, as in the JAX package.
+    with pytest.raises(ValueError, match="l2"):
+        _solver(d=5, T_max=20, method="ssn", norm="l1")
+    acts = _solver(d=5, T_max=20, method="ssn",
+                   allow_linear=False).prefix_actions(3.0 * z, y)
+    assert acts.shape == (21, 5) and np.isfinite(acts).all()
     with pytest.raises(ValueError, match="IEEE"):
         _solver(d=5, T_max=20, iter_precision="high")
     with pytest.raises(ValueError, match="IEEE"):
@@ -471,9 +476,13 @@ def test_evaluate_stream_exact_refusals():
     with pytest.raises(ValueError, match="float32"):
         pt_evaluate.evaluate_stream_exact(family, solver="kernel",
                                           norm="linf", dtype=np.float32, **kw)
-    with pytest.raises(NotImplementedError, match="14b"):
-        pt_evaluate.evaluate_stream_exact(family, solver="ssn", **kw)
+    with pytest.raises(ValueError, match="l2"):
+        pt_evaluate.evaluate_stream_exact(family, solver="ssn", norm="linf",
+                                          **kw)
 
+    # The semismooth Newton runs: forced, and under "auto" on a cell with
+    # rows outside the unit ball (tests/test_torch_ssn_pipeline.py holds
+    # both against the JAX package).
     def out_of_contract(run_seed):
         rng = np.random.default_rng(run_seed)
 
@@ -482,9 +491,12 @@ def test_evaluate_stream_exact_refusals():
             return z, np.sign(rng.normal(size=T)), None
         return sample
 
-    with pytest.raises(NotImplementedError, match="semismooth"):
-        pt_evaluate.evaluate_stream_exact(out_of_contract, solver="auto",
-                                          **kw)
+    for solver, fam in (("ssn", family), ("auto", out_of_contract)):
+        audit = {}
+        stats = pt_evaluate.evaluate_stream_exact(fam, solver=solver,
+                                                  audit_out=audit, **kw)
+        assert audit["cells_ssn"] == audit["cells"] == 1, (solver, audit)
+        assert all(np.isfinite(v[0]).all() for v in stats.values())
 
 
 @pytest.mark.parametrize("solver", ["auto", "xla"])

@@ -81,6 +81,27 @@ for solver, precision in (("auto", "x64"), ("xla", "x64"), ("kernel", "f32")):
 res = exact_ftl.run_ftl_exact(z[:30], y[:30], device="cpu")
 assert np.isfinite(res.regret)
 
+# The semismooth Newton, the fidelity audit and the four remaining
+# examples, on the CPU.
+from online_convex_optimization_tpu_torch.models import ssn
+from online_convex_optimization_tpu_torch.experiments import fidelity
+from online_convex_optimization_tpu_torch.examples import (
+    certified_and_ssn, exact_oracles, norm_balls_and_recovery,
+    reference_workflow)
+report = fidelity.main(["--out", sys.argv[1] + "/fidelity.md"])
+assert report.startswith("# Figure fidelity")
+wf = reference_workflow.main(["--device", "cpu", "--t-grid", "40", "80",
+                              "--g-runs", "4"])
+assert set(wf["regret"]) == {40, 80}
+eo = exact_oracles.main(["--device", "cpu", "--horizon", "30",
+                         "--quadratic-horizon", "60"])
+assert np.isfinite(eo["exact_ftl"].regret)
+cs = certified_and_ssn.main(["--device", "cpu", "--horizon", "30",
+                             "--admm-iters", "8000"])
+assert abs(cs["admm"].regret - cs["ssn"].regret) < 1e-4
+nb = norm_balls_and_recovery.main(["--device", "cpu"])
+assert nb["l1_certified"] and (nb["g_sliced"] == nb["g_once"]).all()
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("online_convex_optimization_tpu.")
                or m == "online_convex_optimization_tpu" for m in sys.modules)

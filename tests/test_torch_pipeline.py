@@ -2,8 +2,8 @@
 
 At ``--t-max 300 --g-runs 20 --runs 2 --replicates 2 --dpi 50`` every
 ``g_emp`` and ``stats`` entry agrees to 1e-9; plus the port driver's
-contract: ``--exact --exact-solver ssn`` and ``--device cuda`` without a
-card raise, the f32
+contract: ``--exact --exact-solver ssn`` runs (l2; ``--norm linf`` raises),
+``--device cuda`` without a card raises, the f32
 deterministic families route to the golden oracle, the g(T) cache is
 provenance-keyed and the isfinite guard names its horizon.
 """
@@ -63,12 +63,22 @@ def test_port_driver_matches_jax_driver(tmp_path):
 
 
 def test_driver_refuses_exact_and_missing_card(tmp_path):
-    # --exact runs (tests/test_torch_exact.py); its semismooth-Newton solver
-    # is not ported and raises, naming the ROADMAP item.
-    with pytest.raises(NotImplementedError, match="ROADMAP.*14b"):
+    # --exact --exact-solver ssn runs every general cell through the
+    # semismooth Newton (l2 only in the pipeline, as in the JAX package).
+    ssn_args = ["--exact", "--exact-solver", "ssn", "--device", "cpu",
+                "--t-min", "20", "--t-max", "40", "--t-step", "20",
+                "--g-runs", "3", "--runs", "1", "--replicates", "2",
+                "--cases", "Massart noise 10%", "--dpi", "20"]
+    res = pt_driver.run_experiment(config_from_args(
+        ssn_args + ["--out-dir", str(tmp_path / "ssn")]))
+    audit = res["audit"]["Massart noise 10%"]
+    assert audit["cells_ssn"] == audit["cells"] == 2
+    assert audit["replicates_dropped"] == 0
+    assert np.isfinite(res["stats"]["Massart noise 10%"]["FTL (exact)"][
+        "mean"]).all()
+    with pytest.raises(ValueError, match="l2"):
         pt_driver.run_experiment(config_from_args(
-            ["--exact", "--exact-solver", "ssn", "--device", "cpu",
-             "--out-dir", str(tmp_path)]))
+            ssn_args + ["--norm", "linf", "--out-dir", str(tmp_path)]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             pt_driver.run_experiment(config_from_args(
