@@ -155,6 +155,26 @@ non-zero without printing a result):
                statistics equal to ``solver="ssn"`` in every bit; (d) the
                linf SSN at T=40 against HiGHS LP objectives at the bars of
                ``tests/test_ssn.py::test_ssn_linf_matches_lp_objectives``.
+  13. storage — K1-K6 on the JAX package's narrow storage: bf16 z with
+               bf16 or int8 y, and f32 z with int8 y, generated on the
+               card by the bf16 generators.  Each pair's main path (the
+               counts zeroed before and read after): regret_plays and
+               regrets_fused (K1), smart_plays and smart_regrets (K2),
+               simulate_linear_auto (K3, K3e), StreamingKernelGame(dtype,
+               y_dtype) (K4), ftrl_eta_sweep (K5), smart_threshold_sweep
+               (K6a, K6b), every count rising.  Every instance (d = 5, 3,
+               64, 65 at B=77 T=103, in contract and in replay mode) and
+               each kernel at its phase's shape (K1, K2: phase 3's B=10,000
+               T=1000 with two plays or thresholds; K3, K3e: phase 8's;
+               K4: phase 7's chunk at t0 = 127 chunks with a carried
+               state; K5, K6a, K6b: phase 6's) equal in every bit to the
+               f32 instance on the upcast values and within 5e-4 of its
+               plain version; timed against the f32 instance in turns,
+               beside the pair's bytes bound; one K3 call at B=131,072
+               must grow the peak memory by less than an f32 copy of z
+               (the narrow arrays are read, not upcast) and launch once;
+               K1 at bench.py's shape (262,144 sequences, T=1024, one FTRL
+               play, bf16 z, int8 y), timed.  About 45 s.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -171,8 +191,10 @@ the switch test up to the last threshold's switch, each pair's tail).
 K1's, K2's, K9's and K10's entries add their registers a thread and
 resident warps an SM (K9's and K10's text lines also print the
 --fmad=false issue floor, which is arithmetic and stays out of the
-kernels line).  The line before the last lists the kernels as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8
+kernels line).  The narrow instances of phase 13 have an entry each
+(name ``... (K1, bfloat16 z, int8 y: oco_*_bf16i8)``), with K1 at
+bench.py's shape.  The line before the last lists the kernels as
+JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8-9
 minutes on an H100.
 """
 
@@ -2613,6 +2635,472 @@ def phase_ssn(tmp):
     return band
 
 
+# --------------------------------------------------------------- phase 13
+# The narrow storage pairs (z, y) of K1-K6, as the JAX package stores them.
+PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+         (torch.float32, torch.int8))
+STORE_TOL = TOL[torch.float32]
+# The kernels of the slice: (key, source, TPU kernel, what it computes).
+STORAGE_KERNELS = (
+    ("K1", "regret_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_game.py:679", "regret_kernel"),
+    ("K2", "smart_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_smart.py:108", "smart_kernel"),
+    ("K3", "game_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_game.py:363", "game_kernel"),
+    ("K3e", "game_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_game.py:467", "game_kernel"),
+    ("K4", "stream_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_game.py:871", "stream_kernel"),
+    ("K5", "sweep_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_game.py:556", "sweep_kernel"),
+    ("K6a", "smart_sweep_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_smart.py:248",
+     "smart_prefix_kernel"),
+    ("K6b", "smart_sweep_kernel.cu",
+     "online_convex_optimization_tpu/ops/pallas_smart.py:248",
+     "smart_tail_kernel"))
+BENCH_B, BENCH_T = 262_144, 1024
+
+
+def pair_name(pair) -> str:
+    return game.STORAGE[pair]
+
+
+def item(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def row_bytes(pair) -> int:
+    """Bytes of one round of one sequence in a storage pair."""
+    return D * item(pair[0]) + item(pair[1])
+
+
+class PlainCache:
+    """Plain versions on the upcast values, computed once for each distinct
+    upcast input (bf16/bf16 and bf16/int8 share theirs)."""
+
+    def __init__(self):
+        self.memo = {}
+
+    def get(self, key, fn):
+        if key not in self.memo:
+            out, ms = timed_once(fn)
+            self.memo[key] = (out, ms)
+        return self.memo[key]
+
+
+def storage_check(label, pair, narrow, wide, plain):
+    """``narrow`` (the pair's instance) against ``wide`` (the f32 instance
+    on the upcast values) bit for bit, and against ``plain`` within
+    STORE_TOL; returns the error against the plain version."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(narrow, wide))
+    err = max_err([a for a in narrow if a.is_floating_point()],
+                  [b for b in plain if b.is_floating_point()])
+    ints = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(narrow, plain)
+               if not a.is_floating_point())
+    print(f"[13 storage] {label} {pair_name(pair)}: vs f32 instance on the "
+          f"upcast values {'equal in every bit' if same else 'DIFFERENT'}; "
+          f"vs plain max_abs_err={err:.3e} (bound {STORE_TOL})"
+          + ("" if ints else "; switch rounds DIFFER from plain"))
+    check(same, f"{label} {pair_name(pair)}: differs from the f32 instance "
+          f"on the upcast values")
+    check(err <= STORE_TOL and ints, f"{label} {pair_name(pair)} vs plain")
+    return err
+
+
+def storage_batch(pair, B, T, d, seed, *, contract=True):
+    """Rows and labels stored in ``pair`` with ragged lengths: the device
+    generator's contract batch, or rows scaled past the ball (replay)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z, y = random_game_batch(gen, B, T, d, dtype=pair[0], y_dtype=pair[1])
+    if not contract:
+        z = (1.5 * z.float()).to(pair[0])
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    lengths[0] = T
+    return z, y, lengths
+
+
+def up(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def storage_main_path(batches, stream_chunks, packed):
+    """Every storage entry point of the slice as a user calls it, one pair
+    at a time, the counts set to 0 just before and read just after: K1
+    (regret_plays, regrets_fused), K2 (smart_plays, smart_regrets), K3 and
+    K3e (simulate_linear_auto), K4 (StreamingKernelGame(dtype, y_dtype)),
+    K5 (ftrl_eta_sweep) and K6a/K6b (smart_threshold_sweep)."""
+    launches = {}
+    for pair in PAIRS:
+        z, y, lengths = batches[pair]
+        zc, yc = stream_chunks[pair]
+        z_tm, y_tm = packed[pair]
+        sw_z, sw_y, sw_len = batches[("sweep", pair)]
+        game.LAUNCHES = smart.LAUNCHES = 0
+        game.PACKED_LAUNCHES = game.PACKED_ETA_LAUNCHES = 0
+        game.STREAM_LAUNCHES = game.SWEEP_LAUNCHES = 0
+        smart.SWEEP_LAUNCHES = smart.SWEEP_TAIL_LAUNCHES = 0
+        replay = not game.in_contract(z, y, lengths)
+        outs = [game.regret_plays(z, y, (0, 1), ETA, lengths, replay)[0],
+                game.regrets_fused(z, y, 0, ETA, lengths)[0],
+                smart.smart_plays(z, y, torch.stack(
+                    [torch.sqrt(2.0 * lengths.float()),
+                     0.9 * torch.sqrt(2.0 * lengths.float())]), ETA,
+                    lengths, replay)[0],
+                smart.smart_regrets(z, y, 8.0, ETA, lengths)[0]]
+        zb, yb = z_tm.permute(2, 0, 1), y_tm.t()
+        outs.append(game.simulate_linear_auto(zb, yb, 0, ETA))
+        outs.append(game.simulate_linear_auto(
+            zb, yb, 0, torch.linspace(0.05, 4.0, zb.shape[0], device="cuda")))
+        sg = StreamingKernelGame(STREAM_B, D, eta0=ETA, dtype=pair[0],
+                                 y_dtype=pair[1], device="cuda")
+        sg.feed_packed(zc, yc)
+        sg.feed_many_packed(zc[None], yc[None])
+        outs.append(sg.result().regret)
+        outs.append(ftrl_eta_sweep(sw_z, sw_y, ETA_GRID, length=sw_len))
+        outs.append(smart_threshold_sweep(sw_z, sw_y, THRESH_GRID, eta0=ETA,
+                                          length=sw_len))
+        torch.cuda.synchronize()
+        got = {"K1": game.LAUNCHES, "K2": smart.LAUNCHES,
+               "K3": game.PACKED_LAUNCHES, "K3e": game.PACKED_ETA_LAUNCHES,
+               "K4": game.STREAM_LAUNCHES, "K5": game.SWEEP_LAUNCHES,
+               "K6a": smart.SWEEP_LAUNCHES, "K6b": smart.SWEEP_TAIL_LAUNCHES}
+        print(f"[13 storage] main path {pair_name(pair)}: launches "
+              f"{json.dumps(got)}")
+        check(all(v > 0 for v in got.values()),
+              f"storage path {pair_name(pair)} missed a kernel: {got}")
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"storage path {pair_name(pair)}: outputs not finite")
+        launches[pair] = got
+    return launches
+
+
+def storage_time(label, pair, kern, wide, n_bytes, ops):
+    """The pair's kernel and the f32 instance on the upcast values, timed
+    in turns (CUDA events, warmed, 5 repeats), beside the pair's bound."""
+    k_ms = time_ms(kern, reps=5)
+    f_ms = time_ms(wide, reps=5)
+    b = bound(n_bytes, ops, torch.float32)
+    print(f"[13 storage] {label} {pair_name(pair)}: kernel {k_ms[0]:.4f} ms "
+          f"(min {k_ms[1]:.4f}, max {k_ms[2]:.4f}), f32 instance on the "
+          f"upcast values {f_ms[0]:.4f} ms (min {f_ms[1]:.4f}, max "
+          f"{f_ms[2]:.4f}); bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} ({n_bytes / 1e9:.4f} GB)")
+    return {"ms": k_ms[0], "ms_min": k_ms[1], "ms_max": k_ms[2],
+            "f32_ms": f_ms[0], "library_ms": None, **b}
+
+
+def storage_instances(pair, plain):
+    """K1, K2, K5, K6 (the wrappers), K3, K3e and K4 at d = 5, 3, 64 and
+    65 (the unrolled, generic and large-d instances), B = 77, T = 103, in
+    contract and in replay mode (K3, K3e, K4 need none: no comparator)."""
+    key = pair[0]
+    for d in (5, 3, 64, 65):
+        for contract in (True, False):
+            z, y, ls = storage_batch(pair, 77, 103, d, 130 + d,
+                                     contract=contract)
+            mode = "contract" if contract else "replay"
+            check(game.in_contract(z, y, ls) == contract,
+                  f"{pair_name(pair)} d={d}: contract check")
+            zf, yf = up(z, y)
+            mixed = torch.arange(77, device="cuda") % 2
+            etas = torch.linspace(0.3, 2.5, 77, device="cuda")
+            thr = torch.where(mixed == 0, 2.0, 6.5).float()
+            lab = f"d={d} {mode} B=77 T=103"
+            storage_check(
+                f"K1 {lab}", pair,
+                game.regrets_fused(z, y, mixed, etas, ls),
+                game.regrets_fused(zf, yf, mixed, etas, ls),
+                plain.get(("K1", d, contract, key),
+                          lambda: game.regrets_fused_reference(
+                              zf, yf, mixed.int(), etas, ls,
+                              replay=not contract))[0])
+            storage_check(
+                f"K2 {lab}", pair, smart.smart_regrets(z, y, thr, ETA, ls),
+                smart.smart_regrets(zf, yf, thr, ETA, ls),
+                plain.get(("K2", d, contract, key),
+                          lambda: smart.smart_regrets_reference(
+                              zf, yf, thr,
+                              torch.full((77,), ETA, device="cuda"), ls,
+                              replay=not contract))[0])
+            grid = ETA_GRID[:11].float().to("cuda")
+            storage_check(
+                f"K5 {lab} E=11", pair, (game.eta_sweep(z, y, grid, ls),),
+                (game.eta_sweep(zf, yf, grid, ls),),
+                plain.get(("K5", d, contract, key),
+                          lambda: (game.eta_sweep_reference(
+                              zf, yf, grid, ls, replay=not contract),))[0])
+            thg = THRESH_GRID[:13].float().to("cuda")
+            storage_check(
+                f"K6 {lab} G=13", pair, smart.smart_sweep(z, y, thg, ETA, ls),
+                smart.smart_sweep(zf, yf, thg, ETA, ls),
+                plain.get(("K6", d, contract, key),
+                          lambda: smart.smart_sweep_reference(
+                              zf, yf, thg, torch.tensor(ETA, device="cuda"),
+                              ls, replay=not contract))[0])
+            if not contract:
+                continue
+            z_tm, y_tm = game.time_major(z, y)
+            zf_tm, yf_tm = game.time_major(zf, yf)
+            sc = game.ftrl_scales(103, ETA, device="cuda")
+            storage_check(f"K3 {lab}", pair,
+                          game.play_packed(z_tm, y_tm, sc),
+                          game.play_packed(zf_tm, yf_tm, sc),
+                          plain.get(("K3", d, key),
+                                    lambda: game.play_packed_reference(
+                                        zf_tm, yf_tm, sc, 0))[0])
+            storage_check(f"K3e {lab}", pair,
+                          game.play_packed_eta(z_tm, y_tm, etas),
+                          game.play_packed_eta(zf_tm, yf_tm, etas),
+                          plain.get(("K3e", d, key),
+                                    lambda: game.play_packed_eta_reference(
+                                        zf_tm, yf_tm, etas))[0])
+            c0 = game.zero_stream_carry(77, d, device="cuda")
+            fl = mixed.int()
+            storage_check(
+                f"K4 {lab} t0=5", pair,
+                game.play_stream(z_tm, y_tm, etas, 5, c0, alg_flag=fl),
+                game.play_stream(zf_tm, yf_tm, etas, 5, c0, alg_flag=fl),
+                plain.get(("K4", d, key),
+                          lambda: game.play_stream_reference(
+                              zf_tm, yf_tm, fl, etas, 5, c0))[0])
+
+
+def storage_full(pair, batches, stream_chunks, packed, plain):
+    """Each kernel at its phase's shape in the pair: against the f32
+    instance on the upcast values (bit for bit) and its plain version
+    (STORE_TOL), timed beside the pair's bound."""
+    rb, f4 = row_bytes(pair), 4
+    key = pair[0]                      # the upcast values' identity
+    out = {}
+    # K1 and K2 at phase 3's shape through the evaluation's entries.
+    z, y, lengths = batches[pair]
+    zf, yf = up(z, y)
+    B, T = z.shape[:2]
+    replay = not game.in_contract(z, y, lengths)
+    flags = torch.tensor([[0], [1]], dtype=torch.int32,
+                         device="cuda").expand(-1, B).contiguous()
+    thr = torch.stack([torch.sqrt(2.0 * lengths.float()),
+                       0.9 * torch.sqrt(2.0 * lengths.float())])
+    etas = torch.full((B,), ETA, device="cuda")
+    k1 = lambda zz, yy: game.regret_plays(zz, yy, (0, 1), ETA, lengths,
+                                          replay)
+    want, p1 = plain.get(("K1", key), lambda: game.regret_plays_reference(
+        zf, yf, flags, etas, lengths, replay=replay))
+    out["K1"] = {"max_abs_err": storage_check(
+        f"K1 B={B} T={T} 2 plays", pair, k1(z, y), k1(zf, yf), want),
+        "plain_ms": p1}
+    rows = float(lengths.double().sum())
+    out["K1"].update(storage_time(
+        "K1", pair, lambda: k1(z, y), lambda: k1(zf, yf),
+        rows * rb + B * 8 + 2 * B * 4 + T * 4 + 2 * B * (2 + D) * 4,
+        rows * (2 * hinge_round_ops(D, with_w=False) + 2 * D)))
+    k2 = lambda zz, yy: smart.smart_plays(zz, yy, thr, ETA, lengths, replay)
+    want, p2 = plain.get(("K2", key), lambda: smart.smart_plays_reference(
+        zf, yf, thr, etas, lengths, replay=replay))
+    got = k2(z, y)
+    out["K2"] = {"max_abs_err": storage_check(
+        f"K2 B={B} T={T} 2 thresholds", pair, got, k2(zf, yf), want),
+        "plain_ms": p2}
+    tau, L = got[3], lengths.long()
+    open_rows = float(torch.minimum(tau.max(0).values + 1, L).sum())
+    tail = float(torch.clamp(L[None] - tau - 1, min=0).sum())
+    out["K2"].update(storage_time(
+        "K2", pair, lambda: k2(z, y), lambda: k2(zf, yf),
+        rows * rb + B * 8 + 2 * B * 4 + T * 4 + 2 * B * (1 + D) * 4
+        + B * 4 + 2 * B * 8,
+        rows * (9 * D + 9) + open_rows * (2 * D + 5)
+        + tail * hinge_round_ops(D, with_w=False)))
+    # K3 and K3e at phase 8's shape.
+    z_tm, y_tm = packed[pair]
+    zf_tm, yf_tm = up(z_tm, y_tm)
+    sc = game.ftrl_scales(PACKED_T, ETA, device="cuda")
+    etas_p = torch.linspace(0.05, 4.0, PACKED_B, device="cuda")
+    steps = PACKED_B * PACKED_T
+    for name, kern, ref, extra in (
+            ("K3", lambda a, b: game.launch_play_packed(a, b, sc, 0),
+             lambda: game.play_packed_reference(zf_tm, yf_tm, sc, 0),
+             PACKED_T * f4),
+            ("K3e", lambda a, b: game.launch_play_packed_eta(a, b, etas_p),
+             lambda: game.play_packed_eta_reference(zf_tm, yf_tm, etas_p),
+             PACKED_B * f4)):
+        want, pm = plain.get((name, key), ref)
+        out[name] = {"max_abs_err": storage_check(
+            f"{name} B={PACKED_B} T={PACKED_T}", pair, kern(z_tm, y_tm),
+            kern(zf_tm, yf_tm), want), "plain_ms": pm}
+        out[name].update(storage_time(
+            name, pair, lambda: kern(z_tm, y_tm), lambda: kern(zf_tm, yf_tm),
+            steps * rb + extra + PACKED_B * (D + 1) * f4,
+            steps * hinge_round_ops(D, False)))
+    # The narrow mode is not upcast: one K3 call's memory and launches.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, c0 = torch.cuda.memory_allocated(), game.PACKED_LAUNCHES
+    game.play_packed(z_tm, y_tm, sc)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    print(f"[13 storage] K3 {pair_name(pair)} one play_packed call at "
+          f"B={PACKED_B}: peak memory growth {growth} bytes (an f32 copy of z "
+          f"{z_tm.numel() * 4}), launches {game.PACKED_LAUNCHES - c0}")
+    check(growth < z_tm.numel() * 4 and game.PACKED_LAUNCHES == c0 + 1,
+          f"K3 {pair_name(pair)}: the narrow storage was upcast")
+    # K4: bit for bit at phase 7's chunk (t0 = 127 chunks, a carried
+    # state), the plain version on a 512-round chunk from zero.
+    zc, yc = stream_chunks[pair]
+    zfc, yfc = up(zc, yc)
+    fl = game.per_sequence(0, STREAM_B, torch.int32, "cuda")
+    et = game.per_sequence(ETA, STREAM_B, torch.float32, "cuda")
+    c0 = game.zero_stream_carry(STREAM_B, D, device="cuda")
+    short = lambda a, b: game.advance_stream(a[:512], b[:512], fl, et, 0, c0)
+    mid = short(zc, yc)
+    check(all(torch.equal(u, v) for u, v in zip(mid, short(zfc, yfc))),
+          f"K4 {pair_name(pair)} CT=512 from zero vs the f32 instance")
+    t0 = (STREAM_N - 1) * STREAM_CT
+    k4 = lambda a, b: game.launch_stream_time_major(a, b, fl, et, t0, mid)
+    want, p4 = plain.get(("K4", key), lambda: game.play_stream_reference(
+        zfc, yfc, fl, et, t0, mid))
+    out["K4"] = {"max_abs_err": storage_check(
+        f"K4 B={STREAM_B} CT={STREAM_CT} t0={t0} carried", pair, k4(zc, yc),
+        k4(zfc, yfc), want), "plain_ms": p4}
+    out["K4"].update(storage_time(
+        "K4", pair, lambda: k4(zc, yc), lambda: k4(zfc, yfc),
+        STREAM_CT * STREAM_B * rb + STREAM_B * 8
+        + 2 * STREAM_B * (2 * D + 2) * f4,
+        STREAM_CT * STREAM_B * hinge_round_ops(D)))
+    # K5, K6a and K6b at phase 6's shape.
+    sz, sy, sl = batches[("sweep", pair)]
+    szf, syf = up(sz, sy)
+    grid = ETA_GRID.float().to("cuda")
+    thg = THRESH_GRID.float().to("cuda")
+    replay = not game.in_contract(sz, sy, sl)
+    want, p5 = plain.get(("K5", key), lambda: game.eta_sweep_reference(
+        szf, syf, grid, sl, replay=replay))
+    order = game.length_order(sl)
+    scales = game.sweep_scales(grid, SWEEP_T)
+    k5 = lambda a, b: game.launch_eta_sweep(a, b, scales, order, sl, replay)
+    out["K5"] = {"max_abs_err": storage_check(
+        f"K5 B={SWEEP_B} T={SWEEP_T} E={len(grid)}", pair,
+        (game.eta_sweep(sz, sy, grid, sl),),
+        (game.eta_sweep(szf, syf, grid, sl),), (want,)), "plain_ms": p5}
+    want6, p6 = plain.get(("K6", key), lambda: smart.smart_sweep_reference(
+        szf, syf, thg, torch.tensor(ETA, device="cuda"), sl, replay=replay))
+    got6 = smart.smart_sweep(sz, sy, thg, ETA, sl)
+    err6 = storage_check(f"K6 B={SWEEP_B} T={SWEEP_T} G={len(thg)}", pair,
+                         got6, smart.smart_sweep(szf, syf, thg, ETA, sl),
+                         want6)
+    counts = smart_sweep_counts(got6[1], sl)
+    srows = float(sl.double().sum())
+    E, G = len(grid), len(thg)
+    ordered, perm = torch.sort(thg, stable=True)
+    perm = perm.to(torch.int32)
+    pre = lambda a, b: smart.launch_smart_prefix(a, b, ordered, perm, order,
+                                                 sl, replay)
+    tsc = game.sweep_scales(torch.full((1,), ETA, device="cuda"), SWEEP_T)
+    pa = pre(sz, sy)
+    regret0 = pa[0].clone()
+
+    def tails(a, b):
+        r = regret0.clone()
+        smart.launch_smart_tails(a, b, tsc, order, sl, pa[1], pa[2], r)
+        return r
+
+    check(torch.equal(tails(sz, sy), tails(szf, syf)),
+          f"K6b {pair_name(pair)} vs the f32 instance")
+    out["K5"].update(storage_time(
+        "K5", pair, lambda: k5(sz, sy), lambda: k5(szf, syf),
+        srows * rb + SWEEP_B * 4 + E * SWEEP_B * f4,
+        srows * (E * hinge_round_ops(D, with_w=False) + 2 * D)))
+    out["K6a"] = {"max_abs_err": err6, "plain_ms": p6}
+    out["K6a"].update(storage_time(
+        "K6a", pair, lambda: pre(sz, sy), lambda: pre(szf, syf),
+        srows * rb + SWEEP_B * 4 + G * f4 + G * SWEEP_B * (8 + f4)
+        + SWEEP_B * f4,
+        srows * (9 * D + 9) + counts["lead_rows"] * (2 * D + 3)))
+    out["K6b"] = {"max_abs_err": err6, "plain_ms": p6}
+    out["K6b"].update(storage_time(
+        "K6b", pair, lambda: tails(sz, sy), lambda: tails(szf, syf),
+        counts["tail_rows"] * rb + SWEEP_B * 4 + G * SWEEP_B * 8
+        + SWEEP_B * f4 + counts["tail_pairs"] * 2 * f4,
+        counts["tail_rounds"] * hinge_round_ops(D, with_w=False)))
+    return out
+
+
+def storage_bench():
+    """K1 at bench.py's shape: 262,144 sequences of T = 1024, one FTRL
+    play, bf16 z and int8 y, against the f32 instance on the upcast values
+    (bit for bit) and its plain version, timed beside its bound."""
+    pair = (torch.bfloat16, torch.int8)
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    z, y = random_game_batch(gen, BENCH_B, BENCH_T, D, dtype=pair[0],
+                             y_dtype=pair[1])
+    lengths = game.per_sequence_lengths(None, BENCH_B, BENCH_T, "cuda")
+    check(game.in_contract(z, y, lengths), "bench batch in the contract")
+    k1 = lambda a, b: game.regret_plays(a, b, (0,), ETA, lengths, False)
+    zf, yf = up(z, y)
+    want, pm = timed_once(lambda: game.regret_plays_reference(
+        zf, yf, torch.zeros((1, BENCH_B), dtype=torch.int32, device="cuda"),
+        torch.full((BENCH_B,), ETA, device="cuda"), lengths))
+    err = storage_check(f"K1 bench.py shape B={BENCH_B} T={BENCH_T} FTRL",
+                        pair, k1(z, y), k1(zf, yf), want)
+    del want
+    steps = BENCH_B * BENCH_T
+    res = {"max_abs_err": err, "plain_ms": pm, **storage_time(
+        "K1 bench.py shape", pair, lambda: k1(z, y), lambda: k1(zf, yf),
+        steps * row_bytes(pair) + BENCH_B * 12 + BENCH_T * 4
+        + BENCH_B * (2 + D) * 4,
+        steps * (hinge_round_ops(D, with_w=False) + 2 * D))}
+    print(f"[13 storage] K1 bench.py shape {pair_name(pair)}: "
+          f"{steps / res['ms'] * 1e3:.4g} sequence-steps/s")
+    return res
+
+
+def phase_storage():
+    """Phase 13: K1-K6 on the narrow storage pairs."""
+    t_start = time.perf_counter()
+    batches, stream_chunks, packed = {}, {}, {}
+    for pair in PAIRS:
+        batches[pair] = storage_batch(pair, 10_000, 1000, D, 131)
+        gen = torch.Generator(device="cuda").manual_seed(132)
+        sz, sy = random_game_batch(gen, SWEEP_B, SWEEP_T, D, dtype=pair[0],
+                                   y_dtype=pair[1])
+        sl = torch.randint(SWEEP_T // 2, SWEEP_T + 1, (SWEEP_B,),
+                           generator=gen, device="cuda", dtype=torch.int32)
+        sl[0] = SWEEP_T
+        batches[("sweep", pair)] = (sz, sy, sl)
+        gen = torch.Generator(device="cuda").manual_seed(133)
+        stream_chunks[pair] = random_time_major_batch(
+            gen, STREAM_CT, STREAM_B, D, dtype=pair[0], y_dtype=pair[1])
+        gen = torch.Generator(device="cuda").manual_seed(134)
+        packed[pair] = random_time_major_batch(
+            gen, PACKED_T, PACKED_B, D, dtype=pair[0], y_dtype=pair[1])
+    walls = {"data": time.perf_counter() - t_start}
+    t = time.perf_counter()
+    launches = storage_main_path(batches, stream_chunks, packed)
+    walls["main path"] = time.perf_counter() - t
+    plain = PlainCache()
+    timing = {}
+    walls["instances"] = walls["full"] = 0.0
+    for pair in PAIRS:
+        t = time.perf_counter()
+        storage_instances(pair, plain)
+        walls["instances"] += time.perf_counter() - t
+        t = time.perf_counter()
+        timing[pair] = storage_full(pair, batches, stream_chunks, packed,
+                                    plain)
+        walls["full"] += time.perf_counter() - t
+    del batches, stream_chunks, packed, plain
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bench = storage_bench()
+    walls["bench"] = time.perf_counter() - t
+    print(f"[13 storage] phase wall {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())})")
+    return launches, timing, bench
+
+
 def main() -> int:
     walls = {}
 
@@ -2637,6 +3125,8 @@ def main() -> int:
         pod_launches, pod_timing = timed("10 pod", phase_pod, tmp)
         exact_launches, exact_timing = timed("11 exact", phase_exact, tmp)
         timed("12 ssn", phase_ssn, tmp)
+    storage_launches, storage_timing, storage_k1_bench = timed(
+        "13 storage", phase_storage)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -2710,6 +3200,30 @@ def main() -> int:
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": exact_launches, **exact_timing},
     ]
+    for pair in PAIRS:
+        z_name, y_name = (str(t)[6:] for t in pair)
+        for key, src, line, what in STORAGE_KERNELS:
+            entry = dict(storage_timing[pair][key])
+            for extra in ("ms_min", "ms_max", "f32_ms"):
+                entry.pop(extra)
+            kernels.append({
+                "name": f"{what} ({key}, {z_name} z, {y_name} y: "
+                        f"oco_*_{pair_name(pair)})",
+                "route": "cuda",
+                "source": f"online_convex_optimization_tpu_torch/csrc/{src}",
+                "replaces": line,
+                "launches": storage_launches[pair][key], **entry})
+    bench = dict(storage_k1_bench)
+    for extra in ("ms_min", "ms_max", "f32_ms"):
+        bench.pop(extra)
+    kernels.append({
+        "name": "regret_kernel (K1 at bench.py's shape: 262,144 sequences, "
+                "T=1024, FTRL, bfloat16 z, int8 y: oco_regrets_fused_bf16i8)",
+        "route": "cuda",
+        "source": "online_convex_optimization_tpu_torch/csrc/regret_kernel.cu",
+        "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:679",
+        "launches": storage_launches[(torch.bfloat16, torch.int8)]["K1"],
+        **bench})
     print(f"[walls] seconds by phase {json.dumps(walls)}, total "
           f"{sum(walls.values()):.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -34,9 +34,10 @@
 
 namespace {
 
-template <typename S, int D, bool PER_SEQ_ETA>
+template <typename Z, typename Y, int D, bool PER_SEQ_ETA,
+          typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(OCO_THREADS)
-game_kernel(const S* __restrict__ z, const S* __restrict__ y,
+game_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
             const S* __restrict__ scales, const S* __restrict__ eta,
             long long T, long long B, int d, int alg_flag,
             S* __restrict__ cum_out, S* __restrict__ theta_out) {
@@ -60,7 +61,8 @@ game_kernel(const S* __restrict__ z, const S* __restrict__ y,
       oco::ftrl_action_scaled<S, D>(th, x, n, scales[t]);
     else
       oco::ftl_action<S, D>(th, x, n);
-    const S g = oco::hinge_step<S, D>(x, zr, y[t * B + b], n, cum);
+    const S g = oco::hinge_step<S, D>(x, zr, S(oco::widen(y[t * B + b])), n,
+                                      cum);
 #pragma unroll
     for (int j = 0; j < n; ++j) th[j] = th[j] + g * zr[j];
   }
@@ -69,21 +71,22 @@ game_kernel(const S* __restrict__ z, const S* __restrict__ y,
   for (int j = 0; j < n; ++j) theta_out[j * B + b] = th[j];
 }
 
-template <typename S, bool PER_SEQ_ETA>
+template <typename Z, typename Y, bool PER_SEQ_ETA>
 int launch(const void* z, const void* y, const void* scales, const void* eta,
            long long T, long long B, int d, int alg_flag, void* cum,
            void* theta, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || T < 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = oco::grid_for(B);
-  const auto* zp = static_cast<const S*>(z);
-  const auto* yp = static_cast<const S*>(y);
+  const auto* zp = static_cast<const Z*>(z);
+  const auto* yp = static_cast<const Y*>(y);
   const auto* sp = static_cast<const S*>(scales);
   const auto* ep = static_cast<const S*>(eta);
   auto* cp = static_cast<S*>(cum);
   auto* tp = static_cast<S*>(theta);
   return oco::launch_for_d(d, [&](auto dc) {
-    game_kernel<S, decltype(dc)::value, PER_SEQ_ETA>
+    game_kernel<Z, Y, decltype(dc)::value, PER_SEQ_ETA>
         <<<grid, OCO_THREADS, 0, s>>>(zp, yp, sp, ep, T, B, d, alg_flag, cp,
                                       tp);
   });
@@ -91,40 +94,30 @@ int launch(const void* z, const void* y, const void* scales, const void* eta,
 
 }  // namespace
 
-// K3.  Inputs: z (T, d, B) and y (T, B) time-major, scales (T,) the FTRL
-// scale of each round, alg_flag 0 (FTRL) or 1 (FTL) for the whole batch.
-// Outputs: cum (B,), theta (d, B).  Returns the cudaError_t of the launch.
-extern "C" int oco_play_packed_f64(const void* z, const void* y,
-                                   const void* scales, long long T,
-                                   long long B, int d, int alg_flag,
-                                   void* cum, void* theta, void* stream) {
-  return launch<double, false>(z, y, scales, nullptr, T, B, d, alg_flag, cum,
-                               theta, stream);
-}
-
-extern "C" int oco_play_packed_f32(const void* z, const void* y,
-                                   const void* scales, long long T,
-                                   long long B, int d, int alg_flag,
-                                   void* cum, void* theta, void* stream) {
-  return launch<float, false>(z, y, scales, nullptr, T, B, d, alg_flag, cum,
-                              theta, stream);
-}
-
-// K3e.  Inputs: z (T, d, B) and y (T, B) time-major, eta (B,) the FTRL step
-// scale of each sequence.  Outputs: cum (B,), theta (d, B).  Returns the
+// K3.  Inputs: z (T, d, B) and y (T, B) time-major in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix), scales (T,) the FTRL scale of each round
+// in the compute type, alg_flag 0 (FTRL) or 1 (FTL) for the whole batch.
+// Outputs, in the compute type: cum (B,), theta (d, B).  Returns the
 // cudaError_t of the launch.
-extern "C" int oco_play_packed_eta_f64(const void* z, const void* y,
-                                       const void* eta, long long T,
-                                       long long B, int d, void* cum,
-                                       void* theta, void* stream) {
-  return launch<double, true>(z, y, nullptr, eta, T, B, d, 0, cum, theta,
-                              stream);
-}
+#define OCO_PACKED_ENTRY(SUFFIX, Z, Y)                                      \
+  extern "C" int oco_play_packed_##SUFFIX(                                  \
+      const void* z, const void* y, const void* scales, long long T,        \
+      long long B, int d, int alg_flag, void* cum, void* theta,             \
+      void* stream) {                                                       \
+    return launch<Z, Y, false>(z, y, scales, nullptr, T, B, d, alg_flag,    \
+                               cum, theta, stream);                         \
+  }
+OCO_STORAGE_PAIRS(OCO_PACKED_ENTRY)
 
-extern "C" int oco_play_packed_eta_f32(const void* z, const void* y,
-                                       const void* eta, long long T,
-                                       long long B, int d, void* cum,
-                                       void* theta, void* stream) {
-  return launch<float, true>(z, y, nullptr, eta, T, B, d, 0, cum, theta,
-                             stream);
-}
+// K3e.  Inputs: z (T, d, B) and y (T, B) time-major in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix), eta (B,) the FTRL step scale of each
+// sequence in the compute type.  Outputs, in the compute type: cum (B,),
+// theta (d, B).  Returns the cudaError_t of the launch.
+#define OCO_PACKED_ETA_ENTRY(SUFFIX, Z, Y)                                  \
+  extern "C" int oco_play_packed_eta_##SUFFIX(                              \
+      const void* z, const void* y, const void* eta, long long T,           \
+      long long B, int d, void* cum, void* theta, void* stream) {           \
+    return launch<Z, Y, true>(z, y, nullptr, eta, T, B, d, 0, cum, theta,   \
+                              stream);                                      \
+  }
+OCO_STORAGE_PAIRS(OCO_PACKED_ETA_ENTRY)

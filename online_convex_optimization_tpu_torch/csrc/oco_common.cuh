@@ -41,6 +41,50 @@
 
 namespace oco {
 
+// Storage types.  z and y may be stored narrower than the compute type, as
+// the JAX package stores them (ops/pallas_game.py: bf16 z, int8 or bf16 y):
+// every element is converted to the compute type on read, which is exact,
+// so a narrow run equals the float32 run on the upcast values in every
+// bit.  bf16 is carried as its bits: the float32 with the same high 16
+// bits and zero low ones.
+struct bf16 {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+__device__ __forceinline__ float widen(signed char v) {
+  return static_cast<float>(v);
+}
+
+// The compute type of a z storage type: float64 for float64, float32 for
+// float32 and bf16.
+template <typename Z>
+struct Compute {
+  using type = float;
+};
+template <>
+struct Compute<double> {
+  using type = double;
+};
+
+template <typename Z>
+using compute_t = typename Compute<Z>::type;
+
+// Whether a storage type is narrower than its compute type.
+template <typename T>
+constexpr bool kNarrow = sizeof(T) < 4;
+
+// Whether a (z, y) storage pair holds a narrow type: its rows cannot be
+// copied an element at a time with cp.async (4, 8 or 16 bytes), so the
+// staged kernels copy 4-byte windows and the time-major ones the 4-byte
+// word that holds each element (oco_tiles.cuh).
+template <typename Z, typename Y>
+constexpr bool kWindowed = kNarrow<Z> || kNarrow<Y>;
+
 // Array capacity of an instance: D > 0 is a compile-time d, D == 0 the
 // generic instance, D == -1 the large-d one.
 template <int D>
@@ -76,12 +120,12 @@ __device__ __forceinline__ S half_sign(S diff) {
   return diff > S(0) ? S(0.5) : (diff < S(0) ? S(-0.5) : S(0));
 }
 
-// <a, b> summed in index order.
-template <typename S, int D>
-__device__ __forceinline__ S dot(const S* a, const S* b, int n) {
-  S acc = a[0] * b[0];
+// <a, b> summed in index order, each element widened to S on read.
+template <typename S, int D, typename A, typename B>
+__device__ __forceinline__ S dot(const A* a, const B* b, int n) {
+  S acc = S(widen(a[0])) * S(widen(b[0]));
 #pragma unroll
-  for (int j = 1; j < n; ++j) acc = acc + a[j] * b[j];
+  for (int j = 1; j < n; ++j) acc = acc + S(widen(a[j])) * S(widen(b[j]));
   return acc;
 }
 
@@ -132,14 +176,14 @@ __device__ __forceinline__ S hinge_step(const S* x, const S* zr, S yt, int n,
 
 // Loads row t of one sequence from the time-major (T, d, B) layout:
 // neighbouring threads read neighbouring addresses.
-template <typename S, int D>
-__device__ __forceinline__ void load_row(const S* __restrict__ z, long long t,
+template <typename S, int D, typename Z>
+__device__ __forceinline__ void load_row(const Z* __restrict__ z, long long t,
                                          long long b, long long B, int n,
                                          S* zr) {
-  const S* row = z + t * n * B + b;
+  const Z* row = z + t * n * B + b;
 #pragma unroll
   for (int j = 0; j < n; ++j)
-    zr[j] = row[j * B];
+    zr[j] = S(widen(row[j * B]));
 }
 
 // The round once the action x is chosen: the hinge loss of q = <z_t, x>
@@ -180,6 +224,17 @@ __device__ __forceinline__ S identity_comparator(const S* th, const S* w,
   ftl_action<S, D>(th, x, n);
   return S(0.5) * (cnt - dot<S, D>(x, w, n));
 }
+
+// The storage pairs (z, y) of the hinge-game kernels K1-K6 and the suffix
+// of their extern "C" entries: X(suffix, Z, Y) for each.  f64 and f32 keep
+// z and y in the compute type; bf16 z with bf16 or int8 y, and f32 z with
+// int8 y, compute in float32 (ops/game.py STORAGE).
+#define OCO_STORAGE_PAIRS(X)        \
+  X(f64, double, double)             \
+  X(f32, float, float)               \
+  X(bf16, oco::bf16, oco::bf16)      \
+  X(bf16i8, oco::bf16, signed char)  \
+  X(f32i8, float, signed char)
 
 inline unsigned int grid_for(long long B) {
   return static_cast<unsigned int>((B + OCO_THREADS - 1) / OCO_THREADS);

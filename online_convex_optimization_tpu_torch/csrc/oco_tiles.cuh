@@ -10,7 +10,7 @@
 // and every warp reads its rows from there: the rows cross L2 once per
 // block, not once per warp, and no load sits in a round's chain.
 //
-// Layout of a stage: 32 slots of `slot` words, lane s's slot holding its
+// Layout of a stage: 32 slots of `slot` bytes, lane s's slot holding its
 // sequence's chunk as the caller stores it (z_0..z_{n-1} of each round,
 // round after round, then the chunk's labels), then `scale_rows` rows of
 // `chunk` FTRL scales: one a warp where each warp has its own setting (K5),
@@ -19,8 +19,18 @@
 // ScaleAhead).  The warps a block and the bytes a stage are each kernel's
 // constants; the chunk follows from them, d and the dtype.  A sequence's
 // chunk is contiguous in global memory, so the copy of a slot is coalesced
-// across the lanes of the copying warp; `slot` is odd, so the 32 lanes
-// reading element k of their own slots hit 32 different banks.
+// across the lanes of the copying warp; `slot` is an odd number of 4-byte
+// words, so the 32 lanes reading element k of their own slots hit 32
+// different banks.
+//
+// Narrow storage (bf16 z, int8 or bf16 y: kWindowed) cannot be copied an
+// element at a time, since cp.async moves 4, 8 or 16 bytes.  A slot then
+// holds the 4-byte aligned window of global memory around the lane's rows,
+// and another around its labels, copied a 4-byte word a lane; the lane
+// finds its rows at the offset of their first address within the window.
+// Every word of a window holds an element of the arrays, so it lies in
+// that element's page: the few bytes it holds past the rows are read, never
+// used, and cannot fault.
 //
 // The large-d instance (D == -1, d > 64), whose rows do not fit a stage,
 // reads each row from global memory as it plays it (play_rows_global).
@@ -56,6 +66,63 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The element offset of p within its 4-byte word: where a window or word copied
+// around p holds *p.
+template <typename T>
+__device__ __forceinline__ int window_offset(const T* p) {
+  return static_cast<int>((reinterpret_cast<unsigned long long>(p) & 3ull) /
+                          sizeof(T));
+}
+
+// Plays rounds [0, T) of sequence b of the time-major (T, n, B) z and
+// (T, B) y through fn(t, zr, y_t), in order, from this thread's ring of P
+// rounds in shared memory (`ring` its first word, `step` words between its
+// words: the block's threads interleaved), filled P - 1 rounds ahead with
+// cp.async and waited on per thread: no barrier.  A narrow element (1 or
+// 2 bytes) is copied as the aligned 4-byte word that holds it, and read at
+// its offset there; the word lies in the page of the element, so it cannot
+// fault, and neighbouring threads' words share their sectors, so the
+// device memory read is the array's.
+template <typename S, int D, int P, typename Z, typename Y, typename F>
+__device__ __forceinline__ void play_time_major_words(
+    const Z* __restrict__ z, const Y* __restrict__ y, long long T,
+    long long b, long long B, int n, unsigned* ring, int step, F&& fn) {
+  static_assert(P >= 2, "a ring needs two slots");
+  const auto word = [](const void* p) {
+    return reinterpret_cast<const unsigned*>(
+        reinterpret_cast<unsigned long long>(p) & ~3ull);
+  };
+  const auto fetch = [&](long long k) {
+    unsigned* dst = ring + static_cast<int>(k % P) * (n + 1) * step;
+    const Z* src = z + k * n * B + b;
+    for (int j = 0; j < n; ++j) copy_async(dst + j * step, word(src + j * B));
+    copy_async(dst + n * step, word(y + k * B + b));
+  };
+  // One copy group a round, empty past the end, so that group k is
+  // complete once at most P - 1 newer ones are pending.
+#pragma unroll
+  for (int i = 0; i < P - 1; ++i) {
+    if (i < T) fetch(i);
+    commit_copies();
+  }
+  S zr[Cap<D>::value];
+  for (long long k = 0; k < T; ++k) {
+    // Slot (k - 1) % P was read last round, so it can be refilled.
+    if (k + P - 1 < T) fetch(k + P - 1);
+    commit_copies();
+    wait_copies<P - 1>();
+    const unsigned* src = ring + static_cast<int>(k % P) * (n + 1) * step;
+    const Z* row = z + k * n * B + b;
+#pragma unroll
+    for (int j = 0; j < n; ++j)
+      zr[j] = S(widen(reinterpret_cast<const Z*>(
+          src + j * step)[window_offset(row + j * B)]));
+    const S yt = S(widen(reinterpret_cast<const Y*>(
+        src + n * step)[window_offset(y + k * B + b)]));
+    fn(k, static_cast<const S*>(zr), yt);
+  }
+}
+
 // Most rounds a stage holds: a chunk's barrier and copies then cost a
 // small share of its rounds.
 constexpr int kMaxChunk = 64;
@@ -64,31 +131,61 @@ constexpr int kMaxChunk = 64;
 struct TileShape {
   int n;           // features a row
   int chunk;       // rounds a stage
-  int slot;        // words a lane's slot: chunk * (n + 1), made odd
+  int slot;        // bytes a lane's slot: an odd number of 4-byte words
+  int labels;      // bytes from a slot's start to its labels
   int warps;       // setting-warps a block
   int scale_rows;  // rows of scales a stage: warps, or 1 (shared)
-  __host__ __device__ int stage_words() const {
-    return 32 * slot + scale_rows * chunk;
+  int scale_size;  // bytes a scale (the compute type's)
+  __host__ __device__ int stage_bytes() const {
+    return 32 * slot + scale_rows * chunk * scale_size;
   }
 };
 
 // The shape of `warps` warps a block whose stage holds at most stage_bytes
-// of the 32 sequences' rows (1 to kMaxChunk rounds of them).
-template <typename S>
+// of the 32 sequences' rows (1 to kMaxChunk rounds of them).  A stage of
+// the pairs stored in the compute type holds chunk * (n + 1) elements a
+// slot, made odd; a windowed one each window and 4 bytes for its offset.
+template <typename Z, typename Y>
 inline TileShape tile_shape(int n, int warps, size_t stage_bytes,
                             int scale_rows) {
-  const size_t fit = stage_bytes / (32 * (n + 1) * sizeof(S));
+  using S = typename Compute<Z>::type;
+  const size_t fit = stage_bytes / (32 * (n * sizeof(Z) + sizeof(Y)));
   const int chunk = static_cast<int>(
       fit < 1 ? 1 : (fit > kMaxChunk ? kMaxChunk : fit));
-  return {n, chunk, (chunk * (n + 1)) | 1, warps, scale_rows};
+  if constexpr (!kWindowed<Z, Y>) {
+    const int slot = (chunk * (n + 1)) | 1;
+    return {n,     chunk,      static_cast<int>(slot * sizeof(S)),
+            static_cast<int>(chunk * n * sizeof(S)), warps, scale_rows,
+            static_cast<int>(sizeof(S))};
+  } else {
+    const int zw = static_cast<int>((chunk * n * sizeof(Z) + 3 + 3) / 4);
+    const int yw = static_cast<int>((chunk * sizeof(Y) + 3 + 3) / 4);
+    const int slot = (zw + yw) | 1;
+    return {n,         chunk,      4 * slot, 4 * zw, warps, scale_rows,
+            static_cast<int>(sizeof(S))};
+  }
 }
 
 // Bytes of the ring for one launch (none for the large-d instance).
-template <typename S, int D>
+template <int D>
 inline size_t ring_bytes(const TileShape& ts) {
-  return D < 0 ? 0
-               : static_cast<size_t>(kTileStages) * ts.stage_words() *
-                     sizeof(S);
+  return D < 0 ? 0 : static_cast<size_t>(kTileStages) * ts.stage_bytes();
+}
+
+// Copies the 4-byte aligned window around elements [src, src + count)
+// into dst, the lanes of a warp copying a 4-byte word each in turn with
+// cp.async: *src lands at dst + window_offset(src) elements.
+template <typename T>
+__device__ __forceinline__ void copy_window(unsigned char* dst, const T* src,
+                                            long long count, int lane) {
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p);
+  };
+  const auto* w0 = reinterpret_cast<const unsigned*>(addr(src) & ~3ull);
+  const long long words =
+      static_cast<long long>(addr(src + count) - addr(w0) + 3) / 4;
+  for (long long o = lane; o < words; o += 32)
+    copy_async(reinterpret_cast<unsigned*>(dst) + o, w0 + o);
 }
 
 // Launches kernel<<<grid, threads, smem, stream>>>(args...), first raising
@@ -133,17 +230,17 @@ inline int occupancy(K kernel, int threads, size_t smem, int* out) {
 // scale_row[t] (0 where scale_row is null).  The instances with registers
 // for two rows (D >= 0) load round t + 1's row before they play round t,
 // so the load's latency overlaps a round.
-template <typename S, int D, typename F>
+template <typename S, int D, typename Z, typename Y, typename F>
 __device__ __forceinline__ void play_rows_global(
-    const S* __restrict__ z, const S* __restrict__ y,
+    const Z* __restrict__ z, const Y* __restrict__ y,
     const S* __restrict__ scale_row, long long b, long long T, int n, int lo,
     int hi, F&& fn) {
   S zr[Cap<D>::value];
   const auto load = [&](int t, S* row, S& yt, S& scale) {
-    const S* src = z + (b * T + t) * n;
+    const Z* src = z + (b * T + t) * n;
 #pragma unroll
-    for (int j = 0; j < n; ++j) row[j] = src[j];
-    yt = y[b * T + t];
+    for (int j = 0; j < n; ++j) row[j] = S(widen(src[j]));
+    yt = S(widen(y[b * T + t]));
     scale = scale_row != nullptr ? scale_row[t] : S(0);
   };
   S yt, scale;
@@ -170,19 +267,20 @@ __device__ __forceinline__ void play_rows_global(
 // fn(t, zr, y_t, scale), in order, with scale = scale_row[t] (scale_row may
 // be null, and then scale is unspecified).  Where ts.scale_rows is 1, warp
 // 0's scale_row is staged once and every warp reads it.  Every thread of
-// the block must call it with the same z, y, T and ts: the staged instances
-// hold barriers.  They copy only the chunks that some thread of the block
-// plays, and call chunk_fn(t0, slot, R) once a chunk, before its rounds,
-// with the lane's slot of the staged chunk (round k's row at slot[k * n],
-// its label at slot[chunk * n + k]) that starts at round t0 and holds R
-// rounds.
-template <typename S, int D, typename F, typename G>
-__device__ __forceinline__ void play_rows(const S* __restrict__ z,
-                                          const S* __restrict__ y,
+// the block must call it with the same z, y, T and ts: the staged
+// instances hold barriers.  They copy only the chunks that some thread of
+// the block plays, and call chunk_fn(t0, rows, labels, R) once a chunk,
+// before its rounds, with the lane's staged rows (round k's at
+// rows[k * n]) and labels (labels[k]) of the chunk that starts at round t0
+// and holds R rounds.
+template <typename S, int D, typename Z, typename Y, typename F, typename G>
+__device__ __forceinline__ void play_rows(const Z* __restrict__ z,
+                                          const Y* __restrict__ y,
                                           const S* __restrict__ scale_row,
                                           long long b, long long T,
                                           const TileShape& ts, int lo, int hi,
-                                          S* ring, F&& fn, G&& chunk_fn) {
+                                          unsigned char* ring, F&& fn,
+                                          G&& chunk_fn) {
   const int n = D > 0 ? D : ts.n;
   if constexpr (D < 0) {
     play_rows_global<S, D>(z, y, scale_row, b, T, n, lo, hi, fn);
@@ -204,7 +302,7 @@ __device__ __forceinline__ void play_rows(const S* __restrict__ z,
     const int c_hi = (last + ts.chunk - 1) / ts.chunk;
     const int c_lo = first == INT_MAX ? c_hi : first / ts.chunk;
     const auto stage = [&](int c) {
-      return ring + (c % kTileStages) * ts.stage_words();
+      return ring + (c % kTileStages) * ts.stage_bytes();
     };
     const auto rounds = [&](int c) {
       return static_cast<int>(min(static_cast<long long>(ts.chunk),
@@ -214,19 +312,25 @@ __device__ __forceinline__ void play_rows(const S* __restrict__ z,
     const auto issue = [&](int c) {
       const long long t0 = static_cast<long long>(c) * ts.chunk;
       const int R = rounds(c);
-      S* st = stage(c);
+      unsigned char* st = stage(c);
       for (int s = warp; s < 32; s += ts.warps) {
         const long long bs = __shfl_sync(kFullMask, b, s);
         if (bs < 0) continue;
-        S* dst = st + s * ts.slot;
-        const S* zs = z + (bs * T + t0) * n;
-        for (int o = lane; o < R * n; o += 32) copy_async(dst + o, zs + o);
-        const S* ys = y + bs * T + t0;
-        for (int o = lane; o < R; o += 32)
-          copy_async(dst + ts.chunk * n + o, ys + o);
+        const Z* zs = z + (bs * T + t0) * n;
+        const Y* ys = y + bs * T + t0;
+        if constexpr (kWindowed<Z, Y>) {
+          copy_window(st + s * ts.slot, zs, static_cast<long long>(R) * n,
+                      lane);
+          copy_window(st + s * ts.slot + ts.labels, ys, R, lane);
+        } else {
+          S* dst = reinterpret_cast<S*>(st + s * ts.slot);
+          for (int o = lane; o < R * n; o += 32) copy_async(dst + o, zs + o);
+          for (int o = lane; o < R; o += 32)
+            copy_async(dst + ts.chunk * n + o, ys + o);
+        }
       }
       if (scale_row != nullptr && warp < ts.scale_rows) {
-        S* sc = st + 32 * ts.slot + warp * ts.chunk;
+        S* sc = reinterpret_cast<S*>(st + 32 * ts.slot) + warp * ts.chunk;
         for (int o = lane; o < R; o += 32)
           copy_async(sc + o, scale_row + t0 + o);
       }
@@ -247,18 +351,27 @@ __device__ __forceinline__ void play_rows(const S* __restrict__ z,
       commit_copies();
       const int t0 = c * ts.chunk;
       const int k_lo = max(lo - t0, 0), k_hi = min(hi - t0, rounds(c));
-      const S* st = stage(c);
-      const S* row = st + lane * ts.slot;
-      chunk_fn(t0, row, rounds(c));
+      const unsigned char* st = stage(c);
+      const Z* row = reinterpret_cast<const Z*>(st + lane * ts.slot);
+      const Y* label =
+          reinterpret_cast<const Y*>(st + lane * ts.slot + ts.labels);
+      if constexpr (kWindowed<Z, Y>) {
+        // The lane's rows and labels at their offsets in the windows (a
+        // lane with no sequence reads nothing).
+        const long long bb = b >= 0 ? b : 0;
+        row += window_offset(z + (bb * T + t0) * n);
+        label += window_offset(y + bb * T + t0);
+      }
+      chunk_fn(t0, row, label, rounds(c));
       // Round k's row, label and scale, stepped through by pointer.
-      const S* label = row + ts.chunk * n + k_lo;
-      const S* scale =
-          st + 32 * ts.slot + (warp % ts.scale_rows) * ts.chunk + k_lo;
+      label += k_lo;
+      const S* scale = reinterpret_cast<const S*>(st + 32 * ts.slot) +
+                       (warp % ts.scale_rows) * ts.chunk + k_lo;
       row += k_lo * n;
       for (int t = t0 + k_lo; t < t0 + k_hi; ++t) {
 #pragma unroll
-        for (int j = 0; j < n; ++j) zr[j] = row[j];
-        fn(t, static_cast<const S*>(zr), *label, *scale);
+        for (int j = 0; j < n; ++j) zr[j] = S(widen(row[j]));
+        fn(t, static_cast<const S*>(zr), S(widen(*label)), *scale);
         row += n;
         ++label;
         ++scale;
@@ -332,34 +445,34 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // Shape of a block's ring of bulk-copied chunks, fixed by the host for one
 // launch.  Lane s's slot of a stage holds the 16-byte aligned window of
-// global memory around its sequence's rows of the chunk (zw elements), then
-// the window around their labels (yw elements); the lane finds its rows at
-// the offset of their first address within the window.  A slot is a
-// multiple of 16 bytes and an odd multiple of 16, so that the lanes' 8-byte
-// reads fall on at most two of a bank's words.
+// global memory around its sequence's rows of the chunk (zw bytes), then
+// the window around their labels; the lane finds its rows at the offset of
+// their first address within the window.  A slot is an odd multiple of 16
+// bytes, so that the lanes' 8-byte reads fall on at most two of a bank's
+// words.  z and y may have different element sizes (narrow storage).
 struct ChunkShape {
   int n;      // features a row
   int chunk;  // rounds a stage
-  int zw;     // elements of a slot's row window
-  int slot;   // elements a slot: the row window, then the label window
-  __host__ __device__ int stage_words() const { return 32 * slot; }
+  int zw;     // bytes of a slot's row window
+  int slot;   // bytes a slot: the row window, then the label window
+  __host__ __device__ int stage_bytes() const { return 32 * slot; }
 };
 
 // The shape of a ring whose stage holds about stage_bytes of the 32
 // sequences' rows (1 to kMaxChunk rounds of them; kMaxChunk for the large-d
 // instance, which stages nothing).
-template <typename S, int D>
+template <typename Z, typename Y, int D>
 inline ChunkShape chunk_shape(int n, size_t stage_bytes) {
   const size_t fit =
-      D < 0 ? kMaxChunk : stage_bytes / (32 * (n + 1) * sizeof(S));
+      D < 0 ? kMaxChunk : stage_bytes / (32 * (n * sizeof(Z) + sizeof(Y)));
   const int chunk = static_cast<int>(
       fit < 1 ? 1 : (fit > kMaxChunk ? kMaxChunk : fit));
   const auto window = [](size_t bytes) {
-    return static_cast<int>(((bytes + 15) / 16 + 1) * 16 / sizeof(S));
+    return static_cast<int>(((bytes + 15) / 16 + 1) * 16);
   };
-  const int zw = window(chunk * n * sizeof(S));
-  int slot = zw + window(chunk * sizeof(S));
-  if (slot * sizeof(S) % 32 == 0) slot += 16 / sizeof(S);
+  const int zw = window(chunk * n * sizeof(Z));
+  int slot = zw + window(chunk * sizeof(Y));
+  if (slot % 32 == 0) slot += 16;
   return {n, chunk, zw, slot};
 }
 
@@ -370,11 +483,10 @@ __host__ __device__ constexpr size_t chunk_bars_bytes(int stages) {
 
 // Bytes of a ring of `stages` stages and their mbarriers (the large-d
 // instance stages nothing, and keeps the mbarriers).
-template <typename S, int D>
+template <int D>
 inline size_t chunk_ring_bytes(const ChunkShape& cs, int stages) {
   return chunk_bars_bytes(stages) +
-         (D < 0 ? 0
-                : static_cast<size_t>(stages) * cs.stage_words() * sizeof(S));
+         (D < 0 ? 0 : static_cast<size_t>(stages) * cs.stage_bytes());
 }
 
 // A warp's part in play_chunks.
@@ -404,11 +516,13 @@ enum class ChunkRole {
 // and the lane copies the rest itself.  Every thread of the block must
 // call it once, with the same z, y, B, T and cs, and `leads` and
 // `consumers` (warps) the same.  The large-d instance (D == -1) stages
-// nothing: it passes fn its global row, and keeps the pipeline's barriers
-// only to order the trail after the leads.
-template <typename S, int D, int kStages, typename Lo, typename F>
+// nothing: it passes fn its global row (widened into local memory where z
+// is narrow), and keeps the pipeline's barriers only to order the trail
+// after the leads.
+template <typename S, int D, int kStages, typename Z, typename Y,
+          typename Lo, typename F>
 __device__ __forceinline__ void play_chunks(
-    const S* __restrict__ z, const S* __restrict__ y, long long b,
+    const Z* __restrict__ z, const Y* __restrict__ y, long long b,
     long long B, long long T, const ChunkShape& cs, int hi, ChunkRole role,
     int leads, int consumers, unsigned char* smem, Lo&& lo_of, F&& fn) {
   const int n = D > 0 ? D : cs.n;
@@ -418,7 +532,7 @@ __device__ __forceinline__ void play_chunks(
   const auto full = [&](int c) { return &bars[3 * (c % kStages)]; };
   const auto empty = [&](int c) { return &bars[3 * (c % kStages) + 1]; };
   const auto done = [&](int c) { return &bars[3 * (c % kStages) + 2]; };
-  S* ring = reinterpret_cast<S*>(smem + chunk_bars_bytes(kStages));
+  unsigned char* ring = smem + chunk_bars_bytes(kStages);
   // The block's chunks: up to the last round any thread plays.
   __shared__ int last;
   if (threadIdx.x == 0) {
@@ -436,11 +550,11 @@ __device__ __forceinline__ void play_chunks(
   __syncthreads();
   const int chunks = (last + cs.chunk - 1) / cs.chunk;
   const auto stage = [&](int c) {
-    return ring + (c % kStages) * cs.stage_words();
+    return ring + (c % kStages) * cs.stage_bytes();
   };
-  const auto aligned = [](const S* p) {
-    return reinterpret_cast<const S*>(reinterpret_cast<unsigned long long>(p) &
-                                      ~15ull);
+  const auto aligned = [](const auto* p) {
+    return reinterpret_cast<decltype(p)>(
+        reinterpret_cast<unsigned long long>(p) & ~15ull);
   };
 
   if (role == ChunkRole::kProducer) {
@@ -454,24 +568,23 @@ __device__ __forceinline__ void play_chunks(
       if (D >= 0 && R > 0) {
         // The 16-byte aligned windows around the lane's rows and labels of
         // the chunk, cut at the arrays' last 16-byte boundary.
-        S* dst = stage(c) + lane * cs.slot;
-        const S* parts[2] = {z + (b * T + t0) * n, y + b * T + t0};
-        const S* ends[2] = {aligned(z + B * T * n), aligned(y + B * T)};
-        const long long counts[2] = {R * n, R};
-        S* dsts[2] = {dst, dst + cs.zw};
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const S* w0 = aligned(parts[k]);
-          const S* w1 = aligned(parts[k] + counts[k] + 16 / sizeof(S) - 1);
-          if (w1 > ends[k]) w1 = ends[k];
+        unsigned char* dst = stage(c) + lane * cs.slot;
+        const auto part = [&](const auto* src, long long count,
+                              const auto* end, auto* out) {
+          using T = typename std::remove_const<
+              typename std::remove_pointer<decltype(src)>::type>::type;
+          const T* w0 = aligned(src);
+          const T* w1 = aligned(src + count + 16 / sizeof(T) - 1);
+          if (w1 > aligned(end)) w1 = aligned(end);
           if (w1 < w0) w1 = w0;
-          const unsigned nb = static_cast<unsigned>((w1 - w0) * sizeof(S));
-          if (nb > 0) bulk_copy(dsts[k], w0, nb, full(c));
+          const unsigned nb = static_cast<unsigned>((w1 - w0) * sizeof(T));
+          if (nb > 0) bulk_copy(out, w0, nb, full(c));
           bytes += nb;
-          for (const S* q = w1 > parts[k] ? w1 : parts[k];
-               q < parts[k] + counts[k]; ++q)
-            dsts[k][q - w0] = *q;
-        }
+          for (const T* q = w1 > src ? w1 : src; q < src + count; ++q)
+            reinterpret_cast<T*>(out)[q - w0] = *q;
+        };
+        part(z + (b * T + t0) * n, R * n, z + B * T * n, dst);
+        part(y + b * T + t0, R, y + B * T, dst + cs.zw);
       }
       mbar_arrive_tx(full(c), bytes);
     }
@@ -481,7 +594,9 @@ __device__ __forceinline__ void play_chunks(
     return;
   }
 
-  S zr[D >= 0 ? Cap<D>::value : 1];
+  // The large-d instance widens a narrow global row into local memory.
+  constexpr bool kWidenGlobal = D < 0 && !std::is_same<Z, S>::value;
+  S zr[D >= 0 || kWidenGlobal ? Cap<D>::value : 1];
   for (int c = 0; c < chunks; ++c) {
     const unsigned parity = (c / kStages) & 1;
     mbar_wait(full(c), parity);
@@ -492,21 +607,29 @@ __device__ __forceinline__ void play_chunks(
       if constexpr (D >= 0) {
         // Round k's row and label, stepped through by pointer from their
         // offsets in the slot's windows.
-        const S* slot = stage(c) + lane * cs.slot;
-        const S* zs = z + (b * T + t0) * n;
-        const S* ys = y + b * T + t0;
-        const S* row = slot + (zs - aligned(zs)) + k_lo * n;
-        const S* label = slot + cs.zw + (ys - aligned(ys)) + k_lo;
+        const unsigned char* slot = stage(c) + lane * cs.slot;
+        const Z* zs = z + (b * T + t0) * n;
+        const Y* ys = y + b * T + t0;
+        const Z* row =
+            reinterpret_cast<const Z*>(slot) + (zs - aligned(zs)) + k_lo * n;
+        const Y* label = reinterpret_cast<const Y*>(slot + cs.zw) +
+                         (ys - aligned(ys)) + k_lo;
         for (int t = t0 + k_lo; t < t0 + k_hi; ++t) {
 #pragma unroll
-          for (int j = 0; j < n; ++j) zr[j] = row[j];
-          fn(t, static_cast<const S*>(zr), *label);
+          for (int j = 0; j < n; ++j) zr[j] = S(widen(row[j]));
+          fn(t, static_cast<const S*>(zr), S(widen(*label)));
           row += n;
           ++label;
         }
+      } else if constexpr (kWidenGlobal) {
+        for (int t = t0 + k_lo; t < t0 + k_hi; ++t) {
+          const Z* src = z + (b * T + t) * n;
+          for (int j = 0; j < n; ++j) zr[j] = S(widen(src[j]));
+          fn(t, static_cast<const S*>(zr), S(widen(y[b * T + t])));
+        }
       } else {
         for (int t = t0 + k_lo; t < t0 + k_hi; ++t)
-          fn(t, z + (b * T + t) * n, y[b * T + t]);
+          fn(t, z + (b * T + t) * n, S(widen(y[b * T + t])));
       }
     }
     __syncwarp();
@@ -536,22 +659,22 @@ struct ScaleAhead {
 
 // A chunk_fn for play_rows that does nothing.
 struct NoChunkPass {
-  template <typename S>
-  __device__ void operator()(int, const S*, int) const {}
+  template <typename Z, typename Y>
+  __device__ void operator()(int, const Z*, const Y*, int) const {}
 };
 
 // Final comparator loss 0.5 * sum_{t < len} |<z_t, x> - y_t| replayed over
 // sequence b's rows in the (B, T, d) layout (the sweeps' replay mode).
-template <typename S, int D>
-__device__ __forceinline__ S replay_comparator_rows(const S* __restrict__ z,
-                                                   const S* __restrict__ y,
+template <typename S, int D, typename Z, typename Y>
+__device__ __forceinline__ S replay_comparator_rows(const Z* __restrict__ z,
+                                                   const Y* __restrict__ y,
                                                    long long b, long long T,
                                                    int n, int len,
                                                    const S* x) {
   S comp = S(0);
   for (int t = 0; t < len; ++t) {
     const S q = dot<S, D>(z + (b * T + t) * n, x, n);
-    comp = comp + S(0.5) * oabs(q - y[b * T + t]);
+    comp = comp + S(0.5) * oabs(q - S(widen(y[b * T + t])));
   }
   return comp;
 }

@@ -41,6 +41,11 @@
 //   - the main path launches K1 once for the whole g(T) table and once a
 //     case, each launch as wide as the case (experiments/), where the
 //     parent launched 17 times with at most 8,192 threads.
+// z and y may be stored narrower than the arithmetic (OCO_STORAGE_PAIRS:
+// bf16 z, int8 or bf16 y): the producer bulk-copies the narrow windows
+// (a z and a y window of their own element sizes) and the players widen
+// each element on read, so a narrow launch equals the f32 launch on the
+// upcast values in every bit, on fewer bytes.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -51,14 +56,17 @@ constexpr int kMaxPlays = 8;
 constexpr int kStages = 2;
 constexpr size_t kStageBytes = 24 * 1024;
 
-template <typename S, int D>
+template <typename Z, typename Y, int D>
 __global__ void __launch_bounds__((kMaxPlays + 1) * 32)
-regret_kernel(const S* __restrict__ z, const S* __restrict__ y,
-              const int* __restrict__ flags, const S* __restrict__ scales,
+regret_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
+              const int* __restrict__ flags,
+              const oco::compute_t<Z>* __restrict__ scales,
               const int* __restrict__ eidx, const int* __restrict__ lengths,
               long long B, long long T, int P, oco::ChunkShape ts,
-              int replay, S* __restrict__ cum_out, S* __restrict__ comp_out,
-              S* __restrict__ x_last) {
+              int replay, oco::compute_t<Z>* __restrict__ cum_out,
+              oco::compute_t<Z>* __restrict__ comp_out,
+              oco::compute_t<Z>* __restrict__ x_last) {
+  using S = oco::compute_t<Z>;
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   // Warp p < P plays play p; warp P fills the stages.
@@ -99,23 +107,30 @@ regret_kernel(const S* __restrict__ z, const S* __restrict__ y,
   comp_out[i] = comp;
 }
 
-template <typename S>
+template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* flags,
            const void* scales, const void* eidx, const void* lengths,
            long long B, long long T, int P, int d, int replay, void* cum,
            void* comp, void* x_last, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || T < 1 || P < 1 || P > kMaxPlays) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   int err = cudaSuccess;
   const int launched = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    // A narrow stage holds the rounds a float32 one holds, in fewer bytes,
+    // so that more blocks share an SM.
+    const size_t stage_bytes =
+        oco::kWindowed<Z, Y>
+            ? kStageBytes * (d * sizeof(Z) + sizeof(Y)) / ((d + 1) * sizeof(S))
+            : kStageBytes;
+    const oco::ChunkShape ts = oco::chunk_shape<Z, Y, D>(d, stage_bytes);
     err = oco::launch_with_smem(
-        regret_kernel<S, D>, static_cast<unsigned int>(blocks), (P + 1) * 32,
-        oco::chunk_ring_bytes<S, D>(ts, kStages),
+        regret_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
+        (P + 1) * 32, oco::chunk_ring_bytes<D>(ts, kStages),
         static_cast<cudaStream_t>(stream),
-        static_cast<const S*>(z), static_cast<const S*>(y),
+        static_cast<const Z*>(z), static_cast<const Y*>(y),
         static_cast<const int*>(flags), static_cast<const S*>(scales),
         static_cast<const int*>(eidx), static_cast<const int*>(lengths), B,
         T, P, ts, replay, static_cast<S*>(cum), static_cast<S*>(comp),
@@ -130,39 +145,31 @@ int occupancy(int P, int d, int* out) {
   int err = cudaSuccess;
   const int checked = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
-    err = oco::occupancy(regret_kernel<S, D>, (P + 1) * 32,
-                         oco::chunk_ring_bytes<S, D>(ts, kStages), out);
+    const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
+    err = oco::occupancy(regret_kernel<S, S, D>, (P + 1) * 32,
+                         oco::chunk_ring_bytes<D>(ts, kStages), out);
   });
   return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
 
-// Inputs: z (B, T, d) and y (B, T) contiguous, flags (P, B) int32
-// (0 = FTRL, 1 = FTL), scales (E, T) the FTRL scales -(eta_e / sqrt(t)),
+// Inputs: z (B, T, d) and y (B, T) contiguous in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix), flags (P, B) int32 (0 = FTRL, 1 = FTL),
+// scales (E, T) the FTRL scales -(eta_e / sqrt(t)) in the compute type,
 // eidx (B,) int32 each sequence's row of scales, lengths (B,) int32 with
-// 0 <= len <= T; 1 <= P <= 8.  Outputs: cum_loss (P, B), comp_loss (P, B),
-// x_last (P, B, d).  Returns the cudaError_t of the launch.
-extern "C" int oco_regrets_fused_f64(const void* z, const void* y,
-                                     const void* flags, const void* scales,
-                                     const void* eidx, const void* lengths,
-                                     long long B, long long T, int P, int d,
-                                     int replay, void* cum, void* comp,
-                                     void* x_last, void* stream) {
-  return launch<double>(z, y, flags, scales, eidx, lengths, B, T, P, d,
-                        replay, cum, comp, x_last, stream);
-}
-
-extern "C" int oco_regrets_fused_f32(const void* z, const void* y,
-                                     const void* flags, const void* scales,
-                                     const void* eidx, const void* lengths,
-                                     long long B, long long T, int P, int d,
-                                     int replay, void* cum, void* comp,
-                                     void* x_last, void* stream) {
-  return launch<float>(z, y, flags, scales, eidx, lengths, B, T, P, d,
-                       replay, cum, comp, x_last, stream);
-}
+// 0 <= len <= T; 1 <= P <= 8.  Outputs, in the compute type: cum_loss
+// (P, B), comp_loss (P, B), x_last (P, B, d).  Returns the cudaError_t of
+// the launch.
+#define OCO_REGRETS_ENTRY(SUFFIX, Z, Y)                                      \
+  extern "C" int oco_regrets_fused_##SUFFIX(                                 \
+      const void* z, const void* y, const void* flags, const void* scales,   \
+      const void* eidx, const void* lengths, long long B, long long T, int P, \
+      int d, int replay, void* cum, void* comp, void* x_last, void* stream) { \
+    return launch<Z, Y>(z, y, flags, scales, eidx, lengths, B, T, P, d,      \
+                        replay, cum, comp, x_last, stream);                  \
+  }
+OCO_STORAGE_PAIRS(OCO_REGRETS_ENTRY)
 
 // Registers a thread (out[0]) and resident warps an SM (out[1]) of a
 // launch with P plays at feature dimension d on the current card; f64

@@ -43,7 +43,10 @@
 //     (ops/game.py::sweep_scales), loaded a round ahead.
 // A switched pair's total is the FTL losses at the switch, F in every bit
 // (the same sums of the same terms), then the tail's losses: column g
-// equals the parent, and the plain version, bit for bit.
+// equals the parent, and the plain version, bit for bit.  Narrow storage
+// (OCO_STORAGE_PAIRS) goes through the same bulk-copied windows as K1's
+// and is widened on read: a narrow launch equals the f32 launch on the
+// upcast values in every bit.
 #include <climits>
 
 #include "oco_tiles.cuh"
@@ -58,9 +61,10 @@ constexpr int kMaxThresholds = 4;
 constexpr int kStages = 3;
 constexpr size_t kStageBytes = 12 * 1024;
 
-template <typename S, int D>
+template <typename Z, typename Y, int D,
+          typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__((2 + kMaxThresholds) * 32)
-smart_kernel(const S* __restrict__ z, const S* __restrict__ y,
+smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
              const S* __restrict__ thresholds, const S* __restrict__ scales,
              const int* __restrict__ eidx, const int* __restrict__ lengths,
              long long B, long long T, int G, oco::ChunkShape ts, int replay,
@@ -189,11 +193,12 @@ smart_kernel(const S* __restrict__ z, const S* __restrict__ y,
   }
 }
 
-template <typename S>
+template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* thresholds,
            const void* scales, const void* eidx, const void* lengths,
            long long B, long long T, int G, int d, int replay, void* cum,
            void* comp, void* x_last, void* switch_t, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || T < 1 || T >= INT_MAX || G < 1 || G > kMaxThresholds)
     return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32;
@@ -201,12 +206,12 @@ int launch(const void* z, const void* y, const void* thresholds,
   int err = cudaSuccess;
   const int launched = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
+    const oco::ChunkShape ts = oco::chunk_shape<Z, Y, D>(d, kStageBytes);
     err = oco::launch_with_smem(
-        smart_kernel<S, D>, static_cast<unsigned int>(blocks), (2 + G) * 32,
-        oco::chunk_ring_bytes<S, D>(ts, kStages),
-        static_cast<cudaStream_t>(stream), static_cast<const S*>(z),
-        static_cast<const S*>(y), static_cast<const S*>(thresholds),
+        smart_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
+        (2 + G) * 32, oco::chunk_ring_bytes<D>(ts, kStages),
+        static_cast<cudaStream_t>(stream), static_cast<const Z*>(z),
+        static_cast<const Y*>(y), static_cast<const S*>(thresholds),
         static_cast<const S*>(scales), static_cast<const int*>(eidx),
         static_cast<const int*>(lengths), B, T, G, ts, replay,
         static_cast<S*>(cum), static_cast<S*>(comp), static_cast<S*>(x_last),
@@ -221,42 +226,32 @@ int occupancy(int G, int d, int* out) {
   int err = cudaSuccess;
   const int checked = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<S, D>(d, kStageBytes);
-    err = oco::occupancy(smart_kernel<S, D>, (2 + G) * 32,
-                         oco::chunk_ring_bytes<S, D>(ts, kStages), out);
+    const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
+    err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32,
+                         oco::chunk_ring_bytes<D>(ts, kStages), out);
   });
   return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
 
-// Inputs: z (B, T, d) and y (B, T) contiguous, thresholds (G, B), scales
-// (E, T) the FTRL scales -(eta_e / sqrt(t)), eidx (B,) int32 each
-// sequence's row of scales, lengths (B,) int32 with 0 <= len <= T;
-// 1 <= G <= 4.  Outputs: cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
-// switch_t (G, B) int64 (T where a pair never switches).  Returns the
-// cudaError_t of the launch.
-extern "C" int oco_smart_regrets_f64(const void* z, const void* y,
-                                     const void* thresholds,
-                                     const void* scales, const void* eidx,
-                                     const void* lengths, long long B,
-                                     long long T, int G, int d, int replay,
-                                     void* cum, void* comp, void* x_last,
-                                     void* switch_t, void* stream) {
-  return launch<double>(z, y, thresholds, scales, eidx, lengths, B, T, G, d,
-                        replay, cum, comp, x_last, switch_t, stream);
-}
-
-extern "C" int oco_smart_regrets_f32(const void* z, const void* y,
-                                     const void* thresholds,
-                                     const void* scales, const void* eidx,
-                                     const void* lengths, long long B,
-                                     long long T, int G, int d, int replay,
-                                     void* cum, void* comp, void* x_last,
-                                     void* switch_t, void* stream) {
-  return launch<float>(z, y, thresholds, scales, eidx, lengths, B, T, G, d,
-                       replay, cum, comp, x_last, switch_t, stream);
-}
+// Inputs: z (B, T, d) and y (B, T) contiguous in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix); in the compute type thresholds (G, B)
+// and scales (E, T) the FTRL scales -(eta_e / sqrt(t)); eidx (B,) int32
+// each sequence's row of scales, lengths (B,) int32 with 0 <= len <= T;
+// 1 <= G <= 4.  Outputs: cum_loss (G, B), comp_loss (B,), x_last
+// (G, B, d) in the compute type, switch_t (G, B) int64 (T where a pair
+// never switches).  Returns the cudaError_t of the launch.
+#define OCO_SMART_ENTRY(SUFFIX, Z, Y)                                        \
+  extern "C" int oco_smart_regrets_##SUFFIX(                                 \
+      const void* z, const void* y, const void* thresholds,                  \
+      const void* scales, const void* eidx, const void* lengths, long long B, \
+      long long T, int G, int d, int replay, void* cum, void* comp,          \
+      void* x_last, void* switch_t, void* stream) {                          \
+    return launch<Z, Y>(z, y, thresholds, scales, eidx, lengths, B, T, G, d, \
+                        replay, cum, comp, x_last, switch_t, stream);        \
+  }
+OCO_STORAGE_PAIRS(OCO_SMART_ENTRY)
 
 // Registers a thread (out[0]) and resident warps an SM (out[1]) of a
 // launch with G thresholds a sequence at feature dimension d on the

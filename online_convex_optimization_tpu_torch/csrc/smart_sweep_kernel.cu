@@ -51,7 +51,9 @@
 // work to fill the card, so K6b too is bound by the latency of its longest
 // chains, the tails of the pairs that switch in the first rounds.  Both
 // take the sequences in the wrapper's descending length order.  The
-// large-d instance (d > 64) of K6b reads rows from global memory.
+// large-d instance (d > 64) of K6b reads rows from global memory.  Narrow
+// storage (OCO_STORAGE_PAIRS) is widened on read: K6a's loads, K6b's
+// 4-byte windows (oco_tiles.cuh).
 #include "oco_tiles.cuh"
 
 namespace {
@@ -66,9 +68,9 @@ constexpr int kTailWarps = 4;
 constexpr size_t kTailStageBytes = 24 * 1024;
 
 // K6a: one thread per sequence, each reading its own rows.
-template <typename S, int D>
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kPrefixThreads)
-smart_prefix_kernel(const S* __restrict__ z, const S* __restrict__ y,
+smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                     const S* __restrict__ sorted,
                     const int* __restrict__ perm,
                     const int* __restrict__ order,
@@ -129,9 +131,9 @@ smart_prefix_kernel(const S* __restrict__ z, const S* __restrict__ y,
 }
 
 // K6b: 32 sequences (lane) x kTailWarps thresholds (warp) a block.
-template <typename S, int D>
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kTailWarps * 32)
-smart_tail_kernel(const S* __restrict__ z, const S* __restrict__ y,
+smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                   const S* __restrict__ scales,
                   const int* __restrict__ order,
                   const int* __restrict__ lengths,
@@ -158,7 +160,7 @@ smart_tail_kernel(const S* __restrict__ z, const S* __restrict__ y,
   for (int j = 0; j < n; ++j) th[j] = S(0);
   S cum = start < len ? regret[i] : S(0);
   oco::play_rows<S, D>(
-      z, y, scales, b, T, ts, start, len, reinterpret_cast<S*>(smem),
+      z, y, scales, b, T, ts, start, len, smem,
       [&](int, const S* zr, S yt, S scale) {
         oco::ftrl_action_scaled<S, D>(th, x, n, scale);
         const S gR = oco::hinge_step<S, D>(x, zr, yt, n, cum);
@@ -176,11 +178,12 @@ smart_tail_kernel(const S* __restrict__ z, const S* __restrict__ y,
 // (G, B) int64 (T where a pair never switches); regret (G, B), final for
 // every pair without a tail and the tail's starting sum F for the others;
 // comp (B,) the comparator.  Returns the cudaError_t of the launch.
-template <typename S>
+template <typename Z, typename Y>
 int launch_prefix(const void* z, const void* y, const void* sorted,
                   const void* perm, const void* order, const void* lengths,
                   long long B, long long G, long long T, int d, int replay,
                   void* regret, void* switch_t, void* comp, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
   const long long blocks = (B + kPrefixThreads - 1) / kPrefixThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -188,9 +191,9 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
   const int launched = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     err = oco::launch_with_smem(
-        smart_prefix_kernel<S, D>, static_cast<unsigned int>(blocks),
+        smart_prefix_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
         kPrefixThreads, 0, static_cast<cudaStream_t>(stream),
-        static_cast<const S*>(z), static_cast<const S*>(y),
+        static_cast<const Z*>(z), static_cast<const Y*>(y),
         static_cast<const S*>(sorted), static_cast<const int*>(perm),
         static_cast<const int*>(order), static_cast<const int*>(lengths), B,
         G, T, d, replay, static_cast<S*>(regret),
@@ -204,24 +207,25 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
 // regret
 // (G, B), K6a's on entry, with every tail played on return.  Returns the
 // cudaError_t of the launch.
-template <typename S>
+template <typename Z, typename Y>
 int launch_tails(const void* z, const void* y, const void* scales,
                  const void* order, const void* lengths, const void* switch_t,
                  const void* comp, long long B, long long G, long long T,
                  int d, void* regret, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32 * ((G + kTailWarps - 1) / kTailWarps);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const oco::TileShape ts =
-      oco::tile_shape<S>(d, kTailWarps, kTailStageBytes, 1);
+      oco::tile_shape<Z, Y>(d, kTailWarps, kTailStageBytes, 1);
   int err = cudaSuccess;
   const int launched = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     err = oco::launch_with_smem(
-        smart_tail_kernel<S, D>, static_cast<unsigned int>(blocks),
-        kTailWarps * 32, oco::ring_bytes<S, D>(ts),
-        static_cast<cudaStream_t>(stream), static_cast<const S*>(z),
-        static_cast<const S*>(y), static_cast<const S*>(scales),
+        smart_tail_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
+        kTailWarps * 32, oco::ring_bytes<D>(ts),
+        static_cast<cudaStream_t>(stream), static_cast<const Z*>(z),
+        static_cast<const Y*>(y), static_cast<const S*>(scales),
         static_cast<const int*>(order), static_cast<const int*>(lengths),
         static_cast<const long long*>(switch_t),
         static_cast<const S*>(comp), B, G, T, ts, static_cast<S*>(regret));
@@ -231,44 +235,24 @@ int launch_tails(const void* z, const void* y, const void* scales,
 
 }  // namespace
 
-extern "C" int oco_smart_prefix_f64(const void* z, const void* y,
-                                    const void* sorted, const void* perm,
-                                    const void* order, const void* lengths,
-                                    long long B, long long G, long long T,
-                                    int d, int replay, void* regret,
-                                    void* switch_t, void* comp,
-                                    void* stream) {
-  return launch_prefix<double>(z, y, sorted, perm, order, lengths, B, G, T, d,
-                              replay, regret, switch_t, comp, stream);
-}
-
-extern "C" int oco_smart_prefix_f32(const void* z, const void* y,
-                                    const void* sorted, const void* perm,
-                                    const void* order, const void* lengths,
-                                    long long B, long long G, long long T,
-                                    int d, int replay, void* regret,
-                                    void* switch_t, void* comp,
-                                    void* stream) {
-  return launch_prefix<float>(z, y, sorted, perm, order, lengths, B, G, T, d,
-                              replay, regret, switch_t, comp, stream);
-}
-
-extern "C" int oco_smart_tails_f64(const void* z, const void* y,
-                                   const void* scales, const void* order,
-                                   const void* lengths, const void* switch_t,
-                                   const void* comp, long long B, long long G,
-                                   long long T, int d, void* regret,
-                                   void* stream) {
-  return launch_tails<double>(z, y, scales, order, lengths, switch_t, comp, B,
-                             G, T, d, regret, stream);
-}
-
-extern "C" int oco_smart_tails_f32(const void* z, const void* y,
-                                   const void* scales, const void* order,
-                                   const void* lengths, const void* switch_t,
-                                   const void* comp, long long B, long long G,
-                                   long long T, int d, void* regret,
-                                   void* stream) {
-  return launch_tails<float>(z, y, scales, order, lengths, switch_t, comp, B,
-                             G, T, d, regret, stream);
-}
+// The entries of both launches, for each storage pair of OCO_STORAGE_PAIRS
+// (the suffix): z and y in the pair; sorted, scales, comp and regret in
+// the compute type.
+#define OCO_SMART_SWEEP_ENTRIES(SUFFIX, Z, Y)                               \
+  extern "C" int oco_smart_prefix_##SUFFIX(                                 \
+      const void* z, const void* y, const void* sorted, const void* perm,   \
+      const void* order, const void* lengths, long long B, long long G,     \
+      long long T, int d, int replay, void* regret, void* switch_t,         \
+      void* comp, void* stream) {                                           \
+    return launch_prefix<Z, Y>(z, y, sorted, perm, order, lengths, B, G, T, \
+                               d, replay, regret, switch_t, comp, stream);  \
+  }                                                                         \
+  extern "C" int oco_smart_tails_##SUFFIX(                                  \
+      const void* z, const void* y, const void* scales, const void* order,  \
+      const void* lengths, const void* switch_t, const void* comp,          \
+      long long B, long long G, long long T, int d, void* regret,           \
+      void* stream) {                                                       \
+    return launch_tails<Z, Y>(z, y, scales, order, lengths, switch_t, comp, \
+                              B, G, T, d, regret, stream);                  \
+  }
+OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)

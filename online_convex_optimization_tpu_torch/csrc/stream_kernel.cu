@@ -37,6 +37,12 @@
 // game_round's serial chain (the FTRL scale's sqrt and divide, the
 // projection's sqrt and reciprocal, two dot products) times CT; all of a
 // chunk's sequences are resident at once, so nothing else can hide it.
+//
+// Narrow storage (bf16 z, int8 or bf16 y): a thread's element is 1 or 2
+// bytes, and cp.async moves 4, 8 or 16, so each element goes through the
+// ring as the aligned 4-byte word that holds it (oco::play_time_major_words,
+// the same ring of the same depth); the large-d instance loads each row as
+// it plays it.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -48,19 +54,21 @@ namespace {
 constexpr int kStreamThreads = 64;
 constexpr int kRingBytes = 192;
 
-// Rounds in flight for one instance: kRingBytes of d = 5 rows,
-// 4 rounds of the generic instance (d <= 64), none for the large-d one.
-template <typename S, int D>
+// Rounds in flight for one instance: kRingBytes of d = 5 rows (a narrow
+// element takes a 4-byte word), 4 rounds of the generic instance
+// (d <= 64), none for the large-d one.
+template <typename Z, typename Y, int D>
 struct Ring {
+  static constexpr int word =
+      oco::kWindowed<Z, Y> ? 4 : static_cast<int>(sizeof(Z));
   static constexpr int depth =
-      D > 0 ? kRingBytes / ((D + 1) * static_cast<int>(sizeof(S)))
-            : (D == 0 ? 4 : 0);
+      D > 0 ? kRingBytes / ((D + 1) * word) : (D == 0 ? 4 : 0);
   static_assert(depth == 0 || depth >= 2, "a ring needs two slots");
 };
 
-template <typename S, int D>
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kStreamThreads)
-stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
+stream_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
               const int* __restrict__ alg_flag, const S* __restrict__ eta,
               long long t0, long long CT, long long B, int d,
               const S* __restrict__ th_in, const S* __restrict__ w_in,
@@ -68,7 +76,7 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
               S* __restrict__ th_out, S* __restrict__ w_out,
               S* __restrict__ cum_out, S* __restrict__ cnt_out) {
   constexpr int C = oco::Cap<D>::value;
-  constexpr int P = Ring<S, D>::depth;
+  constexpr int P = Ring<Z, Y, D>::depth;
   extern __shared__ __align__(16) unsigned char ring_bytes[];
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -84,10 +92,19 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
     w[j] = w_in[j * B + b];
   }
   S cum = cum_in[b], cnt = cnt_in[b];
-  if constexpr (P == 0) {
+  if constexpr (P > 0 && oco::kWindowed<Z, Y>) {
+    oco::play_time_major_words<S, D, P>(
+        z, y, CT, b, B, n,
+        reinterpret_cast<unsigned*>(ring_bytes) + threadIdx.x, blockDim.x,
+        [&](long long k, const S* row, S yt) {
+          oco::game_round<S, D>(th, w, x, row, yt, ftrl, eta_b,
+                                S(t0 + k + 1), n, cum);
+          cnt = cnt + yt * yt;
+        });
+  } else if constexpr (P == 0) {
     for (long long k = 0; k < CT; ++k) {
       oco::load_row<S, D>(z, k, b, B, n, zr);
-      const S yt = y[k * B + b];
+      const S yt = S(oco::widen(y[k * B + b]));
       oco::game_round<S, D>(th, w, x, zr, yt, ftrl, eta_b, S(t0 + k + 1), n,
                             cum);
       cnt = cnt + yt * yt;
@@ -134,18 +151,19 @@ stream_kernel(const S* __restrict__ z, const S* __restrict__ y,
   cnt_out[b] = cnt;
 }
 
-template <typename S>
+template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* alg_flag,
            const void* eta, long long t0, long long CT, long long B, int d,
            const void* th_in, const void* w_in, const void* cum_in,
            const void* cnt_in, void* th_out, void* w_out, void* cum_out,
            void* cnt_out, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || CT < 0 || t0 < 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = static_cast<unsigned int>(
       (B + kStreamThreads - 1) / kStreamThreads);
-  const auto* zp = static_cast<const S*>(z);
-  const auto* yp = static_cast<const S*>(y);
+  const auto* zp = static_cast<const Z*>(z);
+  const auto* yp = static_cast<const Y*>(y);
   const auto* fp = static_cast<const int*>(alg_flag);
   const auto* ep = static_cast<const S*>(eta);
   const auto* ti = static_cast<const S*>(th_in);
@@ -159,9 +177,9 @@ int launch(const void* z, const void* y, const void* alg_flag,
   int err = cudaSuccess;
   const int launched = oco::launch_for_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const auto kernel = stream_kernel<S, D>;
-    const size_t smem = static_cast<size_t>(Ring<S, D>::depth) * (d + 1) *
-                        sizeof(S) * kStreamThreads;
+    const auto kernel = stream_kernel<Z, Y, D>;
+    const size_t smem = static_cast<size_t>(Ring<Z, Y, D>::depth) * (d + 1) *
+                        Ring<Z, Y, D>::word * kStreamThreads;
     if (smem > 48 * 1024)
       err = static_cast<int>(cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -175,31 +193,21 @@ int launch(const void* z, const void* y, const void* alg_flag,
 
 }  // namespace
 
-// Inputs: z (CT, d, B) and y (CT, B) time-major, alg_flag (B,) int32
-// (0 = FTRL, 1 = FTL), eta (B,), t0 >= 0 the rounds already played, and
-// the carry theta (d, B), w (d, B), cum (B,), cnt (B,).  Outputs: the
-// advanced carry in separate buffers (no aliasing with the inputs).
-// Returns the cudaError_t of the launch.
-extern "C" int oco_play_stream_f64(const void* z, const void* y,
-                                   const void* alg_flag, const void* eta,
-                                   long long t0, long long CT, long long B,
-                                   int d, const void* th_in, const void* w_in,
-                                   const void* cum_in, const void* cnt_in,
-                                   void* th_out, void* w_out, void* cum_out,
-                                   void* cnt_out, void* stream) {
-  return launch<double>(z, y, alg_flag, eta, t0, CT, B, d, th_in, w_in,
-                        cum_in, cnt_in, th_out, w_out, cum_out, cnt_out,
-                        stream);
-}
-
-extern "C" int oco_play_stream_f32(const void* z, const void* y,
-                                   const void* alg_flag, const void* eta,
-                                   long long t0, long long CT, long long B,
-                                   int d, const void* th_in, const void* w_in,
-                                   const void* cum_in, const void* cnt_in,
-                                   void* th_out, void* w_out, void* cum_out,
-                                   void* cnt_out, void* stream) {
-  return launch<float>(z, y, alg_flag, eta, t0, CT, B, d, th_in, w_in,
-                       cum_in, cnt_in, th_out, w_out, cum_out, cnt_out,
-                       stream);
-}
+// Inputs: z (CT, d, B) and y (CT, B) time-major in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix), alg_flag (B,) int32 (0 = FTRL, 1 = FTL),
+// eta (B,), t0 >= 0 the rounds already played, and the carry theta (d, B),
+// w (d, B), cum (B,), cnt (B,), eta and the carry in the compute type.
+// Outputs: the advanced carry in separate buffers (no aliasing with the
+// inputs).  Returns the cudaError_t of the launch.
+#define OCO_STREAM_ENTRY(SUFFIX, Z, Y)                                      \
+  extern "C" int oco_play_stream_##SUFFIX(                                  \
+      const void* z, const void* y, const void* alg_flag, const void* eta,  \
+      long long t0, long long CT, long long B, int d, const void* th_in,    \
+      const void* w_in, const void* cum_in, const void* cnt_in,             \
+      void* th_out, void* w_out, void* cum_out, void* cnt_out,              \
+      void* stream) {                                                       \
+    return launch<Z, Y>(z, y, alg_flag, eta, t0, CT, B, d, th_in, w_in,     \
+                        cum_in, cnt_in, th_out, w_out, cum_out, cnt_out,    \
+                        stream);                                            \
+  }
+OCO_STORAGE_PAIRS(OCO_STREAM_ENTRY)

@@ -37,7 +37,10 @@
 //     lanes of a warp play about equally many rounds and the longest
 //     blocks start first; it changes no pair's arithmetic.
 // The large-d instance (d > 64) reads its rows from global memory, each
-// thread its own, and keeps its own w.
+// thread its own, and keeps its own w.  Narrow storage (OCO_STORAGE_PAIRS)
+// is staged as 4-byte windows (oco_tiles.cuh) and widened on read; its
+// instances are held to 64 registers (sweep_kernel_narrow), so that two
+// blocks share an SM as the float32 instance's do.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -50,16 +53,14 @@ namespace {
 constexpr int kSweepWarps = 16;
 constexpr size_t kSweepStageBytes = 96 * 1024;
 
-template <typename S, int D>
-__global__ void __launch_bounds__(kSweepWarps * 32)
-sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
-             const S* __restrict__ scales, const int* __restrict__ order,
-             const int* __restrict__ lengths, long long B, long long E,
-             long long T, oco::TileShape ts, int replay,
-             S* __restrict__ regret) {
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
+__device__ __forceinline__ void sweep_body(
+    const Z* __restrict__ z, const Y* __restrict__ y,
+    const S* __restrict__ scales, const int* __restrict__ order,
+    const int* __restrict__ lengths, long long B, long long E, long long T,
+    const oco::TileShape& ts, int replay, S* __restrict__ regret) {
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  S* ring = reinterpret_cast<S*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long setting_blocks = (E + kSweepWarps - 1) / kSweepWarps;
   const long long slot = (blockIdx.x / setting_blocks) * 32 + lane;
@@ -77,7 +78,7 @@ sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
   for (int j = 0; j < n; ++j) th[j] = w[j] = S(0);
   S cum = S(0);
   oco::play_rows<S, D>(
-      z, y, e < E ? scales + e * T : nullptr, b, T, ts, 0, len, ring,
+      z, y, e < E ? scales + e * T : nullptr, b, T, ts, 0, len, smem,
       [&](int, const S* zr, S yt, S scale) {
         oco::ftrl_action_scaled<S, D>(th, x, n, scale);
         const S g = oco::hinge_step<S, D>(x, zr, yt, n, cum);
@@ -87,14 +88,14 @@ sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
           if constexpr (D < 0) w[j] = w[j] + yt * zr[j];
         }
       },
-      [&](int t0, const S* slot, int R) {
+      [&](int t0, const Z* rows, const Y* labels, int R) {
         const int k_hi = min(seq_len - t0, R);
 #pragma unroll
         for (int j = 0; j < n; ++j) {
           if (j % kSweepWarps != warp) continue;
           S wj = w[j];
           for (int k = 0; k < k_hi; ++k)
-            wj = wj + slot[ts.chunk * n + k] * slot[k * n + j];
+            wj = wj + S(oco::widen(labels[k])) * S(oco::widen(rows[k * n + j]));
           w[j] = wj;
         }
       });
@@ -104,7 +105,8 @@ sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
     comp = oco::replay_comparator_rows<S, D>(z, y, b, T, n, len, x);
   } else {
     if constexpr (D >= 0) {
-      S* shared_w = ring + oco::kTileStages * ts.stage_words();
+      S* shared_w =
+          reinterpret_cast<S*>(smem + oco::kTileStages * ts.stage_bytes());
 #pragma unroll
       for (int j = 0; j < n; ++j)
         if (j % kSweepWarps == warp) shared_w[lane * n + j] = w[j];
@@ -116,20 +118,47 @@ sweep_kernel(const S* __restrict__ z, const S* __restrict__ y,
   if (on) regret[e * B + b] = cum - comp;
 }
 
-template <typename S>
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
+__global__ void __launch_bounds__(kSweepWarps * 32)
+sweep_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
+             const S* __restrict__ scales, const int* __restrict__ order,
+             const int* __restrict__ lengths, long long B, long long E,
+             long long T, oco::TileShape ts, int replay,
+             S* __restrict__ regret) {
+  sweep_body<Z, Y, D>(z, y, scales, order, lengths, B, E, T, ts, replay,
+                      regret);
+}
+
+// The narrow instances: their staging costs registers, held here to 64 a
+// thread so that two blocks share an SM, as the float32 instance's 63 let
+// them.
+template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
+__global__ void __launch_bounds__(kSweepWarps * 32, 2)
+sweep_kernel_narrow(const Z* __restrict__ z, const Y* __restrict__ y,
+                    const S* __restrict__ scales,
+                    const int* __restrict__ order,
+                    const int* __restrict__ lengths, long long B, long long E,
+                    long long T, oco::TileShape ts, int replay,
+                    S* __restrict__ regret) {
+  sweep_body<Z, Y, D>(z, y, scales, order, lengths, B, E, T, ts, replay,
+                      regret);
+}
+
+template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* scales,
            const void* order, const void* lengths, long long B, long long E,
            long long T, int d, int replay, void* regret, void* stream) {
+  using S = oco::compute_t<Z>;
   if (B < 1 || E < 1 || T < 1) return cudaErrorInvalidValue;
   const long long blocks =
       (B + 31) / 32 * ((E + kSweepWarps - 1) / kSweepWarps);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const oco::TileShape ts =
-      oco::tile_shape<S>(d, kSweepWarps, kSweepStageBytes, kSweepWarps);
+      oco::tile_shape<Z, Y>(d, kSweepWarps, kSweepStageBytes, kSweepWarps);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto grid = static_cast<unsigned int>(blocks);
-  const auto* zp = static_cast<const S*>(z);
-  const auto* yp = static_cast<const S*>(y);
+  const auto* zp = static_cast<const Z*>(z);
+  const auto* yp = static_cast<const Y*>(y);
   const auto* sp = static_cast<const S*>(scales);
   const auto* op = static_cast<const int*>(order);
   const auto* lp = static_cast<const int*>(lengths);
@@ -139,9 +168,15 @@ int launch(const void* z, const void* y, const void* scales,
     constexpr int D = decltype(dc)::value;
     // The ring, then the warps' exchange of w.
     const size_t smem = D < 0 ? 0
-                              : oco::ring_bytes<S, D>(ts) +
+                              : oco::ring_bytes<D>(ts) +
                                     static_cast<size_t>(32) * d * sizeof(S);
-    err = oco::launch_with_smem(sweep_kernel<S, D>, grid, kSweepWarps * 32,
+    const auto kernel = [] {
+      if constexpr (oco::kWindowed<Z, Y>)
+        return sweep_kernel_narrow<Z, Y, D>;
+      else
+        return sweep_kernel<Z, Y, D>;
+    }();
+    err = oco::launch_with_smem(kernel, grid, kSweepWarps * 32,
                                 smem, s, zp, yp, sp, op, lp, B, E, T, ts,
                                 replay, rp);
   });
@@ -150,25 +185,18 @@ int launch(const void* z, const void* y, const void* scales,
 
 }  // namespace
 
-// Inputs: z (B, T, d) and y (B, T) contiguous, scales (E, T) the per-round
-// FTRL scales -(eta_e / sqrt(t)), order (B,) int32 a permutation of the
-// sequences (blocks take them in this order), lengths (B,) int32 with
-// 0 <= len <= T.  Output: regret (E, B).  Returns the cudaError_t of the
-// launch.
-extern "C" int oco_eta_sweep_f64(const void* z, const void* y,
-                                 const void* scales, const void* order,
-                                 const void* lengths, long long B,
-                                 long long E, long long T, int d, int replay,
-                                 void* regret, void* stream) {
-  return launch<double>(z, y, scales, order, lengths, B, E, T, d, replay,
-                        regret, stream);
-}
-
-extern "C" int oco_eta_sweep_f32(const void* z, const void* y,
-                                 const void* scales, const void* order,
-                                 const void* lengths, long long B,
-                                 long long E, long long T, int d, int replay,
-                                 void* regret, void* stream) {
-  return launch<float>(z, y, scales, order, lengths, B, E, T, d, replay,
-                       regret, stream);
-}
+// Inputs: z (B, T, d) and y (B, T) contiguous in a storage pair of
+// OCO_STORAGE_PAIRS (the suffix), scales (E, T) the per-round FTRL scales
+// -(eta_e / sqrt(t)) in the compute type, order (B,) int32 a permutation
+// of the sequences (blocks take them in this order), lengths (B,) int32
+// with 0 <= len <= T.  Output: regret (E, B) in the compute type.  Returns
+// the cudaError_t of the launch.
+#define OCO_SWEEP_ENTRY(SUFFIX, Z, Y)                                       \
+  extern "C" int oco_eta_sweep_##SUFFIX(                                    \
+      const void* z, const void* y, const void* scales, const void* order,  \
+      const void* lengths, long long B, long long E, long long T, int d,    \
+      int replay, void* regret, void* stream) {                             \
+    return launch<Z, Y>(z, y, scales, order, lengths, B, E, T, d, replay,   \
+                        regret, stream);                                    \
+  }
+OCO_STORAGE_PAIRS(OCO_SWEEP_ENTRY)

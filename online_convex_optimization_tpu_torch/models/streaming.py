@@ -24,6 +24,11 @@ The round counter ``t`` is the number of rounds played (the JAX
 time-major: ``feed`` takes the JAX layout ``(CT, B, d)`` / ``(CT, B)``;
 ``feed_packed`` and ``feed_many_packed`` take the kernels' ``(CT, d, B)``
 (``data/device.py::random_time_major_batch``) with no repack.
+
+``dtype`` and ``y_dtype`` (default ``dtype``) are the chunks' storage, a
+pair of ``ops/game.py::STORAGE``: bf16 z with bf16 or int8 labels, as the
+JAX ``StreamingKernelGame(dtype=jnp.bfloat16)`` stores them, is played by
+K4 reading the narrow chunk; the carry is in the compute dtype (float32).
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ from online_convex_optimization_tpu_torch.ops.game import (
     ALG_FTRL,
     StreamCarry,
     advance_stream,
+    compute_dtype,
     per_sequence,
     play_stream_many,
+    storage_suffix,
     stream_result,
     validate_stream_chunk,
     zero_stream_carry,
@@ -54,20 +61,23 @@ class _Stream:
     games."""
 
     def __init__(self, B: int, d: int, *, alg_flag=ALG_FTRL, eta0=1.0,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, y_dtype=None, device="cuda"):
         self.B, self.d = B, d
         self.dtype = dtype
+        self.y_dtype = dtype if y_dtype is None else y_dtype
+        storage_suffix(self.dtype, self.y_dtype)
+        self.compute = compute_dtype(dtype)
         self.device = resolve_device(device)
         self.flags = per_sequence(alg_flag, B, torch.int32, self.device)
-        self.eta0 = per_sequence(eta0, B, dtype, self.device)
-        self.carry = zero_stream_carry(B, d, dtype, self.device)
+        self.eta0 = per_sequence(eta0, B, self.compute, self.device)
+        self.carry = zero_stream_carry(B, d, self.compute, self.device)
         self.t = 0
 
     def _chunk(self, z_chunk, y_chunk):
         """A ``(CT, B, d)`` / ``(CT, B)`` chunk -> time-major tensors on the
-        game's device and dtype."""
+        game's device in its storage dtypes."""
         z = torch.as_tensor(z_chunk).to(self.device, self.dtype)
-        y = torch.as_tensor(y_chunk).to(self.device, self.dtype)
+        y = torch.as_tensor(y_chunk).to(self.device, self.y_dtype)
         if z.ndim != 3:
             raise ValueError(f"expected z (CT, B, d), got {tuple(z.shape)}")
         return z.permute(0, 2, 1).contiguous(), y.contiguous()
@@ -97,8 +107,8 @@ class _Stream:
     def resume(self, saved: dict) -> None:
         """Restore a ``carry_state()`` (bits unchanged)."""
         carry = StreamCarry(*(torch.tensor(np.asarray(saved[k])).to(
-            self.device, self.dtype) for k in StreamCarry._fields))
-        want = zero_stream_carry(self.B, self.d, self.dtype, self.device)
+            self.device, self.compute) for k in StreamCarry._fields))
+        want = zero_stream_carry(self.B, self.d, self.compute, self.device)
         for name, got, ref in zip(StreamCarry._fields, carry, want):
             if got.shape != ref.shape:
                 raise ValueError(f"saved {name} has shape {tuple(got.shape)}"
@@ -122,13 +132,16 @@ class StreamingGame(_Stream):
 
         ``replay_feed`` re-yields the same ``(z_chunk, y_chunk)`` stream
         (the reference scores its comparator with one more pass over the
-        data, fast_algorithms.py:113-115).
+        data, fast_algorithms.py:113-115).  The rows are scored as they were
+        stored (rounded to the game's storage dtypes).
         """
         x_c = self.comparator_action()
         comp = torch.zeros_like(self.carry.cum)
         for z_chunk, y_chunk in replay_feed:
-            z = torch.as_tensor(z_chunk).to(self.device, self.dtype)
-            y = torch.as_tensor(y_chunk).to(self.device, self.dtype)
+            z = torch.as_tensor(z_chunk).to(self.device, self.dtype).to(
+                self.compute)
+            y = torch.as_tensor(y_chunk).to(self.device, self.y_dtype).to(
+                self.compute)
             q = sum_last(z * x_c[None])                        # (CT, B)
             comp = comp + torch.sum(normalized_hinge(q, y), dim=0)
         cum = self.carry.cum
@@ -154,9 +167,10 @@ class StreamingKernelGame(_Stream):
     """
 
     def __init__(self, B: int, d: int, *, alg_flag=ALG_FTRL, eta0=1.0,
-                 dtype=torch.float32, device="cuda", validate: bool = False):
+                 dtype=torch.float32, y_dtype=None, device="cuda",
+                 validate: bool = False):
         super().__init__(B, d, alg_flag=alg_flag, eta0=eta0, dtype=dtype,
-                         device=device)
+                         y_dtype=y_dtype, device=device)
         self.validate = validate
 
     def _advance(self, z_tm, y_tm) -> None:

@@ -20,6 +20,7 @@ import torch
 from online_convex_optimization_tpu_torch.ops.game import (
     ALG_FTL,
     ALG_FTRL,
+    compute_dtype,
     eta_sweep,
     regrets_fused,
     settings_grid,
@@ -46,7 +47,8 @@ def ftrl_eta_sweep(z, y, eta_grid, *, alg_flag: int = ALG_FTRL,
     if alg_flag == ALG_FTRL:
         return eta_sweep(z, y, eta_grid, length)
     if alg_flag == ALG_FTL:
-        E = settings_grid(eta_grid, z.dtype, z.device, "eta_grid").shape[0]
+        E = settings_grid(eta_grid, compute_dtype(z), z.device,
+                          "eta_grid").shape[0]
         cum, comp, _ = regrets_fused(z, y, ALG_FTL, 1.0, length)
         return (cum - comp)[:, None].repeat(1, E)
     raise ValueError(f"alg_flag must be 0 (FTRL) or 1 (FTL), got {alg_flag}")

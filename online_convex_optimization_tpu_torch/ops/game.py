@@ -74,6 +74,17 @@ the tensors' device before the launch, the counterpart of
 choice of formula, made before the launch, not a fallback.  A stream cannot
 be replayed: its carried ``cnt = sum y_t^2`` and ``w`` give the identity,
 and ``validate_stream_chunk`` checks a chunk against the contract.
+
+Storage.  z and y may be stored narrower than the arithmetic, as the JAX
+package stores them (``pack_sequences(dtype, y_dtype=)``): ``STORAGE``
+lists the pairs, bf16 z with bf16 or int8 y and float32 z with int8 y
+beside float32 and float64.  The kernels read the narrow arrays and widen
+each element to float32 on read, which is exact, so a narrow run equals the
+float32 run on ``z.float()``, ``y.float()`` in every bit; carries, tables
+and outputs are in ``compute_dtype``.  On the CPU the wrappers upcast and
+run the plain versions.  ``in_contract`` forms bf16 rows' squared norms in
+float32, so rows that bf16 rounding put outside the ball are scored by
+replay: the exact regret of the stored values.
 """
 
 from __future__ import annotations
@@ -120,15 +131,51 @@ CONTRACT_TOL = 1e-5
 
 _FLOATS = (torch.float32, torch.float64)
 
+# The (z, y) storage pairs of kernels K1-K6 and the suffix of their C
+# entries (csrc/oco_common.cuh OCO_STORAGE_PAIRS).  bf16 y with float32 z
+# and float32 y with bf16 z are left out: the JAX package's bench and
+# bench suite store neither.
+STORAGE = {
+    (torch.float64, torch.float64): "f64",
+    (torch.float32, torch.float32): "f32",
+    (torch.bfloat16, torch.bfloat16): "bf16",
+    (torch.bfloat16, torch.int8): "bf16i8",
+    (torch.float32, torch.int8): "f32i8",
+}
+
+
+def storage_suffix(z_dtype, y_dtype) -> str:
+    """The C suffix of a (z, y) storage pair; ``TypeError`` for a pair
+    outside ``STORAGE``."""
+    suffix = STORAGE.get((z_dtype, y_dtype))
+    if suffix is None:
+        pairs = ", ".join(f"({str(a)[6:]}, {str(b)[6:]})" for a, b in STORAGE)
+        raise TypeError(f"unsupported storage: z {z_dtype} with y {y_dtype}; "
+                        f"the (z, y) pairs are {pairs}")
+    return suffix
+
+
+def compute_dtype(z) -> torch.dtype:
+    """The arithmetic's dtype for a storage (a tensor or a dtype): float64
+    for float64 z, float32 for float32 and bf16 z.  Carries, eta, scale and
+    threshold tables and outputs are in it."""
+    dtype = z.dtype if isinstance(z, torch.Tensor) else z
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def upcast(*tensors):
+    """The tensors in the compute dtype of the first (no copy where they
+    are in it already): the plain versions' inputs."""
+    dtype = compute_dtype(tensors[0])
+    return tuple(t.to(dtype) for t in tensors)
+
 
 def check_batch(z: torch.Tensor, y: torch.Tensor):
     """Validate a ``(B, T, d)`` / ``(B, T)`` batch; return ``(B, T, d)``."""
     if z.ndim != 3 or y.shape != z.shape[:2]:
         raise ValueError(f"expected z (B, T, d) and y (B, T), got "
                          f"{tuple(z.shape)} and {tuple(y.shape)}")
-    if z.dtype not in _FLOATS or y.dtype != z.dtype:
-        raise TypeError(f"z and y must share dtype float32 or float64, got "
-                        f"{z.dtype} and {y.dtype}")
+    storage_suffix(z.dtype, y.dtype)
     if y.device != z.device:
         raise ValueError(f"z on {z.device} but y on {y.device}")
     B, T, d = z.shape
@@ -167,11 +214,13 @@ def in_contract(z: torch.Tensor, y: torch.Tensor,
                 lengths: torch.Tensor) -> bool:
     """Whether every row within its sequence's length has ``||z_t|| <= 1``
     and ``y_t = +-1``: the condition under which the hinge identity scores a
-    unit-ball action exactly.  Runs on the tensors' device."""
+    unit-ball action exactly.  Runs on the tensors' device; the norms are
+    formed in the compute dtype (bf16's own rounding, 2^-8, would swamp
+    ``CONTRACT_TOL``)."""
     T = z.shape[1]
     valid = torch.arange(T, device=z.device) < lengths[:, None]
-    row_ok = ((torch.linalg.vector_norm(z, dim=-1) ** 2 <= 1.0 + CONTRACT_TOL)
-              & (torch.abs(y) == 1.0))
+    nsq = torch.linalg.vector_norm(z, dim=-1, dtype=compute_dtype(z)) ** 2
+    row_ok = (nsq <= 1.0 + CONTRACT_TOL) & (torch.abs(y) == 1)
     return bool((row_ok | ~valid).all())
 
 
@@ -258,21 +307,21 @@ def eta_table(eta, B: int, T: int, dtype, device):
 
 def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
     """Launch kernel K1 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
-    with the plays' ``flags`` ``(P, B)`` (int32, P <= 8), the ``(E, T)``
-    scale table and each sequence's row ``eidx`` (``eta_table``), and
-    ``lengths`` (int32).  Returns ``(cum_loss (P, B), comp_loss (P, B),
-    x_last (P, B, d))``."""
+    in a ``STORAGE`` pair with the plays' ``flags`` ``(P, B)`` (int32, P <= 8),
+    the ``(E, T)`` scale table and each sequence's row ``eidx``
+    (``eta_table``), and ``lengths`` (int32).  Returns ``(cum_loss (P, B),
+    comp_loss (P, B), x_last (P, B, d))`` in the compute dtype."""
     global LAUNCHES
     B, T, d = z.shape
     P = flags.shape[0]
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_regrets_fused_f64 if z.dtype == torch.float64
-          else lib.oco_regrets_fused_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_regrets_fused_{storage_suffix(z.dtype, y.dtype)}")
+    dtype = compute_dtype(z)
     with torch.cuda.device(z.device):
-        cum = torch.empty((P, B), dtype=z.dtype, device=z.device)
+        cum = torch.empty((P, B), dtype=dtype, device=z.device)
         comp = torch.empty_like(cum)
-        x_last = torch.empty((P, B, d), dtype=z.dtype, device=z.device)
+        x_last = torch.empty((P, B, d), dtype=dtype, device=z.device)
         err = fn(z.data_ptr(), y.data_ptr(), flags.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
                  P, d, int(replay), cum.data_ptr(), comp.data_ptr(),
@@ -315,16 +364,17 @@ def regret_plays(z: torch.Tensor, y: torch.Tensor, alg_flags, eta: float,
       ``(cum_loss (P, B), comp_loss (P, B), x_last (P, B, d))``.
     """
     B, T, d = check_batch(z, y)
+    dtype = compute_dtype(z)
     flags = torch.tensor(alg_flags, dtype=torch.int32, device=z.device)
     flags = flags[:, None].expand(-1, B).contiguous()
     if z.device.type == "cuda":
         return launch_regrets(z.contiguous(), y.contiguous(), flags,
-                              *eta_table(eta, B, T, z.dtype, z.device),
+                              *eta_table(eta, B, T, dtype, z.device),
                               lengths, replay)
     if z.device.type == "cpu":
         return regret_plays_reference(
-            z, y, flags, per_sequence(eta, B, z.dtype, z.device), lengths,
-            replay=replay)
+            *upcast(z, y), flags, per_sequence(eta, B, dtype, z.device),
+            lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
 
@@ -333,30 +383,31 @@ def regrets_fused(z: torch.Tensor, y: torch.Tensor, alg_flag, eta,
     """Regret game + final-FTL comparator for a batch of sequences.
 
     Args:
-      z: ``(B, T, d)`` float32/float64; y: ``(B, T)`` of the same dtype.
+      z: ``(B, T, d)``; y: ``(B, T)``; a ``STORAGE`` pair.
       alg_flag: 0 = FTRL, 1 = FTL; a scalar or ``(B,)``.
       eta: FTRL step scale, a scalar or ``(B,)`` (ignored for FTL).
       lengths: valid horizon per sequence, scalar or ``(B,)``; rows at and
         beyond it are ignored.  Defaults to ``T``.
 
     Returns:
-      ``(cum_loss (B,), comp_loss (B,), x_last (B, d))`` on ``z``'s device.
-      On a CUDA tensor this launches kernel K1 (or raises); on a CPU tensor
-      it runs ``regrets_fused_reference``.
+      ``(cum_loss (B,), comp_loss (B,), x_last (B, d))`` on ``z``'s device,
+      in the compute dtype.  On a CUDA tensor this launches kernel K1 (or
+      raises); on a CPU tensor it runs ``regrets_fused_reference``.
     """
     B, T, d = check_batch(z, y)
+    dtype = compute_dtype(z)
     flags = per_sequence(alg_flag, B, torch.int32, z.device)
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
         cum, comp, x_last = launch_regrets(
             z.contiguous(), y.contiguous(), flags[None],
-            *eta_table(eta, B, T, z.dtype, z.device), lengths, replay)
+            *eta_table(eta, B, T, dtype, z.device), lengths, replay)
         return cum[0], comp[0], x_last[0]
     if z.device.type == "cpu":
         return regrets_fused_reference(
-            z, y, flags, per_sequence(eta, B, z.dtype, z.device), lengths,
-            replay=replay)
+            *upcast(z, y), flags, per_sequence(eta, B, dtype, z.device),
+            lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
 
@@ -437,18 +488,17 @@ def length_order(lengths: torch.Tensor) -> torch.Tensor:
 
 def launch_eta_sweep(z, y, scales, order, lengths, replay: bool):
     """Launch kernel K5 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
-    with the ``(E, T)`` scale table (``sweep_scales``), the blocks'
-    sequence ``order`` (``length_order``) and ``lengths`` (int32) as
-    ``eta_sweep`` prepares them.  Returns ``(E, B)`` regrets."""
+    in a ``STORAGE`` pair with the ``(E, T)`` scale table (``sweep_scales``),
+    the blocks' sequence ``order`` (``length_order``) and ``lengths``
+    (int32) as ``eta_sweep`` prepares them.  Returns ``(E, B)`` regrets."""
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     E = scales.shape[0]
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_eta_sweep_f64 if z.dtype == torch.float64
-          else lib.oco_eta_sweep_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_eta_sweep_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):
-        regret = torch.empty((E, B), dtype=z.dtype, device=z.device)
+        regret = torch.empty((E, B), dtype=compute_dtype(z), device=z.device)
         err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
                  order.data_ptr(), lengths.data_ptr(), B, E, T, d,
                  int(replay), regret.data_ptr(),
@@ -464,7 +514,7 @@ def eta_sweep(z: torch.Tensor, y: torch.Tensor, eta_grid, lengths=None):
     """FTRL regret of every (sequence, eta) pair.
 
     Args:
-      z: ``(B, T, d)`` float32/float64; y: ``(B, T)`` of the same dtype.
+      z: ``(B, T, d)``; y: ``(B, T)``; a ``STORAGE`` pair.
       eta_grid: ``(E,)`` FTRL step scales.
       lengths: valid horizon per sequence, scalar or ``(B,)``; defaults
         to ``T``.
@@ -474,7 +524,7 @@ def eta_sweep(z: torch.Tensor, y: torch.Tensor, eta_grid, lengths=None):
       kernel K5 (or raises); on a CPU tensor it runs ``eta_sweep_reference``.
     """
     B, T, d = check_batch(z, y)
-    eta_grid = settings_grid(eta_grid, z.dtype, z.device, "eta_grid")
+    eta_grid = settings_grid(eta_grid, compute_dtype(z), z.device, "eta_grid")
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
@@ -482,7 +532,8 @@ def eta_sweep(z: torch.Tensor, y: torch.Tensor, eta_grid, lengths=None):
                                 sweep_scales(eta_grid, T),
                                 length_order(lengths), lengths, replay).t()
     if z.device.type == "cpu":
-        return eta_sweep_reference(z, y, eta_grid, lengths, replay=replay)
+        return eta_sweep_reference(*upcast(z, y), eta_grid, lengths,
+                                   replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
 
@@ -520,9 +571,7 @@ def check_time_major(z_tm: torch.Tensor, y_tm: torch.Tensor):
         raise ValueError(f"expected z (T, d, B) and y (T, B), got "
                          f"{tuple(z_tm.shape)} and {tuple(y_tm.shape)}")
     T, d, B = z_tm.shape
-    if z_tm.dtype not in _FLOATS or y_tm.dtype != z_tm.dtype:
-        raise TypeError(f"z and y must share dtype float32 or float64, got "
-                        f"{z_tm.dtype} and {y_tm.dtype}")
+    storage_suffix(z_tm.dtype, y_tm.dtype)
     if y_tm.device != z_tm.device:
         raise ValueError(f"z on {z_tm.device} but y on {y_tm.device}")
     if B < 1 or d < 1:
@@ -533,16 +582,18 @@ def check_time_major(z_tm: torch.Tensor, y_tm: torch.Tensor):
 def check_stream_chunk(z_chunk: torch.Tensor, y_chunk: torch.Tensor,
                        carry: StreamCarry):
     """Validate a time-major ``(CT, d, B)`` / ``(CT, B)`` chunk against its
-    carry (shapes, dtype, device; no device sync); return ``(CT, d, B)``."""
+    carry (shapes, dtype, device; no device sync); return ``(CT, d, B)``.
+    The carry is in the chunk's compute dtype."""
     CT, d, B = check_time_major(z_chunk, y_chunk)
+    dtype = compute_dtype(z_chunk)
     want = {"theta": (d, B), "w": (d, B), "cum": (B,), "cnt": (B,)}
     for name, shape in want.items():
         t = getattr(carry, name)
-        if (tuple(t.shape) != shape or t.dtype != z_chunk.dtype
+        if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != z_chunk.device):
             raise ValueError(f"carry {name} is {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}; the chunk needs "
-                             f"{shape} {z_chunk.dtype} on {z_chunk.device}")
+                             f"{shape} {dtype} on {z_chunk.device}")
     return CT, d, B
 
 
@@ -552,14 +603,16 @@ def validate_stream_chunk(z_chunk: torch.Tensor,
     contract: every row has ``||z_t||^2 <= 1 + CONTRACT_TOL`` and a label of
     +-1, or is an all-zero padding row (``y_t = 0``, ``z_t = 0``).  A row
     with ``y_t = 0`` and ``z_t != 0`` would be scored wrongly by the carried
-    identity, so it is refused.  Runs on the chunk's device and syncs."""
+    identity, so it is refused.  Runs on the chunk's device, in the compute
+    dtype, and syncs."""
+    z_chunk = z_chunk.to(compute_dtype(z_chunk))
     nsq = sum_last(z_chunk.transpose(1, 2) * z_chunk.transpose(1, 2))
     max_nsq = float(nsq.max()) if nsq.numel() else 0.0
     if max_nsq > 1.0 + CONTRACT_TOL:
         raise ValueError(f"rows must lie in the unit L2 ball (max ||z||^2 = "
                          f"{max_nsq:.6f}); clip rows like the data builders "
                          f"do")
-    ok = (torch.abs(y_chunk) == 1.0) | ((y_chunk == 0.0) & (nsq == 0.0))
+    ok = (torch.abs(y_chunk) == 1) | ((y_chunk == 0) & (nsq == 0.0))
     if not bool(ok.all()):
         raise ValueError("labels must be +-1, or 0 on an all-zero padding "
                          "row")
@@ -592,15 +645,14 @@ def play_stream_reference(z_chunk, y_chunk, alg_flag, eta, t0: int,
 
 def launch_stream_time_major(z_tm, y_tm, flags, eta, t0: int,
                              carry: StreamCarry) -> StreamCarry:
-    """Launch kernel K4 on a contiguous time-major CUDA chunk with
-    per-sequence ``flags`` (int32) and ``eta``; returns the advanced carry
-    in new tensors."""
+    """Launch kernel K4 on a contiguous time-major CUDA chunk in a
+    ``STORAGE`` pair with per-sequence ``flags`` (int32) and ``eta``; returns the advanced
+    carry in new tensors."""
     global STREAM_LAUNCHES
     CT, d, B = z_tm.shape
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_play_stream_f64 if z_tm.dtype == torch.float64
-          else lib.oco_play_stream_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_play_stream_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     with torch.cuda.device(z_tm.device):
         out = StreamCarry(*(torch.empty_like(t) for t in carry))
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
@@ -628,7 +680,8 @@ def advance_stream(z_chunk, y_chunk, flags, eta, t0: int,
                                         y_chunk.contiguous(), flags, eta,
                                         t0, carry)
     if z_chunk.device.type == "cpu":
-        return play_stream_reference(z_chunk, y_chunk, flags, eta, t0, carry)
+        return play_stream_reference(*upcast(z_chunk, y_chunk), flags, eta,
+                                     t0, carry)
     raise ValueError(f"unsupported device {z_chunk.device}")
 
 
@@ -637,7 +690,7 @@ def play_stream(z_chunk: torch.Tensor, y_chunk: torch.Tensor, eta, t0: int,
     """Advance the streamed game over one time-major chunk.
 
     Args:
-      z_chunk: ``(CT, d, B)`` float32/float64; y_chunk: ``(CT, B)``.
+      z_chunk: ``(CT, d, B)``; y_chunk: ``(CT, B)``; a ``STORAGE`` pair.
       eta: FTRL step scale, scalar or ``(B,)`` (ignored for FTL).
       t0: rounds already played; row k is global round ``t0 + k + 1``.
       carry: from ``zero_stream_carry`` or a previous call.
@@ -649,7 +702,7 @@ def play_stream(z_chunk: torch.Tensor, y_chunk: torch.Tensor, eta, t0: int,
     """
     B = z_chunk.shape[-1]
     flags = per_sequence(alg_flag, B, torch.int32, z_chunk.device)
-    eta = per_sequence(eta, B, z_chunk.dtype, z_chunk.device)
+    eta = per_sequence(eta, B, compute_dtype(z_chunk), z_chunk.device)
     return advance_stream(z_chunk, y_chunk, flags, eta, t0, carry)
 
 
@@ -664,7 +717,7 @@ def play_stream_many(z_stack: torch.Tensor, y_stack: torch.Tensor, eta,
                          f"{tuple(z_stack.shape)}")
     N, CT, _, B = z_stack.shape
     flags = per_sequence(alg_flag, B, torch.int32, z_stack.device)
-    eta = per_sequence(eta, B, z_stack.dtype, z_stack.device)
+    eta = per_sequence(eta, B, compute_dtype(z_stack), z_stack.device)
     for i in range(N):
         carry = advance_stream(z_stack[i], y_stack[i], flags, eta,
                                t0 + i * CT, carry)
@@ -734,13 +787,13 @@ def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
     global PACKED_LAUNCHES, PACKED_ETA_LAUNCHES
     T, d, B = z_tm.shape
     check_kernel_d(d)
-    lib = cuda_build.load()
-    suffix = "f64" if z_tm.dtype == torch.float64 else "f32"
-    fn = getattr(lib, f"{fn_name}_{suffix}")
+    fn = getattr(cuda_build.load(),
+                 f"{fn_name}_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
+    dtype = compute_dtype(z_tm)
     flag = () if alg_flag is None else (int(alg_flag),)
     with torch.cuda.device(z_tm.device):
-        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
-        theta = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
+        cum = torch.empty((B,), dtype=dtype, device=z_tm.device)
+        theta = torch.empty((d, B), dtype=dtype, device=z_tm.device)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), extra.data_ptr(), T, B, d,
                  *flag, cum.data_ptr(), theta.data_ptr(),
                  torch.cuda.current_stream(z_tm.device).cuda_stream)
@@ -771,8 +824,8 @@ def play_packed(z_tm: torch.Tensor, y_tm: torch.Tensor, scales, *,
     """The game on time-major inputs from a table of FTRL scales.
 
     Args:
-      z_tm: ``(T, d, B)`` float32/float64; y_tm: ``(T, B)``.  Zero rows are
-        inert padding.
+      z_tm: ``(T, d, B)``; y_tm: ``(T, B)``; a ``STORAGE`` pair.  Zero rows
+        are inert padding.
       scales: ``(T,)`` per-round FTRL scales (``ftrl_scales``).
       alg_flag: 0 = FTRL, 1 = FTL, for the whole batch.
 
@@ -785,7 +838,7 @@ def play_packed(z_tm: torch.Tensor, y_tm: torch.Tensor, scales, *,
     if alg_flag not in (ALG_FTRL, ALG_FTL):
         raise ValueError(f"alg_flag must be 0 (FTRL) or 1 (FTL), got "
                          f"{alg_flag}")
-    scales = torch.as_tensor(scales, dtype=z_tm.dtype,
+    scales = torch.as_tensor(scales, dtype=compute_dtype(z_tm),
                              device=z_tm.device).contiguous()
     if scales.shape != (T,):
         raise ValueError(f"scales must have shape ({T},), got "
@@ -794,7 +847,7 @@ def play_packed(z_tm: torch.Tensor, y_tm: torch.Tensor, scales, *,
         return launch_play_packed(z_tm.contiguous(), y_tm.contiguous(),
                                   scales, alg_flag)
     if z_tm.device.type == "cpu":
-        return play_packed_reference(z_tm, y_tm, scales, alg_flag)
+        return play_packed_reference(*upcast(z_tm, y_tm), scales, alg_flag)
     raise ValueError(f"unsupported device {z_tm.device}")
 
 
@@ -802,7 +855,7 @@ def play_packed_eta(z_tm: torch.Tensor, y_tm: torch.Tensor, eta):
     """FTRL on time-major inputs with a per-sequence step scale.
 
     Args:
-      z_tm: ``(T, d, B)`` float32/float64; y_tm: ``(T, B)``.
+      z_tm: ``(T, d, B)``; y_tm: ``(T, B)``; a ``STORAGE`` pair.
       eta: a scalar or ``(B,)``.
 
     Returns:
@@ -811,12 +864,12 @@ def play_packed_eta(z_tm: torch.Tensor, y_tm: torch.Tensor, eta):
       ``play_packed_eta_reference``.
     """
     T, d, B = check_time_major(z_tm, y_tm)
-    eta = per_sequence(eta, B, z_tm.dtype, z_tm.device)
+    eta = per_sequence(eta, B, compute_dtype(z_tm), z_tm.device)
     if z_tm.device.type == "cuda":
         return launch_play_packed_eta(z_tm.contiguous(), y_tm.contiguous(),
                                       eta)
     if z_tm.device.type == "cpu":
-        return play_packed_eta_reference(z_tm, y_tm, eta)
+        return play_packed_eta_reference(*upcast(z_tm, y_tm), eta)
     raise ValueError(f"unsupported device {z_tm.device}")
 
 
@@ -824,7 +877,9 @@ def comparator_epilogue(z_tm, y_tm, cum, theta):
     """``cum - comp``: the final FTL action ``x_c = ftl_action(theta)``
     replayed over every row, ``comp = 0.5 * sum_t |<z_t, x_c> - y_t|``.
     Plain PyTorch, as the JAX ``_comparator_epilogue`` is XLA; zero padding
-    rows add nothing.  Returns ``(B,)`` regrets."""
+    rows add nothing.  Narrow rows and labels are widened element by
+    element (type promotion), never copied whole.  Returns ``(B,)``
+    regrets."""
     x_c = ftl_action(theta.t()).t()                            # (d, B)
     q = z_tm[:, 0] * x_c[0]
     for j in range(1, z_tm.shape[1]):
@@ -850,15 +905,16 @@ def kernel_envelope(B: int, T: int, d: int, dtype=torch.float32,
     reason they do not.
 
     Derived from the port's own kernels: K3 and K3e both have instances
-    through d = ``cuda_build.MAX_D`` (512) in float32 and float64, with no
-    budget of on-chip memory (a thread's state is in registers, or in local
-    memory past d = 64).  ``T`` and ``per_lane_eta`` (the JAX signature's)
-    set no limit: unlike the TPU's register-only per-lane kernel, K3e has
-    the large-d instance too.
+    through d = ``cuda_build.MAX_D`` (512) for z stored in float32, float64
+    or bf16 (``STORAGE``), with no budget of on-chip memory (a thread's
+    state is in registers, or in local memory past d = 64).  ``T`` and
+    ``per_lane_eta`` (the JAX signature's) set no limit: unlike the TPU's
+    register-only per-lane kernel, K3e has the large-d instance too.
     """
     del per_lane_eta, T
-    if dtype not in _FLOATS:
-        return f"dtype {dtype}: the kernels take float32 and float64"
+    if dtype not in {z for z, _ in STORAGE}:
+        return (f"dtype {dtype}: the kernels store z as float32, float64 or "
+                f"bfloat16")
     if B < 1 or d < 1:
         return f"empty batch (B={B}, d={d})"
     if d > cuda_build.MAX_D:
@@ -874,7 +930,7 @@ def simulate_linear_packed(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
 
     ``eta0`` is a scalar (a shared step size: K3 with ``ftrl_scales``) or a
     ``(B,)`` tensor (per-sequence step sizes: K3e, FTRL only).  Computes in
-    ``z``'s dtype on ``z``'s device; returns ``(B,)`` regrets.
+    ``z``'s compute dtype on ``z``'s device; returns ``(B,)`` regrets.
     """
     B, T, d = check_batch(z, y)
     z_tm, y_tm = time_major(z, y)
@@ -882,7 +938,8 @@ def simulate_linear_packed(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
         if alg_flag != ALG_FTRL:
             raise ValueError("per-sequence eta is FTRL-only")
         return regrets_packed_eta(z_tm, y_tm, eta0)
-    scales = ftrl_scales(T, float(eta0), dtype=z.dtype, device=z.device)
+    scales = ftrl_scales(T, float(eta0), dtype=compute_dtype(z),
+                         device=z.device)
     return regrets_packed(z_tm, y_tm, scales, alg_flag=alg_flag)
 
 

@@ -44,6 +44,10 @@ the reference's rounding order with state in registers; K2 runs the FTL
 track and the FTRL tails in warps of their own over staged rows, and K6's
 two launches are bound by the latency of their longest chains (the source
 notes of ``csrc/smart_kernel.cu`` and ``csrc/smart_sweep_kernel.cu``).
+
+z and y may be stored in any ``game.STORAGE`` pair (bf16 z, int8 y, ...):
+the kernels widen on read and compute in ``game.compute_dtype``, the CPU
+wrappers upcast and run the plain versions.
 """
 
 from __future__ import annotations
@@ -61,13 +65,16 @@ from online_convex_optimization_tpu_torch.ops.actions import (
 from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
     check_kernel_d,
+    compute_dtype,
     eta_table,
     in_contract,
     length_order,
     per_sequence,
     per_sequence_lengths,
     settings_grid,
+    storage_suffix,
     sweep_scales,
+    upcast,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import (
     hinge_subgradient,
@@ -218,21 +225,21 @@ def smart_plays_reference(z, y, thresholds, eta, lengths, *, replay=False):
 
 def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
     """Launch kernel K2 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
-    with ``thresholds`` ``(G, B)`` (G <= 4), the ``(E, T)`` scale table and
-    each sequence's row ``eidx`` (``game.eta_table``), and ``lengths``
-    (int32).  Returns ``(cum_loss (G, B), comp_loss (B,), x_last (G, B, d),
-    switch_t (G, B))``."""
+    in a ``game.STORAGE`` pair with ``thresholds`` ``(G, B)`` (G <= 4), the
+    ``(E, T)`` scale table and each sequence's row ``eidx``
+    (``game.eta_table``), and ``lengths`` (int32).  Returns ``(cum_loss
+    (G, B), comp_loss (B,), x_last (G, B, d), switch_t (G, B))``."""
     global LAUNCHES
     B, T, d = z.shape
     G = thresholds.shape[0]
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_smart_regrets_f64 if z.dtype == torch.float64
-          else lib.oco_smart_regrets_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_smart_regrets_{storage_suffix(z.dtype, y.dtype)}")
+    dtype = compute_dtype(z)
     with torch.cuda.device(z.device):
-        cum = torch.empty((G, B), dtype=z.dtype, device=z.device)
-        comp = torch.empty((B,), dtype=z.dtype, device=z.device)
-        x_last = torch.empty((G, B, d), dtype=z.dtype, device=z.device)
+        cum = torch.empty((G, B), dtype=dtype, device=z.device)
+        comp = torch.empty((B,), dtype=dtype, device=z.device)
+        x_last = torch.empty((G, B, d), dtype=dtype, device=z.device)
         tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
         err = fn(z.data_ptr(), y.data_ptr(), thresholds.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
@@ -271,14 +278,15 @@ def smart_plays(z: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
       switch_t (G, B))``.
     """
     B, T, d = check_batch(z, y)
-    thresholds = thresholds.to(z.dtype).contiguous()
+    dtype = compute_dtype(z)
+    thresholds = thresholds.to(dtype).contiguous()
     if z.device.type == "cuda":
         return launch_smart(z.contiguous(), y.contiguous(), thresholds,
-                            *eta_table(eta, B, T, z.dtype, z.device),
+                            *eta_table(eta, B, T, dtype, z.device),
                             lengths, replay)
     if z.device.type == "cpu":
         return smart_plays_reference(
-            z, y, thresholds, per_sequence(eta, B, z.dtype, z.device),
+            *upcast(z, y), thresholds, per_sequence(eta, B, dtype, z.device),
             lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
@@ -288,7 +296,7 @@ def smart_regrets(z: torch.Tensor, y: torch.Tensor, threshold, eta,
     """Single-switch SMART losses for a batch of sequences.
 
     Args:
-      z: ``(B, T, d)`` float32/float64; y: ``(B, T)`` of the same dtype.
+      z: ``(B, T, d)``; y: ``(B, T)``; a ``game.STORAGE`` pair.
       threshold: switch threshold, a scalar or ``(B,)``.
       eta: FTRL step scale, a scalar or ``(B,)``.
       lengths: valid horizon per sequence, scalar or ``(B,)``; defaults
@@ -300,17 +308,18 @@ def smart_regrets(z: torch.Tensor, y: torch.Tensor, threshold, eta,
       raises); on a CPU tensor it runs ``smart_regrets_reference``.
     """
     B, T, d = check_batch(z, y)
-    threshold = per_sequence(threshold, B, z.dtype, z.device)
+    dtype = compute_dtype(z)
+    threshold = per_sequence(threshold, B, dtype, z.device)
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
         cum, comp, x_last, tau = launch_smart(
             z.contiguous(), y.contiguous(), threshold[None],
-            *eta_table(eta, B, T, z.dtype, z.device), lengths, replay)
+            *eta_table(eta, B, T, dtype, z.device), lengths, replay)
         return cum[0], comp, x_last[0], tau[0]
     if z.device.type == "cpu":
         return smart_regrets_reference(
-            z, y, threshold, per_sequence(eta, B, z.dtype, z.device),
+            *upcast(z, y), threshold, per_sequence(eta, B, dtype, z.device),
             lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")
 
@@ -494,22 +503,22 @@ def smart_sweep_split_reference(z, y, thresholds, eta, lengths, *,
 def launch_smart_prefix(z, y, ordered, perm, order, lengths,
                         replay: bool):
     """Launch kernel K6a on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA
-    inputs with the thresholds sorted ascending (``ordered``) and their
-    columns ``perm`` (int32), the blocks' sequence ``order``
-    (``game.length_order``) and ``lengths`` (int32).  Returns
+    inputs in a ``game.STORAGE`` pair with the thresholds sorted ascending
+    (``ordered``) and their columns ``perm`` (int32), the blocks' sequence
+    ``order`` (``game.length_order``) and ``lengths`` (int32).  Returns
     ``(partial (G, B), switch_t (G, B), comp (B,))`` as
     ``smart_prefix_reference`` defines them (transposed)."""
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     G = ordered.shape[0]
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_smart_prefix_f64 if z.dtype == torch.float64
-          else lib.oco_smart_prefix_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_smart_prefix_{storage_suffix(z.dtype, y.dtype)}")
+    dtype = compute_dtype(z)
     with torch.cuda.device(z.device):
-        partial = torch.empty((G, B), dtype=z.dtype, device=z.device)
+        partial = torch.empty((G, B), dtype=dtype, device=z.device)
         tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
-        comp = torch.empty((B,), dtype=z.dtype, device=z.device)
+        comp = torch.empty((B,), dtype=dtype, device=z.device)
         err = fn(z.data_ptr(), y.data_ptr(), ordered.data_ptr(),
                  perm.data_ptr(), order.data_ptr(), lengths.data_ptr(), B, G,
                  T, d, int(replay), partial.data_ptr(), tau.data_ptr(),
@@ -532,9 +541,8 @@ def launch_smart_tails(z, y, scales, order, lengths, switch_t, comp,
     B, T, d = z.shape
     G = switch_t.shape[0]
     check_kernel_d(d)
-    lib = cuda_build.load()
-    fn = (lib.oco_smart_tails_f64 if z.dtype == torch.float64
-          else lib.oco_smart_tails_f32)
+    fn = getattr(cuda_build.load(),
+                 f"oco_smart_tails_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):
         err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
                  order.data_ptr(), lengths.data_ptr(), switch_t.data_ptr(),
@@ -556,7 +564,7 @@ def launch_smart_sweep(z, y, thresholds, eta: float, lengths, replay: bool):
     regret, tau, comp = launch_smart_prefix(z, y, ordered,
                                             perm.to(torch.int32), order,
                                             lengths, replay)
-    scales = sweep_scales(torch.full((1,), eta, dtype=z.dtype,
+    scales = sweep_scales(torch.full((1,), eta, dtype=compute_dtype(z),
                                      device=z.device), z.shape[1])
     launch_smart_tails(z, y, scales, order, lengths, tau, comp, regret)
     return regret, tau
@@ -567,9 +575,9 @@ def smart_sweep(z: torch.Tensor, y: torch.Tensor, thresholds, eta: float,
     """SMART regret and switch round of every (sequence, threshold) pair.
 
     Args:
-      z: ``(B, T, d)`` float32/float64; y: ``(B, T)`` of the same dtype.
+      z: ``(B, T, d)``; y: ``(B, T)``; a ``game.STORAGE`` pair.
       thresholds: ``(G,)`` switch thresholds.
-      eta: FTRL step scale (a number, rounded to z's dtype).
+      eta: FTRL step scale (a number, rounded to the compute dtype).
       lengths: valid horizon per sequence, scalar or ``(B,)``; defaults
         to ``T``.
 
@@ -579,7 +587,8 @@ def smart_sweep(z: torch.Tensor, y: torch.Tensor, thresholds, eta: float,
       it runs ``smart_sweep_reference``.
     """
     B, T, d = check_batch(z, y)
-    thresholds = settings_grid(thresholds, z.dtype, z.device, "thresholds")
+    dtype = compute_dtype(z)
+    thresholds = settings_grid(thresholds, dtype, z.device, "thresholds")
     lengths = per_sequence_lengths(lengths, B, T, z.device)
     replay = not in_contract(z, y, lengths)
     if z.device.type == "cuda":
@@ -589,6 +598,6 @@ def smart_sweep(z: torch.Tensor, y: torch.Tensor, thresholds, eta: float,
         return regret.t(), tau.t()
     if z.device.type == "cpu":
         return smart_sweep_reference(
-            z, y, thresholds, torch.as_tensor(float(eta), dtype=z.dtype),
+            *upcast(z, y), thresholds, torch.as_tensor(float(eta), dtype=dtype),
             lengths, replay=replay)
     raise ValueError(f"unsupported device {z.device}")

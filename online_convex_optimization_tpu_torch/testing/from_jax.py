@@ -44,7 +44,10 @@ def stream_carry_from_jax(saved: dict, B: int) -> dict:
     with the TPU kernels' conventions: theta doubled, losses un-halved.  The
     lanes are unpacked and the padding beyond ``B`` dropped; ``theta2`` and
     ``sc[0]`` are halved (exact in binary floating point); ``t``, the rounds
-    played, is kept.  The state crosses over the way weights would."""
+    played, is kept.  The carry is float32 whatever the chunks' storage; a
+    bf16 game (``StreamingKernelGame(dtype=jnp.bfloat16)``) packs 16
+    sublanes instead of 8, which the unpacking reads from the shapes.  The
+    state crosses over the way weights would."""
     theta2 = np.asarray(saved["theta2"])
     sc = np.asarray(saved["sc"])
     return {"theta": 0.5 * _unpack_lanes(theta2, B),
@@ -110,12 +113,23 @@ def admm_state_from_jax(state, B: int, T: int, d: int):
                  for a in (s, u, x, w, v))
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """A NumPy array -> a CPU tensor with the same bits.  bfloat16 arrays
+    (``ml_dtypes``, what ``np.asarray`` makes of a JAX bf16 array), which
+    ``torch.from_numpy`` refuses, cross as their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def to_torch(arrays: Sequence[np.ndarray], device, dtype=None):
-    """NumPy arrays -> tensors on ``device``.  Floating arrays are cast to
-    ``dtype`` when it is given; integer arrays keep their type."""
+    """NumPy arrays -> tensors on ``device`` with the same bits.  Floating
+    arrays (bfloat16 among them) are cast to ``dtype`` when it is given;
+    integer arrays (int8 labels among them) keep their type."""
     out = []
     for a in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = _from_numpy(a).to(device)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out.append(t)

@@ -54,7 +54,11 @@ _SIGNATURES = {
     "oco_smart_occupancy": [_I, _I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
 }
-for _ty in ("f64", "f32"):
+# The hinge-game entries have one instance a (z, y) storage pair
+# (csrc/oco_common.cuh OCO_STORAGE_PAIRS, ops/game.py STORAGE); the
+# quadratic kernels K8 and K9 take float64 and float32.
+STORAGE_SUFFIXES = ("f64", "f32", "bf16", "bf16i8", "f32i8")
+for _ty in STORAGE_SUFFIXES:
     _SIGNATURES.update({
         f"oco_regrets_fused_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
                                     [_P] * 4,
@@ -69,6 +73,9 @@ for _ty in ("f64", "f32"):
         f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
         f"oco_play_packed_eta_{_ty}": [_P, _P, _P, _LL, _LL, _I, _P, _P,
                                        _P],
+    })
+for _ty in ("f64", "f32"):
+    _SIGNATURES.update({
         f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                                  _P, _P, _P, _P, _P],
         f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P, _P],

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from online_convex_optimization_tpu_torch.data import device as device_data
 from online_convex_optimization_tpu_torch.data.sequences import CASES
 from online_convex_optimization_tpu_torch.models.streaming import (
     StreamingKernelGame,
@@ -763,3 +764,108 @@ def test_ssn_on_the_card_matches_cpu(cuda, monkeypatch):
                                  device="cpu", **kw)
     for k in want:
         np.testing.assert_allclose(got[k][0], want[k][0], rtol=0, atol=1e-9)
+
+
+# ------------------------------------------- narrow storage (bf16 z, int8 y)
+
+STORAGE_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.int8), (torch.float32, torch.int8)]
+
+
+def _stored(z, y, pair, device):
+    """Rows deflated as the bf16 generators deflate them, labels +-1, stored
+    in ``pair``; and the upcast float32 values."""
+    zs = torch.as_tensor(z * (1.0 - 2.0 ** -8), dtype=torch.float32,
+                         device=device).to(pair[0])
+    ys = torch.as_tensor(np.sign(y) + (y == 0), dtype=torch.float32,
+                         device=device).to(pair[1])
+    return zs, ys, zs.float(), ys.float()
+
+
+@pytest.mark.parametrize("pair", STORAGE_PAIRS)
+@pytest.mark.parametrize("d,contract", [(5, True), (5, False), (3, True),
+                                        (65, True)])
+def test_storage_pairs_equal_the_f32_instance(cuda, pair, d, contract):
+    """Every narrow instance of K1-K6 equals the float32 instance on the
+    upcast values in every bit and its plain version within 5e-4."""
+    z, y, lengths = _batch(150, 77, d, seed=90 + d)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    ln = game.per_sequence(lengths, 150, torch.int32, cuda)
+    fl = game.per_sequence(np.arange(150) % 2, 150, torch.int32, cuda)
+    et = torch.linspace(0.3, 2.5, 150, device=cuda)
+    th = torch.linspace(0.5, 6.0, 150, device=cuda)
+    z_tm, y_tm = game.time_major(zs, ys)
+    zf_tm, yf_tm = game.time_major(zf, yf)
+    sc = game.ftrl_scales(77, 1.3, device=cuda)
+    c0 = game.zero_stream_carry(150, d, device=cuda)
+    grid = [0.5, 1.3, 2.0]
+    cases = [
+        (lambda a, b: game.regrets_fused(a, b, fl, et, ln),
+         lambda: game.regrets_fused_reference(zf, yf, fl, et, ln,
+                                              replay=not contract)),
+        (lambda a, b: smart.smart_regrets(a, b, th, 1.2, ln),
+         lambda: smart.smart_regrets_reference(
+             zf, yf, th, torch.full((150,), 1.2, device=cuda), ln,
+             replay=not contract)),
+        (lambda a, b: (game.eta_sweep(a, b, grid, ln),),
+         lambda: (game.eta_sweep_reference(
+             zf, yf, torch.tensor(grid, device=cuda), ln,
+             replay=not contract),)),
+        (lambda a, b: smart.smart_sweep(a, b, grid, 1.2, ln),
+         lambda: smart.smart_sweep_reference(
+             zf, yf, torch.tensor(grid, device=cuda),
+             torch.tensor(1.2, device=cuda), ln, replay=not contract)),
+        (lambda a, b: game.play_packed(*game.time_major(a, b), sc),
+         lambda: game.play_packed_reference(zf_tm, yf_tm, sc, 0)),
+        (lambda a, b: game.play_packed_eta(*game.time_major(a, b), et),
+         lambda: game.play_packed_eta_reference(zf_tm, yf_tm, et)),
+        (lambda a, b: game.play_stream(*game.time_major(a, b), et, 9, c0,
+                                       alg_flag=fl),
+         lambda: game.play_stream_reference(zf_tm, yf_tm, fl, et, 9, c0)),
+    ]
+    before = (game.LAUNCHES, smart.LAUNCHES, game.SWEEP_LAUNCHES,
+              smart.SWEEP_LAUNCHES, smart.SWEEP_TAIL_LAUNCHES,
+              game.PACKED_LAUNCHES, game.PACKED_ETA_LAUNCHES,
+              game.STREAM_LAUNCHES)
+    for narrow, plain in cases:
+        got, wide, want = narrow(zs, ys), narrow(zf, yf), plain()
+        for a, b, c in zip(got, wide, want):
+            assert torch.equal(a, b)
+            if a.is_floating_point():
+                assert a.dtype == torch.float32
+                assert _max_err((a,), (c,)) <= TOL[torch.float32]
+            else:
+                assert torch.equal(a, c.to(a.dtype))
+    torch.cuda.synchronize()
+    after = (game.LAUNCHES, smart.LAUNCHES, game.SWEEP_LAUNCHES,
+             smart.SWEEP_LAUNCHES, smart.SWEEP_TAIL_LAUNCHES,
+             game.PACKED_LAUNCHES, game.PACKED_ETA_LAUNCHES,
+             game.STREAM_LAUNCHES)
+    assert all(a >= b + 2 for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("pair", STORAGE_PAIRS)
+def test_storage_stream_game_and_no_upcast(cuda, pair):
+    """StreamingKernelGame(dtype, y_dtype) on the card equals the float32
+    game on the upcast chunks; a K3 call on narrow storage allocates no
+    float32 copy of z."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    z_tm, y_tm = device_data.random_time_major_batch(
+        gen, 96, 2048, 5, dtype=pair[0], y_dtype=pair[1])
+    a = StreamingKernelGame(2048, 5, eta0=1.2, dtype=pair[0],
+                            y_dtype=pair[1], device=cuda, validate=True)
+    b = StreamingKernelGame(2048, 5, eta0=1.2, device=cuda)
+    for c in range(0, 96, 32):
+        a.feed_packed(z_tm[c:c + 32], y_tm[c:c + 32])
+        b.feed_packed(z_tm[c:c + 32].float(), y_tm[c:c + 32].float())
+    assert torch.equal(a.result().regret, b.result().regret)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, launches = torch.cuda.memory_allocated(), game.PACKED_LAUNCHES
+    game.play_packed(z_tm, y_tm, game.ftrl_scales(96, 1.2, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < z_tm.numel() * 4
+    assert game.PACKED_LAUNCHES == launches + 1

@@ -153,7 +153,9 @@ def test_kernel_envelope_boundaries():
     assert game.kernel_envelope(8, 8, 256, per_lane_eta=True) is None
     reason = game.kernel_envelope(8, 8, 513)
     assert reason is not None and "512" in reason
-    assert game.kernel_envelope(8, 8, 5, torch.bfloat16) is not None
+    # bf16 z is a storage the kernels take; float16 is not.
+    assert game.kernel_envelope(8, 8, 5, torch.bfloat16) is None
+    assert game.kernel_envelope(8, 8, 5, torch.float16) is not None
     # On the CPU the plain version runs past the envelope.
     zt, yt = to_torch(_batch(3, 4, d=513, seed=1), "cpu", torch.float64)
     assert bool(torch.isfinite(game.simulate_linear_auto(zt, yt, 0, 1.0)).all())
