@@ -175,6 +175,38 @@ non-zero without printing a result):
                (the narrow arrays are read, not upcast) and launch once;
                K1 at bench.py's shape (262,144 sequences, T=1024, one FTRL
                play, bf16 z, int8 y), timed.  About 45 s.
+  14. wide    — the instances past the thin kernels' sizes: (a) K10l, the
+               rows longer than 4,096 entries, through
+               ``admm_all_prefixes_l2`` at B=2 T=8192 d=5 (200 fixed
+               iterations, random contract data): its launch count, the
+               state against the plain version (5e-4), rows p < 4096
+               against the launch on z[:, :4096] and 100 + 100 iterations
+               against 200 (bit for bit), its time (the launch less the
+               launch on z[:, :4096]), bound and the stream of its state;
+               the route's iters=6000 tol=2e-4, with the iterations each
+               row took (one-block continued calls: the rows at or below
+               tol must be the rows those calls saw converge); the
+               ``--exact --exact-solver kernel`` driver at one horizon T =
+               4,200 (one run, one random family, --g-runs 4) against the
+               auto route at phase 11's f32 scoring bound; (b) K9w:
+               ``ball_ls_action`` at d=64 on 65,536 prefix statistics (the
+               launch count) in f32 and f64, each against the plain
+               version on the same inputs (f64 1e-9, f32 5e-4), and at d =
+               40 on 4,096; timed at d = 64 (65,536), 128 (16,384) and 256
+               (4,096, the workspace in device scratch) in f32 and f64, the
+               f32 answers against the f64 kernel's on the same values
+               (5e-4; well-conditioned prefixes of at least 4d rows) and
+               the f64 answers against the trust-region conditions (1e-9);
+               (c) K8w: ``simulate_quadratic_batch`` at B=4,096 T=1,024
+               d=64, half FTL (the launch count), f32, against the plain
+               version on every sequence (512 a call), the same shape in
+               f64 on every 8th sequence, and at d = 40 (B=256 T=128); x_c
+               equal to K9w's in every bit at d = 40, 64 and 128; timed at
+               d = 64 (f32, f64; 5 launches) and 128 (f32, its one launch)
+               with output digests; the quadratic study at ``--d 64``
+               through its entry (one K8w launch).  The bounds count each
+               solve at the Newton passes the kernels report (``passes``;
+               the card's tests hold them to the plain mirror's).
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -193,9 +225,13 @@ resident warps an SM (K9's and K10's text lines also print the
 --fmad=false issue floor, which is arithmetic and stays out of the
 kernels line).  The narrow instances of phase 13 have an entry each
 (name ``... (K1, bfloat16 z, int8 y: oco_*_bf16i8)``), with K1 at
-bench.py's shape.  The line before the last lists the kernels as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  About 8-9
-minutes on an H100.
+bench.py's shape.  K10l, K9w and K8w (phase 14) have an entry each at
+their path shapes (K10l: B=2 T=8192, 200 iterations; K9w: d=64,
+65,536 problems, f32; K8w: d=64, B=4,096 T=1,024, f32), their errors
+and plain times from the plain versions on the same inputs (K8w's in
+calls of 512 sequences, summed).  The line before the
+last lists the kernels as JSON; the last line is ``{"ok": true,
+"device": {...}}``.  About 12-14 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -234,6 +270,7 @@ from online_convex_optimization_tpu_torch.experiments.quadratic_study import (
     QuadraticConfig,
     evaluate_quadratic_stream,
     horizon_batches,
+    main as quad_study_main,
     quadratic_stats,
     run_study,
     study_batch,
@@ -433,7 +470,8 @@ def phase_build():
     print(f"[2 build] nvcc {' '.join(cuda_build.NVCC_FLAGS)}: {dt:.2f} s")
     with open(cuda_build.LOG_PATH) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "nvcc seconds" in line):
                 print(f"[2 build]   {line.strip()}")
 
 
@@ -587,9 +625,12 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------- phase 4
-def time_ms(fn, *, reps: int, inner: int = 1):
-    """Median and spread (min, max) of CUDA-event milliseconds per call."""
-    fn()
+def time_ms(fn, *, reps: int, inner: int = 1, warm: bool = False):
+    """Median and spread (min, max) of CUDA-event milliseconds per call
+    (after one warm-up call, unless the caller has just made one:
+    ``warm``)."""
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -3101,6 +3142,522 @@ def phase_storage():
     return launches, timing, bench
 
 
+# --------------------------------------------------------------- phase 14
+# K10l: rows past the register instances' 4,096 entries.
+LONG_B, LONG_T, LONG_ITERS = 2, 8192, 200
+# K9w and K8w: d past the thin instances' 32.
+K9W_PATH = ((64, 64, 1024, 0), (128, 16, 1024, 512))   # d, B, T, first row
+K9W_D256 = (256, 4, 1024, 1024)
+K8W_B, K8W_T = QUAD_B, QUAD_T
+# The plain versions at d = 40 (d = 64 is held at the path's shapes).
+PLAIN_D = 40
+PLAIN_K9_N = (4, 1024)                  # B x T prefixes: N = 4,096
+PLAIN_K8 = (256, 128)                   # B, T
+# K8w's plain version at the path's shape: sequences a call (its
+# statistics of every prefix, 8.7 MB a sequence in f32), and the f64
+# run's sample (every 8th sequence: the f64 plain version of all 4,096
+# would take about twice the f32 one's time).
+K8W_CHUNK = 512
+K8W_SAMPLE = 8
+
+
+def long_row_ops(B: int, T: int, d: int, iters: int) -> int:
+    """K10l's operations (``admm_ops``'s counts) over the rows longer than
+    ``admm.LONG_ROWS``."""
+    lo = admm.LONG_ROWS
+    entries = (T * (T + 1) - lo * (lo + 1)) // 2
+    return iters * B * ((4 * d + 13) * entries
+                        + (2 * d * d + 12 * d + 1) * (T - lo))
+
+
+def k10_long():
+    """K10l at B = 2, T = 8,192, d = 5 (200 fixed iterations) through
+    ``admm_all_prefixes_l2``: its launches, the state against the plain
+    version (5e-4), rows p < 4,096 against a launch on z[:, :4096] and
+    100 + 100 iterations against 200 (bit for bit); its time (the launch
+    less the launch on z[:, :4096], whose rows it repeats), bound,
+    registers and warps an SM; one run at the route's tol = 2e-4 with the
+    blocks of 100 iterations each row took."""
+    z, y = exact_batch(LONG_B, LONG_T, D, 140)
+    lo = admm.LONG_ROWS
+    admm.LONG_LAUNCHES = 0
+    X, res, st = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS, tol=0.0)
+    torch.cuda.synchronize()
+    launches = admm.LONG_LAUNCHES
+    print(f"[14 wide] admm_all_prefixes_l2 B={LONG_B} T={LONG_T} d={D} f32, "
+          f"{LONG_ITERS} fixed iterations: K10l launches {launches} (K10 "
+          f"instances {admm.kernel_instances(LONG_T)}); state "
+          f"{2 * st[0].numel() * 4 / 1e9:.2f} GB")
+    check(launches == 1, "admm_all_prefixes_l2 at T > 4096 did not launch "
+                         "K10l once")
+    Lpk = admm.admm_prologue(z)
+    (res_p, st_p), p_ms = timed_once(
+        lambda: admm.admm_all_prefixes_l2_reference(
+            z, y, Lpk, iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
+            alpha=1.7))
+    err = max_err(st + (res.reshape(-1),), st_p + (res_p,))
+    rows = torch.arange(LONG_B * LONG_T, device="cuda") % LONG_T >= lo
+    err_long = max(float((a[rows].double() - b[rows].double()).abs().max())
+                   for a, b in zip(st + (res.reshape(-1),), st_p + (res_p,)))
+    del st_p, res_p
+    torch.cuda.empty_cache()
+    print(f"[14 wide] K10l vs plain (s, u, x, w, v, res): max_abs_err="
+          f"{err:.3e} over every row, {err_long:.3e} over the long rows "
+          f"(bound {TOL[torch.float32]:g}); plain PyTorch {p_ms:.1f} ms "
+          f"(one call)")
+    check(err <= TOL[torch.float32], "K10l vs plain")
+    z4, y4 = z[:, :lo].contiguous(), y[:, :lo].contiguous()
+    X4, r4, st4 = admm.admm_all_prefixes_l2(z4, y4, iters=LONG_ITERS,
+                                            tol=0.0)
+    same = torch.equal(X[:, :lo], X4) and torch.equal(res[:, :lo], r4)
+    for a, a4 in zip(st, st4):
+        a = a.reshape(LONG_B, LONG_T, -1)[:, :lo]
+        if a.shape[-1] == LONG_T:      # s, u: zero past each row's length
+            same = same and bool((a[..., lo:] == 0).all())
+            a = a[..., :lo]
+        same = same and torch.equal(a.reshape(a4.shape), a4)
+    print(f"[14 wide] rows p < {lo} of the T={LONG_T} launch equal the "
+          f"launch on z[:, :{lo}] in every bit: {same}")
+    check(same, "K10's rows p < 4096 differ between T = 8192 and 4096")
+    del st4
+    _, _, st1 = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS // 2,
+                                          tol=0.0)
+    Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS // 2,
+                                            tol=0.0, state0=st1)
+    same = (torch.equal(Xc, X) and torch.equal(rc, res)
+            and all(torch.equal(a, b) for a, b in zip(stc, st)))
+    print(f"[14 wide] K10 T={LONG_T}: {LONG_ITERS // 2} + {LONG_ITERS // 2} "
+          f"iterations from the saved state equal {LONG_ITERS} in every "
+          f"bit: {same}")
+    check(same, "K10l continuation is not bit for bit")
+    del st1, stc, Xc
+    torch.cuda.empty_cache()
+    kw = dict(iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
+              alpha=1.7)
+    Lpk4 = admm.admm_prologue(z4)
+    full, short = [], []
+    for _ in range(2):            # in turns: the full launch, the short one
+        full.append(time_ms(lambda: admm.launch_admm(z, y, Lpk, **kw),
+                            reps=3))
+        short.append(time_ms(lambda: admm.launch_admm(z4, y4, Lpk4, **kw),
+                             reps=3))
+    f_ms = statistics.median(t[0] for t in full)
+    s_ms = statistics.median(t[0] for t in short)
+    k_ms = f_ms - s_ms
+    ops = long_row_ops(LONG_B, LONG_T, D, LONG_ITERS)
+    entries = LONG_B * ((LONG_T * (LONG_T + 1) - lo * (lo + 1)) // 2)
+    n_rows = LONG_B * (LONG_T - lo)
+    n_bytes = 4 * (z.numel() + y.numel() + n_rows * (Lpk.shape[1] + 3 * D + 1)
+                   + 2 * n_rows * LONG_T)
+    stream_ms = 16 * entries * LONG_ITERS / HBM_BYTES_PER_S * 1e3
+    regs, warps = admm.kernel_occupancy(LONG_T, D)["long"]
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "library_ms": None, **bound(n_bytes, ops, torch.float32),
+           "registers": regs, "warps_per_sm": warps}
+    print(f"[14 wide] K10l B={LONG_B} T={LONG_T} d={D} f32, {LONG_ITERS} "
+          f"fixed iterations: {k_ms:.4f} ms (the launch "
+          f"{f_ms:.4f} ms [{', '.join(f'{t[1]:.4f}..{t[2]:.4f}' for t in full)}]"
+          f" less the launch on z[:, :{lo}] {s_ms:.4f} ms "
+          f"[{', '.join(f'{t[1]:.4f}..{t[2]:.4f}' for t in short)}]); bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({ops:.4g} "
+          f"operations, {n_bytes / 1e9:.3f} GB in and out once); the "
+          f"state's stream, 16 B an entry an iteration over {entries} long-"
+          f"row entries, {stream_ms:.4f} ms at 3.35 TB/s; {regs} registers "
+          f"a thread, {warps} warps an SM")
+    # The route's tol: blocks of 100 iterations each row takes, from
+    # continued one-block calls (a row's state before it stops is the
+    # single run's, so the first block whose residual is not above tol is
+    # where the single run stops it).
+    t0 = time.perf_counter()
+    Xt, rt, _ = admm.admm_all_prefixes_l2(z, y, iters=EXACT_ITERS,
+                                          tol=EXACT_TOL)
+    torch.cuda.synchronize()
+    tol_s = time.perf_counter() - t0
+    blocks = torch.zeros_like(rt, dtype=torch.int64)
+    state = None
+    for k in range(1, EXACT_ITERS // 100 + 1):
+        _, rk, state = admm.admm_all_prefixes_l2(z, y, iters=100,
+                                                 tol=EXACT_TOL, state0=state)
+        blocks = torch.where((blocks == 0) & (rk <= EXACT_TOL), k, blocks)
+        if bool((blocks > 0).all()):
+            break
+    del state
+    def took(*sel):
+        it = blocks[sel].double() * 100
+        done = it[it > 0]
+        return (f"{done.numel()} of {it.numel()} converged, iterations min "
+                f"{float(done.min()):.0f}, median {float(done.median()):.0f},"
+                f" max {float(done.max()):.0f}" if done.numel()
+                else f"none of {it.numel()} converged")
+    print(f"[14 wide] K10 B={LONG_B} T={LONG_T} at the route's iters="
+          f"{EXACT_ITERS} tol={EXACT_TOL:g}: {tol_s:.3f} s with the "
+          f"prologue; worst residual {float(rt.max()):.3e}; rows of up to "
+          f"{lo} entries: {took(slice(None), slice(0, lo))}; the long rows: "
+          f"{took(slice(None), slice(lo, None))}")
+    check(bool(torch.isfinite(Xt).all())
+          and torch.equal(rt <= EXACT_TOL, blocks > 0),
+          "K10 at T = 8192 and the route's tol: the rows at or below tol "
+          "are not the rows the one-block calls saw converge")
+    return launches, out
+
+
+def exact_kernel_route_past_4096(tmp):
+    """The --exact kernel route at one horizon T = 4,200 (one run, one
+    random family, --g-runs 4): its long rows through K10l, against the
+    auto route on the same cut at phase 11's f32 scoring bound."""
+    cut = ["--t-min", "4200", "--t-max", "4200", "--runs", "1", "--g-runs",
+           "4", "--cases", RANDOM_FAMILIES[0], "--device", "cuda"]
+    admm.LONG_LAUNCHES = 0
+    res = run_experiment(config_from_args(
+        ["--exact", "--exact-solver", "kernel", "--precision", "f32", *cut,
+         "--out-dir", os.path.join(tmp, "exact_kernel_4200")]))
+    launches = admm.LONG_LAUNCHES
+    auto = run_experiment(config_from_args(
+        ["--exact", "--precision", "f32", *cut,
+         "--out-dir", os.path.join(tmp, "exact_auto_4200")]))
+    diff = {alg: abs(res["stats"][RANDOM_FAMILIES[0]][alg]["mean"][0]
+                     - auto["stats"][RANDOM_FAMILIES[0]][alg]["mean"][0])
+            for alg in ("FTRL", "FTL (exact)")}
+    print(f"[14 wide] driver --exact --exact-solver kernel {' '.join(cut)}: "
+          f"wall {res['wall_s']:.2f} s (auto {auto['wall_s']:.2f} s), K10l "
+          f"launches {launches}, audit {json.dumps(res['audit'])}; vs auto "
+          f"|mean difference| FTRL {diff['FTRL']:.3e}, FTL (exact) "
+          f"{diff['FTL (exact)']:.3e} (bound {ftrl_f32_bound(4200):.3e})")
+    check(launches >= 1, "the kernel route at T=4200 did not launch K10l")
+    check(all(math.isfinite(v) and v <= ftrl_f32_bound(4200)
+              for v in diff.values()),
+          "the kernel route at T=4200 differs from the auto route")
+
+
+def wide_prefixes(d, B, T, first, dtype, seed):
+    """Prefix statistics ``(A (N, d, d), b (N, d))`` of B regression
+    streams of T + first rows, the prefixes of first + 1 .. first + T rows
+    (N = B T), summed in float64 and stored in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z, y, _ = regression_stream_batch(gen, B, T + first, d,
+                                      dtype=torch.float64)
+    A = torch.cumsum(z[:, :, :, None] * z[:, :, None, :], 1)[:, first:]
+    b = torch.cumsum(y[:, :, None] * z, 1)[:, first:]
+    return (A.reshape(-1, d, d).to(dtype).contiguous(),
+            b.reshape(-1, d).to(dtype).contiguous())
+
+
+def kkt_residual(A, b, x):
+    """The relative residuals of the trust-region conditions at x: the
+    multiplier lam = <x, b - A x> / ||x||^2 on the sphere (0 inside), then
+    max(||(A + lam I) x - b|| / (||A||_F + |lam| + ||b||), max(0, ||x|| -
+    1), lam |1 - ||x|||, max(0, -lam)); float64."""
+    Ax = torch.bmm(A, x[..., None])[..., 0]
+    nrm = torch.linalg.vector_norm(x, dim=1)
+    inside = nrm < 1.0 - 1e-9
+    lam = torch.where(inside, 0.0, (x * (b - Ax)).sum(1)
+                      / torch.clamp(nrm * nrm, min=1e-300))
+    scale = torch.clamp(torch.linalg.matrix_norm(A) + lam.abs()
+                        + torch.linalg.vector_norm(b, dim=1), min=1e-300)
+    stat = torch.linalg.vector_norm(Ax + lam[:, None] * x - b, dim=1) / scale
+    return torch.stack([stat, torch.clamp(nrm - 1.0, min=0.0),
+                        lam.abs() * (1.0 - nrm).abs() / scale,
+                        torch.clamp(-lam, min=0.0) / scale]).amax(0)
+
+
+def k9w_bounds(d, A, b, passes, dtype):
+    iters = trs.TRS_PARAMS[dtype][1]
+    size = (A.numel() + 2 * b.numel()) * A.element_size()
+    return bound(size, trs_ops(d, passes.long(), iters), dtype)
+
+
+def k9_wide():
+    """K9w: ball_ls_action (the main path) at d = 64 on 65,536 prefix
+    statistics, in f32 and f64, each held against the plain version on
+    the same inputs (f64 1e-9, f32 5e-4), as at d = 40 on 4,096; at d =
+    128 (N = 16,384) and 256 (N = 4,096; the workspace past shared
+    memory) f32 against the f64 kernel on the same values (5e-4) and the
+    f64 answers held to the trust-region conditions (1e-9); timed, each
+    solve's passes counted by the kernel for the bound."""
+    for dtype in (torch.float64, torch.float32):
+        A, b = wide_prefixes(PLAIN_D, *PLAIN_K9_N, 0, dtype, 150 + PLAIN_D)
+        got = trs.trs_solve(A, b)
+        want, p_ms = timed_once(lambda: trs.trs_solve_reference(A, b))
+        err = max_err((got,), (want,))
+        print(f"[14 wide] K9w d={PLAIN_D} {dtype} on {A.shape[0]} prefixes "
+              f"(singular ones included): vs plain max_abs_err={err:.3e} "
+              f"(bound {TOL[dtype]:g}), equal in every bit "
+              f"{bool(torch.equal(got, want))}; plain PyTorch {p_ms:.1f} ms "
+              f"(one call)")
+        check(err <= TOL[dtype], f"K9w d={PLAIN_D} {dtype} vs plain")
+    timing, path, launches = {}, {}, 0
+    for d, B, T, first in K9W_PATH + (K9W_D256,):
+        A64, b64 = wide_prefixes(d, B, T, first, torch.float64, 160 + d)
+        A32, b32 = A64.float(), b64.float()
+        if first > 0:
+            # f32 against f64 on the same values, where the prefixes are
+            # well conditioned (t >= 4d).  A singular prefix's Gram
+            # rounded to f32 is not PSD at f64's floor, so the path's
+            # prefixes keep their f64 values.
+            A64, b64 = A32.double(), b32.double()
+        n = A32.shape[0]
+        res = {}
+        for dtype, (A, b) in ((torch.float32, (A32, b32)),
+                              (torch.float64, (A64, b64))):
+            on_path = d == K9W_PATH[0][0]
+            if on_path:
+                if dtype == torch.float32:
+                    trs.TRS_WIDE_LAUNCHES = 0
+                x_path = ball_ls_action(A, b)           # the main path
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    launches = trs.TRS_WIDE_LAUNCHES
+                    check(launches == 1, "ball_ls_action at d = 64 did not "
+                                         "launch K9w once")
+                want, p_ms = timed_once(
+                    lambda: trs.trs_solve_reference(A, b))
+                err = max_err((x_path,), (want,))
+                print(f"[14 wide] K9w d={d} {dtype} N={n} through "
+                      f"ball_ls_action: vs plain on the same inputs "
+                      f"max_abs_err={err:.3e} (bound {TOL[dtype]:g}), equal "
+                      f"in every bit {bool(torch.equal(x_path, want))}; "
+                      f"plain PyTorch {p_ms:.1f} ms (one call)")
+                check(err <= TOL[dtype], f"K9w d={d} {dtype} N={n} vs plain")
+                path[dtype] = (err, p_ms)
+                del want
+            passes = torch.zeros(n, dtype=torch.int32, device="cuda")
+            x = trs.launch_trs_solve(A, b, passes)      # the warm-up
+            if on_path:
+                check(torch.equal(x, x_path), f"K9w d={d} {dtype}: the "
+                      f"launch differs from ball_ls_action's")
+            ms = time_ms(lambda: trs.launch_trs_solve(A, b), reps=5,
+                         warm=True)
+            plan = trs.wide_plan("K9w", d, dtype, n)
+            bd = k9w_bounds(d, A, b, passes, dtype)
+            res[dtype] = x
+            print(f"[14 wide] K9w d={d} {dtype} N={n} (prefixes of {first + 1}"
+                  f"..{first + T} rows): kernel {ms[0]:.4f} ms (min "
+                  f"{ms[1]:.4f}, max {ms[2]:.4f}); bound {bd['bound_ms']:.4f} "
+                  f"ms by {bd['bound_by']}; {float(passes.double().mean()):.4f}"
+                  f" ridge solves a solve (max {int(passes.max())}); workspace "
+                  f"{'shared memory' if plan['scratch'] == 0 else 'scratch'} "
+                  f"({plan['smem_bytes']} B shared a warp), {plan['warps']} "
+                  f"warps, {plan['registers']} registers a thread, "
+                  f"{plan['warps_per_sm']} warps an SM")
+            check(bool(torch.isfinite(x).all()), f"K9w d={d} {dtype}: not "
+                                                 f"finite")
+            timing[(d, dtype)] = {"ms": ms[0], **bd,
+                                  "registers": plan["registers"],
+                                  "warps_per_sm": plan["warps_per_sm"]}
+        diff = float((res[torch.float32].double()
+                      - res[torch.float64]).abs().max())
+        kkt = float(kkt_residual(A64, b64, res[torch.float64]).max())
+        held = (f"bound {TOL[torch.float32]:g}" if first > 0 else
+                "not held: singular prefixes of 1..63 rows round apart")
+        print(f"[14 wide] K9w d={d}: f32 vs the f64 kernel on the same values "
+              f"max_abs_err={diff:.3e} ({held}); f64 trust-region "
+              f"conditions, worst relative residual {kkt:.3e} (bound 1e-9)")
+        if first > 0:
+            check(diff <= TOL[torch.float32], f"K9w d={d} f32 vs f64")
+        check(kkt <= 1e-9, f"K9w d={d} f64 KKT")
+        del A64, b64, A32, b32, res
+        torch.cuda.empty_cache()
+    out = {"max_abs_err": path[torch.float32][0],
+           "plain_ms": path[torch.float32][1], "library_ms": None,
+           **timing[(K9W_PATH[0][0], torch.float32)]}
+    return launches, out
+
+
+def k8w_statistics(z, y):
+    """The final statistics (A, b) of a (B, T, d) batch, summed in K8's
+    order (round by round)."""
+    B, T, d = z.shape
+    A = z.new_zeros((B, d, d))
+    b = z.new_zeros((B, d))
+    for t in range(T):
+        A = A + z[:, t, :, None] * z[:, t, None, :]
+        b = b + y[:, t, None] * z[:, t]
+    return A, b
+
+
+def k8w_plain(z_tm, y_tm, flags, eta, seqs):
+    """``quadratic_regrets_reference`` on the sequences ``seqs``, K8W_CHUNK
+    of them a call (its sequences are independent, so the calls give one
+    call's outputs): ``(cum, comp, x_c, x_last)`` and the calls' summed
+    CUDA-event milliseconds."""
+    outs, ms = [], 0.0
+    for i in range(0, seqs.numel(), K8W_CHUNK):
+        s = seqs[i:i + K8W_CHUNK]
+        o, t = timed_once(lambda: trs.quadratic_regrets_reference(
+            z_tm[..., s], y_tm[:, s], flags[s], eta[s]))
+        outs.append(o)
+        ms += t
+        torch.cuda.empty_cache()
+    return tuple(torch.cat([o[k] for o in outs], dim=-1)
+                 for k in range(4)), ms
+
+
+def k8_wide(tmp):
+    """K8w: simulate_quadratic_batch (the main path) at the
+    quadratic_exact_ftl shape (B = 4,096, T = 1,024, half FTL) at d = 64
+    in f32, held against the plain version on every sequence (5e-4), and
+    the same shape in f64 on every K8W_SAMPLE-th sequence (1e-9); at d =
+    40 against the plain version (B = 256, T = 128, f64 1e-9, f32 5e-4);
+    x_c against K9w bit for bit on the final statistics at d = 40, 64 and
+    128; timed at d = 64 in f32 and f64 (5 launches) and at d = 128 in f32
+    (its one launch); the quadratic study at d = 64 through its entry."""
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(170 + PLAIN_D)
+        z, y, _ = regression_stream_batch(gen, *PLAIN_K8, PLAIN_D,
+                                          dtype=dtype)
+        B = z.shape[0]
+        flags = (torch.arange(B, device="cuda") % 2).to(torch.int32)
+        eta = torch.linspace(0.5, 2.0, B, device="cuda", dtype=dtype)
+        z_tm, y_tm = game.time_major(z, y)
+        got = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+        want, p_ms = timed_once(lambda: trs.quadratic_regrets_reference(
+            z_tm, y_tm, flags, eta))
+        err = max_err(got, want)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        A, b = k8w_statistics(z, y)
+        diff = int((got[2].t() != trs.trs_solve(A, b)).sum())
+        print(f"[14 wide] K8w d={PLAIN_D} {dtype} B={B} T={z.shape[1]}, half "
+              f"FTL: vs plain (cum, comp, x_c, x_last) max_abs_err="
+              f"{err:.3e} (bound {TOL[dtype]:g}), equal in every bit "
+              f"{same}; x_c vs K9w on the final statistics: {diff} "
+              f"values differ in any bit; plain PyTorch {p_ms:.1f} ms "
+              f"(one call)")
+        check(err <= TOL[dtype], f"K8w d={PLAIN_D} {dtype} vs plain")
+        check(diff == 0, f"K8w's x_c differs from K9w at d={PLAIN_D} {dtype}")
+    timing, path, launches = {}, {}, 0
+    for d, dtype in ((64, torch.float32), (64, torch.float64),
+                     (128, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(180 + d)
+        z, y, _ = regression_stream_batch(gen, K8W_B, K8W_T, d, dtype=dtype)
+        flags = (torch.arange(K8W_B, device="cuda") >= K8W_B // 2).to(
+            torch.int32)
+        eta = game.per_sequence(1.0, K8W_B, dtype, "cuda")
+        on_path = d == 64 and dtype == torch.float32
+        if on_path:
+            trs.QUAD_WIDE_LAUNCHES = 0
+            t0 = time.perf_counter()
+            run = simulate_quadratic_batch(z, y, flags, eta)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = trs.QUAD_WIDE_LAUNCHES
+            check(launches == 1, "simulate_quadratic_batch at d = 64 did not "
+                                 "launch K8w once")
+            print(f"[14 wide] simulate_quadratic_batch B={K8W_B} T={K8W_T} "
+                  f"d={d} {dtype}, half FTL: K8w launches {launches}, wall "
+                  f"{wall:.3f} s; mean regret FTL "
+                  f"{float(run.regret[flags == 1].double().mean()):.4f}, FTRL "
+                  f"{float(run.regret[flags == 0].double().mean()):.4f}")
+        z_tm, y_tm = game.time_major(z, y)
+        passes = torch.zeros((K8W_T + 1, K8W_B), dtype=torch.int32,
+                             device="cuda")
+        # The warm-up at d = 64; at d = 128 the one timed launch.
+        outs, one_ms = timed_once(lambda: trs.launch_quadratic_regrets_wide(
+            z_tm, y_tm, flags, eta, passes))
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"K8w d={d} {dtype}: outputs not finite")
+        if on_path:
+            check(torch.equal(run.cum_loss, outs[0])
+                  and torch.equal(run.comp_loss, outs[1])
+                  and torch.equal(run.x_last, outs[3].t()),
+                  "K8w's launch differs from simulate_quadratic_batch's")
+            del run
+        A, b = k8w_statistics(z, y)
+        diff = int((outs[2].t() != trs.trs_solve(A, b)).sum())
+        del A, b
+        check(diff == 0, f"K8w's x_c differs from K9w at d={d} {dtype}")
+        held = ""
+        if d == 64:
+            step = 1 if dtype == torch.float32 else K8W_SAMPLE
+            seqs = torch.arange(0, K8W_B, step, device="cuda")
+            want, p_ms = k8w_plain(z_tm, y_tm, flags, eta, seqs)
+            err = max_err(tuple(o[..., seqs] for o in outs), want)
+            same = all(torch.equal(o[..., seqs], w)
+                       for o, w in zip(outs, want))
+            del want
+            held = (f"; vs plain on {seqs.numel()} of its {K8W_B} sequences "
+                    f"(every {step}) max_abs_err={err:.3e} (bound "
+                    f"{TOL[dtype]:g}), equal in every bit {same}, plain "
+                    f"PyTorch {p_ms:.1f} ms ({K8W_CHUNK} sequences a call)")
+            check(err <= TOL[dtype], f"K8w d={d} {dtype} B={K8W_B} "
+                                     f"T={K8W_T} vs plain")
+            path[dtype] = (err, p_ms)
+            ms = time_ms(lambda: trs.launch_quadratic_regrets(
+                z_tm, y_tm, flags, eta), reps=5, warm=True)
+            spread = f"(min {ms[1]:.4f}, max {ms[2]:.4f}; 5 launches)"
+        else:
+            ms = (one_ms,)
+            spread = "(one launch)"
+        plan = trs.wide_plan("K8w", d, dtype, K8W_B)
+        iters = trs.TRS_PARAMS[dtype][1]
+        ftl = flags != 0
+        steps = K8W_B * K8W_T
+        ops = (int(ftl.sum()) * K8W_T * quad_round_ops(d, True)
+               + int((~ftl).sum()) * K8W_T * quad_round_ops(d, False)
+               + trs_ops(d, passes[:K8W_T][:, ftl].long(), iters)
+               + trs_ops(d, passes[K8W_T].long(), iters)
+               + K8W_B * (2 * d * d + 2 * d + 4))
+        item = z.element_size()
+        n_bytes = steps * (d + 1) * item + K8W_B * (8 + item * (2 + 2 * d))
+        bd = bound(n_bytes, ops, dtype)
+        solves = passes[:K8W_T][:, ftl].double()
+        print(f"[14 wide] K8w d={d} {dtype} B={K8W_B} T={K8W_T}, half FTL: "
+              f"kernel {ms[0]:.4f} ms {spread}; bound {bd['bound_ms']:.4f} "
+              f"ms by {bd['bound_by']} ({ops:.4g} operations); "
+              f"{float(solves.mean()):.4f} ridge solves an FTL round (max "
+              f"{int(solves.max())}); workspace "
+              f"{'shared memory' if plan['scratch'] == 0 else 'scratch'} "
+              f"({plan['smem_bytes']} B shared a warp), {plan['warps']} "
+              f"warps, {plan['registers']} registers a thread, "
+              f"{plan['warps_per_sm']} warps an SM; x_c vs K9w on the final "
+              f"statistics: {diff} values differ in any bit{held}; digest "
+              f"{output_digest(outs)}")
+        timing[(d, dtype)] = {"ms": ms[0], **bd,
+                              "registers": plan["registers"],
+                              "warps_per_sm": plan["warps_per_sm"]}
+        del z, y, z_tm, y_tm, outs, passes
+        torch.cuda.empty_cache()
+    trs.QUAD_WIDE_LAUNCHES = 0
+    out_dir = os.path.join(tmp, "quad_d64")
+    res = quad_study_main(["--d", "64", "--out-dir", out_dir, "--dpi", "60",
+                           "--device", "cuda"])
+    ftl = res["stats"]["FTL (exact LS)"]["mean"]
+    ftrl = res["stats"]["FTRL"]["mean"]
+    print(f"[14 wide] quadratic_study --d 64 (default horizons, runs and "
+          f"replicates) --device cuda: wall {res['wall_s']:.3f} s, K8w "
+          f"launches {trs.QUAD_WIDE_LAUNCHES}; regret at T={res['config']['t_max']}"
+          f": FTL {ftl[-1]:.4f}, FTRL {ftrl[-1]:.4f}")
+    check(trs.QUAD_WIDE_LAUNCHES == 1, "the d = 64 study did not make one "
+                                       "K8w launch")
+    check(all(math.isfinite(v) for v in ftl + ftrl) and ftl[-1] < ftrl[-1],
+          "d = 64 study results not finite, or FTL not below FTRL")
+    out = {"max_abs_err": path[torch.float32][0],
+           "plain_ms": path[torch.float32][1], "library_ms": None,
+           **timing[(64, torch.float32)]}
+    return launches, out
+
+
+def phase_wide(tmp):
+    """Phase 14: K10 past T = 4,096 (K10l) and K8/K9 past d = 32 (K8w,
+    K9w)."""
+    walls = {}
+    t = time.perf_counter()
+    k10l = k10_long()
+    torch.cuda.empty_cache()
+    exact_kernel_route_past_4096(tmp)
+    walls["K10l"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    k9w = k9_wide()
+    walls["K9w"] = time.perf_counter() - t
+    t = time.perf_counter()
+    k8w = k8_wide(tmp)
+    walls["K8w"] = time.perf_counter() - t
+    print(f"[14 wide] phase wall {sum(walls.values()):.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())})")
+    return {"K10l": k10l[0], "K9w": k9w[0], "K8w": k8w[0]}, \
+        {"K10l": k10l[1], "K9w": k9w[1], "K8w": k8w[1]}
+
+
 def main() -> int:
     walls = {}
 
@@ -3127,6 +3684,8 @@ def main() -> int:
         timed("12 ssn", phase_ssn, tmp)
     storage_launches, storage_timing, storage_k1_bench = timed(
         "13 storage", phase_storage)
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_launches, wide_timing = timed("14 wide", phase_wide, tmp)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -3199,6 +3758,26 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/admm_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": exact_launches, **exact_timing},
+        {"name": "admm_long_kernel (K10l: K10's rows longer than 4,096 "
+                 "entries, a block a row, s and u streamed)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": wide_launches["K10l"], **wide_timing["K10l"]},
+        {"name": "trs_wide_kernel (K9w: batched ball-constrained least "
+                 "squares past d = 32, a warp a problem)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/trs_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:62",
+         "launches": wide_launches["K9w"], **wide_timing["K9w"]},
+        {"name": "quad_wide_kernel (K8w: quadratic game past d = 32, a warp "
+                 "a sequence)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/quad_game_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:206",
+         "launches": wide_launches["K8w"], **wide_timing["K8w"]},
     ]
     for pair in PAIRS:
         z_name, y_name = (str(t)[6:] for t in pair)

@@ -1,6 +1,8 @@
 // K10: all-prefix exact-FTL hinge ADMM on the l2 ball; each (replicate,
 // prefix) row's entries are split across 1-8 warps by the row's own length,
-// and each row's d x d step runs on one lane.
+// and each row's d x d step runs on one lane.  Rows longer than kLongRows
+// take a third instance (K10l, admm_long_kernel.cu), a block a row, with s
+// and u in device memory; the arithmetic both share is in oco_admm.cuh.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_admm.py
 // _admm_kernel, entry admm_all_prefixes_l2.  Python wrapper, prologue and
@@ -78,70 +80,19 @@
 // written once per launch).  What keeps it above that floor is the block's
 // serial part of an iteration (the d x d step on one warp, the two
 // barriers, the butterfly), during which the block's other warps wait.
-#include <cuda_runtime.h>
-
-#include <type_traits>
-
-#define OCO_ADMM_MAX_D 8
-#define OCO_ADMM_MAX_T 4096
-#define OCO_ADMM_WARPS 8
+#include "oco_admm.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 32 * OCO_ADMM_WARPS;
+using oco_admm::Args;
+using oco_admm::kLongRows;
+
 // Rows up to this length take the NT = 8 instance, longer rows NT = 16.
 // On an H100 at T = 1000, NT = 8 for every row (64 registers, 32 warps an
 // SM) measured faster than NT = 16 (96 registers, 16 warps an SM); 2,048
 // is the longest row NT = 8 covers with 8 warps.  A row's arithmetic
 // depends on its NT, so this constant is part of what a row computes.
 constexpr int kSplit = 2048;
-
-__device__ __forceinline__ int tri(int j, int k) { return j * (j + 1) / 2 + k; }
-
-// max that propagates NaN from either side (torch.maximum).
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// torch.clamp(a, min=0): NaN stays NaN.
-__device__ __forceinline__ float relu(float a) {
-  return (a > 0.f || a != a) ? a : 0.f;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// Sums v[j], j < 8, over the warp; lanes 4 j .. 4 j + 3 return the sum of
-// v[j] (the same bits on the four: a + b == b + a in IEEE arithmetic).
-// Each level halves the sums a lane keeps and sends the other half across.
-__device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
-                                                 int lane) {
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float a[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    a[i] = (h16 ? v[i + 4] : v[i]) +
-           __shfl_xor_sync(kFull, h16 ? v[i] : v[i + 4], 16);
-  float c[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    c[i] = (h8 ? a[i + 2] : a[i]) +
-           __shfl_xor_sync(kFull, h8 ? a[i] : a[i + 2], 8);
-  float e = (h4 ? c[1] : c[0]) + __shfl_xor_sync(kFull, h4 ? c[0] : c[1], 4);
-  e = e + __shfl_xor_sync(kFull, e, 2);
-  return e + __shfl_xor_sync(kFull, e, 1);
-}
-
-template <int D>
-struct Dim {
-  static constexpr int cap = D > 0 ? D : OCO_ADMM_MAX_D;
-  static constexpr int ntri = cap * (cap + 1) / 2;
-};
 
 // Resident blocks an SM that each instance asks ptxas to fit.
 constexpr int min_blocks(int D, int NT) {
@@ -172,17 +123,6 @@ __host__ __device__ inline int row_groups(int g, int L_lo, int L_hi, int NT,
   return count;
 }
 
-// <x, z_t> summed in index order.
-template <int D>
-__device__ __forceinline__ float predict(const float* x, const float* zt,
-                                         int n) {
-  float q = x[0] * zt[0];
-#pragma unroll
-  for (int j = 1; j < Dim<D>::cap; ++j)
-    if (j < n) q = q + x[j] * zt[j];
-  return q;
-}
-
 // An entry of the staged replicate: y at e[0], z_j at e[32 (j + 1)].
 template <int D>
 __device__ __forceinline__ void load_entry(const float* e, int n, float* zt) {
@@ -210,94 +150,6 @@ __device__ __forceinline__ void each_chunk(int nfull, bool partial, F&& f) {
       if (partial) f(Chunk<K + 1>(), false);
     } else if (partial) {
       f(Chunk<K>(), false);
-    }
-  }
-}
-
-// The soft threshold sign(sp) max(|sp| - kappa, 0) as one copysign: the
-// same value (max propagates NaN, and sign(NaN) = 0 times NaN is NaN), with
-// the sign of a zero taken from sp.
-__device__ __forceinline__ float shrink(float sp, float kappa) {
-  return copysignf(relu(fabsf(sp) - kappa), sp);
-}
-
-// A block's rows in shared memory, row slot r for the row of length top - r.
-template <int D>
-struct Rows {
-  float L[OCO_ADMM_WARPS][Dim<D>::ntri];  // packed factor, inverted diagonal
-  float x[OCO_ADMM_WARPS][Dim<D>::cap];
-  float w[OCO_ADMM_WARPS][Dim<D>::cap];
-  float v[OCO_ADMM_WARPS][Dim<D>::cap];
-  float part[OCO_ADMM_WARPS][8];  // each warp's sums of the next rhs
-  float pri[OCO_ADMM_WARPS];      // each warp's residual maximum
-  float res[OCO_ADMM_WARPS];
-  int live[OCO_ADMM_WARPS];       // the row still iterates
-};
-
-// Row r's d x d step on one lane: rhs from its W warps' sums in warp order,
-// x by the two substitutions, then the over-relaxed ball projection.  Its
-// inputs are loaded from shared memory up front, in unrolled loops, so the
-// loads overlap and the serial chain runs in registers.
-template <int D>
-__device__ __forceinline__ void row_step(Rows<D>& S, int r, int W, int n,
-                                         float alpha, float beta) {
-  constexpr int C = Dim<D>::cap;
-  float rhs[C], w[C], v[C], Lf[Dim<D>::ntri];
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    rhs[j] = S.part[r * W][j];
-    w[j] = S.w[r][j];
-    v[j] = S.v[r][j];
-  }
-#pragma unroll
-  for (int i = 1; i < OCO_ADMM_WARPS; ++i) {
-    if (i < W) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) rhs[j] = rhs[j] + S.part[r * W + i][j];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < Dim<D>::ntri; ++k) Lf[k] = S.L[r][k];
-  float a[C], x[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (j < n) {
-      float sj = rhs[j] + (w[j] - v[j]);
-#pragma unroll
-      for (int k = 0; k < j; ++k) sj = sj - Lf[tri(j, k)] * a[k];
-      a[j] = sj * Lf[tri(j, j)];
-    }
-  }
-#pragma unroll
-  for (int j = C - 1; j >= 0; --j) {
-    if (j < n) {
-      float sj = a[j];
-#pragma unroll
-      for (int k = j + 1; k < C; ++k)
-        if (k < n) sj = sj - Lf[tri(k, j)] * x[k];
-      x[j] = sj * Lf[tri(j, j)];
-    }
-  }
-  float xh[C], tv[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (j < n) {
-      xh[j] = alpha * x[j] + beta * w[j];
-      tv[j] = xh[j] + v[j];
-    }
-  }
-  float n2 = tv[0] * tv[0];
-#pragma unroll
-  for (int j = 1; j < C; ++j)
-    if (j < n) n2 = n2 + tv[j] * tv[j];
-  const float nrm = sqrtf(nan_max(n2, 1.f));
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (j < n) {
-      const float wj = tv[j] / nrm;
-      S.x[r][j] = x[j];
-      S.v[r][j] = (v[j] + xh[j]) - wj;
-      S.w[r][j] = wj;
     }
   }
 }
@@ -512,13 +364,6 @@ admm_kernel(const float* __restrict__ z, const float* __restrict__ y,
   if (threadIdx.x < rows) res_out[row0 - threadIdx.x] = S.res[threadIdx.x];
 }
 
-struct Args {
-  const float *z, *y, *Lpk, *s0, *u0, *x0, *w0, *v0;
-  int B, T, d, iters, check_every;
-  float tol, kappa, alpha, beta;
-  float *s, *u, *x, *w, *v, *res;
-};
-
 // Dynamic shared memory of an instance whose longest row has length L_hi
 // (whole chunks of d + 1 floats an entry); opts the instance in to it.
 template <int D, int NT>
@@ -531,7 +376,7 @@ int prepare(int d, int L_hi, size_t* smem) {
 }
 
 // Launches the rows with L_lo < L <= L_hi of every replicate (no launch
-// where there are none); adds its launch to *launched.
+// where there are none); adds its launch to launched[0].
 template <int D, int NT>
 int launch_rows(const Args& a, int L_lo, int L_hi, cudaStream_t stream,
                 int* launched) {
@@ -548,14 +393,18 @@ int launch_rows(const Args& a, int L_lo, int L_hi, cudaStream_t stream,
       L_hi, a.iters, a.check_every, a.tol, a.kappa, a.alpha, a.beta, a.s,
       a.u, a.x, a.w, a.v, a.res);
   const int launch_err = static_cast<int>(cudaGetLastError());
-  if (launch_err == cudaSuccess) ++*launched;
+  if (launch_err == cudaSuccess) ++launched[0];
   return launch_err;
 }
 
+// The long rows first, then the NT = 16 rows, then the NT = 8 ones.
 template <int D>
 int launch_d(const Args& a, cudaStream_t stream, int* launched) {
-  const int split = a.T < kSplit ? a.T : kSplit;
-  const int err = launch_rows<D, 16>(a, split, a.T, stream, launched);
+  int err = oco_admm::launch_long(a, stream, launched);
+  if (err != cudaSuccess) return err;
+  const int hi = a.T < kLongRows ? a.T : kLongRows;
+  const int split = hi < kSplit ? hi : kSplit;
+  err = launch_rows<D, 16>(a, split, hi, stream, launched);
   if (err != cudaSuccess) return err;
   return launch_rows<D, 8>(a, 0, split, stream, launched);
 }
@@ -584,19 +433,20 @@ int occupancy(int d, int L_hi, int* out) {
 // for the length-(p+1) prefix; the state s0, u0 (B*T, T) and x0, w0, v0
 // (B*T, d), all five null for the zero state.  Outputs: the state after the
 // solve, s, u (B*T, T) (zero past each row's length) and x, w, v (B*T, d),
-// and res (B*T) the final residuals; *launched the number of kernels
-// launched (1, or 2 for T > 2048: the NT = 16 rows, then the NT = 8 ones).
-// 1 <= d <= 8, 1 <= T <= 4096, check_every >= 1.  Returns the cudaError_t
-// of the launches.
+// and res (B*T) the final residuals; launched[0] the number of kernels
+// launched (1; 2 for T > 2048: the NT = 16 rows, then the NT = 8 ones; 3
+// for T > 4096: the long rows first), launched[1] the launches of the
+// long-row instance K10l among them (0 or 1).  1 <= d <= 8, T >= 1,
+// check_every >= 1.  Returns the cudaError_t of the launches.
 extern "C" int oco_admm_all_prefixes_f32(
     const void* z, const void* y, const void* Lpk, const void* s0,
     const void* u0, const void* x0, const void* w0, const void* v0, int B,
     int T, int d, int iters, int check_every, float tol, float kappa,
     float alpha, float beta, void* s, void* u, void* x, void* w, void* v,
     void* res, void* stream, int* launched) {
-  *launched = 0;
-  if (B < 1 || T < 1 || T > OCO_ADMM_MAX_T || d < 1 ||
-      d > OCO_ADMM_MAX_D || iters < 0 || check_every < 1)
+  launched[0] = launched[1] = 0;
+  if (B < 1 || T < 1 || d < 1 || d > OCO_ADMM_MAX_D || iters < 0 ||
+      check_every < 1)
     return cudaErrorInvalidValue;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto g = [](void* p) { return static_cast<float*>(p); };
@@ -610,17 +460,21 @@ extern "C" int oco_admm_all_prefixes_f32(
 
 // For a launch at T with feature dimension d: out[0], out[1] the registers
 // a thread and resident warps an SM of the NT = 8 instance (rows up to
-// kSplit), out[2], out[3] those of the NT = 16 instance (0 warps
-// where T needs none of its rows).  Returns a cudaError_t.
+// kSplit), out[2], out[3] those of the NT = 16 instance, out[4], out[5]
+// those of the long-row instance (0 warps where T needs none of an
+// instance's rows).  Returns a cudaError_t.
 extern "C" int oco_admm_occupancy_f32(int d, int T, int* out) {
-  if (T < 1 || T > OCO_ADMM_MAX_T || d < 1 || d > OCO_ADMM_MAX_D)
-    return cudaErrorInvalidValue;
-  const int split = T < kSplit ? T : kSplit;
+  if (T < 1 || d < 1 || d > OCO_ADMM_MAX_D) return cudaErrorInvalidValue;
+  const int hi = T < kLongRows ? T : kLongRows;
+  const int split = hi < kSplit ? hi : kSplit;
   int err = d == 5 ? occupancy<5, 8>(d, split, out)
                    : occupancy<0, 8>(d, split, out);
   if (err != cudaSuccess) return err;
-  err = d == 5 ? occupancy<5, 16>(d, T, out + 2)
-               : occupancy<0, 16>(d, T, out + 2);
-  if (T <= split) out[3] = 0;
+  err = d == 5 ? occupancy<5, 16>(d, hi, out + 2)
+               : occupancy<0, 16>(d, hi, out + 2);
+  if (hi <= split) out[3] = 0;
+  if (err != cudaSuccess) return err;
+  err = oco_admm::occupancy_long(d, out + 4);
+  if (T <= kLongRows) out[5] = 0;
   return err;
 }

@@ -36,7 +36,8 @@
 
 // Largest d of the generic quadratic instance (A and its factor are
 // d(d+1)/2 values each, in local memory); d = 5 has an unrolled instance.
-// The Python wrappers raise above it (ops/trs.py MAX_D).
+// Above it K8 and K9 run their wide instances (oco::wide below; ops/trs.py
+// MAX_D is the same boundary).
 #define OCO_QUAD_MAX_D 32
 
 namespace oco {
@@ -218,5 +219,311 @@ __device__ __forceinline__ void trs_action(const S* A, const S* b, S* x,
   }
   to_ball<S, D>(x, n);
 }
+
+// ------------------------------------------------------------ wide solve
+// The trust-region action for d > OCO_QUAD_MAX_D, one warp a problem (the
+// wide instances of K9 and K8).  The same function as trs_action above,
+// operation for operation: every value the lanes compute is rounded as the
+// plain version's (ops/trs.py _chol_factor, _fwd_solve, _bwd_solve) rounds
+// it, so K8's x_c equals K9 and both equal the plain version bit for bit.
+//   - Cholesky, right-looking: at step j every lane computes sqrt(L_jj)
+//     (the same bits), the lanes divide column j below it, then update the
+//     trailing triangle, lane k taking the entries (i, j + 1 + 32 c + k)
+//     of each row i (contiguous addresses).  Entry (i, m) so starts at A_im
+//     (+ lam on the diagonal) and subtracts L_ij L_mj for j = 0, 1, ... in
+//     turn, the plain version's order.
+//   - Forward substitution, column by column: lane i mod 32 keeps v_i's
+//     running value, divides it by L_ii at step i and hands it to the warp
+//     (a shuffle); every lane then subtracts L_ki v_i from its v_k, k > i,
+//     again in increasing i.
+//   - Backward substitution: x_i = (v_i - L_{i+1,i} x_{i+1} - ...) / L_ii
+//     subtracts in increasing k, so x_i can start only once x_{i+1} is
+//     known, and its chain of subtractions cannot be split without
+//     changing its rounding; every lane runs the whole serial chain (the
+//     loads are broadcasts), one lane stores x_i.
+//   - Sums over the index (traces, squared norms, dots) run on every lane
+//     in index order, so every lane holds the Newton carry and the exit is
+//     the warp's.
+// The triangles and vectors live in a warp's workspace: shared memory
+// where it fits, a slice of a device scratch buffer otherwise (plan below
+// chooses).  The loops take any d; the triangles' offsets are 64-bit, and
+// the Cholesky's trailing update walks its rows by pointer.
+namespace wide {
+
+constexpr unsigned kWarp = 0xffffffffu;
+
+// Offset of (i, j), j <= i, in a packed lower triangle.
+__device__ __forceinline__ long long wtri(long long i, long long j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// Elements of a warp's workspace: the triangles A and L, and six vectors
+// (b, x, v, x1; K8's theta and z row).
+__host__ __device__ inline long long work_elems(int d) {
+  return 2 * (static_cast<long long>(d) * (d + 1) / 2) + 6LL * d;
+}
+
+template <typename S>
+struct Work {
+  S* A;    // packed lower triangle of the problem (K8: the statistics)
+  S* L;    // its factor
+  S* b;
+  S* x;
+  S* v;
+  S* x1;   // the x of one pass back
+  S* th;   // K8: theta
+  S* zr;   // K8: the round's row; the comparator's action at the end
+};
+
+template <typename S>
+__device__ __forceinline__ Work<S> carve(S* base, int d) {
+  const long long t = static_cast<long long>(d) * (d + 1) / 2;
+  Work<S> w;
+  w.A = base;
+  w.L = base + t;
+  S* vec = base + 2 * t;
+  w.b = vec;
+  w.x = vec + d;
+  w.v = vec + 2 * d;
+  w.x1 = vec + 3 * d;
+  w.th = vec + 4 * d;
+  w.zr = vec + 5 * d;
+  return w;
+}
+
+// <a, b> in index order, on every lane.
+template <typename S>
+__device__ __forceinline__ S wdot(const S* a, const S* b, int n) {
+  S acc = a[0] * b[0];
+  for (int i = 1; i < n; ++i) acc = acc + a[i] * b[i];
+  return acc;
+}
+
+// dst = src, lanes over the index.
+template <typename S>
+__device__ __forceinline__ void wcopy(S* dst, const S* src, int n,
+                                      int lane) {
+  for (int i = lane; i < n; i += 32) dst[i] = src[i];
+  __syncwarp();
+}
+
+// Rows of the trailing update a lane loads before it stores.
+constexpr int kRows = 8;
+
+// L = chol(A + lam I).
+template <typename S>
+__device__ void chol_factor(const S* A, S lam, S* L, int n, int lane) {
+  for (int i = 0; i < n; ++i) {
+    const long long ri = wtri(i, 0);
+    for (int j = lane; j <= i; j += 32)
+      L[ri + j] = j == i ? A[ri + j] + lam : A[ri + j];
+  }
+  __syncwarp();
+  for (int j = 0; j < n; ++j) {
+    const long long rj = wtri(j, 0);
+    const S piv = osqrt(L[rj + j]);
+    for (int i = j + 1 + lane; i < n; i += 32) {
+      const long long at = wtri(i, j);
+      L[at] = L[at] / piv;
+    }
+    __syncwarp();
+    if (lane == 0) L[rj + j] = piv;
+    for (int c0 = j + 1; c0 < n; c0 += 32) {
+      const int m = c0 + lane;                  // this lane's column
+      const S lmj = m < n ? L[wtri(m, j)] : S(0);
+      S* row = L + wtri(c0, 0);                 // row i, walked by pointer
+      int i = c0;
+      // kRows rows' loads before their stores.
+      for (; i + kRows <= n; i += kRows) {
+        S* r[kRows];
+        S lij[kRows], cur[kRows];
+        r[0] = row;
+#pragma unroll
+        for (int q = 1; q < kRows; ++q) r[q] = r[q - 1] + (i + q);
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          lij[q] = r[q][j];
+          cur[q] = m <= i + q ? r[q][m] : S(0);
+        }
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          if (m <= i + q) r[q][m] = cur[q] - lij[q] * lmj;
+        row = r[kRows - 1] + (i + kRows);
+      }
+      for (; i < n; ++i) {
+        if (m <= i) row[m] = row[m] - row[j] * lmj;
+        row += i + 1;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// v = L^{-1} b (v and b distinct).
+template <typename S>
+__device__ void fwd_solve(const S* L, const S* b, S* v, int n, int lane) {
+  for (int i = lane; i < n; i += 32) v[i] = b[i];
+  for (int k = 0; k < n; ++k) {
+    S vk = S(0);
+    if ((k & 31) == lane) {
+      vk = v[k] / L[wtri(k, k)];
+      v[k] = vk;
+    }
+    vk = __shfl_sync(kWarp, vk, k & 31);
+    for (int i = k + 1 + ((lane - k - 1) & 31); i < n; i += 32)
+      v[i] = v[i] - L[wtri(i, k)] * vk;
+  }
+  __syncwarp();
+}
+
+// x = L^{-T} v.
+template <typename S>
+__device__ void bwd_solve(const S* L, const S* v, S* x, int n, int lane) {
+  for (int i = n - 1; i >= 0; --i) {
+    S s = v[i];
+    long long at = wtri(i + 1, i);
+#pragma unroll 4
+    for (int k = i + 1; k < n; ++k) {
+      s = s - L[at] * x[k];
+      at += k + 1;                              // wtri(k + 1, i)
+    }
+    s = s / L[wtri(i, i)];
+    if (lane == 0) x[i] = s;
+    __syncwarp();
+  }
+}
+
+// The solve in flight: the floor and the Newton carry, as TrsSolve (the
+// x of one pass back is the workspace's x1).
+template <typename S>
+struct Solve {
+  S eps, lam, lo, hi, lam1, lo1, hi1;
+  int k;
+};
+
+template <typename S>
+__device__ __forceinline__ void trs_begin(Solve<S>& s, const Work<S>& w,
+                                          int n) {
+  S tr = w.A[0];
+  for (int i = 1; i < n; ++i) tr = tr + w.A[wtri(i, i)];
+  s.eps = TrsParams<S>::eps_rel * (S(1) + tr / S(n));
+  s.lam = s.lo = S(0);
+  s.hi = osqrt(wdot(w.b, w.b, n));
+  s.k = 0;
+}
+
+// One Newton pass into w.x, as oco::trs_pass (same exits, same bits).
+template <typename S>
+__device__ bool trs_pass(Solve<S>& s, const Work<S>& w, int n, int lane) {
+  constexpr int iters = TrsParams<S>::iters;
+  chol_factor(w.A, s.lam + s.eps, w.L, n, lane);
+  fwd_solve(w.L, w.b, w.v, n, lane);
+  bwd_solve(w.L, w.v, w.x, n, lane);
+  if (s.k == iters) return true;
+  const S n2 = wdot(w.x, w.x, n);
+  fwd_solve(w.L, w.x, w.v, n, lane);          // q = L^{-1} x
+  const S nq2 = wdot(w.v, w.v, n);
+  const bool outside = n2 > S(1);
+  const S lo = outside ? s.lam : s.lo;
+  const S hi = outside ? s.hi : s.lam;
+  const S step = (n2 / omax(nq2, S(1e-30))) * (osqrt(n2) - S(1));
+  const S lam_n = s.lam + step;
+  const S lam = (lam_n < lo || lam_n > hi) ? S(0.5) * (lo + hi) : lam_n;
+  if (same_bits(lam, s.lam) && same_bits(lo, s.lo) && same_bits(hi, s.hi))
+    return true;
+  if (s.k > 0 && same_bits(lam, s.lam1) && same_bits(lo, s.lo1) &&
+      same_bits(hi, s.hi1)) {
+    if (((iters - s.k + 1) & 1) == 0) wcopy(w.x, w.x1, n, lane);
+    return true;
+  }
+  wcopy(w.x1, w.x, n, lane);
+  s.lam1 = s.lam;
+  s.lo1 = s.lo;
+  s.hi1 = s.hi;
+  s.lam = lam;
+  s.lo = lo;
+  s.hi = hi;
+  ++s.k;
+  return false;
+}
+
+// x / max(sqrt(||x||^2), 1).
+template <typename S>
+__device__ __forceinline__ void to_ball(S* x, int n, int lane) {
+  const S den = omax(osqrt(wdot(x, x, n)), S(1));
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) x[i] = x[i] / den;
+  __syncwarp();
+}
+
+// The trust-region action of (w.A, w.b) into w.x; returns its ridge
+// solves (ops/trs.py trs_action_settled counts them the same way).
+template <typename S>
+__device__ __forceinline__ int trs_action(const Work<S>& w, int n,
+                                          int lane) {
+  Solve<S> s;
+  trs_begin(s, w, n);
+  while (!trs_pass(s, w, n, lane)) {
+  }
+  to_ball(w.x, n, lane);
+  return s.k + 1;
+}
+
+// The launch plan of a wide kernel over `items` problems or sequences, d
+// at a time, on the current card, given its instance with the workspace
+// in shared memory and the one with it in scratch: out[0] the persistent
+// grid's warps (one-warp blocks, as many as the SMs hold, at most items),
+// out[1] the scratch elements of type S it needs (0 where a warp's
+// workspace fits a block's shared memory), out[2] the shared bytes a warp
+// (opted in), out[3] the registers a thread, out[4] the resident warps an
+// SM of the instance it takes.  Returns the cudaError_t.
+template <typename S, typename K>
+inline int plan(K shared_kernel, K scratch_kernel, int d, long long items,
+                long long* out) {
+  if (items < 1 || d < 1) return cudaErrorInvalidValue;
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t bytes = static_cast<size_t>(work_elems(d)) * sizeof(S);
+  const bool fits = bytes <= static_cast<size_t>(optin);
+  const K kernel = fits ? shared_kernel : scratch_kernel;
+  const size_t smem = fits ? bytes : 0;
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32,
+                                                        smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  const long long full = static_cast<long long>(sms) * per_sm;
+  out[0] = items < full ? items : full;
+  out[1] = fits ? 0 : out[0] * work_elems(d);
+  out[2] = static_cast<long long>(smem);
+  out[3] = err == cudaSuccess ? attr.numRegs : 0;
+  out[4] = per_sm;
+  return static_cast<int>(err);
+}
+
+// A wide launch's set-up: its plan (as plan), a check that the caller gave
+// the scratch it needs, and the claim counter zeroed on the stream.
+template <typename S, typename K>
+inline int prepare(K shared_kernel, K scratch_kernel, int d, long long items,
+                   const void* scratch, unsigned long long* counter,
+                   cudaStream_t stream, long long* out) {
+  int err = plan<S>(shared_kernel, scratch_kernel, d, items, out);
+  if (err != cudaSuccess) return err;
+  if (out[1] > 0 && scratch == nullptr) return cudaErrorInvalidValue;
+  return static_cast<int>(
+      cudaMemsetAsync(counter, 0, sizeof(*counter), stream));
+}
+
+}  // namespace wide
 
 }  // namespace oco

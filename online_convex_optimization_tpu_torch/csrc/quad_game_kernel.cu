@@ -50,6 +50,20 @@
 //     slowest lane, and the SM's warps hide each other's latency.
 // Each thread reads and writes only its own sequence's columns, so the
 // outputs need no unpermuting.
+//
+// K8w, the wide instance (d > OCO_QUAD_MAX_D, quad_wide_kernel): one warp
+// a sequence, on the solve of K9w (oco_trs.cuh oco::wide), so its x_c
+// equals K9w on the same statistics bit for bit.  The statistics (A's
+// lower triangle, b, theta) live in the warp's workspace with the solve's
+// (shared memory where it fits, a device scratch slice otherwise); a
+// round's O(d) and O(d^2) updates spread over the lanes, each entry's sum
+// in the thin instance's order, and the sums over the index (r, the FTRL
+// norm, the comparator's loss) run in index order on every lane.  The
+// grid is persistent, one warp a block, and a warp claims its next
+// sequence from a counter in the order of the wrapper's warp map
+// (ops/trs.py quad_warps: the FTL sequences first, the longest work); the
+// flag stays per sequence, so FTRL and FTL sequences share the launch.
+// What bounds it: the FTL rounds' solves (K9w's note).
 #include "oco_trs.cuh"
 
 #define OCO_QUAD_THREADS 32
@@ -187,6 +201,135 @@ int launch(const void* z, const void* y, const void* alg_flag,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8w: persistent one-warp blocks; each warp claims the next entry of
+// `order` and plays that sequence (with `passes`, each solve's ridge
+// solves: row t for an FTL round, row T for the comparator).
+template <typename S, bool kShared>
+__global__ void __launch_bounds__(32)
+quad_wide_kernel(const S* __restrict__ z, const S* __restrict__ y,
+                 const int* __restrict__ alg_flag, const S* __restrict__ eta,
+                 const int* __restrict__ order, long long T, long long B,
+                 int d, unsigned long long* __restrict__ counter,
+                 S* __restrict__ scratch, S* __restrict__ cum_out,
+                 S* __restrict__ comp_out, S* __restrict__ xc_out,
+                 S* __restrict__ xlast_out, int* __restrict__ passes) {
+  namespace wd = oco::wide;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int lane = threadIdx.x;
+  S* base = kShared ? reinterpret_cast<S*>(wide_smem)
+                    : scratch + blockIdx.x * wd::work_elems(d);
+  const wd::Work<S> w = wd::carve(base, d);
+  const long long ntri = wd::wtri(d, 0);
+  for (;;) {
+    unsigned long long q = 0;
+    if (lane == 0) q = atomicAdd(counter, 1ULL);
+    const long long c = static_cast<long long>(__shfl_sync(wd::kWarp, q, 0));
+    if (c >= B) break;
+    const long long b = order[c];
+    const bool ftrl = alg_flag[b] == 0;
+    const S eta_b = eta[b];
+    for (long long e = lane; e < ntri; e += 32) w.A[e] = S(0);
+    for (int i = lane; i < d; i += 32) w.b[i] = w.th[i] = w.x[i] = S(0);
+    S cs = S(0), cum = S(0);
+    __syncwarp();
+    for (long long t = 0; t < T; ++t) {
+      for (int i = lane; i < d; i += 32) w.zr[i] = z[(t * d + i) * B + b];
+      const S yt = y[t * B + b];
+      __syncwarp();
+      if (ftrl) {
+        const S scale = -(eta_b / oco::osqrt(S(t + 1)));
+        for (int i = lane; i < d; i += 32) w.x[i] = scale * w.th[i];
+        __syncwarp();
+        wd::to_ball(w.x, d, lane);
+      } else {
+        const int k = wd::trs_action(w, d, lane);
+        if (passes != nullptr && lane == 0) passes[t * B + b] = k;
+      }
+      // The round's update (quad_update): cum, theta, the statistics.
+      const S r = wd::wdot(w.zr, w.x, d) - yt;
+      cum = cum + S(0.5) * r * r;
+      for (int i = lane; i < d; i += 32) {
+        w.th[i] = w.th[i] + r * w.zr[i];
+        w.b[i] = w.b[i] + yt * w.zr[i];
+      }
+      for (int i = 0; i < d; ++i) {
+        const long long ri = wd::wtri(i, 0);
+        const S zi = w.zr[i];
+        for (int j = lane; j <= i; j += 32)
+          w.A[ri + j] = w.A[ri + j] + zi * w.zr[j];
+      }
+      cs = cs + yt * yt;
+      __syncwarp();
+    }
+    for (int i = lane; i < d; i += 32) xlast_out[i * B + b] = w.x[i];
+    __syncwarp();
+    // The exact comparator from the final statistics into w.x, and its
+    // loss: xa_i = sum_j a_ij x_j on lane i mod 32 (into w.v), then the
+    // two index-order sums.
+    const int kc = wd::trs_action(w, d, lane);
+    if (passes != nullptr && lane == 0) passes[T * B + b] = kc;
+    for (int i = lane; i < d; i += 32) {
+      S xa = S(0);
+      for (int j = 0; j < d; ++j)
+        xa = xa + (j <= i ? w.A[wd::wtri(i, j)] : w.A[wd::wtri(j, i)]) *
+                      w.x[j];
+      w.v[i] = xa;
+    }
+    __syncwarp();
+    S quad = S(0), dotb = S(0);
+    for (int i = 0; i < d; ++i) {
+      quad = quad + w.x[i] * w.v[i];
+      dotb = dotb + w.b[i] * w.x[i];
+    }
+    if (lane == 0) {
+      cum_out[b] = cum;
+      comp_out[b] = S(0.5) * ((quad - S(2) * dotb) + cs);
+    }
+    for (int i = lane; i < d; i += 32) xc_out[i * B + b] = w.x[i];
+    __syncwarp();
+  }
+}
+
+template <typename S>
+int plan_wide(int d, long long B, long long* out) {
+  return oco::wide::plan<S>(quad_wide_kernel<S, true>,
+                            quad_wide_kernel<S, false>, d, B, out);
+}
+
+template <typename S>
+int launch_wide(const void* z, const void* y, const void* alg_flag,
+                const void* eta, const void* order, long long T, long long B,
+                int d, void* counter, void* scratch, void* cum, void* comp,
+                void* x_c, void* x_last, void* passes, void* stream) {
+  if (T < 0) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* cp = static_cast<unsigned long long*>(counter);
+  long long plan[5];
+  const int err = oco::wide::prepare<S>(quad_wide_kernel<S, true>,
+                                        quad_wide_kernel<S, false>, d, B,
+                                        scratch, cp, s, plan);
+  if (err != cudaSuccess) return err;
+  const auto grid = static_cast<unsigned>(plan[0]);
+  const auto* zp = static_cast<const S*>(z);
+  const auto* yp = static_cast<const S*>(y);
+  const auto* fp = static_cast<const int*>(alg_flag);
+  const auto* ep = static_cast<const S*>(eta);
+  const auto* op = static_cast<const int*>(order);
+  auto* wp = static_cast<S*>(scratch);
+  auto* kp = static_cast<S*>(cum);
+  auto* mp = static_cast<S*>(comp);
+  auto* xp = static_cast<S*>(x_c);
+  auto* lp = static_cast<S*>(x_last);
+  auto* pp = static_cast<int*>(passes);
+  if (plan[1] == 0)
+    quad_wide_kernel<S, true><<<grid, 32, plan[2], s>>>(
+        zp, yp, fp, ep, op, T, B, d, cp, wp, kp, mp, xp, lp, pp);
+  else
+    quad_wide_kernel<S, false><<<grid, 32, 0, s>>>(
+        zp, yp, fp, ep, op, T, B, d, cp, wp, kp, mp, xp, lp, pp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Inputs: z (T, d, B) and y (T, B) time-major, alg_flag (B,) int32
@@ -213,4 +356,42 @@ extern "C" int oco_quad_game_f32(const void* z, const void* y,
                                  void* stream) {
   return launch<float>(z, y, alg_flag, eta, lanes, n_lanes, T, B, d, cum,
                        comp, x_c, x_last, stream);
+}
+
+// K8w, d > OCO_QUAD_MAX_D (any d): the inputs and outputs of
+// oco_quad_game_*, with order (B,) int32 the sequence each claim plays
+// (every sequence once; ops/trs.py quad_warps), counter 8 bytes of device
+// scratch (the launch zeroes it on the stream) and scratch the device
+// buffer of the plan's out[1] elements (null where that is 0); passes,
+// null or (T + 1, B) int32, each solve's ridge solves (0 for an FTRL
+// round; row T the comparator's).
+extern "C" int oco_quad_game_wide_f64(const void* z, const void* y,
+                                      const void* alg_flag, const void* eta,
+                                      const void* order, long long T,
+                                      long long B, int d, void* counter,
+                                      void* scratch, void* cum, void* comp,
+                                      void* x_c, void* x_last, void* passes,
+                                      void* stream) {
+  return launch_wide<double>(z, y, alg_flag, eta, order, T, B, d, counter,
+                             scratch, cum, comp, x_c, x_last, passes,
+                             stream);
+}
+
+extern "C" int oco_quad_game_wide_f32(const void* z, const void* y,
+                                      const void* alg_flag, const void* eta,
+                                      const void* order, long long T,
+                                      long long B, int d, void* counter,
+                                      void* scratch, void* cum, void* comp,
+                                      void* x_c, void* x_last, void* passes,
+                                      void* stream) {
+  return launch_wide<float>(z, y, alg_flag, eta, order, T, B, d, counter,
+                            scratch, cum, comp, x_c, x_last, passes, stream);
+}
+
+// K8w's plan for B sequences of dimension d on the current card
+// (oco_trs.cuh oco::wide::plan); f64 nonzero for float64.  Returns the
+// cudaError_t.
+extern "C" int oco_quad_wide_plan(int f64, int d, long long B,
+                                  long long* out) {
+  return f64 ? plan_wide<double>(d, B, out) : plan_wide<float>(d, B, out);
 }

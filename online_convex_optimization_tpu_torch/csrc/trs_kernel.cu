@@ -38,6 +38,22 @@
 //   - the grid is persistent: as many blocks as the SMs hold at the
 //     kernel's registers, so the warps drain the counter together and
 //     finish within about one solve of each other.
+//
+// K9w, the wide instance (d > OCO_QUAD_MAX_D, trs_wide_kernel): one warp a
+// problem, on oco::wide's solve, whose Cholesky and forward substitutions
+// spread over the lanes and whose backward substitution is one serial
+// chain (oco_trs.cuh says why), with the answer of the plain version in
+// every bit.  A warp's workspace (A's and the factor's triangles, six
+// vectors) lives in shared memory up to about d = 230 in float32 and 165
+// in float64, in a device scratch slice read through L2 above that.  The
+// grid is persistent, one warp a block (each with its own workspace), and
+// a warp claims its next problem from the counter as its solve ends.
+// What bounds it: operations and their latency.  A Newton pass is about
+// d^3 / 3 operations, most in the Cholesky's trailing updates (a load,
+// a multiply, a subtract and a store each, spread over 32 lanes), and a
+// serial chain of d divides, d sqrts and d^2 / 2 dependent subtractions;
+// the resident warps an SM (bounded by the workspace) hide each other's
+// chains.
 #include "oco_tiles.cuh"
 #include "oco_trs.cuh"
 
@@ -182,6 +198,73 @@ int occupancy(int d, int* out) {
              : oco::occupancy(trs_refill_kernel<S, 0>, kThreads, 0, out);
 }
 
+// K9w: persistent one-warp blocks; each warp claims a problem, copies its
+// lower triangle and b into its workspace, solves and stores x (and, with
+// `passes`, the solve's ridge solves).
+template <typename S, bool kShared>
+__global__ void __launch_bounds__(32)
+trs_wide_kernel(const S* __restrict__ A, const S* __restrict__ bvec,
+                long long N, int d, unsigned long long* __restrict__ counter,
+                S* __restrict__ scratch, S* __restrict__ x_out,
+                int* __restrict__ passes) {
+  namespace wd = oco::wide;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int lane = threadIdx.x;
+  S* base = kShared ? reinterpret_cast<S*>(wide_smem)
+                    : scratch + blockIdx.x * wd::work_elems(d);
+  const wd::Work<S> w = wd::carve(base, d);
+  for (;;) {
+    unsigned long long q = 0;
+    if (lane == 0) q = atomicAdd(counter, 1ULL);
+    const long long p = static_cast<long long>(__shfl_sync(wd::kWarp, q, 0));
+    if (p >= N) break;
+    const S* Ap = A + p * d * d;
+    for (int i = 0; i < d; ++i) {
+      const long long ri = wd::wtri(i, 0);
+      for (int j = lane; j <= i; j += 32)
+        w.A[ri + j] = Ap[static_cast<long long>(i) * d + j];
+    }
+    for (int i = lane; i < d; i += 32) w.b[i] = bvec[p * d + i];
+    __syncwarp();
+    const int k = wd::trs_action(w, d, lane);
+    if (passes != nullptr && lane == 0) passes[p] = k;
+    for (int i = lane; i < d; i += 32) x_out[p * d + i] = w.x[i];
+    __syncwarp();
+  }
+}
+
+template <typename S>
+int plan_wide(int d, long long N, long long* out) {
+  return oco::wide::plan<S>(trs_wide_kernel<S, true>,
+                            trs_wide_kernel<S, false>, d, N, out);
+}
+
+template <typename S>
+int launch_wide(const void* A, const void* b, long long N, int d,
+                void* counter, void* scratch, void* x, void* passes,
+                void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* cp = static_cast<unsigned long long*>(counter);
+  long long plan[5];
+  const int err = oco::wide::prepare<S>(trs_wide_kernel<S, true>,
+                                        trs_wide_kernel<S, false>, d, N,
+                                        scratch, cp, s, plan);
+  if (err != cudaSuccess) return err;
+  const auto grid = static_cast<unsigned>(plan[0]);
+  const auto* ap = static_cast<const S*>(A);
+  const auto* bp = static_cast<const S*>(b);
+  auto* wp = static_cast<S*>(scratch);
+  auto* xp = static_cast<S*>(x);
+  auto* pp = static_cast<int*>(passes);
+  if (plan[1] == 0)
+    trs_wide_kernel<S, true><<<grid, 32, plan[2], s>>>(ap, bp, N, d, cp, wp,
+                                                       xp, pp);
+  else
+    trs_wide_kernel<S, false><<<grid, 32, 0, s>>>(ap, bp, N, d, cp, wp, xp,
+                                                  pp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Inputs: A (N, d, d) row-major (its lower triangle is read), b (N, d);
@@ -204,4 +287,32 @@ extern "C" int oco_trs_solve_f32(const void* A, const void* b, long long N,
 // the cudaError_t.
 extern "C" int oco_trs_occupancy(int f64, int d, int* out) {
   return f64 ? occupancy<double>(d, out) : occupancy<float>(d, out);
+}
+
+// K9w, d > OCO_QUAD_MAX_D (any d): the inputs and output of
+// oco_trs_solve_*, with scratch the device buffer of the plan's out[1]
+// elements (null where that is 0) and passes, null or (N,) int32, each
+// solve's ridge solves.
+extern "C" int oco_trs_solve_wide_f64(const void* A, const void* b,
+                                      long long N, int d, void* counter,
+                                      void* scratch, void* x, void* passes,
+                                      void* stream) {
+  return launch_wide<double>(A, b, N, d, counter, scratch, x, passes,
+                             stream);
+}
+
+extern "C" int oco_trs_solve_wide_f32(const void* A, const void* b,
+                                      long long N, int d, void* counter,
+                                      void* scratch, void* x, void* passes,
+                                      void* stream) {
+  return launch_wide<float>(A, b, N, d, counter, scratch, x, passes, stream);
+}
+
+// K9w's plan for N problems of dimension d on the current card
+// (oco_trs.cuh oco::wide::plan: grid warps, scratch elements, shared bytes
+// a warp, registers, warps an SM); f64 nonzero for float64.  Returns the
+// cudaError_t.
+extern "C" int oco_trs_wide_plan(int f64, int d, long long N,
+                                 long long* out) {
+  return f64 ? plan_wide<double>(d, N, out) : plan_wide<float>(d, N, out);
 }

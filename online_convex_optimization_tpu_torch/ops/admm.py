@@ -7,8 +7,9 @@ prefix length ``p``, one ADMM row solves
     minimize_{||x||_2 <= 1}  0.5 * sum_{t < p} |<z_t, x> - y_t|,
 
 with the splitting, over-relaxation, soft threshold, exact-sqrt projection,
-residual check and warm continuation of the TPU kernel (the CUDA source,
-``csrc/admm_kernel.cu``, spells them out).  ``admm_prologue`` forms, in
+residual check and warm continuation of the TPU kernel (the CUDA sources,
+``csrc/admm_kernel.cu`` and ``csrc/admm_long_kernel.cu``, spell them
+out).  ``admm_prologue`` forms, in
 plain PyTorch and outside the kernel as the JAX package does it in XLA, the
 Cholesky factors of ``Gram_p + I`` for every row (one cumulative sum and one
 batched ``torch.linalg.cholesky_ex``), packed as a lower triangle with the
@@ -26,11 +27,14 @@ length-``(p + 1)`` prefix; ``testing/from_jax.py::admm_state_from_jax``
 converts the JAX package's states into it.
 
 Float32 only, like the TPU kernel.  A wrapper runs the plain version on a
-CPU tensor and launches the kernel on a CUDA tensor, for ``d <= MAX_D`` and
-``T <= MAX_T`` (raising above them); there is no fallback between them.
-The kernel splits each row across warps by the row's own length, so a
-row's result does not depend on T: a launch on ``z[:, :T]`` gives rows
-``p < T`` of a launch on longer ``z`` bit for bit.
+CPU tensor and launches the kernel on a CUDA tensor, for ``d <= MAX_D``
+(raising above it) and any T; there is no fallback between them.  The
+kernel splits each row across warps by the row's own length, so a row's
+result does not depend on T: a launch on ``z[:, :T]`` gives rows ``p < T``
+of a launch on longer ``z`` bit for bit.  Rows longer than ``LONG_ROWS``
+take the long-row instance (K10l), whose s and u stream through device
+memory each iteration; the state, ``8 B T^2`` bytes, is the only limit on
+T, and an allocation the card cannot hold raises its own error.
 """
 
 from __future__ import annotations
@@ -43,16 +47,20 @@ import torch
 
 from online_convex_optimization_tpu_torch.utils import cuda_build
 
-# The CUDA kernel's envelope (csrc/admm_kernel.cu OCO_ADMM_MAX_D, _MAX_T):
-# d <= 8 is the TPU kernel's contract (x in lanes 0-7, y at row 8); T is
-# bounded by a row's 8 warps of 32 lanes with 16 entries of s and u each,
-# and by the replicate's z and y in shared memory (147 KB at d = 8).
+# The CUDA kernel's envelope (csrc/admm_kernel.cu OCO_ADMM_MAX_D): d <= 8
+# is the TPU kernel's contract (x in lanes 0-7, y at row 8).
 MAX_D = 8
-MAX_T = 4096
+# Rows longer than this (8 warps of 32 lanes with 16 entries of s and u
+# each) take the long-row instance K10l (csrc/oco_admm.cuh kLongRows,
+# csrc/admm_long_kernel.cu).
+LONG_ROWS = 4096
 
 # Kernel launches of K10 in this process, as the C entry reports them (one
-# a call, two past T = 2048: the 16-entries-a-lane rows, then the rest).
+# a call, two past T = 2048: the 16-entries-a-lane rows, then the rest;
+# three past LONG_ROWS: the long rows first), and of those the launches of
+# the long-row instance K10l.
 LAUNCHES = 0
+LONG_LAUNCHES = 0
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
@@ -118,16 +126,21 @@ def check_admm_inputs(z: torch.Tensor, y: torch.Tensor,
 
 
 def check_kernel_envelope(T: int, d: int) -> None:
-    """Raise for a shape the CUDA kernel K10 has no instance of."""
+    """Raise for a shape the CUDA kernel K10 has no instance of (any T
+    has one)."""
     if d > MAX_D:
         raise ValueError(f"d = {d} exceeds K10's limit d <= {MAX_D} (the TPU "
                          f"kernel's contract); the CPU plain version takes "
                          f"any d")
-    if T > MAX_T:
-        raise ValueError(f"T = {T} exceeds K10's limit T <= {MAX_T} (a row "
-                         f"spans at most 8 warps of 32 lanes with 16 "
-                         f"entries of s and u each); the CPU plain version "
-                         f"takes any T")
+
+
+def kernel_instances(T: int) -> list:
+    """K10's instances a launch at T runs, in launch order (the C entry's
+    map of rows to instances): ``"long"`` for the rows longer than
+    ``LONG_ROWS``, ``16`` for the rows of 2,049 to 4,096 entries, ``8`` for
+    the rest."""
+    return ([name for name, lo in (("long", LONG_ROWS), (16, 2048))
+             if T > lo] + [8])
 
 
 def _cho_solve_rows(L, rhs, d):
@@ -250,7 +263,7 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
                 rho: float, alpha: float, state0: Optional[State] = None):
     """Launch kernel K10 on contiguous float32 CUDA inputs; returns ``(res
     (B*T,), state)``."""
-    global LAUNCHES
+    global LAUNCHES, LONG_LAUNCHES
     B, T, d = z.shape
     check_kernel_envelope(T, d)
     lib = cuda_build.load()
@@ -264,7 +277,7 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
         st0 = ([a.contiguous() for a in state0] if state0 is not None
                else None)
         ptrs0 = [a.data_ptr() for a in st0] if st0 is not None else [None] * 5
-        launched = (ctypes.c_int * 1)()
+        launched = (ctypes.c_int * 2)()
         err = lib.oco_admm_all_prefixes_f32(
             z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *ptrs0, B, T, d,
             iters, check_every, tol, 0.5 / rho, alpha, 1.0 - alpha,
@@ -272,23 +285,24 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
             v.data_ptr(), res.data_ptr(),
             torch.cuda.current_stream(z.device).cuda_stream, launched)
         LAUNCHES += launched[0]
+        LONG_LAUNCHES += launched[1]
         if err != 0:
             raise RuntimeError(f"ADMM kernel launch failed: CUDA error {err}")
     return res, (s, u, x, w, v)
 
 
 def kernel_occupancy(T: int, d: int) -> dict:
-    """Registers a thread and resident warps an SM of K10's two instances
-    for a launch at ``(T, d)`` on the current card: ``{8: (regs, warps),
-    16: (regs, warps)}``, keyed by the entries of s and u a lane (NT = 8
-    for rows up to 2,048 entries, 16 above; 0 warps where T has no such
-    row)."""
+    """Registers a thread and resident warps an SM of K10's three
+    instances for a launch at ``(T, d)`` on the current card: ``{8: (regs,
+    warps), 16: (regs, warps), "long": (regs, warps)}``, keyed as
+    ``kernel_instances`` names them (0 warps where T has no such row)."""
     check_kernel_envelope(T, d)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     err = cuda_build.load().oco_admm_occupancy_f32(d, T, out)
     if err != 0:
         raise RuntimeError(f"K10 occupancy query failed: CUDA error {err}")
-    return {8: (out[0], out[1]), 16: (out[2], out[3])}
+    return {8: (out[0], out[1]), 16: (out[2], out[3]),
+            "long": (out[4], out[5])}
 
 
 def admm_all_prefixes_l2(z: torch.Tensor, y: torch.Tensor, *,
@@ -346,6 +360,6 @@ def feasible_actions(X) -> np.ndarray:
     return X / np.maximum(np.linalg.norm(X, axis=-1, keepdims=True), 1.0)
 
 
-__all__ = ["MAX_D", "MAX_T", "admm_all_prefixes_l2",
+__all__ = ["LONG_ROWS", "MAX_D", "admm_all_prefixes_l2",
            "admm_all_prefixes_l2_reference", "admm_prologue",
-           "feasible_actions", "kernel_occupancy"]
+           "feasible_actions", "kernel_instances", "kernel_occupancy"]

@@ -47,16 +47,22 @@ batched Newton: the JAX XLA path's all-prefix pattern, with the same
 arithmetic per problem as K8's per-round solve.  (``torch.cumsum`` would
 sum in another order on CUDA.)
 
-A wrapper runs the plain version on a CPU tensor and launches the kernel
-on a CUDA tensor, for d up to ``MAX_D`` (raising above it).  The TPU
-packing (``pack_stats`` / ``unpack_x``, the (8, 128) tiling) is not
-ported: K9 reads the public ``(N, d, d)`` layout, K8 the time-major
+A wrapper runs the plain version on a CPU tensor and launches a kernel on
+a CUDA tensor, at any d: up to ``MAX_D`` the thin instances above (a
+problem or a sequence a lane), above it the wide ones, K9w and K8w (one
+warp a problem or a sequence, ``wide_instance``), whose Cholesky and
+forward substitutions spread over the lanes in the plain version's order
+of operations, so they too equal it bit for bit (``csrc/oco_trs.cuh``
+``oco::wide``).  K8w plays its sequences in the order of ``quad_warps``.
+The TPU packing (``pack_stats`` / ``unpack_x``, the (8, 128) tiling) is
+not ported: K9 reads the public ``(N, d, d)`` layout, K8 the time-major
 ``(T, d, B)`` one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,17 +75,19 @@ from online_convex_optimization_tpu_torch.ops.game import (
 )
 from online_convex_optimization_tpu_torch.utils import cuda_build
 
-# Largest d of the quadratic kernels' instances (csrc/oco_trs.cuh
-# OCO_QUAD_MAX_D); CUDA calls raise above it, the plain versions take any d.
+# Largest d of the quadratic kernels' thin instances (csrc/oco_trs.cuh
+# OCO_QUAD_MAX_D); above it K8 and K9 launch their wide instances.
 MAX_D = 32
 
 # (ridge floor eps_rel, Newton iterations) by working dtype.
 TRS_PARAMS = {torch.float32: (1e-6, 12), torch.float64: (1e-12, 20)}
 
 # Launches of each CUDA kernel in this process (counted where it launches):
-# K9 and K8.
+# K9 and K8, and their wide instances K9w and K8w.
 TRS_LAUNCHES = 0
 QUAD_LAUNCHES = 0
+TRS_WIDE_LAUNCHES = 0
+QUAD_WIDE_LAUNCHES = 0
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -142,30 +150,59 @@ def _dot(a, b):
     return acc
 
 
+@functools.lru_cache(maxsize=None)
+def _columns(d: int, device: torch.device):
+    """Packed positions of each column j below the diagonal, (j+1, j) ..
+    (d-1, j), on ``device``."""
+    return [torch.tensor([_tri(i, j) for i in range(j + 1, d)],
+                         dtype=torch.long, device=device) for j in range(d)]
+
+
 def _chol_factor(A, lam, d):
-    """Lower factor of ``A + lam I`` as a list of entries (packed order)."""
-    L = [None] * len(A)
+    """Lower factor of ``A + lam I``, both packed ``(d(d+1)/2, ...)``, the
+    packed index first so that each entry is contiguous (or A a list of
+    its entries).
+
+    Entry (i, j) starts at ``A_ij`` (+ ``lam`` on the diagonal), subtracts
+    ``L_ik * L_jk`` for k = 0, 1, ..., j - 1 in turn, then takes the sqrt
+    (i == j) or divides by ``L_jj``: the kernels' order.  Step k of the
+    loop below subtracts column k's products from every entry right of it,
+    a row's entries (contiguous in the packed layout) at once, which is
+    that order, entry by entry."""
+    L = A.clone() if isinstance(A, torch.Tensor) else torch.stack(A)
     for i in range(d):
-        for j in range(i + 1):
-            s = A[_tri(i, j)] + lam if i == j else A[_tri(i, j)]
-            for k in range(j):
-                s = s - L[_tri(i, k)] * L[_tri(j, k)]
-            L[_tri(i, j)] = (correctly_rounded_sqrt(s) if i == j
-                             else s / L[_tri(j, j)])
+        L[_tri(i, i)] += lam
+    cols = _columns(d, L.device)
+    for j in range(d):
+        piv = correctly_rounded_sqrt(L[_tri(j, j)])
+        L[_tri(j, j)] = piv
+        if j + 1 < d:
+            col = L[cols[j]] / piv                # L_ij, i > j
+            L[cols[j]] = col
+            for i in range(j + 1, d):
+                # (i, j+1 .. i) -= L_ij * (L_{j+1,j} .. L_ij)
+                L[_tri(i, j + 1):_tri(i, i) + 1] -= (
+                    L[_tri(i, j)] * col[:i - j])
     return L
 
 
 def _fwd_solve(L, b, d):
-    v = []
-    for i in range(d):
-        s = b[i]
-        for k in range(i):
-            s = s - L[_tri(i, k)] * v[k]
-        v.append(s / L[_tri(i, i)])
-    return v
+    """``v = L^{-1} b`` for a packed factor ``L`` and a list ``b``: v_i =
+    (b_i - L_i0 v_0 - L_i1 v_1 - ...) / L_ii, subtracting in increasing k,
+    column k's products from every v_i, i > k, at once."""
+    cols = _columns(d, L.device)
+    acc = torch.stack(b)
+    for k in range(d):
+        vk = acc[k] / L[_tri(k, k)]
+        acc[k] = vk
+        if k + 1 < d:
+            acc[k + 1:] -= L[cols[k]] * vk
+    return list(acc.unbind(0))
 
 
 def _bwd_solve(L, v, d):
+    """``x = L^{-T} v``: x_i = (v_i - L_{i+1,i} x_{i+1} - ...) / L_ii in
+    increasing k, one x_i after the other."""
     x = [None] * d
     for i in reversed(range(d)):
         s = v[i]
@@ -189,7 +226,8 @@ def _trs_setup(A, b):
 
 
 def _ridge_x(A, b, mu, d):
-    """``x = (A + mu I)^{-1} b`` and the factor ``L``."""
+    """``x = (A + mu I)^{-1} b`` (a list) and the packed factor ``L``, for
+    a packed ``A`` ``(d(d+1)/2, ...)`` or a list of its entries."""
     L = _chol_factor(A, mu, d)
     return _bwd_solve(L, _fwd_solve(L, b, d), d), L
 
@@ -226,6 +264,7 @@ def trs_action_reference(A, b):
     bits (``trs_action_settled``)."""
     d = len(b)
     eps, lam, lo, hi = _trs_setup(A, b)
+    A = torch.stack(A)
     for _ in range(TRS_PARAMS[b[0].dtype][1]):
         x, L = _ridge_x(A, b, lam + eps, d)
         lam, lo, hi = _newton_step(L, x, lam, lo, hi, d)
@@ -260,6 +299,7 @@ def trs_action_settled(A, b):
     d = len(b)
     iters = TRS_PARAMS[b[0].dtype][1]
     eps, lam, lo, hi = _trs_setup(A, b)
+    A = torch.stack(A)
     done = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
     passes = torch.full(lam.shape, iters + 1, dtype=torch.int64,
                         device=lam.device)
@@ -310,11 +350,32 @@ def check_trs(A: torch.Tensor, b: torch.Tensor):
     return N, d
 
 
-def check_quad_kernel_d(d: int) -> None:
-    """Raise for a d the CUDA kernels K8 and K9 have no instance of."""
-    if d > MAX_D:
-        raise ValueError(f"d = {d} exceeds the quadratic CUDA kernels' "
-                         f"limit d <= {MAX_D}; larger d runs only on the CPU")
+def wide_instance(d: int) -> bool:
+    """Whether K8 and K9 run their wide instance (one warp a problem or a
+    sequence) at ``d``: above ``MAX_D``."""
+    return d > MAX_D
+
+
+def wide_plan(kernel: str, d: int, dtype, n: int) -> dict:
+    """The launch plan of K9w (``kernel="K9w"``, n problems) or K8w
+    (``"K8w"``, n sequences) on the current card: the persistent grid's
+    warps, the scratch elements a launch allocates (0 where a warp's
+    workspace fits shared memory), the shared bytes a warp, the registers
+    a thread and the resident warps an SM."""
+    lib = cuda_build.load()
+    fn = {"K9w": lib.oco_trs_wide_plan, "K8w": lib.oco_quad_wide_plan}[kernel]
+    out = (ctypes.c_longlong * 5)()
+    err = fn(int(dtype == torch.float64), d, n, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} plan failed: CUDA error {err}")
+    return dict(zip(("warps", "scratch", "smem_bytes", "registers",
+                     "warps_per_sm"), out))
+
+
+def _wide_scratch(plan: dict, dtype, device):
+    """The scratch buffer of a wide launch's plan (one element where it
+    needs none)."""
+    return torch.empty((max(plan["scratch"], 1),), dtype=dtype, device=device)
 
 
 def trs_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -328,29 +389,47 @@ def trs_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def launch_trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K9 on contiguous CUDA problems; returns ``(N, d)``."""
-    global TRS_LAUNCHES
+def launch_trs_solve(A: torch.Tensor, b: torch.Tensor,
+                     passes=None) -> torch.Tensor:
+    """Launch kernel K9 (K9w above ``MAX_D``) on contiguous CUDA problems;
+    returns ``(N, d)``.  K9w also writes each solve's ridge solves into
+    ``passes``, an ``(N,)`` int32 CUDA tensor, where one is given."""
+    global TRS_LAUNCHES, TRS_WIDE_LAUNCHES
     N, d = b.shape
-    check_quad_kernel_d(d)
+    wide = wide_instance(d)
+    if passes is not None and not wide:
+        raise ValueError("pass counts are written by K9w only (d > MAX_D)")
     lib = cuda_build.load()
-    fn = lib.oco_trs_solve_f64 if A.dtype == torch.float64 else \
-        lib.oco_trs_solve_f32
+    f64 = A.dtype == torch.float64
     with torch.cuda.device(A.device):
         x = torch.empty((N, d), dtype=A.dtype, device=A.device)
         counter = torch.empty((1,), dtype=torch.int64, device=A.device)
-        err = fn(A.data_ptr(), b.data_ptr(), N, d, counter.data_ptr(),
-                 x.data_ptr(), torch.cuda.current_stream(A.device).cuda_stream)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        if wide:
+            scratch = _wide_scratch(wide_plan("K9w", d, A.dtype, N), A.dtype,
+                                    A.device)
+            fn = lib.oco_trs_solve_wide_f64 if f64 else \
+                lib.oco_trs_solve_wide_f32
+            err = fn(A.data_ptr(), b.data_ptr(), N, d, counter.data_ptr(),
+                     scratch.data_ptr(), x.data_ptr(),
+                     None if passes is None else passes.data_ptr(), stream)
+        else:
+            fn = lib.oco_trs_solve_f64 if f64 else lib.oco_trs_solve_f32
+            err = fn(A.data_ptr(), b.data_ptr(), N, d, counter.data_ptr(),
+                     x.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"trust-region kernel launch failed: CUDA "
                                f"error {err}")
-        TRS_LAUNCHES += 1
+        if wide:
+            TRS_WIDE_LAUNCHES += 1
+        else:
+            TRS_LAUNCHES += 1
     return x
 
 
 def trs_occupancy(d: int, dtype) -> tuple:
-    """Registers a thread and resident warps an SM of K9's instance for
-    ``d`` on the current card."""
+    """Registers a thread and resident warps an SM of K9's thin instance
+    for ``d`` on the current card (``wide_plan`` for K9w's)."""
     out = (ctypes.c_int * 2)()
     err = cuda_build.load().oco_trs_occupancy(int(dtype == torch.float64), d,
                                               out)
@@ -426,7 +505,7 @@ def trs_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Returns:
       ``(N, d)`` with ``||x|| <= 1``.  On a CUDA tensor this launches
-      kernel K9 (or raises); on a CPU tensor it runs
+      kernel K9 (K9w above ``MAX_D``) or raises; on a CPU tensor it runs
       ``trs_solve_reference``.
     """
     check_trs(A, b)
@@ -553,14 +632,61 @@ def quad_lanes(flags: torch.Tensor, width: int = WARP) -> torch.Tensor:
     return lanes
 
 
+def quad_warps(flags: torch.Tensor) -> torch.Tensor:
+    """K8w's warp map: the sequence each of its warps' claims plays, in
+    claim order, int32 ``(B,)``: the FTL sequences (a solve a round) first,
+    then the FTRL ones, each in order.  One sequence a warp, whatever its
+    flag, so the two share a launch."""
+    return torch.argsort((flags == ALG_FTRL).to(torch.int64),
+                         stable=True).to(torch.int32)
+
+
+def launch_quadratic_regrets_wide(z_tm, y_tm, flags, eta, passes=None):
+    """Launch kernel K8w (d > ``MAX_D``) on contiguous time-major CUDA
+    inputs; returns what ``launch_quadratic_regrets`` does.  ``passes``, a
+    ``(T + 1, B)`` int32 CUDA tensor where given, receives each solve's
+    ridge solves (row t an FTL round's, 0 for FTRL; row T the
+    comparator's)."""
+    global QUAD_WIDE_LAUNCHES
+    T, d, B = z_tm.shape
+    lib = cuda_build.load()
+    fn = lib.oco_quad_game_wide_f64 if z_tm.dtype == torch.float64 else \
+        lib.oco_quad_game_wide_f32
+    with torch.cuda.device(z_tm.device):
+        order = quad_warps(flags)
+        scratch = _wide_scratch(wide_plan("K8w", d, z_tm.dtype, B),
+                                z_tm.dtype, z_tm.device)
+        counter = torch.empty((1,), dtype=torch.int64, device=z_tm.device)
+        cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
+        comp = torch.empty_like(cum)
+        x_c = torch.empty((d, B), dtype=z_tm.dtype, device=z_tm.device)
+        x_last = torch.empty_like(x_c)
+        err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
+                 eta.data_ptr(), order.data_ptr(), T, B, d,
+                 counter.data_ptr(), scratch.data_ptr(), cum.data_ptr(),
+                 comp.data_ptr(), x_c.data_ptr(), x_last.data_ptr(),
+                 None if passes is None else passes.data_ptr(),
+                 torch.cuda.current_stream(z_tm.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"quadratic game kernel launch failed: CUDA "
+                               f"error {err}")
+        QUAD_WIDE_LAUNCHES += 1
+    return cum, comp, x_c, x_last
+
+
 def launch_quadratic_regrets(z_tm, y_tm, flags, eta, width=None):
     """Launch kernel K8 on contiguous time-major CUDA inputs with
     per-sequence ``flags`` (int32) and ``eta``, ``width`` FTL sequences a
     warp (default ``ftl_width``; the outputs do not depend on it); returns
-    ``(cum (B,), comp (B,), x_c (d, B), x_last (d, B))``."""
+    ``(cum (B,), comp (B,), x_c (d, B), x_last (d, B))``.  Above ``MAX_D``
+    it launches K8w, one sequence a warp (``width`` does not apply)."""
     global QUAD_LAUNCHES
     T, d, B = z_tm.shape
-    check_quad_kernel_d(d)
+    if wide_instance(d):
+        if width is not None:
+            raise ValueError(f"width applies to K8's thin instances (d <= "
+                             f"{MAX_D}); K8w plays a sequence a warp")
+        return launch_quadratic_regrets_wide(z_tm, y_tm, flags, eta)
     lib = cuda_build.load()
     fn = lib.oco_quad_game_f64 if z_tm.dtype == torch.float64 else \
         lib.oco_quad_game_f32
@@ -596,8 +722,8 @@ def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
 
     Returns:
       ``(cum_loss (B,), comp_loss (B,), x_c (d, B), x_last (d, B))``.  On a
-      CUDA tensor this launches kernel K8 (or raises); on a CPU tensor it
-      runs ``quadratic_regrets_reference``.
+      CUDA tensor this launches kernel K8 (K8w above ``MAX_D``) or raises;
+      on a CPU tensor it runs ``quadratic_regrets_reference``.
     """
     T, d, B = check_time_major(z_tm, y_tm)
     flags = per_sequence(alg_flag, B, torch.int32, z_tm.device)
@@ -612,5 +738,6 @@ def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
 
 __all__ = ["ALG_FTL", "ALG_FTRL", "MAX_D", "trs_solve", "trs_solve_reference",
            "trs_action_reference", "trs_action_settled", "quad_lanes",
-           "ftl_width", "refill_iterations", "trs_occupancy",
-           "quadratic_regrets", "quadratic_regrets_reference"]
+           "quad_warps", "ftl_width", "refill_iterations", "trs_occupancy",
+           "wide_instance", "wide_plan", "quadratic_regrets",
+           "quadratic_regrets_reference"]

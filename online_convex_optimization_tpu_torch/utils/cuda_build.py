@@ -15,6 +15,7 @@ output; nothing falls back to another path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -22,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +35,8 @@ LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 # Feature dimensions above this have no instance of the hinge-game kernels
 # K1-K7 (csrc/oco_common.cuh OCO_LARGE_D, the JAX package's
 # _D_KERNEL_MAX); their wrappers raise on a CUDA tensor.  The quadratic
-# kernels K8 and K9 have their own limit (ops/trs.py MAX_D).
+# kernels K8 and K9 take any d (their wide instances above ops/trs.py
+# MAX_D).
 MAX_D = 512
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +56,8 @@ _SIGNATURES = {
     "oco_regrets_occupancy": [_I, _I, _I, _P],
     "oco_smart_occupancy": [_I, _I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
+    "oco_trs_wide_plan": [_I, _I, _LL, _P],
+    "oco_quad_wide_plan": [_I, _I, _LL, _P],
 }
 # The hinge-game entries have one instance a (z, y) storage pair
 # (csrc/oco_common.cuh OCO_STORAGE_PAIRS, ops/game.py STORAGE); the
@@ -79,6 +84,8 @@ for _ty in ("f64", "f32"):
         f"oco_quad_game_{_ty}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                                  _P, _P, _P, _P, _P],
         f"oco_trs_solve_{_ty}": [_P, _P, _LL, _I, _P, _P, _P],
+        f"oco_quad_game_wide_{_ty}": [_P] * 5 + [_LL, _LL, _I] + [_P] * 8,
+        f"oco_trs_solve_wide_{_ty}": [_P, _P, _LL, _I] + [_P] * 5,
     })
 
 _lib: Optional[ctypes.CDLL] = None
@@ -112,15 +119,25 @@ def _nvcc() -> str:
 
 
 def _run_all(cmds, log):
-    """Start every command at once, wait for all, log their output; raise
-    with the first failure's output."""
+    """Start every command at once, wait for all, log their output and
+    each one's seconds; raise with the first failure's output."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    failed = None
-    for cmd, proc in zip(cmds, procs):
+
+    def wait(proc):
         out, err = proc.communicate()
-        log.write(" ".join(cmd) + "\n" + out + err)
+        return out, err, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        results = list(pool.map(wait, procs))
+    failed = None
+    for cmd, proc, (out, err, secs) in zip(cmds, procs, results):
+        what = (os.path.basename(cmd[cmd.index("-c") + 1]) if "-c" in cmd
+                else "link")
+        log.write(" ".join(cmd) + "\n" + out + err
+                  + f"nvcc seconds {secs:.2f}: {what}\n")
         if proc.returncode != 0 and failed is None:
             failed = (proc.returncode, err)
     if failed is not None:

@@ -14,7 +14,11 @@ Bars:
     first, ``admm.feasible_actions``): every prefix objective within 3e-6
     of the JAX kernel's, the JAX package's own cross-path bar
     (``tests/test_pallas_admm.py``): the port's rows stop on their own
-    residual, the JAX kernel's on their 128-row block's.
+    residual, the JAX kernel's on their 128-row block's;
+  - past the register instances' 4,096 entries (the rows the long-row
+    instance K10l takes on the card): T = 4,160, 3 fixed iterations,
+    against the JAX XLA path at the same bars (the interpret-mode kernel
+    takes minutes there).
 """
 
 import numpy as np
@@ -181,9 +185,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         admm.admm_all_prefixes_l2(zt, yt, state0=(torch.zeros(3, 3),) * 5)
     with pytest.raises(ValueError, match=r"d <= 8"):
         admm.check_kernel_envelope(100, 9)
-    with pytest.raises(ValueError, match=r"T <= 4096"):
-        admm.check_kernel_envelope(4097, 5)
-    admm.check_kernel_envelope(4096, 8)
+    with pytest.raises(ValueError, match=r"d <= 8"):
+        admm.check_kernel_envelope(16384, 9)
+    # Any T has an instance: rows past 4,096 entries take K10l.
+    for T in (4096, 4097, 16384):
+        admm.check_kernel_envelope(T, 8)
     # The plain version takes what the kernel does not: d = 9 on the CPU.
     z9, y9 = _batch(1, 12, d=9)
     X, _, _ = _port(z9, y9, iters=50, tol=0.0)
@@ -195,5 +201,42 @@ def test_kernel_source_is_built_and_hashed_with_the_rest():
     from online_convex_optimization_tpu_torch.utils import cuda_build
     assert any(p.endswith("admm_kernel.cu") for p in cuda_build._sources())
     argtypes = cuda_build._SIGNATURES["oco_admm_all_prefixes_f32"]
-    # 8 inputs, 9 scalars, 6 outputs, the stream, the launch count
+    # 8 inputs, 9 scalars, 6 outputs, the stream, the launch counts (all
+    # of K10's and K10l's)
     assert len(argtypes) == 25
+
+
+def test_plain_matches_jax_xla_path_past_the_register_rows():
+    """T = 4,160: the rows past 4,096 entries, which K10l takes on the
+    card, against the JAX package's XLA path on the same inputs."""
+    z, y = _batch(1, 4160, seed=8)
+    X, res, (s, _, _, _, _) = _port(z, y, iters=3, tol=0.0)
+    Xx, rx, _ = jax_admm_all_prefixes(jnp.asarray(z[0]), jnp.asarray(y[0]),
+                                      norm="l2", iters=3, tol=0.0)
+    np.testing.assert_allclose(X[0].numpy(), np.asarray(Xx), atol=2e-6,
+                               rtol=0)
+    np.testing.assert_allclose(res[0].numpy(), np.asarray(rx), atol=1e-5,
+                               rtol=0)
+    assert bool((s[-1] != 0).any()) and s.shape == (4160, 4160)
+
+
+@pytest.mark.parametrize("T,want", [(1, [8]), (2048, [8]), (2049, [16, 8]),
+                                    (4096, [16, 8]),
+                                    (4097, ["long", 16, 8]),
+                                    (16384, ["long", 16, 8])])
+def test_row_to_instance_map(T, want):
+    """The wrapper's mirror of the C entry's map of rows to instances, in
+    launch order, and its boundaries as the CUDA source states them."""
+    import os
+    import re
+    from online_convex_optimization_tpu_torch.utils import cuda_build
+    assert admm.kernel_instances(T) == want
+    src = {}
+    for name in ("admm_kernel.cu", "oco_admm.cuh"):
+        with open(os.path.join(cuda_build.SRC_DIR, name)) as f:
+            src[name] = f.read()
+    assert re.search(r"constexpr int kSplit = 2048;", src["admm_kernel.cu"])
+    assert re.search(r"constexpr int kLongRows = 32 \* OCO_ADMM_WARPS \* 16;",
+                     src["oco_admm.cuh"])
+    assert re.search(r"#define OCO_ADMM_WARPS 8\b", src["oco_admm.cuh"])
+    assert admm.LONG_ROWS == 32 * 8 * 16

@@ -684,9 +684,14 @@ def test_admm_kernel_sliced_equals_padded(cuda, T, T_max, tol):
 
 
 def test_admm_kernel_refuses_its_envelope(cuda):
+    """d <= 8 is K10's envelope; any T has an instance (T = 4,097: K10l
+    takes its one long row)."""
     z, y = _admm_batch(1, 4097, 5, seed=2, cuda=cuda)
-    with pytest.raises(ValueError, match="T <= 4096"):
-        admm.admm_all_prefixes_l2(z, y)
+    before = admm.LONG_LAUNCHES
+    X, res, _ = admm.admm_all_prefixes_l2(z, y, iters=20, tol=0.0)
+    torch.cuda.synchronize()
+    assert admm.LONG_LAUNCHES == before + 1
+    assert bool(torch.isfinite(X).all()) and bool(torch.isfinite(res).all())
     z, y = _admm_batch(1, 20, 9, seed=2, cuda=cuda)
     with pytest.raises(ValueError, match="d <= 8"):
         admm.admm_all_prefixes_l2(z, y)
@@ -869,3 +874,147 @@ def test_storage_stream_game_and_no_upcast(cuda, pair):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < z_tm.numel() * 4
     assert game.PACKED_LAUNCHES == launches + 1
+
+
+# ---------------------------------------- K10l, K9w, K8w: the size gaps
+
+@pytest.mark.parametrize("d", [5, 3])
+def test_admm_long_rows_match_plain(cuda, d):
+    """K10l (rows past 4,096 entries) against the plain version, 100 fixed
+    iterations at T = 4,200; three launches, the long rows first."""
+    z, y = _admm_batch(1, 4200, d, seed=40 + d, cuda=cuda)
+    before, before_long = admm.LAUNCHES, admm.LONG_LAUNCHES
+    X, res, state = admm.admm_all_prefixes_l2(z, y, iters=100, tol=0.0)
+    torch.cuda.synchronize()
+    assert admm.LAUNCHES == before + len(admm.kernel_instances(4200)) == \
+        before + 3
+    assert admm.LONG_LAUNCHES == before_long + 1
+    res_p, state_p = admm.admm_all_prefixes_l2_reference(
+        z, y, admm.admm_prologue(z), iters=100, tol=0.0, check_every=100,
+        rho=1.0, alpha=1.7)
+    assert _max_err(state, state_p) <= TOL[torch.float32]
+    assert _max_err((res.reshape(-1),), (res_p,)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("tol", [0.0, 2e-4])
+def test_admm_long_rows_keep_the_identities(cuda, tol):
+    """Rows p < 4,096 of a T = 4,200 launch equal the launch on
+    z[:, :4096] and 50 + 50 iterations equal 100, bit for bit."""
+    z, y = _admm_batch(2, 4200, 5, seed=44, cuda=cuda)
+    kw = dict(tol=tol, check_every=50)
+    X, res, st = admm.admm_all_prefixes_l2(z, y, iters=100, **kw)
+    before, before_long = admm.LAUNCHES, admm.LONG_LAUNCHES
+    X4, r4, _ = admm.admm_all_prefixes_l2(z[:, :4096].contiguous(),
+                                          y[:, :4096].contiguous(),
+                                          iters=100, **kw)
+    torch.cuda.synchronize()
+    # T = 4,096: the two register instances, no K10l (the C entry's count).
+    assert (admm.LAUNCHES - before, admm.LONG_LAUNCHES - before_long) == \
+        (2, 0)
+    assert torch.equal(X[:, :4096], X4) and torch.equal(res[:, :4096], r4)
+    if tol == 0.0:
+        _, _, st1 = admm.admm_all_prefixes_l2(z, y, iters=50, **kw)
+        Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=50, state0=st1,
+                                                **kw)
+        assert torch.equal(Xc, X) and torch.equal(rc, res)
+        assert all(torch.equal(a, b) for a, b in zip(stc, st))
+    s = st[0].reshape(2, 4200, 4200)
+    past = torch.arange(4200, device=cuda)[None, :] > \
+        torch.arange(4200, device=cuda)[:, None]
+    assert bool((s[:, past] == 0).all())
+
+
+def _wide_problems(N, d, dtype, cuda, seed):
+    z, y, _ = device_data.regression_stream_batch(
+        torch.Generator(device=cuda).manual_seed(seed), 1, N, d,
+        dtype=dtype)
+    A = torch.cumsum(z[0, :, :, None] * z[0, :, None, :], 0)
+    b = torch.cumsum(y[0, :, None] * z[0], 0)
+    return A.contiguous(), b.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [32, 33, 64])
+def test_trs_instances_either_side_of_the_boundary(cuda, dtype, d):
+    """K9 at d = 32 and K9w above it equal the plain version bit for bit
+    on prefix statistics (singular ones included), a permuted batch the
+    permuted output; each launch counted on its own instance."""
+    A, b = _wide_problems(3 * d // 2 + 5, d, dtype, cuda, seed=d)
+    thin, wide = trs.TRS_LAUNCHES, trs.TRS_WIDE_LAUNCHES
+    x = trs.trs_solve(A, b)
+    torch.cuda.synchronize()
+    assert (trs.TRS_LAUNCHES - thin, trs.TRS_WIDE_LAUNCHES - wide) == \
+        ((0, 1) if d > trs.MAX_D else (1, 0))
+    assert torch.equal(x, trs.trs_solve_reference(A, b))
+    perm = torch.randperm(A.shape[0], device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    assert torch.equal(trs.trs_solve(A[perm], b[perm]), x[perm])
+
+
+def test_trs_wide_scratch_workspace(cuda):
+    """At d = 170 in f64 a warp's workspace passes shared memory and lives
+    in device scratch: the same bits as the plain version."""
+    plan = trs.wide_plan("K9w", 170, torch.float64, 6)
+    assert plan["scratch"] > 0 and plan["smem_bytes"] == 0
+    A, b = _wide_problems(6, 170, torch.float64, cuda, seed=5)
+    b = b * torch.tensor([0.01, 0.1, 1.0, 3.0, 10.0, 100.0],
+                         dtype=torch.float64, device=cuda)[:, None]
+    passes = torch.zeros(6, dtype=torch.int32, device=cuda)
+    x = trs.launch_trs_solve(A, b, passes)
+    assert torch.equal(x, trs.trs_solve_reference(A, b))
+    rows, cols = trs.tri_index(170)
+    _, want = trs.trs_action_settled([A[:, i, j] for i, j in zip(rows, cols)],
+                                     [b[:, i] for i in range(170)])
+    assert torch.equal(passes.long(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [32, 33, 40])
+def test_quadratic_instances_either_side_of_the_boundary(cuda, dtype, d):
+    """K8 at d = 32 and K8w above it against the plain version bit for
+    bit, FTRL and FTL in one launch, and x_c equal to K9(w) on the final
+    statistics."""
+    z, y, _ = device_data.regression_stream_batch(
+        torch.Generator(device=cuda).manual_seed(d), 6, 45, d, dtype=dtype)
+    flags = torch.tensor([1, 0, 1, 1, 0, 0], dtype=torch.int32, device=cuda)
+    eta = torch.linspace(0.5, 2.0, 6, dtype=dtype, device=cuda)
+    z_tm, y_tm = game.time_major(z, y)
+    thin, wide = trs.QUAD_LAUNCHES, trs.QUAD_WIDE_LAUNCHES
+    got = trs.quadratic_regrets(z_tm, y_tm, flags, eta)
+    torch.cuda.synchronize()
+    assert (trs.QUAD_LAUNCHES - thin, trs.QUAD_WIDE_LAUNCHES - wide) == \
+        ((0, 1) if d > trs.MAX_D else (1, 0))
+    want = trs.quadratic_regrets_reference(z_tm, y_tm, flags, eta)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    A = z.new_zeros((6, d, d))
+    b = z.new_zeros((6, d))
+    for t in range(45):
+        A = A + z[:, t, :, None] * z[:, t, None, :]
+        b = b + y[:, t, None] * z[:, t]
+    assert torch.equal(got[2], trs.trs_solve(A, b).t())
+
+
+def test_quadratic_wide_pass_counts(cuda):
+    """K8w's pass counts: each FTL round's solve and the comparator's, as
+    the plain mirror of the Newton exit counts them; 0 on FTRL rounds."""
+    d, T = 36, 40
+    z, y, _ = device_data.regression_stream_batch(
+        torch.Generator(device=cuda).manual_seed(3), 4, T, d,
+        dtype=torch.float64)
+    flags = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda)
+    eta = torch.ones(4, dtype=torch.float64, device=cuda)
+    z_tm, y_tm = game.time_major(z, y)
+    passes = torch.zeros((T + 1, 4), dtype=torch.int32, device=cuda)
+    trs.launch_quadratic_regrets_wide(z_tm, y_tm, flags, eta, passes)
+    rows, cols = trs.tri_index(d)
+    A = z.new_zeros((4, d, d))
+    b = z.new_zeros((4, d))
+    want = []
+    for t in range(T + 1):
+        _, p = trs.trs_action_settled([A[:, i, j] for i, j in zip(rows, cols)],
+                                      [b[:, i] for i in range(d)])
+        want.append(torch.where(flags == 1, p, 0) if t < T else p)
+        if t < T:
+            A = A + z[:, t, :, None] * z[:, t, None, :]
+            b = b + y[:, t, None] * z[:, t]
+    assert torch.equal(passes.long(), torch.stack(want))

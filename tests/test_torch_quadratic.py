@@ -12,7 +12,14 @@ CPU) against the JAX package.
   in float32 against the JAX fused kernel (interpret mode) and the float64
   truth within the JAX test's own bounds (max 0.05, mean 2e-3);
 - the study end to end, and its float64 statistics against the JAX
-  package's.
+  package's;
+- at d = 40, past the thin kernels' d <= 32 (where the card runs the wide
+  instances K9w and K8w, which equal these plain versions bit for bit):
+  ``trs_solve_reference`` against the JAX x64 solver and SLSQP on full-rank
+  problems (1e-9), and ``quadratic_regrets_reference`` against the JAX
+  x64 game's body on the fixture's solves (FTRL 1e-9, FTL cum 1e-4 for
+  the singular first rounds);
+  K8w's warp map.
 
 Tolerances against JAX x64: 1e-12 wherever the statistics are full rank.
 On a singular prefix (t < d) the ridge floor eps = 1e-12 (1 + tr/d) leaves
@@ -331,13 +338,22 @@ def test_simulate_quadratic_single_sequence():
 
 
 def test_quadratic_kernel_d_limit_and_inputs():
-    z = torch.zeros((4, 33, 2), dtype=torch.float64)
-    y = torch.zeros((4, 2), dtype=torch.float64)
-    flags = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="d <= 32"):
-        trs.launch_quadratic_regrets(z, y, flags, flags.double())
-    with pytest.raises(ValueError, match="d <= 32"):
-        trs.launch_trs_solve(torch.zeros((2, 33, 33)), torch.zeros((2, 33)))
+    """Every d has a kernel instance: the thin ones up to MAX_D = 32, the
+    wide ones (K9w, K8w) above; the shape and dtype refusals stay."""
+    from online_convex_optimization_tpu_torch.ops.game import (
+        check_time_major)
+    assert trs.MAX_D == 32 and not trs.wide_instance(32)
+    for d in (33, 64):
+        assert trs.wide_instance(d)
+        z = torch.zeros((4, d, 2), dtype=torch.float64)
+        y = torch.zeros((4, 2), dtype=torch.float64)
+        assert check_time_major(z, y) == (4, d, 2)
+        assert trs.check_trs(torch.zeros((2, d, d)), torch.zeros((2, d))) \
+            == (2, d)
+        # K8w plays a sequence a warp: a width of the thin map is refused.
+        flags = torch.ones(2, dtype=torch.int32)
+        with pytest.raises(ValueError, match="width"):
+            trs.launch_quadratic_regrets(z, y, flags, flags.double(), 4)
     with pytest.raises(ValueError):
         trs.trs_solve(torch.zeros((2, 4, 4)), torch.zeros((2, 5)))
     with pytest.raises(TypeError):
@@ -375,3 +391,161 @@ def test_quadratic_study_end_to_end(tmp_path):
     ftrl = results["stats"]["FTRL"]["mean"]
     assert all(np.isfinite(ftl)) and all(np.isfinite(ftrl))
     assert ftl[-1] < ftrl[-1]
+
+
+# ------------------------------------------ d = 40: the wide instances' d
+
+WIDE_D = 40
+
+
+def _prefix_statistics(z, y):
+    """The running (A, b) before every round, ``(B, T, d, d)`` and
+    ``(B, T, d)``, and the final ones, summed in round order."""
+    A = np.cumsum(z[:, :, :, None] * z[:, :, None, :], axis=1)
+    b = np.cumsum(y[:, :, None] * z, axis=1)
+    A_pre = np.concatenate([np.zeros_like(A[:, :1]), A[:, :-1]], axis=1)
+    b_pre = np.concatenate([np.zeros_like(b[:, :1]), b[:, :-1]], axis=1)
+    return A_pre, b_pre, A[:, -1], b[:, -1]
+
+
+@pytest.fixture(scope="module")
+def wide_jax():
+    """The JAX x64 solver (``ball_ls_action``) at d = 40, in one call:
+    on four full-rank problems (t = 60 and 120 rows, b scaled to reach the
+    interior and the boundary) and on the game's prefix and final
+    statistics.  The JAX game (``simulate_quadratic_batch``) plays exact
+    FTL with this function on the same statistics; it unrolls its
+    Cholesky (d^3 / 3 traced operations, ~15 s to trace and ~18 s to
+    compile at d = 40), and the game traces it twice, so the test calls it
+    once for everything."""
+    z, y = _instance(T=120, d=WIDE_D, seed=5)
+    probs = [(z[:t].T @ z[:t], scale * (z[:t].T @ y[:t]))
+             for t, scale in ((60, 1.0), (120, 1.0), (120, 0.05),
+                              (120, 20.0))]
+    zg, yg = _game_batch(4, 48, d=WIDE_D, seed=3)
+    A_pre, b_pre, A_fin, b_fin = _prefix_statistics(zg, yg)
+    B, T = yg.shape
+    A_all = np.concatenate([np.stack([a for a, _ in probs]),
+                            A_pre.reshape(-1, WIDE_D, WIDE_D), A_fin])
+    b_all = np.concatenate([np.stack([b for _, b in probs]),
+                            b_pre.reshape(-1, WIDE_D), b_fin])
+    x = np.asarray(jax_ball_ls_action(jnp.asarray(A_all), jnp.asarray(b_all)))
+    return {"probs": probs, "x_probs": x[:4],
+            "game": (zg, yg, A_fin, b_fin),
+            "x_pre": x[4:4 + B * T].reshape(B, T, WIDE_D),
+            "x_fin": x[4 + B * T:]}
+
+
+def test_trs_reference_wide_matches_jax_x64_and_slsqp(wide_jax):
+    A = np.stack([a for a, _ in wide_jax["probs"]])
+    b = np.stack([v for _, v in wide_jax["probs"]])
+    x = trs.trs_solve_reference(torch.from_numpy(A),
+                                torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(x, wide_jax["x_probs"], rtol=0, atol=1e-9)
+    norms = np.linalg.norm(x, axis=1)
+    assert (norms <= 1.0 + 1e-12).all()
+    assert (norms < 0.5).any() and (np.abs(norms - 1.0) < 1e-12).any()
+    for Ai, bi, xi in zip(A, b, x):
+        obj = lambda v: 0.5 * v @ Ai @ v - bi @ v
+        r = minimize(obj, np.zeros(WIDE_D), jac=lambda v: Ai @ v - bi,
+                     method="SLSQP",
+                     constraints=[{"type": "ineq", "fun": lambda v: 1.0 - v @ v,
+                                   "jac": lambda v: -2.0 * v}],
+                     options={"maxiter": 1000, "ftol": 1e-15})
+        xs = r.x / max(1.0, np.linalg.norm(r.x))     # feasible
+        assert obj(xi) <= obj(xs) + 1e-9 * max(1.0, abs(obj(xs)))
+
+
+def test_quadratic_reference_wide_matches_jax_x64(wide_jax, monkeypatch):
+    """The plain K8 at d = 40 (B = 4, T = 48, f64, FTRL and FTL) against
+    the JAX x64 game's own body (``_simulate_quadratic_batch``, run once,
+    unjitted): its FTRL scan, cum, comparator and last actions.  Its
+    trust-region solver is the fixture's call of the JAX solver on the
+    same statistics (checked against the ones the game forms), so that
+    the game does not trace its unrolled Cholesky twice more."""
+    from online_convex_optimization_tpu.models import quadratic as jq
+    zg, yg, A_fin, b_fin = wide_jax["game"]
+    B, T, d = zg.shape
+    A_pre = np.concatenate([np.zeros((B, 1, d, d)),
+                            np.cumsum(zg[:, :, :, None] * zg[:, :, None, :],
+                                      axis=1)[:, :-1]], axis=1)
+    solved = {4: (A_pre, wide_jax["x_pre"]), 3: (A_fin, wide_jax["x_fin"])}
+
+    def solver(A, b):
+        A_want, x = solved[A.ndim]
+        np.testing.assert_allclose(np.asarray(A), A_want, rtol=1e-12,
+                                   atol=1e-12)
+        return jnp.asarray(x)
+
+    monkeypatch.setattr(jq, "ball_ls_action", solver)
+    flags = np.arange(B) % 2
+    eta = np.linspace(0.5, 2.0, B)
+    want = [np.asarray(a) for a in jq._simulate_quadratic_batch.__wrapped__(
+        jnp.asarray(zg), jnp.asarray(yg), jnp.asarray(flags),
+        jnp.asarray(eta))]
+    cum, comp, x_c, x_last = trs.quadratic_regrets_reference(
+        torch.from_numpy(zg).permute(1, 2, 0), torch.from_numpy(yg).t(),
+        torch.from_numpy(flags), torch.from_numpy(eta))
+    ftl, ftrl = flags == 1, flags == 0
+    np.testing.assert_allclose(cum.numpy()[ftrl], want[0][ftrl], rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(cum.numpy()[ftl], want[0][ftl], rtol=0,
+                               atol=SINGULAR_TOL)
+    np.testing.assert_allclose(comp.numpy(), want[1], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(x_c.t().numpy(), want[2], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(x_last.t().numpy(), want[3], rtol=0,
+                               atol=1e-9)
+
+
+def test_wide_warp_map():
+    """K8w's warp map: every sequence once, the FTL sequences first, each
+    flag's in order (one sequence a warp, so FTRL and FTL share a launch);
+    the thin map's width does not apply there."""
+    flags = torch.tensor([0, 1, 1, 0, 1, 0, 0, 1, 1], dtype=torch.int32)
+    order = trs.quad_warps(flags)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 2, 4, 7, 8, 0, 3, 5, 6]
+    assert trs.quad_warps(torch.zeros(5, dtype=torch.int32)).tolist() == \
+        list(range(5))
+    assert trs.quad_warps(torch.ones(3, dtype=torch.int32)).tolist() == \
+        [0, 1, 2]
+
+
+def _chol_factor_loop(A, lam, d):
+    """The entry-by-entry factorization the plain version's column-at-once
+    loop replaced: (i, j) subtracts L_ik L_jk for k < j in turn."""
+    L = [None] * len(A)
+    for i in range(d):
+        for j in range(i + 1):
+            s = A[trs._tri(i, j)] + lam if i == j else A[trs._tri(i, j)]
+            for k in range(j):
+                s = s - L[trs._tri(i, k)] * L[trs._tri(j, k)]
+            L[trs._tri(i, j)] = (trs.correctly_rounded_sqrt(s) if i == j
+                                 else s / L[trs._tri(j, j)])
+    return L
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 5, 12, 33])
+def test_column_factor_equals_the_entry_loop(dtype, d):
+    """The plain Cholesky and forward solve, a column of subtractions at a
+    time, equal the entry-by-entry loops in every bit (the kernels' order
+    of operations), singular statistics included."""
+    z, y, _ = regression_stream_batch(torch.Generator().manual_seed(d), 2,
+                                      d + 3, d, dtype=dtype)
+    rows, cols = trs.tri_index(d)
+    A = torch.cumsum(z[:, :, :, None] * z[:, :, None, :], 1)
+    b = torch.cumsum(y[:, :, None] * z, 1)
+    A = [A[..., i, j] for i, j in zip(rows, cols)]
+    b = [b[..., i] for i in range(d)]
+    lam = trs._trs_setup(A, b)[0]
+    L = trs._chol_factor(A, lam, d)
+    want = _chol_factor_loop(A, lam, d)
+    assert all(torch.equal(L[k], w) for k, w in enumerate(want))
+    v = trs._fwd_solve(L, b, d)
+    for i in range(d):
+        s = b[i]
+        for k in range(i):
+            s = s - want[trs._tri(i, k)] * v[k]
+        assert torch.equal(v[i], s / want[trs._tri(i, i)])
+
