@@ -191,16 +191,19 @@ non-zero without printing a result):
                auto route at phase 11's f32 scoring bound; (b) K9w:
                ``ball_ls_action`` at d=64 on 65,536 prefix statistics (the
                launch count) in f32 and f64, each against the plain
-               version on the same inputs (f64 1e-9, f32 5e-4), and at d =
-               40 on 4,096; timed at d = 64 (65,536), 128 (16,384) and 256
-               (4,096, the workspace in device scratch) in f32 and f64, the
-               f32 answers against the f64 kernel's on the same values
-               (5e-4; well-conditioned prefixes of at least 4d rows) and
-               the f64 answers against the trust-region conditions (1e-9);
-               (c) K8w: ``simulate_quadratic_batch`` at B=4,096 T=1,024
-               d=64, half FTL (the launch count), f32, against the plain
-               version on every sequence (512 a call), the same shape in
-               f64 on every 8th sequence, and at d = 40 (B=256 T=128); x_c
+               version on the same inputs (bit for bit, and f64 1e-9, f32
+               5e-4), and at d = 40 on 4,096; timed at d = 64 (65,536),
+               128 (16,384) and 256 (4,096: f32 with the workspace in
+               shared memory, its first 64 problems against the plain
+               version bit for bit, f64 in device scratch) in f32 and f64,
+               with each launch's plan, the f32 answers against the f64
+               kernel's on the same values (5e-4; well-conditioned prefixes
+               of at least 4d rows) and the f64 answers against the
+               trust-region conditions (1e-9); (c) K8w:
+               ``simulate_quadratic_batch`` at B=4,096 T=1,024 d=64, half
+               FTL (the launch count), f32, against the plain version on
+               every sequence (512 a call), the same shape in f64 on every
+               8th sequence, and at d = 40 (B=256 T=128), bit for bit; x_c
                equal to K9w's in every bit at d = 40, 64 and 128; timed at
                d = 64 (f32, f64; 5 launches) and 128 (f32, its one launch)
                with output digests; the quadratic study at ``--d 64``
@@ -231,7 +234,7 @@ their path shapes (K10l: B=2 T=8192, 200 iterations; K9w: d=64,
 and plain times from the plain versions on the same inputs (K8w's in
 calls of 512 sequences, summed).  The line before the
 last lists the kernels as JSON; the last line is ``{"ok": true,
-"device": {...}}``.  About 12-14 minutes on an H100.
+"device": {...}}``.  About 10-12 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -3148,6 +3151,10 @@ LONG_B, LONG_T, LONG_ITERS = 2, 8192, 200
 # K9w and K8w: d past the thin instances' 32.
 K9W_PATH = ((64, 64, 1024, 0), (128, 16, 1024, 512))   # d, B, T, first row
 K9W_D256 = (256, 4, 1024, 1024)
+# K9w's plain check at d = 256 in f32, with the workspace in shared memory:
+# the first problems of the timed launch (the plain version's time is its
+# d^2 operations a solve, about half a minute, whatever their number).
+K9W_D256_PLAIN = 64
 K8W_B, K8W_T = QUAD_B, QUAD_T
 # The plain versions at d = 40 (d = 64 is held at the path's shapes).
 PLAIN_D = 40
@@ -3369,11 +3376,14 @@ def k9w_bounds(d, A, b, passes, dtype):
 def k9_wide():
     """K9w: ball_ls_action (the main path) at d = 64 on 65,536 prefix
     statistics, in f32 and f64, each held against the plain version on
-    the same inputs (f64 1e-9, f32 5e-4), as at d = 40 on 4,096; at d =
-    128 (N = 16,384) and 256 (N = 4,096; the workspace past shared
-    memory) f32 against the f64 kernel on the same values (5e-4) and the
-    f64 answers held to the trust-region conditions (1e-9); timed, each
-    solve's passes counted by the kernel for the bound."""
+    the same inputs (bit for bit; f64 1e-9, f32 5e-4), as at d = 40 on
+    4,096; at d = 128 (N = 16,384) and 256 (N = 4,096; f32 in shared
+    memory, its first 64 problems against the plain version bit for bit,
+    f64 on the scratch route) f32 against the f64 kernel on the same
+    values (5e-4) and the f64 answers held to the trust-region conditions
+    (1e-9); timed with each launch's plan (shared memory or scratch, bytes
+    and warps an SM), each solve's passes counted by the kernel for the
+    bound."""
     for dtype in (torch.float64, torch.float32):
         A, b = wide_prefixes(PLAIN_D, *PLAIN_K9_N, 0, dtype, 150 + PLAIN_D)
         got = trs.trs_solve(A, b)
@@ -3385,6 +3395,8 @@ def k9_wide():
               f"{bool(torch.equal(got, want))}; plain PyTorch {p_ms:.1f} ms "
               f"(one call)")
         check(err <= TOL[dtype], f"K9w d={PLAIN_D} {dtype} vs plain")
+        check(bool(torch.equal(got, want)), f"K9w d={PLAIN_D} {dtype} is not "
+                                            f"its plain version bit for bit")
     timing, path, launches = {}, {}, 0
     for d, B, T, first in K9W_PATH + (K9W_D256,):
         A64, b64 = wide_prefixes(d, B, T, first, torch.float64, 160 + d)
@@ -3418,6 +3430,8 @@ def k9_wide():
                       f"in every bit {bool(torch.equal(x_path, want))}; "
                       f"plain PyTorch {p_ms:.1f} ms (one call)")
                 check(err <= TOL[dtype], f"K9w d={d} {dtype} N={n} vs plain")
+                check(bool(torch.equal(x_path, want)), f"K9w d={d} {dtype} "
+                      f"N={n} is not its plain version bit for bit")
                 path[dtype] = (err, p_ms)
                 del want
             passes = torch.zeros(n, dtype=torch.int32, device="cuda")
@@ -3425,9 +3439,29 @@ def k9_wide():
             if on_path:
                 check(torch.equal(x, x_path), f"K9w d={d} {dtype}: the "
                       f"launch differs from ball_ls_action's")
+            plan = trs.wide_plan("K9w", d, dtype, n)
+            route = ("shared memory" if plan["smem_bytes"] > 0 else
+                     "scratch")
+            if d == K9W_D256[0] and dtype == torch.float32:
+                # The cut batch against the plain version.
+                cut = slice(0, K9W_D256_PLAIN)
+                want, p_ms = timed_once(lambda: trs.trs_solve_reference(
+                    A[cut], b[cut]))
+                err = max_err((x[cut],), (want,))
+                same = bool(torch.equal(x[cut], want))
+                print(f"[14 wide] K9w d={d} {dtype} ({route}): the first "
+                      f"{K9W_D256_PLAIN} problems of the launch vs plain "
+                      f"max_abs_err={err:.3e} (bound {TOL[dtype]:g}), equal "
+                      f"in every bit {same}; plain PyTorch {p_ms:.1f} ms")
+                check(same, f"K9w d={d} {dtype} ({route}) differs from its "
+                            f"plain version")
+                del want
+            if d == K9W_D256[0]:
+                check(route == ("shared memory" if dtype == torch.float32
+                                else "scratch"),
+                      f"K9w d={d} {dtype} is on the {route} route")
             ms = time_ms(lambda: trs.launch_trs_solve(A, b), reps=5,
                          warm=True)
-            plan = trs.wide_plan("K9w", d, dtype, n)
             bd = k9w_bounds(d, A, b, passes, dtype)
             res[dtype] = x
             print(f"[14 wide] K9w d={d} {dtype} N={n} (prefixes of {first + 1}"
@@ -3435,7 +3469,7 @@ def k9_wide():
                   f"{ms[1]:.4f}, max {ms[2]:.4f}); bound {bd['bound_ms']:.4f} "
                   f"ms by {bd['bound_by']}; {float(passes.double().mean()):.4f}"
                   f" ridge solves a solve (max {int(passes.max())}); workspace "
-                  f"{'shared memory' if plan['scratch'] == 0 else 'scratch'} "
+                  f"{'shared memory' if plan['smem_bytes'] > 0 else 'scratch'} "
                   f"({plan['smem_bytes']} B shared a warp), {plan['warps']} "
                   f"warps, {plan['registers']} registers a thread, "
                   f"{plan['warps_per_sm']} warps an SM")
@@ -3523,6 +3557,8 @@ def k8_wide(tmp):
               f"values differ in any bit; plain PyTorch {p_ms:.1f} ms "
               f"(one call)")
         check(err <= TOL[dtype], f"K8w d={PLAIN_D} {dtype} vs plain")
+        check(same, f"K8w d={PLAIN_D} {dtype} is not its plain version bit "
+                    f"for bit")
         check(diff == 0, f"K8w's x_c differs from K9w at d={PLAIN_D} {dtype}")
     timing, path, launches = {}, {}, 0
     for d, dtype in ((64, torch.float32), (64, torch.float64),
@@ -3580,6 +3616,8 @@ def k8_wide(tmp):
                     f"PyTorch {p_ms:.1f} ms ({K8W_CHUNK} sequences a call)")
             check(err <= TOL[dtype], f"K8w d={d} {dtype} B={K8W_B} "
                                      f"T={K8W_T} vs plain")
+            check(same, f"K8w d={d} {dtype} B={K8W_B} T={K8W_T} is not its "
+                        f"plain version bit for bit")
             path[dtype] = (err, p_ms)
             ms = time_ms(lambda: trs.launch_quadratic_regrets(
                 z_tm, y_tm, flags, eta), reps=5, warm=True)
@@ -3605,7 +3643,7 @@ def k8_wide(tmp):
               f"ms by {bd['bound_by']} ({ops:.4g} operations); "
               f"{float(solves.mean()):.4f} ridge solves an FTL round (max "
               f"{int(solves.max())}); workspace "
-              f"{'shared memory' if plan['scratch'] == 0 else 'scratch'} "
+              f"{'shared memory' if plan['smem_bytes'] > 0 else 'scratch'} "
               f"({plan['smem_bytes']} B shared a warp), {plan['warps']} "
               f"warps, {plan['registers']} registers a thread, "
               f"{plan['warps_per_sm']} warps an SM; x_c vs K9w on the final "

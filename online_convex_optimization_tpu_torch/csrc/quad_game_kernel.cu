@@ -53,17 +53,19 @@
 //
 // K8w, the wide instance (d > OCO_QUAD_MAX_D, quad_wide_kernel): one warp
 // a sequence, on the solve of K9w (oco_trs.cuh oco::wide), so its x_c
-// equals K9w on the same statistics bit for bit.  The statistics (A's
-// lower triangle, b, theta) live in the warp's workspace with the solve's
-// (shared memory where it fits, a device scratch slice otherwise); a
-// round's O(d) and O(d^2) updates spread over the lanes, each entry's sum
-// in the thin instance's order, and the sums over the index (r, the FTRL
-// norm, the comparator's loss) run in index order on every lane.  The
-// grid is persistent, one warp a block, and a warp claims its next
-// sequence from a counter in the order of the wrapper's warp map
-// (ops/trs.py quad_warps: the FTL sequences first, the longest work); the
-// flag stays per sequence, so FTRL and FTL sequences share the launch.
-// What bounds it: the FTL rounds' solves (K9w's note).
+// equals K9w on the same statistics bit for bit.  The statistics A and b
+// live in the warp's slice of a device scratch buffer and in the
+// workspace's triangle (shared memory where it fits, a scratch slice
+// otherwise), theta and the round's row in the workspace; a round's O(d)
+// and O(d^2) updates spread over the lanes, each entry's sum in the thin
+// instance's order, and the sums over the index (r, the FTRL norm, the
+// comparator's loss) run in index order on every lane.  The grid is
+// persistent, one warp a block, and a warp claims its next sequence from a
+// counter in the order of the wrapper's warp map (ops/trs.py quad_warps:
+// the FTL sequences first, the longest work); the flag stays per sequence,
+// so FTRL and FTL sequences share the launch.  What bounds it: the FTL
+// rounds' solves, each a run of Newton passes whose chain (K9w's note) one
+// warp plays in order: 2,048 FTL sequences of 1,024 rounds fill one wave.
 #include "oco_trs.cuh"
 
 #define OCO_QUAD_THREADS 32
@@ -203,9 +205,16 @@ int launch(const void* z, const void* y, const void* alg_flag,
 
 // K8w: persistent one-warp blocks; each warp claims the next entry of
 // `order` and plays that sequence (with `passes`, each solve's ridge
-// solves: row t for an FTL round, row T for the comparator).
+// solves: row t for an FTL round, row T for the comparator).  The
+// statistics' lower triangle A and b live in the warp's slice of the
+// scratch buffer, in the order of the workspace's augmented triangle
+// (oco_trs.cuh), which each Newton pass copies in; theta and the round's
+// row live in the workspace.  A round's update of A and b runs on the
+// triangle, which holds them (trs_action leaves it so, and no solve
+// touches it on an FTRL sequence), and is written through to the slice:
+// the next round's first pass starts from it with no copy.
 template <typename S, bool kShared>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32, oco::wide::kMinBlocks<S>)
 quad_wide_kernel(const S* __restrict__ z, const S* __restrict__ y,
                  const int* __restrict__ alg_flag, const S* __restrict__ eta,
                  const int* __restrict__ order, long long T, long long B,
@@ -214,12 +223,14 @@ quad_wide_kernel(const S* __restrict__ z, const S* __restrict__ y,
                  S* __restrict__ comp_out, S* __restrict__ xc_out,
                  S* __restrict__ xlast_out, int* __restrict__ passes) {
   namespace wd = oco::wide;
-  extern __shared__ __align__(16) unsigned char wide_smem[];
   const int lane = threadIdx.x;
-  S* base = kShared ? reinterpret_cast<S*>(wide_smem)
-                    : scratch + blockIdx.x * wd::work_elems(d);
-  const wd::Work<S> w = wd::carve(base, d);
-  const long long ntri = wd::wtri(d, 0);
+  const unsigned nst = static_cast<unsigned>(wd::stats_elems<S>(d));
+  const unsigned ntri = static_cast<unsigned>(wd::tri_elems<S>(d));
+  S* const stats = scratch + blockIdx.x * (wd::stats_elems<S>(d) +
+                                           (kShared ? 0 : wd::work_elems<S>(d)));
+  const auto w = wd::workspace<S, kShared>(stats + nst, d);
+  S* const ws = w.p();
+  const wd::PackedSeed<S> sd{stats};
   for (;;) {
     unsigned long long q = 0;
     if (lane == 0) q = atomicAdd(counter, 1ULL);
@@ -228,64 +239,72 @@ quad_wide_kernel(const S* __restrict__ z, const S* __restrict__ y,
     const long long b = order[c];
     const bool ftrl = alg_flag[b] == 0;
     const S eta_b = eta[b];
-    for (long long e = lane; e < ntri; e += 32) w.A[e] = S(0);
-    for (int i = lane; i < d; i += 32) w.b[i] = w.th[i] = w.x[i] = S(0);
+    for (unsigned e = lane; e < ntri; e += 32) ws[e] = S(0);
+    for (unsigned e = lane; e < nst; e += 32) stats[e] = S(0);
+    for (int i = lane; i < d; i += 32) ws[w.th + i] = ws[w.x + i] = S(0);
     S cs = S(0), cum = S(0);
     __syncwarp();
     for (long long t = 0; t < T; ++t) {
-      for (int i = lane; i < d; i += 32) w.zr[i] = z[(t * d + i) * B + b];
+      for (int i = lane; i < d; i += 32)
+        ws[w.zr + i] = z[(t * d + i) * B + b];
       const S yt = y[t * B + b];
       __syncwarp();
       if (ftrl) {
         const S scale = -(eta_b / oco::osqrt(S(t + 1)));
-        for (int i = lane; i < d; i += 32) w.x[i] = scale * w.th[i];
+        for (int i = lane; i < d; i += 32) ws[w.x + i] = scale * ws[w.th + i];
         __syncwarp();
-        wd::to_ball(w.x, d, lane);
+        wd::to_ball(ws + w.x, d, lane);
       } else {
-        const int k = wd::trs_action(w, d, lane);
+        const int k = wd::trs_action(w, sd, true, lane);
         if (passes != nullptr && lane == 0) passes[t * B + b] = k;
       }
       // The round's update (quad_update): cum, theta, the statistics.
-      const S r = wd::wdot(w.zr, w.x, d) - yt;
+      const S r = wd::wdot(ws + w.zr, ws + w.x, d) - yt;
       cum = cum + S(0.5) * r * r;
       for (int i = lane; i < d; i += 32) {
-        w.th[i] = w.th[i] + r * w.zr[i];
-        w.b[i] = w.b[i] + yt * w.zr[i];
+        ws[w.th + i] = ws[w.th + i] + r * ws[w.zr + i];
+        const S bi = ws[w.rb + i] + yt * ws[w.zr + i];
+        ws[w.rb + i] = bi;
+        stats[w.rb + i] = bi;
       }
+      unsigned ri = 0;
       for (int i = 0; i < d; ++i) {
-        const long long ri = wd::wtri(i, 0);
-        const S zi = w.zr[i];
-        for (int j = lane; j <= i; j += 32)
-          w.A[ri + j] = w.A[ri + j] + zi * w.zr[j];
+        const S zi = ws[w.zr + i];
+        for (int j = lane; j <= i; j += 32) {
+          const S a = ws[ri + j] + zi * ws[w.zr + j];
+          ws[ri + j] = a;
+          stats[ri + j] = a;
+        }
+        ri += i + 1;
       }
       cs = cs + yt * yt;
       __syncwarp();
     }
-    for (int i = lane; i < d; i += 32) xlast_out[i * B + b] = w.x[i];
+    for (int i = lane; i < d; i += 32) xlast_out[i * B + b] = ws[w.x + i];
     __syncwarp();
-    // The exact comparator from the final statistics into w.x, and its
-    // loss: xa_i = sum_j a_ij x_j on lane i mod 32 (into w.v), then the
-    // two index-order sums.
-    const int kc = wd::trs_action(w, d, lane);
+    // The exact comparator from the final statistics into x, and its loss:
+    // xa_i = sum_j a_ij x_j on lane i mod 32 (into v), then the two
+    // index-order sums.
+    const int kc = wd::trs_action(w, sd, true, lane);
     if (passes != nullptr && lane == 0) passes[T * B + b] = kc;
     for (int i = lane; i < d; i += 32) {
+      const unsigned ri = wd::rs(i);
       S xa = S(0);
       for (int j = 0; j < d; ++j)
-        xa = xa + (j <= i ? w.A[wd::wtri(i, j)] : w.A[wd::wtri(j, i)]) *
-                      w.x[j];
-      w.v[i] = xa;
+        xa = xa + (j <= i ? ws[ri + j] : ws[wd::rs(j) + i]) * ws[w.x + j];
+      ws[w.v + i] = xa;
     }
     __syncwarp();
     S quad = S(0), dotb = S(0);
     for (int i = 0; i < d; ++i) {
-      quad = quad + w.x[i] * w.v[i];
-      dotb = dotb + w.b[i] * w.x[i];
+      quad = quad + ws[w.x + i] * ws[w.v + i];
+      dotb = dotb + ws[w.rb + i] * ws[w.x + i];
     }
     if (lane == 0) {
       cum_out[b] = cum;
       comp_out[b] = S(0.5) * ((quad - S(2) * dotb) + cs);
     }
-    for (int i = lane; i < d; i += 32) xc_out[i * B + b] = w.x[i];
+    for (int i = lane; i < d; i += 32) xc_out[i * B + b] = ws[w.x + i];
     __syncwarp();
   }
 }
@@ -293,7 +312,8 @@ quad_wide_kernel(const S* __restrict__ z, const S* __restrict__ y,
 template <typename S>
 int plan_wide(int d, long long B, long long* out) {
   return oco::wide::plan<S>(quad_wide_kernel<S, true>,
-                            quad_wide_kernel<S, false>, d, B, out);
+                            quad_wide_kernel<S, false>, d, B,
+                            oco::wide::stats_elems<S>(d), out);
 }
 
 template <typename S>
@@ -305,9 +325,9 @@ int launch_wide(const void* z, const void* y, const void* alg_flag,
   const auto s = static_cast<cudaStream_t>(stream);
   auto* cp = static_cast<unsigned long long*>(counter);
   long long plan[5];
-  const int err = oco::wide::prepare<S>(quad_wide_kernel<S, true>,
-                                        quad_wide_kernel<S, false>, d, B,
-                                        scratch, cp, s, plan);
+  const int err = oco::wide::prepare<S>(
+      quad_wide_kernel<S, true>, quad_wide_kernel<S, false>, d, B,
+      oco::wide::stats_elems<S>(d), scratch, cp, s, plan);
   if (err != cudaSuccess) return err;
   const auto grid = static_cast<unsigned>(plan[0]);
   const auto* zp = static_cast<const S*>(z);
@@ -321,7 +341,7 @@ int launch_wide(const void* z, const void* y, const void* alg_flag,
   auto* xp = static_cast<S*>(x_c);
   auto* lp = static_cast<S*>(x_last);
   auto* pp = static_cast<int*>(passes);
-  if (plan[1] == 0)
+  if (plan[2] > 0)
     quad_wide_kernel<S, true><<<grid, 32, plan[2], s>>>(
         zp, yp, fp, ep, op, T, B, d, cp, wp, kp, mp, xp, lp, pp);
   else

@@ -40,20 +40,20 @@
 //     finish within about one solve of each other.
 //
 // K9w, the wide instance (d > OCO_QUAD_MAX_D, trs_wide_kernel): one warp a
-// problem, on oco::wide's solve, whose Cholesky and forward substitutions
-// spread over the lanes and whose backward substitution is one serial
-// chain (oco_trs.cuh says why), with the answer of the plain version in
-// every bit.  A warp's workspace (A's and the factor's triangles, six
-// vectors) lives in shared memory up to about d = 230 in float32 and 165
-// in float64, in a device scratch slice read through L2 above that.  The
-// grid is persistent, one warp a block (each with its own workspace), and
-// a warp claims its next problem from the counter as its solve ends.
-// What bounds it: operations and their latency.  A Newton pass is about
-// d^3 / 3 operations, most in the Cholesky's trailing updates (a load,
-// a multiply, a subtract and a store each, spread over 32 lanes), and a
-// serial chain of d divides, d sqrts and d^2 / 2 dependent subtractions;
-// the resident warps an SM (bounded by the workspace) hide each other's
-// chains.
+// problem, on oco::wide's solve (oco_trs.cuh says how its Cholesky and
+// substitutions spread over the lanes), with the answer of the plain
+// version in every bit.  A warp's workspace (the factor's triangle, b as
+// its last row, five vectors) lives in shared memory up to d = 334 in
+// float32 and 234 in float64, in a device scratch slice read through L2
+// above that; A stays in the caller's (N, d, d), and each Newton pass
+// copies its lower triangle and b in with cp.async.  The grid is
+// persistent, one warp a block (each with its own workspace), and a warp
+// claims its next problem from the counter as its solve ends.  What bounds
+// it: the latency of one warp's chain (a pass at d = 64 is ~180,000 clocks
+// alone on an SM, most of it correctly rounded divides and sqrts and the
+// loads and shuffles between them; scripts/wide_probe.py --split), hidden
+// by as many warps as the workspace lets an SM hold (21 at d = 64 in
+// float32, 11 in float64).
 #include "oco_tiles.cuh"
 #include "oco_trs.cuh"
 
@@ -198,45 +198,43 @@ int occupancy(int d, int* out) {
              : oco::occupancy(trs_refill_kernel<S, 0>, kThreads, 0, out);
 }
 
-// K9w: persistent one-warp blocks; each warp claims a problem, copies its
-// lower triangle and b into its workspace, solves and stores x (and, with
-// `passes`, the solve's ridge solves).
+// K9w: persistent one-warp blocks; each warp claims a problem, issues the
+// copy of its lower triangle and b into the workspace's augmented triangle
+// (each pass copies them again from A and b, which stay in device memory),
+// solves and stores x (and, with `passes`, the solve's ridge solves).
 template <typename S, bool kShared>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32, oco::wide::kMinBlocks<S>)
 trs_wide_kernel(const S* __restrict__ A, const S* __restrict__ bvec,
                 long long N, int d, unsigned long long* __restrict__ counter,
                 S* __restrict__ scratch, S* __restrict__ x_out,
                 int* __restrict__ passes) {
   namespace wd = oco::wide;
-  extern __shared__ __align__(16) unsigned char wide_smem[];
   const int lane = threadIdx.x;
-  S* base = kShared ? reinterpret_cast<S*>(wide_smem)
-                    : scratch + blockIdx.x * wd::work_elems(d);
-  const wd::Work<S> w = wd::carve(base, d);
+  const auto w = wd::workspace<S, kShared>(
+      scratch + (kShared ? 0 : blockIdx.x * wd::work_elems<S>(d)), d);
+  S* const ws = w.p();
+  OCO_SPLIT(-1);
   for (;;) {
     unsigned long long q = 0;
     if (lane == 0) q = atomicAdd(counter, 1ULL);
     const long long p = static_cast<long long>(__shfl_sync(wd::kWarp, q, 0));
     if (p >= N) break;
-    const S* Ap = A + p * d * d;
-    for (int i = 0; i < d; ++i) {
-      const long long ri = wd::wtri(i, 0);
-      for (int j = lane; j <= i; j += 32)
-        w.A[ri + j] = Ap[static_cast<long long>(i) * d + j];
-    }
-    for (int i = lane; i < d; i += 32) w.b[i] = bvec[p * d + i];
-    __syncwarp();
-    const int k = wd::trs_action(w, d, lane);
+    const wd::RowSeed<S> sd{A + p * d * d, bvec + p * d};
+    wd::seed_issue(w, sd, lane);
+    wd::seed_wait<kShared>();
+    OCO_SPLIT(wd::kSplitProblem);
+    const int k = wd::trs_action(w, sd, false, lane);
     if (passes != nullptr && lane == 0) passes[p] = k;
-    for (int i = lane; i < d; i += 32) x_out[p * d + i] = w.x[i];
+    for (int i = lane; i < d; i += 32) x_out[p * d + i] = ws[w.x + i];
     __syncwarp();
   }
+  OCO_SPLIT(wd::kSplitProblem);
 }
 
 template <typename S>
 int plan_wide(int d, long long N, long long* out) {
   return oco::wide::plan<S>(trs_wide_kernel<S, true>,
-                            trs_wide_kernel<S, false>, d, N, out);
+                            trs_wide_kernel<S, false>, d, N, 0, out);
 }
 
 template <typename S>
@@ -247,7 +245,7 @@ int launch_wide(const void* A, const void* b, long long N, int d,
   auto* cp = static_cast<unsigned long long*>(counter);
   long long plan[5];
   const int err = oco::wide::prepare<S>(trs_wide_kernel<S, true>,
-                                        trs_wide_kernel<S, false>, d, N,
+                                        trs_wide_kernel<S, false>, d, N, 0,
                                         scratch, cp, s, plan);
   if (err != cudaSuccess) return err;
   const auto grid = static_cast<unsigned>(plan[0]);
@@ -256,7 +254,7 @@ int launch_wide(const void* A, const void* b, long long N, int d,
   auto* wp = static_cast<S*>(scratch);
   auto* xp = static_cast<S*>(x);
   auto* pp = static_cast<int*>(passes);
-  if (plan[1] == 0)
+  if (plan[2] > 0)
     trs_wide_kernel<S, true><<<grid, 32, plan[2], s>>>(ap, bp, N, d, cp, wp,
                                                        xp, pp);
   else
@@ -307,6 +305,20 @@ extern "C" int oco_trs_solve_wide_f32(const void* A, const void* b,
                                       void* stream) {
   return launch_wide<float>(A, b, N, d, counter, scratch, x, passes, stream);
 }
+
+#ifdef OCO_WIDE_SPLIT
+// The probe build's clocks by phase (oco_trs.cuh SplitPhase), summed over
+// warps, into out[kSplitPhases]; zeroed after the read.
+extern "C" int oco_wide_split(unsigned long long* out) {
+  namespace wd = oco::wide;
+  cudaError_t err = cudaMemcpyFromSymbol(out, wd::split_clocks,
+                                         sizeof(wd::split_clocks));
+  static const unsigned long long zero[wd::kSplitPhases] = {};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(wd::split_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 // K9w's plan for N problems of dimension d on the current card
 // (oco_trs.cuh oco::wide::plan: grid warps, scratch elements, shared bytes

@@ -50,10 +50,13 @@ sum in another order on CUDA.)
 A wrapper runs the plain version on a CPU tensor and launches a kernel on
 a CUDA tensor, at any d: up to ``MAX_D`` the thin instances above (a
 problem or a sequence a lane), above it the wide ones, K9w and K8w (one
-warp a problem or a sequence, ``wide_instance``), whose Cholesky and
-forward substitutions spread over the lanes in the plain version's order
-of operations, so they too equal it bit for bit (``csrc/oco_trs.cuh``
-``oco::wide``).  K8w plays its sequences in the order of ``quad_warps``.
+warp a problem or a sequence, ``wide_instance``; d <= ``WIDE_MAX_D``),
+whose Cholesky and substitutions spread over the lanes in the plain
+version's order of operations, so they too equal it bit for bit
+(``csrc/oco_trs.cuh`` ``oco::wide``).  A warp keeps only the factor's
+triangle (augmented by b) and five vectors, in shared memory where they
+fit (``wide_layout``, ``wide_shared_max_d``); A stays in device memory.
+K8w plays its sequences in the order of ``quad_warps``.
 The TPU packing (``pack_stats`` / ``unpack_x``, the (8, 128) tiling) is
 not ported: K9 reads the public ``(N, d, d)`` layout, K8 the time-major
 ``(T, d, B)`` one.
@@ -356,12 +359,72 @@ def wide_instance(d: int) -> bool:
     return d > MAX_D
 
 
+# Largest d of the wide instances: a warp's workspace is addressed with
+# 32-bit offsets (csrc/oco_trs.cuh oco::wide::kMaxD).
+WIDE_MAX_D = 65535
+
+# Shared memory a block may opt in to on an H100 (232,448 bytes): what
+# ``wide_shared_max_d`` assumes by default.
+H100_SMEM_OPTIN = 232448
+
+
+def wide_layout(d: int, dtype) -> dict:
+    """The device storage of a warp of K9w and K8w at ``d``
+    (``csrc/oco_trs.cuh`` ``oco::wide::tri_elems``, ``stats_elems``,
+    ``work_elems``), in elements of ``dtype``, each part padded to 16
+    bytes: ``tri``, the packed lower triangle of order d + 1 that holds A's
+    rows and b as its last row (the workspace's factor); ``stats``, K8w's
+    statistics slice (A's packed rows, then b); ``work``, the workspace
+    (the triangle and five vectors of d); and ``bytes``, the workspace's
+    bytes."""
+    item = {torch.float32: 4, torch.float64: 8}[dtype]
+    q = 16 // item
+
+    def pad(n):
+        return -(-n // q) * q
+
+    tri = pad((d + 1) * (d + 2) // 2)
+    work = tri + pad(5 * d)
+    return {"tri": tri, "stats": pad(d * (d + 3) // 2), "work": work,
+            "bytes": work * item}
+
+
+def wide_shared_max_d(dtype, optin: int = H100_SMEM_OPTIN) -> int:
+    """The largest d whose workspace fits ``optin`` bytes of shared memory
+    (a block's opt-in limit): past it K9w and K8w keep the workspace in
+    device scratch.  334 in float32 and 234 in float64 on an H100."""
+    d = 1
+    while wide_layout(d + 1, dtype)["bytes"] <= optin:
+        d += 1
+    return d
+
+
+def wide_scratch_elems(kernel: str, d: int, dtype, warps: int,
+                       shared: bool) -> int:
+    """Elements of the scratch buffer a wide launch of ``warps`` warps
+    allocates: K8w's statistics slice a warp, and a workspace a warp where
+    it is not in shared memory (``oco::wide::plan``'s out[1])."""
+    lay = wide_layout(d, dtype)
+    per = (lay["stats"] if kernel == "K8w" else 0) + (0 if shared
+                                                       else lay["work"])
+    return warps * per
+
+
+def check_wide_d(d: int):
+    """Raise past the wide kernels' largest d."""
+    if d > WIDE_MAX_D:
+        raise ValueError(f"d = {d}: the wide kernels take d <= "
+                         f"{WIDE_MAX_D} (32-bit workspace offsets)")
+
+
 def wide_plan(kernel: str, d: int, dtype, n: int) -> dict:
     """The launch plan of K9w (``kernel="K9w"``, n problems) or K8w
     (``"K8w"``, n sequences) on the current card: the persistent grid's
-    warps, the scratch elements a launch allocates (0 where a warp's
-    workspace fits shared memory), the shared bytes a warp, the registers
-    a thread and the resident warps an SM."""
+    warps, the scratch elements a launch allocates (K8w's statistics, and
+    the workspaces where they do not fit shared memory), the shared bytes a
+    warp (0 on the scratch route), the registers a thread and the resident
+    warps an SM."""
+    check_wide_d(d)
     lib = cuda_build.load()
     fn = {"K9w": lib.oco_trs_wide_plan, "K8w": lib.oco_quad_wide_plan}[kernel]
     out = (ctypes.c_longlong * 5)()
@@ -372,9 +435,16 @@ def wide_plan(kernel: str, d: int, dtype, n: int) -> dict:
                      "warps_per_sm"), out))
 
 
-def _wide_scratch(plan: dict, dtype, device):
-    """The scratch buffer of a wide launch's plan (one element where it
-    needs none)."""
+def _wide_scratch(kernel: str, d: int, dtype, n: int, device):
+    """The scratch buffer of a wide launch (one element where it needs
+    none), after checking the card's plan against ``wide_layout``."""
+    plan = wide_plan(kernel, d, dtype, n)
+    shared = plan["smem_bytes"] > 0
+    if (plan["scratch"] != wide_scratch_elems(kernel, d, dtype,
+                                              plan["warps"], shared)
+            or shared and plan["smem_bytes"] != wide_layout(d, dtype)["bytes"]):
+        raise RuntimeError(f"{kernel} plan {plan} disagrees with "
+                           f"wide_layout({d}, {dtype})")
     return torch.empty((max(plan["scratch"], 1),), dtype=dtype, device=device)
 
 
@@ -406,8 +476,7 @@ def launch_trs_solve(A: torch.Tensor, b: torch.Tensor,
         counter = torch.empty((1,), dtype=torch.int64, device=A.device)
         stream = torch.cuda.current_stream(A.device).cuda_stream
         if wide:
-            scratch = _wide_scratch(wide_plan("K9w", d, A.dtype, N), A.dtype,
-                                    A.device)
+            scratch = _wide_scratch("K9w", d, A.dtype, N, A.device)
             fn = lib.oco_trs_solve_wide_f64 if f64 else \
                 lib.oco_trs_solve_wide_f32
             err = fn(A.data_ptr(), b.data_ptr(), N, d, counter.data_ptr(),
@@ -654,8 +723,7 @@ def launch_quadratic_regrets_wide(z_tm, y_tm, flags, eta, passes=None):
         lib.oco_quad_game_wide_f32
     with torch.cuda.device(z_tm.device):
         order = quad_warps(flags)
-        scratch = _wide_scratch(wide_plan("K8w", d, z_tm.dtype, B),
-                                z_tm.dtype, z_tm.device)
+        scratch = _wide_scratch("K8w", d, z_tm.dtype, B, z_tm.device)
         counter = torch.empty((1,), dtype=torch.int64, device=z_tm.device)
         cum = torch.empty((B,), dtype=z_tm.dtype, device=z_tm.device)
         comp = torch.empty_like(cum)
@@ -739,5 +807,7 @@ def quadratic_regrets(z_tm: torch.Tensor, y_tm: torch.Tensor, alg_flag=ALG_FTL,
 __all__ = ["ALG_FTL", "ALG_FTRL", "MAX_D", "trs_solve", "trs_solve_reference",
            "trs_action_reference", "trs_action_settled", "quad_lanes",
            "quad_warps", "ftl_width", "refill_iterations", "trs_occupancy",
-           "wide_instance", "wide_plan", "quadratic_regrets",
+           "wide_instance", "wide_plan", "wide_layout", "wide_shared_max_d",
+           "wide_scratch_elems", "WIDE_MAX_D",
+           "quadratic_regrets",
            "quadratic_regrets_reference"]

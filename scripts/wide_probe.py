@@ -14,11 +14,21 @@ four; with the Newton passes the kernel reports.  Then a census of the
 loops of ``trs_wide_kernel<float, shared>`` in this build's SASS
 (``scripts/sass_census.py``'s reader, cuobjdump): each loop's instructions
 by kind.  Prints the card's name and power limit first.
+
+    python3 scripts/wide_probe.py --split
+
+instead builds ``csrc/trs_kernel.cu`` alone with ``-DOCO_WIDE_SPLIT`` (the
+clock64 marks of ``csrc/oco_trs.cuh``) into ``build/wide_probe/`` and, at
+one problem an SM (each warp alone on its SM), prints a Newton pass's
+clocks by phase: the seed of L, the Cholesky's pivots and divides, its
+trailing updates, the forward and backward substitutions, the Newton step,
+and the per-problem work.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import importlib.util
 import os
 import subprocess
@@ -108,6 +118,62 @@ def census():
               + ", ".join(f"{k} {v}" for k, v in sorted(count.items())))
 
 
+PHASES = ("seed", "pivots", "trailing", "forward", "backward", "step",
+          "problem")
+
+
+def split_library():
+    """The probe build of K9w: ``csrc/trs_kernel.cu`` with the clock64
+    marks compiled in, loaded through ctypes."""
+    out = os.path.join(REPO, "build", "wide_probe")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libwide_split.so")
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                    "-DOCO_WIDE_SPLIT", "-shared", "-o", lib,
+                    os.path.join(cuda_build.SRC_DIR, "trs_kernel.cu")],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(lib)
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("oco_trs_solve_wide_f32", "oco_trs_solve_wide_f64"):
+        getattr(so, name).argtypes = [P, P, LL, I] + [P] * 5
+    so.oco_trs_wide_plan.argtypes = [I, I, LL, P]
+    so.oco_wide_split.argtypes = [P]
+    return so
+
+
+def split():
+    so = split_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d, dtype in ((64, torch.float32), (64, torch.float64),
+                     (128, torch.float32)):
+        A, b = prefixes(sms, d, dtype)
+        plan = (ctypes.c_longlong * 5)()
+        f64 = dtype == torch.float64
+        assert so.oco_trs_wide_plan(int(f64), d, sms, plan) == 0
+        scratch = torch.empty(max(plan[1], 1), dtype=dtype, device="cuda")
+        counter = torch.empty(1, dtype=torch.int64, device="cuda")
+        x = torch.empty_like(b)
+        passes = torch.zeros(sms, dtype=torch.int32, device="cuda")
+        fn = so.oco_trs_solve_wide_f64 if f64 else so.oco_trs_solve_wide_f32
+        clocks = (ctypes.c_ulonglong * len(PHASES))()
+        for _ in range(2):         # the first launch warms; its clocks drop
+            assert so.oco_wide_split(clocks) == 0
+            assert fn(A.data_ptr(), b.data_ptr(), sms, d, counter.data_ptr(),
+                      scratch.data_ptr(), x.data_ptr(), passes.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream) == 0
+            torch.cuda.synchronize()
+        assert so.oco_wide_split(clocks) == 0
+        check = torch.equal(x, trs.launch_trs_solve(A, b))
+        n_pass = int(passes.sum())
+        total = sum(clocks)
+        print(f"K9w d={d} {dtype} N={sms} (one warp an SM, {plan[4]} an SM "
+              f"at most), probe build equal to the library's in every bit "
+              f"{check}: {total / n_pass:.0f} clocks a Newton pass "
+              f"({n_pass} passes), by phase: " + ", ".join(
+                  f"{name} {c / n_pass:.0f} ({100 * c / total:.1f}%)"
+                  for name, c in zip(PHASES, clocks)), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("wide_probe: no CUDA device")
@@ -116,6 +182,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     cuda_build.load()
+    if "--split" in sys.argv[1:]:
+        split()
+        return 0
     timings()
     census()
     return 0

@@ -952,20 +952,95 @@ def test_trs_instances_either_side_of_the_boundary(cuda, dtype, d):
 
 
 def test_trs_wide_scratch_workspace(cuda):
-    """At d = 170 in f64 a warp's workspace passes shared memory and lives
-    in device scratch: the same bits as the plain version."""
-    plan = trs.wide_plan("K9w", 170, torch.float64, 6)
+    """At d = 240 in f64 a warp's workspace (one triangle and six vectors)
+    passes shared memory and lives in device scratch: the same bits as the
+    plain version."""
+    plan = trs.wide_plan("K9w", 240, torch.float64, 6)
     assert plan["scratch"] > 0 and plan["smem_bytes"] == 0
-    A, b = _wide_problems(6, 170, torch.float64, cuda, seed=5)
+    A, b = _wide_problems(6, 240, torch.float64, cuda, seed=5)
     b = b * torch.tensor([0.01, 0.1, 1.0, 3.0, 10.0, 100.0],
                          dtype=torch.float64, device=cuda)[:, None]
     passes = torch.zeros(6, dtype=torch.int32, device=cuda)
     x = trs.launch_trs_solve(A, b, passes)
     assert torch.equal(x, trs.trs_solve_reference(A, b))
-    rows, cols = trs.tri_index(170)
+    rows, cols = trs.tri_index(240)
     _, want = trs.trs_action_settled([A[:, i, j] for i, j in zip(rows, cols)],
-                                     [b[:, i] for i in range(170)])
+                                     [b[:, i] for i in range(240)])
     assert torch.equal(passes.long(), want)
+
+
+def _wide_d(dtype, where):
+    """d by name: a number, or the largest d whose workspace fits shared
+    memory ("edge") and the one past it ("past")."""
+    edge = trs.wide_shared_max_d(dtype)
+    return {"edge": edge, "past": edge + 1}.get(where) or int(where)
+
+
+def _settled_passes(A, b):
+    d = b.shape[-1]
+    rows, cols = trs.tri_index(d)
+    return trs.trs_action_settled([A[:, i, j] for i, j in zip(rows, cols)],
+                                  [b[:, i] for i in range(d)])[1]
+
+
+WIDE_CASES = ["33", "64", "65", "128", "edge", "past"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("where", WIDE_CASES)
+def test_wide_solve_equals_plain_bit_for_bit(cuda, dtype, where):
+    """K9w at d = 33, 64, 65 and 128, at the largest d whose workspace fits
+    shared memory and one past it: x equals trs_solve_reference and each
+    solve's passes trs_action_settled's, bit for bit, on prefix statistics
+    (singular ones included) with b scaled so that solves end inside the
+    ball and on it; the plan keeps the workspace in shared memory up to the
+    boundary (at the bytes of wide_layout) and in scratch past it."""
+    d = _wide_d(dtype, where)
+    plan = trs.wide_plan("K9w", d, dtype, 1 << 20)
+    assert (plan["smem_bytes"] > 0) == (d <= trs.wide_shared_max_d(dtype))
+    assert plan["smem_bytes"] in (0, trs.wide_layout(d, dtype)["bytes"])
+    if d <= 128:
+        A, b = _wide_problems(3 * d // 2 + 5, d, dtype, cuda, seed=d)
+    else:                   # 12 prefixes of d - 3 .. d + 8 rows
+        A, b = _wide_problems(d + 8, d, dtype, cuda, seed=d)
+        A, b = A[-12:].contiguous(), b[-12:].contiguous()
+    scale = torch.logspace(-2, 2, b.shape[0], dtype=dtype, device=cuda)
+    b = (b * scale[:, None]).contiguous()
+    passes = torch.zeros(b.shape[0], dtype=torch.int32, device=cuda)
+    x = trs.launch_trs_solve(A, b, passes)
+    assert torch.equal(x, trs.trs_solve_reference(A, b))
+    assert torch.equal(passes.long(), _settled_passes(A, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("where", WIDE_CASES)
+def test_wide_game_equals_plain_bit_for_bit(cuda, dtype, where):
+    """K8w at the same d: FTRL and FTL sequences in one launch equal
+    quadratic_regrets_reference bit for bit, x_c equals K9w on the final
+    statistics, and each solve's passes (every FTL round's and the
+    comparator's) equal trs_action_settled's on its prefix."""
+    d = _wide_d(dtype, where)
+    B, T = (4, 24) if d <= 128 else (3, 3)
+    z, y, _ = device_data.regression_stream_batch(
+        torch.Generator(device=cuda).manual_seed(d + 7), B, T, d,
+        dtype=dtype)
+    flags = torch.tensor([1, 0, 1, 1][:B], dtype=torch.int32, device=cuda)
+    eta = torch.linspace(0.5, 2.0, B, dtype=dtype, device=cuda)
+    z_tm, y_tm = game.time_major(z, y)
+    passes = torch.zeros((T + 1, B), dtype=torch.int32, device=cuda)
+    got = trs.launch_quadratic_regrets_wide(z_tm, y_tm, flags, eta, passes)
+    want = trs.quadratic_regrets_reference(z_tm, y_tm, flags, eta)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    A_pre = z.new_zeros((T + 1, B, d, d))
+    b_pre = z.new_zeros((T + 1, B, d))
+    for t in range(T):
+        A_pre[t + 1] = A_pre[t] + z[:, t, :, None] * z[:, t, None, :]
+        b_pre[t + 1] = b_pre[t] + y[:, t, None] * z[:, t]
+    assert torch.equal(got[2], trs.trs_solve(A_pre[T], b_pre[T]).t())
+    settled = _settled_passes(A_pre.reshape(-1, d, d),
+                              b_pre.reshape(-1, d)).reshape(T + 1, B)
+    settled[:T] = torch.where(flags == 1, settled[:T], 0)
+    assert torch.equal(passes.long(), settled)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
