@@ -178,14 +178,21 @@ non-zero without printing a result):
   14. wide    — the instances past the thin kernels' sizes: (a) K10l, the
                rows longer than 4,096 entries, through
                ``admm_all_prefixes_l2`` at B=2 T=8192 d=5 (200 fixed
-               iterations, random contract data): its launch count, the
-               state against the plain version (5e-4), rows p < 4096
-               against the launch on z[:, :4096] and 100 + 100 iterations
-               against 200 (bit for bit), its time (the launch less the
-               launch on z[:, :4096]), bound and the stream of its state;
-               the route's iters=6000 tol=2e-4, with the iterations each
-               row took (one-block continued calls: the rows at or below
-               tol must be the rows those calls saw converge); the
+               iterations, random contract data), every long row on its
+               resident instance: its launch count, the state against the
+               plain version (5e-4), rows p < 4096 against the launch on
+               z[:, :4096] and 100 + 100 iterations against 200 (bit for
+               bit), its time (the launch less the launch on z[:, :4096]),
+               bound, --fmad=false issue floor, registers, warps an SM and
+               the stream its state would take; the route's iters=6000
+               tol=2e-4, with the iterations each row took (one-block
+               continued calls: the rows at or below tol must be the rows
+               those calls saw converge); at B=1 T=9,216 (200 fixed
+               iterations) the streaming instance on the rows past 8,192
+               entries and the resident one on the others: both launch
+               counts, every row against the plain version (5e-4), rows p
+               < 8,192 against the launch on z[:, :8192] (bit for bit), the
+               streaming instance's time (the launch less that launch); the
                ``--exact --exact-solver kernel`` driver at one horizon T =
                4,200 (one run, one random family, --g-runs 4) against the
                auto route at phase 11's f32 scoring bound; (b) K9w:
@@ -228,8 +235,9 @@ resident warps an SM (K9's and K10's text lines also print the
 --fmad=false issue floor, which is arithmetic and stays out of the
 kernels line).  The narrow instances of phase 13 have an entry each
 (name ``... (K1, bfloat16 z, int8 y: oco_*_bf16i8)``), with K1 at
-bench.py's shape.  K10l, K9w and K8w (phase 14) have an entry each at
-their path shapes (K10l: B=2 T=8192, 200 iterations; K9w: d=64,
+bench.py's shape.  K10l's two instances, K9w and K8w (phase 14) have an
+entry each at their path shapes (K10l resident: B=2 T=8192, 200
+iterations; K10l streaming: B=1 T=9,216, 200 iterations; K9w: d=64,
 65,536 problems, f32; K8w: d=64, B=4,096 T=1,024, f32), their errors
 and plain times from the plain versions on the same inputs (K8w's in
 calls of 512 sequences, summed).  The line before the
@@ -3148,6 +3156,8 @@ def phase_storage():
 # --------------------------------------------------------------- phase 14
 # K10l: rows past the register instances' 4,096 entries.
 LONG_B, LONG_T, LONG_ITERS = 2, 8192, 200
+# K10l's streaming instance: the rows past the resident instance's 8,192.
+STREAM_T = 9216
 # K9w and K8w: d past the thin instances' 32.
 K9W_PATH = ((64, 64, 1024, 0), (128, 16, 1024, 512))   # d, B, T, first row
 K9W_D256 = (256, 4, 1024, 1024)
@@ -3168,13 +3178,24 @@ K8W_CHUNK = 512
 K8W_SAMPLE = 8
 
 
-def long_row_ops(B: int, T: int, d: int, iters: int) -> int:
-    """K10l's operations (``admm_ops``'s counts) over the rows longer than
-    ``admm.LONG_ROWS``."""
-    lo = admm.LONG_ROWS
-    entries = (T * (T + 1) - lo * (lo + 1)) // 2
+def long_row_ops(B: int, T: int, d: int, iters: int, lo: int = 0,
+                 hi: int = 0) -> int:
+    """K10l's operations (``admm_ops``'s counts) over the rows of lo + 1 ..
+    hi entries (by default ``admm.LONG_ROWS`` .. T)."""
+    lo, hi = lo or admm.LONG_ROWS, hi or T
+    entries = (hi * (hi + 1) - lo * (lo + 1)) // 2
     return iters * B * ((4 * d + 13) * entries
-                        + (2 * d * d + 12 * d + 1) * (T - lo))
+                        + (2 * d * d + 12 * d + 1) * (hi - lo))
+
+
+def long_row_bytes(z, y, Lpk, lo: int, hi: int) -> int:
+    """Bytes K10l's rows of lo + 1 .. hi entries must move: z and y read
+    once, each row's factor read and its state (s, u up to T, x, w, v,
+    res) written once."""
+    B, T, d = z.shape
+    rows = B * (hi - lo)
+    return 4 * (z.numel() + y.numel() + rows * (Lpk.shape[1] + 3 * d + 1)
+                + 2 * rows * T)
 
 
 def k10_long():
@@ -3187,16 +3208,18 @@ def k10_long():
     blocks of 100 iterations each row took."""
     z, y = exact_batch(LONG_B, LONG_T, D, 140)
     lo = admm.LONG_ROWS
-    admm.LONG_LAUNCHES = 0
+    admm.LONG_LAUNCHES = admm.RESIDENT_LAUNCHES = 0
     X, res, st = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS, tol=0.0)
     torch.cuda.synchronize()
-    launches = admm.LONG_LAUNCHES
+    launches = admm.RESIDENT_LAUNCHES
     print(f"[14 wide] admm_all_prefixes_l2 B={LONG_B} T={LONG_T} d={D} f32, "
-          f"{LONG_ITERS} fixed iterations: K10l launches {launches} (K10 "
+          f"{LONG_ITERS} fixed iterations: K10l launches "
+          f"{admm.LONG_LAUNCHES}, of its resident instance {launches} (K10 "
           f"instances {admm.kernel_instances(LONG_T)}); state "
           f"{2 * st[0].numel() * 4 / 1e9:.2f} GB")
-    check(launches == 1, "admm_all_prefixes_l2 at T > 4096 did not launch "
-                         "K10l once")
+    check(launches == 1 and admm.LONG_LAUNCHES == 1,
+          "admm_all_prefixes_l2 at T = 8192 did not launch K10l's resident "
+          "instance once")
     Lpk = admm.admm_prologue(z)
     (res_p, st_p), p_ms = timed_once(
         lambda: admm.admm_all_prefixes_l2_reference(
@@ -3253,24 +3276,30 @@ def k10_long():
     k_ms = f_ms - s_ms
     ops = long_row_ops(LONG_B, LONG_T, D, LONG_ITERS)
     entries = LONG_B * ((LONG_T * (LONG_T + 1) - lo * (lo + 1)) // 2)
-    n_rows = LONG_B * (LONG_T - lo)
-    n_bytes = 4 * (z.numel() + y.numel() + n_rows * (Lpk.shape[1] + 3 * D + 1)
-                   + 2 * n_rows * LONG_T)
+    n_bytes = long_row_bytes(z, y, Lpk, lo, LONG_T)
     stream_ms = 16 * entries * LONG_ITERS / HBM_BYTES_PER_S * 1e3
-    regs, warps = admm.kernel_occupancy(LONG_T, D)["long"]
+    regs, warps = admm.kernel_occupancy(LONG_T, D)["resident"]
+    plan = admm.resident_plan(D)
     out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "library_ms": None, **bound(n_bytes, ops, torch.float32),
            "registers": regs, "warps_per_sm": warps}
-    print(f"[14 wide] K10l B={LONG_B} T={LONG_T} d={D} f32, {LONG_ITERS} "
-          f"fixed iterations: {k_ms:.4f} ms (the launch "
+    print(f"[14 wide] K10l resident B={LONG_B} T={LONG_T} d={D} f32, "
+          f"{LONG_ITERS} fixed iterations: {k_ms:.4f} ms (the launch "
           f"{f_ms:.4f} ms [{', '.join(f'{t[1]:.4f}..{t[2]:.4f}' for t in full)}]"
           f" less the launch on z[:, :{lo}] {s_ms:.4f} ms "
           f"[{', '.join(f'{t[1]:.4f}..{t[2]:.4f}' for t in short)}]); bound "
           f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({ops:.4g} "
           f"operations, {n_bytes / 1e9:.3f} GB in and out once); the "
           f"state's stream, 16 B an entry an iteration over {entries} long-"
-          f"row entries, {stream_ms:.4f} ms at 3.35 TB/s; {regs} registers "
-          f"a thread, {warps} warps an SM")
+          f"row entries, {stream_ms:.4f} ms at 3.35 TB/s; --fmad=false "
+          f"issue floor {ops / FP32_ISSUE_PER_S * 1e3:.4f} ms; {regs} "
+          f"registers a thread, {warps} warps an SM; {plan['rows']} rows a "
+          f"block of {plan['threads']} threads ({plan['group_rows']} a "
+          f"thread, {plan['register_entries']} of its entries in registers,"
+          f" {plan['shared_entries']} in shared memory), a ring of "
+          f"{plan['stages']} entries a thread of a group, "
+          f"{plan['smem_bytes']} + {plan['static_bytes']} bytes of shared "
+          f"memory)")
     # The route's tol: blocks of 100 iterations each row takes, from
     # continued one-block calls (a row's state before it stops is the
     # single run's, so the first block whose residual is not above tol is
@@ -3305,6 +3334,78 @@ def k10_long():
           and torch.equal(rt <= EXACT_TOL, blocks > 0),
           "K10 at T = 8192 and the route's tol: the rows at or below tol "
           "are not the rows the one-block calls saw converge")
+    return launches, out
+
+
+def k10_stream():
+    """K10l's streaming instance: B = 1, T = 9,216, d = 5, 200 fixed
+    iterations through ``admm_all_prefixes_l2`` (the rows past 8,192
+    entries on it, the other long rows on the resident instance): both
+    launch counts, every row against the plain version (5e-4), rows p <
+    8,192 against the launch on z[:, :8192] (bit for bit); its time (the
+    launch less that launch), bound, registers and warps an SM."""
+    T, cap = STREAM_T, admm.RESIDENT_ROWS
+    z, y = exact_batch(1, T, D, 141)
+    admm.LONG_LAUNCHES = admm.RESIDENT_LAUNCHES = 0
+    X, res, st = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS, tol=0.0)
+    torch.cuda.synchronize()
+    launches = admm.LONG_LAUNCHES - admm.RESIDENT_LAUNCHES
+    print(f"[14 wide] admm_all_prefixes_l2 B=1 T={T} d={D} f32, {LONG_ITERS} "
+          f"fixed iterations: K10l launches {admm.LONG_LAUNCHES}, streaming "
+          f"{launches}, resident {admm.RESIDENT_LAUNCHES} (K10 instances "
+          f"{admm.kernel_instances(T)})")
+    check(launches == 1 and admm.RESIDENT_LAUNCHES == 1,
+          f"admm_all_prefixes_l2 at T = {T} did not launch each K10l "
+          "instance once")
+    Lpk = admm.admm_prologue(z)
+    (res_p, st_p), p_ms = timed_once(
+        lambda: admm.admm_all_prefixes_l2_reference(
+            z, y, Lpk, iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
+            alpha=1.7))
+    err = max_err(st + (res.reshape(-1),), st_p + (res_p,))
+    rows = torch.arange(T, device="cuda") >= cap
+    err_stream = max(float((a[rows].double() - b[rows].double()).abs().max())
+                     for a, b in zip(st + (res.reshape(-1),), st_p + (res_p,)))
+    del st_p, res_p
+    torch.cuda.empty_cache()
+    print(f"[14 wide] K10l streaming and resident vs plain (s, u, x, w, v, "
+          f"res): max_abs_err={err:.3e} over every row, {err_stream:.3e} "
+          f"over the rows past {cap} entries (bound {TOL[torch.float32]:g});"
+          f" plain PyTorch {p_ms:.1f} ms (one call)")
+    check(err <= TOL[torch.float32], "K10l streaming instance vs plain")
+    zc, yc = z[:, :cap].contiguous(), y[:, :cap].contiguous()
+    Xc, rc, stc = admm.admm_all_prefixes_l2(zc, yc, iters=LONG_ITERS,
+                                            tol=0.0)
+    same = torch.equal(X[:, :cap], Xc) and torch.equal(res[:, :cap], rc)
+    for a, ac in zip(st, stc):
+        a = a.reshape(1, T, -1)[:, :cap]
+        if a.shape[-1] == T:
+            same = same and bool((a[..., cap:] == 0).all())
+            a = a[..., :cap]
+        same = same and torch.equal(a.reshape(ac.shape), ac)
+    print(f"[14 wide] rows p < {cap} of the T={T} launch equal the launch on "
+          f"z[:, :{cap}] in every bit: {same}")
+    check(same, f"K10's rows p < 8192 differ between T = {T} and 8192")
+    del st, stc
+    torch.cuda.empty_cache()
+    kw = dict(iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
+              alpha=1.7)
+    Lpkc = admm.admm_prologue(zc)
+    f_ms = time_ms(lambda: admm.launch_admm(z, y, Lpk, **kw), reps=3)[0]
+    s_ms = time_ms(lambda: admm.launch_admm(zc, yc, Lpkc, **kw), reps=3)[0]
+    ops = long_row_ops(1, T, D, LONG_ITERS, cap, T)
+    regs, warps = admm.kernel_occupancy(T, D)["long"]
+    out = {"max_abs_err": err, "ms": f_ms - s_ms, "plain_ms": p_ms,
+           "library_ms": None,
+           **bound(long_row_bytes(z, y, Lpk, cap, T), ops, torch.float32),
+           "registers": regs, "warps_per_sm": warps}
+    print(f"[14 wide] K10l streaming B=1 T={T} d={D} f32, {LONG_ITERS} fixed "
+          f"iterations, rows of {cap + 1}..{T} entries: {out['ms']:.4f} ms "
+          f"(the launch {f_ms:.4f} ms less the launch on z[:, :{cap}] "
+          f"{s_ms:.4f} ms); bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}; --fmad=false issue floor "
+          f"{ops / FP32_ISSUE_PER_S * 1e3:.4f} ms; {regs} registers a "
+          f"thread, {warps} warps an SM")
     return launches, out
 
 
@@ -3681,6 +3782,8 @@ def phase_wide(tmp):
     t = time.perf_counter()
     k10l = k10_long()
     torch.cuda.empty_cache()
+    k10s = k10_stream()
+    torch.cuda.empty_cache()
     exact_kernel_route_past_4096(tmp)
     walls["K10l"] = time.perf_counter() - t
     torch.cuda.empty_cache()
@@ -3692,8 +3795,10 @@ def phase_wide(tmp):
     walls["K8w"] = time.perf_counter() - t
     print(f"[14 wide] phase wall {sum(walls.values()):.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())})")
-    return {"K10l": k10l[0], "K9w": k9w[0], "K8w": k8w[0]}, \
-        {"K10l": k10l[1], "K9w": k9w[1], "K8w": k8w[1]}
+    return ({"K10l": k10l[0], "K10ls": k10s[0], "K9w": k9w[0],
+             "K8w": k8w[0]},
+            {"K10l": k10l[1], "K10ls": k10s[1], "K9w": k9w[1],
+             "K8w": k8w[1]})
 
 
 def main() -> int:
@@ -3796,13 +3901,20 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/admm_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": exact_launches, **exact_timing},
-        {"name": "admm_long_kernel (K10l: K10's rows longer than 4,096 "
-                 "entries, a block a row, s and u streamed)",
+        {"name": "admm_resident_kernel (K10l resident: K10's rows of "
+                 "4,097 to 8,192 entries, four a block, s and u on the chip)",
          "route": "cuda",
          "source":
              "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": wide_launches["K10l"], **wide_timing["K10l"]},
+        {"name": "admm_long_kernel (K10l streaming: K10's rows longer than "
+                 "8,192 entries, a block a row, s and u streamed)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": wide_launches["K10ls"], **wide_timing["K10ls"]},
         {"name": "trs_wide_kernel (K9w: batched ball-constrained least "
                  "squares past d = 32, a warp a problem)",
          "route": "cuda",

@@ -1,8 +1,9 @@
 // K10: all-prefix exact-FTL hinge ADMM on the l2 ball; each (replicate,
 // prefix) row's entries are split across 1-8 warps by the row's own length,
 // and each row's d x d step runs on one lane.  Rows longer than kLongRows
-// take a third instance (K10l, admm_long_kernel.cu), a block a row, with s
-// and u in device memory; the arithmetic both share is in oco_admm.cuh.
+// take K10l (admm_long_kernel.cu): its resident instance, s and u on the
+// chip for the whole launch, and past 8,192 entries its streaming one, s
+// and u in device memory; the arithmetic they share is in oco_admm.cuh.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_admm.py
 // _admm_kernel, entry admm_all_prefixes_l2.  Python wrapper, prologue and
@@ -435,16 +436,17 @@ int occupancy(int d, int L_hi, int* out) {
 // solve, s, u (B*T, T) (zero past each row's length) and x, w, v (B*T, d),
 // and res (B*T) the final residuals; launched[0] the number of kernels
 // launched (1; 2 for T > 2048: the NT = 16 rows, then the NT = 8 ones; 3
-// for T > 4096: the long rows first), launched[1] the launches of the
-// long-row instance K10l among them (0 or 1).  1 <= d <= 8, T >= 1,
-// check_every >= 1.  Returns the cudaError_t of the launches.
+// for T > 4096: the long rows first; 4 for T > 8192: K10l's two
+// instances), launched[1] the launches of K10l among them (0, 1 or 2),
+// launched[2] those of its resident instance (0 or 1).  1 <= d <= 8,
+// T >= 1, check_every >= 1.  Returns the cudaError_t of the launches.
 extern "C" int oco_admm_all_prefixes_f32(
     const void* z, const void* y, const void* Lpk, const void* s0,
     const void* u0, const void* x0, const void* w0, const void* v0, int B,
     int T, int d, int iters, int check_every, float tol, float kappa,
     float alpha, float beta, void* s, void* u, void* x, void* w, void* v,
     void* res, void* stream, int* launched) {
-  launched[0] = launched[1] = 0;
+  launched[0] = launched[1] = launched[2] = 0;
   if (B < 1 || T < 1 || d < 1 || d > OCO_ADMM_MAX_D || iters < 0 ||
       check_every < 1)
     return cudaErrorInvalidValue;
@@ -461,8 +463,9 @@ extern "C" int oco_admm_all_prefixes_f32(
 // For a launch at T with feature dimension d: out[0], out[1] the registers
 // a thread and resident warps an SM of the NT = 8 instance (rows up to
 // kSplit), out[2], out[3] those of the NT = 16 instance, out[4], out[5]
-// those of the long-row instance (0 warps where T needs none of an
-// instance's rows).  Returns a cudaError_t.
+// those of K10l's streaming instance and out[6], out[7] those of its
+// resident instance (0 warps where T needs none of an instance's rows).
+// Returns a cudaError_t.
 extern "C" int oco_admm_occupancy_f32(int d, int T, int* out) {
   if (T < 1 || d < 1 || d > OCO_ADMM_MAX_D) return cudaErrorInvalidValue;
   const int hi = T < kLongRows ? T : kLongRows;
@@ -474,7 +477,5 @@ extern "C" int oco_admm_occupancy_f32(int d, int T, int* out) {
                : occupancy<0, 16>(d, hi, out + 2);
   if (hi <= split) out[3] = 0;
   if (err != cudaSuccess) return err;
-  err = oco_admm::occupancy_long(d, out + 4);
-  if (T <= kLongRows) out[5] = 0;
-  return err;
+  return oco_admm::occupancy_long(d, T, out + 4);
 }

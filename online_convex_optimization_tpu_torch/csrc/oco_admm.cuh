@@ -26,12 +26,15 @@ struct Args {
 };
 
 // K10l on the rows longer than kLongRows (admm_long_kernel.cu): launches
-// it where T has such rows, adding its launch to launched[0] and to
-// launched[1] (the C entry's two counts), and returns the
-// cudaError_t; occupancy_long sets its registers a thread (out[0]) and
-// resident warps an SM (out[1]).
+// its streaming instance on the rows past the resident instance's
+// capacity, then the resident instance on the others, where T has such
+// rows, adding each launch to launched[0] and to launched[1] and the
+// resident one also to launched[2] (the C entry's counts), and returns the
+// cudaError_t; occupancy_long sets the registers a thread and resident
+// warps an SM of the streaming instance (out[0], out[1]) and of the
+// resident one (out[2], out[3]) at T (0 warps where T has no such rows).
 int launch_long(const Args& a, cudaStream_t stream, int* launched);
-int occupancy_long(int d, int* out);
+int occupancy_long(int d, int T, int* out);
 
 }  // namespace oco_admm
 
@@ -80,6 +83,67 @@ __device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
   return e + __shfl_xor_sync(kFull, e, 1);
 }
 
+// A probe build of K10l (scripts/wide_probe.py --k10l-split,
+// -DOCO_ADMM_SPLIT) splits each warp's clocks by phase: mark(p) adds the
+// clock64 span since the warp's last mark to phase p's total, span(p, t0)
+// the span since t0 without moving the last mark (lane 0 of each warp;
+// flush() adds them to admm_split_clocks[instance] at the end of the
+// block, instance 0 the streaming kernel, 1 the resident one).  The
+// library's build compiles the marks to nothing.
+enum AdmmPhase {
+  kAdmmStep,      // waiting for the d x d steps and their barrier
+  kAdmmLoad,      // a pass waiting on its loads of z, y, s and u
+  kAdmmArith,     // a pass's arithmetic (and its shared-memory state)
+  kAdmmPublish,   // the reduce-scatter, its barrier, the residual's maxima
+  kAdmmOther,     // the prologue, the residual decision and the epilogue
+  kAdmmChain,     // the d x d steps alone (warp 0, inside kAdmmStep)
+  kAdmmPhases
+};
+#ifdef OCO_ADMM_SPLIT
+__device__ unsigned long long admm_split_clocks[2][kAdmmPhases];
+__device__ int admm_split_sink;
+struct SplitClock {
+  int inst;
+  long long last;
+  unsigned long long c[kAdmmPhases];
+  __device__ explicit SplitClock(int instance) {
+    inst = instance;
+    last = clock64();
+#pragma unroll
+    for (int p = 0; p < kAdmmPhases; ++p) c[p] = 0;
+  }
+  __device__ __forceinline__ long long now() const { return clock64(); }
+  __device__ __forceinline__ void mark(int p) {
+    const long long t = clock64();
+    c[p] += static_cast<unsigned long long>(t - last);
+    last = t;
+  }
+  __device__ __forceinline__ void span(int p, long long t0) {
+    c[p] += static_cast<unsigned long long>(clock64() - t0);
+  }
+  // Makes the mark that follows wait for v (a loaded value) to arrive.
+  __device__ __forceinline__ void wait_for(float v) {
+    if (v == 1.2345e-38f) admm_split_sink = 1;
+  }
+  __device__ __forceinline__ void flush() {
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int p = 0; p < kAdmmPhases; ++p)
+        atomicAdd(&admm_split_clocks[inst][p], c[p]);
+    }
+  }
+};
+#else
+struct SplitClock {
+  __device__ explicit SplitClock(int) {}
+  __device__ __forceinline__ long long now() const { return 0; }
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void span(int, long long) {}
+  __device__ __forceinline__ void wait_for(float) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
 template <int D>
 struct Dim {
   static constexpr int cap = D > 0 ? D : OCO_ADMM_MAX_D;
@@ -104,25 +168,27 @@ __device__ __forceinline__ float shrink(float sp, float kappa) {
   return copysignf(relu(fabsf(sp) - kappa), sp);
 }
 
-// A block's rows in shared memory, row slot r for the row of length top - r.
-template <int D>
+// A block's rows in shared memory, row slot r for the row of length top - r:
+// Slots rows, and Parts slots of a warp's partial sums (row r's W warps
+// at r W .. r W + W - 1).
+template <int D, int Slots = OCO_ADMM_WARPS, int Parts = OCO_ADMM_WARPS>
 struct Rows {
-  float L[OCO_ADMM_WARPS][Dim<D>::ntri];  // packed factor, inverted diagonal
-  float x[OCO_ADMM_WARPS][Dim<D>::cap];
-  float w[OCO_ADMM_WARPS][Dim<D>::cap];
-  float v[OCO_ADMM_WARPS][Dim<D>::cap];
-  float part[OCO_ADMM_WARPS][8];  // each warp's sums of the next rhs
-  float pri[OCO_ADMM_WARPS];      // each warp's residual maximum
-  float res[OCO_ADMM_WARPS];
-  int live[OCO_ADMM_WARPS];       // the row still iterates
+  float L[Slots][Dim<D>::ntri];  // packed factor, inverted diagonal
+  float x[Slots][Dim<D>::cap];
+  float w[Slots][Dim<D>::cap];
+  float v[Slots][Dim<D>::cap];
+  float part[Parts][8];          // each warp's sums of the next rhs
+  float pri[Parts];              // each warp's residual maximum
+  float res[Slots];
+  int live[Slots];               // the row still iterates
 };
 
 // Row r's d x d step on one lane: rhs from its W warps' sums in warp order,
 // x by the two substitutions, then the over-relaxed ball projection.  Its
 // inputs are loaded from shared memory up front, in unrolled loops, so the
 // loads overlap and the serial chain runs in registers.
-template <int D>
-__device__ __forceinline__ void row_step(Rows<D>& S, int r, int W, int n,
+template <int D, typename RowsT>
+__device__ __forceinline__ void row_step(RowsT& S, int r, int W, int n,
                                          float alpha, float beta) {
   constexpr int C = Dim<D>::cap;
   float rhs[C], w[C], v[C], Lf[Dim<D>::ntri];

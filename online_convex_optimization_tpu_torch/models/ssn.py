@@ -132,8 +132,12 @@ def _ball_newton_step(H: torch.Tensor, b: torch.Tensor, d: int):
     def solve_at(lam):
         L = _chol_unrolled(H + lam[..., None, None] * eye, d)
         v = _solve_upper(L, _solve_lower(L, nb, d), d)
-        q = torch.cat(_solve_lower(L, v, d), dim=-1)
-        return v, (q * q).sum(-1)
+        q = _solve_lower(L, v, d)
+        # ||q||^2 summed in index order, as the JAX package's sum() does.
+        qn2 = q[0] * q[0]
+        for qi in q[1:]:
+            qn2 = qn2 + qi * qi
+        return v, qn2[..., 0]
 
     v0, _ = solve_at(torch.zeros_like(bn))
     interior = torch.linalg.vector_norm(v0, dim=-1) <= 1.0

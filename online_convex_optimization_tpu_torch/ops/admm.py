@@ -32,9 +32,13 @@ CPU tensor and launches the kernel on a CUDA tensor, for ``d <= MAX_D``
 kernel splits each row across warps by the row's own length, so a row's
 result does not depend on T: a launch on ``z[:, :T]`` gives rows ``p < T``
 of a launch on longer ``z`` bit for bit.  Rows longer than ``LONG_ROWS``
-take the long-row instance (K10l), whose s and u stream through device
-memory each iteration; the state, ``8 B T^2`` bytes, is the only limit on
-T, and an allocation the card cannot hold raises its own error.
+take K10l: up to ``RESIDENT_ROWS`` entries its resident instance, which
+keeps s and u on the chip for the whole launch, and past that its
+streaming instance, whose s and u stream through device memory each
+iteration; both map a row's entries to threads alike, so a row's bits do
+not depend on which one takes it.  The state, ``8 B T^2`` bytes, is the
+only limit on T, and an allocation the card cannot hold raises its own
+error.
 """
 
 from __future__ import annotations
@@ -54,13 +58,19 @@ MAX_D = 8
 # each) take the long-row instance K10l (csrc/oco_admm.cuh kLongRows,
 # csrc/admm_long_kernel.cu).
 LONG_ROWS = 4096
+# Rows up to this length among them take K10l's resident instance, whose s
+# and u stay on the chip for the whole launch; longer rows its streaming
+# instance (csrc/admm_long_kernel.cu kResidentRows).
+RESIDENT_ROWS = 8192
 
 # Kernel launches of K10 in this process, as the C entry reports them (one
 # a call, two past T = 2048: the 16-entries-a-lane rows, then the rest;
-# three past LONG_ROWS: the long rows first), and of those the launches of
-# the long-row instance K10l.
+# three past LONG_ROWS: the long rows first; four past RESIDENT_ROWS: K10l's
+# streaming instance, then its resident one), of those the launches of
+# K10l's two instances, and of those the resident instance's.
 LAUNCHES = 0
 LONG_LAUNCHES = 0
+RESIDENT_LAUNCHES = 0
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
@@ -136,11 +146,41 @@ def check_kernel_envelope(T: int, d: int) -> None:
 
 def kernel_instances(T: int) -> list:
     """K10's instances a launch at T runs, in launch order (the C entry's
-    map of rows to instances): ``"long"`` for the rows longer than
-    ``LONG_ROWS``, ``16`` for the rows of 2,049 to 4,096 entries, ``8`` for
-    the rest."""
-    return ([name for name, lo in (("long", LONG_ROWS), (16, 2048))
-             if T > lo] + [8])
+    map of rows to instances): ``"long"`` (K10l's streaming instance) for
+    the rows longer than ``RESIDENT_ROWS``, ``"resident"`` (K10l's resident
+    one) for the rows of ``LONG_ROWS + 1`` to ``RESIDENT_ROWS`` entries,
+    ``16`` for the rows of 2,049 to 4,096 entries, ``8`` for the rest."""
+    return [name for name in ("long", "resident", 16, 8)
+            if instance_rows(name, T)[1] > instance_rows(name, T)[0]]
+
+
+def instance_rows(name, T: int) -> tuple:
+    """The row lengths ``(lo, hi]`` that instance ``name`` (as
+    ``kernel_instances`` names them) takes in a launch at T."""
+    bounds = {"long": (RESIDENT_ROWS, T), "resident": (LONG_ROWS,
+                                                       RESIDENT_ROWS),
+              16: (2048, LONG_ROWS), 8: (0, 2048)}
+    lo, hi = bounds[name]
+    return lo, max(lo, min(hi, T))
+
+
+def resident_plan(d: int) -> dict:
+    """K10l's resident block at feature dimension d (the d = 5 instance or
+    the generic one), as its source sizes it (``Resident``): rows a block,
+    groups of 256 threads and rows a group, threads, a thread's entries of
+    a row, of its entries of s and u those in registers (its first row's
+    first) and those in shared memory, the ring's stages (one entry of y
+    and z a thread of a group each), and the bytes of shared memory
+    (``smem_bytes`` dynamic, ``static_bytes`` the rows' factors, x, w, v
+    and partial sums)."""
+    check_kernel_envelope(LONG_ROWS + 1, d)
+    out = (ctypes.c_int * 10)()
+    err = cuda_build.load().oco_admm_resident_plan(d, out)
+    if err != 0:
+        raise RuntimeError(f"K10l plan failed: CUDA error {err}")
+    return dict(zip(("rows", "groups", "group_rows", "threads", "entries",
+                     "register_entries", "shared_entries", "stages",
+                     "smem_bytes", "static_bytes"), out))
 
 
 def _cho_solve_rows(L, rhs, d):
@@ -263,7 +303,7 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
                 rho: float, alpha: float, state0: Optional[State] = None):
     """Launch kernel K10 on contiguous float32 CUDA inputs; returns ``(res
     (B*T,), state)``."""
-    global LAUNCHES, LONG_LAUNCHES
+    global LAUNCHES, LONG_LAUNCHES, RESIDENT_LAUNCHES
     B, T, d = z.shape
     check_kernel_envelope(T, d)
     lib = cuda_build.load()
@@ -277,7 +317,7 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
         st0 = ([a.contiguous() for a in state0] if state0 is not None
                else None)
         ptrs0 = [a.data_ptr() for a in st0] if st0 is not None else [None] * 5
-        launched = (ctypes.c_int * 2)()
+        launched = (ctypes.c_int * 3)()
         err = lib.oco_admm_all_prefixes_f32(
             z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *ptrs0, B, T, d,
             iters, check_every, tol, 0.5 / rho, alpha, 1.0 - alpha,
@@ -286,23 +326,25 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
             torch.cuda.current_stream(z.device).cuda_stream, launched)
         LAUNCHES += launched[0]
         LONG_LAUNCHES += launched[1]
+        RESIDENT_LAUNCHES += launched[2]
         if err != 0:
             raise RuntimeError(f"ADMM kernel launch failed: CUDA error {err}")
     return res, (s, u, x, w, v)
 
 
 def kernel_occupancy(T: int, d: int) -> dict:
-    """Registers a thread and resident warps an SM of K10's three
+    """Registers a thread and resident warps an SM of K10's four
     instances for a launch at ``(T, d)`` on the current card: ``{8: (regs,
-    warps), 16: (regs, warps), "long": (regs, warps)}``, keyed as
-    ``kernel_instances`` names them (0 warps where T has no such row)."""
+    warps), 16: (regs, warps), "long": (regs, warps), "resident": (regs,
+    warps)}``, keyed as ``kernel_instances`` names them (0 warps where T
+    has no such row)."""
     check_kernel_envelope(T, d)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     err = cuda_build.load().oco_admm_occupancy_f32(d, T, out)
     if err != 0:
         raise RuntimeError(f"K10 occupancy query failed: CUDA error {err}")
     return {8: (out[0], out[1]), 16: (out[2], out[3]),
-            "long": (out[4], out[5])}
+            "long": (out[4], out[5]), "resident": (out[6], out[7])}
 
 
 def admm_all_prefixes_l2(z: torch.Tensor, y: torch.Tensor, *,
@@ -360,6 +402,7 @@ def feasible_actions(X) -> np.ndarray:
     return X / np.maximum(np.linalg.norm(X, axis=-1, keepdims=True), 1.0)
 
 
-__all__ = ["LONG_ROWS", "MAX_D", "admm_all_prefixes_l2",
+__all__ = ["LONG_ROWS", "MAX_D", "RESIDENT_ROWS", "admm_all_prefixes_l2",
            "admm_all_prefixes_l2_reference", "admm_prologue",
-           "feasible_actions", "kernel_instances", "kernel_occupancy"]
+           "feasible_actions", "instance_rows", "kernel_instances",
+           "kernel_occupancy", "resident_plan"]

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""K9w's and K8w's output digests, pass counts and times, for the checkout
-it is run from.
+"""K10l's, K9w's and K8w's output digests, pass counts and times, for the
+checkout it is run from.
 
-    cd <a checkout of any commit of the port that has K9w and K8w>
-    python3 <path to>/scripts/wide_compare.py [--reps N]
+    cd <a checkout of any commit of the port that has K10l, K9w and K8w>
+    python3 <path to>/scripts/wide_compare.py [--reps N] [--only K10l]
 
 It builds its inputs only from functions every version of the port with
 the wide instances has (``regression_stream_batch`` on a CUDA generator,
 ``trs.launch_trs_solve``, ``trs.launch_quadratic_regrets_wide``,
-``trs.wide_plan``), so that two commits, each run from its own checkout in
-one chip call, can be held against each other: equal digests mean equal
-outputs and pass counts in every bit.
+``trs.wide_plan``, ``admm.admm_prologue``, ``admm.launch_admm``), so that
+two commits, each run from its own checkout in one chip call, can be held
+against each other: equal digests mean equal outputs and pass counts in
+every bit.
 
 Cases (``chip_smoke.py`` phase 14's inputs):
+  - ``K10l ...``: K10 on ``chip_smoke.py``'s contract data (rows in the
+    unit ball, labels sign(<z, u> + 0.3 noise), seed 140 + T), the digest
+    of the whole launch's (s, u, x, w, v, res) and the time of the rows
+    past 4,096 entries (the launch less the launch on z[:, :4096]): B = 2,
+    T = 8,192, d = 5 at 200 fixed iterations; the same at tol = 2e-4 with
+    check_every = 100; the same as 100 + 100 iterations from the saved
+    state (its digest must be the first case's); B = 4, T = 4,200 at d = 8
+    (the generic instance); B = 1, T = 12,288, d = 5 (the rows past 8,192
+    entries go to K10l's streaming instance where a resident one exists);
   - ``K9w d=<d> <dtype>``: the prefix statistics of regression streams
     (seed 160 + d), summed in float64 and stored in the dtype: d = 64, N =
     65,536 (64 streams of 1,024 rows, singular prefixes included); d = 128,
@@ -51,9 +61,16 @@ import torch  # noqa: E402
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     regression_stream_batch,
 )
-from online_convex_optimization_tpu_torch.ops import trs  # noqa: E402
+from online_convex_optimization_tpu_torch.ops import admm, trs  # noqa: E402
 
 K9W = ((64, 64, 1024, 0), (128, 16, 1024, 512), (256, 4, 1024, 1024))
+# K10l: (label, B, T, d, iters, tol, split): split runs iters / 2 + iters
+# / 2 from the saved state.
+K10L = (("B=2 T=8192 d=5 200 it", 2, 8192, 5, 200, 0.0, False),
+        ("B=2 T=8192 d=5 200 it tol 2e-4", 2, 8192, 5, 200, 2e-4, False),
+        ("B=2 T=8192 d=5 100+100 it", 2, 8192, 5, 200, 0.0, True),
+        ("B=4 T=4200 d=8 200 it", 4, 4200, 8, 200, 0.0, False),
+        ("B=1 T=12288 d=5 200 it", 1, 12288, 5, 200, 0.0, False))
 K8W = ((64, torch.float32), (64, torch.float64), (128, torch.float32))
 K8W_B, K8W_T = 4096, 1024
 
@@ -118,6 +135,46 @@ def plan_of(kernel, d, dtype, n):
             "scratch": p["scratch"], "registers": p["registers"]}
 
 
+def admm_batch(B, T, d, seed):
+    """chip_smoke.py's exact_batch: contract rows, float32, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn((B, T, d), generator=g, device="cuda", dtype=torch.float64)
+    z = z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True),
+                        min=1.0)
+    u = torch.randn((B, d), generator=g, device="cuda", dtype=torch.float64)
+    noise = torch.randn((B, T), generator=g, device="cuda",
+                        dtype=torch.float64)
+    y = torch.sign((z * u[:, None, :]).sum(-1) + 0.3 * noise)
+    return z.float().contiguous(), y.float().contiguous()
+
+
+def k10l(res, reps):
+    for label, B, T, d, iters, tol, split in K10L:
+        z, y = admm_batch(B, T, d, 140 + T)
+        Lpk = admm.admm_prologue(z)
+        kw = dict(tol=tol, check_every=100, rho=1.0, alpha=1.7)
+        if split:
+            _, st = admm.launch_admm(z, y, Lpk, iters=iters // 2, **kw)
+            r, st = admm.launch_admm(z, y, Lpk, iters=iters // 2, state0=st,
+                                     **kw)
+        else:
+            r, st = admm.launch_admm(z, y, Lpk, iters=iters, **kw)
+        dig = digest(*st, r)
+        del st, r
+        torch.cuda.empty_cache()
+        z4, y4 = z[:, :4096].contiguous(), y[:, :4096].contiguous()
+        Lpk4 = admm.admm_prologue(z4)
+        full = time_ms(lambda: admm.launch_admm(z, y, Lpk, iters=iters, **kw),
+                       reps)
+        short = time_ms(lambda: admm.launch_admm(z4, y4, Lpk4, iters=iters,
+                                                 **kw), reps)
+        res[f"K10l {label}"] = {"digest": dig, "ms": full[0] - short[0],
+                                "launch_ms": full, "short_ms": short}
+        print(f"K10l {label}", json.dumps(res[f"K10l {label}"]), flush=True)
+        del z, y, Lpk, z4, y4, Lpk4
+        torch.cuda.empty_cache()
+
+
 def k9w(res, reps):
     for d, B, T, first in K9W:
         for dtype in (torch.float32, torch.float64):
@@ -178,8 +235,11 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     res = {"tree": os.getcwd(), "card": card, "reps": reps}
     print(card, flush=True)
-    k9w(res, reps)
-    k8w(res, reps)
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
+    for name, fn in (("K10l", k10l), ("K9w", k9w), ("K8w", k8w)):
+        if only in (None, name):
+            fn(res, reps)
     print(json.dumps(res))
     return 0
 

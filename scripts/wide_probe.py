@@ -23,6 +23,21 @@ one problem an SM (each warp alone on its SM), prints a Newton pass's
 clocks by phase: the seed of L, the Cholesky's pivots and divides, its
 trailing updates, the forward and backward substitutions, the Newton step,
 and the per-problem work.
+
+    python3 scripts/wide_probe.py --k10l-split
+
+builds K10's two sources with ``-DOCO_ADMM_SPLIT`` (the clock64 marks of
+``csrc/oco_admm.cuh``) into ``build/wide_probe/`` and runs K10 at 200
+fixed iterations, d = 5: one block of K10l alone on each SM (B = 1 and as
+many long rows as the SMs' blocks hold) and at full occupancy (B = 2, T =
+8,192, phase 14's shape), then B = 1 at T = 12,288, where both K10l
+instances run.  For each K10l instance it prints a row iteration's clocks
+a warp by phase: the wait for the d x d step and its barrier, a pass's
+wait on its loads, its arithmetic, the reduce-scatter with its barrier,
+the rest, and the d x d steps' own chain, with the probe build's outputs
+held to the library's in every bit.  ``--stream-all`` routes every long
+row to the streaming instance (the design the resident instance replaced)
+and skips the last case.
 """
 
 from __future__ import annotations
@@ -42,7 +57,7 @@ import torch  # noqa: E402
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     regression_stream_batch,
 )
-from online_convex_optimization_tpu_torch.ops import trs  # noqa: E402
+from online_convex_optimization_tpu_torch.ops import admm, trs  # noqa: E402
 from online_convex_optimization_tpu_torch.utils import cuda_build  # noqa: E402
 
 KINDS = {"LDS": "shared load", "STS": "shared store", "LDG": "global load",
@@ -174,6 +189,105 @@ def split():
                   for name, c in zip(PHASES, clocks)), flush=True)
 
 
+K10L_PHASES = ("step", "load", "arith", "publish", "other", "chain")
+# K10l's instances, in the order of the probe build's clocks.
+LONG_INSTANCES = ("long", "resident")
+
+
+def k10l_split_library():
+    """The probe build of K10: ``csrc/admm_kernel.cu`` and
+    ``csrc/admm_long_kernel.cu`` with the clock64 marks compiled in."""
+    out = os.path.join(REPO, "build", "wide_probe")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libk10l_split.so")
+    run = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                          "-DOCO_ADMM_SPLIT", "-shared", "-o", lib,
+                          *(os.path.join(cuda_build.SRC_DIR, f) for f in
+                            ("admm_kernel.cu", "admm_long_kernel.cu"))],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"the K10l probe build failed:\n{run.stderr}")
+    so = ctypes.CDLL(lib)
+    so.oco_admm_all_prefixes_f32.argtypes = \
+        cuda_build._SIGNATURES["oco_admm_all_prefixes_f32"]
+    so.oco_admm_split.argtypes = [ctypes.c_void_p]
+    so.oco_admm_split_route.argtypes = [ctypes.c_int]
+    return so
+
+
+def k10l_batch(B, T, d, seed):
+    """chip_smoke.py's exact_batch: rows in the unit ball, labels
+    sign(<z, u> + 0.3 noise), float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn((B, T, d), generator=g, device="cuda",
+                    dtype=torch.float64)
+    z = z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True),
+                        min=1.0)
+    u = torch.randn((B, d), generator=g, device="cuda", dtype=torch.float64)
+    noise = torch.randn((B, T), generator=g, device="cuda",
+                        dtype=torch.float64)
+    y = torch.sign((z * u[:, None, :]).sum(-1) + 0.3 * noise)
+    return z.float().contiguous(), y.float().contiguous()
+
+
+def k10l_split(stream_all):
+    so = k10l_split_library()
+    so.oco_admm_split_route(int(stream_all))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters, d = 200, 5
+    # One block alone on each SM: as many long rows as SMs (a resident
+    # block holds resident_plan's rows).
+    alone = sms * (1 if stream_all else admm.resident_plan(d)["rows"])
+    cases = [("one block an SM", 1, admm.LONG_ROWS + alone),
+             ("full occupancy", 2, 8192)]
+    if not stream_all:
+        cases.append(("both instances", 1, 12288))
+    for label, B, T in cases:
+        z, y = k10l_batch(B, T, d, 140)
+        Lpk = admm.admm_prologue(z)
+        outs = [torch.empty((B * T, T), device="cuda") for _ in range(2)] + \
+            [torch.empty((B * T, d), device="cuda") for _ in range(3)] + \
+            [torch.empty(B * T, device="cuda")]
+        launched = (ctypes.c_int * 3)()
+        clocks = (ctypes.c_ulonglong * (2 * len(K10L_PHASES)))()
+        for _ in range(2):         # the first launch warms; its clocks drop
+            assert so.oco_admm_split(clocks) == 0
+            assert so.oco_admm_all_prefixes_f32(
+                z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *[None] * 5, B,
+                T, d, iters, 100, 0.0, 0.5, 1.7, 1.0 - 1.7,
+                *(a.data_ptr() for a in outs),
+                torch.cuda.current_stream().cuda_stream, launched) == 0
+            torch.cuda.synchronize()
+        assert so.oco_admm_split(clocks) == 0
+        res, st = admm.launch_admm(z, y, Lpk, iters=iters, tol=0.0,
+                                   check_every=100, rho=1.0, alpha=1.7)
+        same = all(torch.equal(a, b) for a, b in zip(outs, (*st, res)))
+        for inst, name in enumerate(LONG_INSTANCES):
+            c = clocks[inst * len(K10L_PHASES):(inst + 1) * len(K10L_PHASES)]
+            lo, hi = ((admm.LONG_ROWS, T) if stream_all
+                      else admm.instance_rows(name, T))
+            rows = B * max(hi - lo, 0)
+            if rows == 0 or sum(c) == 0:
+                continue
+            per_block = 1 if name == "long" else \
+                admm.resident_plan(d)["rows"]
+            blocks = B * -(-max(hi - lo, 0) // per_block)
+            warp_iters = rows * 8 * iters
+            body = sum(c[:5])
+            print(f"K10l {name} ({label}, B={B} T={T} d={d}, {iters} "
+                  f"iterations, rows of {lo + 1}..{hi} entries), probe "
+                  f"build equal to the library's in every bit {same}: "
+                  f"{body / warp_iters:.0f} clocks a warp a row iteration, "
+                  f"by phase: " + ", ".join(
+                      f"{p} {v / warp_iters:.0f} ({100 * v / body:.1f}%)"
+                      for p, v in zip(K10L_PHASES[:5], c[:5]))
+                  + f"; the d x d steps' chain {c[5] / (blocks * iters):.0f}"
+                  f" clocks a block iteration ({per_block} row(s) a block,"
+                  f" side by side on lanes of warp 0)", flush=True)
+        del z, y, Lpk, outs, st, res
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("wide_probe: no CUDA device")
@@ -184,6 +298,9 @@ def main() -> int:
     cuda_build.load()
     if "--split" in sys.argv[1:]:
         split()
+        return 0
+    if "--k10l-split" in sys.argv[1:]:
+        k10l_split("--stream-all" in sys.argv[1:])
         return 0
     timings()
     census()

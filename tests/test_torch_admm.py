@@ -222,8 +222,10 @@ def test_plain_matches_jax_xla_path_past_the_register_rows():
 
 @pytest.mark.parametrize("T,want", [(1, [8]), (2048, [8]), (2049, [16, 8]),
                                     (4096, [16, 8]),
-                                    (4097, ["long", 16, 8]),
-                                    (16384, ["long", 16, 8])])
+                                    (4097, ["resident", 16, 8]),
+                                    (16384, ["long", "resident", 16, 8]),
+                                    (8192, ["resident", 16, 8]),
+                                    (8193, ["long", "resident", 16, 8])])
 def test_row_to_instance_map(T, want):
     """The wrapper's mirror of the C entry's map of rows to instances, in
     launch order, and its boundaries as the CUDA source states them."""
@@ -240,3 +242,6 @@ def test_row_to_instance_map(T, want):
                      src["oco_admm.cuh"])
     assert re.search(r"#define OCO_ADMM_WARPS 8\b", src["oco_admm.cuh"])
     assert admm.LONG_ROWS == 32 * 8 * 16
+    with open(os.path.join(cuda_build.SRC_DIR, "admm_long_kernel.cu")) as f:
+        assert re.search(r"constexpr int kResidentRows = %d;"
+                         % admm.RESIDENT_ROWS, f.read())

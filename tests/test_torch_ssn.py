@@ -328,7 +328,12 @@ def test_ssn_fuzz_matches_admm_after_polish(seed, fuzz_solves):
     four interpolated rows) reaches a fixed point at the continuation floor
     mu = 1e-6 whose duality gap depends on the iterate at the 1e-10 level:
     the port's stays near 1e-3 to the 2000-step cap, JAX's is 9.6e-6 after
-    1127 steps (its polished objective is held below like every other)."""
+    1127 steps (its polished objective is held below like every other).
+    No step differs: the port's ball step equals the JAX package's
+    evaluated operation by operation in every bit
+    (``test_ball_step_equals_jax_op_by_op_at_the_seed7_fixed_point``);
+    jitted XLA on the CPU contracts a * b + c into fused multiply-adds, a
+    rounding the port does not imitate."""
     z, y, Xs, rs, Xa = fuzz_solves[seed]
     T = len(y)
     assert float(rs[5:].max()) <= 1e-4
@@ -339,6 +344,33 @@ def test_ssn_fuzz_matches_admm_after_polish(seed, fuzz_solves):
     for p in range(1, T + 1):
         assert abs(objective(z[:p], y[:p], a_s[p])
                    - objective(z[:p], y[:p], a_a[p])) <= 3e-6, p
+
+
+def test_ball_step_equals_jax_op_by_op_at_the_seed7_fixed_point():
+    """At the fixed point of the seed-7 prefix of length d (mu at its floor
+    1e-6, IRLS weights up to 1 / (2 mu)), the port's ball step on the IRLS
+    model equals the JAX package's evaluated operation by operation
+    (``jax.disable_jit``) in every bit, v and the multiplier, through all
+    its secular iterations: the deviation the fuzz test exempts is the
+    rounding of JAX's compiled step, not a step of the port's."""
+    z, y = _fuzz_instance(7)
+    T, d, r = len(y), 5, 4
+    _, _, (X, mu) = jax_ssn.ssn_all_prefixes(jnp.asarray(z), jnp.asarray(y),
+                                             iters=60, tol=1e-5)
+    X, mu = np.asarray(X), np.asarray(mu)
+    assert mu[r, 0] == 0.1 * 1e-5
+    R = (z @ X[r] - y) * (np.arange(T) <= r)
+    w = (np.arange(T) <= r) / (2 * np.maximum(np.abs(R), mu[r, 0]))
+    psi = np.clip(R / mu[r, 0], -1, 1) * (np.arange(T) <= r)
+    H = np.einsum("t,ti,tj->ij", w, z, z)[None]
+    b = (0.5 * psi @ z - H[0] @ X[r])[None]
+    v, lam = ssn._ball_newton_step(*_t(H, b), d)
+    with jax.disable_jit():
+        vj, lamj = jax_ssn._ball_newton_step(jnp.asarray(H), jnp.asarray(b),
+                                             d, jnp.float64)
+    assert np.array_equal(v.numpy(), np.asarray(vj))
+    assert np.array_equal(lam.numpy(), np.asarray(lamj))
+    assert 0.0 < float(lam[0]) and abs(np.linalg.norm(v.numpy()) - 1) < 1e-8
 
 
 def test_ssn_failure_contract_and_validation():
