@@ -209,14 +209,46 @@ non-zero without printing a result):
                trust-region conditions (1e-9); (c) K8w:
                ``simulate_quadratic_batch`` at B=4,096 T=1,024 d=64, half
                FTL (the launch count), f32, against the plain version on
-               every sequence (512 a call), the same shape in f64 on every
-               8th sequence, and at d = 40 (B=256 T=128), bit for bit; x_c
+               every 4th sequence (512 a call), the same shape in f64 on
+               every 8th (the first sequence sampled turns with the clock,
+               so that runs in turn cover every one), and at d = 40
+               (B=256 T=128), bit for bit; x_c
                equal to K9w's in every bit at d = 40, 64 and 128; timed at
                d = 64 (f32, f64; 5 launches) and 128 (f32, its one launch)
                with output digests; the quadratic study at ``--d 64``
                through its entry (one K8w launch).  The bounds count each
                solve at the Newton passes the kernels report (``passes``;
                the card's tests hold them to the plain mirror's).
+  15. wide d  — K1, K2 and K4 past d = 512 (their wide instances K1w, K2w,
+               K4w, state in a (d, slots) device buffer): the main path at
+               full width with the counts set to 0 just before it
+               (``regret_plays`` with FTRL and FTL as two plays at B=1,024
+               T=1,000 d=1,024 f64 and at B=2,048 T=1,024 f32, and at
+               d=2,048 f64; ``smart_plays`` on the f64 data with the
+               thresholds sqrt(2T) and sqrt(2T)/8; ``StreamingKernelGame`` f32
+               B=2,048 d=1,024 over 4 chunks of 1,024 rounds generated on
+               the card), output digests and the pairs switched; each
+               kernel against its plain version bit for bit (max_abs_err
+               0, switch rounds equal) at B=77 and (d, T) = (513, 200),
+               (1,024, 32) and (1,500, 32) in f64, in contract and replay
+               mode, ragged lengths, thresholds spread so that pairs switch
+               in every chunk, and at d=1,024 in f32 (the plain versions'
+               index-order sums loop over d in Python, 50-95 ms a round at
+               d=1,024, so the path shapes cannot carry them); T=200 plays
+               4 of the kernels' 64-round chunks, as the path plays 16; at
+               full width, identities of one launch each, in every bit:
+               K4w over 4 chunks equals one K1w launch (f64, B=256,
+               T=1,024, d=1,024), K2w with a threshold no sequence reaches
+               gives K1w's FTL play's losses with tau = T (the path's f64
+               data), K2w's switched tails on the path's f64 data (every
+               pair switches on sqrt(2T)/8) equal K4w played over the rows
+               after each switch from the FTL loss at the switch (K1w at
+               tau + 1 rounds), and each narrow storage
+               pair's K1w, K2w and K4w launches equal the f32 launches on
+               the upcast values (B=2,048, T=1,024); the path shapes timed
+               (regenerated from their seeds, digests equal to the main
+               path's) with their bounds, registers, warps an SM and local
+               frames, the last the same at every d past 512.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -239,10 +271,16 @@ bench.py's shape.  K10l's two instances, K9w and K8w (phase 14) have an
 entry each at their path shapes (K10l resident: B=2 T=8192, 200
 iterations; K10l streaming: B=1 T=9,216, 200 iterations; K9w: d=64,
 65,536 problems, f32; K8w: d=64, B=4,096 T=1,024, f32), their errors
-and plain times from the plain versions on the same inputs (K8w's in
-calls of 512 sequences, summed).  The line before the
-last lists the kernels as JSON; the last line is ``{"ok": true,
-"device": {...}}``.  About 10-12 minutes on an H100.
+and plain times from the plain versions on the same inputs (K8w's on
+every 4th sequence, in calls of 512 sequences, summed).  K1w, K2w and
+K4w (phase 15) have an entry each at their path shapes (K1w and K2w
+f64, B=1,024 T=1,000 d=1,024; K4w f32, B=2,048 d=1,024, the 4 chunks'
+launches together), their errors from the cut shapes' plain checks and
+their plain times at the cut shape d=1,024 T=32 f64, as their
+``max_abs_err_at`` and ``plain_ms_at`` keys say (at the path's T=1,000
+each plain version would take 1-1.5 minutes).  The
+line before the last lists the kernels as JSON; the last line is
+``{"ok": true, "device": {...}}``.  About 12-14 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -757,7 +795,7 @@ def time_kernels():
           "K1 or K2 at the main path's shape vs plain")
     out["K1"].update(k1_bound(lengths, 2, torch.float64))
     out["K2"].update(k2_bound(lengths, got2[3], torch.float64))
-    for key, (regs, warps) in (
+    for key, (regs, warps, _) in (
             ("K1", game.regret_occupancy(2, D, torch.float64)),
             ("K2", smart.smart_occupancy(2, D, torch.float64))):
         out[key].update(registers=regs, warps_per_sm=warps)
@@ -3171,11 +3209,13 @@ PLAIN_D = 40
 PLAIN_K9_N = (4, 1024)                  # B x T prefixes: N = 4,096
 PLAIN_K8 = (256, 128)                   # B, T
 # K8w's plain version at the path's shape: sequences a call (its
-# statistics of every prefix, 8.7 MB a sequence in f32), and the f64
-# run's sample (every 8th sequence: the f64 plain version of all 4,096
-# would take about twice the f32 one's time).
+# statistics of every prefix, 8.7 MB a sequence in f32), and the runs'
+# samples: every 4th sequence in f32 (all 4,096 took ~91 s, which phase
+# 15's time needs), every 8th in f64 (whose plain version takes about
+# twice the f32 one's time), the first of them turning with the clock so
+# that runs in turn cover every sequence.
 K8W_CHUNK = 512
-K8W_SAMPLE = 8
+K8W_SAMPLE = {torch.float32: 4, torch.float64: 8}
 
 
 def long_row_ops(B: int, T: int, d: int, iters: int, lo: int = 0,
@@ -3630,8 +3670,8 @@ def k8w_plain(z_tm, y_tm, flags, eta, seqs):
 def k8_wide(tmp):
     """K8w: simulate_quadratic_batch (the main path) at the
     quadratic_exact_ftl shape (B = 4,096, T = 1,024, half FTL) at d = 64
-    in f32, held against the plain version on every sequence (5e-4), and
-    the same shape in f64 on every K8W_SAMPLE-th sequence (1e-9); at d =
+    in f32 and f64, held against the plain version on every K8W_SAMPLE-th
+    sequence (5e-4, 1e-9); at d =
     40 against the plain version (B = 256, T = 128, f64 1e-9, f32 5e-4);
     x_c against K9w bit for bit on the final statistics at d = 40, 64 and
     128; timed at d = 64 in f32 and f64 (5 launches) and at d = 128 in f32
@@ -3704,15 +3744,17 @@ def k8_wide(tmp):
         check(diff == 0, f"K8w's x_c differs from K9w at d={d} {dtype}")
         held = ""
         if d == 64:
-            step = 1 if dtype == torch.float32 else K8W_SAMPLE
-            seqs = torch.arange(0, K8W_B, step, device="cuda")
+            step = K8W_SAMPLE[dtype]
+            first = time.time_ns() // 1000 % step
+            seqs = torch.arange(first, K8W_B, step, device="cuda")
             want, p_ms = k8w_plain(z_tm, y_tm, flags, eta, seqs)
             err = max_err(tuple(o[..., seqs] for o in outs), want)
             same = all(torch.equal(o[..., seqs], w)
                        for o, w in zip(outs, want))
             del want
             held = (f"; vs plain on {seqs.numel()} of its {K8W_B} sequences "
-                    f"(every {step}) max_abs_err={err:.3e} (bound "
+                    f"(every {step} from {first}) max_abs_err={err:.3e} "
+                    f"(bound "
                     f"{TOL[dtype]:g}), equal in every bit {same}, plain "
                     f"PyTorch {p_ms:.1f} ms ({K8W_CHUNK} sequences a call)")
             check(err <= TOL[dtype], f"K8w d={d} {dtype} B={K8W_B} "
@@ -3801,6 +3843,435 @@ def phase_wide(tmp):
              "K8w": k8w[1]})
 
 
+# --------------------------------------------------------------- phase 15
+# K1w, K2w, K4w: d past 512.  The plain checks' cut shapes (d, T) at
+# WIDE_CUT_B sequences, f64 (and f32 at WIDE_D); the path shapes.  K1w and
+# K2w play a launch in chunks of WIDE_CHUNK rounds (oco_tiles.cuh
+# kMaxChunk), so the first cut shape plays 4 of them: its stages are
+# reused, its barriers' parity flips, and K2w's tails take switches
+# published in earlier chunks, as on the path's 16.
+WIDE_CUT_B = 77
+WIDE_CHUNK = 64
+WIDE_CUT = ((513, 200), (1024, 32), (1500, 32))
+WIDE_D = 1024
+WIDE_K1 = {torch.float64: (1024, 1000), torch.float32: (2048, 1024)}
+WIDE_K4_B, WIDE_K4_CT, WIDE_K4_CHUNKS = 2048, 1024, 4
+WIDE_ID_B, WIDE_ID_T = 256, 1024
+WIDE_SEEDS = {"k1f64": 151, "k1f32": 152, "k4": 153, "d2048": 154,
+              "id": 155, "narrow": 156}
+
+
+def wide_k1_bound(B, T, d, plays, dtype):
+    """K1w's least time on full rows: each row and label read once, the
+    flags, lengths, table row index and one-row table, the outputs written
+    once; the rounds' operations, w once a sequence."""
+    s = item(dtype)
+    n_bytes = (B * T * (d + 1) * s + B * 12 + plays * B * 4 + T * s
+               + plays * B * (2 + d) * s)
+    ops = B * T * (plays * hinge_round_ops(d, with_w=False) + 2 * d)
+    return bound(n_bytes, ops, dtype)
+
+
+def wide_k2_bound(B, T, d, tau, dtype):
+    """K2w's least time from the run's switch rounds (as ``k2_bound``)."""
+    G = tau.shape[0]
+    s = item(dtype)
+    open_rows = float(torch.clamp(tau.max(0).values + 1, max=T).sum())
+    tail = float(torch.clamp(T - tau - 1, min=0).sum())
+    n_bytes = (B * T * (d + 1) * s + B * 8 + G * B * s + T * s
+               + G * B * (1 + d) * s + B * s + G * B * 8)
+    ops = (B * T * (9 * d + 9) + open_rows * (2 * d + 3 + G)
+           + tail * hinge_round_ops(d, with_w=False))
+    return bound(n_bytes, ops, dtype)
+
+
+def wide_k4_bound(B, CT, d, chunks, dtype):
+    """K4w's least time over the chunks: each row read once, the flags and
+    eta, each launch's carry in and out; K1's round with w and cnt."""
+    s = item(dtype)
+    rows = chunks * CT * B
+    n_bytes = (rows * (d + 1) * s + B * (4 + s)
+               + chunks * 2 * B * (2 * d + 2) * s)
+    return bound(n_bytes, rows * (hinge_round_ops(d) + 2), dtype)
+
+
+def wide_path_data(key, B, T, d, dtype, y_dtype=None):
+    gen = torch.Generator(device="cuda").manual_seed(WIDE_SEEDS[key])
+    return random_game_batch(gen, B, T, d, dtype=dtype, y_dtype=y_dtype)
+
+
+def wide_thresholds(B, T, dtype):
+    """The path's thresholds: sqrt(2T), and sqrt(2T) / 8, which most
+    sequences of the random family pass (the FTL lead grows about as
+    sqrt(t) / 2 there)."""
+    root = math.sqrt(2.0 * T)
+    return torch.tensor([root, root / 8.0], dtype=dtype,
+                        device="cuda")[:, None].expand(-1, B).contiguous()
+
+
+def wide_stream_chunks():
+    gen = torch.Generator(device="cuda").manual_seed(WIDE_SEEDS["k4"])
+    return [random_time_major_batch(gen, WIDE_K4_CT, WIDE_K4_B, WIDE_D)
+            for _ in range(WIDE_K4_CHUNKS)]
+
+
+def wide_stream_game(chunks, dtype=torch.float32, y_dtype=None):
+    """StreamingKernelGame fed the chunks, FTRL and FTL on alternate
+    sequences."""
+    B = chunks[0][0].shape[2]
+    kg = StreamingKernelGame(
+        B, WIDE_D, alg_flag=torch.arange(B) % 2, eta0=ETA, dtype=dtype,
+        y_dtype=y_dtype, device="cuda")
+    for z_tm, y_tm in chunks:
+        kg.feed_packed(z_tm, y_tm)
+    return kg
+
+
+def wide_main_path():
+    """The path at full width, the counts set to 0 just before it and read
+    just after; returns the launches, the digests and K2w's switch
+    rounds."""
+    digests = {}
+    game.LAUNCHES = smart.LAUNCHES = game.STREAM_LAUNCHES = 0
+    for key, dtype, d in (("k1f64", torch.float64, WIDE_D),
+                          ("k1f32", torch.float32, WIDE_D),
+                          ("d2048", torch.float64, 2048)):
+        B, T = WIDE_K1[dtype]
+        z, y = wide_path_data(key, B, T, d, dtype)
+        ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        digests[key] = output_digest(game.regret_plays(z, y, (0, 1), ETA, ln,
+                                                       False))
+        if key == "k1f64":
+            out = smart.smart_plays(z, y, wide_thresholds(B, T, dtype), ETA,
+                                    ln, False)
+            digests["k2"] = output_digest(out)
+            tau = out[3]
+        del z, y
+        torch.cuda.empty_cache()
+    res = wide_stream_game(wide_stream_chunks()).result()
+    res = (res.regret, res.cum_loss, res.comp_loss)
+    digests["k4"] = output_digest(res)
+    torch.cuda.synchronize()
+    launches = {"K1w": game.LAUNCHES, "K2w": smart.LAUNCHES,
+                "K4w": game.STREAM_LAUNCHES}
+    torch.cuda.empty_cache()
+    T = WIDE_K1[torch.float64][1]
+    print(f"[15 wide d] main path (regret_plays f64 B=1024 T=1000 and f32 "
+          f"B=2048 T=1024 at d={WIDE_D}, f64 at d=2048; smart_plays f64, "
+          f"thresholds sqrt(2T) and sqrt(2T)/8; StreamingKernelGame f32 "
+          f"B={WIDE_K4_B}, {WIDE_K4_CHUNKS} chunks of {WIDE_K4_CT}): "
+          f"launches {json.dumps(launches)}; K2w pairs switched "
+          f"{[int((t < T).sum()) for t in tau]} of {tau.shape[1]} a "
+          f"threshold, mean tau "
+          f"{[round(float(t.double().mean()), 2) for t in tau]}; digests "
+          f"{json.dumps(digests)}")
+    check(launches == {"K1w": 3, "K2w": 1, "K4w": WIDE_K4_CHUNKS},
+          f"phase 15's path launches {launches}")
+    check(bool((tau < T).any()), "no K2w pair switched on the path")
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "K4w's stream result is not finite")
+    return launches, digests, tau
+
+
+def wide_cut_thresholds(B, T, dtype):
+    """Two thresholds a sequence, spread over the sequences so that the
+    switch rounds of the cut shapes fall in every chunk."""
+    root = math.sqrt(2.0 * T)
+    return torch.stack([
+        torch.linspace(0.05, 0.4, B, dtype=dtype, device="cuda") * root,
+        torch.linspace(0.3, 0.9, B, dtype=dtype, device="cuda") * root])
+
+
+def switches_by_chunk(tau, lengths):
+    """Pairs switched in each chunk of WIDE_CHUNK rounds, and the switched
+    pairs whose tail plays past the switch's chunk."""
+    ln = lengths[None].long()
+    on = tau < ln
+    T = int(lengths.max())
+    chunks = [int((on & (tau >= lo) & (tau < lo + WIDE_CHUNK)).sum())
+              for lo in range(0, T, WIDE_CHUNK)]
+    later = int((on & ((tau // WIDE_CHUNK + 1) * WIDE_CHUNK < ln - 1)).sum())
+    return chunks, later
+
+
+def wide_vs_plain():
+    """Each wide kernel against its plain version on the card, bit for bit,
+    at the cut shapes; returns the largest errors and the plain versions'
+    milliseconds at (WIDE_D, f64, contract)."""
+    worst, plain_ms = {"K1w": 0.0, "K2w": 0.0, "K4w": 0.0}, {}
+    cases = [(d, T, torch.float64, True) for d, T in WIDE_CUT]
+    cases += [(513, 32, torch.float64, False),
+              (WIDE_D, dict(WIDE_CUT)[WIDE_D], torch.float32, True)]
+    B = WIDE_CUT_B
+    for d, T, dtype, contract in cases:
+        z, y, ln = make_batch(B, T, d, 160 + d, dtype, contract=contract)
+        replay = not game.in_contract(z, y, ln)
+        check(replay == (not contract), "phase 15: contract check")
+        flags = torch.tensor([[0] * B, [1] * B], dtype=torch.int32,
+                             device="cuda")
+        eta = game.per_sequence(ETA, B, dtype, "cuda")
+        ths = wide_cut_thresholds(B, T, dtype)
+        fl = (torch.arange(B, device="cuda") % 2).to(torch.int32)
+        z_tm, y_tm = game.time_major(z, y)
+        carry = game.zero_stream_carry(B, d, dtype, "cuda")
+
+        def stream(play):
+            c = carry
+            cuts = (0, T // 3, T - T // 3, T)
+            for lo, hi in zip(cuts, cuts[1:]):
+                c = play(z_tm[lo:hi], y_tm[lo:hi], fl, eta, lo, c)
+            return c
+
+        runs = {
+            "K1w": (lambda: game.regret_plays(z, y, (0, 1), ETA, ln, replay),
+                    lambda: game.regret_plays_reference(
+                        z, y, flags, eta, ln, replay=replay)),
+            "K2w": (lambda: smart.smart_plays(z, y, ths, ETA, ln, replay),
+                    lambda: smart.smart_plays_reference(
+                        z, y, ths, eta, ln, replay=replay)),
+            "K4w": (lambda: stream(game.advance_stream),
+                    lambda: stream(game.play_stream_reference)),
+        }
+        errs = {}
+        for key, (kern, plain) in runs.items():
+            got = kern()
+            want, ms = timed_once(plain)
+            if (d, dtype, contract) == (WIDE_D, torch.float64, True):
+                plain_ms[key] = ms
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs[key] = max_err(got, want)
+            worst[key] = max(worst[key], errs[key])
+            check(same and errs[key] == 0.0,
+                  f"{key} d={d} T={T} {dtype} contract={contract} is not its "
+                  f"plain version bit for bit ({errs[key]})")
+        tau = smart.smart_plays(z, y, ths, ETA, ln, replay)[3]
+        chunks, later = switches_by_chunk(tau, ln)
+        print(f"[15 wide d] vs plain B={B} T={T} d={d} {dtype} "
+              f"{'contract' if contract else 'replay'}, {len(chunks)} "
+              f"chunk(s) of {WIDE_CHUNK} rounds, K4w in 3 launches: "
+              f"max_abs_err {json.dumps(errs)} (bound 0: bit for bit; switch "
+              f"rounds equal), K2w pairs switched {sum(chunks)} of {2 * B}, "
+              f"by chunk {chunks}, {later} of them with a tail past the "
+              f"switch's chunk")
+        if T > 3 * WIDE_CHUNK:
+            check(all(n > 0 for n in chunks[:3]) and later > 0,
+                  f"phase 15: the cut shape T={T} switches in no later "
+                  f"chunk ({chunks}, {later})")
+        del z, y, z_tm, y_tm
+    return worst, plain_ms
+
+
+def wide_identities():
+    """Identities of one launch each at full width, in every bit."""
+    # K4w over 4 chunks equals one K1w launch (f64).
+    B, T = WIDE_ID_B, WIDE_ID_T
+    z, y = wide_path_data("id", B, T, WIDE_D, torch.float64)
+    fl = (torch.arange(B, device="cuda") % 2).to(torch.int32)
+    cum, comp, _ = game.regrets_fused(z, y, fl, ETA)
+    z_tm, y_tm = game.time_major(z, y)
+    del z, y
+    CT = T // 4
+    res = wide_stream_game([(z_tm[lo:lo + CT], y_tm[lo:lo + CT])
+                            for lo in range(0, T, CT)],
+                           torch.float64).result()
+    same4 = (torch.equal(res.cum_loss, cum)
+             and torch.equal(res.comp_loss, comp)
+             and torch.equal(res.regret, cum - comp))
+    del z_tm, y_tm
+    # K2w with a threshold no sequence reaches: K1w's FTL play, tau = T.
+    B, T = WIDE_K1[torch.float64]
+    z, y = wide_path_data("k1f64", B, T, WIDE_D, torch.float64)
+    ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    cum, comp, _ = game.regret_plays(z, y, (1,), ETA, ln, False)
+    never = torch.full((1, B), 1e300, dtype=torch.float64, device="cuda")
+    s_cum, s_comp, _, tau = smart.smart_plays(z, y, never, ETA, ln, False)
+    same2 = (torch.equal(s_cum, cum) and torch.equal(s_comp, comp[0])
+             and bool((tau == T).all()))
+    # K2w's switched tails on the path's own sequences at full T and d:
+    # each tail's total is K4w played from round 0 over the rows zeroed
+    # through the switch round (a zero row changes nothing), FTRL, from the
+    # carry (0, 0, F, 0), F being K1w's FTL loss over the first tau + 1
+    # rounds (the identity above holds K2w's FTL track to K1w's).
+    ths = wide_thresholds(B, T, torch.float64)
+    s_cum, _, _, tau = smart.smart_plays(z, y, ths, ETA, ln, False)
+    rounds = torch.arange(T, device="cuda")
+    eta = game.per_sequence(ETA, B, torch.float64, "cuda")
+    ftrl = torch.full((B,), game.ALG_FTRL, dtype=torch.int32, device="cuda")
+    tails = []
+    for g in range(ths.shape[0]):
+        on = tau[g] < T
+        if not bool(on.any()):
+            continue
+        cut = torch.where(on, tau[g] + 1, T).to(torch.int32)
+        F = game.regret_plays(z, y, (1,), ETA, cut, False)[0][0]
+        keep = rounds[None, :] > tau[g][:, None]
+        z_tm, y_tm = game.time_major(torch.where(keep[..., None], z, 0.0),
+                                     torch.where(keep, y, 0.0))
+        carry = game.zero_stream_carry(B, WIDE_D, torch.float64,
+                                       "cuda")._replace(cum=F)
+        total = game.advance_stream(z_tm, y_tm, ftrl, eta, 0, carry).cum
+        del z_tm, y_tm
+        tails.append((int(on.sum()), int((T - 1 - tau[g][on]).sum()),
+                      torch.equal(total[on], s_cum[g][on])))
+    same_tails = bool(tails) and all(t[2] for t in tails)
+    del z, y
+    torch.cuda.empty_cache()
+    # Each narrow pair equals the f32 launches on the upcast values.
+    B, T = WIDE_K1[torch.float32]
+    ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    ths = wide_thresholds(B, T, torch.float32)
+    narrow = {}
+    for pair in PAIRS:
+        zs, ys = wide_path_data("narrow", B, T, WIDE_D, *pair)
+        stored = (zs, ys)
+        upcast = (zs.float(), ys.float())
+        same = all(
+            all(torch.equal(a, b) for a, b in zip(*(
+                fn(*zy) for zy in (stored, upcast))))
+            for fn in (
+                lambda a, b: game.regret_plays(a, b, (0, 1), ETA, ln, False),
+                lambda a, b: smart.smart_plays(a, b, ths, ETA, ln, False),
+                lambda a, b: wide_stream_game(
+                    [game.time_major(a[:, :T // 4], b[:, :T // 4])],
+                    a.dtype, b.dtype).carry))
+        narrow[pair_name(pair)] = same
+        del zs, ys, stored, upcast
+        torch.cuda.empty_cache()
+    print(f"[15 wide d] identities: K4w over 4 chunks == one K1w launch "
+          f"(f64 B={WIDE_ID_B} T={WIDE_ID_T} d={WIDE_D}) {same4}; K2w with "
+          f"a threshold no sequence reaches == K1w's FTL play, tau = T (f64 "
+          f"B=1024 T=1000) {same2}; K2w's switched tails on the path's "
+          f"data (thresholds sqrt(2T) and sqrt(2T)/8) == K4w from the carry "
+          f"(0, 0, F at the switch from K1w, 0) over the rows after the "
+          f"switch, as (pairs switched, tail rounds, equal) a threshold "
+          f"that switches {tails}; each narrow pair's K1w, K2w and K4w == "
+          f"the f32 launches on the upcast values (B={B} T={T}; K4w one "
+          f"chunk of {T // 4}) {json.dumps(narrow)}")
+    check(same4 and same2 and same_tails and all(narrow.values()),
+          "phase 15's full-width identities")
+
+
+def wide_occupancy(name, d, dtype):
+    if name == "K1w":
+        return game.regret_occupancy(2, d, dtype)
+    if name == "K2w":
+        return smart.smart_occupancy(2, d, dtype)
+    return game.stream_occupancy(d, dtype)
+
+
+def wide_timing(digests, tau):
+    """The path shapes timed on inputs regenerated from their seeds (the
+    outputs' digests must equal the main path's), with their bounds,
+    registers, warps an SM and local frames."""
+    out = {}
+    for key, dtype, d in (("k1f64", torch.float64, WIDE_D),
+                          ("k1f32", torch.float32, WIDE_D),
+                          ("d2048", torch.float64, 2048)):
+        B, T = WIDE_K1[dtype]
+        z, y = wide_path_data(key, B, T, d, dtype)
+        flags = torch.tensor([[0], [1]], dtype=torch.int32,
+                             device="cuda").expand(-1, B).contiguous()
+        table = game.eta_table(ETA, B, T, dtype, "cuda")
+        ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        runs = {f"K1w {key}": (
+            lambda: game.launch_regrets(z, y, flags, *table, ln, False),
+            wide_k1_bound(B, T, d, 2, dtype),
+            wide_occupancy("K1w", d, dtype), key)}
+        if key == "k1f64":
+            ths = wide_thresholds(B, T, dtype)
+            runs["K2w"] = (
+                lambda: smart.launch_smart(z, y, ths, *table, ln, False),
+                wide_k2_bound(B, T, d, tau, dtype),
+                wide_occupancy("K2w", d, dtype), "k2")
+        for name, (fn, bd, occ, dig) in runs.items():
+            outs = fn()
+            ms = time_ms(fn, reps=3, warm=True)
+            check(output_digest(outs) == digests[dig],
+                  f"{name}: the timed launch's digest differs from the main "
+                  f"path's")
+            out[name] = {"ms": ms[0], **bd, "registers": occ[0],
+                         "warps_per_sm": occ[1], "local_bytes": occ[2]}
+            print(f"[15 wide d] {name} B={B} T={T} d={d} {dtype}: kernel "
+                  f"{ms[0]:.4f} ms (min {ms[1]:.4f}, max {ms[2]:.4f}; 3 "
+                  f"launches); bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']}; {occ[0]} registers, {occ[1]} warps an "
+                  f"SM, local frame {occ[2]} B")
+        del z, y, runs
+        torch.cuda.empty_cache()
+    chunks = wide_stream_chunks()
+    flags = (torch.arange(WIDE_K4_B, device="cuda") % 2).to(torch.int32)
+    eta = torch.full((WIDE_K4_B,), ETA, dtype=torch.float32, device="cuda")
+
+    def stream():
+        carry = game.zero_stream_carry(WIDE_K4_B, WIDE_D, torch.float32,
+                                       "cuda")
+        for i, (z_tm, y_tm) in enumerate(chunks):
+            carry = game.launch_stream_time_major(z_tm, y_tm, flags, eta,
+                                                  i * WIDE_K4_CT, carry)
+        return carry
+
+    ms = time_ms(stream, reps=3)
+    check(output_digest(game.stream_result(stream())) == digests["k4"],
+          "K4w: the timed launches' digest differs from the main path's")
+    bd = wide_k4_bound(WIDE_K4_B, WIDE_K4_CT, WIDE_D, WIDE_K4_CHUNKS,
+                       torch.float32)
+    occ = wide_occupancy("K4w", WIDE_D, torch.float32)
+    out["K4w"] = {"ms": ms[0], **bd, "registers": occ[0],
+                  "warps_per_sm": occ[1], "local_bytes": occ[2]}
+    print(f"[15 wide d] K4w B={WIDE_K4_B} d={WIDE_D} f32, {WIDE_K4_CHUNKS} "
+          f"chunks of {WIDE_K4_CT}: kernels {ms[0]:.4f} ms for the "
+          f"{WIDE_K4_CHUNKS} launches (min {ms[1]:.4f}, max {ms[2]:.4f}; 3 "
+          f"runs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
+          f"{occ[0]} registers, {occ[1]} warps an SM, local frame {occ[2]} "
+          f"B")
+    frames = {f"{name} {str(dtype)[6:]}": sorted(
+        {wide_occupancy(name, d, dtype)[2] for d in (513, 1024, 2048, 65536)})
+        for name in ("K1w", "K2w", "K4w")
+        for dtype in (torch.float64, torch.float32)}
+    large = {name[:2]: wide_occupancy(name, 512, torch.float64)[2]
+             for name in ("K1w", "K2w", "K4w")}
+    print(f"[15 wide d] local frames (bytes) of the wide instances at d = "
+          f"513, 1024, 2048, 65536: {json.dumps(frames)}; the large-d "
+          f"instance's at d = 512, f64: {json.dumps(large)}")
+    check(all(len(v) == 1 for v in frames.values()),
+          "a wide instance's local frame depends on d")
+    return out
+
+
+def phase_wide_d():
+    """Phase 15: K1, K2 and K4 past d = 512 (K1w, K2w, K4w)."""
+    walls, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.empty_cache()
+        walls[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+
+    launches, digests, tau = wide_main_path()
+    lap("main path")
+    worst, plain_ms = wide_vs_plain()
+    lap("vs plain")
+    wide_identities()
+    lap("identities")
+    timing = wide_timing(digests, tau)
+    lap("timing")
+    print(f"[15 wide d] phase wall {sum(walls.values()):.1f} s "
+          f"({json.dumps(walls)})")
+    out = {}
+    cut = ", ".join(f"({d}, {T})" for d, T in WIDE_CUT)
+    for key, t in (("K1w", timing["K1w k1f64"]), ("K2w", timing["K2w"]),
+                   ("K4w", timing["K4w"])):
+        out[key] = {"max_abs_err": worst[key], "plain_ms": plain_ms[key],
+                    "library_ms": None, **t,
+                    "max_abs_err_at": f"B={WIDE_CUT_B}, (d, T) = {cut} f64, "
+                                      f"(513, 32) f64 replay, "
+                                      f"({WIDE_D}, 32) f32",
+                    "plain_ms_at": f"B={WIDE_CUT_B} "
+                                   f"T={dict(WIDE_CUT)[WIDE_D]} d={WIDE_D} "
+                                   f"f64"}
+    return launches, out
+
 def main() -> int:
     walls = {}
 
@@ -3829,6 +4300,7 @@ def main() -> int:
         "13 storage", phase_storage)
     with tempfile.TemporaryDirectory() as tmp:
         wide_launches, wide_timing = timed("14 wide", phase_wide, tmp)
+    wide_d_launches, wide_d_timing = timed("15 wide d", phase_wide_d)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -3928,6 +4400,24 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/quad_game_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:206",
          "launches": wide_launches["K8w"], **wide_timing["K8w"]},
+        {"name": "regret_kernel (K1w: K1 past d = 512, state in a (d, "
+                 "slots) device buffer)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/regret_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:226",
+         "launches": wide_d_launches["K1w"], **wide_d_timing["K1w"]},
+        {"name": "smart_kernel (K2w: K2 past d = 512, state in a (d, slots) "
+                 "device buffer)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/smart_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:108",
+         "launches": wide_d_launches["K2w"], **wide_d_timing["K2w"]},
+        {"name": "stream_kernel (K4w: K4 past d = 512, state in the carry "
+                 "and a (d, B) device buffer)",
+         "route": "cuda",
+         "source": "online_convex_optimization_tpu_torch/csrc/stream_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:871",
+         "launches": wide_d_launches["K4w"], **wide_d_timing["K4w"]},
     ]
     for pair in PAIRS:
         z_name, y_name = (str(t)[6:] for t in pair)

@@ -19,27 +19,40 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <type_traits>
 
 // Instances by feature dimension: d = 5, the main path's, is fully
 // unrolled in registers; the generic instance (D == 0) takes d <= 64 and
 // the large-d instance (D == -1) 64 < d <= 512, the JAX package's
-// _D_KERNEL_MAX.  The Python wrappers raise above OCO_LARGE_D
-// (utils/cuda_build.py MAX_D).
+// _D_KERNEL_MAX.  Past OCO_LARGE_D, K1, K2 and K4 have a wide instance
+// (D == kWideD) and take any d; the other hinge kernels have none, and
+// their wrappers raise there (ops/game.py::check_kernel_d,
+// utils/cuda_build.py MAX_D).
 //
-// The state of the runtime-d instances (theta, w, x, the row) is indexed by
-// a runtime j, so it lives in local memory, not in registers: the hardware
+// The state of the large-d instance (theta, w, x, the row) is indexed by a
+// runtime j, so it lives in local memory, not in registers: the hardware
 // interleaves local memory by thread, so a warp's access to element j is
-// one coalesced transaction, and L1 caches it.  That needs no scratch
-// buffer and no change of signature.  Its cost is the reservation: the
-// driver sets aside the largest frame (up to ~28 KB per thread for the
-// large f64 SMART instance) for every thread the card can hold, about 7 GB
-// of the 80, from the first launch of a large instance on.
+// one coalesced transaction, and L1 caches it.  Its cost is the
+// reservation: the driver sets aside the largest frame (up to ~28 KB per
+// thread for the large f64 SMART instance) for every thread the card can
+// hold, about 7 GB of the 80, from the first launch of a large instance
+// on.  A frame sized for d = 4,096 would take eight times that, so the
+// wide instance keeps no array in its frame: each thread's vectors lie in
+// a device buffer that the wrapper allocates, laid out (d, slots), element
+// j of slot i at j * slots + i (Strided), so that the 32 lanes of a warp
+// touch 32 neighbouring words as the local frame's interleaving does; its
+// rows are read from global memory where they are used and widened on
+// read (Widened).  Its frame does not grow with d and adds nothing to the
+// large instance's reservation.
 #define OCO_MAX_D 64
 #define OCO_LARGE_D 512
 #define OCO_THREADS 128
 
 namespace oco {
+
+// The instance marker of the wide instance (d > OCO_LARGE_D).
+constexpr int kWideD = -2;
 
 // Storage types.  z and y may be stored narrower than the compute type, as
 // the JAX package stores them (ops/pallas_game.py: bf16 z, int8 or bf16 y):
@@ -86,11 +99,51 @@ template <typename Z, typename Y>
 constexpr bool kWindowed = kNarrow<Z> || kNarrow<Y>;
 
 // Array capacity of an instance: D > 0 is a compile-time d, D == 0 the
-// generic instance, D == -1 the large-d one.
+// generic instance, D == -1 the large-d one; the wide instance keeps no
+// array (a placeholder of one element, never indexed).
 template <int D>
 struct Cap {
-  static constexpr int value = D > 0 ? D : (D == 0 ? OCO_MAX_D : OCO_LARGE_D);
+  static constexpr int value =
+      D > 0 ? D
+            : (D == 0 ? OCO_MAX_D : (D == -1 ? OCO_LARGE_D : 1));
 };
+
+// Element j of a vector stored with a stride: a wide thread's state, slot
+// i of a (d, slots) buffer (p = buffer + i, stride = slots), or a row of
+// the time-major (T, d, B) layout.  Indexed in 64 bits: slots * d may pass
+// 2^31.
+template <typename T>
+struct Strided {
+  T* p;
+  long long stride;
+  __device__ __forceinline__ T& operator[](int j) const {
+    return p[j * stride];
+  }
+};
+
+// A row in storage type Z read as the compute type S, element by element
+// (exact), with a stride between its elements: the wide instance's rows.
+template <typename S, typename Z>
+struct Widened {
+  const Z* p;
+  long long stride;
+  __device__ __forceinline__ S operator[](int j) const {
+    return S(widen(p[j * stride]));
+  }
+};
+
+// A thread's state vector v (0, 1, ...): its array `arr` (D >= -1), or,
+// in the wide instance, vector v of slot i in `buf`, which holds the
+// vectors one after another, each laid out (d, slots).
+template <int D, typename S>
+__device__ __forceinline__ auto state_vec(S* arr, S* buf, int v, long long i,
+                                          long long slots, int n) {
+  if constexpr (D == kWideD)
+    return Strided<S>{buf + static_cast<long long>(v) * n * slots + i,
+                      slots};
+  else
+    return arr;
+}
 
 // Calls launch(std::integral_constant<int, D>()) with the instance that
 // takes d; returns the launch's cudaError_t, cudaErrorInvalidValue for d
@@ -107,6 +160,15 @@ inline int launch_for_d(int d, F&& launch) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_for_d for the kernels with a wide instance (K1, K2, K4): any
+// d >= 1, the wide instance past OCO_LARGE_D.
+template <typename F>
+inline int launch_for_any_d(int d, F&& launch) {
+  if (d <= OCO_LARGE_D) return launch_for_d(d, launch);
+  launch(std::integral_constant<int, kWideD>());
+  return static_cast<int>(cudaGetLastError());
+}
+
 __device__ __forceinline__ double osqrt(double v) { return sqrt(v); }
 __device__ __forceinline__ float osqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double oabs(double v) { return fabs(v); }
@@ -120,58 +182,127 @@ __device__ __forceinline__ S half_sign(S diff) {
   return diff > S(0) ? S(0.5) : (diff < S(0) ? S(-0.5) : S(0));
 }
 
+// The helpers below take a thread's vectors as arrays (pointers) or, in
+// the wide instance, as Strided / Widened views, with the same arithmetic
+// in the same order.  A wide vector lies in device memory, so a loop that
+// loads an element and then uses it would wait a memory latency an
+// element: the wide instance's loops go kWideBlock elements at a time, the
+// block's loads first (ahead of any store), then its arithmetic in index
+// order, then its stores.
+constexpr int kWideBlock = 8;
+
 // <a, b> summed in index order, each element widened to S on read.
 template <typename S, int D, typename A, typename B>
-__device__ __forceinline__ S dot(const A* a, const B* b, int n) {
+__device__ __forceinline__ S dot(A a, B b, int n) {
   S acc = S(widen(a[0])) * S(widen(b[0]));
+  if constexpr (D == kWideD) {
+    for (int j0 = 1; j0 < n; j0 += kWideBlock) {
+      S u[kWideBlock], v[kWideBlock];
 #pragma unroll
-  for (int j = 1; j < n; ++j) acc = acc + S(widen(a[j])) * S(widen(b[j]));
+      for (int k = 0; k < kWideBlock; ++k) {
+        if (j0 + k < n) {
+          u[k] = S(widen(a[j0 + k]));
+          v[k] = S(widen(b[j0 + k]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWideBlock; ++k)
+        if (j0 + k < n) acc = acc + u[k] * v[k];
+    }
+  } else {
+#pragma unroll
+    for (int j = 1; j < n; ++j) acc = acc + S(widen(a[j])) * S(widen(b[j]));
+  }
   return acc;
 }
 
+// x = f * v elementwise (x may be v; the product is the same either way
+// round): a block's loads of v, then its stores to x, in the wide
+// instance.
+template <typename S, int D, typename V, typename X>
+__device__ __forceinline__ void scaled(V v, X x, int n, S f) {
+  if constexpr (D == kWideD) {
+    for (int j0 = 0; j0 < n; j0 += kWideBlock) {
+      S u[kWideBlock];
+#pragma unroll
+      for (int k = 0; k < kWideBlock; ++k)
+        if (j0 + k < n) u[k] = v[j0 + k];
+#pragma unroll
+      for (int k = 0; k < kWideBlock; ++k)
+        if (j0 + k < n) x[j0 + k] = f * u[k];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < n; ++j)
+      x[j] = f * v[j];
+  }
+}
+
 // x = -theta / ||theta||, the zero vector at theta == 0 (ftl_action).
-template <typename S, int D>
-__device__ __forceinline__ void ftl_action(const S* th, S* x, int n) {
+template <typename S, int D, typename TH, typename X>
+__device__ __forceinline__ void ftl_action(TH th, X x, int n) {
   const S nsq = dot<S, D>(th, th, n);
   const S scale = nsq > S(0) ? -(S(1) / osqrt(nsq)) : S(0);
-#pragma unroll
-  for (int j = 0; j < n; ++j)
-    x[j] = scale * th[j];
+  scaled<S, D>(th, x, n, scale);
 }
 
 // x = scale * theta, rescaled by 1/sqrt(||x||^2) iff ||x||^2 > 1: the FTRL
 // action for a given round scale (K3 reads it from a table).
-template <typename S, int D>
-__device__ __forceinline__ void ftrl_action_scaled(const S* th, S* x, int n,
+template <typename S, int D, typename TH, typename X>
+__device__ __forceinline__ void ftrl_action_scaled(TH th, X x, int n,
                                                    S scale) {
-#pragma unroll
-  for (int j = 0; j < n; ++j)
-    x[j] = scale * th[j];
+  scaled<S, D>(th, x, n, scale);
   const S nsq = dot<S, D>(x, x, n);
-  if (nsq > S(1)) {
-    const S f = S(1) / osqrt(nsq);
-#pragma unroll
-    for (int j = 0; j < n; ++j)
-      x[j] = x[j] * f;
-  }
+  if (nsq > S(1)) scaled<S, D>(x, x, n, S(1) / osqrt(nsq));
 }
 
 // x = -(eta / sqrt(t)) * theta, projected as above (ftrl_action); t >= 1 is
 // the 1-based round index.
-template <typename S, int D>
-__device__ __forceinline__ void ftrl_action(const S* th, S* x, int n, S eta,
-                                            S t) {
+template <typename S, int D, typename TH, typename X>
+__device__ __forceinline__ void ftrl_action(TH th, X x, int n, S eta, S t) {
   ftrl_action_scaled<S, D>(th, x, n, -(eta / osqrt(t)));
 }
 
 // The hinge step once the action x is chosen: cum += 0.5 * |<z_t, x> - y_t|;
 // returns the tie-exact subgradient coefficient 0.5 * sign.
-template <typename S, int D>
-__device__ __forceinline__ S hinge_step(const S* x, const S* zr, S yt, int n,
-                                        S& cum) {
+template <typename S, int D, typename X, typename ZR>
+__device__ __forceinline__ S hinge_step(X x, ZR zr, S yt, int n, S& cum) {
   const S diff = dot<S, D>(zr, x, n) - yt;
   cum = cum + S(0.5) * oabs(diff);
   return half_sign(diff);
+}
+
+// The subgradient update theta += g * z_t and, unless w is null (K2's
+// FTRL tails), the identity statistic w += y_t * z_t.
+template <typename S, int D, typename TH, typename W, typename ZR>
+__device__ __forceinline__ void update(TH th, W w, ZR zr, S g, S yt, int n) {
+  constexpr bool kW = !std::is_same<W, std::nullptr_t>::value;
+  if constexpr (D == kWideD) {
+    for (int j0 = 0; j0 < n; j0 += kWideBlock) {
+      S t[kWideBlock], u[kWideBlock], z[kWideBlock];
+#pragma unroll
+      for (int k = 0; k < kWideBlock; ++k) {
+        if (j0 + k < n) {
+          t[k] = th[j0 + k];
+          z[k] = zr[j0 + k];
+          if constexpr (kW) u[k] = w[j0 + k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWideBlock; ++k) {
+        if (j0 + k < n) {
+          th[j0 + k] = t[k] + g * z[k];
+          if constexpr (kW) w[j0 + k] = u[k] + yt * z[k];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      th[j] = th[j] + g * zr[j];
+      if constexpr (kW) w[j] = w[j] + yt * zr[j];
+    }
+  }
 }
 
 // Loads row t of one sequence from the time-major (T, d, B) layout:
@@ -189,26 +320,22 @@ __device__ __forceinline__ void load_row(const Z* __restrict__ z, long long t,
 // The round once the action x is chosen: the hinge loss of q = <z_t, x>
 // added to cum, the tie-exact subgradient update of theta, and the
 // identity statistic w += y_t z_t.
-template <typename S, int D>
-__device__ __forceinline__ void play_action(S* th, S* w, const S* x,
-                                            const S* zr, S yt, int n,
-                                            S& cum) {
-  const S g = hinge_step<S, D>(x, zr, yt, n, cum);
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    th[j] = th[j] + g * zr[j];
-    w[j] = w[j] + yt * zr[j];
-  }
+template <typename S, int D, typename TH, typename W, typename X,
+          typename ZR>
+__device__ __forceinline__ void play_action(TH th, W w, X x, ZR zr, S yt,
+                                            int n, S& cum) {
+  update<S, D>(th, w, zr, hinge_step<S, D>(x, zr, yt, n, cum), yt, n);
 }
 
 // One round of the FTRL (ftrl) or FTL game: the action x from the
 // pre-update theta (FTRL with the 1-based round index t1), the hinge loss
 // of q = <z_t, x> added to cum, the tie-exact subgradient update of theta,
 // and the identity statistic w += y_t z_t.
-template <typename S, int D>
-__device__ __forceinline__ void game_round(S* th, S* w, S* x, const S* zr,
-                                           S yt, bool ftrl, S eta, S t1,
-                                           int n, S& cum) {
+template <typename S, int D, typename TH, typename W, typename X,
+          typename ZR>
+__device__ __forceinline__ void game_round(TH th, W w, X x, ZR zr, S yt,
+                                           bool ftrl, S eta, S t1, int n,
+                                           S& cum) {
   if (ftrl)
     ftrl_action<S, D>(th, x, n, eta, t1);
   else
@@ -218,9 +345,9 @@ __device__ __forceinline__ void game_round(S* th, S* w, S* x, const S* zr,
 
 // Loss of the final FTL action x_c = ftl_action(theta) (written to x) over
 // cnt contract rows, by the hinge identity 0.5 * (cnt - <x_c, w>).
-template <typename S, int D>
-__device__ __forceinline__ S identity_comparator(const S* th, const S* w,
-                                                 S* x, int n, S cnt) {
+template <typename S, int D, typename TH, typename W, typename X>
+__device__ __forceinline__ S identity_comparator(TH th, W w, X x, int n,
+                                                 S cnt) {
   ftl_action<S, D>(th, x, n);
   return S(0.5) * (cnt - dot<S, D>(x, w, n));
 }

@@ -33,7 +33,9 @@
 // used, and cannot fault.
 //
 // The large-d instance (D == -1, d > 64), whose rows do not fit a stage,
-// reads each row from global memory as it plays it (play_rows_global).
+// reads each row from global memory as it plays it (play_rows_global); so
+// does the wide instance of K1 and K2 (D == kWideD, d > 512), through a
+// Widened view of the row.
 #pragma once
 
 #include <climits>
@@ -222,6 +224,16 @@ inline int occupancy(K kernel, int threads, size_t smem, int* out) {
                                                         threads, smem);
   out[0] = err == cudaSuccess ? attr.numRegs : 0;
   out[1] = blocks * threads / 32;
+  return static_cast<int>(err);
+}
+
+// Bytes of a thread's local frame of `kernel` (*out,
+// cudaFuncAttributes.localSizeBytes); returns the cudaError_t.
+template <typename K>
+inline int local_bytes(K kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  *out = err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : 0;
   return static_cast<int>(err);
 }
 
@@ -518,7 +530,8 @@ enum class ChunkRole {
 // `consumers` (warps) the same.  The large-d instance (D == -1) stages
 // nothing: it passes fn its global row (widened into local memory where z
 // is narrow), and keeps the pipeline's barriers only to order the trail
-// after the leads.
+// after the leads; the wide instance (D == kWideD) passes a Widened view
+// of the global row, which holds nothing in the thread's frame.
 template <typename S, int D, int kStages, typename Z, typename Y,
           typename Lo, typename F>
 __device__ __forceinline__ void play_chunks(
@@ -595,7 +608,7 @@ __device__ __forceinline__ void play_chunks(
   }
 
   // The large-d instance widens a narrow global row into local memory.
-  constexpr bool kWidenGlobal = D < 0 && !std::is_same<Z, S>::value;
+  constexpr bool kWidenGlobal = D == -1 && !std::is_same<Z, S>::value;
   S zr[D >= 0 || kWidenGlobal ? Cap<D>::value : 1];
   for (int c = 0; c < chunks; ++c) {
     const unsigned parity = (c / kStages) & 1;
@@ -621,6 +634,10 @@ __device__ __forceinline__ void play_chunks(
           row += n;
           ++label;
         }
+      } else if constexpr (D == kWideD) {
+        for (int t = t0 + k_lo; t < t0 + k_hi; ++t)
+          fn(t, Widened<S, Z>{z + (b * T + t) * n, 1},
+             S(widen(y[b * T + t])));
       } else if constexpr (kWidenGlobal) {
         for (int t = t0 + k_lo; t < t0 + k_hi; ++t) {
           const Z* src = z + (b * T + t) * n;
@@ -665,12 +682,11 @@ struct NoChunkPass {
 
 // Final comparator loss 0.5 * sum_{t < len} |<z_t, x> - y_t| replayed over
 // sequence b's rows in the (B, T, d) layout (the sweeps' replay mode).
-template <typename S, int D, typename Z, typename Y>
+template <typename S, int D, typename Z, typename Y, typename X>
 __device__ __forceinline__ S replay_comparator_rows(const Z* __restrict__ z,
                                                    const Y* __restrict__ y,
                                                    long long b, long long T,
-                                                   int n, int len,
-                                                   const S* x) {
+                                                   int n, int len, X x) {
   S comp = S(0);
   for (int t = 0; t < len; ++t) {
     const S q = dot<S, D>(z + (b * T + t) * n, x, n);

@@ -46,6 +46,18 @@
 // (a z and a y window of their own element sizes) and the players widen
 // each element on read, so a narrow launch equals the f32 launch on the
 // upcast values in every bit, on fewer bytes.
+//
+// Past d = 512 (K1w, the wide instance, D == oco::kWideD) a play's theta,
+// w and x are vectors 0, 1 and 2 of slot p * B + b in the caller's state
+// buffer, laid out (d, P * B) (oco::state_vec: element j of a slot at
+// j * slots + slot, so a warp's lanes touch neighbouring words), and each
+// row is read from the caller's (B, T, d) z where it is used and widened
+// on read, as the large-d instance reads it: the same helpers in the same
+// order, so K1w equals its plain version bit for bit at any d, and its
+// local frame does not grow with d.  What bounds it: each round reads and
+// writes a play's three vectors (about 9d words) against its two or three
+// index-order dot products of d terms, so at B = 1,024 (64 warps, under
+// one an SM) the chains' latency, not the bytes, sets the time.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -65,7 +77,8 @@ regret_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
               long long B, long long T, int P, oco::ChunkShape ts,
               int replay, oco::compute_t<Z>* __restrict__ cum_out,
               oco::compute_t<Z>* __restrict__ comp_out,
-              oco::compute_t<Z>* __restrict__ x_last) {
+              oco::compute_t<Z>* __restrict__ x_last,
+              oco::compute_t<Z>* state) {
   using S = oco::compute_t<Z>;
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -81,15 +94,23 @@ regret_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   oco::ScaleAhead<S> scale{scales + (b >= 0 ? eidx[b] * T : 0), T, S(0)};
   if (ftrl) scale.start(0);
 
-  S th[C], w[C], x[C];
+  // The play's vectors: arrays, or (wide) its slot of the state buffer.
+  S th_a[C], w_a[C], x_a[C];
+  const long long slots = static_cast<long long>(P) * B;
+  const long long own = player && b >= 0 ? i : 0;
+  const auto th = oco::state_vec<D>(th_a, state, 0, own, slots, n);
+  const auto w = oco::state_vec<D>(w_a, state, 1, own, slots, n);
+  const auto x = oco::state_vec<D>(x_a, state, 2, own, slots, n);
+  if (D != oco::kWideD || (player && b >= 0)) {
 #pragma unroll
-  for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
+    for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
+  }
   S cum = S(0);
   oco::play_chunks<S, D, kStages>(
       z, y, b, B, T, ts, len,
       player ? oco::ChunkRole::kLead : oco::ChunkRole::kProducer, P, P, smem,
       [](int) { return 0; },
-      [&](int t, const S* zr, S yt) {
+      [&](int t, auto zr, S yt) {
         if (ftrl)
           oco::ftrl_action_scaled<S, D>(th, x, n, scale.take(t));
         else
@@ -111,13 +132,14 @@ template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* flags,
            const void* scales, const void* eidx, const void* lengths,
            long long B, long long T, int P, int d, int replay, void* cum,
-           void* comp, void* x_last, void* stream) {
+           void* comp, void* x_last, void* state, void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || T < 1 || P < 1 || P > kMaxPlays) return cudaErrorInvalidValue;
+  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   int err = cudaSuccess;
-  const int launched = oco::launch_for_d(d, [&](auto dc) {
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     // A narrow stage holds the rounds a float32 one holds, in fewer bytes,
     // so that more blocks share an SM.
@@ -134,7 +156,7 @@ int launch(const void* z, const void* y, const void* flags,
         static_cast<const int*>(flags), static_cast<const S*>(scales),
         static_cast<const int*>(eidx), static_cast<const int*>(lengths), B,
         T, P, ts, replay, static_cast<S*>(cum), static_cast<S*>(comp),
-        static_cast<S*>(x_last));
+        static_cast<S*>(x_last), static_cast<S*>(state));
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -143,11 +165,13 @@ template <typename S>
 int occupancy(int P, int d, int* out) {
   if (P < 1 || P > kMaxPlays) return cudaErrorInvalidValue;
   int err = cudaSuccess;
-  const int checked = oco::launch_for_d(d, [&](auto dc) {
+  const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
     err = oco::occupancy(regret_kernel<S, S, D>, (P + 1) * 32,
                          oco::chunk_ring_bytes<D>(ts, kStages), out);
+    if (err == cudaSuccess) err = oco::local_bytes(regret_kernel<S, S, D>,
+                                                   out + 2);
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -158,20 +182,24 @@ int occupancy(int P, int d, int* out) {
 // OCO_STORAGE_PAIRS (the suffix), flags (P, B) int32 (0 = FTRL, 1 = FTL),
 // scales (E, T) the FTRL scales -(eta_e / sqrt(t)) in the compute type,
 // eidx (B,) int32 each sequence's row of scales, lengths (B,) int32 with
-// 0 <= len <= T; 1 <= P <= 8.  Outputs, in the compute type: cum_loss
-// (P, B), comp_loss (P, B), x_last (P, B, d).  Returns the cudaError_t of
-// the launch.
+// 0 <= len <= T; 1 <= P <= 8; any d >= 1.  Outputs, in the compute type:
+// cum_loss (P, B), comp_loss (P, B), x_last (P, B, d).  state: past
+// d = 512 a scratch buffer of 3 * d * P * B elements of the compute type
+// (ops/game.py::wide_state_elems), else unused (may be null).  Returns the
+// cudaError_t of the launch.
 #define OCO_REGRETS_ENTRY(SUFFIX, Z, Y)                                      \
   extern "C" int oco_regrets_fused_##SUFFIX(                                 \
       const void* z, const void* y, const void* flags, const void* scales,   \
       const void* eidx, const void* lengths, long long B, long long T, int P, \
-      int d, int replay, void* cum, void* comp, void* x_last, void* stream) { \
+      int d, int replay, void* cum, void* comp, void* x_last, void* state,   \
+      void* stream) {                                                        \
     return launch<Z, Y>(z, y, flags, scales, eidx, lengths, B, T, P, d,      \
-                        replay, cum, comp, x_last, stream);                  \
+                        replay, cum, comp, x_last, state, stream);           \
   }
 OCO_STORAGE_PAIRS(OCO_REGRETS_ENTRY)
 
-// Registers a thread (out[0]) and resident warps an SM (out[1]) of a
+// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
+// a thread's local frame (out[2], cudaFuncAttributes.localSizeBytes) of a
 // launch with P plays at feature dimension d on the current card; f64
 // nonzero for the float64 instance.  Returns the cudaError_t.
 extern "C" int oco_regrets_occupancy(int f64, int P, int d, int* out) {

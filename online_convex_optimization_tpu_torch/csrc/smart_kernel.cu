@@ -47,6 +47,16 @@
 // (OCO_STORAGE_PAIRS) goes through the same bulk-copied windows as K1's
 // and is widened on read: a narrow launch equals the f32 launch on the
 // upcast values in every bit.
+//
+// Past d = 512 (K2w, the wide instance, D == oco::kWideD) warp k < 1 + G
+// keeps theta and x as vectors 0 and 1 of slot k * B + b in the caller's
+// state buffer, laid out (d, (1 + G) * B), and the FTL warp its w as
+// vector 2, laid out (d, B) after them (oco::state_vec); rows are read from
+// the caller's (B, T, d) z where they are used and widened on read, as in
+// K1w.  The mbarriers of play_chunks still order each tail after the FTL
+// warp, and the producer warp, which copies nothing there, stays in the
+// block for them.  Same helpers, same order: K2w equals its plain version
+// bit for bit at any d, with a local frame that does not grow with d.
 #include <climits>
 
 #include "oco_tiles.cuh"
@@ -69,7 +79,8 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
              const int* __restrict__ eidx, const int* __restrict__ lengths,
              long long B, long long T, int G, oco::ChunkShape ts, int replay,
              S* __restrict__ cum_out, S* __restrict__ comp_out,
-             S* __restrict__ x_last, long long* __restrict__ switch_t) {
+             S* __restrict__ x_last, long long* __restrict__ switch_t,
+             S* state) {
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   // Warp 0's switch rounds (INT_MAX until a threshold is passed) and the
@@ -99,9 +110,24 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const oco::ChunkRole role =
       ftl ? oco::ChunkRole::kLead
           : (g_tail < G ? oco::ChunkRole::kTrail : oco::ChunkRole::kProducer);
-  S th[C], w[C], x[C];
+  // The warp's vectors: arrays, or (wide) its slot of the state buffer
+  // (w the FTL warp's alone).
+  S th_a[C], w_a[C], x_a[C];
+  const bool mine = b >= 0 && role != oco::ChunkRole::kProducer;
+  const long long slots = static_cast<long long>(1 + G) * B;
+  const long long own = mine ? warp * B + b : 0;
+  const auto th = oco::state_vec<D>(th_a, state, 0, own, slots, n);
+  const auto x = oco::state_vec<D>(x_a, state, 1, own, slots, n);
+  const auto w = oco::state_vec<D>(w_a, state, 2 * (1 + G),
+                                   ftl ? own : 0, B, n);
+  if (D != oco::kWideD || mine) {
 #pragma unroll
-  for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
+    for (int j = 0; j < n; ++j) th[j] = x[j] = S(0);
+  }
+  if (D != oco::kWideD || (mine && ftl)) {
+#pragma unroll
+    for (int j = 0; j < n; ++j) w[j] = S(0);
+  }
   S F = S(0), cnt = S(0), cum = S(0);
   S thr[kMaxThresholds];
   long long tau[kMaxThresholds];
@@ -134,16 +160,11 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
         }
         return start;
       },
-      [&](int t, const S* zr, S yt) {
+      [&](int t, auto zr, S yt) {
         if (ftl) {
           const S diffF = oco::dot<S, D>(zr, x, n) - yt;
           const S lossF = S(0.5) * oco::oabs(diffF);
-          const S gF = oco::half_sign(diffF);
-#pragma unroll
-          for (int j = 0; j < n; ++j) {
-            th[j] = th[j] + gF * zr[j];
-            w[j] = w[j] + yt * zr[j];
-          }
+          oco::update<S, D>(th, w, zr, oco::half_sign(diffF), yt, n);
           F = F + lossF;
           cnt = cnt + S(1);
           oco::ftl_action<S, D>(th, x, n);
@@ -162,9 +183,8 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
           }
         } else {
           oco::ftrl_action_scaled<S, D>(th, x, n, scale.take(t));
-          const S gR = oco::hinge_step<S, D>(x, zr, yt, n, cum);
-#pragma unroll
-          for (int j = 0; j < n; ++j) th[j] = th[j] + gR * zr[j];
+          oco::update<S, D>(th, nullptr, zr,
+                            oco::hinge_step<S, D>(x, zr, yt, n, cum), yt, n);
         }
       });
   if (b < 0 || role == oco::ChunkRole::kProducer) return;
@@ -197,14 +217,16 @@ template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* thresholds,
            const void* scales, const void* eidx, const void* lengths,
            long long B, long long T, int G, int d, int replay, void* cum,
-           void* comp, void* x_last, void* switch_t, void* stream) {
+           void* comp, void* x_last, void* switch_t, void* state,
+           void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || T < 1 || T >= INT_MAX || G < 1 || G > kMaxThresholds)
     return cudaErrorInvalidValue;
+  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   int err = cudaSuccess;
-  const int launched = oco::launch_for_d(d, [&](auto dc) {
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const oco::ChunkShape ts = oco::chunk_shape<Z, Y, D>(d, kStageBytes);
     err = oco::launch_with_smem(
@@ -215,7 +237,7 @@ int launch(const void* z, const void* y, const void* thresholds,
         static_cast<const S*>(scales), static_cast<const int*>(eidx),
         static_cast<const int*>(lengths), B, T, G, ts, replay,
         static_cast<S*>(cum), static_cast<S*>(comp), static_cast<S*>(x_last),
-        static_cast<long long*>(switch_t));
+        static_cast<long long*>(switch_t), static_cast<S*>(state));
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -224,11 +246,13 @@ template <typename S>
 int occupancy(int G, int d, int* out) {
   if (G < 1 || G > kMaxThresholds) return cudaErrorInvalidValue;
   int err = cudaSuccess;
-  const int checked = oco::launch_for_d(d, [&](auto dc) {
+  const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
     err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32,
                          oco::chunk_ring_bytes<D>(ts, kStages), out);
+    if (err == cudaSuccess) err = oco::local_bytes(smart_kernel<S, S, D>,
+                                                   out + 2);
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -239,24 +263,27 @@ int occupancy(int G, int d, int* out) {
 // OCO_STORAGE_PAIRS (the suffix); in the compute type thresholds (G, B)
 // and scales (E, T) the FTRL scales -(eta_e / sqrt(t)); eidx (B,) int32
 // each sequence's row of scales, lengths (B,) int32 with 0 <= len <= T;
-// 1 <= G <= 4.  Outputs: cum_loss (G, B), comp_loss (B,), x_last
-// (G, B, d) in the compute type, switch_t (G, B) int64 (T where a pair
-// never switches).  Returns the cudaError_t of the launch.
+// 1 <= G <= 4; any d >= 1.  Outputs: cum_loss (G, B), comp_loss (B,),
+// x_last (G, B, d) in the compute type, switch_t (G, B) int64 (T where a
+// pair never switches).  state: past d = 512 a scratch buffer of
+// (2 * (1 + G) + 1) * d * B elements of the compute type
+// (ops/game.py::wide_state_elems), else unused (may be null).  Returns the
+// cudaError_t of the launch.
 #define OCO_SMART_ENTRY(SUFFIX, Z, Y)                                        \
   extern "C" int oco_smart_regrets_##SUFFIX(                                 \
       const void* z, const void* y, const void* thresholds,                  \
       const void* scales, const void* eidx, const void* lengths, long long B, \
       long long T, int G, int d, int replay, void* cum, void* comp,          \
-      void* x_last, void* switch_t, void* stream) {                          \
+      void* x_last, void* switch_t, void* state, void* stream) {             \
     return launch<Z, Y>(z, y, thresholds, scales, eidx, lengths, B, T, G, d, \
-                        replay, cum, comp, x_last, switch_t, stream);        \
+                        replay, cum, comp, x_last, switch_t, state, stream); \
   }
 OCO_STORAGE_PAIRS(OCO_SMART_ENTRY)
 
-// Registers a thread (out[0]) and resident warps an SM (out[1]) of a
-// launch with G thresholds a sequence at feature dimension d on the
-// current card; f64 nonzero for the float64 instance.  Returns the
-// cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
+// a thread's local frame (out[2]) of a launch with G thresholds a sequence
+// at feature dimension d on the current card; f64 nonzero for the float64
+// instance.  Returns the cudaError_t.
 extern "C" int oco_smart_occupancy(int f64, int G, int d, int* out) {
   return f64 ? occupancy<double>(G, d, out) : occupancy<float>(G, d, out);
 }

@@ -43,6 +43,14 @@
 // ring as the aligned 4-byte word that holds it (oco::play_time_major_words,
 // the same ring of the same depth); the large-d instance loads each row as
 // it plays it.
+//
+// Past d = 512 (K4w, the wide instance, D == oco::kWideD) a thread keeps no
+// vector in its frame: theta and w are the output carry itself (th_out and
+// w_out, (d, B), copied from the input carry first), x is vector 0 of the
+// caller's (d, B) state buffer, and each row is read from the time-major
+// chunk where it is used (an oco::Widened view, coalesced across the
+// warp).  The same round in the same order: K4w over chunks equals K1w in
+// one pass bit for bit.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -74,7 +82,7 @@ stream_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
               const S* __restrict__ th_in, const S* __restrict__ w_in,
               const S* __restrict__ cum_in, const S* __restrict__ cnt_in,
               S* __restrict__ th_out, S* __restrict__ w_out,
-              S* __restrict__ cum_out, S* __restrict__ cnt_out) {
+              S* __restrict__ cum_out, S* __restrict__ cnt_out, S* state) {
   constexpr int C = oco::Cap<D>::value;
   constexpr int P = Ring<Z, Y, D>::depth;
   extern __shared__ __align__(16) unsigned char ring_bytes[];
@@ -85,14 +93,27 @@ stream_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const bool ftrl = alg_flag[b] == 0;
   const S eta_b = eta[b];
 
-  S th[C], w[C], x[C], zr[C];
+  // The thread's vectors: arrays, or (wide) its columns of the output
+  // carry and of the state buffer.
+  S th_a[C], w_a[C], x_a[C], zr[C];
+  const auto th = oco::state_vec<D>(th_a, th_out, 0, b, B, n);
+  const auto w = oco::state_vec<D>(w_a, w_out, 0, b, B, n);
+  const auto x = oco::state_vec<D>(x_a, state, 0, b, B, n);
 #pragma unroll
   for (int j = 0; j < n; ++j) {
     th[j] = th_in[j * B + b];
     w[j] = w_in[j * B + b];
   }
   S cum = cum_in[b], cnt = cnt_in[b];
-  if constexpr (P > 0 && oco::kWindowed<Z, Y>) {
+  if constexpr (D == oco::kWideD) {
+    for (long long k = 0; k < CT; ++k) {
+      const S yt = S(oco::widen(y[k * B + b]));
+      const oco::Widened<S, Z> row{z + k * n * B + b, B};
+      oco::game_round<S, D>(th, w, x, row, yt, ftrl, eta_b, S(t0 + k + 1), n,
+                            cum);
+      cnt = cnt + yt * yt;
+    }
+  } else if constexpr (P > 0 && oco::kWindowed<Z, Y>) {
     oco::play_time_major_words<S, D, P>(
         z, y, CT, b, B, n,
         reinterpret_cast<unsigned*>(ring_bytes) + threadIdx.x, blockDim.x,
@@ -142,10 +163,12 @@ stream_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       cnt = cnt + yt * yt;
     }
   }
+  if constexpr (D != oco::kWideD) {
 #pragma unroll
-  for (int j = 0; j < n; ++j) {
-    th_out[j * B + b] = th[j];
-    w_out[j * B + b] = w[j];
+    for (int j = 0; j < n; ++j) {
+      th_out[j * B + b] = th[j];
+      w_out[j * B + b] = w[j];
+    }
   }
   cum_out[b] = cum;
   cnt_out[b] = cnt;
@@ -156,9 +179,10 @@ int launch(const void* z, const void* y, const void* alg_flag,
            const void* eta, long long t0, long long CT, long long B, int d,
            const void* th_in, const void* w_in, const void* cum_in,
            const void* cnt_in, void* th_out, void* w_out, void* cum_out,
-           void* cnt_out, void* stream) {
+           void* cnt_out, void* state, void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || CT < 0 || t0 < 0) return cudaErrorInvalidValue;
+  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = static_cast<unsigned int>(
       (B + kStreamThreads - 1) / kStreamThreads);
@@ -174,8 +198,9 @@ int launch(const void* z, const void* y, const void* alg_flag,
   auto* wo = static_cast<S*>(w_out);
   auto* co = static_cast<S*>(cum_out);
   auto* no = static_cast<S*>(cnt_out);
+  auto* st = static_cast<S*>(state);
   int err = cudaSuccess;
-  const int launched = oco::launch_for_d(d, [&](auto dc) {
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const auto kernel = stream_kernel<Z, Y, D>;
     const size_t smem = static_cast<size_t>(Ring<Z, Y, D>::depth) * (d + 1) *
@@ -186,9 +211,23 @@ int launch(const void* z, const void* y, const void* alg_flag,
           static_cast<int>(smem)));
     if (err == cudaSuccess)
       kernel<<<grid, kStreamThreads, smem, s>>>(
-          zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no);
+          zp, yp, fp, ep, t0, CT, B, d, ti, wi, ci, ni, to, wo, co, no, st);
   });
   return err != cudaSuccess ? err : launched;
+}
+
+template <typename S>
+int occupancy(int d, int* out) {
+  int err = cudaSuccess;
+  const int checked = oco::launch_for_any_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    const size_t smem = static_cast<size_t>(Ring<S, S, D>::depth) * (d + 1) *
+                        Ring<S, S, D>::word * kStreamThreads;
+    err = oco::occupancy(stream_kernel<S, S, D>, kStreamThreads, smem, out);
+    if (err == cudaSuccess) err = oco::local_bytes(stream_kernel<S, S, D>,
+                                                   out + 2);
+  });
+  return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
@@ -196,18 +235,28 @@ int launch(const void* z, const void* y, const void* alg_flag,
 // Inputs: z (CT, d, B) and y (CT, B) time-major in a storage pair of
 // OCO_STORAGE_PAIRS (the suffix), alg_flag (B,) int32 (0 = FTRL, 1 = FTL),
 // eta (B,), t0 >= 0 the rounds already played, and the carry theta (d, B),
-// w (d, B), cum (B,), cnt (B,), eta and the carry in the compute type.
-// Outputs: the advanced carry in separate buffers (no aliasing with the
-// inputs).  Returns the cudaError_t of the launch.
+// w (d, B), cum (B,), cnt (B,), eta and the carry in the compute type; any
+// d >= 1.  Outputs: the advanced carry in separate buffers (no aliasing
+// with the inputs).  state: past d = 512 a scratch buffer of d * B
+// elements of the compute type (ops/game.py::wide_state_elems), else
+// unused (may be null).  Returns the cudaError_t of the launch.
 #define OCO_STREAM_ENTRY(SUFFIX, Z, Y)                                      \
   extern "C" int oco_play_stream_##SUFFIX(                                  \
       const void* z, const void* y, const void* alg_flag, const void* eta,  \
       long long t0, long long CT, long long B, int d, const void* th_in,    \
       const void* w_in, const void* cum_in, const void* cnt_in,             \
-      void* th_out, void* w_out, void* cum_out, void* cnt_out,              \
+      void* th_out, void* w_out, void* cum_out, void* cnt_out, void* state, \
       void* stream) {                                                       \
     return launch<Z, Y>(z, y, alg_flag, eta, t0, CT, B, d, th_in, w_in,     \
                         cum_in, cnt_in, th_out, w_out, cum_out, cnt_out,    \
-                        stream);                                            \
+                        state, stream);                                     \
   }
 OCO_STORAGE_PAIRS(OCO_STREAM_ENTRY)
+
+// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
+// a thread's local frame (out[2]) of a launch at feature dimension d on
+// the current card; f64 nonzero for the float64 instance.  Returns the
+// cudaError_t.
+extern "C" int oco_stream_occupancy(int f64, int d, int* out) {
+  return f64 ? occupancy<double>(d, out) : occupancy<float>(d, out);
+}

@@ -42,8 +42,11 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations, sharing K1's step (``hinge_round``).  A
 wrapper runs the plain version on a CPU tensor, at any d, and launches the
-kernel on a CUDA tensor, for d up to ``cuda_build.MAX_D`` = 512 (raising
-above it); there is no fallback between them.  K1, K4 and K5 play the same
+kernel on a CUDA tensor; there is no fallback between them.  K1 and K4
+take any d on the card: past ``cuda_build.MAX_D`` = 512 they launch their
+wide instances (K1w, K4w), whose state lies in a device buffer of
+``wide_state_elems`` elements that the wrapper allocates; K3, K3e, K5 and
+K7 raise past 512 (``check_kernel_d``).  K1, K4 and K5 play the same
 round (``oco::game_round``), K3 and K3e its action and hinge step, so a
 sweep column, a sequence fed in chunks or a packed game equals K1 bit for
 bit.
@@ -184,13 +187,55 @@ def check_batch(z: torch.Tensor, y: torch.Tensor):
     return B, T, d
 
 
-def check_kernel_d(d: int) -> None:
-    """Raise for a feature dimension the CUDA kernels K1-K7 have no
-    instance of (the plain versions on the CPU take any d)."""
-    if d > cuda_build.MAX_D:
-        raise ValueError(f"d = {d} exceeds the CUDA kernels' limit d <= "
+# The hinge kernels with a wide instance past cuda_build.MAX_D (K1w, K2w,
+# K4w): any d >= 1.  The others (K3, K3e, K5, K6a, K6b, K7) stop at MAX_D.
+WIDE_KERNELS = ("K1", "K2", "K4")
+
+
+def check_kernel_d(d: int, kernel: str) -> None:
+    """Raise for a feature dimension that CUDA kernel ``kernel`` ("K1" ..
+    "K7") has no instance of: past ``cuda_build.MAX_D`` for all but
+    ``WIDE_KERNELS`` (the plain versions on the CPU take any d)."""
+    if d > cuda_build.MAX_D and kernel not in WIDE_KERNELS:
+        raise ValueError(f"d = {d} exceeds kernel {kernel}'s limit d <= "
                          f"{cuda_build.MAX_D} (the JAX package's "
-                         f"_D_KERNEL_MAX); larger d runs only on the CPU")
+                         f"_D_KERNEL_MAX); past it only "
+                         f"{', '.join(WIDE_KERNELS)} run on the card, and "
+                         f"the plain versions on the CPU")
+
+
+def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1) -> int:
+    """Elements (of the compute type) of the state buffer that a launch of
+    ``kernel`` at ``B`` sequences and feature dimension ``d`` needs: none
+    up to ``cuda_build.MAX_D``; past it, vectors of d elements laid out
+    (d, slots), a slot per thread's play:
+
+    - K1w: theta, w and x of each of ``plays`` plays a sequence,
+      ``3 d plays B``;
+    - K2w: theta and x of the FTL track and of each of ``plays`` (G)
+      thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
+    - K4w: x, ``d B`` (theta and w are the output carry).
+    """
+    if kernel not in WIDE_KERNELS:
+        raise ValueError(f"kernel {kernel} has no wide instance; those "
+                         f"with one are {WIDE_KERNELS}")
+    if d <= cuda_build.MAX_D:
+        return 0
+    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K4": 1}[kernel]
+    return vectors * d * B
+
+
+def wide_state(kernel: str, B: int, d: int, plays: int, dtype, device):
+    """The state buffer of a launch (``wide_state_elems``) on ``device``,
+    uninitialised (the kernel writes it before it reads it), or None where
+    the launch needs none."""
+    n = wide_state_elems(kernel, B, d, plays)
+    return torch.empty((n,), dtype=dtype, device=device) if n else None
+
+
+def data_ptr(t) -> int:
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def per_sequence(value, B: int, dtype, device) -> torch.Tensor:
@@ -314,7 +359,7 @@ def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
     global LAUNCHES
     B, T, d = z.shape
     P = flags.shape[0]
-    check_kernel_d(d)
+    check_kernel_d(d, "K1")
     fn = getattr(cuda_build.load(),
                  f"oco_regrets_fused_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -322,10 +367,11 @@ def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
         cum = torch.empty((P, B), dtype=dtype, device=z.device)
         comp = torch.empty_like(cum)
         x_last = torch.empty((P, B, d), dtype=dtype, device=z.device)
+        state = wide_state("K1", B, d, P, dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), flags.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
                  P, d, int(replay), cum.data_ptr(), comp.data_ptr(),
-                 x_last.data_ptr(),
+                 x_last.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"regret kernel launch failed: CUDA error {err}")
@@ -334,15 +380,29 @@ def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
 
 
 def regret_occupancy(plays: int, d: int, dtype) -> tuple:
-    """Registers a thread and resident warps an SM of a K1 launch with
+    """Registers a thread, resident warps an SM and bytes of a thread's
+    local frame of a K1 launch (K1w past ``cuda_build.MAX_D``) with
     ``plays`` plays a sequence at feature dimension ``d`` on the current
     card."""
-    out = (ctypes.c_int * 2)()
-    err = cuda_build.load().oco_regrets_occupancy(
-        int(dtype == torch.float64), plays, d, out)
+    return occupancy("K1", cuda_build.load().oco_regrets_occupancy,
+                     int(dtype == torch.float64), plays, d)
+
+
+def stream_occupancy(d: int, dtype) -> tuple:
+    """``regret_occupancy`` for K4 (K4w past ``cuda_build.MAX_D``)."""
+    return occupancy("K4", cuda_build.load().oco_stream_occupancy,
+                     int(dtype == torch.float64), d)
+
+
+def occupancy(kernel: str, fn, *args) -> tuple:
+    """``(registers, warps an SM, local frame bytes)`` from a C occupancy
+    entry ``fn(*args, out)``."""
+    out = (ctypes.c_int * 3)()
+    err = fn(*args, out)
     if err != 0:
-        raise RuntimeError(f"K1 occupancy query failed: CUDA error {err}")
-    return out[0], out[1]
+        raise RuntimeError(f"{kernel} occupancy query failed: CUDA error "
+                           f"{err}")
+    return tuple(out)
 
 
 def time_major(z: torch.Tensor, y: torch.Tensor):
@@ -494,7 +554,7 @@ def launch_eta_sweep(z, y, scales, order, lengths, replay: bool):
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     E = scales.shape[0]
-    check_kernel_d(d)
+    check_kernel_d(d, "K5")
     fn = getattr(cuda_build.load(),
                  f"oco_eta_sweep_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):
@@ -650,15 +710,16 @@ def launch_stream_time_major(z_tm, y_tm, flags, eta, t0: int,
     carry in new tensors."""
     global STREAM_LAUNCHES
     CT, d, B = z_tm.shape
-    check_kernel_d(d)
+    check_kernel_d(d, "K4")
     fn = getattr(cuda_build.load(),
                  f"oco_play_stream_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     with torch.cuda.device(z_tm.device):
         out = StreamCarry(*(torch.empty_like(t) for t in carry))
+        state = wide_state("K4", B, d, 1, carry.theta.dtype, z_tm.device)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
                  eta.data_ptr(), int(t0), CT, B, d,
                  *(t.data_ptr() for t in carry),
-                 *(t.data_ptr() for t in out),
+                 *(t.data_ptr() for t in out), data_ptr(state),
                  torch.cuda.current_stream(z_tm.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"stream kernel launch failed: CUDA error "
@@ -786,7 +847,7 @@ def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
     inputs; returns ``(cum (B,), theta (d, B))``."""
     global PACKED_LAUNCHES, PACKED_ETA_LAUNCHES
     T, d, B = z_tm.shape
-    check_kernel_d(d)
+    check_kernel_d(d, "K3e" if alg_flag is None else "K3")
     fn = getattr(cuda_build.load(),
                  f"{fn_name}_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     dtype = compute_dtype(z_tm)
@@ -945,16 +1006,16 @@ def simulate_linear_packed(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
 
 def simulate_linear_auto(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
                          eta0):
-    """``simulate_linear_packed`` inside ``kernel_envelope``: on a CUDA
-    tensor a shape outside it raises with the reason (there is no scan to
-    route to); on a CPU tensor the plain version runs at any shape.
-    Returns ``(B,)`` regrets."""
+    """``simulate_linear_packed`` (K3, K3e) inside ``kernel_envelope``, the
+    simulator past it: ``regrets_fused``, the kernel of
+    ``models/linear.py::simulate_linear_batch`` (K1, K1w past d = 512), as
+    the JAX function routes to its scan there.  On a CPU tensor both run
+    their plain versions.  Returns ``(B,)`` regrets."""
     B, T, d = check_batch(z, y)
-    if z.device.type == "cuda":
-        reason = kernel_envelope(B, T, d, z.dtype)
-        if reason is not None:
-            raise ValueError(f"simulate_linear_auto: {reason}")
-    return simulate_linear_packed(z, y, alg_flag, eta0)
+    if kernel_envelope(B, T, d, z.dtype) is None:
+        return simulate_linear_packed(z, y, alg_flag, eta0)
+    cum, comp, _ = regrets_fused(z, y, alg_flag, eta0)
+    return cum - comp
 
 
 # --------------------------------------------- K7: the generation-fused game
@@ -1018,7 +1079,7 @@ def launch_synthetic(seed: int, eta0, T: int, lane_batch: int, d: int,
     """Launch kernel K7 on ``device``; returns ``(8, lane_batch)`` float32
     regrets."""
     global SYNTHETIC_LAUNCHES
-    check_kernel_d(d)
+    check_kernel_d(d, "K7")
     lib = cuda_build.load()
     with torch.cuda.device(device):
         out = torch.empty((SYNTHETIC_ROWS, lane_batch), dtype=torch.float32,

@@ -22,8 +22,10 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
 
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
-tensor, at any d, and launches the kernel on a CUDA tensor, for d up to
-512 (raising above it); there is no fallback between them.  K6 computes
+tensor, at any d, and launches the kernel on a CUDA tensor; there is no
+fallback between them.  K2 takes any d on the card (past 512 its wide
+instance K2w, whose state lies in a device buffer the wrapper allocates,
+``game.wide_state_elems``); K6a and K6b raise past 512.  K6 computes
 what K2's FTL and tail warps compute, in the same order, so a sweep column
 equals K2 bit for bit.
 
@@ -52,8 +54,6 @@ wrappers upcast and run the plain versions.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from online_convex_optimization_tpu_torch.ops.actions import (
@@ -66,15 +66,18 @@ from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
     check_kernel_d,
     compute_dtype,
+    data_ptr,
     eta_table,
     in_contract,
     length_order,
+    occupancy,
     per_sequence,
     per_sequence_lengths,
     settings_grid,
     storage_suffix,
     sweep_scales,
     upcast,
+    wide_state,
 )
 from online_convex_optimization_tpu_torch.ops.hinge import (
     hinge_subgradient,
@@ -232,7 +235,7 @@ def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
     global LAUNCHES
     B, T, d = z.shape
     G = thresholds.shape[0]
-    check_kernel_d(d)
+    check_kernel_d(d, "K2")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_regrets_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -241,10 +244,11 @@ def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
         comp = torch.empty((B,), dtype=dtype, device=z.device)
         x_last = torch.empty((G, B, d), dtype=dtype, device=z.device)
         tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
+        state = wide_state("K2", B, d, G, dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), thresholds.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
                  G, d, int(replay), cum.data_ptr(), comp.data_ptr(),
-                 x_last.data_ptr(), tau.data_ptr(),
+                 x_last.data_ptr(), tau.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"SMART kernel launch failed: CUDA error {err}")
@@ -253,15 +257,12 @@ def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
 
 
 def smart_occupancy(thresholds: int, d: int, dtype) -> tuple:
-    """Registers a thread and resident warps an SM of a K2 launch with
-    ``thresholds`` thresholds a sequence at feature dimension ``d`` on the
-    current card."""
-    out = (ctypes.c_int * 2)()
-    err = cuda_build.load().oco_smart_occupancy(
-        int(dtype == torch.float64), thresholds, d, out)
-    if err != 0:
-        raise RuntimeError(f"K2 occupancy query failed: CUDA error {err}")
-    return out[0], out[1]
+    """Registers a thread, resident warps an SM and bytes of a thread's
+    local frame of a K2 launch (K2w past 512) with ``thresholds``
+    thresholds a sequence at feature dimension ``d`` on the current
+    card."""
+    return occupancy("K2", cuda_build.load().oco_smart_occupancy,
+                     int(dtype == torch.float64), thresholds, d)
 
 
 def smart_plays(z: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
@@ -511,7 +512,7 @@ def launch_smart_prefix(z, y, ordered, perm, order, lengths,
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     G = ordered.shape[0]
-    check_kernel_d(d)
+    check_kernel_d(d, "K6a")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_prefix_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -540,7 +541,7 @@ def launch_smart_tails(z, y, scales, order, lengths, switch_t, comp,
     global SWEEP_TAIL_LAUNCHES
     B, T, d = z.shape
     G = switch_t.shape[0]
-    check_kernel_d(d)
+    check_kernel_d(d, "K6b")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_tails_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):

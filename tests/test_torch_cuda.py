@@ -170,10 +170,29 @@ def test_deterministic_families_match_golden_on_card(cuda, title, T):
 
 
 def test_kernel_rejects_d_above_max(cuda):
+    """Past d = 512 K1, K2 and K4 launch their wide instances (their
+    launch counters rise); K3, K5 and K7 raise, naming the kernel."""
     z = torch.zeros((2, 4, 513), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="d <= 512"):
-        game.regrets_fused(z, torch.ones((2, 4), dtype=torch.float64,
-                                         device=cuda), 0, 1.0)
+    y = torch.ones((2, 4), dtype=torch.float64, device=cuda)
+    z_tm, y_tm = game.time_major(z, y)
+    before = (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES)
+    game.regrets_fused(z, y, 0, 1.0)
+    smart.smart_regrets(z, y, 1.0, 1.0)
+    game.play_stream(z_tm, y_tm, 1.0, 0,
+                     game.zero_stream_carry(2, 513, torch.float64, cuda))
+    torch.cuda.synchronize()
+    assert (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES) == tuple(
+        n + 1 for n in before)
+    for kernel, call in (
+            ("K3", lambda: game.play_packed(
+                z_tm, y_tm, game.ftrl_scales(4, 1.0, dtype=torch.float64,
+                                             device=cuda))),
+            ("K5", lambda: game.eta_sweep(z, y, [1.0])),
+            ("K7", lambda: game.synthetic_regrets(0, 1.0, T=4, lane_batch=1,
+                                                  d=513, device=cuda))):
+        with pytest.raises(ValueError, match=f"kernel {kernel}'s limit "
+                                             f"d <= 512"):
+            call()
 
 
 def _max_err(got, want) -> float:
@@ -923,6 +942,193 @@ def test_storage_stream_game_and_no_upcast(cuda, pair):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < z_tm.numel() * 4
     assert game.PACKED_LAUNCHES == launches + 1
+
+
+# --------------------------------------- K1w, K2w, K4w: d past 512
+
+WIDE_CASES = ([(pair, d) for pair in [(torch.float64, torch.float64),
+                                      (torch.float32, torch.float32)]
+               + STORAGE_PAIRS for d in (513, 1024)]
+              + [((torch.float64, torch.float64), 2048)])
+
+
+def _wide_vs_plain(cuda, pair, d, contract, T, ths, cuts):
+    """K1w (two plays, and one play a sequence with mixed flags and etas),
+    K2w (the thresholds ``ths(dtype)``) and K4w (chunks from a carry, split
+    at ``cuts``) against their plain versions on the stored values in every
+    bit, B = 77, ragged lengths; returns K2w's switch rounds and the
+    lengths."""
+    B = 77
+    z, y, lengths = _batch(B, T, d, seed=d + 7, contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    dtype = zf.dtype
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    eta = game.per_sequence(1.3, B, dtype, cuda)
+    before = (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES)
+    got = game.regret_plays(zs, ys, (0, 1), 1.3, ln, not contract)
+    flags = torch.tensor([[0] * B, [1] * B], dtype=torch.int32, device=cuda)
+    want = game.regret_plays_reference(zf, yf, flags, eta, ln,
+                                       replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fl = game.per_sequence(np.arange(B) % 2, B, torch.int32, cuda)
+    et = torch.linspace(0.3, 2.5, B, dtype=dtype, device=cuda)
+    got = game.regrets_fused(zs, ys, fl, et, ln)
+    want = game.regrets_fused_reference(zf, yf, fl, et, ln,
+                                        replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = smart.smart_plays(zs, ys, ths(dtype), 1.3, ln, not contract)
+    want = smart.smart_plays_reference(zf, yf, ths(dtype), eta, ln,
+                                       replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    z_tm, y_tm = game.time_major(zs, ys)
+    zf_tm, yf_tm = game.time_major(zf, yf)
+    carry = want_carry = game.zero_stream_carry(B, d, dtype, cuda)
+    for lo, hi in zip(cuts, cuts[1:]):
+        carry = game.play_stream(z_tm[lo:hi], y_tm[lo:hi], et, lo, carry,
+                                 alg_flag=fl)
+        want_carry = game.play_stream_reference(zf_tm[lo:hi], yf_tm[lo:hi],
+                                                fl, et, lo, want_carry)
+    assert all(torch.equal(g, w) for g, w in zip(carry, want_carry))
+    torch.cuda.synchronize()
+    assert (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + len(cuts) - 1)
+    return got[3], ln
+
+
+@pytest.mark.parametrize("pair,d", WIDE_CASES)
+@pytest.mark.parametrize("contract", [True, False])
+def test_wide_kernels_equal_plain_bit_for_bit(cuda, pair, d, contract):
+    """K1w, K2w (two thresholds a sequence, one that no sequence reaches)
+    and K4w (two chunks from a carry) equal their plain versions on the
+    stored values in every bit, ragged lengths, in contract and replay
+    mode."""
+    T = 20
+
+    def ths(dtype):
+        return torch.stack([
+            torch.linspace(0.3, 3.0, 77, dtype=dtype, device=cuda),
+            torch.full((77,), 1e30, dtype=dtype, device=cuda)])
+
+    tau, _ = _wide_vs_plain(cuda, pair, d, contract, T, ths, (0, 7, T))
+    assert bool((tau[0] < T).any()) and bool((tau[1] == T).all())
+
+
+# K1w and K2w play a launch in chunks of 64 rounds (oco_tiles.cuh
+# kMaxChunk): T = 200 plays 4, so that stages are reused, the barriers'
+# parity flips and K2w's tails take switches published in earlier chunks.
+WIDE_CHUNK = 64
+
+
+@pytest.mark.parametrize("pair,contract", [
+    ((torch.float64, torch.float64), True),
+    ((torch.float32, torch.float32), False)])
+def test_wide_kernels_equal_plain_across_chunks(cuda, pair, contract):
+    """K1w, K2w and K4w at d = 513 over T = 200 rounds (4 chunks), ragged
+    lengths, with thresholds spread so that pairs switch in each of the
+    first three chunks and tails play past their switch's chunk, equal
+    their plain versions in every bit."""
+    T = 200
+    root = math.sqrt(2.0 * T)
+
+    def ths(dtype):
+        return torch.stack([
+            torch.linspace(0.05, 0.4, 77, dtype=dtype, device=cuda) * root,
+            torch.linspace(0.3, 0.9, 77, dtype=dtype, device=cuda) * root])
+
+    tau, ln = _wide_vs_plain(cuda, pair, 513, contract, T, ths,
+                             (0, 50, 137, T))
+    ln = ln[None].long()
+    on = tau < ln
+    for lo in range(0, 3 * WIDE_CHUNK, WIDE_CHUNK):
+        assert bool((on & (tau >= lo) & (tau < lo + WIDE_CHUNK)).any())
+    assert bool((on & ((tau // WIDE_CHUNK + 1) * WIDE_CHUNK < ln - 1)).any())
+
+
+@pytest.mark.parametrize("d", [513, 1024])
+def test_wide_identities(cuda, d):
+    """f64: K4w fed in chunks equals one K1w launch; K2w with a threshold no
+    sequence reaches gives K1w's FTL play's losses with tau = T; a narrow
+    storage pair equals the f32 launch on the upcast values."""
+    B, T = 64, 48
+    z, y, _ = _batch(B, T, d, seed=d + 3)
+    zt, yt = _to((z, y), cuda, torch.float64)
+    ln = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    cum, comp, _ = game.regret_plays(zt, yt, (0, 1), 1.3, ln, False)
+    kg = StreamingKernelGame(B, d, alg_flag=1, eta0=1.3, dtype=torch.float64,
+                             device=cuda)
+    z_tm, y_tm = game.time_major(zt, yt)
+    for lo in range(0, T, 16):
+        kg.feed_packed(z_tm[lo:lo + 16], y_tm[lo:lo + 16])
+    res = kg.result()
+    assert torch.equal(res.cum_loss, cum[1])
+    assert torch.equal(res.comp_loss, comp[1])
+    ths = torch.full((1, B), 1e30, dtype=torch.float64, device=cuda)
+    s_cum, s_comp, _, tau = smart.smart_plays(zt, yt, ths, 1.3, ln, False)
+    assert torch.equal(s_cum[0], cum[1]) and torch.equal(s_comp, comp[1])
+    assert bool((tau == T).all())
+    zs, ys, zf, yf = _stored(z, y, (torch.bfloat16, torch.int8), cuda)
+    narrow = game.regret_plays(zs, ys, (0, 1), 1.3, ln, False)
+    wide = game.regret_plays(zf, yf, (0, 1), 1.3, ln, False)
+    assert all(torch.equal(a, b) for a, b in zip(narrow, wide))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wide_local_frame_does_not_grow_with_d(cuda, dtype):
+    """Each wide instance reports the same local frame at every d past 512,
+    smaller than one state array of the large-d instance (512 elements):
+    no array sized by d sits in a thread's frame."""
+    for name, occ in (("K1", lambda d: game.regret_occupancy(2, d, dtype)),
+                      ("K2", lambda d: smart.smart_occupancy(2, d, dtype)),
+                      ("K4", lambda d: game.stream_occupancy(d, dtype))):
+        frames = {occ(d)[2] for d in (513, 1024, 4096, 65536)}
+        assert len(frames) == 1, (name, frames)
+        assert frames.pop() < 512 * dtype.itemsize, name
+        regs, warps, _ = occ(1024)
+        assert regs > 0 and warps > 0, name
+
+
+def test_wide_entry_points_on_the_card(cuda):
+    """The entry points a user calls take d = 513 on the card through K1w,
+    K2w and K4w (their counters rise), within 1e-9 of their CPU runs in
+    f64."""
+    from online_convex_optimization_tpu_torch.models import (
+        simulate_linear_batch, simulate_smart_batch)
+    from online_convex_optimization_tpu_torch.models.streaming import (
+        StreamingGame)
+    B, T, d = 16, 24, 513
+    z, y, lengths = _batch(B, T, d, seed=5)
+    before = (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        zt, yt = _to((z, y), dev, torch.float64)
+        feed = [(zt[:, lo:lo + 8].transpose(0, 1), yt[:, lo:lo + 8].t())
+                for lo in range(0, T, 8)]
+        sg = StreamingGame(B, d, eta0=1.1, dtype=torch.float64, device=dev)
+        kg = StreamingKernelGame(B, d, alg_flag=1, dtype=torch.float64,
+                                 device=dev)
+        for zc, yc in feed:
+            sg.feed(zc, yc)
+            kg.feed(zc, yc)
+        outs[dev.type] = (
+            simulate_linear_batch(zt, yt, np.arange(B) % 2, 1.3,
+                                  lengths).regret,
+            simulate_smart_batch(zt, yt, 1.5, 1.3, lengths).regret,
+            sg.result(feed).regret, kg.result().regret,
+            game.simulate_linear_auto(zt, yt, 0, 1.3))
+    torch.cuda.synchronize()
+    assert game.LAUNCHES == before[0] + 2
+    assert smart.LAUNCHES == before[1] + 1
+    assert game.STREAM_LAUNCHES == before[2] + 2 * len(range(0, T, 8))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _max_err((got.cpu(),), (want,)) <= TOL[torch.float64]
 
 
 # ---------------------------------------- K10l, K9w, K8w: the size gaps
