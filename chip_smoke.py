@@ -249,6 +249,30 @@ non-zero without printing a result):
                (regenerated from their seeds, digests equal to the main
                path's) with their bounds, registers, warps an SM and local
                frames, the last the same at every d past 512.
+  16. wide d sweeps — K3, K3e, K5, K6a, K6b and K7 past d = 512 (their wide
+               instances K3w, K3ew, K5w, K6aw, K6bw, K7w): the main path
+               with the counts set to 0 just before it (ftrl_eta_sweep,
+               E=64 on linspace(0.05, 4), and smart_threshold_sweep, G=16
+               from sqrt(2T)/16 to sqrt(2T), at B=1,024 T=1,024 d=1,024,
+               lengths in [512, 1,024], f64 and f32; play_packed FTRL and
+               FTL and play_packed_eta at B=2,048 T=1,024 d=1,024 in f32
+               and bf16/int8; synthetic_regrets through
+               sharded_synthetic_g on a one-rank mesh, T=1,000, lane_batch
+               2,048, FTRL and FTL; the same entries at d = 513 and 2,048
+               on smaller shapes), output digests; each kernel against its
+               plain version bit for bit at B=77, E=11, G=13 and (d, T) =
+               (513, 200) and (1,024, 16) f64, (513, 16) f64 replay and
+               (1,024, 16) f32 (K7w at lane_batch 10), pairs switching in
+               each of the first three 64-round chunks at T=200;
+               identities at full width in every bit (K5w's columns = K1w
+               at their eta, K6 with an unreachable threshold = K1w's FTL
+               play, K3w = K1w's FTRL and FTL cum, K3ew = K1w with the same
+               per-sequence eta, K7w = K1w on synthetic_stream's rows,
+               each narrow pair = f32 on the upcast values); the path
+               shapes timed (5 launches after a warm-up, digests equal to
+               the main path's) with their bounds, registers, warps an SM,
+               local frames (the same at every d past 512) and state
+               buffer bytes.
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -278,9 +302,12 @@ f64, B=1,024 T=1,000 d=1,024; K4w f32, B=2,048 d=1,024, the 4 chunks'
 launches together), their errors from the cut shapes' plain checks and
 their plain times at the cut shape d=1,024 T=32 f64, as their
 ``max_abs_err_at`` and ``plain_ms_at`` keys say (at the path's T=1,000
-each plain version would take 1-1.5 minutes).  The
+each plain version would take 1-1.5 minutes); so do K3w, K3ew, K5w, K6aw,
+K6bw and K7w (phase 16), at their path shapes (K5w, K6aw, K6bw f64 B=1,024
+T=1,024 d=1,024; K3w FTRL and K3ew f32 B=2,048 T=1,024; K7w FTRL 16,384
+sequences T=1,000), with their state buffer bytes.  The
 line before the last lists the kernels as JSON; the last line is
-``{"ok": true, "device": {...}}``.  About 12-14 minutes on an H100.
+``{"ok": true, "device": {...}}``.  About 14-16 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -965,14 +992,14 @@ def sweep_main_path(batches):
     return out, launches
 
 
-def smart_sweep_counts(tau, lengths):
-    """What K6's inputs need, from the run's switch rounds tau (B, G): the
-    rows on which K6a evaluates the lead (up to the last threshold's
-    switch, or the whole sequence), the switched pairs with a tail and
-    their tail rounds, and the rows the tails read (from each sequence's
-    earliest tail)."""
+def smart_sweep_counts(tau, lengths, T=SWEEP_T):
+    """What K6's inputs need, from the run's switch rounds tau (B, G) of a
+    sweep over T rounds: the rows on which K6a evaluates the lead (up to
+    the last threshold's switch, or the whole sequence), the switched pairs
+    with a tail and their tail rounds, and the rows the tails read (from
+    each sequence's earliest tail)."""
     ln = lengths.to(torch.int64)[:, None]
-    fired = tau < SWEEP_T
+    fired = tau < T
     lead_rows = torch.where(fired.all(dim=1), tau.max(dim=1).values + 1,
                             ln[:, 0])
     tail = tau + 1 < ln
@@ -1160,28 +1187,30 @@ def sweep_replay():
           "sweep kernels in replay mode")
 
 
-def sweep_bounds(key, lengths, counts, dtype):
-    """Bound and operation count of K5, K6a or K6b at phase 6's inputs,
-    counting what they need: the rows once, K5's FTRL round per (row,
-    setting) without w and w once per row, K6a's FTL round once per row
-    (the action once, w, F, cnt: 9d + 9) and the lead (2d + 3) on the rows
-    before the last threshold's switch, K6b's FTRL round per tail round."""
+def sweep_bounds(key, lengths, counts, dtype, d=D, E=len(ETA_GRID),
+                 G=len(THRESH_GRID)):
+    """Bound and operation count of K5, K6a or K6b on sequences of these
+    lengths at feature dimension d (phase 6's by default) with E settings
+    or G thresholds, counting what they need: the rows once, K5's FTRL
+    round per (row, setting) without w and w once per row, K6a's FTL round
+    once per row (the action once, w, F, cnt: 9d + 9) and the lead (2d + 3)
+    on the rows before the last threshold's switch, K6b's FTRL round per
+    tail round."""
     item = 8 if dtype == torch.float64 else 4
+    B = lengths.shape[0]
     rows = float(lengths.double().sum())
-    row_bytes = rows * (D + 1) * item
-    E, G = len(ETA_GRID), len(THRESH_GRID)
+    row_bytes = rows * (d + 1) * item
     if key == "K5":
-        ops = rows * (E * hinge_round_ops(D, with_w=False) + 2 * D)
-        n_bytes = row_bytes + SWEEP_B * 4 + E * SWEEP_B * item
+        ops = rows * (E * hinge_round_ops(d, with_w=False) + 2 * d)
+        n_bytes = row_bytes + B * 4 + E * B * item
     elif key == "K6a":
-        ops = rows * (9 * D + 9) + counts["lead_rows"] * (2 * D + 3)
-        n_bytes = (row_bytes + SWEEP_B * 4 + G * item
-                   + G * SWEEP_B * (8 + item) + SWEEP_B * item)
+        ops = rows * (9 * d + 9) + counts["lead_rows"] * (2 * d + 3)
+        n_bytes = (row_bytes + B * 4 + G * item + G * B * (8 + item)
+                   + B * item)
     else:
-        ops = counts["tail_rounds"] * hinge_round_ops(D, with_w=False)
-        n_bytes = (counts["tail_rows"] * (D + 1) * item + SWEEP_B * 4
-                   + G * SWEEP_B * 8 + SWEEP_B * item
-                   + counts["tail_pairs"] * 2 * item)
+        ops = counts["tail_rounds"] * hinge_round_ops(d, with_w=False)
+        n_bytes = (counts["tail_rows"] * (d + 1) * item + B * 4
+                   + G * B * 8 + B * item + counts["tail_pairs"] * 2 * item)
     return ops, bound(n_bytes, ops, dtype)
 
 
@@ -1949,7 +1978,8 @@ POD_T, POD_SEQS, POD_LANES = 1000, 1 << 20, 16_384
 K7_LANES, K7_BIG_D, K7_ODD_T = 1024, 256, 2500
 
 
-def synthetic_bound(steps: float, d: int, n_out: int) -> dict:
+def synthetic_bound(steps: float, d: int, n_out: int,
+                    label: str = "[10 pod]") -> dict:
     """K7's least time: it reads nothing and writes its regrets, and its
     work issues on two pipes side by side, so the larger of the bytes
     written and the busier pipe: the ALU with the integer xors, shifts and
@@ -1963,8 +1993,9 @@ def synthetic_bound(steps: float, d: int, n_out: int) -> dict:
     by_bytes = n_out * 4 / HBM_BYTES_PER_S * 1e3
     ms, by = max((by_bytes, "bytes"), (by_alu, "operations"),
                  (by_fma, "operations"))
-    print(f"[10 pod] K7 bound per launch of {steps:.4g} sequence-steps "
-          f"({alu} ALU, {mul} multiplies, {flops} float operations a step): "
+    print(f"{label} K7 bound per launch of {steps:.4g} sequence-steps "
+          f"at d={d}, {(d + 128) // 128} Philox calls a step ({alu} ALU, "
+          f"{mul} multiplies, {flops} float operations a step): "
           f"ALU {by_alu:.4f} ms, FMA pipe {by_fma:.4f} ms, bytes "
           f"{by_bytes:.6f} ms")
     return {"bound_ms": ms, "bound_by": by}
@@ -4272,6 +4303,498 @@ def phase_wide_d():
                                    f"f64"}
     return launches, out
 
+
+# --------------------------------------------------------------- phase 16
+# K3w, K3ew, K5w, K6aw, K6bw, K7w: d past 512.  Phases 6, 8 and 10's paths
+# at phase 15's width: the sweeps (ftrl_eta_sweep with E = 64 settings,
+# smart_threshold_sweep with G = 16 thresholds from sqrt(2T)/16 to sqrt(2T),
+# per-sequence lengths in [T/2, T]) at B = 1,024, T = 1,024; the packed game
+# (play_packed FTRL and FTL, play_packed_eta) at B = 2,048, T = 1,024 in f32
+# and bf16/int8; synthetic_regrets through sharded_synthetic_g on a
+# one-rank mesh at T = 1,000, lane_batch 2,048 (16,384 sequences); each at
+# d = 1,024, and at d = 513 and 2,048 on smaller shapes.  The plain checks'
+# cut shapes (d, T) at WSW_CUT_B sequences; the first plays more than three
+# of the thin sweeps' 64-round chunks, as phase 15's does.
+WSW_D, WSW_B, WSW_T, WSW_E, WSW_G = WIDE_D, 1024, 1024, 64, 16
+WPK_B, WPK_T = 2048, 1024
+WK7_T, WK7_LANES, WK7_ID_LANES = 1000, 2048, 64
+WSW_OTHER = {513: (256, 256), 2048: (128, 128)}   # d: (B, T) off the width
+WSW_CUT_B, WSW_CUT_E, WSW_CUT_G, WK7_CUT_LANES = 77, 11, 13, 10
+WSW_NARROW_B = 256   # the narrow pairs' sweep identity
+WSW_CUT = ((513, 200), (1024, 16))
+WSW_SEEDS = {torch.float64: 171, torch.float32: 172, "packed": 173,
+             "narrow": 174, 513: 175, 2048: 176}
+WK7_SEED = 177 << 20
+WSW_PACKED_PAIRS = ((torch.float32, torch.float32),
+                    (torch.bfloat16, torch.int8))
+WSW_KERNELS = ("K5w", "K6aw", "K6bw", "K3w", "K3ew", "K7w")
+
+
+def wsw_thresholds(T, G, dtype):
+    """G thresholds from sqrt(2T)/G to sqrt(2T): the lower ones switch on
+    the random family, whose FTL lead grows about as sqrt(t)/2."""
+    return torch.linspace(1.0 / G, 1.0, G, dtype=dtype,
+                          device="cuda") * math.sqrt(2.0 * T)
+
+
+def wsw_etas(E, dtype):
+    return torch.linspace(0.05, 4.0, E, dtype=dtype, device="cuda")
+
+
+def wsw_batch(key, B, T, d, dtype, y_dtype=None):
+    """Card-generated sweep data (the random family, rows in the unit ball,
+    labels +-1) with per-sequence lengths in [T/2, T]."""
+    gen = torch.Generator(device="cuda").manual_seed(WSW_SEEDS[key])
+    z, y = random_game_batch(gen, B, T, d, dtype=dtype, y_dtype=y_dtype)
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    lengths[0] = T
+    return z, y, lengths
+
+
+def wsw_packed(key, B, T, d, pair):
+    gen = torch.Generator(device="cuda").manual_seed(WSW_SEEDS[key])
+    return random_time_major_batch(gen, T, B, d, dtype=pair[0],
+                                   y_dtype=pair[1])
+
+
+def wsw_synthetic_g(T, lanes, d, alg_flag):
+    """synthetic_regrets through sharded_synthetic_g on a one-rank mesh."""
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    return sweep.sharded_synthetic_g(
+        mesh, T=T, eta_grid=[ETA], blocks_per_device=1, lane_batch=lanes,
+        seed0=WK7_SEED, alg_flag=alg_flag,
+        regret_fn=functools.partial(game.synthetic_regrets, d=d))
+
+
+def wsw_main_path():
+    """The path at full width (and at d = 513 and 2,048 on smaller
+    shapes), the counts set to 0 just before it and read just after;
+    returns the launches, the digests and what the f64 SMART sweep's
+    switch rounds need of K6 (smart_sweep_counts)."""
+    digests = {}
+    game.SWEEP_LAUNCHES = smart.SWEEP_LAUNCHES = 0
+    smart.SWEEP_TAIL_LAUNCHES = game.PACKED_LAUNCHES = 0
+    game.PACKED_ETA_LAUNCHES = game.SYNTHETIC_LAUNCHES = 0
+    shapes = [(dtype, WSW_B, WSW_T, WSW_D, dtype)
+              for dtype in (torch.float64, torch.float32)]
+    shapes += [(d, B, T, d, torch.float64)
+               for d, (B, T) in WSW_OTHER.items()]
+    for key, B, T, d, dtype in shapes:
+        z, y, ln = wsw_batch(key, B, T, d, dtype)
+        ths = wsw_thresholds(T, WSW_G, dtype)
+        reg5 = ftrl_eta_sweep(z, y, wsw_etas(WSW_E, dtype), length=ln)
+        reg6 = smart_threshold_sweep(z, y, ths, eta0=ETA, length=ln)
+        check(reg5.shape == (B, WSW_E) and reg6.shape == (B, WSW_G)
+              and bool(torch.isfinite(reg5).all())
+              and bool(torch.isfinite(reg6).all()),
+              f"phase 16 sweeps at d={d} {dtype}: shape or not finite")
+        name = f"{str(dtype)[6:]} d={d}"
+        digests[f"K5 {name}"] = output_digest((reg5,))
+        digests[f"K6 {name}"] = output_digest((reg6,))
+        del z, y, reg5, reg6
+        torch.cuda.empty_cache()
+    shapes = [(pair, WPK_B, WPK_T, WSW_D, "packed")
+              for pair in WSW_PACKED_PAIRS]
+    shapes += [((torch.float32, torch.float32), B, T, d, d)
+               for d, (B, T) in WSW_OTHER.items()]
+    for pair, B, T, d, key in shapes:
+        z_tm, y_tm = wsw_packed(key, B, T, d, pair)
+        scales = game.ftrl_scales(T, ETA, device="cuda")
+        outs = (game.play_packed(z_tm, y_tm, scales, alg_flag=0)
+                + game.play_packed(z_tm, y_tm, scales, alg_flag=1)
+                + game.play_packed_eta(z_tm, y_tm, wsw_etas(B, torch.float32)))
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"phase 16 packed at d={d} {pair_name(pair)}: not finite")
+        digests[f"K3 {pair_name(pair)} d={d}"] = output_digest(outs)
+        del z_tm, y_tm, outs
+        torch.cuda.empty_cache()
+    for d, lanes, T in ((WSW_D, WK7_LANES, WK7_T), (513, 64, 256),
+                        (2048, 32, 128)):
+        for alg in (0, 1):
+            g = wsw_synthetic_g(T, lanes, d, alg)
+            check(g.shape == (1,) and 0 < float(g[0]) < T,
+                  f"phase 16 synthetic g at d={d}: {g.tolist()}")
+            digests[f"K7 {'FTL' if alg else 'FTRL'} d={d}"] = \
+                output_digest((g,))
+    torch.cuda.synchronize()
+    launches = {"K5w": game.SWEEP_LAUNCHES, "K6aw": smart.SWEEP_LAUNCHES,
+                "K6bw": smart.SWEEP_TAIL_LAUNCHES,
+                "K3w": game.PACKED_LAUNCHES,
+                "K3ew": game.PACKED_ETA_LAUNCHES,
+                "K7w": game.SYNTHETIC_LAUNCHES}
+    z, y, ln = wsw_batch(torch.float64, WSW_B, WSW_T, WSW_D, torch.float64)
+    tau = smart.smart_sweep(z, y, wsw_thresholds(WSW_T, WSW_G,
+                                                 torch.float64), ETA, ln)[1]
+    counts = smart_sweep_counts(tau, ln, WSW_T)
+    del z, y
+    torch.cuda.empty_cache()
+    print(f"[16 wide d sweeps] main path (ftrl_eta_sweep E={WSW_E} and "
+          f"smart_threshold_sweep G={WSW_G} at B={WSW_B} T={WSW_T} f64 and "
+          f"f32; play_packed FTRL, FTL and play_packed_eta at B={WPK_B} "
+          f"T={WPK_T} f32 and bf16/int8; sharded_synthetic_g (1 rank) "
+          f"T={WK7_T} lane_batch {WK7_LANES}, FTRL and FTL; at d={WSW_D}, "
+          f"and at d = 513 and 2048 on (B, T) {json.dumps(WSW_OTHER)} "
+          f"(synthetic lane_batch 64 T=256, 32 T=128)): launches "
+          f"{json.dumps(launches)}; f64 SMART sweep pairs switched "
+          f"{counts['switched']:.4f}, tail pairs {counts['tail_pairs']}, "
+          f"tail rounds {counts['tail_rounds']:.0f}; digests "
+          f"{json.dumps(digests)}")
+    check(launches == {"K5w": 4, "K6aw": 4, "K6bw": 4, "K3w": 8, "K3ew": 4,
+                       "K7w": 6},
+          f"phase 16's path launches {launches}")
+    check(counts["tail_pairs"] > 0, "no K6bw pair switched on the path")
+    return launches, digests, counts
+
+
+def wsw_packed_bound(B, T, d, pair, per_seq_eta):
+    """K3w's or K3ew's least time: each row and label read once, the scale
+    table or the etas, cum and theta written once; K1's round without w."""
+    steps = B * T
+    n_bytes = (steps * (d * item(pair[0]) + item(pair[1]))
+               + (B if per_seq_eta else T) * 4 + B * (d + 1) * 4)
+    return bound(n_bytes, steps * hinge_round_ops(d, False), torch.float32)
+
+
+def wsw_vs_plain():
+    """Each wide instance against its plain version on the card, bit for
+    bit, at the cut shapes; returns the largest errors and the plain
+    versions' milliseconds at (1,024, 32) f64 (K7w: float32)."""
+    worst = dict.fromkeys(WSW_KERNELS, 0.0)
+    plain_ms = {}
+    cases = [(d, T, torch.float64, True) for d, T in WSW_CUT]
+    cases += [(513, 16, torch.float64, False),
+              (WSW_D, dict(WSW_CUT)[WSW_D], torch.float32, True)]
+    B = WSW_CUT_B
+    for d, T, dtype, contract in cases:
+        z, y, ln = make_batch(B, T, d, 180 + d, dtype, contract=contract)
+        replay = not game.in_contract(z, y, ln)
+        check(replay == (not contract), "phase 16: contract check")
+        etas = wsw_etas(WSW_CUT_E, dtype)
+        ths = torch.linspace(0.03, 0.9, WSW_CUT_G, dtype=dtype,
+                             device="cuda") * math.sqrt(2.0 * T)
+        eta = torch.tensor(ETA, dtype=dtype, device="cuda")
+        ordered, perm = torch.sort(ths, stable=True)
+        order = game.length_order(ln)
+        valid = torch.arange(T, device="cuda")[None, :] < ln[:, None]
+        z_tm, y_tm = game.time_major(torch.where(valid[..., None], z, 0.0),
+                                     torch.where(valid, y, 0.0))
+        scales = game.ftrl_scales(T, ETA, dtype=dtype, device="cuda")
+        per_seq = torch.linspace(0.3, 2.5, B, dtype=dtype, device="cuda")
+
+        def prefix():
+            part, tau, comp = smart.launch_smart_prefix(
+                z, y, ordered, perm.to(torch.int32), order, ln, replay)
+            return part.t(), tau.t(), comp
+
+        runs = {
+            "K5w": (lambda: (game.eta_sweep(z, y, etas, ln),),
+                    lambda: (game.eta_sweep_reference(z, y, etas, ln,
+                                                      replay=replay),)),
+            "K6aw": (prefix, lambda: smart.smart_prefix_reference(
+                z, y, ths, ln, replay=replay)),
+            "K6bw": (lambda: smart.smart_sweep(z, y, ths, ETA, ln),
+                     lambda: smart.smart_sweep_reference(
+                         z, y, ths, eta, ln, replay=replay)),
+            "K3w": (lambda: game.play_packed(z_tm, y_tm, scales)
+                    + game.play_packed(z_tm, y_tm, scales, alg_flag=1),
+                    lambda: game.play_packed_reference(z_tm, y_tm, scales, 0)
+                    + game.play_packed_reference(z_tm, y_tm, scales, 1)),
+            "K3ew": (lambda: game.play_packed_eta(z_tm, y_tm, per_seq),
+                     lambda: game.play_packed_eta_reference(z_tm, y_tm,
+                                                            per_seq)),
+        }
+        if dtype == torch.float32 or (d, T) == WSW_CUT[0]:
+            # K7 generates float32 rows; once a cut shape, FTRL and FTL.
+            runs["K7w"] = (
+                lambda: tuple(game.synthetic_regrets(
+                    WK7_SEED + d, ETA, T=T, lane_batch=WK7_CUT_LANES, d=d,
+                    alg_flag=a) for a in (0, 1)),
+                lambda: tuple(game.synthetic_regrets_reference(
+                    WK7_SEED + d, ETA, T=T, lane_batch=WK7_CUT_LANES, d=d,
+                    alg_flag=a, device="cuda") for a in (0, 1)))
+        errs = {}
+        for key, (kern, plain) in runs.items():
+            got = kern()
+            want, ms = timed_once(plain)
+            if (d, T, contract) == (WSW_D, 16, True) and (
+                    dtype == torch.float64 or key == "K7w"):
+                plain_ms[key] = ms
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs[key] = max_err(got, want)
+            worst[key] = max(worst[key], errs[key])
+            check(same and errs[key] == 0.0,
+                  f"{key} d={d} T={T} {dtype} contract={contract} is not its "
+                  f"plain version bit for bit ({errs[key]})")
+        tau = smart.smart_sweep(z, y, ths, ETA, ln)[1]
+        chunks, later = switches_by_chunk(tau.t(), ln)
+        print(f"[16 wide d sweeps] vs plain B={B} T={T} d={d} {dtype} "
+              f"{'contract' if contract else 'replay'}, E={WSW_CUT_E} "
+              f"G={WSW_CUT_G}{', K7w lane_batch 10' if 'K7w' in runs else ''}"
+              f": max_abs_err {json.dumps(errs)} (bound 0: bit for bit; "
+              f"switch rounds equal); K6 pairs switched {sum(chunks)} of "
+              f"{WSW_CUT_G * B}, by {WIDE_CHUNK}-round chunk {chunks}, "
+              f"{later} with a tail past the switch's chunk")
+        if T > 3 * WIDE_CHUNK:
+            check(all(n > 0 for n in chunks[:3]) and later > 0,
+                  f"phase 16: the cut shape T={T} switches in no later "
+                  f"chunk ({chunks}, {later})")
+        del z, y, z_tm, y_tm
+    return worst, plain_ms
+
+
+def wsw_identities():
+    """Identities of a launch or a few at full width, in every bit."""
+    res = {}
+    # K5w's column e = K1w with eta = eta_e; K6 with a threshold no pair
+    # reaches = K1w's FTL play (f64 sweep data).
+    z, y, ln = wsw_batch(torch.float64, WSW_B, WSW_T, WSW_D, torch.float64)
+    etas = wsw_etas(WSW_E, torch.float64)
+    sweep5 = game.eta_sweep(z, y, etas, ln)
+    cols = (0, WSW_E // 2, WSW_E - 1)
+    res["K5w column e == K1w at eta_e (e = 0, 32, 63)"] = all(
+        torch.equal(sweep5[:, e], torch.sub(*game.regrets_fused(
+            z, y, 0, float(etas[e]), ln)[:2])) for e in cols)
+    regret, tau = smart.smart_sweep(z, y, [1e300], ETA, ln)
+    cum, comp, _ = game.regrets_fused(z, y, 1, ETA, ln)
+    res["K6 unreachable threshold == K1w FTL, tau = T"] = (
+        torch.equal(regret[:, 0], cum - comp) and bool((tau == WSW_T).all()))
+    del z, y, sweep5
+    torch.cuda.empty_cache()
+    # K3w with ftrl_scales = K1w's FTRL cum (and FTL's), K3ew = K1w with the
+    # same per-sequence eta (f32 packed data, its (B, T, d) view).
+    pair = WSW_PACKED_PAIRS[0]
+    z_tm, y_tm = wsw_packed("packed", WPK_B, WPK_T, WSW_D, pair)
+    z, y = z_tm.permute(2, 0, 1).contiguous(), y_tm.t().contiguous()
+    scales = game.ftrl_scales(WPK_T, ETA, device="cuda")
+    same = True
+    for flag in (0, 1):
+        cum, _ = game.play_packed(z_tm, y_tm, scales, alg_flag=flag)
+        same &= torch.equal(cum, game.regrets_fused(z, y, flag, ETA)[0])
+    res["K3w FTRL/FTL cum == K1w's"] = same
+    per_seq = wsw_etas(WPK_B, torch.float32)
+    cum, _ = game.play_packed_eta(z_tm, y_tm, per_seq)
+    res["K3ew cum == K1w with the same per-sequence eta"] = torch.equal(
+        cum, game.regrets_fused(z, y, 0, per_seq)[0])
+    del z, y, z_tm, y_tm
+    torch.cuda.empty_cache()
+    # K7w on a seed = K1w on synthetic_stream's rows of that seed (the first
+    # 512 sequences of the path's launch: a larger lane_batch extends the
+    # population).
+    same = True
+    for alg in (0, 1):
+        got = game.synthetic_regrets(WK7_SEED, ETA, T=WK7_T,
+                                     lane_batch=WK7_LANES, d=WSW_D,
+                                     alg_flag=alg)
+        z, y = game.synthetic_stream(WK7_SEED, T=WK7_T,
+                                     lane_batch=WK7_ID_LANES, d=WSW_D,
+                                     device="cuda")
+        cum, comp, _ = game.regrets_fused(z, y, alg, ETA)
+        same &= torch.equal(got.reshape(-1)[:z.shape[0]], cum - comp)
+        del z, y
+        torch.cuda.empty_cache()
+    res[f"K7w == K1w on synthetic_stream (first {8 * WK7_ID_LANES} "
+        f"sequences, T={WK7_T})"] = same
+    # Each narrow pair = f32 on the upcast values: the sweeps and the
+    # packed game.
+    narrow = {}
+    for pair in PAIRS:
+        zs, ys, ln = wsw_batch("narrow", WSW_NARROW_B, WSW_T, WSW_D, *pair)
+        ths = wsw_thresholds(WSW_T, WSW_G, torch.float32)
+        etas = wsw_etas(WSW_E, torch.float32)
+        outs = [(game.eta_sweep(a, b, etas, ln),)
+                + smart.smart_sweep(a, b, ths, ETA, ln)
+                for a, b in ((zs, ys), (zs.float(), ys.float()))]
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        del zs, ys, outs
+        zs, ys = wsw_packed("packed", WPK_B, WPK_T, WSW_D, pair)
+        scales = game.ftrl_scales(WPK_T, ETA, device="cuda")
+        per_seq = wsw_etas(WPK_B, torch.float32)
+        outs = [game.play_packed(a, b, scales)
+                + game.play_packed(a, b, scales, alg_flag=1)
+                + game.play_packed_eta(a, b, per_seq)
+                for a, b in ((zs, ys), (zs.float(), ys.float()))]
+        narrow[pair_name(pair)] = same and all(
+            torch.equal(a, b) for a, b in zip(*outs))
+        del zs, ys, outs
+        torch.cuda.empty_cache()
+    res["narrow pair == f32 on the upcast values (sweeps, packed)"] = narrow
+    print(f"[16 wide d sweeps] identities at d={WSW_D} (sweeps B={WSW_B} "
+          f"T={WSW_T} f64, narrow sweeps B={WSW_NARROW_B}, packed "
+          f"B={WPK_B} T={WPK_T} f32, K7 T={WK7_T}): "
+          f"{json.dumps(res)}")
+    check(all(v if isinstance(v, bool) else all(v.values())
+              for v in res.values()), "phase 16's full-width identities")
+
+
+def wsw_occupancy(name, d, dtype):
+    if name == "K5w":
+        return game.sweep_occupancy(d, dtype)
+    if name in ("K6aw", "K6bw"):
+        return smart.sweep_occupancy(name == "K6bw", d, dtype)
+    if name in ("K3w", "K3ew"):
+        return game.packed_occupancy(name == "K3ew", d, dtype)
+    return game.synthetic_occupancy(0, d)
+
+
+def wsw_timing(digests, counts):
+    """The path shapes timed (CUDA events, 5 repeats after the launch that
+    checks the digest) on inputs
+    regenerated from their seeds, the outputs' digests equal to the main
+    path's, with bounds, registers, warps an SM, local frames and state
+    buffer bytes."""
+    out = {}
+
+    def record(name, label, fn, bd, occ, n_buf, s):
+        # Each instance was launched just before (the digest check).
+        ms = time_ms(fn, reps=5, warm=True)
+        entry = {"ms": ms[0], "ms_min": ms[1], "ms_max": ms[2], **bd,
+                 "registers": occ[0], "warps_per_sm": occ[1],
+                 "local_bytes": occ[2], "buffer_bytes": n_buf * s}
+        out.setdefault(name, entry)
+        out[f"{name} {label}"] = entry
+        print(f"[16 wide d sweeps] {name} {label}: kernel {ms[0]:.4f} ms "
+              f"(min {ms[1]:.4f}, max {ms[2]:.4f}; 5 launches); bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; {occ[0]} "
+              f"registers, {occ[1]} warps an SM, local frame {occ[2]} B, "
+              f"state buffer {n_buf * s / 1e9:.4f} GB")
+
+    for dtype in (torch.float64, torch.float32):
+        z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, WSW_D, dtype)
+        s = item(dtype)
+        etas = wsw_etas(WSW_E, dtype)
+        scales5 = game.sweep_scales(etas, WSW_T)
+        order = game.length_order(ln)
+        ths = wsw_thresholds(WSW_T, WSW_G, dtype)
+        ordered, perm = torch.sort(ths, stable=True)
+        perm = perm.to(torch.int32)
+        scales6 = game.sweep_scales(torch.full((1,), ETA, dtype=dtype,
+                                               device="cuda"), WSW_T)
+        name = f"{str(dtype)[6:]}"
+        reg5 = game.launch_eta_sweep(z, y, scales5, order, ln, False)
+        check(output_digest((reg5.t(),)) == digests[f"K5 {name} d={WSW_D}"],
+              "K5w: the timed launch's digest differs from the main path's")
+        part, tau, comp = smart.launch_smart_prefix(z, y, ordered, perm,
+                                                    order, ln, False)
+        regret = part.clone()
+        smart.launch_smart_tails(z, y, scales6, order, ln, tau, comp, regret)
+        check(output_digest((regret.t(),)) == digests[f"K6 {name} d={WSW_D}"],
+              "K6aw + K6bw: the timed launches' digest differs from the "
+              "main path's")
+        cnt = counts if dtype == torch.float64 else smart_sweep_counts(
+            tau.t(), ln, WSW_T)
+        bd = {f"{key}w": sweep_bounds(key, ln, cnt, dtype, WSW_D, WSW_E,
+                                      WSW_G)[1]
+              for key in ("K5", "K6a", "K6b")}
+        label = f"B={WSW_B} T={WSW_T} d={WSW_D} {name}"
+        record("K5w", f"{label} E={WSW_E}",
+               lambda: game.launch_eta_sweep(z, y, scales5, order, ln, False),
+               bd["K5w"], wsw_occupancy("K5w", WSW_D, dtype),
+               game.wide_state_elems("K5", WSW_B, WSW_D, WSW_E), s)
+        record("K6aw", f"{label} G={WSW_G}",
+               lambda: smart.launch_smart_prefix(z, y, ordered, perm, order,
+                                                 ln, False),
+               bd["K6aw"], wsw_occupancy("K6aw", WSW_D, dtype),
+               game.wide_state_elems("K6a", WSW_B, WSW_D), s)
+        record("K6bw", f"{label} G={WSW_G} ({cnt['tail_pairs']} tails, "
+               f"{cnt['tail_rounds']:.0f} rounds)",
+               lambda: smart.launch_smart_tails(z, y, scales6, order, ln,
+                                                tau, comp, part.clone()),
+               bd["K6bw"], wsw_occupancy("K6bw", WSW_D, dtype),
+               game.wide_state_elems("K6b", WSW_B, WSW_D, WSW_G), s)
+        del z, y, reg5, part, regret
+        torch.cuda.empty_cache()
+    for pair in WSW_PACKED_PAIRS:
+        z_tm, y_tm = wsw_packed("packed", WPK_B, WPK_T, WSW_D, pair)
+        scales = game.ftrl_scales(WPK_T, ETA, device="cuda")
+        per_seq = wsw_etas(WPK_B, torch.float32)
+        outs = (game.launch_play_packed(z_tm, y_tm, scales, 0)
+                + game.launch_play_packed(z_tm, y_tm, scales, 1)
+                + game.launch_play_packed_eta(z_tm, y_tm, per_seq))
+        check(output_digest(outs) ==
+              digests[f"K3 {pair_name(pair)} d={WSW_D}"],
+              "K3w/K3ew: the timed launches' digest differs from the main "
+              "path's")
+        label = f"B={WPK_B} T={WPK_T} d={WSW_D} {pair_name(pair)}"
+        n_buf = game.wide_state_elems("K3", WPK_B, WSW_D)
+        for flag in (0, 1):
+            record("K3w", f"{label} {'FTL' if flag else 'FTRL'}",
+                   lambda: game.launch_play_packed(z_tm, y_tm, scales, flag),
+                   wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, False),
+                   wsw_occupancy("K3w", WSW_D, torch.float32), n_buf, 4)
+        record("K3ew", label,
+               lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq),
+               wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, True),
+               wsw_occupancy("K3ew", WSW_D, torch.float32), n_buf, 4)
+        del z_tm, y_tm, outs
+        torch.cuda.empty_cache()
+    B7 = 8 * WK7_LANES
+    for alg in (0, 1):
+        fn = functools.partial(game.synthetic_regrets, WK7_SEED, ETA,
+                               T=WK7_T, lane_batch=WK7_LANES, d=WSW_D,
+                               alg_flag=alg)
+        check(output_digest((fn().max().reshape(1),)) ==
+              digests[f"K7 {'FTL' if alg else 'FTRL'} d={WSW_D}"],
+              "K7w: the timed launch's digest differs from the main path's")
+        record("K7w", f"B={B7} T={WK7_T} d={WSW_D} "
+               f"{'FTL' if alg else 'FTRL'}", fn,
+               synthetic_bound(B7 * WK7_T, WSW_D, B7,
+                               label="[16 wide d sweeps]"),
+               game.synthetic_occupancy(alg, WSW_D),
+               game.wide_state_elems("K7", B7, WSW_D), 4)
+    frames = {name: sorted({wsw_occupancy(name, d, dtype)[2]
+                            for d in (513, 1024, 2048, 65536)})
+              for name in WSW_KERNELS
+              for dtype in ((torch.float32,) if name == "K7w"
+                            else (torch.float64,))}
+    print(f"[16 wide d sweeps] local frames (bytes) of the wide instances "
+          f"at d = 513, 1024, 2048, 65536 (f64; K7w f32): "
+          f"{json.dumps(frames)}")
+    check(all(len(v) == 1 for v in frames.values()),
+          "a wide instance's local frame depends on d")
+    return out
+
+
+def phase_wide_d_sweeps():
+    """Phase 16: K3, K3e, K5, K6a, K6b and K7 past d = 512 (K3w, K3ew, K5w,
+    K6aw, K6bw, K7w)."""
+    walls, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.empty_cache()
+        walls[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+
+    launches, digests, counts = wsw_main_path()
+    lap("main path")
+    worst, plain_ms = wsw_vs_plain()
+    lap("vs plain")
+    wsw_identities()
+    lap("identities")
+    timing = wsw_timing(digests, counts)
+    lap("timing")
+    print(f"[16 wide d sweeps] phase wall {sum(walls.values()):.1f} s "
+          f"({json.dumps(walls)})")
+    cut = ", ".join(f"({d}, {T})" for d, T in WSW_CUT)
+    out = {}
+    for key in WSW_KERNELS:
+        t = dict(timing[key])
+        for extra in ("ms_min", "ms_max"):
+            t.pop(extra)
+        out[key] = {"max_abs_err": worst[key], "plain_ms": plain_ms[key],
+                    "library_ms": None, **t,
+                    "max_abs_err_at": f"B={WSW_CUT_B}, (d, T) = {cut} f64, "
+                                      f"(513, 16) f64 replay, "
+                                      f"({WSW_D}, 16) f32"
+                                      + ("; K7w lane_batch 10 f32"
+                                         if key == "K7w" else ""),
+                    "plain_ms_at": (f"lane_batch 10 T=16 d={WSW_D} f32, "
+                                    f"FTRL and FTL" if key == "K7w" else
+                                    f"B={WSW_CUT_B} T=16 d={WSW_D} f64")}
+    return launches, out
+
+
 def main() -> int:
     walls = {}
 
@@ -4301,6 +4824,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         wide_launches, wide_timing = timed("14 wide", phase_wide, tmp)
     wide_d_launches, wide_d_timing = timed("15 wide d", phase_wide_d)
+    wsw_launches, wsw_timing_out = timed("16 wide d sweeps",
+                                         phase_wide_d_sweeps)
     kernels = [
         {"name": "regret_kernel (K1: FTRL/FTL regret game + comparator)",
          "route": "cuda",
@@ -4419,6 +4944,25 @@ def main() -> int:
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:871",
          "launches": wide_d_launches["K4w"], **wide_d_timing["K4w"]},
     ]
+    for key, src, line, what in (
+            ("K5w", "sweep_kernel.cu", "pallas_game.py:556",
+             "sweep_kernel (K5w: K5 past d = 512"),
+            ("K6aw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
+             "smart_prefix_kernel (K6aw: K6a past d = 512"),
+            ("K6bw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
+             "smart_tail_kernel (K6bw: K6b past d = 512"),
+            ("K3w", "game_kernel.cu", "pallas_game.py:186",
+             "game_kernel (K3w: K3 past d = 512"),
+            ("K3ew", "game_kernel.cu", "pallas_game.py:467",
+             "game_kernel (K3ew: K3e past d = 512"),
+            ("K7w", "synthetic_kernel.cu", "pallas_game.py:1115",
+             "synthetic_kernel (K7w: K7 past d = 512")):
+        kernels.append({
+            "name": f"{what}, state in a (d, slots) device buffer)",
+            "route": "cuda",
+            "source": f"online_convex_optimization_tpu_torch/csrc/{src}",
+            "replaces": f"online_convex_optimization_tpu/ops/{line}",
+            "launches": wsw_launches[key], **wsw_timing_out[key]})
     for pair in PAIRS:
         z_name, y_name = (str(t)[6:] for t in pair)
         for key, src, line, what in STORAGE_KERNELS:

@@ -25,10 +25,8 @@
 // Instances by feature dimension: d = 5, the main path's, is fully
 // unrolled in registers; the generic instance (D == 0) takes d <= 64 and
 // the large-d instance (D == -1) 64 < d <= 512, the JAX package's
-// _D_KERNEL_MAX.  Past OCO_LARGE_D, K1, K2 and K4 have a wide instance
-// (D == kWideD) and take any d; the other hinge kernels have none, and
-// their wrappers raise there (ops/game.py::check_kernel_d,
-// utils/cuda_build.py MAX_D).
+// _D_KERNEL_MAX.  Past OCO_LARGE_D every hinge kernel (K1-K7) has a wide
+// instance (D == kWideD), so each takes any d >= 1 (launch_for_any_d).
 //
 // The state of the large-d instance (theta, w, x, the row) is indexed by a
 // runtime j, so it lives in local memory, not in registers: the hardware
@@ -146,26 +144,20 @@ __device__ __forceinline__ auto state_vec(S* arr, S* buf, int v, long long i,
 }
 
 // Calls launch(std::integral_constant<int, D>()) with the instance that
-// takes d; returns the launch's cudaError_t, cudaErrorInvalidValue for d
-// outside [1, OCO_LARGE_D].
+// takes d >= 1: d = 5, the generic, the large-d or (past OCO_LARGE_D) the
+// wide instance; returns the launch's cudaError_t, cudaErrorInvalidValue
+// for d < 1.
 template <typename F>
-inline int launch_for_d(int d, F&& launch) {
-  if (d < 1 || d > OCO_LARGE_D) return cudaErrorInvalidValue;
+inline int launch_for_any_d(int d, F&& launch) {
+  if (d < 1) return cudaErrorInvalidValue;
   if (d == 5)
     launch(std::integral_constant<int, 5>());
   else if (d <= OCO_MAX_D)
     launch(std::integral_constant<int, 0>());
-  else
+  else if (d <= OCO_LARGE_D)
     launch(std::integral_constant<int, -1>());
-  return static_cast<int>(cudaGetLastError());
-}
-
-// launch_for_d for the kernels with a wide instance (K1, K2, K4): any
-// d >= 1, the wide instance past OCO_LARGE_D.
-template <typename F>
-inline int launch_for_any_d(int d, F&& launch) {
-  if (d <= OCO_LARGE_D) return launch_for_d(d, launch);
-  launch(std::integral_constant<int, kWideD>());
+  else
+    launch(std::integral_constant<int, kWideD>());
   return static_cast<int>(cudaGetLastError());
 }
 

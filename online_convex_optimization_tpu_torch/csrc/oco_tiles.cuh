@@ -34,8 +34,8 @@
 //
 // The large-d instance (D == -1, d > 64), whose rows do not fit a stage,
 // reads each row from global memory as it plays it (play_rows_global); so
-// does the wide instance of K1 and K2 (D == kWideD, d > 512), through a
-// Widened view of the row.
+// does the wide instance (D == kWideD, d > 512) of every kernel here,
+// through a Widened view of the row.
 #pragma once
 
 #include <climits>
@@ -241,7 +241,8 @@ inline int local_bytes(K kernel, int* out) {
 // order, each thread reading its own rows from global memory, with scale =
 // scale_row[t] (0 where scale_row is null).  The instances with registers
 // for two rows (D >= 0) load round t + 1's row before they play round t,
-// so the load's latency overlaps a round.
+// so the load's latency overlaps a round; the wide instance passes a
+// Widened view of the row, which holds nothing in the thread's frame.
 template <typename S, int D, typename Z, typename Y, typename F>
 __device__ __forceinline__ void play_rows_global(
     const Z* __restrict__ z, const Y* __restrict__ y,
@@ -256,7 +257,11 @@ __device__ __forceinline__ void play_rows_global(
     scale = scale_row != nullptr ? scale_row[t] : S(0);
   };
   S yt, scale;
-  if constexpr (D < 0) {
+  if constexpr (D == kWideD) {
+    for (int t = lo; t < hi; ++t)
+      fn(t, Widened<S, Z>{z + (b * T + t) * n, 1}, S(widen(y[b * T + t])),
+         scale_row != nullptr ? scale_row[t] : S(0));
+  } else if constexpr (D < 0) {
     for (int t = lo; t < hi; ++t) {
       load(t, zr, yt, scale);
       fn(t, static_cast<const S*>(zr), yt, scale);

@@ -54,6 +54,18 @@
 // large-d instance (d > 64) of K6b reads rows from global memory.  Narrow
 // storage (OCO_STORAGE_PAIRS) is widened on read: K6a's loads, K6b's
 // 4-byte windows (oco_tiles.cuh).
+//
+// Past d = 512 (the wide instances K6aw and K6bw, D == oco::kWideD) a
+// thread keeps no vector in its frame.  K6aw's theta, w and x (K2w's FTL
+// warp) are vectors 0, 1 and 2 of slot s (the sequence's place in the
+// order) of the caller's state buffer, laid out (d, B); K6bw's theta and
+// x (K2w's tails) are vectors 0 and 1 of slot g * B + s, laid out
+// (d, G * B), every (sequence, threshold) pair having a slot whether it
+// switched or not.  Both read their rows from global memory where they
+// use them and widen on read (oco::Widened, as the large-d instance
+// does), so K6bw has no barrier to keep.  Same helpers, same order: both
+// equal their plain versions bit for bit at any d, with local frames that
+// do not grow with d.
 #include "oco_tiles.cuh"
 
 namespace {
@@ -77,7 +89,7 @@ smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                     const int* __restrict__ lengths, long long B, long long G,
                     long long T, int d, int replay, S* __restrict__ regret,
                     long long* __restrict__ switch_t,
-                    S* __restrict__ comp_out) {
+                    S* __restrict__ comp_out, S* state) {
   constexpr int C = oco::Cap<D>::value;
   const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
@@ -86,23 +98,22 @@ smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const int len = lengths[b];
   const int n = D > 0 ? D : d;
 
-  S th[C], w[C], x[C];
+  // The sequence's vectors: arrays, or (wide) its slot of the state buffer.
+  S th_a[C], w_a[C], x_a[C];
+  const auto th = oco::state_vec<D>(th_a, state, 0, slot, B, n);
+  const auto w = oco::state_vec<D>(w_a, state, 1, slot, B, n);
+  const auto x = oco::state_vec<D>(x_a, state, 2, slot, B, n);
 #pragma unroll
   for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
   S F = S(0), cnt = S(0);
   long long k = 0, k_last = 0;   // thresholds passed; passed before round len-1
   S next = sorted[0];            // the lowest threshold not yet passed
   oco::play_rows_global<S, D>(
-      z, y, nullptr, b, T, n, 0, len, [&](int t, const S* zr, S yt, S) {
+      z, y, nullptr, b, T, n, 0, len, [&](int t, auto zr, S yt, S) {
         // x is the pre-update FTL action (the last round's post-update one).
         const S diffF = oco::dot<S, D>(zr, x, n) - yt;
         const S lossF = S(0.5) * oco::oabs(diffF);
-        const S gF = oco::half_sign(diffF);
-#pragma unroll
-        for (int j = 0; j < n; ++j) {
-          th[j] = th[j] + gF * zr[j];
-          w[j] = w[j] + yt * zr[j];
-        }
+        oco::update<S, D>(th, w, zr, oco::half_sign(diffF), yt, n);
         F = F + lossF;
         cnt = cnt + S(1);
         oco::ftl_action<S, D>(th, x, n);
@@ -139,7 +150,8 @@ smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                   const int* __restrict__ lengths,
                   const long long* __restrict__ switch_t,
                   const S* __restrict__ comp, long long B, long long G,
-                  long long T, oco::TileShape ts, S* __restrict__ regret) {
+                  long long T, oco::TileShape ts, S* __restrict__ regret,
+                  S* state) {
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -155,20 +167,27 @@ smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const int start = tau + 1 < len ? static_cast<int>(tau) + 1 : len;
   const int n = D > 0 ? D : ts.n;
 
-  S th[C], x[C];
+  // The pair's vectors: arrays, or (wide) its slot of the state buffer,
+  // which only a pair with a tail touches.
+  S th_a[C], x_a[C];
+  const bool tail = start < len;
+  const long long own = tail ? g * B + slot : 0;
+  const auto th = oco::state_vec<D>(th_a, state, 0, own, G * B, n);
+  const auto x = oco::state_vec<D>(x_a, state, 1, own, G * B, n);
+  if (D != oco::kWideD || tail) {
 #pragma unroll
-  for (int j = 0; j < n; ++j) th[j] = S(0);
-  S cum = start < len ? regret[i] : S(0);
+    for (int j = 0; j < n; ++j) th[j] = S(0);
+  }
+  S cum = tail ? regret[i] : S(0);
   oco::play_rows<S, D>(
       z, y, scales, b, T, ts, start, len, smem,
-      [&](int, const S* zr, S yt, S scale) {
+      [&](int, auto zr, S yt, S scale) {
         oco::ftrl_action_scaled<S, D>(th, x, n, scale);
-        const S gR = oco::hinge_step<S, D>(x, zr, yt, n, cum);
-#pragma unroll
-        for (int j = 0; j < n; ++j) th[j] = th[j] + gR * zr[j];
+        oco::update<S, D>(th, nullptr, zr,
+                          oco::hinge_step<S, D>(x, zr, yt, n, cum), yt, n);
       },
       oco::NoChunkPass());
-  if (start < len) regret[i] = cum - comp[b];
+  if (tail) regret[i] = cum - comp[b];
 }
 
 // K6a.  Inputs: z (B, T, d) and y (B, T) contiguous, sorted (G,) the
@@ -182,13 +201,15 @@ template <typename Z, typename Y>
 int launch_prefix(const void* z, const void* y, const void* sorted,
                   const void* perm, const void* order, const void* lengths,
                   long long B, long long G, long long T, int d, int replay,
-                  void* regret, void* switch_t, void* comp, void* stream) {
+                  void* regret, void* switch_t, void* comp, void* state,
+                  void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
+  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + kPrefixThreads - 1) / kPrefixThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   int err = cudaSuccess;
-  const int launched = oco::launch_for_d(d, [&](auto dc) {
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     err = oco::launch_with_smem(
         smart_prefix_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
@@ -197,29 +218,30 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
         static_cast<const S*>(sorted), static_cast<const int*>(perm),
         static_cast<const int*>(order), static_cast<const int*>(lengths), B,
         G, T, d, replay, static_cast<S*>(regret),
-        static_cast<long long*>(switch_t), static_cast<S*>(comp));
+        static_cast<long long*>(switch_t), static_cast<S*>(comp),
+        static_cast<S*>(state));
   });
   return err != cudaSuccess ? err : launched;
 }
 
 // K6b.  Inputs: z, y, order, lengths as K6a's; scales (T,) the per-round
 // FTRL scales -(eta / sqrt(t)); switch_t and comp from K6a.  In and out:
-// regret
-// (G, B), K6a's on entry, with every tail played on return.  Returns the
-// cudaError_t of the launch.
+// regret (G, B), K6a's on entry, with every tail played on return.
+// Returns the cudaError_t of the launch.
 template <typename Z, typename Y>
 int launch_tails(const void* z, const void* y, const void* scales,
                  const void* order, const void* lengths, const void* switch_t,
                  const void* comp, long long B, long long G, long long T,
-                 int d, void* regret, void* stream) {
+                 int d, void* regret, void* state, void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
+  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32 * ((G + kTailWarps - 1) / kTailWarps);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const oco::TileShape ts =
       oco::tile_shape<Z, Y>(d, kTailWarps, kTailStageBytes, 1);
   int err = cudaSuccess;
-  const int launched = oco::launch_for_d(d, [&](auto dc) {
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     err = oco::launch_with_smem(
         smart_tail_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
@@ -228,31 +250,67 @@ int launch_tails(const void* z, const void* y, const void* scales,
         static_cast<const Y*>(y), static_cast<const S*>(scales),
         static_cast<const int*>(order), static_cast<const int*>(lengths),
         static_cast<const long long*>(switch_t),
-        static_cast<const S*>(comp), B, G, T, ts, static_cast<S*>(regret));
+        static_cast<const S*>(comp), B, G, T, ts, static_cast<S*>(regret),
+        static_cast<S*>(state));
   });
   return err != cudaSuccess ? err : launched;
+}
+
+template <typename S>
+int occupancy(int tails, int d, int* out) {
+  int err = cudaSuccess;
+  const int checked = oco::launch_for_any_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    if (tails) {
+      const oco::TileShape ts =
+          oco::tile_shape<S, S>(d, kTailWarps, kTailStageBytes, 1);
+      err = oco::occupancy(smart_tail_kernel<S, S, D>, kTailWarps * 32,
+                           oco::ring_bytes<D>(ts), out);
+      if (err == cudaSuccess)
+        err = oco::local_bytes(smart_tail_kernel<S, S, D>, out + 2);
+    } else {
+      err = oco::occupancy(smart_prefix_kernel<S, S, D>, kPrefixThreads, 0,
+                           out);
+      if (err == cudaSuccess)
+        err = oco::local_bytes(smart_prefix_kernel<S, S, D>, out + 2);
+    }
+  });
+  return err != cudaSuccess ? err : checked;
 }
 
 }  // namespace
 
 // The entries of both launches, for each storage pair of OCO_STORAGE_PAIRS
 // (the suffix): z and y in the pair; sorted, scales, comp and regret in
-// the compute type.
+// the compute type; any d >= 1.  state: past d = 512 a scratch buffer of
+// the compute type, 3 * d * B elements for K6a and 2 * d * G * B for K6b
+// (ops/game.py::wide_state_elems), else unused (may be null).
 #define OCO_SMART_SWEEP_ENTRIES(SUFFIX, Z, Y)                               \
   extern "C" int oco_smart_prefix_##SUFFIX(                                 \
       const void* z, const void* y, const void* sorted, const void* perm,   \
       const void* order, const void* lengths, long long B, long long G,     \
       long long T, int d, int replay, void* regret, void* switch_t,         \
-      void* comp, void* stream) {                                           \
+      void* comp, void* state, void* stream) {                              \
     return launch_prefix<Z, Y>(z, y, sorted, perm, order, lengths, B, G, T, \
-                               d, replay, regret, switch_t, comp, stream);  \
+                               d, replay, regret, switch_t, comp, state,    \
+                               stream);                                     \
   }                                                                         \
   extern "C" int oco_smart_tails_##SUFFIX(                                  \
       const void* z, const void* y, const void* scales, const void* order,  \
       const void* lengths, const void* switch_t, const void* comp,          \
       long long B, long long G, long long T, int d, void* regret,           \
-      void* stream) {                                                       \
+      void* state, void* stream) {                                          \
     return launch_tails<Z, Y>(z, y, scales, order, lengths, switch_t, comp, \
-                              B, G, T, d, regret, stream);                  \
+                              B, G, T, d, regret, state, stream);           \
   }
 OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
+
+// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
+// a thread's local frame (out[2]) of a K6a (tails 0) or K6b (tails 1)
+// launch at feature dimension d on the current card; f64 nonzero for the
+// float64 instance.  Returns the cudaError_t.
+extern "C" int oco_smart_sweep_occupancy(int f64, int tails, int d,
+                                         int* out) {
+  return f64 ? occupancy<double>(tails, d, out)
+             : occupancy<float>(tails, d, out);
+}

@@ -42,14 +42,14 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_game.py``:
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations, sharing K1's step (``hinge_round``).  A
 wrapper runs the plain version on a CPU tensor, at any d, and launches the
-kernel on a CUDA tensor; there is no fallback between them.  K1 and K4
-take any d on the card: past ``cuda_build.MAX_D`` = 512 they launch their
-wide instances (K1w, K4w), whose state lies in a device buffer of
-``wide_state_elems`` elements that the wrapper allocates; K3, K3e, K5 and
-K7 raise past 512 (``check_kernel_d``).  K1, K4 and K5 play the same
-round (``oco::game_round``), K3 and K3e its action and hinge step, so a
-sweep column, a sequence fed in chunks or a packed game equals K1 bit for
-bit.
+kernel on a CUDA tensor; there is no fallback between them.  Every kernel
+here takes any d on the card: past ``cuda_build.MAX_D`` = 512 each
+launches its wide instance (K1w, K3w, K3ew, K4w, K5w, K7w), whose state
+lies in a device buffer of ``wide_state_elems`` elements that the wrapper
+allocates (a buffer that does not fit raises as ``torch.empty`` raises).
+K1, K4 and K5 play the same round (``oco::game_round``), K3 and K3e its
+action and hinge step, so a sweep column, a sequence fed in chunks or a
+packed game equals K1 bit for bit.
 
 What bounds the kernels on an H100: about 8*(d+1) bytes of f64 input per
 round against a serial chain of about 3d+10 flops per round (action with
@@ -187,21 +187,14 @@ def check_batch(z: torch.Tensor, y: torch.Tensor):
     return B, T, d
 
 
-# The hinge kernels with a wide instance past cuda_build.MAX_D (K1w, K2w,
-# K4w): any d >= 1.  The others (K3, K3e, K5, K6a, K6b, K7) stop at MAX_D.
-WIDE_KERNELS = ("K1", "K2", "K4")
+# Warps (settings) a K5 block serves: csrc/sweep_kernel.cu kSweepWarps.
+# K5w sums w once a block and sequence, so its buffer holds a w for each
+# group of SWEEP_WARPS settings.
+SWEEP_WARPS = 16
 
-
-def check_kernel_d(d: int, kernel: str) -> None:
-    """Raise for a feature dimension that CUDA kernel ``kernel`` ("K1" ..
-    "K7") has no instance of: past ``cuda_build.MAX_D`` for all but
-    ``WIDE_KERNELS`` (the plain versions on the CPU take any d)."""
-    if d > cuda_build.MAX_D and kernel not in WIDE_KERNELS:
-        raise ValueError(f"d = {d} exceeds kernel {kernel}'s limit d <= "
-                         f"{cuda_build.MAX_D} (the JAX package's "
-                         f"_D_KERNEL_MAX); past it only "
-                         f"{', '.join(WIDE_KERNELS)} run on the card, and "
-                         f"the plain versions on the CPU")
+# The hinge kernels (K1-K7), each with a wide instance past
+# cuda_build.MAX_D: every one takes any d >= 1 on the card.
+WIDE_KERNELS = ("K1", "K2", "K3", "K3e", "K4", "K5", "K6a", "K6b", "K7")
 
 
 def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1) -> int:
@@ -214,14 +207,26 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1) -> int:
       ``3 d plays B``;
     - K2w: theta and x of the FTL track and of each of ``plays`` (G)
       thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
-    - K4w: x, ``d B`` (theta and w are the output carry).
+    - K3w, K3ew: x, ``d B`` (theta is the output);
+    - K4w: x, ``d B`` (theta and w are the output carry);
+    - K5w: theta and x of each of ``plays`` (E) settings a sequence, and a
+      w a sequence for each group of ``SWEEP_WARPS`` settings,
+      ``(2 E + ceil(E / SWEEP_WARPS)) d B``;
+    - K6aw: theta, w and x of the FTL prefix, ``3 d B``;
+    - K6bw: theta and x of each of ``plays`` (G) thresholds' tails,
+      ``2 d G B`` (a slot for every pair, switched or not);
+    - K7w: theta, w and x, ``3 d B`` (float32).
     """
     if kernel not in WIDE_KERNELS:
-        raise ValueError(f"kernel {kernel} has no wide instance; those "
-                         f"with one are {WIDE_KERNELS}")
+        raise ValueError(f"unknown kernel {kernel}; the hinge kernels are "
+                         f"{WIDE_KERNELS}")
     if d <= cuda_build.MAX_D:
         return 0
-    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K4": 1}[kernel]
+    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K3": 1,
+               "K3e": 1, "K4": 1,
+               "K5": 2 * plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
+               "K6a": 3,
+               "K6b": 2 * plays, "K7": 3}[kernel]
     return vectors * d * B
 
 
@@ -359,7 +364,6 @@ def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
     global LAUNCHES
     B, T, d = z.shape
     P = flags.shape[0]
-    check_kernel_d(d, "K1")
     fn = getattr(cuda_build.load(),
                  f"oco_regrets_fused_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -392,6 +396,27 @@ def stream_occupancy(d: int, dtype) -> tuple:
     """``regret_occupancy`` for K4 (K4w past ``cuda_build.MAX_D``)."""
     return occupancy("K4", cuda_build.load().oco_stream_occupancy,
                      int(dtype == torch.float64), d)
+
+
+def sweep_occupancy(d: int, dtype) -> tuple:
+    """``regret_occupancy`` for K5 (K5w past ``cuda_build.MAX_D``)."""
+    return occupancy("K5", cuda_build.load().oco_sweep_occupancy,
+                     int(dtype == torch.float64), d)
+
+
+def packed_occupancy(per_seq_eta: bool, d: int, dtype) -> tuple:
+    """``regret_occupancy`` for K3 (K3e with ``per_seq_eta``; K3w, K3ew
+    past ``cuda_build.MAX_D``)."""
+    return occupancy("K3e" if per_seq_eta else "K3",
+                     cuda_build.load().oco_packed_occupancy,
+                     int(dtype == torch.float64), int(per_seq_eta), d)
+
+
+def synthetic_occupancy(alg_flag: int, d: int) -> tuple:
+    """``regret_occupancy`` for K7's FTRL (``alg_flag`` 0) or FTL (1)
+    instance (K7w past ``cuda_build.MAX_D``), float32."""
+    return occupancy("K7", cuda_build.load().oco_synthetic_occupancy,
+                     int(alg_flag), d)
 
 
 def occupancy(kernel: str, fn, *args) -> tuple:
@@ -554,14 +579,15 @@ def launch_eta_sweep(z, y, scales, order, lengths, replay: bool):
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     E = scales.shape[0]
-    check_kernel_d(d, "K5")
     fn = getattr(cuda_build.load(),
                  f"oco_eta_sweep_{storage_suffix(z.dtype, y.dtype)}")
+    dtype = compute_dtype(z)
     with torch.cuda.device(z.device):
-        regret = torch.empty((E, B), dtype=compute_dtype(z), device=z.device)
+        regret = torch.empty((E, B), dtype=dtype, device=z.device)
+        state = wide_state("K5", B, d, E, dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
                  order.data_ptr(), lengths.data_ptr(), B, E, T, d,
-                 int(replay), regret.data_ptr(),
+                 int(replay), regret.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"eta sweep kernel launch failed: CUDA error "
@@ -710,7 +736,6 @@ def launch_stream_time_major(z_tm, y_tm, flags, eta, t0: int,
     carry in new tensors."""
     global STREAM_LAUNCHES
     CT, d, B = z_tm.shape
-    check_kernel_d(d, "K4")
     fn = getattr(cuda_build.load(),
                  f"oco_play_stream_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     with torch.cuda.device(z_tm.device):
@@ -847,7 +872,6 @@ def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
     inputs; returns ``(cum (B,), theta (d, B))``."""
     global PACKED_LAUNCHES, PACKED_ETA_LAUNCHES
     T, d, B = z_tm.shape
-    check_kernel_d(d, "K3e" if alg_flag is None else "K3")
     fn = getattr(cuda_build.load(),
                  f"{fn_name}_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     dtype = compute_dtype(z_tm)
@@ -855,8 +879,10 @@ def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
     with torch.cuda.device(z_tm.device):
         cum = torch.empty((B,), dtype=dtype, device=z_tm.device)
         theta = torch.empty((d, B), dtype=dtype, device=z_tm.device)
+        state = wide_state("K3e" if alg_flag is None else "K3", B, d, 1,
+                           dtype, z_tm.device)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), extra.data_ptr(), T, B, d,
-                 *flag, cum.data_ptr(), theta.data_ptr(),
+                 *flag, cum.data_ptr(), theta.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z_tm.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"packed game kernel launch failed: CUDA "
@@ -962,15 +988,16 @@ def regrets_packed_eta(z_tm, y_tm, eta):
 
 def kernel_envelope(B: int, T: int, d: int, dtype=torch.float32,
                     per_lane_eta: bool = False):
-    """None where the port's packed kernels take the shape, else the
-    reason they do not.
+    """None where ``simulate_linear_auto`` routes to the packed kernels,
+    else the reason it routes to the simulator.
 
-    Derived from the port's own kernels: K3 and K3e both have instances
-    through d = ``cuda_build.MAX_D`` (512) for z stored in float32, float64
-    or bf16 (``STORAGE``), with no budget of on-chip memory (a thread's
-    state is in registers, or in local memory past d = 64).  ``T`` and
-    ``per_lane_eta`` (the JAX signature's) set no limit: unlike the TPU's
-    register-only per-lane kernel, K3e has the large-d instance too.
+    This mirrors the JAX ``kernel_envelope``'s routing decision, not a
+    limit of the port's kernels: K3 and K3e take any d on the card (K3w,
+    K3ew past ``cuda_build.MAX_D``), but the JAX function sends d past its
+    ``_D_KERNEL_MAX`` (512) to its linear scan, so the port sends it to the
+    simulator's kernel (K1, K1w), and the two packages take the same route.
+    z must be stored in float32, float64 or bf16 (``STORAGE``).  ``T`` and
+    ``per_lane_eta`` (the JAX signature's) set no limit here.
     """
     del per_lane_eta, T
     if dtype not in {z for z, _ in STORAGE}:
@@ -979,8 +1006,8 @@ def kernel_envelope(B: int, T: int, d: int, dtype=torch.float32,
     if B < 1 or d < 1:
         return f"empty batch (B={B}, d={d})"
     if d > cuda_build.MAX_D:
-        return (f"d={d} past the CUDA kernels' limit d <= "
-                f"{cuda_build.MAX_D}")
+        return (f"d={d} past the JAX package's kernel envelope d <= "
+                f"{cuda_build.MAX_D}, which routes to the linear scan")
     return None
 
 
@@ -1008,9 +1035,11 @@ def simulate_linear_auto(z: torch.Tensor, y: torch.Tensor, alg_flag: int,
                          eta0):
     """``simulate_linear_packed`` (K3, K3e) inside ``kernel_envelope``, the
     simulator past it: ``regrets_fused``, the kernel of
-    ``models/linear.py::simulate_linear_batch`` (K1, K1w past d = 512), as
-    the JAX function routes to its scan there.  On a CPU tensor both run
-    their plain versions.  Returns ``(B,)`` regrets."""
+    ``models/linear.py::simulate_linear_batch`` (K1, K1w past d = 512).
+    The route mirrors the JAX function's decision (it sends d past 512 to
+    its scan), not a limit of K3/K3e, which take any d when called
+    directly.  On a CPU tensor both run their plain versions.  Returns
+    ``(B,)`` regrets."""
     B, T, d = check_batch(z, y)
     if kernel_envelope(B, T, d, z.dtype) is None:
         return simulate_linear_packed(z, y, alg_flag, eta0)
@@ -1079,15 +1108,15 @@ def launch_synthetic(seed: int, eta0, T: int, lane_batch: int, d: int,
     """Launch kernel K7 on ``device``; returns ``(8, lane_batch)`` float32
     regrets."""
     global SYNTHETIC_LAUNCHES
-    check_kernel_d(d, "K7")
     lib = cuda_build.load()
     with torch.cuda.device(device):
         out = torch.empty((SYNTHETIC_ROWS, lane_batch), dtype=torch.float32,
                           device=device)
+        state = wide_state("K7", out.numel(), d, 1, torch.float32, device)
         keys = (ctypes.c_uint32 * 20)(*round_keys(int(seed)))
         err = lib.oco_synthetic_regrets_f32(
             keys, float(eta0), T, out.numel(), d, alg_flag,
-            synthetic_row_scale(d), out.data_ptr(),
+            synthetic_row_scale(d), out.data_ptr(), data_ptr(state),
             torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"synthetic kernel launch failed: CUDA error "
@@ -1107,8 +1136,8 @@ def synthetic_regrets(seed: int, eta0, *, T: int, lane_batch: int,
       eta0: the FTRL step scale (rounded to float32; ignored for FTL).
       T: rounds, 1 <= T < 2^32: nothing in a launch scales with T.
       lane_batch, d: ``8 * lane_batch`` sequences of dimension ``d``.
-      device: ``cuda`` (the default) launches kernel K7 (or raises: d > 512
-        has no instance); ``cpu`` runs ``synthetic_regrets_reference``.
+      device: ``cuda`` (the default) launches kernel K7 (K7w past d =
+        512); ``cpu`` runs ``synthetic_regrets_reference``.
 
     Returns:
       ``(8, lane_batch)`` float32 regrets (the JAX function's shape).

@@ -23,9 +23,9 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
 Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
 tensor, at any d, and launches the kernel on a CUDA tensor; there is no
-fallback between them.  K2 takes any d on the card (past 512 its wide
-instance K2w, whose state lies in a device buffer the wrapper allocates,
-``game.wide_state_elems``); K6a and K6b raise past 512.  K6 computes
+fallback between them.  K2, K6a and K6b take any d on the card (past 512
+their wide instances K2w, K6aw and K6bw, whose state lies in a device
+buffer the wrapper allocates, ``game.wide_state_elems``).  K6 computes
 what K2's FTL and tail warps compute, in the same order, so a sweep column
 equals K2 bit for bit.
 
@@ -64,7 +64,6 @@ from online_convex_optimization_tpu_torch.ops.actions import (
 )
 from online_convex_optimization_tpu_torch.ops.game import (
     check_batch,
-    check_kernel_d,
     compute_dtype,
     data_ptr,
     eta_table,
@@ -235,7 +234,6 @@ def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
     global LAUNCHES
     B, T, d = z.shape
     G = thresholds.shape[0]
-    check_kernel_d(d, "K2")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_regrets_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -263,6 +261,14 @@ def smart_occupancy(thresholds: int, d: int, dtype) -> tuple:
     card."""
     return occupancy("K2", cuda_build.load().oco_smart_occupancy,
                      int(dtype == torch.float64), thresholds, d)
+
+
+def sweep_occupancy(tails: bool, d: int, dtype) -> tuple:
+    """``smart_occupancy`` for K6a (K6b with ``tails``; K6aw, K6bw past
+    512)."""
+    return occupancy("K6b" if tails else "K6a",
+                     cuda_build.load().oco_smart_sweep_occupancy,
+                     int(dtype == torch.float64), int(tails), d)
 
 
 def smart_plays(z: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
@@ -512,7 +518,6 @@ def launch_smart_prefix(z, y, ordered, perm, order, lengths,
     global SWEEP_LAUNCHES
     B, T, d = z.shape
     G = ordered.shape[0]
-    check_kernel_d(d, "K6a")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_prefix_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
@@ -520,10 +525,11 @@ def launch_smart_prefix(z, y, ordered, perm, order, lengths,
         partial = torch.empty((G, B), dtype=dtype, device=z.device)
         tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
         comp = torch.empty((B,), dtype=dtype, device=z.device)
+        state = wide_state("K6a", B, d, 1, dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), ordered.data_ptr(),
                  perm.data_ptr(), order.data_ptr(), lengths.data_ptr(), B, G,
                  T, d, int(replay), partial.data_ptr(), tau.data_ptr(),
-                 comp.data_ptr(),
+                 comp.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"SMART sweep prefix kernel launch failed: "
@@ -541,13 +547,14 @@ def launch_smart_tails(z, y, scales, order, lengths, switch_t, comp,
     global SWEEP_TAIL_LAUNCHES
     B, T, d = z.shape
     G = switch_t.shape[0]
-    check_kernel_d(d, "K6b")
     fn = getattr(cuda_build.load(),
                  f"oco_smart_tails_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):
+        state = wide_state("K6b", B, d, G, regret.dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
                  order.data_ptr(), lengths.data_ptr(), switch_t.data_ptr(),
                  comp.data_ptr(), B, G, T, d, regret.data_ptr(),
+                 data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"SMART sweep tail kernel launch failed: "

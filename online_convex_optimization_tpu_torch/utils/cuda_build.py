@@ -34,12 +34,11 @@ LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 
 # The largest d of the hinge-game kernels' instances that keep their state
 # in registers or in each thread's local frame (csrc/oco_common.cuh
-# OCO_LARGE_D, the JAX package's _D_KERNEL_MAX).  Past it K1, K2 and K4
-# launch their wide instances, whose state lies in a device buffer the
-# wrapper allocates (ops/game.py::wide_state_elems), and take any d; K3,
-# K3e, K5, K6 and K7 have no instance there, and their wrappers raise on a
-# CUDA tensor (ops/game.py::check_kernel_d).  The quadratic kernels K8 and
-# K9 take any d (their wide instances above ops/trs.py MAX_D).
+# OCO_LARGE_D, the JAX package's _D_KERNEL_MAX).  Past it every hinge
+# kernel (K1-K7) launches its wide instance, whose state lies in a device
+# buffer the wrapper allocates (ops/game.py::wide_state_elems), so each
+# takes any d.  The quadratic kernels K8 and K9 take any d too (their wide
+# instances above ops/trs.py MAX_D).
 MAX_D = 512
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,13 +52,18 @@ _F = ctypes.c_float
 
 # Every pointer and the stream are c_void_p; see the extern "C" blocks.
 _SIGNATURES = {
-    "oco_synthetic_regrets_f32": [_KEYS, _F, _LL, _LL, _I, _I, _F, _P, _P],
+    "oco_synthetic_regrets_f32": [_KEYS, _F, _LL, _LL, _I, _I, _F, _P, _P,
+                                  _P],
     "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
     "oco_admm_occupancy_f32": [_I, _I, _P],
     "oco_admm_resident_plan": [_I, _P],
     "oco_regrets_occupancy": [_I, _I, _I, _P],
     "oco_smart_occupancy": [_I, _I, _I, _P],
     "oco_stream_occupancy": [_I, _I, _P],
+    "oco_sweep_occupancy": [_I, _I, _P],
+    "oco_smart_sweep_occupancy": [_I, _I, _I, _P],
+    "oco_packed_occupancy": [_I, _I, _I, _P],
+    "oco_synthetic_occupancy": [_I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
     "oco_trs_wide_plan": [_I, _I, _LL, _P],
     "oco_quad_wide_plan": [_I, _I, _LL, _P],
@@ -74,15 +78,15 @@ for _ty in STORAGE_SUFFIXES:
                                     [_P] * 5,
         f"oco_smart_regrets_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
                                     [_P] * 6,
-        f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P, _P],
+        f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P] * 3,
         f"oco_smart_prefix_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
-                                   [_P] * 4,
-        f"oco_smart_tails_{_ty}": [_P] * 7 + [_LL] * 3 + [_I] + [_P, _P],
+                                   [_P] * 5,
+        f"oco_smart_tails_{_ty}": [_P] * 7 + [_LL] * 3 + [_I] + [_P] * 3,
         f"oco_play_stream_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I] +
                                   [_P] * 10,
-        f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
-        f"oco_play_packed_eta_{_ty}": [_P, _P, _P, _LL, _LL, _I, _P, _P,
-                                       _P],
+        f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I] +
+                                  [_P] * 4,
+        f"oco_play_packed_eta_{_ty}": [_P, _P, _P, _LL, _LL, _I] + [_P] * 4,
     })
 for _ty in ("f64", "f32"):
     _SIGNATURES.update({

@@ -170,29 +170,34 @@ def test_deterministic_families_match_golden_on_card(cuda, title, T):
 
 
 def test_kernel_rejects_d_above_max(cuda):
-    """Past d = 512 K1, K2 and K4 launch their wide instances (their
-    launch counters rise); K3, K5 and K7 raise, naming the kernel."""
+    """Past d = 512 no hinge kernel rejects d: K1, K2, K3, K3e, K4, K5, K6a,
+    K6b and K7 launch their wide instances (each launch counter rises) and
+    give finite outputs; a sweep of zero rows has zero regret."""
     z = torch.zeros((2, 4, 513), dtype=torch.float64, device=cuda)
     y = torch.ones((2, 4), dtype=torch.float64, device=cuda)
     z_tm, y_tm = game.time_major(z, y)
-    before = (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES)
-    game.regrets_fused(z, y, 0, 1.0)
-    smart.smart_regrets(z, y, 1.0, 1.0)
-    game.play_stream(z_tm, y_tm, 1.0, 0,
-                     game.zero_stream_carry(2, 513, torch.float64, cuda))
+    counters = ((game, "LAUNCHES"), (smart, "LAUNCHES"),
+                (game, "STREAM_LAUNCHES"), (game, "PACKED_LAUNCHES"),
+                (game, "PACKED_ETA_LAUNCHES"), (game, "SWEEP_LAUNCHES"),
+                (smart, "SWEEP_LAUNCHES"), (smart, "SWEEP_TAIL_LAUNCHES"),
+                (game, "SYNTHETIC_LAUNCHES"))
+    before = [getattr(m, n) for m, n in counters]
+    outs = [
+        game.regrets_fused(z, y, 0, 1.0)[0],
+        smart.smart_regrets(z, y, 1.0, 1.0)[0],
+        game.play_stream(z_tm, y_tm, 1.0, 0, game.zero_stream_carry(
+            2, 513, torch.float64, cuda)).cum,
+        game.play_packed(z_tm, y_tm, game.ftrl_scales(
+            4, 1.0, dtype=torch.float64, device=cuda))[1],
+        game.play_packed_eta(z_tm, y_tm, 1.0)[1],
+        game.eta_sweep(z, y, [1.0]),
+        smart.smart_sweep(z, y, [1.0], 1.0)[0],
+        game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=513,
+                               device=cuda)]
     torch.cuda.synchronize()
-    assert (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES) == tuple(
-        n + 1 for n in before)
-    for kernel, call in (
-            ("K3", lambda: game.play_packed(
-                z_tm, y_tm, game.ftrl_scales(4, 1.0, dtype=torch.float64,
-                                             device=cuda))),
-            ("K5", lambda: game.eta_sweep(z, y, [1.0])),
-            ("K7", lambda: game.synthetic_regrets(0, 1.0, T=4, lane_batch=1,
-                                                  d=513, device=cuda))):
-        with pytest.raises(ValueError, match=f"kernel {kernel}'s limit "
-                                             f"d <= 512"):
-            call()
+    assert [getattr(m, n) for m, n in counters] == [n + 1 for n in before]
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    assert float(outs[5].abs().max()) == 0.0 == float(outs[6].abs().max())
 
 
 def _max_err(got, want) -> float:
@@ -601,10 +606,15 @@ def test_synthetic_kernel_matches_plain_and_k1(cuda, d, alg_flag):
 
 
 def test_synthetic_kernel_rejects_d_above_max(cuda):
-    with pytest.raises(ValueError, match="d <= 512"):
-        game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=513)
-    out = game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=512)
-    assert bool(torch.isfinite(out).all())
+    """K7 takes d = 512 (its large-d instance) and d = 513 (K7w), each a
+    launch, and equals its plain version at both."""
+    for d in (512, 513):
+        before = game.SYNTHETIC_LAUNCHES
+        out = game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=d)
+        torch.cuda.synchronize()
+        assert game.SYNTHETIC_LAUNCHES == before + 1
+        assert torch.equal(out, game.synthetic_regrets_reference(
+            0, 1.0, T=4, lane_batch=1, d=d, device=cuda))
 
 
 # ---------------------------------------------------------------- K10
@@ -1085,9 +1095,19 @@ def test_wide_local_frame_does_not_grow_with_d(cuda, dtype):
     """Each wide instance reports the same local frame at every d past 512,
     smaller than one state array of the large-d instance (512 elements):
     no array sized by d sits in a thread's frame."""
-    for name, occ in (("K1", lambda d: game.regret_occupancy(2, d, dtype)),
-                      ("K2", lambda d: smart.smart_occupancy(2, d, dtype)),
-                      ("K4", lambda d: game.stream_occupancy(d, dtype))):
+    occupancies = [
+        ("K1", lambda d: game.regret_occupancy(2, d, dtype)),
+        ("K2", lambda d: smart.smart_occupancy(2, d, dtype)),
+        ("K3", lambda d: game.packed_occupancy(False, d, dtype)),
+        ("K3e", lambda d: game.packed_occupancy(True, d, dtype)),
+        ("K4", lambda d: game.stream_occupancy(d, dtype)),
+        ("K5", lambda d: game.sweep_occupancy(d, dtype)),
+        ("K6a", lambda d: smart.sweep_occupancy(False, d, dtype)),
+        ("K6b", lambda d: smart.sweep_occupancy(True, d, dtype))]
+    if dtype == torch.float32:
+        occupancies += [("K7", lambda d: game.synthetic_occupancy(0, d)),
+                        ("K7 FTL", lambda d: game.synthetic_occupancy(1, d))]
+    for name, occ in occupancies:
         frames = {occ(d)[2] for d in (513, 1024, 4096, 65536)}
         assert len(frames) == 1, (name, frames)
         assert frames.pop() < 512 * dtype.itemsize, name
@@ -1129,6 +1149,191 @@ def test_wide_entry_points_on_the_card(cuda):
     assert game.STREAM_LAUNCHES == before[2] + 2 * len(range(0, T, 8))
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert _max_err((got.cpu(),), (want,)) <= TOL[torch.float64]
+
+
+# ------------------------- K3w, K3ew, K5w, K6aw, K6bw, K7w: d past 512
+
+WIDE_SWEEP_CASES = [(pair, d) for pair in [(torch.float64, torch.float64),
+                                           (torch.float32, torch.float32)]
+                    + STORAGE_PAIRS for d in (513, 1024)]
+
+
+def _wide_sweeps_vs_plain(cuda, pair, d, contract, T, grid):
+    """K5w (E = 3 settings), K6aw and K6bw (the thresholds ``grid`` times
+    sqrt(2T)), K3w (FTRL from ``ftrl_scales``, FTL) and K3ew against their
+    plain versions on the stored values in every bit, B = 77, ragged
+    lengths (zero rows past them on the packed API); returns the switch
+    rounds (B, G) and the lengths."""
+    B = 77
+    z, y, lengths = _batch(B, T, d, seed=d + 11, contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    dtype = zf.dtype
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    etas = torch.tensor([0.1, 1.3, 3.7], dtype=dtype, device=cuda)
+    ths = torch.as_tensor(np.asarray(grid) * math.sqrt(2.0 * T), dtype=dtype,
+                          device=cuda)
+    eta = torch.tensor(1.3, dtype=dtype, device=cuda)
+    before = (game.SWEEP_LAUNCHES, smart.SWEEP_LAUNCHES,
+              smart.SWEEP_TAIL_LAUNCHES, game.PACKED_LAUNCHES,
+              game.PACKED_ETA_LAUNCHES)
+    got = game.eta_sweep(zs, ys, etas, ln)
+    want = game.eta_sweep_reference(zf, yf, etas, ln, replay=not contract)
+    assert torch.equal(got, want)
+    # K6aw alone against the split mirror's first part, then K6 whole.
+    ordered, perm = torch.sort(ths, stable=True)
+    got = smart.launch_smart_prefix(zs, ys, ordered, perm.to(torch.int32),
+                                    game.length_order(ln), ln, not contract)
+    want = smart.smart_prefix_reference(zf, yf, ths, ln, replay=not contract)
+    assert all(torch.equal(g.t() if g.ndim == 2 else g, w)
+               for g, w in zip(got, want))
+    got = smart.smart_sweep(zs, ys, ths, 1.3, ln)
+    want = smart.smart_sweep_reference(zf, yf, ths, eta, ln,
+                                       replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    tau = got[1]
+    valid = (torch.arange(T, device=cuda)[None, :] < ln[:, None].long())
+    z_tm, y_tm = game.time_major(torch.where(valid[..., None], zs, 0),
+                                 torch.where(valid, ys, 0))
+    zf_tm, yf_tm = game.time_major(torch.where(valid[..., None], zf, 0.0),
+                                   torch.where(valid, yf, 0.0))
+    scales = game.ftrl_scales(T, 1.3, dtype=dtype, device=cuda)
+    for flag in (0, 1):
+        got = game.play_packed(z_tm, y_tm, scales, alg_flag=flag)
+        want = game.play_packed_reference(zf_tm, yf_tm, scales, flag)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    per_seq = torch.linspace(0.3, 2.5, B, dtype=dtype, device=cuda)
+    got = game.play_packed_eta(z_tm, y_tm, per_seq)
+    want = game.play_packed_eta_reference(zf_tm, yf_tm, per_seq)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    assert (game.SWEEP_LAUNCHES, smart.SWEEP_LAUNCHES,
+            smart.SWEEP_TAIL_LAUNCHES, game.PACKED_LAUNCHES,
+            game.PACKED_ETA_LAUNCHES) == (before[0] + 1, before[1] + 2,
+                                          before[2] + 1, before[3] + 2,
+                                          before[4] + 1)
+    return tau, ln
+
+
+@pytest.mark.parametrize("pair,d", WIDE_SWEEP_CASES)
+@pytest.mark.parametrize("contract", [True, False])
+def test_wide_sweeps_and_packed_equal_plain_bit_for_bit(cuda, pair, d,
+                                                        contract):
+    """K5w, K6aw, K6bw, K3w and K3ew equal their plain versions on the
+    stored values in every bit at d = 513 and 1,024, in f64, f32 and every
+    narrow pair, contract and replay data, with a threshold that no pair
+    reaches beside ones that some pairs pass."""
+    tau, ln = _wide_sweeps_vs_plain(cuda, pair, d, contract, 20,
+                                    [0.05, 0.2, 0.5, 1e30])
+    assert bool((tau[:, 0] < 20).any()) and bool((tau[:, 3] == 20).all())
+
+
+@pytest.mark.parametrize("pair,contract", [
+    ((torch.float64, torch.float64), True),
+    ((torch.float32, torch.float32), False)])
+def test_wide_sweeps_equal_plain_across_chunks(cuda, pair, contract):
+    """At d = 513 over T = 200 rounds (more than three of the thin sweeps'
+    64-round chunks, oco_tiles.cuh kMaxChunk), with 13 thresholds spread so
+    that pairs switch in each of the first three chunks and tails play past
+    their switch's chunk, the wide instances equal their plain versions in
+    every bit."""
+    tau, ln = _wide_sweeps_vs_plain(cuda, pair, 513, contract, 200,
+                                    np.linspace(0.03, 0.9, 13))
+    ln = ln[:, None].long()
+    on = tau < ln
+    for lo in range(0, 3 * WIDE_CHUNK, WIDE_CHUNK):
+        assert bool((on & (tau >= lo) & (tau < lo + WIDE_CHUNK)).any())
+    assert bool((on & ((tau // WIDE_CHUNK + 1) * WIDE_CHUNK < ln - 1)).any())
+
+
+@pytest.mark.parametrize("d", [513, 1024])
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_wide_synthetic_equals_plain_and_k1w(cuda, d, alg_flag):
+    """K7w equals its plain version and K1w on synthetic_stream's rows of
+    the same seed in every bit (d = 1,024 draws 9 Philox calls a round)."""
+    before = game.SYNTHETIC_LAUNCHES
+    got = game.synthetic_regrets(3 << 20, 1.3, T=70, lane_batch=4, d=d,
+                                 alg_flag=alg_flag)
+    torch.cuda.synchronize()
+    assert game.SYNTHETIC_LAUNCHES == before + 1
+    want = game.synthetic_regrets_reference(3 << 20, 1.3, T=70,
+                                            lane_batch=4, d=d,
+                                            alg_flag=alg_flag, device=cuda)
+    assert torch.equal(got, want)
+    z, y = game.synthetic_stream(3 << 20, T=70, lane_batch=4, d=d,
+                                 device=cuda)
+    cum, comp, _ = game.regrets_fused(z, y, alg_flag, 1.3)
+    assert torch.equal(got.reshape(-1), cum - comp)
+
+
+@pytest.mark.parametrize("d", [513, 1024])
+def test_wide_sweep_identities(cuda, d):
+    """f64: K5w's column e equals K1w with eta = eta_e; K6 with a threshold
+    no pair reaches gives K1w's FTL regret with tau = T; K3w with
+    ftrl_scales gives K1w's FTRL cum and K3ew K1w's with the same
+    per-sequence eta, all in every bit."""
+    B, T = 64, 48
+    z, y, _ = _batch(B, T, d, seed=d + 5)
+    zt, yt = _to((z, y), cuda, torch.float64)
+    ln = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    etas = [0.2, 1.3, 2.9]
+    sweep = game.eta_sweep(zt, yt, etas, ln)
+    for e, eta in enumerate(etas):
+        cum, comp, _ = game.regrets_fused(zt, yt, 0, eta)
+        assert torch.equal(sweep[:, e], cum - comp)
+    regret, tau = smart.smart_sweep(zt, yt, [1e30], 1.3, ln)
+    cum, comp, _ = game.regrets_fused(zt, yt, 1, 1.3)
+    assert torch.equal(regret[:, 0], cum - comp) and bool((tau == T).all())
+    z_tm, y_tm = game.time_major(zt, yt)
+    cum, _ = game.play_packed(z_tm, y_tm, game.ftrl_scales(
+        T, 1.3, dtype=torch.float64, device=cuda))
+    assert torch.equal(cum, game.regrets_fused(zt, yt, 0, 1.3)[0])
+    per_seq = torch.linspace(0.3, 2.5, B, dtype=torch.float64, device=cuda)
+    cum, _ = game.play_packed_eta(z_tm, y_tm, per_seq)
+    assert torch.equal(cum, game.regrets_fused(zt, yt, 0, per_seq)[0])
+
+
+def test_wide_sweep_entry_points_on_the_card(cuda):
+    """The entry points a user calls take d = 513 on the card through K5w,
+    K6aw, K6bw, K3w, K3ew and K7w (their counters rise), within 1e-9 of
+    their CPU runs in f64 (K7, float32 only, equal to its plain version on
+    the card)."""
+    from online_convex_optimization_tpu_torch.models.sweep_api import (
+        ftrl_eta_sweep, smart_threshold_sweep)
+    B, T, d = 16, 24, 513
+    z, y, lengths = _batch(B, T, d, seed=6)
+    counters = ((game, "SWEEP_LAUNCHES"), (smart, "SWEEP_LAUNCHES"),
+                (smart, "SWEEP_TAIL_LAUNCHES"), (game, "PACKED_LAUNCHES"),
+                (game, "PACKED_ETA_LAUNCHES"))
+    before = [getattr(m, n) for m, n in counters]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        zt, yt = _to((z, y), dev, torch.float64)
+        eta = torch.linspace(0.3, 2.5, B, dtype=torch.float64, device=dev)
+        outs[dev.type] = (
+            ftrl_eta_sweep(zt, yt, [0.5, 1.3], length=lengths),
+            smart_threshold_sweep(zt, yt, [1.0, 3.0], eta0=1.3,
+                                  length=lengths),
+            game.simulate_linear_packed(zt, yt, 1, 1.3),
+            game.simulate_linear_packed(zt, yt, 0, eta))
+    torch.cuda.synchronize()
+    assert [getattr(m, n) for m, n in counters] == [
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1,
+        before[4] + 1]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _max_err((got.cpu(),), (want,)) <= TOL[torch.float64]
+    before = game.SYNTHETIC_LAUNCHES
+    got = game.synthetic_regrets(4, 1.3, T=T, lane_batch=2, d=d)
+    assert game.SYNTHETIC_LAUNCHES == before + 1
+    assert torch.equal(got, game.synthetic_regrets_reference(
+        4, 1.3, T=T, lane_batch=2, d=d, device=cuda))
 
 
 # ---------------------------------------- K10l, K9w, K8w: the size gaps

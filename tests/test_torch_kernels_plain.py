@@ -169,13 +169,9 @@ def test_wrappers_reject_bad_inputs():
         game.regrets_fused(z, y, 0, 1.0, [5, 4])           # length > T
     with pytest.raises(TypeError):
         game.regrets_fused(z, y.float(), 0, 1.0)            # mixed dtypes
-    # The plain versions take any d; K1, K2 and K4 have wide instances past
-    # 512, the other kernels' launches refuse d above 512 (the JAX
-    # package's _D_KERNEL_MAX) before they reach the library.
+    # The plain versions take any d, as every kernel does on the card (its
+    # wide instance past 512): no wrapper refuses d = 513.
     z = torch.zeros((2, 4, 513), dtype=torch.float64)
     assert bool(torch.isfinite(smart.smart_regrets(z, y, 1.0, 1.0)[0]).all())
-    scales, eidx = game.eta_table(1.0, 2, 4, torch.float64, "cpu")
-    lengths = torch.full((2,), 4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="kernel K5's limit d <= 512"):
-        game.launch_eta_sweep(z, y, scales, game.length_order(lengths),
-                              lengths, False)
+    assert bool(torch.isfinite(game.eta_sweep(z, y, [0.5, 1.0])).all())
+    assert bool(torch.isfinite(smart.smart_sweep(z, y, [1.0], 1.0)[0]).all())

@@ -1,5 +1,6 @@
 """The port past d = 512, where K1, K2 and K4 run their wide instances on
-the card (K1w, K2w, K4w), against the JAX package's scans in x64.
+the card (K1w, K2w, K4w), against the JAX package's scans in x64 (the
+sweeps, the packed game and K7 past 512: tests/test_torch_wide_d_sweeps.py).
 
 The JAX package simulates any d with ``lax.scan``s (``models/linear.py``,
 ``models/smart.py``, ``models/streaming.py``), and its
@@ -9,11 +10,14 @@ tensor; the kernels equal them bit for bit on the card,
 ``tests/test_torch_cuda.py``) are held against them at d = 513 and 640, on
 the same NumPy inputs, within 1e-9 (switch rounds equal); a streamed game
 fed in chunks, and its checkpoint round trip bit for bit.  Also the host
-arithmetic of the wide instances: the state buffer each launch needs and
-which kernels take d past 512.
+arithmetic of the wide instances of all nine hinge kernel bodies: the
+state buffer each launch needs, and each launcher handing the library any
+d with that buffer (a stand-in library records the calls).
 """
 
+import contextlib
 import math
+import types
 
 import numpy as np
 import pytest
@@ -195,51 +199,134 @@ def test_state_buffer_sizes_past_512(d):
     assert game.wide_state_elems("K4", 262_144, 8192) == 2 ** 31
     buf = game.wide_state("K2", 3, d, 2, torch.float32, "cpu")
     assert buf.shape == (7 * d * 3,) and buf.dtype == torch.float32
-    with pytest.raises(ValueError, match="K5 has no wide instance"):
-        game.wide_state_elems("K5", 8, d)
+    with pytest.raises(ValueError, match="unknown kernel K8"):
+        game.wide_state_elems("K8", 8, d)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K4"])
-def test_wide_kernels_take_any_d(kernel):
-    for d in (1, 512, 513, 4096, 100_000):
-        game.check_kernel_d(d, kernel)
+@pytest.mark.parametrize("d", [513, 1024, 8192])
+def test_new_state_buffer_sizes_past_512(d):
+    # K3w, K3ew: x (theta is the output); K5w: theta and x a (sequence,
+    # setting) pair and w a sequence for each group of 16 settings; K6aw:
+    # theta, w, x a sequence; K6bw: theta and x a (sequence, threshold)
+    # pair; K7w: theta, w, x a sequence.
+    assert game.SWEEP_WARPS == 16
+    assert game.wide_state_elems("K3", 2048, d) == d * 2048
+    assert game.wide_state_elems("K3e", 2048, d) == d * 2048
+    assert game.wide_state_elems("K5", 1024, d, 64) == (128 + 4) * d * 1024
+    assert game.wide_state_elems("K5", 77, d, 11) == (22 + 1) * d * 77
+    assert game.wide_state_elems("K5", 77, d, 17) == (34 + 2) * d * 77
+    assert game.wide_state_elems("K6a", 1024, d, 16) == 3 * d * 1024
+    assert game.wide_state_elems("K6b", 1024, d, 16) == 2 * d * 16 * 1024
+    assert game.wide_state_elems("K7", 16_384, d) == 3 * d * 16_384
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K3e", "K5", "K6a", "K6b", "K7"])
-def test_other_kernels_refuse_d_past_512(kernel):
-    game.check_kernel_d(cuda_build.MAX_D, kernel)
-    with pytest.raises(ValueError,
-                       match=f"kernel {kernel}'s limit d <= 512") as err:
-        game.check_kernel_d(cuda_build.MAX_D + 1, kernel)
-    assert "K1, K2, K4" in str(err.value)
+# --------------------------- every launcher hands the library any d >= 1
+
+class _Library:
+    """A stand-in for the CUDA library: records each C entry's arguments;
+    every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
 
 
-def test_launchers_refuse_before_the_library():
-    """Past 512 the still-limited launchers raise before they build or load
-    the library (none exists here), naming their kernel."""
-    z = torch.zeros((2, 4, 513), dtype=torch.float64)
-    y = torch.ones((2, 4), dtype=torch.float64)
-    lengths = torch.full((2,), 4, dtype=torch.int32)
+def _launch(kernel, d):
+    """Calls the launcher of ``kernel`` at feature dimension ``d`` on CPU
+    tensors (B = 2, T = 4); returns its C entry's name prefix and the
+    launch counter's module and name."""
+    B, T = 2, 4
+    f64 = torch.float64
+    z = torch.zeros((B, T, d), dtype=f64)
+    y = torch.ones((B, T), dtype=f64)
+    lengths = torch.full((B,), T, dtype=torch.int32)
     order = game.length_order(lengths)
-    scales = game.sweep_scales(torch.ones(1, dtype=torch.float64), 4)
+    scales = game.sweep_scales(torch.ones(3, dtype=f64), T)
+    eidx = torch.zeros((B,), dtype=torch.int32)
     z_tm, y_tm = game.time_major(z, y)
-    calls = {
-        "K5": lambda: game.launch_eta_sweep(z, y, scales, order, lengths,
-                                            False),
+    flags = torch.zeros((2, B), dtype=torch.int32)
+    return {
+        "K1": lambda: game.launch_regrets(z, y, flags, scales, eidx, lengths,
+                                          False),
+        "K2": lambda: smart.launch_smart(z, y, torch.ones((2, B), dtype=f64),
+                                         scales, eidx, lengths, False),
         "K3": lambda: game.launch_play_packed(z_tm, y_tm, scales[0], 0),
         "K3e": lambda: game.launch_play_packed_eta(
-            z_tm, y_tm, torch.ones(2, dtype=torch.float64)),
-        "K7": lambda: game.launch_synthetic(0, 1.0, 4, 1, 513, 0,
-                                            torch.device("cpu")),
+            z_tm, y_tm, torch.ones(B, dtype=f64)),
+        "K4": lambda: game.launch_stream_time_major(
+            z_tm, y_tm, flags[0], torch.ones(B, dtype=f64), 0,
+            game.zero_stream_carry(B, d, f64, "cpu")),
+        "K5": lambda: game.launch_eta_sweep(z, y, scales, order, lengths,
+                                            False),
         "K6a": lambda: smart.launch_smart_prefix(
-            z, y, torch.ones((1, 2), dtype=torch.float64),
-            torch.zeros((1, 2), dtype=torch.int32), order, lengths, False),
+            z, y, torch.ones(2, dtype=f64), torch.arange(2, dtype=torch.int32),
+            order, lengths, False),
         "K6b": lambda: smart.launch_smart_tails(
-            z, y, scales, order, lengths,
-            torch.zeros((1, 2), dtype=torch.int64),
-            torch.zeros(2, dtype=torch.float64),
-            torch.zeros((1, 2), dtype=torch.float64)),
-    }
-    for kernel, call in calls.items():
-        with pytest.raises(ValueError, match=f"kernel {kernel}'s limit"):
-            call()
+            z, y, scales[:1], order, lengths,
+            torch.zeros((2, B), dtype=torch.int64), torch.zeros(B, dtype=f64),
+            torch.zeros((2, B), dtype=f64)),
+        "K7": lambda: game.launch_synthetic(0, 1.0, T, 1, d, 0,
+                                            torch.device("cpu")),
+    }[kernel]
+
+
+# (C entry, plays the launcher passes wide_state, sequences, counter).
+ENTRIES = {
+    "K1": ("oco_regrets_fused_f64", 2, 2, (game, "LAUNCHES")),
+    "K2": ("oco_smart_regrets_f64", 2, 2, (smart, "LAUNCHES")),
+    "K3": ("oco_play_packed_f64", 1, 2, (game, "PACKED_LAUNCHES")),
+    "K3e": ("oco_play_packed_eta_f64", 1, 2, (game, "PACKED_ETA_LAUNCHES")),
+    "K4": ("oco_play_stream_f64", 1, 2, (game, "STREAM_LAUNCHES")),
+    "K5": ("oco_eta_sweep_f64", 3, 2, (game, "SWEEP_LAUNCHES")),
+    "K6a": ("oco_smart_prefix_f64", 1, 2, (smart, "SWEEP_LAUNCHES")),
+    "K6b": ("oco_smart_tails_f64", 2, 2, (smart, "SWEEP_TAIL_LAUNCHES")),
+    "K7": ("oco_synthetic_regrets_f32", 1, 8, (game, "SYNTHETIC_LAUNCHES")),
+}
+
+
+@pytest.mark.parametrize("d", [512, 513])
+@pytest.mark.parametrize("kernel", game.WIDE_KERNELS)
+def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
+    """Each launcher of the nine hinge kernel bodies hands its C entry the
+    caller's d: past 512 with a state buffer of ``wide_state_elems``
+    elements allocated before the call, at 512 a null one; the launch
+    counter rises.  Nothing raises a d limit."""
+    lib = _Library()
+    buffers = []
+    allocate = game.wide_state
+
+    def spy(*args):
+        buf = allocate(*args)
+        buffers.append((args, buf))
+        return buf
+
+    monkeypatch.setattr(cuda_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(smart, "wide_state", spy)
+    monkeypatch.setattr(game, "wide_state", spy)
+    name, plays, seqs, (module, counter) = ENTRIES[kernel]
+    before = getattr(module, counter)
+    _launch(kernel, d)()
+    assert getattr(module, counter) == before + 1
+    assert [c[0] for c in lib.calls] == [name]
+    args = lib.calls[0][1]
+    assert d in args
+    assert len(buffers) == 1
+    (k, n, dd, p, dtype, _), buf = buffers[0]
+    assert (k, n, dd, p) == (kernel, seqs, d, plays)
+    if d <= cuda_build.MAX_D:
+        assert buf is None and args[-2] is None
+    else:
+        assert buf.numel() == game.wide_state_elems(kernel, seqs, d, plays)
+        assert buf.dtype == (torch.float32 if kernel == "K7"
+                             else torch.float64)
+        assert args[-2] == buf.data_ptr()
