@@ -4627,14 +4627,20 @@ def wsw_identities():
               for v in res.values()), "phase 16's full-width identities")
 
 
-def wsw_occupancy(name, d, dtype):
-    if name == "K5w":
-        return game.sweep_occupancy(d, dtype)
-    if name in ("K6aw", "K6bw"):
-        return smart.sweep_occupancy(name == "K6bw", d, dtype)
-    if name in ("K3w", "K3ew"):
-        return game.packed_occupancy(name == "K3ew", d, dtype)
-    return game.synthetic_occupancy(0, d)
+def wsw_occupancy(name, d, dtype, alg_flag=0):
+    """Registers, warps an SM, local frame and a block's shared memory
+    (bytes) of a launch of wide instance ``name`` at d (K7w: of its FTRL
+    or FTL instance)."""
+    lib = cuda_build.load()
+    f64 = int(dtype == torch.float64)
+    entry, *args = {
+        "K5w": (lib.oco_sweep_occupancy, f64),
+        "K6aw": (lib.oco_smart_sweep_occupancy, f64, 0),
+        "K6bw": (lib.oco_smart_sweep_occupancy, f64, 1),
+        "K3w": (lib.oco_packed_occupancy, f64, 0),
+        "K3ew": (lib.oco_packed_occupancy, f64, 1),
+        "K7w": (lib.oco_synthetic_occupancy, alg_flag)}[name]
+    return game.occupancy(name, entry, *args, d, shared=True)
 
 
 def wsw_timing(digests, counts):
@@ -4650,14 +4656,16 @@ def wsw_timing(digests, counts):
         ms = time_ms(fn, reps=5, warm=True)
         entry = {"ms": ms[0], "ms_min": ms[1], "ms_max": ms[2], **bd,
                  "registers": occ[0], "warps_per_sm": occ[1],
-                 "local_bytes": occ[2], "buffer_bytes": n_buf * s}
+                 "local_bytes": occ[2], "shared_bytes": occ[3],
+                 "buffer_bytes": n_buf * s}
         out.setdefault(name, entry)
         out[f"{name} {label}"] = entry
         print(f"[16 wide d sweeps] {name} {label}: kernel {ms[0]:.4f} ms "
               f"(min {ms[1]:.4f}, max {ms[2]:.4f}; 5 launches); bound "
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; {occ[0]} "
               f"registers, {occ[1]} warps an SM, local frame {occ[2]} B, "
-              f"state buffer {n_buf * s / 1e9:.4f} GB")
+              f"shared memory {occ[3]} B a block, state buffer "
+              f"{n_buf * s / 1e9:.4f} GB")
 
     for dtype in (torch.float64, torch.float32):
         z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, WSW_D, dtype)
@@ -4736,11 +4744,15 @@ def wsw_timing(digests, counts):
         check(output_digest((fn().max().reshape(1),)) ==
               digests[f"K7 {'FTL' if alg else 'FTRL'} d={WSW_D}"],
               "K7w: the timed launch's digest differs from the main path's")
+        plan = game.synthetic_plan(WSW_D, alg)
         record("K7w", f"B={B7} T={WK7_T} d={WSW_D} "
-               f"{'FTL' if alg else 'FTRL'}", fn,
+               f"{'FTL' if alg else 'FTRL'} ({plan['warps']} warps a "
+               f"block, theta and w "
+               f"{'on the chip' if plan['shared'] else 'in device memory'}"
+               f"; on the chip to d = {plan['max_shared_d']})", fn,
                synthetic_bound(B7 * WK7_T, WSW_D, B7,
                                label="[16 wide d sweeps]"),
-               game.synthetic_occupancy(alg, WSW_D),
+               wsw_occupancy("K7w", WSW_D, torch.float32, alg),
                game.wide_state_elems("K7", B7, WSW_D), 4)
     frames = {name: sorted({wsw_occupancy(name, d, dtype)[2]
                             for d in (513, 1024, 2048, 65536)})
@@ -4944,21 +4956,25 @@ def main() -> int:
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:871",
          "launches": wide_d_launches["K4w"], **wide_d_timing["K4w"]},
     ]
+    buffer = "state in a (d, slots) device buffer"
     for key, src, line, what in (
             ("K5w", "sweep_kernel.cu", "pallas_game.py:556",
-             "sweep_kernel (K5w: K5 past d = 512"),
+             "sweep_kernel (K5w: K5 past d = 512, two passes over theta a "
+             "round in a (d, slots) device buffer, rows staged for the "
+             "block"),
             ("K6aw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
-             "smart_prefix_kernel (K6aw: K6a past d = 512"),
+             f"smart_prefix_kernel (K6aw: K6a past d = 512, {buffer}"),
             ("K6bw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
-             "smart_tail_kernel (K6bw: K6b past d = 512"),
+             f"smart_tail_kernel (K6bw: K6b past d = 512, {buffer}"),
             ("K3w", "game_kernel.cu", "pallas_game.py:186",
-             "game_kernel (K3w: K3 past d = 512"),
+             f"game_kernel (K3w: K3 past d = 512, {buffer}"),
             ("K3ew", "game_kernel.cu", "pallas_game.py:467",
-             "game_kernel (K3ew: K3e past d = 512"),
+             f"game_kernel (K3ew: K3e past d = 512, {buffer}"),
             ("K7w", "synthetic_kernel.cu", "pallas_game.py:1115",
-             "synthetic_kernel (K7w: K7 past d = 512")):
+             "synthetic_wide_kernel (K7w: K7 past d = 512, a sequence a "
+             "warp, theta and w in shared memory")):
         kernels.append({
-            "name": f"{what}, state in a (d, slots) device buffer)",
+            "name": f"{what})",
             "route": "cuda",
             "source": f"online_convex_optimization_tpu_torch/csrc/{src}",
             "replaces": f"online_convex_optimization_tpu/ops/{line}",

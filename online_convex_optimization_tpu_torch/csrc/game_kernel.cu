@@ -161,10 +161,10 @@ OCO_STORAGE_PAIRS(OCO_PACKED_ENTRY)
   }
 OCO_STORAGE_PAIRS(OCO_PACKED_ETA_ENTRY)
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2]) of a K3 (per_seq_eta 0) or K3e (1)
-// launch at feature dimension d on the current card; f64 nonzero for the
-// float64 instance.  Returns the cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
+// K3 (per_seq_eta 0) or K3e (1) launch at feature dimension d on the current
+// card; f64 nonzero for the float64 instance.  Returns the cudaError_t.
 extern "C" int oco_packed_occupancy(int f64, int per_seq_eta, int d,
                                     int* out) {
   return f64 ? occupancy<double>(per_seq_eta, d, out)

@@ -227,13 +227,17 @@ inline int occupancy(K kernel, int threads, size_t smem, int* out) {
   return static_cast<int>(err);
 }
 
-// Bytes of a thread's local frame of `kernel` (*out,
-// cudaFuncAttributes.localSizeBytes); returns the cudaError_t.
+// Bytes of a thread's local frame of `kernel` (out[0],
+// cudaFuncAttributes.localSizeBytes) and of a block's shared memory at
+// `smem` bytes of dynamic shared memory (out[1], its static bytes plus
+// smem); returns the cudaError_t.
 template <typename K>
-inline int local_bytes(K kernel, int* out) {
+inline int local_bytes(K kernel, int* out, size_t smem = 0) {
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  *out = err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : 0;
+  const bool ok = err == cudaSuccess;
+  out[0] = ok ? static_cast<int>(attr.localSizeBytes) : 0;
+  out[1] = ok ? static_cast<int>(attr.sharedSizeBytes + smem) : 0;
   return static_cast<int>(err);
 }
 

@@ -168,10 +168,10 @@ int occupancy(int P, int d, int* out) {
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
-    err = oco::occupancy(regret_kernel<S, S, D>, (P + 1) * 32,
-                         oco::chunk_ring_bytes<D>(ts, kStages), out);
+    const size_t smem = oco::chunk_ring_bytes<D>(ts, kStages);
+    err = oco::occupancy(regret_kernel<S, S, D>, (P + 1) * 32, smem, out);
     if (err == cudaSuccess) err = oco::local_bytes(regret_kernel<S, S, D>,
-                                                   out + 2);
+                                                   out + 2, smem);
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -198,10 +198,11 @@ int occupancy(int P, int d, int* out) {
   }
 OCO_STORAGE_PAIRS(OCO_REGRETS_ENTRY)
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2], cudaFuncAttributes.localSizeBytes) of a
-// launch with P plays at feature dimension d on the current card; f64
-// nonzero for the float64 instance.  Returns the cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2], cudaFuncAttributes.localSizeBytes) and of a
+// block's shared memory (out[3]) of a launch with P plays at feature
+// dimension d on the current card; f64 nonzero for the float64 instance.
+// Returns the cudaError_t.
 extern "C" int oco_regrets_occupancy(int f64, int P, int d, int* out) {
   return f64 ? occupancy<double>(P, d, out) : occupancy<float>(P, d, out);
 }

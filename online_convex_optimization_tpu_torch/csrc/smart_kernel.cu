@@ -249,10 +249,10 @@ int occupancy(int G, int d, int* out) {
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
-    err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32,
-                         oco::chunk_ring_bytes<D>(ts, kStages), out);
+    const size_t smem = oco::chunk_ring_bytes<D>(ts, kStages);
+    err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32, smem, out);
     if (err == cudaSuccess) err = oco::local_bytes(smart_kernel<S, S, D>,
-                                                   out + 2);
+                                                   out + 2, smem);
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -280,10 +280,10 @@ int occupancy(int G, int d, int* out) {
   }
 OCO_STORAGE_PAIRS(OCO_SMART_ENTRY)
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2]) of a launch with G thresholds a sequence
-// at feature dimension d on the current card; f64 nonzero for the float64
-// instance.  Returns the cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
+// launch with G thresholds a sequence at feature dimension d on the current
+// card; f64 nonzero for the float64 instance.  Returns the cudaError_t.
 extern "C" int oco_smart_occupancy(int f64, int G, int d, int* out) {
   return f64 ? occupancy<double>(G, d, out) : occupancy<float>(G, d, out);
 }

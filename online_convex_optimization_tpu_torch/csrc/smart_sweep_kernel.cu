@@ -264,10 +264,11 @@ int occupancy(int tails, int d, int* out) {
     if (tails) {
       const oco::TileShape ts =
           oco::tile_shape<S, S>(d, kTailWarps, kTailStageBytes, 1);
-      err = oco::occupancy(smart_tail_kernel<S, S, D>, kTailWarps * 32,
-                           oco::ring_bytes<D>(ts), out);
+      const size_t smem = oco::ring_bytes<D>(ts);
+      err = oco::occupancy(smart_tail_kernel<S, S, D>, kTailWarps * 32, smem,
+                           out);
       if (err == cudaSuccess)
-        err = oco::local_bytes(smart_tail_kernel<S, S, D>, out + 2);
+        err = oco::local_bytes(smart_tail_kernel<S, S, D>, out + 2, smem);
     } else {
       err = oco::occupancy(smart_prefix_kernel<S, S, D>, kPrefixThreads, 0,
                            out);
@@ -305,10 +306,11 @@ int occupancy(int tails, int d, int* out) {
   }
 OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2]) of a K6a (tails 0) or K6b (tails 1)
-// launch at feature dimension d on the current card; f64 nonzero for the
-// float64 instance.  Returns the cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
+// K6a (tails 0) or K6b (tails 1) launch at feature dimension d on the
+// current card; f64 nonzero for the float64 instance.  Returns the
+// cudaError_t.
 extern "C" int oco_smart_sweep_occupancy(int f64, int tails, int d,
                                          int* out) {
   return f64 ? occupancy<double>(tails, d, out)

@@ -225,7 +225,7 @@ int occupancy(int d, int* out) {
                         Ring<S, S, D>::word * kStreamThreads;
     err = oco::occupancy(stream_kernel<S, S, D>, kStreamThreads, smem, out);
     if (err == cudaSuccess) err = oco::local_bytes(stream_kernel<S, S, D>,
-                                                   out + 2);
+                                                   out + 2, smem);
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -253,10 +253,10 @@ int occupancy(int d, int* out) {
   }
 OCO_STORAGE_PAIRS(OCO_STREAM_ENTRY)
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2]) of a launch at feature dimension d on
-// the current card; f64 nonzero for the float64 instance.  Returns the
-// cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
+// launch at feature dimension d on the current card; f64 nonzero for the
+// float64 instance.  Returns the cudaError_t.
 extern "C" int oco_stream_occupancy(int f64, int d, int* out) {
   return f64 ? occupancy<double>(d, out) : occupancy<float>(d, out);
 }

@@ -38,15 +38,40 @@
 // drawn where it is used, so nothing scales with T and T = 2^20 is one
 // launch.
 //
-// Past d = 512 (K7w, the wide instance, D == oco::kWideD) a thread keeps no
-// vector in its frame: theta, w and x are vectors 0, 1 and 2 of slot b of
-// the caller's state buffer, laid out (d, B) (oco::state_vec), and the row
-// is drawn where the helpers read it (PhiloxRow: element j from call
-// j / 128 of the round's counter, the last call's words kept in the
-// thread's frame, so a pass over the row in index order makes each call
-// once: two passes a round, the hinge step's and the update's, and one
-// call for the label).  The same bits, the same round in the same order:
-// K7w on a seed equals its plain version bit for bit at any d.
+// Past d = 512 (K7w, the wide instance) one warp plays a sequence
+// (synthetic_wide_kernel).  One thread a sequence with its vectors in a
+// (d, B) device buffer (this instance's first design) left the card
+// nearly empty at the path's width (16,384 sequences: 128 blocks of 4
+// warps on 132 SMs, each thread's round 8-10 passes over 4 KB vectors in
+// a buffer 4x the L2, a memory round trip per 8 elements) and drew each
+// row twice (17 Philox calls a round at d = 1,024 where the bits need 9).
+// The design:
+//   - lane l holds elements j = l + 32 m of theta and w, which lie in
+//     shared memory (conflict-free: a warp's access is 32 neighbouring
+//     words) while a warp's lines fit a block, and past that in the
+//     caller's buffer, (B, state floats a sequence), contiguous a warp;
+//   - the round's Philox calls run side by side, call k on lane k % 32,
+//     their words written to the warp's words line: 9 calls a round at d =
+//     1,024, none repeated; element j's bit is bit l of word m;
+//   - x is never stored: each lane forms x_j from theta_j where a product
+//     needs it, writes the products of a chunk of at most kWideLine
+//     elements to the warp's product line, and lane 0 sums the line in
+//     index order, four floats a read, then broadcasts the sum (nsq, q, the
+//     comparator's two sums): the same products in the same order as the
+//     thread-a-sequence helpers, so the same bits;
+//   - an FTRL round sums ||x||^2 and <z_t, x> of the unprojected x side by
+//     side, lane 0 the one and lane 1 the other in the same instructions
+//     (warp_dot2), and sums <z_t, x> again only in a round that projects:
+//     one chain of d adds a round where it does not, two where it does;
+//     FTL's q needs the norm first, so its two chains stay in turn;
+//   - the FTRL scale is the same expression, formed by the warp each round
+//     (no table, no block barrier).
+// What bounds it: the one-lane sums, d or 2 d dependent adds a round, and
+// their reads of the line; a block's warps (wide_plan) fill the SM's
+// shared memory so that enough chains are in flight.  The state lives on
+// the chip up to d = max_shared_d (28,100), in device memory past it: the
+// library's plan (oco_synthetic_plan) reports the boundary and the block,
+// and the wrapper allocates the buffer it asks for.
 #include "oco_philox.cuh"
 #include "oco_tiles.cuh"
 
@@ -55,30 +80,10 @@
 
 namespace {
 
-// Row t of sequence b, element j = +-c by bit j of the round's stream,
-// drawn on read.  The helpers take their vectors by value and read them
-// in index order, so each copy keeps the words of its last call.
-struct PhiloxRow {
-  const oco::PhiloxKeys& keys;
-  unsigned int t, b;
-  float c;
-  mutable oco::Philox4 words;
-  mutable int call;
-  __device__ __forceinline__ float operator[](int j) const {
-    if ((j >> 7) != call) {
-      call = j >> 7;
-      words = oco::philox4x32_10(t, b, static_cast<unsigned int>(call), 0u,
-                                 keys);
-    }
-    return oco::philox_bit(words, j & 127) ? c : -c;
-  }
-};
-
 template <int D, bool FTRL>
 __global__ void __launch_bounds__(OCO_THREADS)
 synthetic_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
-                 long long B, int d, float c, float* __restrict__ out,
-                 float* state) {
+                 long long B, int d, float c, float* __restrict__ out) {
   constexpr int C = oco::Cap<D>::value;
   __shared__ float scale[FTRL ? OCO_SCALE_CHUNK : 1];
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -88,16 +93,9 @@ synthetic_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
   const int n = D > 0 ? D : d;
   const unsigned int ub = static_cast<unsigned int>(b);
 
-  // The thread's vectors: arrays, or (wide) its slot of the state buffer.
-  float th_a[C], w_a[C], x_a[C], zr[C];
-  const long long own = live ? b : 0;
-  const auto th = oco::state_vec<D>(th_a, state, 0, own, B, n);
-  const auto w = oco::state_vec<D>(w_a, state, 1, own, B, n);
-  const auto x = oco::state_vec<D>(x_a, state, 2, own, B, n);
-  if (D != oco::kWideD || live) {
+  float th[C], w[C], x[C], zr[C];
 #pragma unroll
-    for (int j = 0; j < n; ++j) th[j] = w[j] = 0.0f;
-  }
+  for (int j = 0; j < n; ++j) th[j] = w[j] = 0.0f;
   float cum = 0.0f;
 
   for (unsigned long long c0 = 0; c0 < T; c0 += OCO_SCALE_CHUNK) {
@@ -113,31 +111,21 @@ synthetic_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
     if (!live) continue;
     for (unsigned int k = 0; k < len; ++k) {
       const unsigned int ut = t0 + k;
-      const auto round = [&](auto row, float yt) {
-        if constexpr (FTRL)
-          oco::ftrl_action_scaled<float, D>(th, x, n, scale[k]);
-        else
-          oco::ftl_action<float, D>(th, x, n);
-        oco::play_action<float, D>(th, w, x, row, yt, n, cum);
-      };
-      if constexpr (D == oco::kWideD) {
-        const oco::Philox4 r =
-            oco::philox4x32_10(ut, ub, static_cast<unsigned int>(n >> 7), 0u,
-                               keys);
-        round(PhiloxRow{keys, ut, ub, c, {}, -1},
-              oco::philox_bit(r, n & 127) ? 1.0f : -1.0f);
-      } else {
-        oco::Philox4 r = oco::philox4x32_10(ut, ub, 0u, 0u, keys);
+      oco::Philox4 r = oco::philox4x32_10(ut, ub, 0u, 0u, keys);
 #pragma unroll
-        for (int j = 0; j < n; ++j) {
-          if (j > 0 && (j & 127) == 0)
-            r = oco::philox4x32_10(ut, ub, j >> 7, 0u, keys);
-          zr[j] = oco::philox_bit(r, j & 127) ? c : -c;
-        }
-        if ((n & 127) == 0) r = oco::philox4x32_10(ut, ub, n >> 7, 0u, keys);
-        round(static_cast<const float*>(zr),
-              oco::philox_bit(r, n & 127) ? 1.0f : -1.0f);
+      for (int j = 0; j < n; ++j) {
+        if (j > 0 && (j & 127) == 0)
+          r = oco::philox4x32_10(ut, ub, j >> 7, 0u, keys);
+        zr[j] = oco::philox_bit(r, j & 127) ? c : -c;
       }
+      if ((n & 127) == 0) r = oco::philox4x32_10(ut, ub, n >> 7, 0u, keys);
+      const float yt = oco::philox_bit(r, n & 127) ? 1.0f : -1.0f;
+      if constexpr (FTRL)
+        oco::ftrl_action_scaled<float, D>(th, x, n, scale[k]);
+      else
+        oco::ftl_action<float, D>(th, x, n);
+      oco::play_action<float, D>(th, w, x, static_cast<const float*>(zr), yt,
+                                 n, cum);
     }
   }
   if (live)
@@ -145,15 +133,272 @@ synthetic_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
                        th, w, x, n, static_cast<float>(T));
 }
 
+// ------------------------------------------------------------------- K7w
+
+// Products a warp's line holds; warps a block at most; the shared memory
+// a block may take on an H100 (227 KB).
+constexpr int kWideLine = 1024;
+constexpr int kWideWarps = 8;
+constexpr long long kBlockSmem = 232448;
+
+// A sequence's lines, in floats, each a multiple of 4 (16 bytes): theta,
+// w, the round's Philox words (4 a call, calls 0 .. d >> 7), then, in
+// shared memory only, the product line: kWideLine floats, or two halves
+// of kWideLine / 2 for two sums side by side, the second kLineGap floats
+// further on so that lane 0's and lane 1's 16-byte reads of the two fall
+// in different banks.
+__host__ __device__ inline long long up4(long long v) {
+  return (v + 3) & ~3LL;
+}
+__host__ __device__ inline int words_of(int d) { return 4 * ((d >> 7) + 1); }
+constexpr int kLineGap = 4;
+constexpr int kLineFloats = kWideLine + kLineGap;
+__host__ __device__ inline long long state_floats(int d) {
+  return 2 * up4(d) + words_of(d);
+}
+// Floats of shared memory a warp takes: its lines, or (state in device
+// memory) its product line alone.
+__host__ __device__ inline long long warp_floats(int d, bool shared) {
+  return (shared ? state_floats(d) : 0) + kLineFloats;
+}
+
+// The largest d whose lines fit one warp's block in shared memory.
+inline int max_shared_d() {
+  int lo = 1, hi = 1 << 20;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (warp_floats(mid, true) * 4 <= kBlockSmem)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// The sum over elements 0 .. n - 1 of prod(j) in index order, the first
+// add from -0 (so the first product as dot forms it): a chunk of at most
+// kWideLine products at a time, each lane writing those of its elements to
+// the line, lane 0 adding the line in order four floats a read; every lane
+// gets the sum.
+template <typename P>
+__device__ __forceinline__ float warp_dot(float* line, int n, int lane,
+                                          P&& prod) {
+  float acc = -0.0f;
+  for (int c0 = 0; c0 < n; c0 += kWideLine) {
+    const int len = min(kWideLine, n - c0);
+    for (int i = lane; i < len; i += 32) line[i] = prod(c0 + i);
+    __syncwarp();
+    if (lane == 0) {
+      int i = 0;
+#pragma unroll 8
+      for (; i + 4 <= len; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(line + i);
+        acc = acc + v.x;
+        acc = acc + v.y;
+        acc = acc + v.z;
+        acc = acc + v.w;
+      }
+      for (; i < len; ++i) acc = acc + line[i];
+    }
+    __syncwarp();
+  }
+  return __shfl_sync(oco::kFullMask, acc, 0);
+}
+
+// The two sums over elements 0 .. n - 1 of pa(j) and of pb(j), each in
+// index order from -0, side by side: chunks of kWideLine / 2 elements,
+// the lanes writing pa's products to the line's first half and pb's to its
+// second, lane 0 adding the first while lane 1 adds the second, in the same
+// instructions; every lane gets both sums.
+template <typename PA, typename PB>
+__device__ __forceinline__ float2 warp_dot2(float* line, int n, int lane,
+                                            PA&& pa, PB&& pb) {
+  constexpr int kHalf = kWideLine / 2;
+  float acc = -0.0f;
+  const float* mine = line + (lane == 1 ? kHalf + kLineGap : 0);
+  for (int c0 = 0; c0 < n; c0 += kHalf) {
+    const int len = min(kHalf, n - c0);
+    for (int i = lane; i < len; i += 32) {
+      line[i] = pa(c0 + i);
+      line[kHalf + kLineGap + i] = pb(c0 + i);
+    }
+    __syncwarp();
+    if (lane < 2) {
+      int i = 0;
+#pragma unroll 8
+      for (; i + 4 <= len; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(mine + i);
+        acc = acc + v.x;
+        acc = acc + v.y;
+        acc = acc + v.z;
+        acc = acc + v.w;
+      }
+      for (; i < len; ++i) acc = acc + mine[i];
+    }
+    __syncwarp();
+  }
+  return make_float2(__shfl_sync(oco::kFullMask, acc, 0),
+                     __shfl_sync(oco::kFullMask, acc, 1));
+}
+
+// Block shape of a K7w launch: warps a block (one sequence each), bytes
+// of dynamic shared memory a block, whether theta and w lie in shared
+// memory, floats of the state buffer a sequence (0 where shared).
+struct WidePlan {
+  int warps;
+  int smem;
+  bool shared;
+  long long state;
+};
+
+template <bool FTRL, bool kShared>
+__global__ void __launch_bounds__(kWideWarps * 32)
+synthetic_wide_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
+                      long long B, int d, float c, float* __restrict__ out,
+                      float* state) {
+  extern __shared__ __align__(16) float wsm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  // No barrier spans the block's warps.
+  if (b >= B) return;
+  const int n = d;
+  const unsigned int ub = static_cast<unsigned int>(b);
+  float* own = wsm + warp * warp_floats(n, kShared);
+  float* th = kShared ? own : state + b * state_floats(n);
+  float* w = th + up4(n);
+  unsigned int* words = reinterpret_cast<unsigned int*>(w + up4(n));
+  float* line = kShared ? own + state_floats(n) : own;
+  for (int j = lane; j < n; j += 32) th[j] = w[j] = 0.0f;
+  const int calls = (n >> 7) + 1;
+  // Element j's sign: bit j & 31 (the lane's) of word j >> 5.
+  const auto z_of = [&](int j) {
+    return (words[j >> 5] >> (j & 31)) & 1u ? c : -c;
+  };
+  float cum = 0.0f;
+  for (unsigned int t = 0; t < T; ++t) {
+    for (int k = lane; k < calls; k += 32) {
+      const oco::Philox4 r = oco::philox4x32_10(
+          t, ub, static_cast<unsigned int>(k), 0u, keys);
+      *reinterpret_cast<uint4*>(words + 4 * k) =
+          make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+    }
+    __syncwarp();
+    const float yt = (words[n >> 5] >> (n & 31)) & 1u ? 1.0f : -1.0f;
+    float q;
+    if constexpr (FTRL) {
+      // ftrl_action_scaled: x = scale theta, projected iff ||x||^2 > 1.
+      // ||x||^2 and <z_t, x> of the unprojected x are summed side by side;
+      // the round that projects sums <z_t, x> again with f x.
+      const float scale =
+          -(eta / oco::osqrt(static_cast<float>(t + 1u)));
+      const float2 sums = warp_dot2(
+          line, n, lane,
+          [&](int j) {
+            const float x = scale * th[j];
+            return x * x;
+          },
+          [&](int j) { return z_of(j) * (scale * th[j]); });
+      q = sums.y;
+      if (sums.x > 1.0f) {
+        const float f = 1.0f / oco::osqrt(sums.x);
+        q = warp_dot(line, n, lane,
+                     [&](int j) { return z_of(j) * (f * (scale * th[j])); });
+      }
+    } else {
+      // ftl_action: x = -theta / ||theta||, 0 at theta == 0.
+      const float nsq = warp_dot(line, n, lane,
+                                 [&](int j) { return th[j] * th[j]; });
+      const float scale = nsq > 0.0f ? -(1.0f / oco::osqrt(nsq)) : 0.0f;
+      q = warp_dot(line, n, lane,
+                   [&](int j) { return z_of(j) * (scale * th[j]); });
+    }
+    // hinge_step, then update.
+    const float diff = q - yt;
+    cum = cum + 0.5f * oco::oabs(diff);
+    const float g = oco::half_sign(diff);
+    for (int j = lane; j < n; j += 32) {
+      const float zj = z_of(j);
+      th[j] = th[j] + g * zj;
+      w[j] = w[j] + yt * zj;
+    }
+    __syncwarp();
+  }
+  // identity_comparator: x_c = ftl_action(theta), 0.5 (T - <x_c, w>).
+  const float nsq =
+      warp_dot(line, n, lane, [&](int j) { return th[j] * th[j]; });
+  const float scale = nsq > 0.0f ? -(1.0f / oco::osqrt(nsq)) : 0.0f;
+  const float xw = warp_dot(line, n, lane,
+                            [&](int j) { return (scale * th[j]) * w[j]; });
+  if (lane == 0)
+    out[b] = cum - 0.5f * (static_cast<float>(T) - xw);
+}
+
+// K7w's plan at d: theta and w in shared memory up to max_shared_d(), and
+// the warps a block that keep the most warps resident an SM (the fewest
+// on a tie), from the card's occupancy calculator.
+template <bool FTRL>
+int wide_plan(int d, WidePlan* p) {
+  if (d <= OCO_LARGE_D) return cudaErrorInvalidValue;
+  p->shared = d <= max_shared_d();
+  p->state = p->shared ? 0 : state_floats(d);
+  const auto kernel = p->shared ? &synthetic_wide_kernel<FTRL, true>
+                                : &synthetic_wide_kernel<FTRL, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBlockSmem));
+  int best = 0;
+  for (int wb = 1; wb <= kWideWarps && err == cudaSuccess; ++wb) {
+    const long long smem = wb * warp_floats(d, p->shared) * 4;
+    if (smem > kBlockSmem) break;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, wb * 32, static_cast<size_t>(smem));
+    if (err == cudaSuccess && blocks * wb > best) {
+      best = blocks * wb;
+      p->warps = wb;
+      p->smem = static_cast<int>(smem);
+    }
+  }
+  if (err == cudaSuccess && best == 0) err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+template <bool FTRL>
+int launch_wide(const oco::PhiloxKeys& keys, float eta, unsigned int T,
+                long long B, int d, float c, float* out, float* state,
+                cudaStream_t s) {
+  WidePlan p{};
+  const int err = wide_plan<FTRL>(d, &p);
+  if (err != cudaSuccess) return err;
+  if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
+  const long long grid = (B + p.warps - 1) / p.warps;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto g = static_cast<unsigned int>(grid);
+  return p.shared
+             ? oco::launch_with_smem(synthetic_wide_kernel<FTRL, true>, g,
+                                     p.warps * 32, p.smem, s, keys, eta, T,
+                                     B, d, c, out, state)
+             : oco::launch_with_smem(synthetic_wide_kernel<FTRL, false>, g,
+                                     p.warps * 32, p.smem, s, keys, eta, T,
+                                     B, d, c, out, state);
+}
+
 template <bool FTRL>
 int launch(const oco::PhiloxKeys& keys, float eta, unsigned int T,
            long long B, int d, float c, float* out, float* state,
            cudaStream_t s) {
   const unsigned int grid = oco::grid_for(B);
-  return oco::launch_for_any_d(d, [&](auto dc) {
-    synthetic_kernel<decltype(dc)::value, FTRL><<<grid, OCO_THREADS, 0, s>>>(
-        keys, eta, T, B, d, c, out, state);
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D == oco::kWideD)
+      err = launch_wide<FTRL>(keys, eta, T, B, d, c, out, state, s);
+    else
+      synthetic_kernel<D, FTRL><<<grid, OCO_THREADS, 0, s>>>(keys, eta, T, B,
+                                                            d, c, out);
   });
+  return err != cudaSuccess ? err : launched;
 }
 
 template <bool FTRL>
@@ -161,9 +406,19 @@ int occupancy(int d, int* out) {
   int err = cudaSuccess;
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    err = oco::occupancy(synthetic_kernel<D, FTRL>, OCO_THREADS, 0, out);
-    if (err == cudaSuccess)
-      err = oco::local_bytes(synthetic_kernel<D, FTRL>, out + 2);
+    if constexpr (D == oco::kWideD) {
+      WidePlan p{};
+      err = wide_plan<FTRL>(d, &p);
+      const auto kernel = p.shared ? &synthetic_wide_kernel<FTRL, true>
+                                   : &synthetic_wide_kernel<FTRL, false>;
+      if (err == cudaSuccess)
+        err = oco::occupancy(kernel, p.warps * 32, p.smem, out);
+      if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, p.smem);
+    } else {
+      err = oco::occupancy(synthetic_kernel<D, FTRL>, OCO_THREADS, 0, out);
+      if (err == cudaSuccess)
+        err = oco::local_bytes(synthetic_kernel<D, FTRL>, out + 2);
+    }
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -174,16 +429,16 @@ int occupancy(int d, int* out) {
 // (ops/philox.py round_keys); eta: the FTRL step scale (float); T rounds
 // (1 <= T < 2^32); B = 8 * lane_batch sequences; any d >= 1; alg_flag 0 =
 // FTRL, 1 = FTL; c = (float)(1 / sqrt(d)).  Output: regrets (B,) float32,
-// sequence b at index b.  state: past d = 512 a scratch buffer of 3 * d *
-// B float32 (ops/game.py::wide_state_elems), else unused (may be null).
-// Returns the cudaError_t of the launch.
+// sequence b at index b.  state: where oco_synthetic_plan asks for one (d
+// past its max_shared_d), a scratch buffer of `state` * B float32
+// (ops/game.py::wide_state_elems), else unused (may be null).  Returns the
+// cudaError_t of the launch.
 extern "C" int oco_synthetic_regrets_f32(const unsigned int* keys, float eta,
                                          long long T, long long B, int d,
                                          int alg_flag, float c, void* out,
                                          void* state, void* stream) {
   if (B < 1 || T < 1 || T > 0xFFFFFFFFLL || B > 0xFFFFFFFFLL)
     return cudaErrorInvalidValue;
-  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   oco::PhiloxKeys k;
   for (int i = 0; i < 10; ++i) {
     k.k0[i] = keys[i];
@@ -197,10 +452,28 @@ extern "C" int oco_synthetic_regrets_f32(const unsigned int* keys, float eta,
                        : launch<false>(k, eta, uT, B, d, c, op, st, s);
 }
 
-// Registers a thread (out[0]), resident warps an SM (out[1]) and bytes of
-// a thread's local frame (out[2]) of a launch at feature dimension d on
-// the current card; alg_flag 0 for the FTRL instance, 1 for FTL.  Returns
-// the cudaError_t.
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of
+// a launch at feature dimension d on the current card; alg_flag 0 for the
+// FTRL instance, 1 for FTL.  Returns the cudaError_t.
 extern "C" int oco_synthetic_occupancy(int alg_flag, int d, int* out) {
   return alg_flag == 0 ? occupancy<true>(d, out) : occupancy<false>(d, out);
+}
+
+// K7w's plan at d > 512 (alg_flag 0 FTRL, 1 FTL) on the current card:
+// warps a block (out[0]), bytes of dynamic shared memory a block (out[1]),
+// 1 if theta and w lie in shared memory (out[2]), floats of the state
+// buffer a sequence, 0 where shared (out[3]), and the largest d whose
+// lines fit shared memory (out[4]).  Returns the cudaError_t
+// (cudaErrorInvalidValue for d <= 512).
+extern "C" int oco_synthetic_plan(int alg_flag, int d, long long* out) {
+  WidePlan p{};
+  const int err = alg_flag == 0 ? wide_plan<true>(d, &p)
+                                : wide_plan<false>(d, &p);
+  out[0] = p.warps;
+  out[1] = p.smem;
+  out[2] = p.shared ? 1 : 0;
+  out[3] = p.state;
+  out[4] = max_shared_d();
+  return err;
 }

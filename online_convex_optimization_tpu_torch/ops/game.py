@@ -46,7 +46,9 @@ kernel on a CUDA tensor; there is no fallback between them.  Every kernel
 here takes any d on the card: past ``cuda_build.MAX_D`` = 512 each
 launches its wide instance (K1w, K3w, K3ew, K4w, K5w, K7w), whose state
 lies in a device buffer of ``wide_state_elems`` elements that the wrapper
-allocates (a buffer that does not fit raises as ``torch.empty`` raises).
+allocates (a buffer that does not fit raises as ``torch.empty`` raises);
+K7w keeps it in shared memory while its plan (``synthetic_plan``) says a
+warp's lines fit, and needs no buffer there.
 K1, K4 and K5 play the same round (``oco::game_round``), K3 and K3e its
 action and hinge step, so a sweep column, a sequence fed in chunks or a
 packed game equals K1 bit for bit.
@@ -209,24 +211,29 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1) -> int:
       thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
     - K3w, K3ew: x, ``d B`` (theta is the output);
     - K4w: x, ``d B`` (theta and w are the output carry);
-    - K5w: theta and x of each of ``plays`` (E) settings a sequence, and a
-      w a sequence for each group of ``SWEEP_WARPS`` settings,
-      ``(2 E + ceil(E / SWEEP_WARPS)) d B``;
+    - K5w: theta of each of ``plays`` (E) settings a sequence, and a w a
+      sequence for each group of ``SWEEP_WARPS`` settings,
+      ``(E + ceil(E / SWEEP_WARPS)) d B`` (no x: the final FTL action is
+      written over theta);
     - K6aw: theta, w and x of the FTL prefix, ``3 d B``;
     - K6bw: theta and x of each of ``plays`` (G) thresholds' tails,
       ``2 d G B`` (a slot for every pair, switched or not);
-    - K7w: theta, w and x, ``3 d B`` (float32).
+    - K7w: what the library's plan asks for (``synthetic_plan``): none
+      while a warp's lines fit a block's shared memory, past that the
+      plan's ``state`` floats a sequence, laid out (B, state) (float32).
     """
     if kernel not in WIDE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}; the hinge kernels are "
                          f"{WIDE_KERNELS}")
     if d <= cuda_build.MAX_D:
         return 0
+    if kernel == "K7":
+        return synthetic_plan(d)["state"] * B
     vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K3": 1,
                "K3e": 1, "K4": 1,
-               "K5": 2 * plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
+               "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
                "K6a": 3,
-               "K6b": 2 * plays, "K7": 3}[kernel]
+               "K6b": 2 * plays}[kernel]
     return vectors * d * B
 
 
@@ -414,20 +421,40 @@ def packed_occupancy(per_seq_eta: bool, d: int, dtype) -> tuple:
 
 def synthetic_occupancy(alg_flag: int, d: int) -> tuple:
     """``regret_occupancy`` for K7's FTRL (``alg_flag`` 0) or FTL (1)
-    instance (K7w past ``cuda_build.MAX_D``), float32."""
+    instance (K7w past ``cuda_build.MAX_D``, at its plan's block),
+    float32."""
     return occupancy("K7", cuda_build.load().oco_synthetic_occupancy,
                      int(alg_flag), d)
 
 
-def occupancy(kernel: str, fn, *args) -> tuple:
+def synthetic_plan(d: int, alg_flag: int = 0) -> dict:
+    """K7w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` on the
+    current card, as the library plans it (``oco_synthetic_plan``): warps
+    a block (a sequence each), bytes of dynamic shared memory a block,
+    whether theta and w lie in shared memory (``shared``), floats of the
+    state buffer a sequence (``state``, 0 where shared) and
+    ``max_shared_d``, the largest d whose lines fit a block's shared
+    memory."""
+    keys = ("warps", "smem_bytes", "shared", "state", "max_shared_d")
+    out = (ctypes.c_longlong * len(keys))()
+    err = cuda_build.load().oco_synthetic_plan(int(alg_flag), d, out)
+    if err != 0:
+        raise RuntimeError(f"K7w plan failed at d={d}: CUDA error {err}")
+    plan = dict(zip(keys, out))
+    plan["shared"] = bool(plan["shared"])
+    return plan
+
+
+def occupancy(kernel: str, fn, *args, shared: bool = False) -> tuple:
     """``(registers, warps an SM, local frame bytes)`` from a C occupancy
-    entry ``fn(*args, out)``."""
-    out = (ctypes.c_int * 3)()
+    entry ``fn(*args, out)``, and with ``shared`` the bytes of a block's
+    shared memory (static and dynamic) after them."""
+    out = (ctypes.c_int * 4)()
     err = fn(*args, out)
     if err != 0:
         raise RuntimeError(f"{kernel} occupancy query failed: CUDA error "
                            f"{err}")
-    return tuple(out)
+    return tuple(out) if shared else tuple(out[:3])
 
 
 def time_major(z: torch.Tensor, y: torch.Tensor):

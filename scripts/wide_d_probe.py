@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""K1, K2 and K4 at the path shapes of large d: times, bounds, digests and
-each launch's registers, warps an SM and local frame.
+"""The nine wide instances (K1w-K7w) at the path shapes of large d: times,
+bounds, digests and each launch's registers, warps an SM, local frame,
+shared memory and state buffer.
 
     cd <a checkout of the port>
-    python3 <path to>/scripts/wide_d_probe.py [--d 512 1024 2048]
-        [--cases k1f64 k1f32 k2 k4] [--reps 3]
+    python3 <path to>/scripts/wide_d_probe.py [--d 1024]
+        [--cases k1f64 k1f32 k2 k4 k3 k5f64 k5f32 k6 k7ftrl k7ftl]
+        [--reps 3]
 
-Its inputs come from ``data/device.py``'s generators and fixed seeds, and
-it calls only the launchers (``launch_regrets``, ``launch_smart``,
-``launch_stream_time_major``), so equal digests mean equal outputs in
-every bit.  At d <= 512 it times the large-d instance (D == -1, state in
-each thread's local frame); past 512 the wide instances (state in a
-device buffer): ``--d 512 513`` sets the two side by side.
+Its inputs come from ``data/device.py``'s generators and fixed seeds (the
+sweep, packed and synthetic cases from ``chip_smoke.py`` phase 16's own
+generators and seeds), and it calls only the launchers
+(``launch_regrets``, ``launch_smart``, ``launch_stream_time_major``,
+``launch_play_packed``, ``launch_play_packed_eta``, ``launch_eta_sweep``,
+``launch_smart_prefix``, ``launch_smart_tails``, ``launch_synthetic``), so
+equal digests mean equal outputs in every bit, and the same command run
+from two checkouts compares them.  At d <= 512 it times the large-d
+instance (D == -1, state in each thread's local frame); past 512 the wide
+instances: ``--d 512 513`` sets the two side by side.
 
 Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 
@@ -22,14 +28,24 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
   and T / 4 (the run prints the share of pairs that switched);
 - ``k4``: K4 over 4 chunks of 1,024 rounds generated on the card
   (``random_time_major_batch``), B = 2,048, f32, FTRL and FTL on
-  alternate sequences, eta = sqrt(2): the 4 launches timed together.
+  alternate sequences, eta = sqrt(2): the 4 launches timed together;
+- ``k3``: K3 FTRL and FTL and K3e (eta from 0.05 to 4.0 a sequence) on
+  phase 16's packed data, B = 2,048, T = 1,024, f32;
+- ``k5f64``, ``k5f32``: K5 on phase 16's sweep data, B = 1,024, T = 1,024
+  (lengths in [512, 1,024]), E = 64 (eta 0.05 .. 4.0);
+- ``k6``: K6a and K6b on the f64 sweep data, G = 16 (sqrt(2T)/16 ..
+  sqrt(2T)), eta = sqrt(2);
+- ``k7ftrl``, ``k7ftl``: K7 at phase 16's seed, T = 1,000, lane_batch
+  2,048 (16,384 sequences).
 
 Each time is the median (min, max) of ``--reps`` CUDA-event timed calls
-after a warm-up call.  Bounds: ``chip_smoke.py``'s ``wide_k1_bound``,
-``wide_k2_bound`` and ``wide_k4_bound`` (inputs read once, outputs written
-once, its operation counts over the H100 SXM's peaks).
-Prints one line a case, then all of them as one JSON line.  Needs one
-CUDA card.
+after a warm-up call.  Bounds: ``chip_smoke.py``'s (inputs read once,
+outputs written once, its operation counts over the H100 SXM's peaks).
+K5 and K7 also print their design's own floor: K5w's theta stream (two
+reads and one write of d elements a pair-round, at 3.35 TB/s), K7w's
+one-lane sums (2 d dependent adds a sequence-round, one warp instruction
+each, at 4 a clock on 132 SMs at 1.98 GHz).  Prints one line a case, then
+all of them as one JSON line.  Needs one CUDA card.
 """
 
 import argparse
@@ -45,24 +61,53 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    WK7_LANES,
+    WK7_SEED,
+    WK7_T,
+    WPK_B,
+    WPK_T,
+    WSW_B,
+    WSW_E,
+    WSW_G,
+    WSW_PACKED_PAIRS,
+    WSW_T,
+    smart_sweep_counts,
+    sweep_bounds,
+    synthetic_bound,
     time_ms,
     wide_k1_bound,
     wide_k2_bound,
     wide_k4_bound,
+    wsw_batch,
+    wsw_etas,
+    wsw_packed,
+    wsw_packed_bound,
+    wsw_thresholds,
 )
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     random_game_batch,
     random_time_major_batch,
 )
 from online_convex_optimization_tpu_torch.ops import game, smart  # noqa: E402
+from online_convex_optimization_tpu_torch.utils import cuda_build  # noqa: E402
 
 ETA = math.sqrt(2.0)
 DEV = "cuda"
 SHAPES = {"k1f64": (1024, 1000, torch.float64),
           "k1f32": (2048, 1024, torch.float32),
           "k2": (1024, 1000, torch.float64),
-          "k4": (2048, 1024, torch.float32)}
+          "k4": (2048, 1024, torch.float32),
+          "k3": (WPK_B, WPK_T, torch.float32),
+          "k5f64": (WSW_B, WSW_T, torch.float64),
+          "k5f32": (WSW_B, WSW_T, torch.float32),
+          "k6": (WSW_B, WSW_T, torch.float64),
+          "k7ftrl": (8 * WK7_LANES, WK7_T, torch.float32),
+          "k7ftl": (8 * WK7_LANES, WK7_T, torch.float32)}
 K4_CHUNKS = 4
+# Warp instructions a clock on an H100 SXM: 4 schedulers on each of 132
+# SMs at its 1.98 GHz boost clock.
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 
 
 def digest(outs) -> str:
@@ -77,6 +122,30 @@ def batch(B, T, d, dtype, seed):
     return random_game_batch(gen, B, T, d, dtype=dtype)
 
 
+def launch_shape(name, d, dtype, *args):
+    """Registers, warps an SM, local frame and (where the checkout's C
+    entry reports it, else None) a block's shared memory in bytes of a
+    launch of hinge kernel ``name`` (the occupancy entry's own key) at d."""
+    fn = getattr(cuda_build.load(), {
+        "K1": "oco_regrets_occupancy", "K2": "oco_smart_occupancy",
+        "K3": "oco_packed_occupancy", "K4": "oco_stream_occupancy",
+        "K5": "oco_sweep_occupancy", "K6": "oco_smart_sweep_occupancy",
+        "K7": "oco_synthetic_occupancy"}[name])
+    # K7's entry takes (alg_flag, d); the others (f64, *args, d).
+    call = ((*args, d) if name == "K7"
+            else (int(dtype == torch.float64), *args, d))
+    try:
+        out = game.occupancy(name, fn, *call, shared=True)
+    except TypeError:   # a checkout whose entries report three numbers
+        out = (*game.occupancy(name, fn, *call), None)
+    return dict(zip(("registers", "warps_per_sm", "local_bytes",
+                     "shared_bytes"), out))
+
+
+def state_bytes(kernel, B, d, plays, dtype) -> int:
+    return game.wide_state_elems(kernel, B, d, plays) * dtype.itemsize
+
+
 def k1(z, y, d, reps):
     B, T, _ = z.shape
     dtype = z.dtype
@@ -89,7 +158,8 @@ def k1(z, y, d, reps):
     ms = time_ms(fn, reps=reps)
     return {"ms": ms, **wide_k1_bound(B, T, d, 2, dtype),
             "digest": digest(outs),
-            "occupancy": list(game.regret_occupancy(2, d, dtype))}
+            "occupancy": launch_shape("K1", d, dtype, 2),
+            "state_bytes": state_bytes("K1", B, d, 2, dtype)}
 
 
 def k2(z, y, d, reps):
@@ -108,7 +178,8 @@ def k2(z, y, d, reps):
     return {"ms": ms, **wide_k2_bound(B, T, d, tau, dtype),
             "digest": digest(outs),
             "switched": switched,
-            "occupancy": list(smart.smart_occupancy(G, d, dtype))}
+            "occupancy": launch_shape("K2", d, dtype, G),
+            "state_bytes": state_bytes("K2", B, d, G, dtype)}
 
 
 def k4(d, reps):
@@ -134,13 +205,124 @@ def k4(d, reps):
     return {"ms": ms, **wide_k4_bound(B, CT, d, K4_CHUNKS, dtype),
             "digest": digest(outs),
             "launches": K4_CHUNKS,
-            "occupancy": list(game.stream_occupancy(d, dtype))}
+            "occupancy": launch_shape("K4", d, dtype),
+            "state_bytes": state_bytes("K4", B, d, 1, dtype)}
+
+
+def k3(d, reps):
+    """K3 FTRL, K3 FTL and K3e, each timed alone: one entry a launch."""
+    pair = WSW_PACKED_PAIRS[0]
+    z_tm, y_tm = wsw_packed("packed", WPK_B, WPK_T, d, pair)
+    scales = game.ftrl_scales(WPK_T, ETA, device=DEV)
+    per_seq = wsw_etas(WPK_B, torch.float32)
+    runs = {"K3 FTRL": lambda: game.launch_play_packed(z_tm, y_tm, scales, 0),
+            "K3 FTL": lambda: game.launch_play_packed(z_tm, y_tm, scales, 1),
+            "K3e": lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq)}
+    res = {}
+    for key, fn in runs.items():
+        outs = fn()
+        res[key] = {
+            "ms": time_ms(fn, reps=reps),
+            **wsw_packed_bound(WPK_B, WPK_T, d, pair, key == "K3e"),
+            "digest": digest(outs),
+            "occupancy": launch_shape("K3", d, torch.float32,
+                                      int(key == "K3e")),
+            "state_bytes": state_bytes("K3", WPK_B, d, 1, torch.float32)}
+    return res
+
+
+def k5(d, dtype, reps):
+    z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, d, dtype)
+    scales = game.sweep_scales(wsw_etas(WSW_E, dtype), WSW_T)
+    order = game.length_order(ln)
+    fn = lambda: game.launch_eta_sweep(z, y, scales, order, ln, False)
+    outs = fn()
+    ms = time_ms(fn, reps=reps)
+    pair_rounds = WSW_E * float(ln.double().sum())
+    floor = pair_rounds * 3 * d * dtype.itemsize / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms,
+            **sweep_bounds("K5", ln, None, dtype, d, WSW_E, WSW_G)[1],
+            "design_floor_ms": floor,
+            "design_floor_by": "theta: 2 reads + 1 write a pair-round",
+            "digest": digest((outs,)),
+            "occupancy": launch_shape("K5", d, dtype),
+            "state_bytes": state_bytes("K5", WSW_B, d, WSW_E, dtype)}
+
+
+def k6(d, reps):
+    """K6a and K6b on the f64 sweep data, each timed alone."""
+    dtype = torch.float64
+    z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, d, dtype)
+    ths = wsw_thresholds(WSW_T, WSW_G, dtype)
+    ordered, perm = torch.sort(ths, stable=True)
+    perm = perm.to(torch.int32)
+    order = game.length_order(ln)
+    scales = game.sweep_scales(torch.full((1,), ETA, dtype=dtype,
+                                          device=DEV), WSW_T)
+    prefix = lambda: smart.launch_smart_prefix(z, y, ordered, perm, order,
+                                               ln, False)
+    part, tau, comp = prefix()
+    counts = smart_sweep_counts(tau.t(), ln, WSW_T)
+    res = {"K6a": {"ms": time_ms(prefix, reps=reps),
+                   **sweep_bounds("K6a", ln, counts, dtype, d, WSW_E,
+                                  WSW_G)[1],
+                   "digest": digest((part, tau, comp)),
+                   "occupancy": launch_shape("K6", d, dtype, 0),
+                   "state_bytes": state_bytes("K6a", WSW_B, d, WSW_G,
+                                              dtype)}}
+    regret = part.clone()
+    smart.launch_smart_tails(z, y, scales, order, ln, tau, comp, regret)
+    tails = lambda: smart.launch_smart_tails(z, y, scales, order, ln, tau,
+                                             comp, part.clone())
+    res["K6b"] = {"ms": time_ms(tails, reps=reps),
+                  **sweep_bounds("K6b", ln, counts, dtype, d, WSW_E,
+                                 WSW_G)[1],
+                  "digest": digest((regret,)),
+                  "tails": counts["tail_pairs"],
+                  "occupancy": launch_shape("K6", d, dtype, 1),
+                  "state_bytes": state_bytes("K6b", WSW_B, d, WSW_G, dtype)}
+    return res
+
+
+def k7(d, alg, reps):
+    B = 8 * WK7_LANES
+    fn = lambda: game.launch_synthetic(WK7_SEED, ETA, WK7_T, WK7_LANES, d,
+                                       alg, torch.device(DEV))
+    outs = fn()
+    ms = time_ms(fn, reps=reps)
+    steps = B * WK7_T
+    floor = steps * 2 * d / WARP_ISSUE_PER_S * 1e3
+    return {"ms": ms,
+            **synthetic_bound(steps, d, B, label="[wide_d_probe]"),
+            "design_floor_ms": floor,
+            "design_floor_by": "one-lane sums: 2 d adds a sequence-round",
+            "digest": digest((outs,)),
+            "occupancy": launch_shape("K7", d, torch.float32, alg),
+            "state_bytes": state_bytes("K7", B, d, 1, torch.float32)}
+
+
+def run_case(name, d, reps):
+    """One case's entries, keyed by kernel (several for k3 and k6)."""
+    B, T, dtype = SHAPES[name]
+    if name == "k4":
+        return {name: k4(d, reps)}
+    if name == "k3":
+        return k3(d, reps)
+    if name in ("k5f64", "k5f32"):
+        return {name: k5(d, dtype, reps)}
+    if name == "k6":
+        return k6(d, reps)
+    if name in ("k7ftrl", "k7ftl"):
+        return {name: k7(d, int(name == "k7ftl"), reps)}
+    z, y = batch(B, T, d, dtype, 11 if dtype == torch.float64 else 12)
+    return {name: (k2 if name == "k2" else k1)(z, y, d, reps)}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--d", type=int, nargs="+", default=[512])
-    parser.add_argument("--cases", nargs="+", default=list(SHAPES))
+    parser.add_argument("--d", type=int, nargs="+", default=[1024])
+    parser.add_argument("--cases", nargs="+", default=list(SHAPES),
+                        choices=list(SHAPES))
     parser.add_argument("--reps", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -155,23 +337,22 @@ def main() -> int:
         cases = [c for c in args.cases if d <= 1024 or c == "k1f64"]
         for name in cases:
             B, T, dtype = SHAPES[name]
-            if name == "k4":
-                res = k4(d, args.reps)
-            else:
-                z, y = batch(B, T, d, dtype, 11 if dtype == torch.float64
-                             else 12)
-                res = (k2 if name == "k2" else k1)(z, y, d, args.reps)
-                del z, y
-            torch.cuda.empty_cache()
-            key = f"{name} d={d}"
-            res["shape"] = {"B": B, "T": T, "d": d, "dtype": str(dtype)[6:]}
-            out["cases"][key] = res
-            print(f"{key} B={B} T={T}: {res['ms'][0]:.4f} ms (min "
-                  f"{res['ms'][1]:.4f}, max {res['ms'][2]:.4f}); bound "
-                  f"{res['bound_ms']:.4f} ms by {res['bound_by']}; "
-                  f"occupancy {res['occupancy']}; digest {res['digest']}"
-                  + (f"; switched {res['switched']}" if "switched" in res
-                     else ""), flush=True)
+            for key, res in run_case(name, d, args.reps).items():
+                torch.cuda.empty_cache()
+                key = f"{key} d={d}"
+                res["shape"] = {"B": B, "T": T, "d": d,
+                                "dtype": str(dtype)[6:]}
+                out["cases"][key] = res
+                floor = (f"; design floor {res['design_floor_ms']:.4f} ms"
+                         if "design_floor_ms" in res else "")
+                print(f"{key} B={B} T={T}: {res['ms'][0]:.4f} ms (min "
+                      f"{res['ms'][1]:.4f}, max {res['ms'][2]:.4f}); bound "
+                      f"{res['bound_ms']:.4f} ms by {res['bound_by']}{floor}; "
+                      f"occupancy {json.dumps(res['occupancy'])}; state "
+                      f"buffer {res['state_bytes']} B; digest "
+                      f"{res['digest']}"
+                      + (f"; switched {res['switched']}" if "switched" in res
+                         else ""), flush=True)
     print(json.dumps(out))
     return 0
 

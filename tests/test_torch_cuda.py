@@ -1273,6 +1273,68 @@ def test_wide_synthetic_equals_plain_and_k1w(cuda, d, alg_flag):
     assert torch.equal(got.reshape(-1), cum - comp)
 
 
+def _synthetic_boundary():
+    return game.synthetic_plan(1024)["max_shared_d"]
+
+
+@pytest.mark.parametrize("side", ["shared", "device memory"])
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_wide_synthetic_across_the_shared_boundary(cuda, side, alg_flag):
+    """K7w at the largest d whose lines fit a block's shared memory (theta
+    and w on the chip, no buffer) and one past it (theta, w and the words
+    in the state buffer the plan asks for) equals its plain version in
+    every bit at a small B and T; at d = 1,025 a last product line of one
+    element."""
+    boundary = _synthetic_boundary()
+    for d in ((boundary, 1025) if side == "shared" else (boundary + 1,)):
+        plan = game.synthetic_plan(d, alg_flag)
+        assert plan["shared"] == (side == "shared")
+        elems = game.wide_state_elems("K7", 8, d)
+        assert (elems == 0) == (side == "shared")
+        T = 3 if d > 2048 else 40
+        before = game.SYNTHETIC_LAUNCHES
+        got = game.synthetic_regrets(9 << 20, 1.3, T=T, lane_batch=1, d=d,
+                                     alg_flag=alg_flag)
+        torch.cuda.synchronize()
+        assert game.SYNTHETIC_LAUNCHES == before + 1
+        want = game.synthetic_regrets_reference(9 << 20, 1.3, T=T,
+                                                lane_batch=1, d=d,
+                                                alg_flag=alg_flag,
+                                                device=cuda)
+        assert torch.equal(got, want), d
+
+
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_synthetic_plan_fits_a_block(cuda, alg_flag):
+    """The library's K7w plan: theta and w in shared memory exactly up to
+    max_shared_d (the same for FTRL and FTL), a block's shared memory
+    within the H100's 227 KB, no buffer where shared and a multiple of 4
+    floats a sequence past it; the occupancy entry reports the plan's
+    block: its shared bytes and at least its warps resident an SM."""
+    boundary = _synthetic_boundary()
+    assert 2048 < boundary < 65536
+    assert game.synthetic_plan(1024, 1 - alg_flag)["max_shared_d"] == \
+        boundary
+    for d in (513, 1024, 2048, boundary, boundary + 1, 65536):
+        plan = game.synthetic_plan(d, alg_flag)
+        assert plan["shared"] == (d <= boundary), d
+        assert 1 <= plan["warps"] <= 8
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["smem_bytes"] % (16 * plan["warps"]) == 0
+        if plan["shared"]:
+            assert plan["state"] == 0
+        else:
+            assert plan["state"] >= 2 * d and plan["state"] % 4 == 0
+        regs, warps, _ = game.synthetic_occupancy(alg_flag, d)
+        shared = game.occupancy("K7", game.cuda_build.load()
+                                .oco_synthetic_occupancy, alg_flag, d,
+                                shared=True)[3]
+        assert regs > 0 and warps >= plan["warps"], d
+        assert shared == plan["smem_bytes"], d
+    with pytest.raises(RuntimeError, match="K7w plan failed"):
+        game.synthetic_plan(512, alg_flag)
+
+
 @pytest.mark.parametrize("d", [513, 1024])
 def test_wide_sweep_identities(cuda, d):
     """f64: K5w's column e equals K1w with eta = eta_e; K6 with a threshold

@@ -203,21 +203,36 @@ def test_state_buffer_sizes_past_512(d):
         game.wide_state_elems("K8", 8, d)
 
 
+def _k7_plan(d, shared):
+    """A stand-in for the library's K7w plan (``oco_synthetic_plan``): its
+    state floats a sequence, theta and w (each padded to 4 floats) and the
+    round's Philox words, or none where the lines fit shared memory."""
+    state = 2 * (-(-d // 4) * 4) + 4 * (d // 128 + 1)
+    return {"warps": 2, "smem_bytes": 0, "shared": shared,
+            "state": 0 if shared else state, "max_shared_d": 0}
+
+
 @pytest.mark.parametrize("d", [513, 1024, 8192])
-def test_new_state_buffer_sizes_past_512(d):
-    # K3w, K3ew: x (theta is the output); K5w: theta and x a (sequence,
-    # setting) pair and w a sequence for each group of 16 settings; K6aw:
+def test_new_state_buffer_sizes_past_512(monkeypatch, d):
+    # K3w, K3ew: x (theta is the output); K5w: theta a (sequence, setting)
+    # pair and w a sequence for each group of 16 settings (no x); K6aw:
     # theta, w, x a sequence; K6bw: theta and x a (sequence, threshold)
-    # pair; K7w: theta, w, x a sequence.
+    # pair; K7w: what the library's plan asks for, none where a warp's
+    # lines fit shared memory.
     assert game.SWEEP_WARPS == 16
     assert game.wide_state_elems("K3", 2048, d) == d * 2048
     assert game.wide_state_elems("K3e", 2048, d) == d * 2048
-    assert game.wide_state_elems("K5", 1024, d, 64) == (128 + 4) * d * 1024
-    assert game.wide_state_elems("K5", 77, d, 11) == (22 + 1) * d * 77
-    assert game.wide_state_elems("K5", 77, d, 17) == (34 + 2) * d * 77
+    assert game.wide_state_elems("K5", 1024, d, 64) == (64 + 4) * d * 1024
+    assert game.wide_state_elems("K5", 77, d, 11) == (11 + 1) * d * 77
+    assert game.wide_state_elems("K5", 77, d, 17) == (17 + 2) * d * 77
     assert game.wide_state_elems("K6a", 1024, d, 16) == 3 * d * 1024
     assert game.wide_state_elems("K6b", 1024, d, 16) == 2 * d * 16 * 1024
-    assert game.wide_state_elems("K7", 16_384, d) == 3 * d * 16_384
+    for shared in (True, False):
+        monkeypatch.setattr(game, "synthetic_plan",
+                            lambda dd, alg_flag=0: _k7_plan(dd, shared))
+        assert game.wide_state_elems("K7", 16_384, d) == (
+            _k7_plan(d, shared)["state"] * 16_384)
+    assert _k7_plan(d, True)["state"] == 0
 
 
 # --------------------------- every launcher hands the library any d >= 1
@@ -313,6 +328,11 @@ def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
                             cuda_stream=0))
     monkeypatch.setattr(smart, "wide_state", spy)
     monkeypatch.setattr(game, "wide_state", spy)
+    # K7w's buffer follows the library's plan: here one that keeps the
+    # state in device memory (the plan that keeps it on the chip needs none:
+    # tests/test_torch_wide_redesign.py).
+    monkeypatch.setattr(game, "synthetic_plan",
+                        lambda dd, alg_flag=0: _k7_plan(dd, False))
     name, plays, seqs, (module, counter) = ENTRIES[kernel]
     before = getattr(module, counter)
     _launch(kernel, d)()
