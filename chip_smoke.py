@@ -272,7 +272,12 @@ non-zero without printing a result):
                shapes timed (5 launches after a warm-up, digests equal to
                the main path's) with their bounds, registers, warps an SM,
                local frames (the same at every d past 512) and state
-               buffer bytes.
+               buffer bytes; K3w's, K6aw's and K7w's plans (warps a
+               block, state on the chip or in the buffer, the shared
+               boundary), and K3w's and K6aw's design floors (K3w: its z
+               stream or its one-lane sums, FTRL's projecting share from
+               a float32 replay; K6aw: two chains of d dependent adds a
+               round over the longest sequence).
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -419,6 +424,14 @@ FP64_ISSUE_PER_S = 132 * 64 * 1.98e9
 PHILOX_ROUNDS = 10
 # The card's maximum SM clock (nvidia-smi clocks.max.sm), read in phase 1.
 SM_CLOCK_HZ = 1.98e9
+# Warp instructions a second: 4 schedulers on each of 132 SMs.
+WARP_ISSUE_PER_S = 132 * 4 * SM_CLOCK_HZ
+# Clocks of a dependent float add, f64 and f32: the latency that a
+# one-lane sum's chain pays an element, as `scripts/wide_d_probe.py --cases
+# adds` measured it on an NVIDIA H100 80GB HBM3 at 700 W (a chain of 2^22
+# adds on one thread, clock64).
+ADD_CLOCKS = {torch.float64: 8.023511171340942,
+              torch.float32: 4.05475926399231}
 
 
 def check(ok: bool, what: str) -> None:
@@ -4456,6 +4469,50 @@ def wsw_packed_bound(B, T, d, pair, per_seq_eta):
     return bound(n_bytes, steps * hinge_round_ops(d, False), torch.float32)
 
 
+def packed_projecting_share(z_tm, y_tm, scales) -> float:
+    """The share of K3's FTRL rounds whose ||x||^2 passes 1, from a plain
+    float32 replay on the card (its sums in the library's order, not the
+    kernel's: a round at the edge may differ)."""
+    T, d, B = z_tm.shape
+    theta = torch.zeros((B, d), dtype=torch.float32, device=z_tm.device)
+    fired = torch.zeros((), dtype=torch.float64, device=z_tm.device)
+    for t in range(T):
+        x = scales[t] * theta
+        nsq = (x * x).sum(-1)
+        proj = nsq > 1.0
+        fired += proj.double().sum()
+        x = torch.where(proj[:, None], x / nsq.sqrt()[:, None], x)
+        zt = z_tm[t].t().float()
+        diff = (zt * x).sum(-1) - y_tm[t].float()
+        theta = theta + (0.5 * torch.sign(diff))[:, None] * zt
+    return float(fired) / (T * B)
+
+
+def packed_wide_floor(B, T, d, bd, share) -> dict:
+    """K3w's own floor: the larger of its z stream (the bytes bound ``bd``)
+    and its one-lane sums, (1 + share) d adds a sequence-round in FTRL
+    (``share`` of its rounds project), 2 d in FTL (share None), one warp
+    instruction each at WARP_ISSUE_PER_S."""
+    adds = 2.0 if share is None else 1.0 + share
+    sums = B * T * adds * d / WARP_ISSUE_PER_S * 1e3
+    return {"design_floor_ms": max(bd["bound_ms"], sums),
+            "design_floor_by": f"one-lane sums, {adds:.4f} d adds a "
+                               f"sequence-round ({sums:.4f} ms), z stream "
+                               f"{bd['bound_ms']:.4f} ms"}
+
+
+def prefix_wide_floor(lengths, d, dtype) -> dict:
+    """K6aw's own floor: two chains of d dependent adds a round over the
+    longest sequence (the path's sequences run in one wave), at
+    ADD_CLOCKS."""
+    longest = int(lengths.max())
+    ms = longest * 2 * d * ADD_CLOCKS[dtype] / SM_CLOCK_HZ * 1e3
+    return {"design_floor_ms": ms,
+            "design_floor_by": f"two chains of d adds a round over "
+                               f"{longest} rounds, {ADD_CLOCKS[dtype]} "
+                               f"clocks an add"}
+
+
 def wsw_vs_plain():
     """Each wide instance against its plain version on the card, bit for
     bit, at the cut shapes; returns the largest errors and the plain
@@ -4633,11 +4690,12 @@ def wsw_occupancy(name, d, dtype, alg_flag=0):
     or FTL instance)."""
     lib = cuda_build.load()
     f64 = int(dtype == torch.float64)
+    code = game.storage_code(dtype)
     entry, *args = {
         "K5w": (lib.oco_sweep_occupancy, f64),
-        "K6aw": (lib.oco_smart_sweep_occupancy, f64, 0),
+        "K6aw": (lib.oco_smart_sweep_occupancy, code, 0),
         "K6bw": (lib.oco_smart_sweep_occupancy, f64, 1),
-        "K3w": (lib.oco_packed_occupancy, f64, 0),
+        "K3w": (lib.oco_packed_occupancy, code, 0),
         "K3ew": (lib.oco_packed_occupancy, f64, 1),
         "K7w": (lib.oco_synthetic_occupancy, alg_flag)}[name]
     return game.occupancy(name, entry, *args, d, shared=True)
@@ -4651,18 +4709,20 @@ def wsw_timing(digests, counts):
     buffer bytes."""
     out = {}
 
-    def record(name, label, fn, bd, occ, n_buf, s):
+    def record(name, label, fn, bd, occ, n_buf, s, floor=None):
         # Each instance was launched just before (the digest check).
         ms = time_ms(fn, reps=5, warm=True)
         entry = {"ms": ms[0], "ms_min": ms[1], "ms_max": ms[2], **bd,
                  "registers": occ[0], "warps_per_sm": occ[1],
                  "local_bytes": occ[2], "shared_bytes": occ[3],
-                 "buffer_bytes": n_buf * s}
+                 "buffer_bytes": n_buf * s, **(floor or {})}
         out.setdefault(name, entry)
         out[f"{name} {label}"] = entry
+        own = (f"; design floor {floor['design_floor_ms']:.4f} ms "
+               f"({floor['design_floor_by']})" if floor else "")
         print(f"[16 wide d sweeps] {name} {label}: kernel {ms[0]:.4f} ms "
               f"(min {ms[1]:.4f}, max {ms[2]:.4f}; 5 launches); bound "
-              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; {occ[0]} "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}{own}; {occ[0]} "
               f"registers, {occ[1]} warps an SM, local frame {occ[2]} B, "
               f"shared memory {occ[3]} B a block, state buffer "
               f"{n_buf * s / 1e9:.4f} GB")
@@ -4699,11 +4759,16 @@ def wsw_timing(digests, counts):
                lambda: game.launch_eta_sweep(z, y, scales5, order, ln, False),
                bd["K5w"], wsw_occupancy("K5w", WSW_D, dtype),
                game.wide_state_elems("K5", WSW_B, WSW_D, WSW_E), s)
-        record("K6aw", f"{label} G={WSW_G}",
+        plan = game.prefix_plan(WSW_D, dtype)
+        record("K6aw", f"{label} G={WSW_G} ({plan['warps']} warps a "
+               f"block, theta and w "
+               f"{'on the chip' if plan['shared'] else 'in device memory'}"
+               f"; on the chip to d = {plan['max_shared_d']})",
                lambda: smart.launch_smart_prefix(z, y, ordered, perm, order,
                                                  ln, False),
                bd["K6aw"], wsw_occupancy("K6aw", WSW_D, dtype),
-               game.wide_state_elems("K6a", WSW_B, WSW_D), s)
+               game.wide_state_elems("K6a", WSW_B, WSW_D, 1, dtype), s,
+               prefix_wide_floor(ln, WSW_D, dtype))
         record("K6bw", f"{label} G={WSW_G} ({cnt['tail_pairs']} tails, "
                f"{cnt['tail_rounds']:.0f} rounds)",
                lambda: smart.launch_smart_tails(z, y, scales6, order, ln,
@@ -4724,16 +4789,26 @@ def wsw_timing(digests, counts):
               "K3w/K3ew: the timed launches' digest differs from the main "
               "path's")
         label = f"B={WPK_B} T={WPK_T} d={WSW_D} {pair_name(pair)}"
-        n_buf = game.wide_state_elems("K3", WPK_B, WSW_D)
+        plan = game.packed_plan(WSW_D, pair[0])
+        share = packed_projecting_share(z_tm, y_tm, scales)
+        bd = wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, False)
         for flag in (0, 1):
-            record("K3w", f"{label} {'FTL' if flag else 'FTRL'}",
+            record("K3w", f"{label} {'FTL' if flag else 'FTRL'} "
+                   f"({plan['warps']} warps a block, theta and the rows "
+                   f"{'on the chip' if plan['shared'] else 'off it'}; on "
+                   f"the chip to d = {plan['max_shared_d']}"
+                   + ("" if flag else f"; {share:.4f} of the rounds "
+                                      f"project") + ")",
                    lambda: game.launch_play_packed(z_tm, y_tm, scales, flag),
-                   wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, False),
-                   wsw_occupancy("K3w", WSW_D, torch.float32), n_buf, 4)
+                   bd, wsw_occupancy("K3w", WSW_D, pair[0]),
+                   game.wide_state_elems("K3", WPK_B, WSW_D, 1, pair[0]), 4,
+                   packed_wide_floor(WPK_B, WPK_T, WSW_D, bd,
+                                     None if flag else share))
         record("K3ew", label,
                lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq),
                wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, True),
-               wsw_occupancy("K3ew", WSW_D, torch.float32), n_buf, 4)
+               wsw_occupancy("K3ew", WSW_D, torch.float32),
+               game.wide_state_elems("K3e", WPK_B, WSW_D), 4)
         del z_tm, y_tm, outs
         torch.cuda.empty_cache()
     B7 = 8 * WK7_LANES
@@ -4963,11 +5038,15 @@ def main() -> int:
              "round in a (d, slots) device buffer, rows staged for the "
              "block"),
             ("K6aw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
-             f"smart_prefix_kernel (K6aw: K6a past d = 512, {buffer}"),
+             "smart_prefix_wide_kernel (K6aw: K6a past d = 512, a sequence "
+             "a warp, theta and w in shared memory, its rows staged by "
+             "cp.async"),
             ("K6bw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
              f"smart_tail_kernel (K6bw: K6b past d = 512, {buffer}"),
             ("K3w", "game_kernel.cu", "pallas_game.py:186",
-             f"game_kernel (K3w: K3 past d = 512, {buffer}"),
+             "packed_wide_kernel (K3w: K3 past d = 512, a sequence a warp, "
+             "theta in shared memory, the block's time-major rows staged "
+             "once"),
             ("K3ew", "game_kernel.cu", "pallas_game.py:467",
              f"game_kernel (K3ew: K3e past d = 512, {buffer}"),
             ("K7w", "synthetic_kernel.cu", "pallas_game.py:1115",

@@ -31,16 +31,297 @@
 // the time approaches the bytes bound; the design relies on that and on
 // coalesced time-major (T, d, B) loads, with no staging in shared memory.
 //
-// Past d = 512 (K3w and K3ew, the wide instances, D == oco::kWideD) a
-// thread keeps no vector in its frame: theta is the output itself, column
-// b of theta_out (d, B), zeroed first, and x is vector 0 of slot b of the
+// Past d = 512 K3ew (the wide instance of K3e, D == oco::kWideD) keeps no
+// vector in a thread's frame: theta is the output itself, column b of
+// theta_out (d, B), zeroed first, and x is vector 0 of slot b of the
 // caller's (d, B) state buffer (oco::state_vec); each row is read from the
 // time-major input where it is used (an oco::Widened view, coalesced
 // across the warp, as K4w reads it).  The same round in the same order:
-// K3w and K3ew equal their plain versions bit for bit at any d.
+// K3ew equals its plain version bit for bit at any d.
+//
+// K3w (K3 past d = 512, packed_wide_kernel) plays a sequence on a warp.
+// One thread a sequence with x in a (d, B) buffer (this instance's first
+// design) left the card nearly empty at the path's width (B = 2,048: 16
+// blocks of 4 warps on 132 SMs, each thread's round 4-6 passes over 4 KB
+// vectors, a memory round trip per 8 elements).  The design:
+//   - a block plays W = 32 / sizeof(z element) consecutive sequences, a
+//     warp each (8 in f32, 16 in bf16, 4 in f64), so that the block's
+//     elements of each (t, j) are one 32-byte sector of the time-major z;
+//   - the block copies round t + 1's (d x W) tile into a shared stage with
+//     cp.async while it plays round t (two stages, one barrier a round),
+//     so each row crosses L2 once a block.  The stage is transposed on the
+//     way in: unit q of row j's window (a 4-byte word, or the f64 element)
+//     lands in column q at j, so warp w reads its sequence's elements j =
+//     l + 32 m as neighbouring words, with no bank conflict (a sector's 32
+//     bytes copied whole would put every lane's element in 4 banks);
+//   - lane l holds elements j = l + 32 m of theta in shared memory; x is
+//     never stored: each lane forms x_j from theta_j and the round's scale
+//     where a product needs it (scales[t] theta_j for FTRL, times
+//     1/sqrt(nsq) again in a round that projects; -(1/sqrt(nsq)) theta_j
+//     for FTL), the products scaled forms, and each sum is one lane's
+//     index-order sum of a product line (oco_warp.cuh): the same bits as
+//     the thread-a-sequence helpers;
+//   - an FTRL round sums ||x||^2 and <z_t, x> side by side on lanes 0 and
+//     1 and sums <z_t, x> again only where it projects; FTL sums ||theta||^2
+//     then q; the update runs lane-parallel with no chain.
+// What bounds it: the one-lane sums (d or 2 d dependent adds a round) and
+// the issue of the lanes' products, with 16 warps an SM (f32 and bf16 at d
+// = 1,024: the path's 2,048 warps in one wave).  Up to the plan's
+// max_shared_d theta and the stages lie on the chip; past it theta lies in
+// the caller's (B, d) buffer, contiguous a warp, and each lane reads its
+// elements from the time-major rows (the block's warps read the same
+// sectors, through L1): the library's plan (oco_packed_plan) reports the
+// boundary, and the wrapper allocates the buffer it asks for.
+#include <type_traits>
+
 #include "oco_tiles.cuh"
+#include "oco_warp.cuh"
 
 namespace {
+
+// ------------------------------------------------------------------- K3w
+
+// Products a warp's line holds (oco_warp.cuh).
+constexpr int kSeqLine = 512;
+// Each lane forms a chunk's products before it stores any (oco_warp.cuh
+// put_products, kBatch), and updates kSeqUnroll elements of theta at a
+// time, so that its shared-memory loads are in flight together; the
+// kernel's launch bounds name one block an SM, so that ptxas gives these
+// their registers (without it, it held K3w to 40-64 registers and
+// spilled).
+constexpr int kSeqUnroll = 4;
+
+using oco::up4;
+
+// Sequences (warps) a K3w block: one 32-byte sector of elements a (t, j).
+template <typename Z>
+constexpr int kSeqWarps = 32 / static_cast<int>(sizeof(Z));
+
+// The unit a stage copies: the element in f64, else a 4-byte word (a bf16
+// pair in bf16), and the units of a row's window: the block's W elements,
+// and one more where a unit holds two (the first may lie in its second
+// half).
+template <typename Z>
+using Unit =
+    std::conditional_t<sizeof(Z) == 8, unsigned long long, unsigned>;
+template <typename Z>
+constexpr int kRowUnits =
+    static_cast<int>(kSeqWarps<Z> * sizeof(Z) / sizeof(Unit<Z>)) +
+    (sizeof(Z) < sizeof(Unit<Z>) ? 1 : 0);
+
+// Units between two columns of a stage: d rounded up to 32, and 4 more,
+// so that a copying warp's 32 units (4 rows of 8 columns in f32) fall in
+// 32 banks.
+__host__ __device__ inline long long stage_pitch(int d) {
+  return ((d + 31LL) & ~31LL) + 4;
+}
+
+template <typename Z>
+__host__ __device__ inline long long stage_bytes(int d) {
+  return kRowUnits<Z> * stage_pitch(d) *
+         static_cast<long long>(sizeof(Unit<Z>));
+}
+
+// Bytes of a block's shared memory: two stages and W thetas (shared),
+// then W product lines.
+template <typename Z, typename S = oco::compute_t<Z>>
+__host__ __device__ inline long long packed_state_bytes(int d, bool shared) {
+  return shared ? 2 * stage_bytes<Z>(d) +
+                      kSeqWarps<Z> * up4(d) * static_cast<long long>(sizeof(S))
+                : 0;
+}
+template <typename Z, typename S = oco::compute_t<Z>>
+__host__ __device__ inline long long packed_block_bytes(int d, bool shared) {
+  return packed_state_bytes<Z>(d, shared) +
+         kSeqWarps<Z> * oco::line_elems<S, kSeqLine>() *
+             static_cast<long long>(sizeof(S));
+}
+
+template <typename Z, typename Y, bool kShared,
+          typename S = oco::compute_t<Z>>
+__global__ void __launch_bounds__(kSeqWarps<Z> * 32, 1)
+packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
+                   const S* __restrict__ scales, long long T, long long B,
+                   int d, int alg_flag, S* __restrict__ cum_out,
+                   S* __restrict__ theta_out, S* state) {
+  using U = Unit<Z>;
+  constexpr int W = kSeqWarps<Z>, Q = kRowUnits<Z>;
+  // Rows a pass of the block's copies covers, a thread taking unit q.
+  constexpr int R = 32 * W / Q;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long b0 = static_cast<long long>(blockIdx.x) * W;
+  const long long b = b0 + warp;
+  // A warp with no sequence stays for the block's copies and barriers;
+  // past the shared boundary no barrier spans the block's warps.
+  const bool live = b < B;
+  if (!kShared && !live) return;
+  const int n = d;
+  const long long pitch = stage_pitch(n);
+  const long long stage_units = stage_bytes<Z>(n) / sizeof(U);
+  U* stages = reinterpret_cast<U*>(smem);
+  S* th = kShared ? reinterpret_cast<S*>(smem + 2 * stage_bytes<Z>(n)) +
+                        warp * up4(n)
+                  : state + b * up4(n);
+  S* line = reinterpret_cast<S*>(smem + packed_state_bytes<Z>(n, kShared)) +
+            warp * oco::line_elems<S, kSeqLine>();
+
+  // Round t's tile into a stage: unit q of row j's window, the aligned
+  // units around the block's elements z[t, j, b0 .. b0 + nb), at column q,
+  // row j.  A unit holds an element of the row, so it lies in that
+  // element's page.
+  const int nb = static_cast<int>(min(static_cast<long long>(W), B - b0));
+  const int q0 = threadIdx.x % Q, j0 = threadIdx.x / Q;
+  const auto fetch = [&](long long t, U* stage) {
+    if (j0 >= R) return;
+    const Z* first = z + (t * n + j0) * B + b0;
+    for (int j = j0; j < n; j += R, first += R * B) {
+      const auto a = reinterpret_cast<unsigned long long>(first);
+      const int off = static_cast<int>(a & (sizeof(U) - 1));
+      if (q0 * static_cast<int>(sizeof(U)) <
+          off + nb * static_cast<int>(sizeof(Z)))
+        oco::copy_async(stage + q0 * pitch + j,
+                        reinterpret_cast<const U*>(a & ~(sizeof(U) - 1)) +
+                            q0);
+    }
+  };
+  // Element j of the warp's row t: from the stage, or (past the boundary)
+  // from the time-major rows.  In bf16 a row's window starts at its first
+  // element or at the one before it, as that element's address is 4-byte
+  // aligned or not: the parity of z's half-word address and, where B is
+  // odd, of t n + j (b0 is even).
+  const bool odd_b = (B & 1) != 0;
+  const int z_half =
+      static_cast<int>((reinterpret_cast<unsigned long long>(z) >> 1) & 1);
+  const auto z_at = [&](const U* stage, long long t, int j) -> S {
+    if constexpr (!kShared) {
+      return S(oco::widen(z[(t * n + j) * B + b]));
+    } else if constexpr (sizeof(Z) == sizeof(U)) {
+      return S(oco::widen(
+          reinterpret_cast<const Z*>(stage + warp * pitch)[j]));
+    } else {
+      // bf16: element `warp` is half e & 1 of unit e >> 1.
+      const int e = (z_half ^ (odd_b && ((t * n + j) & 1))) + warp;
+      const unsigned u = stage[(e >> 1) * pitch + j];
+      return S(oco::widen(
+          oco::bf16{static_cast<unsigned short>(u >> (16 * (e & 1)))}));
+    }
+  };
+
+  for (int j = lane; j < n; j += 32) th[j] = S(0);
+  S cum = S(0);
+  const bool ftrl = alg_flag == 0;
+  S sc_next = T > 0 && ftrl ? scales[0] : S(0);
+  S y_next = T > 0 && live ? S(oco::widen(y[b])) : S(0);
+  if constexpr (kShared) {
+    if (T > 0) fetch(0, stages);
+    oco::commit_copies();
+  }
+  for (long long t = 0; t < T; ++t) {
+    const U* stage = stages;
+    if constexpr (kShared) {
+      oco::wait_copies<0>();
+      __syncthreads();  // round t landed; round t - 1's stage is free
+      stage = stages + (t & 1) * stage_units;
+      if (t + 1 < T) fetch(t + 1, stages + ((t + 1) & 1) * stage_units);
+      oco::commit_copies();
+      if (!live) continue;
+    }
+    const S sc = sc_next, yt = y_next;
+    if (t + 1 < T) {
+      if (ftrl) sc_next = scales[t + 1];
+      y_next = S(oco::widen(y[(t + 1) * B + b]));
+    }
+    S q;
+    if (ftrl) {
+      // ftrl_action_scaled: x = sc theta, projected iff ||x||^2 > 1.
+      const auto sums = oco::warp_dot2<kSeqLine, true>(
+          line, n, lane,
+          [&](int j) {
+            const S x = sc * th[j];
+            return x * x;
+          },
+          [&](int j) { return z_at(stage, t, j) * (sc * th[j]); });
+      q = sums.y;
+      if (sums.x > S(1)) {
+        const S f = S(1) / oco::osqrt(sums.x);
+        q = oco::warp_dot<kSeqLine, true>(line, n, lane, [&](int j) {
+          return z_at(stage, t, j) * (f * (sc * th[j]));
+        });
+      }
+    } else {
+      // ftl_action: x = -theta / ||theta||, 0 at theta == 0.
+      const S nsq = oco::warp_dot<kSeqLine, true>(
+          line, n, lane, [&](int j) { return th[j] * th[j]; });
+      const S s = nsq > S(0) ? -(S(1) / oco::osqrt(nsq)) : S(0);
+      q = oco::warp_dot<kSeqLine, true>(line, n, lane, [&](int j) {
+        return z_at(stage, t, j) * (s * th[j]);
+      });
+    }
+    // hinge_step, then update.
+    const S diff = q - yt;
+    cum = cum + S(0.5) * oco::oabs(diff);
+    const S g = oco::half_sign(diff);
+    for (int j0 = lane; j0 < n; j0 += 32 * kSeqUnroll) {
+      S zj[kSeqUnroll], tj[kSeqUnroll];
+#pragma unroll
+      for (int k = 0; k < kSeqUnroll; ++k) {
+        const int j = j0 + 32 * k;
+        if (j < n) {
+          zj[k] = z_at(stage, t, j);
+          tj[k] = th[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSeqUnroll; ++k)
+        if (j0 + 32 * k < n) th[j0 + 32 * k] = tj[k] + g * zj[k];
+    }
+    __syncwarp();
+  }
+  if (!live) return;
+  if (lane == 0) cum_out[b] = cum;
+  for (int j = lane; j < n; j += 32) theta_out[j * B + b] = th[j];
+}
+
+// The largest d whose block fits shared memory with theta and the stages.
+template <typename Z>
+int packed_max_shared_d() {
+  return oco::max_shared_d(
+      [](int d) { return packed_block_bytes<Z>(d, true); });
+}
+
+// K3w's block at d: W warps, theta and the stages in shared memory up to
+// packed_max_shared_d().
+template <typename Z>
+oco::WarpPlan packed_plan(int d) {
+  oco::WarpPlan p{};
+  p.warps = kSeqWarps<Z>;
+  p.shared = d <= packed_max_shared_d<Z>();
+  p.smem = packed_block_bytes<Z>(d, p.shared);
+  p.state = p.shared ? 0 : up4(d);
+  return p;
+}
+
+template <typename Z, typename Y, typename S>
+int launch_packed_wide(const Z* z, const Y* y, const S* scales, long long T,
+                       long long B, int d, int alg_flag, S* cum, S* theta,
+                       S* state, cudaStream_t s) {
+  const oco::WarpPlan p = packed_plan<Z>(d);
+  if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
+  const long long grid = (B + p.warps - 1) / p.warps;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto g = static_cast<unsigned int>(grid);
+  const auto smem = static_cast<size_t>(p.smem);
+  return p.shared
+             ? oco::launch_with_smem(packed_wide_kernel<Z, Y, true>, g,
+                                     p.warps * 32, smem, s, z, y, scales, T,
+                                     B, d, alg_flag, cum, theta, state)
+             : oco::launch_with_smem(packed_wide_kernel<Z, Y, false>, g,
+                                     p.warps * 32, smem, s, z, y, scales, T,
+                                     B, d, alg_flag, cum, theta, state);
+}
+
+// ------------------------------------------------- K3, K3e (and K3ew)
 
 template <typename Z, typename Y, int D, bool PER_SEQ_ETA,
           typename S = oco::compute_t<Z>>
@@ -97,7 +378,6 @@ int launch(const void* z, const void* y, const void* scales, const void* eta,
            void* theta, void* state, void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || T < 0) return cudaErrorInvalidValue;
-  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = oco::grid_for(B);
   const auto* zp = static_cast<const Z*>(z);
@@ -107,22 +387,43 @@ int launch(const void* z, const void* y, const void* scales, const void* eta,
   auto* cp = static_cast<S*>(cum);
   auto* tp = static_cast<S*>(theta);
   auto* st = static_cast<S*>(state);
-  return oco::launch_for_any_d(d, [&](auto dc) {
-    game_kernel<Z, Y, decltype(dc)::value, PER_SEQ_ETA>
-        <<<grid, OCO_THREADS, 0, s>>>(zp, yp, sp, ep, T, B, d, alg_flag, cp,
-                                      tp, st);
+  if (PER_SEQ_ETA && d > OCO_LARGE_D && state == nullptr)
+    return cudaErrorInvalidValue;
+  int err = cudaSuccess;
+  const int launched = oco::launch_for_any_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D == oco::kWideD && !PER_SEQ_ETA)
+      err = launch_packed_wide<Z, Y, S>(zp, yp, sp, T, B, d, alg_flag, cp,
+                                        tp, st, s);
+    else
+      game_kernel<Z, Y, D, PER_SEQ_ETA><<<grid, OCO_THREADS, 0, s>>>(
+          zp, yp, sp, ep, T, B, d, alg_flag, cp, tp, st);
   });
+  return err != cudaSuccess ? err : launched;
 }
 
-template <typename S>
+template <typename Z, typename Y>
 int occupancy(int per_seq_eta, int d, int* out) {
+  using S = oco::compute_t<Z>;
   int err = cudaSuccess;
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const auto kernel = per_seq_eta ? game_kernel<S, S, D, true>
-                                    : game_kernel<S, S, D, false>;
-    err = oco::occupancy(kernel, OCO_THREADS, 0, out);
-    if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2);
+    const auto thread_a_sequence = [&](auto kernel) {
+      err = oco::occupancy(kernel, OCO_THREADS, 0, out);
+      if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2);
+    };
+    if (per_seq_eta) {
+      thread_a_sequence(game_kernel<S, S, D, true>);
+    } else if constexpr (D != oco::kWideD) {
+      thread_a_sequence(game_kernel<S, S, D, false>);
+    } else {
+      const oco::WarpPlan p = packed_plan<Z>(d);
+      const auto kernel = p.shared ? packed_wide_kernel<Z, Y, true>
+                                   : packed_wide_kernel<Z, Y, false>;
+      const auto smem = static_cast<size_t>(p.smem);
+      err = oco::occupancy(kernel, p.warps * 32, smem, out);
+      if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, smem);
+    }
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -133,9 +434,10 @@ int occupancy(int per_seq_eta, int d, int* out) {
 // OCO_STORAGE_PAIRS (the suffix), scales (T,) the FTRL scale of each round
 // in the compute type, alg_flag 0 (FTRL) or 1 (FTL) for the whole batch;
 // any d >= 1.  Outputs, in the compute type: cum (B,), theta (d, B).
-// state: past d = 512 a scratch buffer of d * B elements of the compute
-// type (ops/game.py::wide_state_elems), else unused (may be null).
-// Returns the cudaError_t of the launch.
+// state: where oco_packed_plan asks for one (d past its max_shared_d), a
+// scratch buffer of `state` * B elements of the compute type
+// (ops/game.py::wide_state_elems), else unused (may be null).  Returns the
+// cudaError_t of the launch.
 #define OCO_PACKED_ENTRY(SUFFIX, Z, Y)                                      \
   extern "C" int oco_play_packed_##SUFFIX(                                  \
       const void* z, const void* y, const void* scales, long long T,        \
@@ -149,8 +451,9 @@ OCO_STORAGE_PAIRS(OCO_PACKED_ENTRY)
 // K3e.  Inputs: z (T, d, B) and y (T, B) time-major in a storage pair of
 // OCO_STORAGE_PAIRS (the suffix), eta (B,) the FTRL step scale of each
 // sequence in the compute type; any d >= 1.  Outputs, in the compute
-// type: cum (B,), theta (d, B).  state: as K3's.  Returns the cudaError_t
-// of the launch.
+// type: cum (B,), theta (d, B).  state: past d = 512 a scratch buffer of
+// d * B elements of the compute type, else unused (may be null).  Returns
+// the cudaError_t of the launch.
 #define OCO_PACKED_ETA_ENTRY(SUFFIX, Z, Y)                                  \
   extern "C" int oco_play_packed_eta_##SUFFIX(                              \
       const void* z, const void* y, const void* eta, long long T,           \
@@ -161,12 +464,46 @@ OCO_STORAGE_PAIRS(OCO_PACKED_ENTRY)
   }
 OCO_STORAGE_PAIRS(OCO_PACKED_ETA_ENTRY)
 
+// The storage of an occupancy or plan query: 0 float32, 1 float64, 2 bf16
+// z (with int8 y, the pair of the packed game's path).
+
 // Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
 // thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
 // K3 (per_seq_eta 0) or K3e (1) launch at feature dimension d on the current
-// card; f64 nonzero for the float64 instance.  Returns the cudaError_t.
-extern "C" int oco_packed_occupancy(int f64, int per_seq_eta, int d,
+// card (K3w at its plan's block) with z in `storage`.  Returns the
+// cudaError_t.
+extern "C" int oco_packed_occupancy(int storage, int per_seq_eta, int d,
                                     int* out) {
-  return f64 ? occupancy<double>(per_seq_eta, d, out)
-             : occupancy<float>(per_seq_eta, d, out);
+  switch (storage) {
+    case 0:
+      return occupancy<float, float>(per_seq_eta, d, out);
+    case 1:
+      return occupancy<double, double>(per_seq_eta, d, out);
+    case 2:
+      return occupancy<oco::bf16, signed char>(per_seq_eta, d, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K3w's plan at d > 512 with z in `storage` on the current card: warps a
+// block (out[0]), bytes of dynamic shared memory a block (out[1]), 1 if
+// theta and the stages lie in shared memory (out[2]), elements of the
+// state buffer a sequence, 0 where shared (out[3]), and the largest d
+// whose block fits shared memory (out[4]).  Returns cudaErrorInvalidValue
+// for d <= 512 or an unknown storage, else cudaSuccess.
+extern "C" int oco_packed_plan(int storage, int d, long long* out) {
+  if (d <= OCO_LARGE_D || storage < 0 || storage > 2)
+    return cudaErrorInvalidValue;
+  const oco::WarpPlan p = storage == 0   ? packed_plan<float>(d)
+                    : storage == 1 ? packed_plan<double>(d)
+                                   : packed_plan<oco::bf16>(d);
+  out[0] = p.warps;
+  out[1] = p.smem;
+  out[2] = p.shared ? 1 : 0;
+  out[3] = p.state;
+  out[4] = storage == 0   ? packed_max_shared_d<float>()
+           : storage == 1 ? packed_max_shared_d<double>()
+                          : packed_max_shared_d<oco::bf16>();
+  return cudaSuccess;
 }

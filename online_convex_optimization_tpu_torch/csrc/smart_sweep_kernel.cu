@@ -55,18 +55,48 @@
 // storage (OCO_STORAGE_PAIRS) is widened on read: K6a's loads, K6b's
 // 4-byte windows (oco_tiles.cuh).
 //
-// Past d = 512 (the wide instances K6aw and K6bw, D == oco::kWideD) a
-// thread keeps no vector in its frame.  K6aw's theta, w and x (K2w's FTL
-// warp) are vectors 0, 1 and 2 of slot s (the sequence's place in the
-// order) of the caller's state buffer, laid out (d, B); K6bw's theta and
-// x (K2w's tails) are vectors 0 and 1 of slot g * B + s, laid out
-// (d, G * B), every (sequence, threshold) pair having a slot whether it
-// switched or not.  Both read their rows from global memory where they
-// use them and widen on read (oco::Widened, as the large-d instance
-// does), so K6bw has no barrier to keep.  Same helpers, same order: both
-// equal their plain versions bit for bit at any d, with local frames that
-// do not grow with d.
+// Past d = 512 (the wide instance K6bw, D == oco::kWideD) a thread keeps
+// no vector in its frame: K6bw's theta and x (K2w's tails) are vectors 0
+// and 1 of slot g * B + s (s the sequence's place in the order) of the
+// caller's state buffer, laid out (d, G * B), every (sequence, threshold)
+// pair having a slot whether it switched or not.  It reads its rows from
+// global memory where it uses them and widens on read (oco::Widened, as
+// the large-d instance does), so it has no barrier to keep.  Same helpers,
+// same order: it equals its plain version bit for bit at any d, with a
+// local frame that does not grow with d.
+//
+// K6aw (K6a past d = 512, smart_prefix_wide_kernel) plays a sequence on a
+// warp.  One thread a sequence with theta, w and x in a (d, B) buffer (this
+// instance's first design) left the card nearly empty at the path's width
+// (B = 1,024: 16 blocks of 2 warps on 132 SMs, each round 6-7 passes over
+// 8 KB vectors, a memory round trip per 8 elements, each thread reading
+// its own row 8 bytes at a time).  The design:
+//   - warp w of a block plays the sequence order[slot], so the longest
+//     sequences go first; lane l holds elements j = l + 32 m of theta and
+//     w in shared memory; x is never stored: each lane forms x_j = s theta_j
+//     from the round's FTL scale s = -(1/sqrt(||theta||^2)) (0 at theta =
+//     0) where a product needs it, the product ftl_action forms;
+//   - a sequence's row is one contiguous d-vector: the warp copies the
+//     16-byte window around row t + 1 into its own stage with cp.async
+//     right after round t's update has read row t, and the copy lands while
+//     the warp sums ||theta||^2;
+//   - each sum is one lane's index-order sum of a product line
+//     (oco_warp.cuh), the same bits as the thread-a-sequence helpers.
+//     Round t's <x, w> (the switch test's L) and round t + 1's <z_{t+1},
+//     x> depend only on s_t and theta_t, so they run side by side on lanes
+//     0 and 1: a round has two sums in turn, nsq and that pair, where the
+//     first design had three;
+//   - the threshold walk and the outputs are lane 0's; the replay
+//     comparator re-plays the rows with the final x, one sum a round.
+// What bounds it: the two one-lane chains of d dependent adds a round, on
+// 1,024 warps in one wave (f64 at d = 1,024: 28,704 bytes of shared memory
+// a warp, 8 warps an SM).  Up to the plan's max_shared_d theta, w and the
+// stage lie on the chip; past it theta and w lie in the caller's buffer,
+// (B, 2 d) contiguous a warp, and the lanes read their rows from global
+// memory: the library's plan (oco_smart_prefix_plan) reports the boundary
+// and the block, and the wrapper allocates the buffer it asks for.
 #include "oco_tiles.cuh"
+#include "oco_warp.cuh"
 
 namespace {
 
@@ -141,6 +171,253 @@ smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   }
 }
 
+// ------------------------------------------------------------------ K6aw
+
+// Products a warp's line holds (oco_warp.cuh); warps a block at most.
+constexpr int kPrefixLine = 512;
+constexpr int kPrefixWarps = 8;
+// Each lane forms a chunk's products before it stores any (oco_warp.cuh
+// put_products, kBatch), and updates kPrefixUnroll elements of theta and
+// w at a time (with launch bounds of one block an SM, as K3w's).
+constexpr int kPrefixUnroll = 4;
+
+using oco::up4;
+
+// A warp's shared memory, each part a multiple of 16 bytes: theta and w
+// (shared), the product line, and (shared) the stage, which holds the
+// 16-byte window around a row: its bytes rounded up to 16, and 16 more.
+template <typename Z, typename S = oco::compute_t<Z>>
+__host__ __device__ inline long long prefix_vec_bytes(int d) {
+  return up4(d) * static_cast<long long>(sizeof(S));
+}
+template <typename Z>
+__host__ __device__ inline long long prefix_stage_bytes(int d) {
+  return ((d * static_cast<long long>(sizeof(Z)) + 15) & ~15LL) + 16;
+}
+template <typename Z, typename S = oco::compute_t<Z>>
+__host__ __device__ inline long long prefix_warp_bytes(int d, bool shared) {
+  return (shared ? 2 * prefix_vec_bytes<Z>(d) + prefix_stage_bytes<Z>(d)
+                 : 0) +
+         oco::line_elems<S, kPrefixLine>() * static_cast<long long>(sizeof(S));
+}
+
+template <typename Z, typename Y, bool kShared,
+          typename S = oco::compute_t<Z>>
+__global__ void __launch_bounds__(kPrefixWarps * 32, 1)
+smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
+                         const S* __restrict__ sorted,
+                         const int* __restrict__ perm,
+                         const int* __restrict__ order,
+                         const int* __restrict__ lengths, long long B,
+                         long long G, long long T, int d, int replay,
+                         S* __restrict__ regret,
+                         long long* __restrict__ switch_t,
+                         S* __restrict__ comp_out, S* state) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long slot =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  // No barrier spans the block's warps.
+  if (slot >= B) return;
+  const long long b = order[slot];
+  const int len = lengths[b];
+  const int n = d;
+  unsigned char* own = smem + warp * prefix_warp_bytes<Z>(n, kShared);
+  S* th = kShared ? reinterpret_cast<S*>(own) : state + slot * 2 * up4(n);
+  S* w = th + up4(n);
+  S* line =
+      reinterpret_cast<S*>(own + (kShared ? 2 * prefix_vec_bytes<Z>(n) : 0));
+  unsigned char* stage = reinterpret_cast<unsigned char*>(
+      line + oco::line_elems<S, kPrefixLine>());
+  const Z* rows = z + b * T * n;
+  const Y* labels = y + b * T;
+
+  // Row t into the stage: the 16-byte chunks around it (each holds an
+  // element of the row, so it lies in that element's page), the row at
+  // byte `off` of the stage.
+  int off = 0;
+  const auto fetch = [&](int t) {
+    if constexpr (kShared) {
+      const auto a = reinterpret_cast<unsigned long long>(
+          rows + static_cast<long long>(t) * n);
+      const auto* src = reinterpret_cast<const uint4*>(a & ~15ull);
+      off = static_cast<int>(a & 15);
+      const long long chunks =
+          (off + n * static_cast<long long>(sizeof(Z)) + 15) / 16;
+      for (long long c = lane; c < chunks; c += 32)
+        oco::copy_async(reinterpret_cast<uint4*>(stage) + c, src + c);
+      oco::commit_copies();
+    }
+  };
+  const auto landed = [&] {
+    if constexpr (kShared) {
+      oco::wait_copies<0>();
+      __syncwarp();
+    }
+  };
+  // Element j of row t: staged, or (past the boundary) from the rows.
+  const auto z_at = [&](int t, int j) -> S {
+    if constexpr (kShared)
+      return S(oco::widen(reinterpret_cast<const Z*>(stage + off)[j]));
+    else
+      return S(oco::widen(rows[static_cast<long long>(t) * n + j]));
+  };
+
+  for (int j = lane; j < n; j += 32) th[j] = w[j] = S(0);
+  S F = S(0), cnt = S(0);
+  S s = S(0);                  // x = s theta, the pre-update FTL action
+  long long k = 0, k_last = 0;   // thresholds passed; passed before round len-1
+  S next = sorted[0];            // the lowest threshold not yet passed
+  S q = S(0), xw = S(0), yt = S(0);
+  bool xw_final = false;         // xw is <x, w> of the final x and w
+  if (len > 0) {
+    fetch(0);
+    yt = S(oco::widen(labels[0]));
+    landed();
+    q = oco::warp_dot<kPrefixLine, true>(line, n, lane, [&](int j) {
+      return z_at(0, j) * (s * th[j]);
+    });
+  }
+  for (int t = 0; t < len; ++t) {
+    // q = <z_t, x> with x the pre-update FTL action; the update.
+    const S diffF = q - yt;
+    const S lossF = S(0.5) * oco::oabs(diffF);
+    const S g = oco::half_sign(diffF);
+    for (int j0 = lane; j0 < n; j0 += 32 * kPrefixUnroll) {
+      S zj[kPrefixUnroll], tj[kPrefixUnroll], wj[kPrefixUnroll];
+#pragma unroll
+      for (int k = 0; k < kPrefixUnroll; ++k) {
+        const int j = j0 + 32 * k;
+        if (j < n) {
+          zj[k] = z_at(t, j);
+          tj[k] = th[j];
+          wj[k] = w[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPrefixUnroll; ++k) {
+        const int j = j0 + 32 * k;
+        if (j < n) {
+          th[j] = tj[k] + g * zj[k];
+          w[j] = wj[k] + yt * zj[k];
+        }
+      }
+    }
+    __syncwarp();  // row t is read: the stage is free
+    F = F + lossF;
+    cnt = cnt + S(1);
+    const bool more = t + 1 < len;
+    if (more) {
+      fetch(t + 1);
+      yt = S(oco::widen(labels[t + 1]));
+    }
+    // ftl_action(theta): the post-update action, round t + 1's x.
+    const S nsq = oco::warp_dot<kPrefixLine, true>(
+        line, n, lane, [&](int j) { return th[j] * th[j]; });
+    s = nsq > S(0) ? -(S(1) / oco::osqrt(nsq)) : S(0);
+    if (t == len - 1) k_last = k;
+    const bool walk = k < G;
+    if (more) landed();
+    const auto pxw = [&](int j) { return (s * th[j]) * w[j]; };
+    const auto pq = [&](int j) { return z_at(t + 1, j) * (s * th[j]); };
+    if (walk && more) {
+      const auto sums =
+          oco::warp_dot2<kPrefixLine, true>(line, n, lane, pxw, pq);
+      xw = sums.x;
+      q = sums.y;
+    } else if (walk) {
+      xw = oco::warp_dot<kPrefixLine, true>(line, n, lane, pxw);
+    } else if (more) {
+      q = oco::warp_dot<kPrefixLine, true>(line, n, lane, pq);
+    }
+    if (walk) {
+      const S L = S(0.5) * (cnt - xw);
+      const S lead = F - L;
+      while (k < G && lead >= next) {
+        if (lane == 0) {
+          const long long i = perm[k] * B + b;
+          switch_t[i] = t;
+          regret[i] = F;
+        }
+        if (++k < G) next = sorted[k];
+      }
+    }
+    xw_final = walk && !more;
+  }
+  // x = s theta is now ftl_action(theta): the comparator's action.
+  S comp = S(0);
+  if (replay) {
+    for (int t = 0; t < len; ++t) {
+      fetch(t);
+      landed();
+      const S qc = oco::warp_dot<kPrefixLine, true>(line, n, lane, [&](int j) {
+        return z_at(t, j) * (s * th[j]);
+      });
+      comp = comp + S(0.5) * oco::oabs(qc - S(oco::widen(labels[t])));
+    }
+  } else {
+    if (!xw_final)
+      xw = oco::warp_dot<kPrefixLine, true>(line, n, lane, [&](int j) {
+        return (s * th[j]) * w[j];
+      });
+    comp = S(0.5) * (cnt - xw);
+  }
+  if (lane != 0) return;
+  comp_out[b] = comp;
+  for (long long m = k_last; m < G; ++m) {
+    const long long i = perm[m] * B + b;
+    if (m >= k) switch_t[i] = T;
+    regret[i] = F - comp;
+  }
+}
+
+// The largest d whose warp fits a block's shared memory with theta, w and
+// the stage.
+template <typename Z>
+int prefix_max_shared_d() {
+  return oco::max_shared_d(
+      [](int d) { return prefix_warp_bytes<Z>(d, true); });
+}
+
+// K6aw's plan at d: theta, w and the stage in shared memory up to
+// prefix_max_shared_d(), and the warps a block that keep the most warps
+// resident an SM (oco::best_block).
+template <typename Z, typename Y>
+int prefix_plan(int d, oco::WarpPlan* p) {
+  if (d <= OCO_LARGE_D) return cudaErrorInvalidValue;
+  p->shared = d <= prefix_max_shared_d<Z>();
+  p->state = p->shared ? 0 : 2 * up4(d);
+  const auto kernel = p->shared ? &smart_prefix_wide_kernel<Z, Y, true>
+                                : &smart_prefix_wide_kernel<Z, Y, false>;
+  return oco::best_block(kernel, kPrefixWarps,
+                         prefix_warp_bytes<Z>(d, p->shared), p);
+}
+
+template <typename Z, typename Y, typename S>
+int launch_prefix_wide(const Z* z, const Y* y, const S* sorted,
+                       const int* perm, const int* order, const int* lengths,
+                       long long B, long long G, long long T, int d,
+                       int replay, S* regret, long long* switch_t, S* comp,
+                       S* state, cudaStream_t s) {
+  oco::WarpPlan p{};
+  const int err = prefix_plan<Z, Y>(d, &p);
+  if (err != cudaSuccess) return err;
+  if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
+  const long long grid = (B + p.warps - 1) / p.warps;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto g = static_cast<unsigned int>(grid);
+  const auto smem = static_cast<size_t>(p.smem);
+  return p.shared
+             ? oco::launch_with_smem(smart_prefix_wide_kernel<Z, Y, true>, g,
+                                     p.warps * 32, smem, s, z, y, sorted,
+                                     perm, order, lengths, B, G, T, d, replay,
+                                     regret, switch_t, comp, state)
+             : oco::launch_with_smem(smart_prefix_wide_kernel<Z, Y, false>,
+                                     g, p.warps * 32, smem, s, z, y, sorted,
+                                     perm, order, lengths, B, G, T, d, replay,
+                                     regret, switch_t, comp, state);
+}
+
 // K6b: 32 sequences (lane) x kTailWarps thresholds (warp) a block.
 template <typename Z, typename Y, int D, typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kTailWarps * 32)
@@ -205,21 +482,30 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
                   void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
-  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + kPrefixThreads - 1) / kPrefixThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* zp = static_cast<const Z*>(z);
+  const auto* yp = static_cast<const Y*>(y);
+  const auto* sp = static_cast<const S*>(sorted);
+  const auto* pp = static_cast<const int*>(perm);
+  const auto* op = static_cast<const int*>(order);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* rp = static_cast<S*>(regret);
+  auto* tp = static_cast<long long*>(switch_t);
+  auto* cp = static_cast<S*>(comp);
+  auto* st = static_cast<S*>(state);
   int err = cudaSuccess;
   const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    err = oco::launch_with_smem(
-        smart_prefix_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
-        kPrefixThreads, 0, static_cast<cudaStream_t>(stream),
-        static_cast<const Z*>(z), static_cast<const Y*>(y),
-        static_cast<const S*>(sorted), static_cast<const int*>(perm),
-        static_cast<const int*>(order), static_cast<const int*>(lengths), B,
-        G, T, d, replay, static_cast<S*>(regret),
-        static_cast<long long*>(switch_t), static_cast<S*>(comp),
-        static_cast<S*>(state));
+    if constexpr (D == oco::kWideD)
+      err = launch_prefix_wide<Z, Y, S>(zp, yp, sp, pp, op, lp, B, G, T, d,
+                                        replay, rp, tp, cp, st, s);
+    else
+      err = oco::launch_with_smem(smart_prefix_kernel<Z, Y, D>,
+                                  static_cast<unsigned int>(blocks),
+                                  kPrefixThreads, 0, s, zp, yp, sp, pp, op,
+                                  lp, B, G, T, d, replay, rp, tp, cp, st);
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -256,8 +542,9 @@ int launch_tails(const void* z, const void* y, const void* scales,
   return err != cudaSuccess ? err : launched;
 }
 
-template <typename S>
+template <typename Z, typename Y>
 int occupancy(int tails, int d, int* out) {
+  using S = oco::compute_t<Z>;
   int err = cudaSuccess;
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
@@ -269,11 +556,20 @@ int occupancy(int tails, int d, int* out) {
                            out);
       if (err == cudaSuccess)
         err = oco::local_bytes(smart_tail_kernel<S, S, D>, out + 2, smem);
-    } else {
+    } else if constexpr (D != oco::kWideD) {
       err = oco::occupancy(smart_prefix_kernel<S, S, D>, kPrefixThreads, 0,
                            out);
       if (err == cudaSuccess)
         err = oco::local_bytes(smart_prefix_kernel<S, S, D>, out + 2);
+    } else {
+      oco::WarpPlan p{};
+      err = prefix_plan<Z, Y>(d, &p);
+      const auto kernel = p.shared ? &smart_prefix_wide_kernel<Z, Y, true>
+                                   : &smart_prefix_wide_kernel<Z, Y, false>;
+      const auto smem = static_cast<size_t>(p.smem);
+      if (err == cudaSuccess)
+        err = oco::occupancy(kernel, p.warps * 32, smem, out);
+      if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, smem);
     }
   });
   return err != cudaSuccess ? err : checked;
@@ -283,9 +579,10 @@ int occupancy(int tails, int d, int* out) {
 
 // The entries of both launches, for each storage pair of OCO_STORAGE_PAIRS
 // (the suffix): z and y in the pair; sorted, scales, comp and regret in
-// the compute type; any d >= 1.  state: past d = 512 a scratch buffer of
-// the compute type, 3 * d * B elements for K6a and 2 * d * G * B for K6b
-// (ops/game.py::wide_state_elems), else unused (may be null).
+// the compute type; any d >= 1.  state: a scratch buffer of the compute
+// type (ops/game.py::wide_state_elems), else unused (may be null): for
+// K6a where oco_smart_prefix_plan asks for one (d past its max_shared_d),
+// `state` * B elements; for K6b past d = 512, 2 * d * G * B.
 #define OCO_SMART_SWEEP_ENTRIES(SUFFIX, Z, Y)                               \
   extern "C" int oco_smart_prefix_##SUFFIX(                                 \
       const void* z, const void* y, const void* sorted, const void* perm,   \
@@ -306,13 +603,52 @@ int occupancy(int tails, int d, int* out) {
   }
 OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
 
+// The storage of an occupancy or plan query: 0 float32, 1 float64, 2 bf16
+// z (with int8 y).
+
 // Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
 // thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
-// K6a (tails 0) or K6b (tails 1) launch at feature dimension d on the
-// current card; f64 nonzero for the float64 instance.  Returns the
-// cudaError_t.
-extern "C" int oco_smart_sweep_occupancy(int f64, int tails, int d,
+// K6a (tails 0; K6aw at its plan's block) or K6b (tails 1) launch at
+// feature dimension d on the current card with z in `storage`.  Returns
+// the cudaError_t.
+extern "C" int oco_smart_sweep_occupancy(int storage, int tails, int d,
                                          int* out) {
-  return f64 ? occupancy<double>(tails, d, out)
-             : occupancy<float>(tails, d, out);
+  switch (storage) {
+    case 0:
+      return occupancy<float, float>(tails, d, out);
+    case 1:
+      return occupancy<double, double>(tails, d, out);
+    case 2:
+      return occupancy<oco::bf16, signed char>(tails, d, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K6aw's plan at d > 512 with z in `storage` on the current card: warps a
+// block (out[0]), bytes of dynamic shared memory a block (out[1]), 1 if
+// theta, w and the stage lie in shared memory (out[2]), elements of the
+// state buffer a sequence, 0 where shared (out[3]), and the largest d
+// whose warp fits a block's shared memory (out[4]).  Returns the
+// cudaError_t (cudaErrorInvalidValue for d <= 512 or an unknown storage).
+extern "C" int oco_smart_prefix_plan(int storage, int d, long long* out) {
+  oco::WarpPlan p{};
+  int err = cudaErrorInvalidValue;
+  int max_d = 0;
+  if (storage == 0) {
+    err = prefix_plan<float, float>(d, &p);
+    max_d = prefix_max_shared_d<float>();
+  } else if (storage == 1) {
+    err = prefix_plan<double, double>(d, &p);
+    max_d = prefix_max_shared_d<double>();
+  } else if (storage == 2) {
+    err = prefix_plan<oco::bf16, signed char>(d, &p);
+    max_d = prefix_max_shared_d<oco::bf16>();
+  }
+  out[0] = p.warps;
+  out[1] = p.smem;
+  out[2] = p.shared ? 1 : 0;
+  out[3] = p.state;
+  out[4] = max_d;
+  return err;
 }

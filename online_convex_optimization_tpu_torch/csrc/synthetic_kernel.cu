@@ -58,7 +58,8 @@
 //     elements to the warp's product line, and lane 0 sums the line in
 //     index order, four floats a read, then broadcasts the sum (nsq, q, the
 //     comparator's two sums): the same products in the same order as the
-//     thread-a-sequence helpers, so the same bits;
+//     thread-a-sequence helpers, so the same bits (oco_warp.cuh, which
+//     K3w and K6aw share);
 //   - an FTRL round sums ||x||^2 and <z_t, x> of the unprojected x side by
 //     side, lane 0 the one and lane 1 the other in the same instructions
 //     (warp_dot2), and sums <z_t, x> again only in a round that projects:
@@ -74,6 +75,7 @@
 // and the wrapper allocates the buffer it asks for.
 #include "oco_philox.cuh"
 #include "oco_tiles.cuh"
+#include "oco_warp.cuh"
 
 // Rounds of FTRL scales a block holds in shared memory at a time.
 #define OCO_SCALE_CHUNK 1024
@@ -135,24 +137,18 @@ synthetic_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
 
 // ------------------------------------------------------------------- K7w
 
-// Products a warp's line holds; warps a block at most; the shared memory
-// a block may take on an H100 (227 KB).
+// Products a warp's line holds; warps a block at most.
 constexpr int kWideLine = 1024;
 constexpr int kWideWarps = 8;
-constexpr long long kBlockSmem = 232448;
 
 // A sequence's lines, in floats, each a multiple of 4 (16 bytes): theta,
 // w, the round's Philox words (4 a call, calls 0 .. d >> 7), then, in
-// shared memory only, the product line: kWideLine floats, or two halves
-// of kWideLine / 2 for two sums side by side, the second kLineGap floats
-// further on so that lane 0's and lane 1's 16-byte reads of the two fall
-// in different banks.
-__host__ __device__ inline long long up4(long long v) {
-  return (v + 3) & ~3LL;
-}
+// shared memory only, the product line of oco_warp.cuh: kWideLine floats,
+// or two halves of kWideLine / 2 for two sums side by side, the second
+// oco::kLineGap<float> floats further on.
+using oco::up4;
 __host__ __device__ inline int words_of(int d) { return 4 * ((d >> 7) + 1); }
-constexpr int kLineGap = 4;
-constexpr int kLineFloats = kWideLine + kLineGap;
+constexpr int kLineFloats = oco::line_elems<float, kWideLine>();
 __host__ __device__ inline long long state_floats(int d) {
   return 2 * up4(d) + words_of(d);
 }
@@ -164,92 +160,8 @@ __host__ __device__ inline long long warp_floats(int d, bool shared) {
 
 // The largest d whose lines fit one warp's block in shared memory.
 inline int max_shared_d() {
-  int lo = 1, hi = 1 << 20;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo + 1) / 2;
-    if (warp_floats(mid, true) * 4 <= kBlockSmem)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  return lo;
+  return oco::max_shared_d([](int d) { return warp_floats(d, true) * 4; });
 }
-
-// The sum over elements 0 .. n - 1 of prod(j) in index order, the first
-// add from -0 (so the first product as dot forms it): a chunk of at most
-// kWideLine products at a time, each lane writing those of its elements to
-// the line, lane 0 adding the line in order four floats a read; every lane
-// gets the sum.
-template <typename P>
-__device__ __forceinline__ float warp_dot(float* line, int n, int lane,
-                                          P&& prod) {
-  float acc = -0.0f;
-  for (int c0 = 0; c0 < n; c0 += kWideLine) {
-    const int len = min(kWideLine, n - c0);
-    for (int i = lane; i < len; i += 32) line[i] = prod(c0 + i);
-    __syncwarp();
-    if (lane == 0) {
-      int i = 0;
-#pragma unroll 8
-      for (; i + 4 <= len; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(line + i);
-        acc = acc + v.x;
-        acc = acc + v.y;
-        acc = acc + v.z;
-        acc = acc + v.w;
-      }
-      for (; i < len; ++i) acc = acc + line[i];
-    }
-    __syncwarp();
-  }
-  return __shfl_sync(oco::kFullMask, acc, 0);
-}
-
-// The two sums over elements 0 .. n - 1 of pa(j) and of pb(j), each in
-// index order from -0, side by side: chunks of kWideLine / 2 elements,
-// the lanes writing pa's products to the line's first half and pb's to its
-// second, lane 0 adding the first while lane 1 adds the second, in the same
-// instructions; every lane gets both sums.
-template <typename PA, typename PB>
-__device__ __forceinline__ float2 warp_dot2(float* line, int n, int lane,
-                                            PA&& pa, PB&& pb) {
-  constexpr int kHalf = kWideLine / 2;
-  float acc = -0.0f;
-  const float* mine = line + (lane == 1 ? kHalf + kLineGap : 0);
-  for (int c0 = 0; c0 < n; c0 += kHalf) {
-    const int len = min(kHalf, n - c0);
-    for (int i = lane; i < len; i += 32) {
-      line[i] = pa(c0 + i);
-      line[kHalf + kLineGap + i] = pb(c0 + i);
-    }
-    __syncwarp();
-    if (lane < 2) {
-      int i = 0;
-#pragma unroll 8
-      for (; i + 4 <= len; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(mine + i);
-        acc = acc + v.x;
-        acc = acc + v.y;
-        acc = acc + v.z;
-        acc = acc + v.w;
-      }
-      for (; i < len; ++i) acc = acc + mine[i];
-    }
-    __syncwarp();
-  }
-  return make_float2(__shfl_sync(oco::kFullMask, acc, 0),
-                     __shfl_sync(oco::kFullMask, acc, 1));
-}
-
-// Block shape of a K7w launch: warps a block (one sequence each), bytes
-// of dynamic shared memory a block, whether theta and w lie in shared
-// memory, floats of the state buffer a sequence (0 where shared).
-struct WidePlan {
-  int warps;
-  int smem;
-  bool shared;
-  long long state;
-};
 
 template <bool FTRL, bool kShared>
 __global__ void __launch_bounds__(kWideWarps * 32)
@@ -292,7 +204,7 @@ synthetic_wide_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
       // the round that projects sums <z_t, x> again with f x.
       const float scale =
           -(eta / oco::osqrt(static_cast<float>(t + 1u)));
-      const float2 sums = warp_dot2(
+      const auto sums = oco::warp_dot2<kWideLine>(
           line, n, lane,
           [&](int j) {
             const float x = scale * th[j];
@@ -302,16 +214,17 @@ synthetic_wide_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
       q = sums.y;
       if (sums.x > 1.0f) {
         const float f = 1.0f / oco::osqrt(sums.x);
-        q = warp_dot(line, n, lane,
-                     [&](int j) { return z_of(j) * (f * (scale * th[j])); });
+        q = oco::warp_dot<kWideLine>(line, n, lane, [&](int j) {
+          return z_of(j) * (f * (scale * th[j]));
+        });
       }
     } else {
       // ftl_action: x = -theta / ||theta||, 0 at theta == 0.
-      const float nsq = warp_dot(line, n, lane,
-                                 [&](int j) { return th[j] * th[j]; });
+      const float nsq = oco::warp_dot<kWideLine>(
+          line, n, lane, [&](int j) { return th[j] * th[j]; });
       const float scale = nsq > 0.0f ? -(1.0f / oco::osqrt(nsq)) : 0.0f;
-      q = warp_dot(line, n, lane,
-                   [&](int j) { return z_of(j) * (scale * th[j]); });
+      q = oco::warp_dot<kWideLine>(
+          line, n, lane, [&](int j) { return z_of(j) * (scale * th[j]); });
     }
     // hinge_step, then update.
     const float diff = q - yt;
@@ -325,50 +238,34 @@ synthetic_wide_kernel(oco::PhiloxKeys keys, float eta, unsigned int T,
     __syncwarp();
   }
   // identity_comparator: x_c = ftl_action(theta), 0.5 (T - <x_c, w>).
-  const float nsq =
-      warp_dot(line, n, lane, [&](int j) { return th[j] * th[j]; });
+  const float nsq = oco::warp_dot<kWideLine>(
+      line, n, lane, [&](int j) { return th[j] * th[j]; });
   const float scale = nsq > 0.0f ? -(1.0f / oco::osqrt(nsq)) : 0.0f;
-  const float xw = warp_dot(line, n, lane,
-                            [&](int j) { return (scale * th[j]) * w[j]; });
+  const float xw = oco::warp_dot<kWideLine>(
+      line, n, lane, [&](int j) { return (scale * th[j]) * w[j]; });
   if (lane == 0)
     out[b] = cum - 0.5f * (static_cast<float>(T) - xw);
 }
 
 // K7w's plan at d: theta and w in shared memory up to max_shared_d(), and
-// the warps a block that keep the most warps resident an SM (the fewest
-// on a tie), from the card's occupancy calculator.
+// the warps a block that keep the most warps resident an SM
+// (oco::best_block).
 template <bool FTRL>
-int wide_plan(int d, WidePlan* p) {
+int wide_plan(int d, oco::WarpPlan* p) {
   if (d <= OCO_LARGE_D) return cudaErrorInvalidValue;
   p->shared = d <= max_shared_d();
   p->state = p->shared ? 0 : state_floats(d);
   const auto kernel = p->shared ? &synthetic_wide_kernel<FTRL, true>
                                 : &synthetic_wide_kernel<FTRL, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBlockSmem));
-  int best = 0;
-  for (int wb = 1; wb <= kWideWarps && err == cudaSuccess; ++wb) {
-    const long long smem = wb * warp_floats(d, p->shared) * 4;
-    if (smem > kBlockSmem) break;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, wb * 32, static_cast<size_t>(smem));
-    if (err == cudaSuccess && blocks * wb > best) {
-      best = blocks * wb;
-      p->warps = wb;
-      p->smem = static_cast<int>(smem);
-    }
-  }
-  if (err == cudaSuccess && best == 0) err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return oco::best_block(kernel, kWideWarps, warp_floats(d, p->shared) * 4,
+                         p);
 }
 
 template <bool FTRL>
 int launch_wide(const oco::PhiloxKeys& keys, float eta, unsigned int T,
                 long long B, int d, float c, float* out, float* state,
                 cudaStream_t s) {
-  WidePlan p{};
+  oco::WarpPlan p{};
   const int err = wide_plan<FTRL>(d, &p);
   if (err != cudaSuccess) return err;
   if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
@@ -407,7 +304,7 @@ int occupancy(int d, int* out) {
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     if constexpr (D == oco::kWideD) {
-      WidePlan p{};
+      oco::WarpPlan p{};
       err = wide_plan<FTRL>(d, &p);
       const auto kernel = p.shared ? &synthetic_wide_kernel<FTRL, true>
                                    : &synthetic_wide_kernel<FTRL, false>;
@@ -467,7 +364,7 @@ extern "C" int oco_synthetic_occupancy(int alg_flag, int d, int* out) {
 // lines fit shared memory (out[4]).  Returns the cudaError_t
 // (cudaErrorInvalidValue for d <= 512).
 extern "C" int oco_synthetic_plan(int alg_flag, int d, long long* out) {
-  WidePlan p{};
+  oco::WarpPlan p{};
   const int err = alg_flag == 0 ? wide_plan<true>(d, &p)
                                 : wide_plan<false>(d, &p);
   out[0] = p.warps;

@@ -199,50 +199,56 @@ SWEEP_WARPS = 16
 WIDE_KERNELS = ("K1", "K2", "K3", "K3e", "K4", "K5", "K6a", "K6b", "K7")
 
 
-def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1) -> int:
+def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1,
+                     dtype=torch.float32) -> int:
     """Elements (of the compute type) of the state buffer that a launch of
-    ``kernel`` at ``B`` sequences and feature dimension ``d`` needs: none
-    up to ``cuda_build.MAX_D``; past it, vectors of d elements laid out
+    ``kernel`` at ``B`` sequences and feature dimension ``d`` with z in
+    ``dtype`` (its storage or compute dtype) needs: none up to
+    ``cuda_build.MAX_D``; past it, vectors of d elements laid out
     (d, slots), a slot per thread's play:
 
     - K1w: theta, w and x of each of ``plays`` plays a sequence,
       ``3 d plays B``;
     - K2w: theta and x of the FTL track and of each of ``plays`` (G)
       thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
-    - K3w, K3ew: x, ``d B`` (theta is the output);
+    - K3ew: x, ``d B`` (theta is the output);
     - K4w: x, ``d B`` (theta and w are the output carry);
     - K5w: theta of each of ``plays`` (E) settings a sequence, and a w a
       sequence for each group of ``SWEEP_WARPS`` settings,
       ``(E + ceil(E / SWEEP_WARPS)) d B`` (no x: the final FTL action is
       written over theta);
-    - K6aw: theta, w and x of the FTL prefix, ``3 d B``;
     - K6bw: theta and x of each of ``plays`` (G) thresholds' tails,
       ``2 d G B`` (a slot for every pair, switched or not);
-    - K7w: what the library's plan asks for (``synthetic_plan``): none
-      while a warp's lines fit a block's shared memory, past that the
-      plan's ``state`` floats a sequence, laid out (B, state) (float32).
+    - K3w, K6aw, K7w: what the library's plan asks for (``packed_plan``,
+      ``prefix_plan``, ``synthetic_plan``): none while a warp's state fits
+      a block's shared memory, past that the plan's ``state`` elements a
+      sequence, laid out (B, state).
     """
     if kernel not in WIDE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}; the hinge kernels are "
                          f"{WIDE_KERNELS}")
     if d <= cuda_build.MAX_D:
         return 0
+    plan = {"K3": packed_plan, "K6a": prefix_plan}.get(kernel)
+    if plan is not None:
+        return plan(d, dtype)["state"] * B
     if kernel == "K7":
         return synthetic_plan(d)["state"] * B
-    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K3": 1,
-               "K3e": 1, "K4": 1,
+    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K3e": 1,
+               "K4": 1,
                "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
-               "K6a": 3,
                "K6b": 2 * plays}[kernel]
     return vectors * d * B
 
 
 def wide_state(kernel: str, B: int, d: int, plays: int, dtype, device):
-    """The state buffer of a launch (``wide_state_elems``) on ``device``,
-    uninitialised (the kernel writes it before it reads it), or None where
-    the launch needs none."""
-    n = wide_state_elems(kernel, B, d, plays)
-    return torch.empty((n,), dtype=dtype, device=device) if n else None
+    """The state buffer of a launch (``wide_state_elems``) with z in
+    ``dtype`` on ``device``, in ``dtype``'s compute dtype, uninitialised
+    (the kernel writes it before it reads it), or None where the launch
+    needs none."""
+    n = wide_state_elems(kernel, B, d, plays, dtype)
+    return (torch.empty((n,), dtype=compute_dtype(dtype), device=device)
+            if n else None)
 
 
 def data_ptr(t) -> int:
@@ -411,12 +417,18 @@ def sweep_occupancy(d: int, dtype) -> tuple:
                      int(dtype == torch.float64), d)
 
 
+def storage_code(dtype) -> int:
+    """The storage of an occupancy or plan query (``oco_packed_plan``):
+    0 float32, 1 float64, 2 bf16 z."""
+    return {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}[dtype]
+
+
 def packed_occupancy(per_seq_eta: bool, d: int, dtype) -> tuple:
     """``regret_occupancy`` for K3 (K3e with ``per_seq_eta``; K3w, K3ew
-    past ``cuda_build.MAX_D``)."""
+    past ``cuda_build.MAX_D``) with z in ``dtype``."""
     return occupancy("K3e" if per_seq_eta else "K3",
                      cuda_build.load().oco_packed_occupancy,
-                     int(dtype == torch.float64), int(per_seq_eta), d)
+                     storage_code(dtype), int(per_seq_eta), d)
 
 
 def synthetic_occupancy(alg_flag: int, d: int) -> tuple:
@@ -427,22 +439,50 @@ def synthetic_occupancy(alg_flag: int, d: int) -> tuple:
                      int(alg_flag), d)
 
 
-def synthetic_plan(d: int, alg_flag: int = 0) -> dict:
-    """K7w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` on the
-    current card, as the library plans it (``oco_synthetic_plan``): warps
-    a block (a sequence each), bytes of dynamic shared memory a block,
-    whether theta and w lie in shared memory (``shared``), floats of the
-    state buffer a sequence (``state``, 0 where shared) and
-    ``max_shared_d``, the largest d whose lines fit a block's shared
+def _plan(kernel: str, fn, *args) -> dict:
+    """A wide instance's plan from its C entry ``fn(*args, out)``: warps a
+    block (a sequence each), bytes of dynamic shared memory a block,
+    whether the sequence's state lies in shared memory (``shared``),
+    elements of the state buffer a sequence (``state``, 0 where shared)
+    and ``max_shared_d``, the largest d whose state fits a block's shared
     memory."""
     keys = ("warps", "smem_bytes", "shared", "state", "max_shared_d")
     out = (ctypes.c_longlong * len(keys))()
-    err = cuda_build.load().oco_synthetic_plan(int(alg_flag), d, out)
+    err = fn(*args, out)
     if err != 0:
-        raise RuntimeError(f"K7w plan failed at d={d}: CUDA error {err}")
+        raise RuntimeError(f"{kernel} plan failed at d={args[-1]}: CUDA "
+                           f"error {err}")
     plan = dict(zip(keys, out))
     plan["shared"] = bool(plan["shared"])
     return plan
+
+
+def synthetic_plan(d: int, alg_flag: int = 0) -> dict:
+    """K7w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` on the
+    current card, as the library plans it (``oco_synthetic_plan``; see
+    ``_plan``): theta and w in shared memory up to ``max_shared_d``,
+    float32."""
+    return _plan("K7w", cuda_build.load().oco_synthetic_plan, int(alg_flag),
+                 d)
+
+
+def packed_plan(d: int, dtype) -> dict:
+    """K3w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with z
+    in ``dtype`` (``oco_packed_plan``; see ``_plan``): a warp a sequence,
+    32 bytes of z a block at each (t, j), theta and the block's two row
+    stages in shared memory up to ``max_shared_d``; past it theta in the
+    state buffer, ``state`` elements a sequence."""
+    return _plan("K3w", cuda_build.load().oco_packed_plan,
+                 storage_code(dtype), d)
+
+
+def prefix_plan(d: int, dtype) -> dict:
+    """K6aw's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with
+    z in ``dtype`` (``oco_smart_prefix_plan``; see ``_plan``): a warp a
+    sequence, theta, w and the warp's row stage in shared memory up to
+    ``max_shared_d``; past it theta and w in the state buffer."""
+    return _plan("K6aw", cuda_build.load().oco_smart_prefix_plan,
+                 storage_code(dtype), d)
 
 
 def occupancy(kernel: str, fn, *args, shared: bool = False) -> tuple:
@@ -907,7 +947,7 @@ def _launch_packed(fn_name: str, z_tm, y_tm, extra, alg_flag):
         cum = torch.empty((B,), dtype=dtype, device=z_tm.device)
         theta = torch.empty((d, B), dtype=dtype, device=z_tm.device)
         state = wide_state("K3e" if alg_flag is None else "K3", B, d, 1,
-                           dtype, z_tm.device)
+                           z_tm.dtype, z_tm.device)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), extra.data_ptr(), T, B, d,
                  *flag, cum.data_ptr(), theta.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z_tm.device).cuda_stream)

@@ -73,6 +73,7 @@ from online_convex_optimization_tpu_torch.ops.game import (
     per_sequence,
     per_sequence_lengths,
     settings_grid,
+    storage_code,
     storage_suffix,
     sweep_scales,
     upcast,
@@ -265,10 +266,10 @@ def smart_occupancy(thresholds: int, d: int, dtype) -> tuple:
 
 def sweep_occupancy(tails: bool, d: int, dtype) -> tuple:
     """``smart_occupancy`` for K6a (K6b with ``tails``; K6aw, K6bw past
-    512)."""
+    512) with z in ``dtype``."""
     return occupancy("K6b" if tails else "K6a",
                      cuda_build.load().oco_smart_sweep_occupancy,
-                     int(dtype == torch.float64), int(tails), d)
+                     storage_code(dtype), int(tails), d)
 
 
 def smart_plays(z: torch.Tensor, y: torch.Tensor, thresholds: torch.Tensor,
@@ -525,7 +526,7 @@ def launch_smart_prefix(z, y, ordered, perm, order, lengths,
         partial = torch.empty((G, B), dtype=dtype, device=z.device)
         tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
         comp = torch.empty((B,), dtype=dtype, device=z.device)
-        state = wide_state("K6a", B, d, 1, dtype, z.device)
+        state = wide_state("K6a", B, d, 1, z.dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), ordered.data_ptr(),
                  perm.data_ptr(), order.data_ptr(), lengths.data_ptr(), B, G,
                  T, d, int(replay), partial.data_ptr(), tau.data_ptr(),

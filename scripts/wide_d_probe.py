@@ -5,7 +5,8 @@ shared memory and state buffer.
 
     cd <a checkout of the port>
     python3 <path to>/scripts/wide_d_probe.py [--d 1024]
-        [--cases k1f64 k1f32 k2 k4 k3 k5f64 k5f32 k6 k7ftrl k7ftl]
+        [--cases k1f64 k1f32 k2 k4 k3 k3bf16 k5f64 k5f32 k6 k6f32 k7ftrl
+                 k7ftl adds]
         [--reps 3]
 
 Its inputs come from ``data/device.py``'s generators and fixed seeds (the
@@ -30,25 +31,35 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
   (``random_time_major_batch``), B = 2,048, f32, FTRL and FTL on
   alternate sequences, eta = sqrt(2): the 4 launches timed together;
 - ``k3``: K3 FTRL and FTL and K3e (eta from 0.05 to 4.0 a sequence) on
-  phase 16's packed data, B = 2,048, T = 1,024, f32;
+  phase 16's packed data, B = 2,048, T = 1,024, f32; ``k3bf16`` the same
+  on its bf16/int8 data;
 - ``k5f64``, ``k5f32``: K5 on phase 16's sweep data, B = 1,024, T = 1,024
   (lengths in [512, 1,024]), E = 64 (eta 0.05 .. 4.0);
-- ``k6``: K6a and K6b on the f64 sweep data, G = 16 (sqrt(2T)/16 ..
-  sqrt(2T)), eta = sqrt(2);
+- ``k6``, ``k6f32``: K6a and K6b on the f64 (f32) sweep data, G = 16
+  (sqrt(2T)/16 .. sqrt(2T)), eta = sqrt(2);
 - ``k7ftrl``, ``k7ftl``: K7 at phase 16's seed, T = 1,000, lane_batch
-  2,048 (16,384 sequences).
+  2,048 (16,384 sequences);
+- ``adds`` (once, not per d): the latency of a dependent float32 and
+  float64 add, a chain of 2^22 adds on one thread (``scripts/add_chain.cu``,
+  built here with the library's nvcc flags) timed with the SM's cycle
+  counter and with CUDA events: the clocks an add that
+  ``chip_smoke.py``'s ``ADD_CLOCKS`` holds.
 
 Each time is the median (min, max) of ``--reps`` CUDA-event timed calls
 after a warm-up call.  Bounds: ``chip_smoke.py``'s (inputs read once,
 outputs written once, its operation counts over the H100 SXM's peaks).
-K5 and K7 also print their design's own floor: K5w's theta stream (two
-reads and one write of d elements a pair-round, at 3.35 TB/s), K7w's
-one-lane sums (2 d dependent adds a sequence-round, one warp instruction
-each, at 4 a clock on 132 SMs at 1.98 GHz).  Prints one line a case, then
+K3, K5, K6a and K7 also print their design's own floor: K5w's theta
+stream (two reads and one write of d elements a pair-round, at 3.35
+TB/s); K7w's one-lane sums (2 d dependent adds a sequence-round, one warp
+instruction each, at ``chip_smoke.py``'s WARP_ISSUE_PER_S); K3w's and
+K6aw's from ``chip_smoke.py``'s ``packed_wide_floor`` and
+``prefix_wide_floor``.  Run from a checkout whose ``chip_smoke.py`` lacks
+these, it prints no K3, K6a or K7 floor.  Prints one line a case, then
 all of them as one JSON line.  Needs one CUDA card.
 """
 
 import argparse
+import ctypes
 import hashlib
 import json
 import math
@@ -85,6 +96,16 @@ from chip_smoke import (  # noqa: E402
     wsw_packed_bound,
     wsw_thresholds,
 )
+try:   # the design floors, where the checkout's chip_smoke.py has them
+    from chip_smoke import (  # noqa: E402
+        WARP_ISSUE_PER_S,
+        packed_projecting_share,
+        packed_wide_floor,
+        prefix_wide_floor,
+    )
+except ImportError:
+    WARP_ISSUE_PER_S = packed_projecting_share = None
+    packed_wide_floor = prefix_wide_floor = None
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     random_game_batch,
     random_time_major_batch,
@@ -99,15 +120,16 @@ SHAPES = {"k1f64": (1024, 1000, torch.float64),
           "k2": (1024, 1000, torch.float64),
           "k4": (2048, 1024, torch.float32),
           "k3": (WPK_B, WPK_T, torch.float32),
+          "k3bf16": (WPK_B, WPK_T, torch.bfloat16),
           "k5f64": (WSW_B, WSW_T, torch.float64),
           "k5f32": (WSW_B, WSW_T, torch.float32),
           "k6": (WSW_B, WSW_T, torch.float64),
+          "k6f32": (WSW_B, WSW_T, torch.float32),
           "k7ftrl": (8 * WK7_LANES, WK7_T, torch.float32),
           "k7ftl": (8 * WK7_LANES, WK7_T, torch.float32)}
 K4_CHUNKS = 4
-# Warp instructions a clock on an H100 SXM: 4 schedulers on each of 132
-# SMs at its 1.98 GHz boost clock.
-WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
+# Adds of the ``adds`` case's chain.
+ADD_CHAIN = 1 << 22
 
 
 def digest(outs) -> str:
@@ -131,9 +153,13 @@ def launch_shape(name, d, dtype, *args):
         "K3": "oco_packed_occupancy", "K4": "oco_stream_occupancy",
         "K5": "oco_sweep_occupancy", "K6": "oco_smart_sweep_occupancy",
         "K7": "oco_synthetic_occupancy"}[name])
-    # K7's entry takes (alg_flag, d); the others (f64, *args, d).
-    call = ((*args, d) if name == "K7"
-            else (int(dtype == torch.float64), *args, d))
+    # K7's entry takes (alg_flag, d); the others (storage, *args, d):
+    # 0 f32, 1 f64, and 2 bf16 where the checkout has the warp-a-sequence
+    # plans (an older one reads any nonzero storage as f64).
+    storage = int(dtype == torch.float64)
+    if dtype == torch.bfloat16 and hasattr(game, "packed_plan"):
+        storage = 2
+    call = (*args, d) if name == "K7" else (storage, *args, d)
     try:
         out = game.occupancy(name, fn, *call, shared=True)
     except TypeError:   # a checkout whose entries report three numbers
@@ -143,7 +169,11 @@ def launch_shape(name, d, dtype, *args):
 
 
 def state_bytes(kernel, B, d, plays, dtype) -> int:
-    return game.wide_state_elems(kernel, B, d, plays) * dtype.itemsize
+    """The launch's state buffer in bytes (z stored in ``dtype``)."""
+    size = game.compute_dtype(dtype).itemsize
+    if kernel in ("K3", "K6a") and hasattr(game, "packed_plan"):
+        return game.wide_state_elems(kernel, B, d, plays, dtype) * size
+    return game.wide_state_elems(kernel, B, d, plays) * size
 
 
 def k1(z, y, d, reps):
@@ -209,25 +239,32 @@ def k4(d, reps):
             "state_bytes": state_bytes("K4", B, d, 1, dtype)}
 
 
-def k3(d, reps):
+def k3(d, reps, pair):
     """K3 FTRL, K3 FTL and K3e, each timed alone: one entry a launch."""
-    pair = WSW_PACKED_PAIRS[0]
     z_tm, y_tm = wsw_packed("packed", WPK_B, WPK_T, d, pair)
     scales = game.ftrl_scales(WPK_T, ETA, device=DEV)
     per_seq = wsw_etas(WPK_B, torch.float32)
     runs = {"K3 FTRL": lambda: game.launch_play_packed(z_tm, y_tm, scales, 0),
             "K3 FTL": lambda: game.launch_play_packed(z_tm, y_tm, scales, 1),
             "K3e": lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq)}
+    share = (packed_projecting_share(z_tm, y_tm, scales)
+             if packed_projecting_share else None)
     res = {}
     for key, fn in runs.items():
         outs = fn()
-        res[key] = {
-            "ms": time_ms(fn, reps=reps),
-            **wsw_packed_bound(WPK_B, WPK_T, d, pair, key == "K3e"),
-            "digest": digest(outs),
-            "occupancy": launch_shape("K3", d, torch.float32,
-                                      int(key == "K3e")),
-            "state_bytes": state_bytes("K3", WPK_B, d, 1, torch.float32)}
+        bd = wsw_packed_bound(WPK_B, WPK_T, d, pair, key == "K3e")
+        res[key] = {"ms": time_ms(fn, reps=reps), **bd,
+                    "digest": digest(outs),
+                    "occupancy": launch_shape("K3", d, pair[0],
+                                              int(key == "K3e")),
+                    "state_bytes": state_bytes(
+                        "K3e" if key == "K3e" else "K3", WPK_B, d, 1,
+                        pair[0])}
+        if key != "K3e" and packed_wide_floor:
+            res[key].update(
+                packed_wide_floor(WPK_B, WPK_T, d, bd,
+                                  None if key == "K3 FTL" else share),
+                projecting_share=share)
     return res
 
 
@@ -249,9 +286,8 @@ def k5(d, dtype, reps):
             "state_bytes": state_bytes("K5", WSW_B, d, WSW_E, dtype)}
 
 
-def k6(d, reps):
-    """K6a and K6b on the f64 sweep data, each timed alone."""
-    dtype = torch.float64
+def k6(d, dtype, reps):
+    """K6a and K6b on the sweep data, each timed alone."""
     z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, d, dtype)
     ths = wsw_thresholds(WSW_T, WSW_G, dtype)
     ordered, perm = torch.sort(ths, stable=True)
@@ -263,7 +299,8 @@ def k6(d, reps):
                                                ln, False)
     part, tau, comp = prefix()
     counts = smart_sweep_counts(tau.t(), ln, WSW_T)
-    res = {"K6a": {"ms": time_ms(prefix, reps=reps),
+    floor = prefix_wide_floor(ln, d, dtype) if prefix_wide_floor else {}
+    res = {"K6a": {"ms": time_ms(prefix, reps=reps), **floor,
                    **sweep_bounds("K6a", ln, counts, dtype, d, WSW_E,
                                   WSW_G)[1],
                    "digest": digest((part, tau, comp)),
@@ -291,14 +328,55 @@ def k7(d, alg, reps):
     outs = fn()
     ms = time_ms(fn, reps=reps)
     steps = B * WK7_T
-    floor = steps * 2 * d / WARP_ISSUE_PER_S * 1e3
+    floor = ({"design_floor_ms": steps * 2 * d / WARP_ISSUE_PER_S * 1e3,
+              "design_floor_by": "one-lane sums: 2 d adds a sequence-round"}
+             if WARP_ISSUE_PER_S else {})
     return {"ms": ms,
-            **synthetic_bound(steps, d, B, label="[wide_d_probe]"),
-            "design_floor_ms": floor,
-            "design_floor_by": "one-lane sums: 2 d adds a sequence-round",
+            **synthetic_bound(steps, d, B, label="[wide_d_probe]"), **floor,
             "digest": digest((outs,)),
             "occupancy": launch_shape("K7", d, torch.float32, alg),
             "state_bytes": state_bytes("K7", B, d, 1, torch.float32)}
+
+
+def add_latency(reps) -> dict:
+    """Clocks and nanoseconds of a dependent add in float32 and float64:
+    ``scripts/add_chain.cu``'s chain of ADD_CHAIN adds on one thread,
+    the SM's cycles (clock64) and the CUDA-event time of its launch (the
+    median of ``reps`` after a warm-up; the launch's own microseconds
+    included)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "add_chain.cu")
+    out_dir = os.path.join(os.path.dirname(cuda_build.BUILD_DIR),
+                           "add_chain")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libadd_chain.so")
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared",
+                    src, "-o", lib_path], check=True, capture_output=True)
+    fn = ctypes.CDLL(lib_path).oco_add_chain
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        c = torch.tensor([1.0, 2.0 ** -30], dtype=dtype, device=DEV)
+        sink = torch.empty(1, dtype=dtype, device=DEV)
+        clocks = torch.zeros(1, dtype=torch.int64, device=DEV)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run():
+            err = fn(int(dtype == torch.float64), c.data_ptr(), ADD_CHAIN,
+                     sink.data_ptr(), clocks.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"oco_add_chain: cudaError {err}")
+
+        run()
+        ms = time_ms(run, reps=reps)
+        cycles = int(clocks.item())
+        res[str(dtype)[6:]] = {
+            "adds": ADD_CHAIN, "cycles": cycles,
+            "clocks_per_add": cycles / ADD_CHAIN,
+            "ns_per_add": ms[0] * 1e6 / ADD_CHAIN, "ms": ms,
+            "sink": float(sink.item())}
+    return res
 
 
 def run_case(name, d, reps):
@@ -306,12 +384,15 @@ def run_case(name, d, reps):
     B, T, dtype = SHAPES[name]
     if name == "k4":
         return {name: k4(d, reps)}
-    if name == "k3":
-        return k3(d, reps)
+    if name in ("k3", "k3bf16"):
+        pair = WSW_PACKED_PAIRS[name == "k3bf16"]
+        return {(f"{key} bf16" if name == "k3bf16" else key): res
+                for key, res in k3(d, reps, pair).items()}
     if name in ("k5f64", "k5f32"):
         return {name: k5(d, dtype, reps)}
-    if name == "k6":
-        return k6(d, reps)
+    if name in ("k6", "k6f32"):
+        return {(f"{key} f32" if name == "k6f32" else key): res
+                for key, res in k6(d, dtype, reps).items()}
     if name in ("k7ftrl", "k7ftl"):
         return {name: k7(d, int(name == "k7ftl"), reps)}
     z, y = batch(B, T, d, dtype, 11 if dtype == torch.float64 else 12)
@@ -321,8 +402,9 @@ def run_case(name, d, reps):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--d", type=int, nargs="+", default=[1024])
-    parser.add_argument("--cases", nargs="+", default=list(SHAPES),
-                        choices=list(SHAPES))
+    parser.add_argument("--cases", nargs="+",
+                        default=[*SHAPES, "adds"],
+                        choices=[*SHAPES, "adds"])
     parser.add_argument("--reps", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -333,8 +415,16 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
     out = {"card": smi, "cases": {}}
+    if "adds" in args.cases:
+        out["add_latency"] = add_latency(args.reps)
+        for key, res in out["add_latency"].items():
+            print(f"dependent add {key}: {res['clocks_per_add']} clocks, "
+                  f"{res['ns_per_add']} ns an add ({res['cycles']} cycles "
+                  f"for {res['adds']} adds; {res['ms'][0]:.4f} ms)",
+                  flush=True)
     for d in args.d:
-        cases = [c for c in args.cases if d <= 1024 or c == "k1f64"]
+        cases = [c for c in args.cases
+                 if c != "adds" and (d <= 1024 or c == "k1f64")]
         for name in cases:
             B, T, dtype = SHAPES[name]
             for key, res in run_case(name, d, args.reps).items():

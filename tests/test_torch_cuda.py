@@ -1335,6 +1335,168 @@ def test_synthetic_plan_fits_a_block(cuda, alg_flag):
         game.synthetic_plan(512, alg_flag)
 
 
+# ------------------------------------- K3w and K6aw: a sequence a warp
+
+ALL_PAIRS = [(torch.float64, torch.float64),
+             (torch.float32, torch.float32)] + STORAGE_PAIRS
+
+
+def _warp_plans(pair, d):
+    """K3w's and K6aw's plans at d for z stored in ``pair[0]``."""
+    return game.packed_plan(d, pair[0]), game.prefix_plan(d, pair[0])
+
+
+def _k3w_k6aw_vs_plain(cuda, pair, d, T, contract, B=77):
+    """K3w (FTRL with eta = 4, so that rounds project, and FTL) and K6aw
+    (identity or replay comparator, thresholds that switch early, late and
+    never) against their plain versions on the stored values in every bit,
+    at B sequences with ragged lengths (zero rows past them on the packed
+    API); each launch's state buffer is the one its plan asks for."""
+    z, y, lengths = _batch(B, T, d, seed=d + 29, contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    ths = torch.as_tensor(np.array([0.02, 0.1, 0.3, 1e30]) *
+                          math.sqrt(2.0 * T), dtype=zf.dtype, device=cuda)
+    ordered, perm = torch.sort(ths, stable=True)
+    p3, p6 = _warp_plans(pair, d)
+    assert game.wide_state_elems("K3", B, d, 1, pair[0]) == p3["state"] * B
+    assert game.wide_state_elems("K6a", B, d, 1, pair[0]) == p6["state"] * B
+    before = (game.PACKED_LAUNCHES, smart.SWEEP_LAUNCHES)
+    got = smart.launch_smart_prefix(zs, ys, ordered, perm.to(torch.int32),
+                                    game.length_order(ln), ln, not contract)
+    want = smart.smart_prefix_reference(zf, yf, ths, ln, replay=not contract)
+    assert all(torch.equal(g.t() if g.ndim == 2 else g, w)
+               for g, w in zip(got, want)), ("K6aw", pair, d, contract)
+    valid = (torch.arange(T, device=cuda)[None, :] < ln[:, None].long())
+    z_tm, y_tm = game.time_major(torch.where(valid[..., None], zs, 0),
+                                 torch.where(valid, ys, 0))
+    zf_tm, yf_tm = game.time_major(torch.where(valid[..., None], zf, 0.0),
+                                   torch.where(valid, yf, 0.0))
+    scales = game.ftrl_scales(T, 4.0, dtype=zf.dtype, device=cuda)
+    for flag in (0, 1):
+        got = game.play_packed(z_tm, y_tm, scales, alg_flag=flag)
+        want = game.play_packed_reference(zf_tm, yf_tm, scales, flag)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+            "K3w", pair, d, flag)
+    torch.cuda.synchronize()
+    assert (game.PACKED_LAUNCHES, smart.SWEEP_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("d", [513, 1024, 2048])
+def test_k3w_k6aw_equal_plain_in_every_pair(cuda, pair, d):
+    """K3w and K6aw equal their plain versions in every bit in every
+    storage pair at d = 513, 1,024 and 2,048, B = 77 (a multiple of no
+    block's warps), contract and replay data; bf16 at d = 2,048 lies past
+    K3w's shared boundary."""
+    for contract in (True, False):
+        _k3w_k6aw_vs_plain(cuda, pair, d, 12, contract)
+    # A full last block of warps (B a multiple of 16, 8 and 4).
+    _k3w_k6aw_vs_plain(cuda, pair, d, 12, True, B=48)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("kernel", ["K3w", "K6aw"])
+def test_k3w_k6aw_across_the_shared_boundary(cuda, pair, kernel):
+    """At the largest d whose state fits a block's shared memory and one
+    past it (the state buffer the plan asks for), each instance equals its
+    plain version in every bit; its plan says which side it is on."""
+    plan = _warp_plans(pair, 1024)[kernel == "K6aw"]
+    boundary = plan["max_shared_d"]
+    for d, shared in ((boundary, True), (boundary + 1, False)):
+        assert _warp_plans(pair, d)[kernel == "K6aw"]["shared"] == shared
+        for contract in (True, False):
+            _k3w_k6aw_vs_plain(cuda, pair, d, 3, contract, B=21)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k3w_reads_an_offset_view(cuda, pair, shared):
+    """K3w on a contiguous view that starts one row of the batch into its
+    storage, ``z_tm[1:]`` with d B odd (a bf16 view 2 bytes past a 4-byte
+    boundary), equals its plain version in every bit, FTRL and FTL, on
+    both sides of the shared boundary."""
+    B, T = 77, 6
+    d = 513 if shared else _warp_plans(pair, 1024)[0]["max_shared_d"] + 1
+    d += 1 - d % 2                 # d B odd
+    assert _warp_plans(pair, d)[0]["shared"] == shared
+    z, y, _ = _batch(B, T + 1, d, seed=d + 31, contract=True)
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    z_tm, y_tm = game.time_major(zs, ys)
+    zf_tm, yf_tm = game.time_major(zf, yf)
+    view, labels = z_tm[1:], y_tm[1:]
+    assert view.is_contiguous() and labels.is_contiguous()
+    assert view.data_ptr() - z_tm.data_ptr() == d * B * zs.element_size()
+    if pair[0] == torch.bfloat16:
+        assert view.data_ptr() % 4 == 2
+    scales = game.ftrl_scales(T, 4.0, dtype=zf.dtype, device=cuda)
+    for flag in (0, 1):
+        got = game.play_packed(view, labels, scales, alg_flag=flag)
+        want = game.play_packed_reference(zf_tm[1:], yf_tm[1:], scales, flag)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+            pair, d, flag)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+def test_k3w_k6aw_plans_fit_a_block(cuda, pair):
+    """The library's plans: K3w a warp a sequence and 32 bytes of z a
+    block at each (t, j) (4, 8, 16 warps in f64, f32, bf16), K6aw 1-8
+    warps a block; state on the chip exactly up to max_shared_d (past the
+    path's d = 1,024), a block within the H100's 227 KB, no buffer where
+    shared and theta (K3w) or theta and w (K6aw), each padded to 4
+    elements, past it; the occupancy entries report the plans' blocks: at
+    d = 1,024 the path's sequences fit one wave (K3w f32, bf16: 16 warps an
+    SM; K6aw f64: 8)."""
+    zt = pair[0]
+    k3 = game.packed_plan(1024, zt)
+    k6 = game.prefix_plan(1024, zt)
+    assert k3["warps"] == 32 // zt.itemsize and 1 <= k6["warps"] <= 8
+    for plan in (k3, k6):
+        assert 1024 < plan["max_shared_d"] < 65536
+    for d in (513, 1024, 2048, k3["max_shared_d"], k3["max_shared_d"] + 1,
+              k6["max_shared_d"], k6["max_shared_d"] + 1, 65536):
+        up4 = -(-d // 4) * 4
+        for kernel, plan, state in (
+                ("K3w", game.packed_plan(d, zt), up4),
+                ("K6aw", game.prefix_plan(d, zt), 2 * up4)):
+            boundary = (k3 if kernel == "K3w" else k6)["max_shared_d"]
+            assert plan["shared"] == (d <= boundary), (kernel, d)
+            assert plan["state"] == (0 if plan["shared"] else state)
+            assert 0 < plan["smem_bytes"] <= 232448
+            assert plan["smem_bytes"] % 16 == 0
+            occ = (game.packed_occupancy(False, d, zt) if kernel == "K3w"
+                   else smart.sweep_occupancy(False, d, zt))
+            entry, *args = (
+                (game.cuda_build.load().oco_packed_occupancy,
+                 game.storage_code(zt), 0) if kernel == "K3w" else
+                (game.cuda_build.load().oco_smart_sweep_occupancy,
+                 game.storage_code(zt), 0))
+            shared = game.occupancy(kernel, entry, *args, d, shared=True)[3]
+            assert occ[0] > 0 and occ[1] >= plan["warps"], (kernel, d)
+            assert shared == plan["smem_bytes"], (kernel, d)
+    if zt in (torch.float32, torch.bfloat16):
+        assert game.packed_occupancy(False, 1024, zt)[1] >= 16
+    if zt == torch.float64:
+        assert smart.sweep_occupancy(False, 1024, zt)[1] >= 8
+    for fn in (game.packed_plan, game.prefix_plan):
+        with pytest.raises(RuntimeError, match="plan failed"):
+            fn(512, zt)
+
+
 @pytest.mark.parametrize("d", [513, 1024])
 def test_wide_sweep_identities(cuda, d):
     """f64: K5w's column e equals K1w with eta = eta_e; K6 with a threshold

@@ -212,27 +212,58 @@ def _k7_plan(d, shared):
             "state": 0 if shared else state, "max_shared_d": 0}
 
 
+def _seq_plan(state, shared):
+    """A stand-in for a warp-a-sequence plan (``oco_packed_plan``,
+    ``oco_smart_prefix_plan``): ``state`` elements a sequence, or none
+    where the sequence's state fits shared memory."""
+    return {"warps": 8, "smem_bytes": 0, "shared": shared,
+            "state": 0 if shared else state, "max_shared_d": 0}
+
+
+def _k3_plan(d, shared):
+    """K3w's: theta, padded to 4 elements."""
+    return _seq_plan(-(-d // 4) * 4, shared)
+
+
+def _k6a_plan(d, shared):
+    """K6aw's: theta and w, each padded to 4 elements."""
+    return _seq_plan(2 * (-(-d // 4) * 4), shared)
+
+
+def _stand_in_plans(monkeypatch, shared):
+    monkeypatch.setattr(game, "synthetic_plan",
+                        lambda dd, alg_flag=0: _k7_plan(dd, shared))
+    monkeypatch.setattr(game, "packed_plan",
+                        lambda dd, dtype=torch.float32: _k3_plan(dd, shared))
+    monkeypatch.setattr(game, "prefix_plan",
+                        lambda dd, dtype=torch.float64: _k6a_plan(dd,
+                                                                  shared))
+
+
 @pytest.mark.parametrize("d", [513, 1024, 8192])
 def test_new_state_buffer_sizes_past_512(monkeypatch, d):
-    # K3w, K3ew: x (theta is the output); K5w: theta a (sequence, setting)
-    # pair and w a sequence for each group of 16 settings (no x); K6aw:
-    # theta, w, x a sequence; K6bw: theta and x a (sequence, threshold)
-    # pair; K7w: what the library's plan asks for, none where a warp's
-    # lines fit shared memory.
+    # K3ew: x (theta is the output); K5w: theta a (sequence, setting)
+    # pair and w a sequence for each group of 16 settings (no x); K6bw:
+    # theta and x a (sequence, threshold) pair; K3w, K6aw, K7w: what the
+    # library's plan asks for, none where a warp's state fits shared
+    # memory.
     assert game.SWEEP_WARPS == 16
-    assert game.wide_state_elems("K3", 2048, d) == d * 2048
     assert game.wide_state_elems("K3e", 2048, d) == d * 2048
     assert game.wide_state_elems("K5", 1024, d, 64) == (64 + 4) * d * 1024
     assert game.wide_state_elems("K5", 77, d, 11) == (11 + 1) * d * 77
     assert game.wide_state_elems("K5", 77, d, 17) == (17 + 2) * d * 77
-    assert game.wide_state_elems("K6a", 1024, d, 16) == 3 * d * 1024
     assert game.wide_state_elems("K6b", 1024, d, 16) == 2 * d * 16 * 1024
     for shared in (True, False):
-        monkeypatch.setattr(game, "synthetic_plan",
-                            lambda dd, alg_flag=0: _k7_plan(dd, shared))
+        _stand_in_plans(monkeypatch, shared)
         assert game.wide_state_elems("K7", 16_384, d) == (
             _k7_plan(d, shared)["state"] * 16_384)
+        assert game.wide_state_elems("K3", 2048, d) == (
+            _k3_plan(d, shared)["state"] * 2048)
+        assert game.wide_state_elems("K6a", 1024, d, 16) == (
+            _k6a_plan(d, shared)["state"] * 1024)
     assert _k7_plan(d, True)["state"] == 0
+    assert _k3_plan(d, False)["state"] == -(-d // 4) * 4
+    assert _k6a_plan(d, False)["state"] == 2 * (-(-d // 4) * 4)
 
 
 # --------------------------- every launcher hands the library any d >= 1
@@ -328,11 +359,10 @@ def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
                             cuda_stream=0))
     monkeypatch.setattr(smart, "wide_state", spy)
     monkeypatch.setattr(game, "wide_state", spy)
-    # K7w's buffer follows the library's plan: here one that keeps the
-    # state in device memory (the plan that keeps it on the chip needs none:
-    # tests/test_torch_wide_redesign.py).
-    monkeypatch.setattr(game, "synthetic_plan",
-                        lambda dd, alg_flag=0: _k7_plan(dd, False))
+    # K3w's, K6aw's and K7w's buffers follow the library's plans: here
+    # ones that keep the state in device memory (the plans that keep it on
+    # the chip need none: tests/test_torch_wide_redesign.py).
+    _stand_in_plans(monkeypatch, False)
     name, plays, seqs, (module, counter) = ENTRIES[kernel]
     before = getattr(module, counter)
     _launch(kernel, d)()

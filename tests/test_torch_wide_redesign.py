@@ -1,6 +1,6 @@
-"""The premises of K5w's and K7w's designs past d = 512, held bit for bit
-against the plain versions on the CPU (the kernels themselves run on the
-card only: tests/test_torch_cuda.py).
+"""The premises of K5w's, K7w's, K3w's and K6aw's designs past d = 512,
+held bit for bit against the plain versions on the CPU (the kernels
+themselves run on the card only: tests/test_torch_cuda.py).
 
 - K5w (``csrc/sweep_kernel.cu`` ``sweep_wide_body``, ``PassQ`` /
   ``PassU``) plays a round in two passes over theta and keeps no x: q
@@ -21,6 +21,18 @@ card only: tests/test_torch_cuda.py).
 - K7w's host side: the launcher allocates the buffer the library's plan
   asks for (none where a warp's lines fit shared memory), and the plan's
   layout from the source's constants.
+- K3w (``csrc/game_kernel.cu`` ``packed_wide_kernel``) and K6aw
+  (``csrc/smart_sweep_kernel.cu`` ``smart_prefix_wide_kernel``) play a
+  sequence on a warp with the same lines (``oco_warp.cuh``): PyTorch
+  mirrors of their schedules (x formed from theta and the round's scale,
+  never stored; K3w's FTRL sums side by side and again where it projects,
+  FTL's in turn; K6aw's <x, w> of round t beside <z_{t+1}, x>, the
+  threshold walk) equal ``play_packed_reference`` and
+  ``smart_prefix_reference`` in every bit at d = 513 and 640, f64 and
+  f32, contract, replay and z = e1 tie batches; at d = 513 they stay
+  within the JAX package's tolerance of JAX ``play_packed`` (interpret
+  mode) and of its SMART sweep's switch rounds and prefix columns; their
+  launchers allocate what the library's plans ask for.
 """
 
 import contextlib
@@ -29,11 +41,16 @@ import os
 import re
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from online_convex_optimization_tpu_torch.ops import game
+from online_convex_optimization_tpu.models.smart import (
+    simulate_smart_batch as jax_smart_batch,
+)
+from online_convex_optimization_tpu.ops import pallas_game as jpg
+from online_convex_optimization_tpu_torch.ops import game, smart
 from online_convex_optimization_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
@@ -41,6 +58,8 @@ torch.set_num_threads(1)
 CSRC = os.path.join(os.path.dirname(__file__), os.pardir,
                     "online_convex_optimization_tpu_torch", "csrc")
 ETA = math.sqrt(2.0)
+F32_TOL = 5e-4
+X64_TOL = 1e-9
 
 
 def _neg_zero_sum(p: torch.Tensor) -> torch.Tensor:
@@ -263,13 +282,26 @@ def test_k7w_warp_split_equals_plain(d, alg_flag):
         assert torch.equal(zt, z[:, t]) and torch.equal(yt, y[:, t])
 
 
-def _source_constants():
-    with open(os.path.join(CSRC, "synthetic_kernel.cu")) as f:
+def _source_constants(source="synthetic_kernel.cu",
+                      names=("kWideLine", "kWideWarps", "kBlockSmem")):
+    """The named constants of a source (or of ``oco_warp.cuh``, which
+    holds the block's shared-memory limit of every warp-a-sequence plan),
+    and the gap between a line's two halves in float32 elements
+    (``oco_warp.cuh``: 16 bytes)."""
+    with open(os.path.join(CSRC, source)) as f:
         src = f.read()
-    return {name: int(re.search(rf"constexpr (?:int|long long) {name} = "
-                                rf"(\d+);", src).group(1))
-            for name in ("kWideLine", "kLineGap", "kWideWarps",
-                         "kBlockSmem")}
+    with open(os.path.join(CSRC, "oco_warp.cuh")) as f:
+        warp = f.read()
+
+    def value(name):
+        pattern = rf"constexpr (?:int|long long) {name} = (\d+);"
+        found = re.search(pattern, src) or re.search(pattern, warp)
+        return int(found.group(1))
+
+    out = {name: value(name) for name in names}
+    gap = re.search(r"constexpr int kLineGap = (\d+) / ", warp)
+    out["kLineGap"] = int(gap.group(1)) // 4
+    return out
 
 
 def test_k7w_lines_and_shared_boundary():
@@ -304,11 +336,20 @@ class _Library:
         self.plan = plan
         self.calls = []
 
-    def oco_synthetic_plan(self, alg_flag, d, out):
-        self.calls.append(("oco_synthetic_plan", (alg_flag, d)))
+    def _plan(self, name, args, out):
+        self.calls.append((name, args))
         for i, v in enumerate(self.plan):
             out[i] = v
         return 0
+
+    def oco_synthetic_plan(self, alg_flag, d, out):
+        return self._plan("oco_synthetic_plan", (alg_flag, d), out)
+
+    def oco_packed_plan(self, storage, d, out):
+        return self._plan("oco_packed_plan", (storage, d), out)
+
+    def oco_smart_prefix_plan(self, storage, d, out):
+        return self._plan("oco_smart_prefix_plan", (storage, d), out)
 
     def __getattr__(self, name):
         def entry(*args):
@@ -354,3 +395,367 @@ def test_k7w_launcher_follows_the_plan(monkeypatch, shared):
     else:
         assert buf.numel() == state * 8 * lanes
         assert args[-2] == buf.data_ptr()
+
+
+# ------------------------------------------------------------ K3w, K6aw
+#
+# Both play a sequence on a warp with the line of oco_warp.cuh: K3w's and
+# K6aw's products go to a line of 512 (two halves of 256 side by side),
+# one lane adding it in index order from -0, as K7w's do.
+
+SEQ_LINE = 512
+
+
+def k3w_mirror(z_tm, y_tm, scales, alg_flag):
+    """K3w's warp schedule on time-major ``(T, d, B)`` rows: x never
+    stored, formed from theta and the round's scale where a product needs
+    it; FTRL sums ||x||^2 and <z_t, x> side by side and <z_t, f x> again
+    where the round projects; FTL sums ||theta||^2, then q; the update
+    lane-parallel.  Returns ``(cum (B,), theta (d, B))`` and the share of
+    FTRL rounds that projected."""
+    T, d, B = z_tm.shape
+    theta = z_tm.new_zeros((B, d))
+    cum = z_tm.new_zeros((B,))
+    fired = 0
+    for t in range(T):
+        z, yt = z_tm[t].t(), y_tm[t]
+        if alg_flag == game.ALG_FTRL:
+            sc = scales[t]
+            x = sc * theta
+            nsq = _line_sum(x * x, SEQ_LINE // 2)
+            q = _line_sum(z * (sc * theta), SEQ_LINE // 2)
+            proj = nsq > 1.0
+            fired += int(proj.sum())
+            f = _inv_sqrt(nsq)[:, None]
+            q = torch.where(proj, _line_sum(z * (f * (sc * theta)),
+                                            SEQ_LINE), q)
+        else:
+            nsq = _line_sum(theta * theta, SEQ_LINE)
+            s = torch.where(nsq > 0, -_inv_sqrt(nsq), 0.0)[:, None]
+            q = _line_sum(z * (s * theta), SEQ_LINE)
+        diff = q - yt
+        cum = cum + 0.5 * torch.abs(diff)
+        theta = theta + (0.5 * torch.sign(diff))[:, None] * z
+    return (cum, theta.t().contiguous()), fired / (T * B)
+
+
+def k6aw_mirror(z, y, thresholds, lengths, *, replay):
+    """K6aw's warp schedule on ``(B, T, d)`` rows with ragged lengths: x =
+    s theta never stored (s the FTL scale of the last nsq, 0 at first);
+    round t: the update with q (summed the round before), nsq and s, then
+    round t's <x, w> beside round t + 1's <z_{t+1}, x> (only the one a
+    sequence still needs: <x, w> while thresholds remain, q while rounds
+    remain), then the threshold walk; the final <x, w> reused where the
+    last round summed it.  Returns ``smart_prefix_reference``'s
+    ``(partial, switch_t, comp)``."""
+    B, T, d = z.shape
+    G = thresholds.shape[0]
+    ordered, perm = torch.sort(thresholds, stable=True)
+    theta = z.new_zeros((B, d))
+    w = z.new_zeros((B, d))
+    s = z.new_zeros((B,))
+    F = z.new_zeros((B,))
+    cnt = z.new_zeros((B,))
+    k = torch.zeros((B,), dtype=torch.int64)
+    k_last = torch.zeros_like(k)
+    partial = z.new_zeros((B, G))
+    tau = torch.full((B, G), T, dtype=torch.int64)
+    xw = z.new_zeros((B,))
+    xw_final = torch.zeros((B,), dtype=torch.bool)
+    lengths = lengths.to(torch.int64)
+    q = _line_sum(z[:, 0] * (s[:, None] * theta), SEQ_LINE)
+    for t in range(int(lengths.max())):
+        on = lengths > t
+        yt = y[:, t]
+        diff = q - yt
+        g = 0.5 * torch.sign(diff)
+        theta = torch.where(on[:, None], theta + g[:, None] * z[:, t], theta)
+        w = torch.where(on[:, None], w + yt[:, None] * z[:, t], w)
+        F = torch.where(on, F + 0.5 * torch.abs(diff), F)
+        cnt = torch.where(on, cnt + 1.0, cnt)
+        more = on & (lengths > t + 1)
+        nsq = _line_sum(theta * theta, SEQ_LINE)
+        s = torch.where(on, torch.where(nsq > 0, -_inv_sqrt(nsq), 0.0), s)
+        k_last = torch.where(lengths == t + 1, k, k_last)
+        walk = on & (k < G)
+        x = s[:, None] * theta
+        xw = torch.where(walk, _line_sum(x * w, SEQ_LINE // 2), xw)
+        if t + 1 < T:
+            q = torch.where(more,
+                            _line_sum(z[:, t + 1] * x, SEQ_LINE // 2), q)
+        lead = F - 0.5 * (cnt - xw)
+        while True:
+            hit = walk & (k < G) & (lead >= ordered[k.clamp(max=G - 1)])
+            if not bool(hit.any()):
+                break
+            rows = torch.nonzero(hit)[:, 0]
+            cols = perm[k[hit]]
+            tau[rows, cols] = t
+            partial[rows, cols] = F[hit]
+            k = k + hit.to(torch.int64)
+        xw_final = torch.where(on, walk & ~more, xw_final)
+    x = s[:, None] * theta
+    if replay:
+        comp = z.new_zeros((B,))
+        for t in range(int(lengths.max())):
+            qc = _line_sum(z[:, t] * x, SEQ_LINE)
+            comp = torch.where(lengths > t,
+                               comp + 0.5 * torch.abs(qc - y[:, t]), comp)
+    else:
+        xw = torch.where(xw_final, xw, _line_sum(x * w, SEQ_LINE))
+        comp = 0.5 * (cnt - xw)
+    sorted_pos = torch.empty_like(perm)
+    sorted_pos[perm] = torch.arange(G)
+    no_tail = sorted_pos[None, :] >= k_last[:, None]
+    partial = torch.where(no_tail, (F - comp)[:, None], partial)
+    return partial, tau, comp
+
+
+def _e1_batch(B, T, d, seed, dtype):
+    """The z = e1 family: every row e1, labels +-1 from the seed; FTL's
+    q = y ties and integer leads (with thresholds sqrt(2T) / m at T = 200,
+    sqrt(400) = 20)."""
+    rng = np.random.default_rng(seed)
+    z = np.zeros((B, T, d))
+    z[..., 0] = 1.0
+    y = np.where(rng.random((B, T)) < 0.5, -1.0, 1.0)
+    lengths = rng.integers(T // 2, T + 1, size=B)
+    lengths[0] = T
+    return (torch.as_tensor(z, dtype=dtype), torch.as_tensor(y, dtype=dtype),
+            torch.as_tensor(lengths, dtype=torch.int32))
+
+
+def _mirror_batches(d, dtype):
+    """(name, z, y, lengths, contract) for the mirrors: a contract batch,
+    a replay batch and the tie family."""
+    out = []
+    for contract in (True, False):
+        z, y, ln = _sweep_batch(6, 12, d, d + 7 * int(contract), contract,
+                                dtype)
+        out.append(("contract" if contract else "replay", z, y, ln,
+                    contract))
+    z, y, ln = _e1_batch(5, 200, d, d, dtype)
+    out.append(("e1 ties", z, y, ln, True))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [513, 640])
+def test_k3w_warp_schedule_equals_plain(d, dtype):
+    """K3w's schedule equals ``play_packed_reference`` in every bit, FTRL
+    (eta up to 4, so that rounds project) and FTL, on a contract batch, a
+    replay batch (zero rows past the lengths) and the z = e1 ties."""
+    fired = []
+    for name, z, y, ln, _ in _mirror_batches(d, dtype):
+        valid = torch.arange(z.shape[1])[None, :] < ln[:, None]
+        z_tm, y_tm = game.time_major(torch.where(valid[..., None], z, 0.0),
+                                     torch.where(valid, y, 0.0))
+        for eta, flags in ((0.5, (game.ALG_FTRL, game.ALG_FTL)),
+                           (4.0, (game.ALG_FTRL,))):
+            scales = game.ftrl_scales(z.shape[1], eta, dtype=dtype,
+                                      device="cpu")
+            for flag in flags:
+                got, share = k3w_mirror(z_tm, y_tm, scales, flag)
+                want = game.play_packed_reference(z_tm, y_tm, scales, flag)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    name, eta, flag)
+                if flag == game.ALG_FTRL:
+                    fired.append(share)
+    assert max(fired) > 0.0 and min(fired) < 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [513, 640])
+def test_k6aw_warp_schedule_equals_plain(d, dtype):
+    """K6aw's schedule (<x, w> of round t beside <z_{t+1}, x>, no stored
+    x, the threshold walk) equals ``smart_prefix_reference`` in every bit
+    on a contract batch, a replay batch (the replay comparator) and the z
+    = e1 ties at integer thresholds, pairs switching early, late and
+    never."""
+    for name, z, y, ln, contract in _mirror_batches(d, dtype):
+        T = z.shape[1]
+        if name == "e1 ties":
+            ths = torch.tensor([1.0, 2.0, 5.0, math.sqrt(2.0 * T), 1e30],
+                               dtype=dtype)
+        else:
+            ths = torch.tensor([0.1, 0.5, 0.3, 1e30], dtype=dtype) * \
+                math.sqrt(2.0 * T)
+        got = k6aw_mirror(z, y, ths, ln, replay=not contract)
+        want = smart.smart_prefix_reference(z, y, ths, ln,
+                                            replay=not contract)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        tau = got[1]
+        assert bool((tau < T).any()) and bool((tau == T).any()), name
+
+
+@pytest.mark.parametrize("alg_flag", [0, 1])
+def test_k3w_mirror_matches_jax_kernel_interpret(alg_flag):
+    """At d = 513 K3w's schedule against JAX ``play_packed`` (its
+    VMEM-state twin) in interpret mode on one packed tile of sequences,
+    T = 4, float32: cum and theta within 5e-4, the tolerance
+    ``tests/test_torch_wide_d_sweeps.py`` holds the plain version to."""
+    Tk, d = 4, 513
+    rng = np.random.default_rng(190 + alg_flag)
+    z = rng.normal(size=(jpg.SEQ_TILE, Tk, d))
+    z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
+    y = np.where(rng.random((jpg.SEQ_TILE, Tk)) < 0.5, -1.0, 1.0)
+    z32, y32 = z.astype(np.float32), y.astype(np.float32)
+    zp, yp, Bp = jpg.pack_sequences(jnp.asarray(z32), jnp.asarray(y32))
+    scales = jpg.ftrl_scales(Tk, 4.0)
+    cum_j, th_j = jpg.play_packed(zp, yp, scales, alg_flag=alg_flag,
+                                  interpret=True)
+    z_tm, y_tm = game.time_major(torch.from_numpy(z32), torch.from_numpy(y32))
+    (cum, theta), _ = k3w_mirror(z_tm, y_tm,
+                                 torch.tensor(np.asarray(scales)),
+                                 alg_flag)
+    np.testing.assert_allclose(cum.numpy(), np.asarray(
+        jpg.unpack_result(cum_j, Bp)), rtol=0, atol=F32_TOL)
+    np.testing.assert_allclose(
+        theta.numpy(),
+        np.stack([np.asarray(jpg.unpack_result(th_j[j], Bp))
+                  for j in range(d)]), rtol=0, atol=F32_TOL)
+
+
+def test_k6aw_mirror_matches_jax_sweep_prefix_columns():
+    """At d = 513 K6aw's schedule against the JAX package's SMART sweep
+    in x64, ``simulate_smart_batch`` on the (sequence, threshold) cross
+    product (the route ``smart_threshold_sweep`` takes off the TPU; JAX's
+    ``smart_sweep_packed`` in interpret mode at d = 513 runs for many
+    minutes on a CPU): every pair's switch round equal, and the regret of
+    every pair without a tail (never switched, or at its last round)
+    within 1e-9, the tolerance ``tests/test_torch_wide_d_sweeps.py`` holds
+    the plain sweep to."""
+    B, Tk, d = 8, 40, 513
+    z, y, ln = _sweep_batch(B, Tk, d, 192, True, torch.float64)
+    grid = np.array([0.7, 1.5, 3.0, 1e6])
+    G = grid.shape[0]
+    partial, tau, _ = k6aw_mirror(z, y, torch.as_tensor(grid), ln,
+                                  replay=False)
+    res = jax_smart_batch(jnp.repeat(jnp.asarray(z.numpy()), G, axis=0),
+                          jnp.repeat(jnp.asarray(y.numpy()), G, axis=0),
+                          jnp.tile(jnp.asarray(grid), B),
+                          jnp.full((B * G,), ETA),
+                          jnp.repeat(jnp.asarray(ln.numpy()), G))
+    np.testing.assert_array_equal(tau.numpy(),
+                                  np.asarray(res.switch_t).reshape(B, G))
+    no_tail = tau.numpy() >= ln.numpy()[:, None] - 1
+    np.testing.assert_allclose(
+        partial.numpy()[no_tail],
+        np.asarray(res.regret).reshape(B, G)[no_tail], rtol=0,
+        atol=X64_TOL)
+    assert no_tail.any() and not no_tail.all()
+
+
+def _stand_in(monkeypatch, lib):
+    monkeypatch.setattr(cuda_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+
+
+@pytest.mark.parametrize("storage", [torch.float64, torch.float32,
+                                     torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("kernel", ["K3", "K6a"])
+def test_k3w_k6aw_launchers_follow_the_plans(monkeypatch, kernel, shared,
+                                             storage):
+    """``packed_plan`` and ``prefix_plan`` read the library's plan for z's
+    storage (0 f32, 1 f64, 2 bf16) in its order, and the launchers hand
+    the library a null state where the plan keeps the sequence's state in
+    shared memory, else a buffer of the plan's elements a sequence in the
+    compute dtype."""
+    d, B, T = 1024, 5, 4
+    state = 0 if shared else (1 if kernel == "K3" else 2) * d
+    lib = _Library((8, 106_880, int(shared), state, 2_333))
+    _stand_in(monkeypatch, lib)
+    plan_fn, entry = {"K3": (game.packed_plan, "oco_packed_plan"),
+                      "K6a": (game.prefix_plan, "oco_smart_prefix_plan")
+                      }[kernel]
+    code = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}[storage]
+    assert plan_fn(d, storage) == {
+        "warps": 8, "smem_bytes": 106_880, "shared": shared, "state": state,
+        "max_shared_d": 2_333}
+    assert lib.calls == [(entry, (code, d))]
+    buffers = []
+    allocate = game.wide_state
+
+    def spy(*args):
+        buffers.append(allocate(*args))
+        return buffers[-1]
+
+    monkeypatch.setattr(game, "wide_state", spy)
+    monkeypatch.setattr(smart, "wide_state", spy)
+    y_dtype = torch.int8 if storage == torch.bfloat16 else storage
+    z = torch.zeros((B, T, d), dtype=storage)
+    y = torch.ones((B, T), dtype=y_dtype)
+    ln = torch.full((B,), T, dtype=torch.int32)
+    compute = game.compute_dtype(storage)
+    if kernel == "K3":
+        z_tm, y_tm = game.time_major(z, y)
+        before = game.PACKED_LAUNCHES
+        game.launch_play_packed(z_tm, y_tm, torch.ones(T, dtype=compute), 0)
+        assert game.PACKED_LAUNCHES == before + 1
+    else:
+        before = smart.SWEEP_LAUNCHES
+        smart.launch_smart_prefix(z, y, torch.ones(2, dtype=compute),
+                                  torch.arange(2, dtype=torch.int32),
+                                  game.length_order(ln), ln, False)
+        assert smart.SWEEP_LAUNCHES == before + 1
+    name, args = lib.calls[-1]
+    assert name.startswith("oco_play_packed_" if kernel == "K3"
+                           else "oco_smart_prefix_") and d in args
+    assert lib.calls[-2] == (entry, (code, d))
+    (buf,) = buffers
+    if shared:
+        assert buf is None and args[-2] is None
+    else:
+        assert buf.numel() == state * B and buf.dtype == compute
+        assert args[-2] == buf.data_ptr()
+
+
+def test_k3w_k6aw_lines_and_shared_boundaries():
+    """K3w's and K6aw's shared memory as the sources size it: lines of
+    512 products (and the 16-byte gap); K3w's block of W = 32 / sizeof(z)
+    warps holds two stages of 4-byte units (8-byte in f64) transposed to
+    columns of d rounded up to 32 and 4 more, W thetas and W lines
+    (115,072 bytes in f32 at d = 1,024: two blocks, 16 warps, in an SM's
+    228 KB; bf16 172,576, one block of 16); K6aw's warp holds theta, w,
+    the 16-byte window of a row and its line (28,704 bytes in f64 at d =
+    1,024: 8 warps, the path's 1,024 sequences in one wave on 132 SMs).
+    Each boundary lies past the path's d = 1,024."""
+    k3 = _source_constants("game_kernel.cu", ("kSeqLine", "kBlockSmem"))
+    k6 = _source_constants("smart_sweep_kernel.cu",
+                           ("kPrefixLine", "kPrefixWarps", "kBlockSmem"))
+    assert k3["kSeqLine"] == k6["kPrefixLine"] == SEQ_LINE
+    assert k3["kBlockSmem"] == k6["kBlockSmem"] == 232448
+    assert k6["kPrefixWarps"] == 8
+
+    def up4(d):
+        return -(-d // 4) * 4
+
+    def k3_block(d, z_bytes):
+        w = 32 // z_bytes
+        unit = 8 if z_bytes == 8 else 4
+        units = w * z_bytes // unit + (1 if z_bytes < unit else 0)
+        pitch = -(-d // 32) * 32 + 4
+        s = 8 if z_bytes == 8 else 4
+        return (2 * units * pitch * unit + w * up4(d) * s
+                + w * (SEQ_LINE + 16 // s) * s)
+
+    def k6_warp(d, z_bytes, s):
+        return (2 * up4(d) * s + (-(-d * z_bytes // 16)) * 16 + 16
+                + (SEQ_LINE + 16 // s) * s)
+
+    assert k3_block(1024, 4) == 115_072 and 2 * (115_072 + 1024) <= 233_472
+    assert k3_block(1024, 2) == 172_576
+    assert k3_block(1024, 8) == 115_008
+    assert k6_warp(1024, 8, 8) == 28_704
+    assert 8 * 28_704 <= k6["kBlockSmem"] and 8 * 132 >= 1024
+    for block, fits in ((lambda d: k3_block(d, 4), 2240),
+                        (lambda d: k3_block(d, 2), 1452),
+                        (lambda d: k6_warp(d, 8, 8), 9512),
+                        (lambda d: k6_warp(d, 4, 4), 19196)):
+        assert block(fits) <= k3["kBlockSmem"] < block(fits + 1)
+        assert fits > 1024
