@@ -220,7 +220,9 @@ non-zero without printing a result):
                solve at the Newton passes the kernels report (``passes``;
                the card's tests hold them to the plain mirror's).
   15. wide d  — K1, K2 and K4 past d = 512 (their wide instances K1w, K2w,
-               K4w, state in a (d, slots) device buffer): the main path at
+               K4w; K1w a play a warp and K4w a sequence a warp, theta in
+               shared memory; K2w's state in a (d, slots) device buffer):
+               the main path at
                full width with the counts set to 0 just before it
                (``regret_plays`` with FTRL and FTL as two plays at B=1,024
                T=1,000 d=1,024 f64 and at B=2,048 T=1,024 f32, and at
@@ -248,7 +250,11 @@ non-zero without printing a result):
                the upcast values (B=2,048, T=1,024); the path shapes timed
                (regenerated from their seeds, digests equal to the main
                path's) with their bounds, registers, warps an SM and local
-               frames, the last the same at every d past 512.
+               frames, the last the same at every d past 512; K1w's and
+               K4w's plans (warps a block, shared memory a block, state
+               buffer bytes, the shared boundary) and design floors (FTL's
+               two chains of d dependent adds a round over the rounds,
+               times the waves of sequences the plan fits on the card).
   16. wide d sweeps — K3, K3e, K5, K6a, K6b and K7 past d = 512 (their wide
                instances K3w, K3ew, K5w, K6aw, K6bw, K7w): the main path
                with the counts set to 0 just before it (ftrl_eta_sweep,
@@ -304,7 +310,8 @@ and plain times from the plain versions on the same inputs (K8w's on
 every 4th sequence, in calls of 512 sequences, summed).  K1w, K2w and
 K4w (phase 15) have an entry each at their path shapes (K1w and K2w
 f64, B=1,024 T=1,000 d=1,024; K4w f32, B=2,048 d=1,024, the 4 chunks'
-launches together), their errors from the cut shapes' plain checks and
+launches together; K1w and K4w with their plans and design floors),
+their errors from the cut shapes' plain checks and
 their plain times at the cut shape d=1,024 T=32 f64, as their
 ``max_abs_err_at`` and ``plain_ms_at`` keys say (at the path's T=1,000
 each plain version would take 1-1.5 minutes); so do K3w, K3ew, K5w, K6aw,
@@ -4203,6 +4210,46 @@ def wide_occupancy(name, d, dtype):
     return game.stream_occupancy(d, dtype)
 
 
+def wide_plan_fields(name, B, d, dtype, occ, rounds, chains=2) -> dict:
+    """K1w's (two plays) or K4w's plan at d: warps a block, shared memory a
+    block, state buffer bytes and the shared boundary; and its design
+    floor: ``chains`` chains of d dependent adds a round (FTL's two; one
+    where every play is FTRL and none projects) over ``rounds`` rounds at
+    ADD_CLOCKS, times the waves of sequences that ``occ``'s resident warps
+    an SM hold on the card's SMs (a sequence a block of two play-warps for
+    K1w, a warp for K4w)."""
+    plan = (game.regret_plan(d, 2, dtype) if name == "K1w"
+            else game.stream_plan(d, dtype))
+    kernel, plays = ("K1", 2) if name == "K1w" else ("K4", 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_wave = occ[1] // plays * sms
+    waves = -(-B // per_wave)
+    ms = waves * rounds * chains * d * ADD_CLOCKS[dtype] / SM_CLOCK_HZ * 1e3
+    return {"warps_per_block": plan["warps"],
+            "shared_bytes": plan["smem_bytes"],
+            "state_on_chip": plan["shared"],
+            "on_chip_to_d": plan["max_shared_d"],
+            "buffer_bytes": game.wide_state_elems(kernel, B, d, plays, dtype)
+            * item(dtype),
+            "design_floor_ms": ms,
+            "design_floor_by": f"{chains} chain(s) of d adds a round over "
+                               f"{rounds} rounds, {ADD_CLOCKS[dtype]} clocks "
+                               f"an add, {waves} wave(s) of {per_wave} "
+                               f"sequences"}
+
+
+def wide_plan_text(plan) -> str:
+    """A timing line's words for ``wide_plan_fields`` (none for K2w)."""
+    if not plan:
+        return ""
+    return (f"; {plan['warps_per_block']} warps a block, "
+            f"{plan['shared_bytes']} B of shared memory a block, state "
+            f"{'on the chip' if plan['state_on_chip'] else 'in the buffer'} "
+            f"(on the chip to d = {plan['on_chip_to_d']}), state buffer "
+            f"{plan['buffer_bytes']} B; design floor "
+            f"{plan['design_floor_ms']:.4f} ms ({plan['design_floor_by']})")
+
+
 def wide_timing(digests, tau):
     """The path shapes timed on inputs regenerated from their seeds (the
     outputs' digests must equal the main path's), with their bounds,
@@ -4217,29 +4264,31 @@ def wide_timing(digests, tau):
                              device="cuda").expand(-1, B).contiguous()
         table = game.eta_table(ETA, B, T, dtype, "cuda")
         ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        occ = wide_occupancy("K1w", d, dtype)
         runs = {f"K1w {key}": (
             lambda: game.launch_regrets(z, y, flags, *table, ln, False),
-            wide_k1_bound(B, T, d, 2, dtype),
-            wide_occupancy("K1w", d, dtype), key)}
+            wide_k1_bound(B, T, d, 2, dtype), occ, key,
+            wide_plan_fields("K1w", B, d, dtype, occ, T))}
         if key == "k1f64":
             ths = wide_thresholds(B, T, dtype)
             runs["K2w"] = (
                 lambda: smart.launch_smart(z, y, ths, *table, ln, False),
                 wide_k2_bound(B, T, d, tau, dtype),
-                wide_occupancy("K2w", d, dtype), "k2")
-        for name, (fn, bd, occ, dig) in runs.items():
+                wide_occupancy("K2w", d, dtype), "k2", {})
+        for name, (fn, bd, occ, dig, plan) in runs.items():
             outs = fn()
             ms = time_ms(fn, reps=3, warm=True)
             check(output_digest(outs) == digests[dig],
                   f"{name}: the timed launch's digest differs from the main "
                   f"path's")
             out[name] = {"ms": ms[0], **bd, "registers": occ[0],
-                         "warps_per_sm": occ[1], "local_bytes": occ[2]}
+                         "warps_per_sm": occ[1], "local_bytes": occ[2],
+                         **plan}
             print(f"[15 wide d] {name} B={B} T={T} d={d} {dtype}: kernel "
                   f"{ms[0]:.4f} ms (min {ms[1]:.4f}, max {ms[2]:.4f}; 3 "
                   f"launches); bound {bd['bound_ms']:.4f} ms by "
                   f"{bd['bound_by']}; {occ[0]} registers, {occ[1]} warps an "
-                  f"SM, local frame {occ[2]} B")
+                  f"SM, local frame {occ[2]} B" + wide_plan_text(plan))
         del z, y, runs
         torch.cuda.empty_cache()
     chunks = wide_stream_chunks()
@@ -4260,14 +4309,16 @@ def wide_timing(digests, tau):
     bd = wide_k4_bound(WIDE_K4_B, WIDE_K4_CT, WIDE_D, WIDE_K4_CHUNKS,
                        torch.float32)
     occ = wide_occupancy("K4w", WIDE_D, torch.float32)
+    plan = wide_plan_fields("K4w", WIDE_K4_B, WIDE_D, torch.float32, occ,
+                            WIDE_K4_CHUNKS * WIDE_K4_CT)
     out["K4w"] = {"ms": ms[0], **bd, "registers": occ[0],
-                  "warps_per_sm": occ[1], "local_bytes": occ[2]}
+                  "warps_per_sm": occ[1], "local_bytes": occ[2], **plan}
     print(f"[15 wide d] K4w B={WIDE_K4_B} d={WIDE_D} f32, {WIDE_K4_CHUNKS} "
           f"chunks of {WIDE_K4_CT}: kernels {ms[0]:.4f} ms for the "
           f"{WIDE_K4_CHUNKS} launches (min {ms[1]:.4f}, max {ms[2]:.4f}; 3 "
           f"runs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
           f"{occ[0]} registers, {occ[1]} warps an SM, local frame {occ[2]} "
-          f"B")
+          f"B" + wide_plan_text(plan))
     frames = {f"{name} {str(dtype)[6:]}": sorted(
         {wide_occupancy(name, d, dtype)[2] for d in (513, 1024, 2048, 65536)})
         for name in ("K1w", "K2w", "K4w")
@@ -5012,8 +5063,9 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/quad_game_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_trs.py:206",
          "launches": wide_launches["K8w"], **wide_timing["K8w"]},
-        {"name": "regret_kernel (K1w: K1 past d = 512, state in a (d, "
-                 "slots) device buffer)",
+        {"name": "regret_wide_kernel (K1w: K1 past d = 512, a play a "
+                 "warp, the plays' thetas and the sequence's w in shared "
+                 "memory, its rows staged once for the plays)",
          "route": "cuda",
          "source": "online_convex_optimization_tpu_torch/csrc/regret_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:226",
@@ -5024,8 +5076,9 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/smart_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:108",
          "launches": wide_d_launches["K2w"], **wide_d_timing["K2w"]},
-        {"name": "stream_kernel (K4w: K4 past d = 512, state in the carry "
-                 "and a (d, B) device buffer)",
+        {"name": "stream_wide_kernel (K4w: K4 past d = 512, a sequence a "
+                 "warp, theta and w in shared memory, the block's "
+                 "time-major rows staged once)",
          "route": "cuda",
          "source": "online_convex_optimization_tpu_torch/csrc/stream_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:871",

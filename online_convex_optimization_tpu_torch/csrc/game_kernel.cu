@@ -36,7 +36,7 @@
 // theta_out (d, B), zeroed first, and x is vector 0 of slot b of the
 // caller's (d, B) state buffer (oco::state_vec); each row is read from the
 // time-major input where it is used (an oco::Widened view, coalesced
-// across the warp, as K4w reads it).  The same round in the same order:
+// across the warp).  The same round in the same order:
 // K3ew equals its plain version bit for bit at any d.
 //
 // K3w (K3 past d = 512, packed_wide_kernel) plays a sequence on a warp.
@@ -72,9 +72,6 @@
 // elements from the time-major rows (the block's warps read the same
 // sectors, through L1): the library's plan (oco_packed_plan) reports the
 // boundary, and the wrapper allocates the buffer it asks for.
-#include <type_traits>
-
-#include "oco_tiles.cuh"
 #include "oco_warp.cuh"
 
 namespace {
@@ -93,40 +90,14 @@ constexpr int kSeqUnroll = 4;
 
 using oco::up4;
 
-// Sequences (warps) a K3w block: one 32-byte sector of elements a (t, j).
 template <typename Z>
-constexpr int kSeqWarps = 32 / static_cast<int>(sizeof(Z));
-
-// The unit a stage copies: the element in f64, else a 4-byte word (a bf16
-// pair in bf16), and the units of a row's window: the block's W elements,
-// and one more where a unit holds two (the first may lie in its second
-// half).
-template <typename Z>
-using Unit =
-    std::conditional_t<sizeof(Z) == 8, unsigned long long, unsigned>;
-template <typename Z>
-constexpr int kRowUnits =
-    static_cast<int>(kSeqWarps<Z> * sizeof(Z) / sizeof(Unit<Z>)) +
-    (sizeof(Z) < sizeof(Unit<Z>) ? 1 : 0);
-
-// Units between two columns of a stage: d rounded up to 32, and 4 more,
-// so that a copying warp's 32 units (4 rows of 8 columns in f32) fall in
-// 32 banks.
-__host__ __device__ inline long long stage_pitch(int d) {
-  return ((d + 31LL) & ~31LL) + 4;
-}
-
-template <typename Z>
-__host__ __device__ inline long long stage_bytes(int d) {
-  return kRowUnits<Z> * stage_pitch(d) *
-         static_cast<long long>(sizeof(Unit<Z>));
-}
+constexpr int kSeqWarps = oco::kTileWarps<Z>;
 
 // Bytes of a block's shared memory: two stages and W thetas (shared),
 // then W product lines.
 template <typename Z, typename S = oco::compute_t<Z>>
 __host__ __device__ inline long long packed_state_bytes(int d, bool shared) {
-  return shared ? 2 * stage_bytes<Z>(d) +
+  return shared ? 2 * oco::tile_stage_bytes<Z>(d) +
                       kSeqWarps<Z> * up4(d) * static_cast<long long>(sizeof(S))
                 : 0;
 }
@@ -144,68 +115,32 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                    const S* __restrict__ scales, long long T, long long B,
                    int d, int alg_flag, S* __restrict__ cum_out,
                    S* __restrict__ theta_out, S* state) {
-  using U = Unit<Z>;
-  constexpr int W = kSeqWarps<Z>, Q = kRowUnits<Z>;
-  // Rows a pass of the block's copies covers, a thread taking unit q.
-  constexpr int R = 32 * W / Q;
+  using U = oco::TileUnit<Z>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long b0 = static_cast<long long>(blockIdx.x) * W;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kSeqWarps<Z>;
   const long long b = b0 + warp;
   // A warp with no sequence stays for the block's copies and barriers;
   // past the shared boundary no barrier spans the block's warps.
   const bool live = b < B;
   if (!kShared && !live) return;
   const int n = d;
-  const long long pitch = stage_pitch(n);
-  const long long stage_units = stage_bytes<Z>(n) / sizeof(U);
+  const long long stage_units = oco::tile_stage_bytes<Z>(n) / sizeof(U);
   U* stages = reinterpret_cast<U*>(smem);
-  S* th = kShared ? reinterpret_cast<S*>(smem + 2 * stage_bytes<Z>(n)) +
+  S* th = kShared ? reinterpret_cast<S*>(
+                        smem + 2 * oco::tile_stage_bytes<Z>(n)) +
                         warp * up4(n)
                   : state + b * up4(n);
   S* line = reinterpret_cast<S*>(smem + packed_state_bytes<Z>(n, kShared)) +
             warp * oco::line_elems<S, kSeqLine>();
-
-  // Round t's tile into a stage: unit q of row j's window, the aligned
-  // units around the block's elements z[t, j, b0 .. b0 + nb), at column q,
-  // row j.  A unit holds an element of the row, so it lies in that
-  // element's page.
-  const int nb = static_cast<int>(min(static_cast<long long>(W), B - b0));
-  const int q0 = threadIdx.x % Q, j0 = threadIdx.x / Q;
-  const auto fetch = [&](long long t, U* stage) {
-    if (j0 >= R) return;
-    const Z* first = z + (t * n + j0) * B + b0;
-    for (int j = j0; j < n; j += R, first += R * B) {
-      const auto a = reinterpret_cast<unsigned long long>(first);
-      const int off = static_cast<int>(a & (sizeof(U) - 1));
-      if (q0 * static_cast<int>(sizeof(U)) <
-          off + nb * static_cast<int>(sizeof(Z)))
-        oco::copy_async(stage + q0 * pitch + j,
-                        reinterpret_cast<const U*>(a & ~(sizeof(U) - 1)) +
-                            q0);
-    }
-  };
+  const oco::TimeMajorTile<Z> tile(z, B, b0, n);
   // Element j of the warp's row t: from the stage, or (past the boundary)
-  // from the time-major rows.  In bf16 a row's window starts at its first
-  // element or at the one before it, as that element's address is 4-byte
-  // aligned or not: the parity of z's half-word address and, where B is
-  // odd, of t n + j (b0 is even).
-  const bool odd_b = (B & 1) != 0;
-  const int z_half =
-      static_cast<int>((reinterpret_cast<unsigned long long>(z) >> 1) & 1);
+  // from the time-major rows.
   const auto z_at = [&](const U* stage, long long t, int j) -> S {
-    if constexpr (!kShared) {
+    if constexpr (kShared)
+      return tile.at(stage, t, j, warp);
+    else
       return S(oco::widen(z[(t * n + j) * B + b]));
-    } else if constexpr (sizeof(Z) == sizeof(U)) {
-      return S(oco::widen(
-          reinterpret_cast<const Z*>(stage + warp * pitch)[j]));
-    } else {
-      // bf16: element `warp` is half e & 1 of unit e >> 1.
-      const int e = (z_half ^ (odd_b && ((t * n + j) & 1))) + warp;
-      const unsigned u = stage[(e >> 1) * pitch + j];
-      return S(oco::widen(
-          oco::bf16{static_cast<unsigned short>(u >> (16 * (e & 1)))}));
-    }
   };
 
   for (int j = lane; j < n; j += 32) th[j] = S(0);
@@ -214,7 +149,7 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   S sc_next = T > 0 && ftrl ? scales[0] : S(0);
   S y_next = T > 0 && live ? S(oco::widen(y[b])) : S(0);
   if constexpr (kShared) {
-    if (T > 0) fetch(0, stages);
+    if (T > 0) tile.fetch(0, stages);
     oco::commit_copies();
   }
   for (long long t = 0; t < T; ++t) {
@@ -223,7 +158,8 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       oco::wait_copies<0>();
       __syncthreads();  // round t landed; round t - 1's stage is free
       stage = stages + (t & 1) * stage_units;
-      if (t + 1 < T) fetch(t + 1, stages + ((t + 1) & 1) * stage_units);
+      if (t + 1 < T)
+        tile.fetch(t + 1, stages + ((t + 1) & 1) * stage_units);
       oco::commit_copies();
       if (!live) continue;
     }
@@ -232,31 +168,16 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       if (ftrl) sc_next = scales[t + 1];
       y_next = S(oco::widen(y[(t + 1) * B + b]));
     }
+    const auto z = [&](int j) { return z_at(stage, t, j); };
     S q;
     if (ftrl) {
-      // ftrl_action_scaled: x = sc theta, projected iff ||x||^2 > 1.
-      const auto sums = oco::warp_dot2<kSeqLine, true>(
-          line, n, lane,
-          [&](int j) {
-            const S x = sc * th[j];
-            return x * x;
-          },
-          [&](int j) { return z_at(stage, t, j) * (sc * th[j]); });
-      q = sums.y;
-      if (sums.x > S(1)) {
-        const S f = S(1) / oco::osqrt(sums.x);
-        q = oco::warp_dot<kSeqLine, true>(line, n, lane, [&](int j) {
-          return z_at(stage, t, j) * (f * (sc * th[j]));
-        });
-      }
+      S f;
+      bool proj;
+      q = oco::ftrl_q<kSeqLine>(line, n, lane, sc, th, z, f, proj);
     } else {
-      // ftl_action: x = -theta / ||theta||, 0 at theta == 0.
-      const S nsq = oco::warp_dot<kSeqLine, true>(
-          line, n, lane, [&](int j) { return th[j] * th[j]; });
-      const S s = nsq > S(0) ? -(S(1) / oco::osqrt(nsq)) : S(0);
-      q = oco::warp_dot<kSeqLine, true>(line, n, lane, [&](int j) {
-        return z_at(stage, t, j) * (s * th[j]);
-      });
+      const S s = oco::ftl_scale<kSeqLine>(line, n, lane, th);
+      q = oco::warp_dot<kSeqLine, true>(
+          line, n, lane, [&](int j) { return z(j) * (s * th[j]); });
     }
     // hinge_step, then update.
     const S diff = q - yt;

@@ -1,5 +1,6 @@
-// The sums of the wide instances that play one sequence on a warp (K7w,
-// K3w, K6aw).
+// The sums of the wide instances that play one sequence (or one play of
+// it) on a warp (K7w, K3w, K4w, K6aw, K1w), and the time-major tiles of
+// K3w and K4w.
 //
 // Lane l holds elements j = l + 32 m of the sequence's vectors.  A sum over
 // j of products prod(j) is formed in index order, as the thread-a-sequence
@@ -17,6 +18,8 @@
 // shared-memory limit, the boundary search (max_shared_d) and the choice
 // of warps a block (best_block).
 #pragma once
+
+#include <type_traits>
 
 #include "oco_tiles.cuh"
 
@@ -193,10 +196,145 @@ __device__ __forceinline__ Sums2<S> warp_dot2(S* line, int n, int lane,
   return {__shfl_sync(kFullMask, acc, 0), __shfl_sync(kFullMask, acc, 1)};
 }
 
+// An FTRL round's q = <z_t, x> for the action x = sc theta, projected iff
+// ||x||^2 > 1 (ftrl_action_scaled, then hinge_step's dot): ||x||^2 and
+// <z_t, x> side by side, and <z_t, f x> again, f = 1 / sqrt(||x||^2),
+// only where the round projects.  z(j) is element j of z_t; f is set to
+// the action's factor (1 where it does not project), so that x_j is
+// f * (sc * theta_j) there and sc * theta_j elsewhere.
+template <int kLine, typename S, typename Z>
+__device__ __forceinline__ S ftrl_q(S* line, int n, int lane, S sc,
+                                    const S* th, Z&& z, S& f, bool& proj) {
+  const auto sums = warp_dot2<kLine, true>(
+      line, n, lane,
+      [&](int j) {
+        const S x = sc * th[j];
+        return x * x;
+      },
+      [&](int j) { return z(j) * (sc * th[j]); });
+  proj = sums.x > S(1);
+  f = S(1);
+  if (!proj) return sums.y;
+  f = S(1) / osqrt(sums.x);
+  return warp_dot<kLine, true>(line, n, lane, [&](int j) {
+    return z(j) * (f * (sc * th[j]));
+  });
+}
+
+// The FTL action's scale s = -1 / ||theta|| (0 at theta == 0), x = s theta
+// (ftl_action).
+template <int kLine, typename S>
+__device__ __forceinline__ S ftl_scale(S* line, int n, int lane,
+                                       const S* th) {
+  const S nsq = warp_dot<kLine, true>(
+      line, n, lane, [&](int j) { return th[j] * th[j]; });
+  return nsq > S(0) ? -(S(1) / osqrt(nsq)) : S(0);
+}
+
 // Rounds a count of elements up to a multiple of 4.
 __host__ __device__ inline long long up4(long long v) {
   return (v + 3) & ~3LL;
 }
+
+// ---------------------------------------------- time-major tiles (K3w, K4w)
+//
+// A block that plays W = 32 / sizeof(z element) consecutive sequences of
+// the time-major (T, d, B) rows, a warp each (8 in f32, 16 in bf16, 4 in
+// f64), reads one 32-byte sector of z at each (t, j).  It copies round
+// t + 1's d x W tile into a shared stage with cp.async while it plays
+// round t (two stages, one barrier a round), so each row crosses L2 once a
+// block.  The stage is transposed on the way in: unit q of row j's window
+// (a 4-byte word, or the f64 element) lands in column q at j, so warp w
+// reads its sequence's elements j = l + 32 m as neighbouring words, with
+// no bank conflict (a sector's 32 bytes copied whole would put every
+// lane's element in 4 banks).
+
+// Sequences (warps) a block: one 32-byte sector of elements a (t, j).
+template <typename Z>
+constexpr int kTileWarps = 32 / static_cast<int>(sizeof(Z));
+
+// The unit a stage copies: the element in f64, else a 4-byte word (a bf16
+// pair in bf16), and the units of a row's window: the block's W elements,
+// and one more where a unit holds two (the first may lie in its second
+// half).
+template <typename Z>
+using TileUnit =
+    std::conditional_t<sizeof(Z) == 8, unsigned long long, unsigned>;
+template <typename Z>
+constexpr int kTileUnits =
+    static_cast<int>(kTileWarps<Z> * sizeof(Z) / sizeof(TileUnit<Z>)) +
+    (sizeof(Z) < sizeof(TileUnit<Z>) ? 1 : 0);
+
+// Units between two columns of a stage: d rounded up to 32, and 4 more,
+// so that a copying warp's 32 units (4 rows of 8 columns in f32) fall in
+// 32 banks.
+__host__ __device__ inline long long tile_pitch(int d) {
+  return ((d + 31LL) & ~31LL) + 4;
+}
+
+template <typename Z>
+__host__ __device__ inline long long tile_stage_bytes(int d) {
+  return kTileUnits<Z> * tile_pitch(d) *
+         static_cast<long long>(sizeof(TileUnit<Z>));
+}
+
+// The stages of the block of sequences b0 .. b0 + W - 1 (the last block
+// may hold fewer, nb) of the time-major rows z, as the block's threads
+// copy and its warps read them.
+template <typename Z, typename S = compute_t<Z>>
+struct TimeMajorTile {
+  using U = TileUnit<Z>;
+  static constexpr int W = kTileWarps<Z>, Q = kTileUnits<Z>;
+  // Rows a pass of the block's copies covers, a thread taking unit q.
+  static constexpr int R = 32 * W / Q;
+  const Z* z;
+  long long B, b0, pitch;
+  int n, nb, q0, j0;
+  // bf16: the parity of z's half-word address, and whether B is odd.
+  int z_half;
+  bool odd_b;
+
+  __device__ TimeMajorTile(const Z* z_, long long B_, long long b0_, int n_)
+      : z(z_), B(B_), b0(b0_), pitch(tile_pitch(n_)), n(n_),
+        nb(static_cast<int>(min(static_cast<long long>(W), B_ - b0_))),
+        q0(threadIdx.x % Q), j0(threadIdx.x / Q),
+        z_half(static_cast<int>(
+            (reinterpret_cast<unsigned long long>(z_) >> 1) & 1)),
+        odd_b((B_ & 1) != 0) {}
+
+  // Round t's tile into a stage: unit q of row j's window, the aligned
+  // units around the block's elements z[t, j, b0 .. b0 + nb), at column
+  // q, row j.  A unit holds an element of the row, so it lies in that
+  // element's page.
+  __device__ __forceinline__ void fetch(long long t, U* stage) const {
+    if (j0 >= R) return;
+    const Z* first = z + (t * n + j0) * B + b0;
+    for (int j = j0; j < n; j += R, first += R * B) {
+      const auto a = reinterpret_cast<unsigned long long>(first);
+      const int off = static_cast<int>(a & (sizeof(U) - 1));
+      if (q0 * static_cast<int>(sizeof(U)) <
+          off + nb * static_cast<int>(sizeof(Z)))
+        copy_async(stage + q0 * pitch + j,
+                   reinterpret_cast<const U*>(a & ~(sizeof(U) - 1)) + q0);
+    }
+  }
+
+  // Element j of sequence b0 + col's row t in a stage.  In bf16 a row's
+  // window starts at its first element or at the one before it, as that
+  // element's address is 4-byte aligned or not: the parity of z's
+  // half-word address and, where B is odd, of t n + j (b0 is even).
+  __device__ __forceinline__ S at(const U* stage, long long t, int j,
+                                  int col) const {
+    if constexpr (sizeof(Z) == sizeof(U)) {
+      return S(widen(reinterpret_cast<const Z*>(stage + col * pitch)[j]));
+    } else {
+      // bf16: element `col` is half e & 1 of unit e >> 1.
+      const int e = (z_half ^ (odd_b && ((t * n + j) & 1))) + col;
+      const unsigned u = stage[(e >> 1) * pitch + j];
+      return S(widen(bf16{static_cast<unsigned short>(u >> (16 * (e & 1)))}));
+    }
+  }
+};
 
 // ------------------------------------------------------------ the plans
 

@@ -52,8 +52,8 @@
 // keeps theta and x as vectors 0 and 1 of slot k * B + b in the caller's
 // state buffer, laid out (d, (1 + G) * B), and the FTL warp its w as
 // vector 2, laid out (d, B) after them (oco::state_vec); rows are read from
-// the caller's (B, T, d) z where they are used and widened on read, as in
-// K1w.  The mbarriers of play_chunks still order each tail after the FTL
+// the caller's (B, T, d) z where they are used and widened on read.  The
+// mbarriers of play_chunks still order each tail after the FTL
 // warp, and the producer warp, which copies nothing there, stays in the
 // block for them.  Same helpers, same order: K2w equals its plain version
 // bit for bit at any d, with a local frame that does not grow with d.

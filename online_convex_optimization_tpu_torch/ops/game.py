@@ -47,8 +47,9 @@ here takes any d on the card: past ``cuda_build.MAX_D`` = 512 each
 launches its wide instance (K1w, K3w, K3ew, K4w, K5w, K7w), whose state
 lies in a device buffer of ``wide_state_elems`` elements that the wrapper
 allocates (a buffer that does not fit raises as ``torch.empty`` raises);
-K7w keeps it in shared memory while its plan (``synthetic_plan``) says a
-warp's lines fit, and needs no buffer there.
+K1w, K3w, K4w, K6aw and K7w keep it in shared memory while their plans
+(``regret_plan``, ``packed_plan``, ``stream_plan``, ``prefix_plan``,
+``synthetic_plan``) say a block's state fits, and need no buffer there.
 K1, K4 and K5 play the same round (``oco::game_round``), K3 and K3e its
 action and hinge step, so a sweep column, a sequence fed in chunks or a
 packed game equals K1 bit for bit.
@@ -207,35 +208,35 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1,
     ``cuda_build.MAX_D``; past it, vectors of d elements laid out
     (d, slots), a slot per thread's play:
 
-    - K1w: theta, w and x of each of ``plays`` plays a sequence,
-      ``3 d plays B``;
     - K2w: theta and x of the FTL track and of each of ``plays`` (G)
       thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
     - K3ew: x, ``d B`` (theta is the output);
-    - K4w: x, ``d B`` (theta and w are the output carry);
     - K5w: theta of each of ``plays`` (E) settings a sequence, and a w a
       sequence for each group of ``SWEEP_WARPS`` settings,
       ``(E + ceil(E / SWEEP_WARPS)) d B`` (no x: the final FTL action is
       written over theta);
     - K6bw: theta and x of each of ``plays`` (G) thresholds' tails,
       ``2 d G B`` (a slot for every pair, switched or not);
-    - K3w, K6aw, K7w: what the library's plan asks for (``packed_plan``,
-      ``prefix_plan``, ``synthetic_plan``): none while a warp's state fits
-      a block's shared memory, past that the plan's ``state`` elements a
-      sequence, laid out (B, state).
+    - K1w, K3w, K4w, K6aw, K7w: what the library's plan asks for
+      (``regret_plan`` with ``plays`` plays a sequence, ``packed_plan``,
+      ``stream_plan``, ``prefix_plan``, ``synthetic_plan``): none while a
+      block's state fits its shared memory, past that the plan's ``state``
+      elements a sequence, laid out (B, state).
     """
     if kernel not in WIDE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}; the hinge kernels are "
                          f"{WIDE_KERNELS}")
     if d <= cuda_build.MAX_D:
         return 0
-    plan = {"K3": packed_plan, "K6a": prefix_plan}.get(kernel)
+    plan = {"K3": packed_plan, "K4": stream_plan,
+            "K6a": prefix_plan}.get(kernel)
     if plan is not None:
         return plan(d, dtype)["state"] * B
+    if kernel == "K1":
+        return regret_plan(d, plays, dtype)["state"] * B
     if kernel == "K7":
         return synthetic_plan(d)["state"] * B
-    vectors = {"K1": 3 * plays, "K2": 2 * (1 + plays) + 1, "K3e": 1,
-               "K4": 1,
+    vectors = {"K2": 2 * (1 + plays) + 1, "K3e": 1,
                "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
                "K6b": 2 * plays}[kernel]
     return vectors * d * B
@@ -384,7 +385,7 @@ def launch_regrets(z, y, flags, scales, eidx, lengths, replay: bool):
         cum = torch.empty((P, B), dtype=dtype, device=z.device)
         comp = torch.empty_like(cum)
         x_last = torch.empty((P, B, d), dtype=dtype, device=z.device)
-        state = wide_state("K1", B, d, P, dtype, z.device)
+        state = wide_state("K1", B, d, P, z.dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), flags.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
                  P, d, int(replay), cum.data_ptr(), comp.data_ptr(),
@@ -473,6 +474,26 @@ def packed_plan(d: int, dtype) -> dict:
     stages in shared memory up to ``max_shared_d``; past it theta in the
     state buffer, ``state`` elements a sequence."""
     return _plan("K3w", cuda_build.load().oco_packed_plan,
+                 storage_code(dtype), d)
+
+
+def regret_plan(d: int, plays: int, dtype) -> dict:
+    """K1w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with
+    ``plays`` plays a sequence and z in ``dtype`` (``oco_regret_plan``; see
+    ``_plan``): a sequence a block, a warp a play, the plays' thetas, the
+    sequence's w and its two row stages in shared memory up to
+    ``max_shared_d``; past it the thetas and w in the state buffer."""
+    return _plan("K1w", cuda_build.load().oco_regret_plan,
+                 storage_code(dtype), int(plays), d)
+
+
+def stream_plan(d: int, dtype) -> dict:
+    """K4w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with
+    z in ``dtype`` (``oco_stream_plan``; see ``_plan``): a warp a sequence,
+    32 bytes of z a block at each (t, j), theta, w and the block's row
+    stage in shared memory up to ``max_shared_d``; past it theta and w in
+    the state buffer, ``state`` elements a sequence."""
+    return _plan("K4w", cuda_build.load().oco_stream_plan,
                  storage_code(dtype), d)
 
 
@@ -807,7 +828,7 @@ def launch_stream_time_major(z_tm, y_tm, flags, eta, t0: int,
                  f"oco_play_stream_{storage_suffix(z_tm.dtype, y_tm.dtype)}")
     with torch.cuda.device(z_tm.device):
         out = StreamCarry(*(torch.empty_like(t) for t in carry))
-        state = wide_state("K4", B, d, 1, carry.theta.dtype, z_tm.device)
+        state = wide_state("K4", B, d, 1, z_tm.dtype, z_tm.device)
         err = fn(z_tm.data_ptr(), y_tm.data_ptr(), flags.data_ptr(),
                  eta.data_ptr(), int(t0), CT, B, d,
                  *(t.data_ptr() for t in carry),

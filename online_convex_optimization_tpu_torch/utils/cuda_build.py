@@ -67,6 +67,8 @@ _SIGNATURES = {
     "oco_synthetic_plan": [_I, _I, _P],
     "oco_packed_plan": [_I, _I, _P],
     "oco_smart_prefix_plan": [_I, _I, _P],
+    "oco_regret_plan": [_I, _I, _I, _P],
+    "oco_stream_plan": [_I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
     "oco_trs_wide_plan": [_I, _I, _LL, _P],
     "oco_quad_wide_plan": [_I, _I, _LL, _P],

@@ -5,8 +5,8 @@ shared memory and state buffer.
 
     cd <a checkout of the port>
     python3 <path to>/scripts/wide_d_probe.py [--d 1024]
-        [--cases k1f64 k1f32 k2 k4 k3 k3bf16 k5f64 k5f32 k6 k6f32 k7ftrl
-                 k7ftl adds]
+        [--cases k1f64 k1f32 k2 k4 k4ftrl k4ftl k3 k3bf16 k5f64 k5f32 k6
+                 k6f32 k7ftrl k7ftl adds]
         [--reps 3]
 
 Its inputs come from ``data/device.py``'s generators and fixed seeds (the
@@ -30,6 +30,7 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 - ``k4``: K4 over 4 chunks of 1,024 rounds generated on the card
   (``random_time_major_batch``), B = 2,048, f32, FTRL and FTL on
   alternate sequences, eta = sqrt(2): the 4 launches timed together;
+  ``k4ftrl`` and ``k4ftl`` the same with every sequence FTRL or FTL;
 - ``k3``: K3 FTRL and FTL and K3e (eta from 0.05 to 4.0 a sequence) on
   phase 16's packed data, B = 2,048, T = 1,024, f32; ``k3bf16`` the same
   on its bf16/int8 data;
@@ -48,13 +49,15 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 Each time is the median (min, max) of ``--reps`` CUDA-event timed calls
 after a warm-up call.  Bounds: ``chip_smoke.py``'s (inputs read once,
 outputs written once, its operation counts over the H100 SXM's peaks).
-K3, K5, K6a and K7 also print their design's own floor: K5w's theta
+K1, K3, K4, K5, K6a and K7 also print their design's own floor: K5w's theta
 stream (two reads and one write of d elements a pair-round, at 3.35
 TB/s); K7w's one-lane sums (2 d dependent adds a sequence-round, one warp
 instruction each, at ``chip_smoke.py``'s WARP_ISSUE_PER_S); K3w's and
 K6aw's from ``chip_smoke.py``'s ``packed_wide_floor`` and
-``prefix_wide_floor``.  Run from a checkout whose ``chip_smoke.py`` lacks
-these, it prints no K3, K6a or K7 floor.  Prints one line a case, then
+``prefix_wide_floor``; K1w's and K4w's (FTL's two chains of d dependent
+adds a round, times the waves of sequences their plans fit on the card)
+from its ``wide_plan_fields``, with their plans.  Run from a checkout
+whose ``chip_smoke.py`` lacks these, it prints no such floor.  Prints one line a case, then
 all of them as one JSON line.  Needs one CUDA card.
 """
 
@@ -106,6 +109,10 @@ try:   # the design floors, where the checkout's chip_smoke.py has them
 except ImportError:
     WARP_ISSUE_PER_S = packed_projecting_share = None
     packed_wide_floor = prefix_wide_floor = None
+try:   # K1w's and K4w's plans and floors, where the checkout has them
+    from chip_smoke import wide_plan_fields  # noqa: E402
+except ImportError:
+    wide_plan_fields = None
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     random_game_batch,
     random_time_major_batch,
@@ -119,6 +126,8 @@ SHAPES = {"k1f64": (1024, 1000, torch.float64),
           "k1f32": (2048, 1024, torch.float32),
           "k2": (1024, 1000, torch.float64),
           "k4": (2048, 1024, torch.float32),
+          "k4ftrl": (2048, 1024, torch.float32),
+          "k4ftl": (2048, 1024, torch.float32),
           "k3": (WPK_B, WPK_T, torch.float32),
           "k3bf16": (WPK_B, WPK_T, torch.bfloat16),
           "k5f64": (WSW_B, WSW_T, torch.float64),
@@ -171,9 +180,20 @@ def launch_shape(name, d, dtype, *args):
 def state_bytes(kernel, B, d, plays, dtype) -> int:
     """The launch's state buffer in bytes (z stored in ``dtype``)."""
     size = game.compute_dtype(dtype).itemsize
-    if kernel in ("K3", "K6a") and hasattr(game, "packed_plan"):
+    planned = {"K3": "packed_plan", "K6a": "packed_plan",
+               "K1": "regret_plan", "K4": "stream_plan"}
+    if kernel in planned and hasattr(game, planned[kernel]):
         return game.wide_state_elems(kernel, B, d, plays, dtype) * size
     return game.wide_state_elems(kernel, B, d, plays) * size
+
+
+def plan_fields(name, B, d, dtype, occupancy, rounds, chains=2) -> dict:
+    """K1w's or K4w's plan and design floor (``chip_smoke.py``'s
+    ``wide_plan_fields``), where the checkout has them."""
+    if wide_plan_fields is None or d <= 512:
+        return {}
+    occ = (occupancy["registers"], occupancy["warps_per_sm"])
+    return wide_plan_fields(name, B, d, dtype, occ, rounds, chains)
 
 
 def k1(z, y, d, reps):
@@ -186,9 +206,11 @@ def k1(z, y, d, reps):
     fn = lambda: game.launch_regrets(z, y, flags, *table, lengths, False)
     outs = fn()
     ms = time_ms(fn, reps=reps)
+    occupancy = launch_shape("K1", d, dtype, 2)
     return {"ms": ms, **wide_k1_bound(B, T, d, 2, dtype),
+            **plan_fields("K1w", B, d, dtype, occupancy, T),
             "digest": digest(outs),
-            "occupancy": launch_shape("K1", d, dtype, 2),
+            "occupancy": occupancy,
             "state_bytes": state_bytes("K1", B, d, 2, dtype)}
 
 
@@ -212,7 +234,9 @@ def k2(z, y, d, reps):
             "state_bytes": state_bytes("K2", B, d, G, dtype)}
 
 
-def k4(d, reps):
+def k4(d, reps, name="k4"):
+    """K4 over the chunks; ``k4ftrl`` and ``k4ftl`` play every sequence
+    FTRL or FTL on the same data."""
     B, CT, dtype = SHAPES["k4"]
     gen = torch.Generator(device=DEV).manual_seed(7)
     zs = torch.empty((K4_CHUNKS, CT, d, B), dtype=dtype, device=DEV)
@@ -220,7 +244,9 @@ def k4(d, reps):
     for i in range(K4_CHUNKS):
         zs[i], ys[i] = random_time_major_batch(gen, CT, B, d, dtype=dtype)
     torch.cuda.empty_cache()
-    flags = (torch.arange(B, device=DEV) % 2).to(torch.int32)
+    flags = {"k4": torch.arange(B, device=DEV) % 2,
+             "k4ftrl": torch.zeros(B, device=DEV),
+             "k4ftl": torch.ones(B, device=DEV)}[name].to(torch.int32)
     eta = torch.full((B,), ETA, dtype=dtype, device=DEV)
 
     def run():
@@ -232,10 +258,13 @@ def k4(d, reps):
 
     outs = run()
     ms = time_ms(run, reps=reps)
+    occupancy = launch_shape("K4", d, dtype)
     return {"ms": ms, **wide_k4_bound(B, CT, d, K4_CHUNKS, dtype),
+            **plan_fields("K4w", B, d, dtype, occupancy, K4_CHUNKS * CT,
+                          1 if name == "k4ftrl" else 2),
             "digest": digest(outs),
             "launches": K4_CHUNKS,
-            "occupancy": launch_shape("K4", d, dtype),
+            "occupancy": occupancy,
             "state_bytes": state_bytes("K4", B, d, 1, dtype)}
 
 
@@ -382,8 +411,8 @@ def add_latency(reps) -> dict:
 def run_case(name, d, reps):
     """One case's entries, keyed by kernel (several for k3 and k6)."""
     B, T, dtype = SHAPES[name]
-    if name == "k4":
-        return {name: k4(d, reps)}
+    if name in ("k4", "k4ftrl", "k4ftl"):
+        return {name: k4(d, reps, name)}
     if name in ("k3", "k3bf16"):
         pair = WSW_PACKED_PAIRS[name == "k3bf16"]
         return {(f"{key} bf16" if name == "k3bf16" else key): res

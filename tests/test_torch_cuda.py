@@ -1497,6 +1497,177 @@ def test_k3w_k6aw_plans_fit_a_block(cuda, pair):
             fn(512, zt)
 
 
+# ---------------------------------------- K1w and K4w: a play or a sequence a warp
+
+def _k1w_k4w_plans(pair, d, plays=2):
+    """K1w's plan with ``plays`` plays and K4w's at d for z stored in
+    ``pair[0]``."""
+    return game.regret_plan(d, plays, pair[0]), game.stream_plan(d, pair[0])
+
+
+def _k1w_k4w_vs_plain(cuda, pair, d, T, contract, B=77, offset=0):
+    """K1w (FTRL and FTL plays of one copy of z with eta = 4, so that rounds
+    project; three plays with flags FTL, FTRL, FTL; one play a sequence
+    with mixed flags and etas) and K4w (mixed flags and etas, three chunks
+    from a zero carry, t0 > 0 after the first) against their plain
+    versions on the stored values in every bit, at B sequences with ragged
+    lengths, identity or replay comparator; each launch's state buffer is
+    the one its plan asks for.  ``offset`` 1 plays views that start one
+    sequence (K1w) and one round (K4w) into their storage."""
+    z, y, lengths = _batch(B + offset, T + offset, d, seed=d + 37,
+                           contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    dtype = zf.dtype
+    # K4w's rows: the first B sequences time-major, from round `offset` on;
+    # K1w's: (B + offset, T, d), from sequence `offset` on.
+    z_tm, y_tm, zf_tm, yf_tm = (
+        t[offset:] for t in (*game.time_major(zs[:B], ys[:B]),
+                             *game.time_major(zf[:B], yf[:B])))
+    zs, ys, zf, yf = (t[:, :T].contiguous()[offset:]
+                      for t in (zs, ys, zf, yf))
+    assert zs.is_contiguous() and z_tm.is_contiguous()
+    ln = game.per_sequence(np.minimum(lengths[offset:], T), B, torch.int32,
+                           cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    for plays in (1, 2, 3):
+        assert game.wide_state_elems("K1", B, d, plays, pair[0]) == (
+            game.regret_plan(d, plays, pair[0])["state"] * B)
+    assert game.wide_state_elems("K4", B, d, 1, pair[0]) == (
+        game.stream_plan(d, pair[0])["state"] * B)
+    before = (game.LAUNCHES, game.STREAM_LAUNCHES)
+    eta = game.per_sequence(4.0, B, dtype, cuda)
+    for plays in ((0, 1), (1, 0, 1)):
+        got = game.regret_plays(zs, ys, plays, 4.0, ln, not contract)
+        flags = torch.tensor([[f] * B for f in plays], dtype=torch.int32,
+                             device=cuda)
+        want = game.regret_plays_reference(zf, yf, flags, eta, ln,
+                                           replay=not contract)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+            "K1w", plays, pair, d, contract)
+    fl = game.per_sequence(np.arange(B) % 2, B, torch.int32, cuda)
+    et = torch.linspace(0.3, 4.0, B, dtype=dtype, device=cuda)
+    got = game.regrets_fused(zs, ys, fl, et, ln)
+    want = game.regrets_fused_reference(zf, yf, fl, et, ln,
+                                        replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+        "K1w one play", pair, d, contract)
+    cuts = (0, T // 3, T - T // 3, T)
+    carry = want_carry = game.zero_stream_carry(B, d, dtype, cuda)
+    for lo, hi in zip(cuts, cuts[1:]):
+        carry = game.play_stream(z_tm[lo:hi], y_tm[lo:hi], et, lo, carry,
+                                 alg_flag=fl)
+        want_carry = game.play_stream_reference(zf_tm[lo:hi], yf_tm[lo:hi],
+                                                fl, et, lo, want_carry)
+    assert all(torch.equal(g, w) for g, w in zip(carry, want_carry)), (
+        "K4w", pair, d)
+    torch.cuda.synchronize()
+    assert (game.LAUNCHES, game.STREAM_LAUNCHES) == (before[0] + 3,
+                                                     before[1] + 3)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("d", [513, 1024, 2048])
+def test_k1w_k4w_equal_plain_in_every_pair(cuda, pair, d):
+    """K1w and K4w equal their plain versions in every bit in every storage
+    pair at d = 1,024 and 2,048 and 513, B = 77 (a multiple of no block's
+    warps) and 48 (a full last block), contract and replay data; bf16 at
+    d = 2,048 lies past K4w's shared boundary."""
+    for contract in (True, False):
+        _k1w_k4w_vs_plain(cuda, pair, d, 12, contract)
+    _k1w_k4w_vs_plain(cuda, pair, d, 12, True, B=48)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("kernel", ["K1w", "K4w"])
+def test_k1w_k4w_across_the_shared_boundary(cuda, pair, kernel):
+    """At the largest d whose state fits a block's shared memory (K1w: with
+    two plays) and one past it (the state buffer the plan asks for), each
+    instance equals its plain version in every bit; its plan says which
+    side it is on."""
+    plan = _k1w_k4w_plans(pair, 1024)[kernel == "K4w"]
+    boundary = plan["max_shared_d"]
+    for d, shared in ((boundary, True), (boundary + 1, False)):
+        assert _k1w_k4w_plans(pair, d)[kernel == "K4w"]["shared"] == shared
+        for contract in (True, False):
+            _k1w_k4w_vs_plain(cuda, pair, d, 3, contract, B=21)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k1w_k4w_read_offset_views(cuda, pair, shared):
+    """K1w on ``z[1:]`` and K4w on ``z_tm[1:]``, contiguous views one
+    sequence or one round into their storage with T d and d B odd (bf16
+    views 2 bytes past a 4-byte boundary), equal their plain versions in
+    every bit, on both sides of each plan's shared boundary."""
+    k1, k4 = _k1w_k4w_plans(pair, 1024)
+    d = 513 if shared else max(k1["max_shared_d"], k4["max_shared_d"]) + 1
+    d += 1 - d % 2
+    assert all(p["shared"] == shared for p in _k1w_k4w_plans(pair, d))
+    _k1w_k4w_vs_plain(cuda, pair, d, 5, True, B=77, offset=1)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+def test_k1w_k4w_plans_fit_a_block(cuda, pair):
+    """The library's plans: K1w a block a sequence and a warp a play (1-8),
+    K4w a warp a sequence and 32 bytes of z a block at each (t, j) (4, 8,
+    16 warps in f64, f32, bf16); state on the chip exactly up to
+    max_shared_d (past the path's d = 2,048 for K1w with two plays, past
+    1,024 for K4w), a block within the H100's 227 KB, no buffer where
+    shared, and past it the plays' thetas and w (K1w) or theta and w
+    (K4w), each padded to 4 elements; the occupancy entries report the plans' blocks,
+    at d = 1,024 K4w f32's 2,048 sequences in one wave (16 warps an SM)."""
+    zt = pair[0]
+    k4 = game.stream_plan(1024, zt)
+    assert k4["warps"] == 32 // zt.itemsize
+    assert 1024 < k4["max_shared_d"] < 65536
+    bounds = {plays: game.regret_plan(1024, plays, zt)["max_shared_d"]
+              for plays in (1, 2, 8)}
+    assert bounds[2] > 2048 and bounds[8] > 1024
+    assert bounds[1] > bounds[2] > bounds[8]
+    compute = game.compute_dtype(zt)
+    for d in (513, 1024, 2048, k4["max_shared_d"], k4["max_shared_d"] + 1,
+              bounds[2], bounds[2] + 1, 65536):
+        up4 = -(-d // 4) * 4
+        cases = [("K4w", game.stream_plan(d, zt), k4["max_shared_d"],
+                  2 * up4,
+                  lambda: game.stream_occupancy(d, compute),
+                  game.cuda_build.load().oco_stream_occupancy, ())]
+        for plays in (1, 2, 8):
+            cases.append((
+                "K1w", game.regret_plan(d, plays, zt), bounds[plays],
+                (plays + 1) * up4,
+                lambda p=plays: game.regret_occupancy(p, d, compute),
+                game.cuda_build.load().oco_regrets_occupancy, (plays,)))
+        for kernel, plan, boundary, state, occ, entry, args in cases:
+            assert plan["warps"] == (k4["warps"] if kernel == "K4w"
+                                     else args[0])
+            assert plan["shared"] == (d <= boundary), (kernel, d)
+            assert plan["state"] == (0 if plan["shared"] else state)
+            assert 0 < plan["smem_bytes"] <= 232448
+            assert plan["smem_bytes"] % 16 == 0
+            if zt == compute:
+                regs, warps, _ = occ()
+                assert regs > 0 and warps >= plan["warps"], (kernel, d)
+                shared = game.occupancy(kernel, entry,
+                                        int(zt == torch.float64), *args, d,
+                                        shared=True)[3]
+                assert shared == plan["smem_bytes"], (kernel, d)
+    if zt == torch.float32:
+        assert game.stream_occupancy(1024, zt)[1] >= 16
+    for fn in (lambda: game.stream_plan(512, zt),
+               lambda: game.regret_plan(512, 2, zt),
+               lambda: game.regret_plan(1024, 9, zt)):
+        with pytest.raises(RuntimeError, match="plan failed"):
+            fn()
+
+
 @pytest.mark.parametrize("d", [513, 1024])
 def test_wide_sweep_identities(cuda, d):
     """f64: K5w's column e equals K1w with eta = eta_e; K6 with a threshold

@@ -186,17 +186,24 @@ def test_no_state_buffer_up_to_512(d):
 
 
 @pytest.mark.parametrize("d", [513, 1024, 8192])
-def test_state_buffer_sizes_past_512(d):
-    # K1w: theta, w, x a play; K2w: theta, x for the FTL track and each
-    # tail, w once; K4w: x (theta, w are the output carry).
-    assert game.wide_state_elems("K1", 1024, d, 2) == 3 * d * 2 * 1024
-    assert game.wide_state_elems("K1", 77, d, 1) == 3 * d * 77
+def test_state_buffer_sizes_past_512(monkeypatch, d):
+    # K2w: theta, x for the FTL track and each tail, w once.  K1w and K4w:
+    # what the library's plans ask for, none where a block's state fits
+    # shared memory, else the plays' thetas and w (K1w) or theta and w
+    # (K4w) a sequence.
     assert game.wide_state_elems("K2", 1024, d, 2) == 7 * d * 1024
     assert game.wide_state_elems("K2", 77, d, 4) == 11 * d * 77
-    assert game.wide_state_elems("K4", 2048, d, 1) == d * 2048
-    # The slots reach 2^31 elements at B = 262,144, d = 8,192: the kernels
+    up4 = -(-d // 4) * 4
+    for shared in (True, False):
+        _stand_in_plans(monkeypatch, shared)
+        for B, plays in ((1024, 2), (77, 1), (77, 8)):
+            assert game.wide_state_elems("K1", B, d, plays) == (
+                0 if shared else (plays + 1) * up4 * B)
+        assert game.wide_state_elems("K4", 2048, d, 1) == (
+            0 if shared else 2 * up4 * 2048)
+    # The slots reach 2^31 elements at B = 131,072, d = 8,192: the kernels
     # index in 64 bits.
-    assert game.wide_state_elems("K4", 262_144, 8192) == 2 ** 31
+    assert game.wide_state_elems("K4", 131_072, 8192) == 2 ** 31
     buf = game.wide_state("K2", 3, d, 2, torch.float32, "cpu")
     assert buf.shape == (7 * d * 3,) and buf.dtype == torch.float32
     with pytest.raises(ValueError, match="unknown kernel K8"):
@@ -214,8 +221,9 @@ def _k7_plan(d, shared):
 
 def _seq_plan(state, shared):
     """A stand-in for a warp-a-sequence plan (``oco_packed_plan``,
-    ``oco_smart_prefix_plan``): ``state`` elements a sequence, or none
-    where the sequence's state fits shared memory."""
+    ``oco_stream_plan``, ``oco_smart_prefix_plan``, ``oco_regret_plan``):
+    ``state`` elements a sequence, or none where the sequence's state fits
+    shared memory."""
     return {"warps": 8, "smem_bytes": 0, "shared": shared,
             "state": 0 if shared else state, "max_shared_d": 0}
 
@@ -226,11 +234,23 @@ def _k3_plan(d, shared):
 
 
 def _k6a_plan(d, shared):
-    """K6aw's: theta and w, each padded to 4 elements."""
+    """K6aw's and K4w's: theta and w, each padded to 4 elements."""
     return _seq_plan(2 * (-(-d // 4) * 4), shared)
 
 
+def _k1_plan(d, plays, shared):
+    """K1w's: the plays' thetas and the sequence's w, each padded to 4
+    elements."""
+    return _seq_plan((plays + 1) * (-(-d // 4) * 4), shared)
+
+
 def _stand_in_plans(monkeypatch, shared):
+    monkeypatch.setattr(game, "regret_plan",
+                        lambda dd, plays, dtype=torch.float64: _k1_plan(
+                            dd, plays, shared))
+    monkeypatch.setattr(game, "stream_plan",
+                        lambda dd, dtype=torch.float32: _k6a_plan(dd,
+                                                                  shared))
     monkeypatch.setattr(game, "synthetic_plan",
                         lambda dd, alg_flag=0: _k7_plan(dd, shared))
     monkeypatch.setattr(game, "packed_plan",
@@ -244,9 +264,9 @@ def _stand_in_plans(monkeypatch, shared):
 def test_new_state_buffer_sizes_past_512(monkeypatch, d):
     # K3ew: x (theta is the output); K5w: theta a (sequence, setting)
     # pair and w a sequence for each group of 16 settings (no x); K6bw:
-    # theta and x a (sequence, threshold) pair; K3w, K6aw, K7w: what the
-    # library's plan asks for, none where a warp's state fits shared
-    # memory.
+    # theta and x a (sequence, threshold) pair; K1w, K3w, K4w, K6aw, K7w:
+    # what the library's plan asks for, none where a block's state fits
+    # shared memory.
     assert game.SWEEP_WARPS == 16
     assert game.wide_state_elems("K3e", 2048, d) == d * 2048
     assert game.wide_state_elems("K5", 1024, d, 64) == (64 + 4) * d * 1024
@@ -261,6 +281,10 @@ def test_new_state_buffer_sizes_past_512(monkeypatch, d):
             _k3_plan(d, shared)["state"] * 2048)
         assert game.wide_state_elems("K6a", 1024, d, 16) == (
             _k6a_plan(d, shared)["state"] * 1024)
+        assert game.wide_state_elems("K4", 2048, d) == (
+            _k6a_plan(d, shared)["state"] * 2048)
+        assert game.wide_state_elems("K1", 1024, d, 2) == (
+            _k1_plan(d, 2, shared)["state"] * 1024)
     assert _k7_plan(d, True)["state"] == 0
     assert _k3_plan(d, False)["state"] == -(-d // 4) * 4
     assert _k6a_plan(d, False)["state"] == 2 * (-(-d // 4) * 4)
@@ -359,9 +383,10 @@ def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
                             cuda_stream=0))
     monkeypatch.setattr(smart, "wide_state", spy)
     monkeypatch.setattr(game, "wide_state", spy)
-    # K3w's, K6aw's and K7w's buffers follow the library's plans: here
-    # ones that keep the state in device memory (the plans that keep it on
-    # the chip need none: tests/test_torch_wide_redesign.py).
+    # K1w's, K3w's, K4w's, K6aw's and K7w's buffers follow the library's
+    # plans: here ones that keep the state in device memory (the plans
+    # that keep it on the chip need none: tests/test_torch_wide_redesign.py
+    # and tests/test_torch_wide_redesign_k1k4.py).
     _stand_in_plans(monkeypatch, False)
     name, plays, seqs, (module, counter) = ENTRIES[kernel]
     before = getattr(module, counter)
