@@ -278,12 +278,15 @@ non-zero without printing a result):
                shapes timed (5 launches after a warm-up, digests equal to
                the main path's) with their bounds, registers, warps an SM,
                local frames (the same at every d past 512) and state
-               buffer bytes; K3w's, K6aw's and K7w's plans (warps a
-               block, state on the chip or in the buffer, the shared
-               boundary), and K3w's and K6aw's design floors (K3w: its z
-               stream or its one-lane sums, FTRL's projecting share from
-               a float32 replay; K6aw: two chains of d dependent adds a
-               round over the longest sequence).
+               buffer bytes; K3w's, K3ew's, K6aw's, K6bw's and K7w's plans
+               (warps a block, state on the chip or in the buffer, the
+               shared boundary), and K3w's, K3ew's, K6aw's and K6bw's
+               design floors (K3w, K3ew: the z stream or the one-lane
+               sums, FTRL's projecting share from a float32 replay; K6aw:
+               two chains of d dependent adds a round over the longest
+               sequence; K6bw: one chain a tail round over the longest
+               tail, or all the tail rounds over the warps the card
+               holds).
 
 The kernels' line carries, for every kernel, its launches on its path, its
 error against its plain version, its kernel and plain times, its bound
@@ -1075,8 +1078,8 @@ def sweep_vs_plain(batches, outs):
         tau_diff += int((tau_a.t() != want_tau_a).sum())
         scales = game.sweep_scales(eta.reshape(1), SWEEP_T)
         tails = part.clone()
-        smart.launch_smart_tails(z, y, scales, order, lengths, tau_a, comp,
-                                 tails)
+        smart.launch_smart_tails(z, y, scales, perm, order, lengths, tau_a,
+                                 comp, tails)
         want_tails, p6b = timed_once(lambda: smart.smart_tails_reference(
             z, y, scales[0], lengths, want_tau_a, want_part, want_comp))
         e6b = max_err((tails.t(),), (want_tails,))
@@ -1259,7 +1262,7 @@ def phase_sweeps():
         # K6b turns its buffer into regrets in place: every timed launch
         # plays the same tails (their starting sums drift, not their work).
         buf = part.clone()
-        tails = lambda: smart.launch_smart_tails(z, y, scales6, order,
+        tails = lambda: smart.launch_smart_tails(z, y, scales6, perm, order,
                                                  lengths, tau, comp, buf)
         both = lambda: (prefix(), tails())
         sweep5 = lambda: ftrl_eta_sweep(z, y, ETA_GRID, length=lengths)
@@ -3145,7 +3148,7 @@ def storage_full(pair, batches, stream_chunks, packed, plain):
 
     def tails(a, b):
         r = regret0.clone()
-        smart.launch_smart_tails(a, b, tsc, order, sl, pa[1], pa[2], r)
+        smart.launch_smart_tails(a, b, tsc, perm, order, sl, pa[1], pa[2], r)
         return r
 
     check(torch.equal(tails(sz, sy), tails(szf, syf)),
@@ -4523,12 +4526,13 @@ def wsw_packed_bound(B, T, d, pair, per_seq_eta):
 def packed_projecting_share(z_tm, y_tm, scales) -> float:
     """The share of K3's FTRL rounds whose ||x||^2 passes 1, from a plain
     float32 replay on the card (its sums in the library's order, not the
-    kernel's: a round at the edge may differ)."""
+    kernel's: a round at the edge may differ); ``scales`` (T,) a round, or
+    (T, B) a round and sequence (K3e)."""
     T, d, B = z_tm.shape
     theta = torch.zeros((B, d), dtype=torch.float32, device=z_tm.device)
     fired = torch.zeros((), dtype=torch.float64, device=z_tm.device)
     for t in range(T):
-        x = scales[t] * theta
+        x = (scales[t][:, None] if scales.ndim == 2 else scales[t]) * theta
         nsq = (x * x).sum(-1)
         proj = nsq > 1.0
         fired += proj.double().sum()
@@ -4550,6 +4554,33 @@ def packed_wide_floor(B, T, d, bd, share) -> dict:
             "design_floor_by": f"one-lane sums, {adds:.4f} d adds a "
                                f"sequence-round ({sums:.4f} ms), z stream "
                                f"{bd['bound_ms']:.4f} ms"}
+
+
+def eta_scales(etas, T) -> torch.Tensor:
+    """K3e's FTRL scales -(eta_b / sqrt(t)), t = 1 .. T, ``(T, B)``."""
+    t = torch.arange(1, T + 1, dtype=etas.dtype, device=etas.device)
+    return -(etas[None, :] / torch.sqrt(t)[:, None])
+
+
+def tail_wide_floor(tau, lengths, d, dtype, warps_per_sm) -> dict:
+    """K6bw's own floor: one chain of d dependent adds a tail round (FTRL's
+    two sums side by side; a projecting round's third not counted) at
+    ADD_CLOCKS, the larger of the longest tail's and all the tail rounds'
+    over the warps ``warps_per_sm`` an SM hold on the card's SMs."""
+    ln = lengths.to(torch.int64)[:, None]
+    rounds = torch.where(tau + 1 < ln, ln - tau - 1, 0)
+    longest, total = int(rounds.max()), float(rounds.double().sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    add_s = d * ADD_CLOCKS[dtype] / SM_CLOCK_HZ
+    chain, fill = longest * add_s * 1e3, total * add_s / (warps_per_sm *
+                                                         sms) * 1e3
+    return {"design_floor_ms": max(chain, fill),
+            "design_floor_by": f"one chain of d adds a tail round, "
+                               f"{ADD_CLOCKS[dtype]} clocks an add: the "
+                               f"longest tail ({longest} rounds) "
+                               f"{chain:.4f} ms, the {total:.0f} tail "
+                               f"rounds over {warps_per_sm} x {sms} warps "
+                               f"{fill:.4f} ms"}
 
 
 def prefix_wide_floor(lengths, d, dtype) -> dict:
@@ -4745,9 +4776,9 @@ def wsw_occupancy(name, d, dtype, alg_flag=0):
     entry, *args = {
         "K5w": (lib.oco_sweep_occupancy, f64),
         "K6aw": (lib.oco_smart_sweep_occupancy, code, 0),
-        "K6bw": (lib.oco_smart_sweep_occupancy, f64, 1),
+        "K6bw": (lib.oco_smart_sweep_occupancy, code, 1),
         "K3w": (lib.oco_packed_occupancy, code, 0),
-        "K3ew": (lib.oco_packed_occupancy, f64, 1),
+        "K3ew": (lib.oco_packed_occupancy, code, 1),
         "K7w": (lib.oco_synthetic_occupancy, alg_flag)}[name]
     return game.occupancy(name, entry, *args, d, shared=True)
 
@@ -4796,7 +4827,8 @@ def wsw_timing(digests, counts):
         part, tau, comp = smart.launch_smart_prefix(z, y, ordered, perm,
                                                     order, ln, False)
         regret = part.clone()
-        smart.launch_smart_tails(z, y, scales6, order, ln, tau, comp, regret)
+        smart.launch_smart_tails(z, y, scales6, perm, order, ln, tau, comp,
+                                 regret)
         check(output_digest((regret.t(),)) == digests[f"K6 {name} d={WSW_D}"],
               "K6aw + K6bw: the timed launches' digest differs from the "
               "main path's")
@@ -4820,12 +4852,18 @@ def wsw_timing(digests, counts):
                bd["K6aw"], wsw_occupancy("K6aw", WSW_D, dtype),
                game.wide_state_elems("K6a", WSW_B, WSW_D, 1, dtype), s,
                prefix_wide_floor(ln, WSW_D, dtype))
+        plan = game.tail_plan(WSW_D, dtype)
+        occ = wsw_occupancy("K6bw", WSW_D, dtype)
         record("K6bw", f"{label} G={WSW_G} ({cnt['tail_pairs']} tails, "
-               f"{cnt['tail_rounds']:.0f} rounds)",
-               lambda: smart.launch_smart_tails(z, y, scales6, order, ln,
-                                                tau, comp, part.clone()),
-               bd["K6bw"], wsw_occupancy("K6bw", WSW_D, dtype),
-               game.wide_state_elems("K6b", WSW_B, WSW_D, WSW_G), s)
+               f"{cnt['tail_rounds']:.0f} rounds; P = {plan['warps']} "
+               f"tails a block, thetas and rows "
+               f"{'on the chip' if plan['shared'] else 'off it'}; on the "
+               f"chip to d = {plan['max_shared_d']})",
+               lambda: smart.launch_smart_tails(z, y, scales6, perm, order,
+                                                ln, tau, comp, part.clone()),
+               bd["K6bw"], occ,
+               game.wide_state_elems("K6b", WSW_B, WSW_D, WSW_G, dtype), s,
+               tail_wide_floor(tau.t(), ln, WSW_D, dtype, occ[1]))
         del z, y, reg5, part, regret
         torch.cuda.empty_cache()
     for pair in WSW_PACKED_PAIRS:
@@ -4855,11 +4893,15 @@ def wsw_timing(digests, counts):
                    game.wide_state_elems("K3", WPK_B, WSW_D, 1, pair[0]), 4,
                    packed_wide_floor(WPK_B, WPK_T, WSW_D, bd,
                                      None if flag else share))
-        record("K3ew", label,
+        share = packed_projecting_share(z_tm, y_tm,
+                                        eta_scales(per_seq, WPK_T))
+        bd = wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, True)
+        record("K3ew", f"{label} ({plan['warps']} warps a block, K3w's "
+               f"plan; {share:.4f} of the rounds project)",
                lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq),
-               wsw_packed_bound(WPK_B, WPK_T, WSW_D, pair, True),
-               wsw_occupancy("K3ew", WSW_D, torch.float32),
-               game.wide_state_elems("K3e", WPK_B, WSW_D), 4)
+               bd, wsw_occupancy("K3ew", WSW_D, pair[0]),
+               game.wide_state_elems("K3e", WPK_B, WSW_D, 1, pair[0]), 4,
+               packed_wide_floor(WPK_B, WPK_T, WSW_D, bd, share))
         del z_tm, y_tm, outs
         torch.cuda.empty_cache()
     B7 = 8 * WK7_LANES
@@ -5084,7 +5126,6 @@ def main() -> int:
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:871",
          "launches": wide_d_launches["K4w"], **wide_d_timing["K4w"]},
     ]
-    buffer = "state in a (d, slots) device buffer"
     for key, src, line, what in (
             ("K5w", "sweep_kernel.cu", "pallas_game.py:556",
              "sweep_kernel (K5w: K5 past d = 512, two passes over theta a "
@@ -5095,13 +5136,17 @@ def main() -> int:
              "a warp, theta and w in shared memory, its rows staged by "
              "cp.async"),
             ("K6bw", "smart_sweep_kernel.cu", "pallas_smart.py:248",
-             f"smart_tail_kernel (K6bw: K6b past d = 512, {buffer}"),
+             "smart_tail_wide_kernel (K6bw: K6b past d = 512, a tail a warp, "
+             "a group of a sequence's tails a block in lockstep, their "
+             "thetas in shared memory, the rows staged once for the group"),
             ("K3w", "game_kernel.cu", "pallas_game.py:186",
              "packed_wide_kernel (K3w: K3 past d = 512, a sequence a warp, "
              "theta in shared memory, the block's time-major rows staged "
              "once"),
             ("K3ew", "game_kernel.cu", "pallas_game.py:467",
-             f"game_kernel (K3ew: K3e past d = 512, {buffer}"),
+             "packed_wide_kernel (K3ew: K3e past d = 512, K3w's kernel with "
+             "each warp's own eta scale, theta in shared memory, the "
+             "block's time-major rows staged once"),
             ("K7w", "synthetic_kernel.cu", "pallas_game.py:1115",
              "synthetic_wide_kernel (K7w: K7 past d = 512, a sequence a "
              "warp, theta and w in shared memory")):

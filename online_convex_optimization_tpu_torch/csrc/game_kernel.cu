@@ -31,16 +31,9 @@
 // the time approaches the bytes bound; the design relies on that and on
 // coalesced time-major (T, d, B) loads, with no staging in shared memory.
 //
-// Past d = 512 K3ew (the wide instance of K3e, D == oco::kWideD) keeps no
-// vector in a thread's frame: theta is the output itself, column b of
-// theta_out (d, B), zeroed first, and x is vector 0 of slot b of the
-// caller's (d, B) state buffer (oco::state_vec); each row is read from the
-// time-major input where it is used (an oco::Widened view, coalesced
-// across the warp).  The same round in the same order:
-// K3ew equals its plain version bit for bit at any d.
-//
-// K3w (K3 past d = 512, packed_wide_kernel) plays a sequence on a warp.
-// One thread a sequence with x in a (d, B) buffer (this instance's first
+// K3w (K3 past d = 512, packed_wide_kernel) plays a sequence on a warp,
+// and so does K3ew (K3e past d = 512, the same kernel with kEta).  One
+// thread a sequence with x in a (d, B) buffer (both instances' first
 // design) left the card nearly empty at the path's width (B = 2,048: 16
 // blocks of 4 warps on 132 SMs, each thread's round 4-6 passes over 4 KB
 // vectors, a memory round trip per 8 elements).  The design:
@@ -56,11 +49,13 @@
 //     bytes copied whole would put every lane's element in 4 banks);
 //   - lane l holds elements j = l + 32 m of theta in shared memory; x is
 //     never stored: each lane forms x_j from theta_j and the round's scale
-//     where a product needs it (scales[t] theta_j for FTRL, times
-//     1/sqrt(nsq) again in a round that projects; -(1/sqrt(nsq)) theta_j
-//     for FTL), the products scaled forms, and each sum is one lane's
-//     index-order sum of a product line (oco_warp.cuh): the same bits as
-//     the thread-a-sequence helpers;
+//     where a product needs it (the FTRL scale times 1/sqrt(nsq) again in
+//     a round that projects; -(1/sqrt(nsq)) theta_j for FTL), the products
+//     scaled forms, and each sum is one lane's index-order sum of a product
+//     line (oco_warp.cuh): the same bits as the thread-a-sequence helpers;
+//   - the FTRL scale is scales[t] (K3w), or (K3ew) the warp's own
+//     -(eta_b / sqrt(t + 1)) in the compute type, as ftrl_action forms it,
+//     eta_b read once a warp;
 //   - an FTRL round sums ||x||^2 and <z_t, x> side by side on lanes 0 and
 //     1 and sums <z_t, x> again only where it projects; FTL sums ||theta||^2
 //     then q; the update runs lane-parallel with no chain.
@@ -71,7 +66,8 @@
 // the caller's (B, d) buffer, contiguous a warp, and each lane reads its
 // elements from the time-major rows (the block's warps read the same
 // sectors, through L1): the library's plan (oco_packed_plan) reports the
-// boundary, and the wrapper allocates the buffer it asks for.
+// boundary, the same for K3w and K3ew, and the wrapper allocates the
+// buffer it asks for.
 #include "oco_warp.cuh"
 
 namespace {
@@ -108,13 +104,15 @@ __host__ __device__ inline long long packed_block_bytes(int d, bool shared) {
              static_cast<long long>(sizeof(S));
 }
 
-template <typename Z, typename Y, bool kShared,
+// kEta: K3ew, FTRL with the sequence's own eta (alg_flag 0, no table).
+template <typename Z, typename Y, bool kShared, bool kEta,
           typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kSeqWarps<Z> * 32, 1)
 packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
-                   const S* __restrict__ scales, long long T, long long B,
-                   int d, int alg_flag, S* __restrict__ cum_out,
-                   S* __restrict__ theta_out, S* state) {
+                   const S* __restrict__ scales, const S* __restrict__ eta,
+                   long long T, long long B, int d, int alg_flag,
+                   S* __restrict__ cum_out, S* __restrict__ theta_out,
+                   S* state) {
   using U = oco::TileUnit<Z>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -145,8 +143,16 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
 
   for (int j = lane; j < n; j += 32) th[j] = S(0);
   S cum = S(0);
-  const bool ftrl = alg_flag == 0;
-  S sc_next = T > 0 && ftrl ? scales[0] : S(0);
+  const bool ftrl = kEta || alg_flag == 0;
+  const S eta_b = kEta && live ? eta[b] : S(0);
+  // The round's FTRL scale: the table's, or -(eta_b / sqrt(t + 1)).
+  const auto scale = [&](long long t) {
+    if constexpr (kEta)
+      return -(eta_b / oco::osqrt(S(t + 1)));
+    else
+      return scales[t];
+  };
+  S sc_next = T > 0 && ftrl ? scale(0) : S(0);
   S y_next = T > 0 && live ? S(oco::widen(y[b])) : S(0);
   if constexpr (kShared) {
     if (T > 0) tile.fetch(0, stages);
@@ -165,7 +171,7 @@ packed_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
     }
     const S sc = sc_next, yt = y_next;
     if (t + 1 < T) {
-      if (ftrl) sc_next = scales[t + 1];
+      if (ftrl) sc_next = scale(t + 1);
       y_next = S(oco::widen(y[(t + 1) * B + b]));
     }
     const auto z = [&](int j) { return z_at(stage, t, j); };
@@ -223,26 +229,29 @@ oco::WarpPlan packed_plan(int d) {
   return p;
 }
 
-template <typename Z, typename Y, typename S>
-int launch_packed_wide(const Z* z, const Y* y, const S* scales, long long T,
-                       long long B, int d, int alg_flag, S* cum, S* theta,
-                       S* state, cudaStream_t s) {
+// K3w's (K3ew's with kEta) kernel for a plan.
+template <typename Z, typename Y, bool kEta>
+auto packed_wide(const oco::WarpPlan& p) {
+  return p.shared ? &packed_wide_kernel<Z, Y, true, kEta>
+                  : &packed_wide_kernel<Z, Y, false, kEta>;
+}
+
+template <typename Z, typename Y, bool kEta, typename S>
+int launch_packed_wide(const Z* z, const Y* y, const S* scales,
+                       const S* eta, long long T, long long B, int d,
+                       int alg_flag, S* cum, S* theta, S* state,
+                       cudaStream_t s) {
   const oco::WarpPlan p = packed_plan<Z>(d);
   if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
   const long long grid = (B + p.warps - 1) / p.warps;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto g = static_cast<unsigned int>(grid);
-  const auto smem = static_cast<size_t>(p.smem);
-  return p.shared
-             ? oco::launch_with_smem(packed_wide_kernel<Z, Y, true>, g,
-                                     p.warps * 32, smem, s, z, y, scales, T,
-                                     B, d, alg_flag, cum, theta, state)
-             : oco::launch_with_smem(packed_wide_kernel<Z, Y, false>, g,
-                                     p.warps * 32, smem, s, z, y, scales, T,
-                                     B, d, alg_flag, cum, theta, state);
+  return oco::launch_with_smem(packed_wide<Z, Y, kEta>(p),
+                               static_cast<unsigned int>(grid), p.warps * 32,
+                               static_cast<size_t>(p.smem), s, z, y, scales,
+                               eta, T, B, d, alg_flag, cum, theta, state);
 }
 
-// ------------------------------------------------- K3, K3e (and K3ew)
+// ------------------------------------------------------------ K3, K3e
 
 template <typename Z, typename Y, int D, bool PER_SEQ_ETA,
           typename S = oco::compute_t<Z>>
@@ -250,7 +259,8 @@ __global__ void __launch_bounds__(OCO_THREADS)
 game_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
             const S* __restrict__ scales, const S* __restrict__ eta,
             long long T, long long B, int d, int alg_flag,
-            S* __restrict__ cum_out, S* __restrict__ theta_out, S* state) {
+            S* __restrict__ cum_out, S* __restrict__ theta_out) {
+  static_assert(D != oco::kWideD, "K3w and K3ew are packed_wide_kernel");
   constexpr int C = oco::Cap<D>::value;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -259,11 +269,7 @@ game_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const bool ftrl = PER_SEQ_ETA || alg_flag == 0;
   const S eta_b = PER_SEQ_ETA ? eta[b] : S(0);
 
-  // The thread's vectors: arrays, or (wide) its column of the output theta
-  // and its slot of the state buffer.
-  S th_a[C], x_a[C], zr[C];
-  const auto th = oco::state_vec<D>(th_a, theta_out, 0, b, B, n);
-  const auto x = oco::state_vec<D>(x_a, state, 0, b, B, n);
+  S th[C], x[C], zr[C];
 #pragma unroll
   for (int j = 0; j < n; ++j) th[j] = S(0);
   S cum = S(0);
@@ -279,18 +285,12 @@ game_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
           x, row, S(oco::widen(y[t * B + b])), n, cum);
       oco::update<S, D>(th, nullptr, row, g, S(0), n);
     };
-    if constexpr (D == oco::kWideD) {
-      round(oco::Widened<S, Z>{z + t * n * B + b, B});
-    } else {
-      oco::load_row<S, D>(z, t, b, B, n, zr);
-      round(static_cast<const S*>(zr));
-    }
+    oco::load_row<S, D>(z, t, b, B, n, zr);
+    round(static_cast<const S*>(zr));
   }
   cum_out[b] = cum;
-  if constexpr (D != oco::kWideD) {
 #pragma unroll
-    for (int j = 0; j < n; ++j) theta_out[j * B + b] = th[j];
-  }
+  for (int j = 0; j < n; ++j) theta_out[j * B + b] = th[j];
 }
 
 template <typename Z, typename Y, bool PER_SEQ_ETA>
@@ -308,17 +308,15 @@ int launch(const void* z, const void* y, const void* scales, const void* eta,
   auto* cp = static_cast<S*>(cum);
   auto* tp = static_cast<S*>(theta);
   auto* st = static_cast<S*>(state);
-  if (PER_SEQ_ETA && d > OCO_LARGE_D && state == nullptr)
-    return cudaErrorInvalidValue;
   int err = cudaSuccess;
   const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    if constexpr (D == oco::kWideD && !PER_SEQ_ETA)
-      err = launch_packed_wide<Z, Y, S>(zp, yp, sp, T, B, d, alg_flag, cp,
-                                        tp, st, s);
+    if constexpr (D == oco::kWideD)
+      err = launch_packed_wide<Z, Y, PER_SEQ_ETA, S>(
+          zp, yp, sp, ep, T, B, d, alg_flag, cp, tp, st, s);
     else
       game_kernel<Z, Y, D, PER_SEQ_ETA><<<grid, OCO_THREADS, 0, s>>>(
-          zp, yp, sp, ep, T, B, d, alg_flag, cp, tp, st);
+          zp, yp, sp, ep, T, B, d, alg_flag, cp, tp);
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -333,14 +331,13 @@ int occupancy(int per_seq_eta, int d, int* out) {
       err = oco::occupancy(kernel, OCO_THREADS, 0, out);
       if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2);
     };
-    if (per_seq_eta) {
-      thread_a_sequence(game_kernel<S, S, D, true>);
-    } else if constexpr (D != oco::kWideD) {
-      thread_a_sequence(game_kernel<S, S, D, false>);
+    if constexpr (D != oco::kWideD) {
+      thread_a_sequence(per_seq_eta ? &game_kernel<S, S, D, true>
+                                    : &game_kernel<S, S, D, false>);
     } else {
       const oco::WarpPlan p = packed_plan<Z>(d);
-      const auto kernel = p.shared ? packed_wide_kernel<Z, Y, true>
-                                   : packed_wide_kernel<Z, Y, false>;
+      const auto kernel = per_seq_eta ? packed_wide<Z, Y, true>(p)
+                                      : packed_wide<Z, Y, false>(p);
       const auto smem = static_cast<size_t>(p.smem);
       err = oco::occupancy(kernel, p.warps * 32, smem, out);
       if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, smem);
@@ -372,9 +369,8 @@ OCO_STORAGE_PAIRS(OCO_PACKED_ENTRY)
 // K3e.  Inputs: z (T, d, B) and y (T, B) time-major in a storage pair of
 // OCO_STORAGE_PAIRS (the suffix), eta (B,) the FTRL step scale of each
 // sequence in the compute type; any d >= 1.  Outputs, in the compute
-// type: cum (B,), theta (d, B).  state: past d = 512 a scratch buffer of
-// d * B elements of the compute type, else unused (may be null).  Returns
-// the cudaError_t of the launch.
+// type: cum (B,), theta (d, B).  state: as K3's (K3ew follows K3w's plan,
+// oco_packed_plan).  Returns the cudaError_t of the launch.
 #define OCO_PACKED_ETA_ENTRY(SUFFIX, Z, Y)                                  \
   extern "C" int oco_play_packed_eta_##SUFFIX(                              \
       const void* z, const void* y, const void* eta, long long T,           \
@@ -407,11 +403,11 @@ extern "C" int oco_packed_occupancy(int storage, int per_seq_eta, int d,
   }
 }
 
-// K3w's plan at d > 512 with z in `storage` on the current card: warps a
-// block (out[0]), bytes of dynamic shared memory a block (out[1]), 1 if
-// theta and the stages lie in shared memory (out[2]), elements of the
-// state buffer a sequence, 0 where shared (out[3]), and the largest d
-// whose block fits shared memory (out[4]).  Returns cudaErrorInvalidValue
+// K3w's (and K3ew's) plan at d > 512 with z in `storage` on the current
+// card: warps a block (out[0]), bytes of dynamic shared memory a block
+// (out[1]), 1 if theta and the stages lie in shared memory (out[2]),
+// elements of the state buffer a sequence, 0 where shared (out[3]), and
+// the largest d whose block fits shared memory (out[4]).  Returns cudaErrorInvalidValue
 // for d <= 512 or an unknown storage, else cudaSuccess.
 extern "C" int oco_packed_plan(int storage, int d, long long* out) {
   if (d <= OCO_LARGE_D || storage < 0 || storage > 2)

@@ -42,9 +42,9 @@
 // touch 32 neighbouring words as the local frame's interleaving does; its
 // rows are read from global memory where they are used and widened on
 // read (Widened).  Its frame does not grow with d and adds nothing to the
-// large instance's reservation.  K2w, K3ew, K5w and K6bw keep that
-// design; K1w, K3w, K4w, K6aw and K7w play a sequence (K1w a play) on a
-// warp with its vectors in shared memory (oco_warp.cuh).
+// large instance's reservation.  K2w and K5w keep that design; K1w, K3w,
+// K3ew, K4w, K6aw, K6bw and K7w play a sequence (K1w a play, K6bw a tail)
+// on a warp with its vectors in shared memory (oco_warp.cuh).
 #define OCO_MAX_D 64
 #define OCO_LARGE_D 512
 #define OCO_THREADS 128

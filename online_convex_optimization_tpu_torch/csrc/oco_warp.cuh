@@ -1,6 +1,6 @@
-// The sums of the wide instances that play one sequence (or one play of
-// it) on a warp (K7w, K3w, K4w, K6aw, K1w), and the time-major tiles of
-// K3w and K4w.
+// The sums of the wide instances that play one sequence (or one play or
+// tail of it) on a warp (K7w, K3w, K3ew, K4w, K6aw, K6bw, K1w), and the
+// time-major tiles of K3w, K3ew and K4w.
 //
 // Lane l holds elements j = l + 32 m of the sequence's vectors.  A sum over
 // j of products prod(j) is formed in index order, as the thread-a-sequence

@@ -55,16 +55,6 @@
 // storage (OCO_STORAGE_PAIRS) is widened on read: K6a's loads, K6b's
 // 4-byte windows (oco_tiles.cuh).
 //
-// Past d = 512 (the wide instance K6bw, D == oco::kWideD) a thread keeps
-// no vector in its frame: K6bw's theta and x (K2w's tails) are vectors 0
-// and 1 of slot g * B + s (s the sequence's place in the order) of the
-// caller's state buffer, laid out (d, G * B), every (sequence, threshold)
-// pair having a slot whether it switched or not.  It reads its rows from
-// global memory where it uses them and widens on read (oco::Widened, as
-// the large-d instance does), so it has no barrier to keep.  Same helpers,
-// same order: it equals its plain version bit for bit at any d, with a
-// local frame that does not grow with d.
-//
 // K6aw (K6a past d = 512, smart_prefix_wide_kernel) plays a sequence on a
 // warp.  One thread a sequence with theta, w and x in a (d, B) buffer (this
 // instance's first design) left the card nearly empty at the path's width
@@ -94,6 +84,41 @@
 // stage lie on the chip; past it theta and w lie in the caller's buffer,
 // (B, 2 d) contiguous a warp, and the lanes read their rows from global
 // memory: the library's plan (oco_smart_prefix_plan) reports the boundary
+// and the block, and the wrapper allocates the buffer it asks for.
+//
+// K6bw (K6b past d = 512, smart_tail_wide_kernel) plays a tail on a warp.
+// One thread a pair with theta and x in a (d, G B) buffer (this instance's
+// first design) left the card nearly empty (the path's 4,519 tails on
+// 1,024 x 16 threads) and read its rows 8 bytes at a time.  The design:
+//   - the thresholds that switch at or before a round are a prefix of the
+//     sorted ones (K6a's pointer walk), so a sequence's tails are its
+//     first sorted thresholds, and the earlier a threshold in sorted order
+//     the earlier its switch and the longer its tail.  A block plays
+//     kTailGroup consecutive sorted thresholds of one sequence (perm maps
+//     them to columns), a warp each; the blocks take the groups in sorted
+//     order, each group's sequences in the wrapper's length order, so the
+//     longest tails start first.  A block none of whose pairs has a tail
+//     leaves at once;
+//   - the group's tails read the same sequence-major rows, so the block
+//     steps its warps in lockstep from its earliest start, its threads
+//     copying row t + 1's 16-byte window into one of two stages with
+//     cp.async while the warps play row t (one barrier a round), as K1w's
+//     plays share theirs; a warp before its start, or with no tail, stays
+//     for the copies and the barriers (a barrier with exited warps is
+//     undefined);
+//   - a warp's tail is K3w's FTRL round: a fresh theta in shared memory,
+//     lane l holding elements j = l + 32 m; x never stored; q from
+//     oco::ftrl_q with the table's scale at the global round (||x||^2 and
+//     <z_t, x> side by side, <z_t, x> again where it projects); the hinge
+//     step, then the update lane-parallel; from K6a's starting sum, less
+//     comp at the end, as the thread-a-pair instances do.
+// What bounds it: the one-lane chain of d dependent adds a tail round over
+// the longest tails, and the tail rounds over the warps the card holds
+// (the path's 2.2 million tail rounds in f64 over 8 warps an SM).
+// Up to the plan's max_shared_d the thetas and the stages lie on the chip;
+// past it theta lies in the caller's buffer, up4(d) elements a (threshold,
+// sequence) pair, each warp reading its rows from global memory with no
+// barrier: the library's plan (oco_smart_tail_plan) reports the boundary
 // and the block, and the wrapper allocates the buffer it asks for.
 #include "oco_tiles.cuh"
 #include "oco_warp.cuh"
@@ -427,8 +452,8 @@ smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                   const int* __restrict__ lengths,
                   const long long* __restrict__ switch_t,
                   const S* __restrict__ comp, long long B, long long G,
-                  long long T, oco::TileShape ts, S* __restrict__ regret,
-                  S* state) {
+                  long long T, oco::TileShape ts, S* __restrict__ regret) {
+  static_assert(D != oco::kWideD, "K6bw is smart_tail_wide_kernel");
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -444,17 +469,10 @@ smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const int start = tau + 1 < len ? static_cast<int>(tau) + 1 : len;
   const int n = D > 0 ? D : ts.n;
 
-  // The pair's vectors: arrays, or (wide) its slot of the state buffer,
-  // which only a pair with a tail touches.
-  S th_a[C], x_a[C];
+  S th[C], x[C];
   const bool tail = start < len;
-  const long long own = tail ? g * B + slot : 0;
-  const auto th = oco::state_vec<D>(th_a, state, 0, own, G * B, n);
-  const auto x = oco::state_vec<D>(x_a, state, 1, own, G * B, n);
-  if (D != oco::kWideD || tail) {
 #pragma unroll
-    for (int j = 0; j < n; ++j) th[j] = S(0);
-  }
+  for (int j = 0; j < n; ++j) th[j] = S(0);
   S cum = tail ? regret[i] : S(0);
   oco::play_rows<S, D>(
       z, y, scales, b, T, ts, start, len, smem,
@@ -465,6 +483,211 @@ smart_tail_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       },
       oco::NoChunkPass());
   if (tail) regret[i] = cum - comp[b];
+}
+
+// ------------------------------------------------------------------ K6bw
+
+// Tails (warps) a K6bw block plays over one sequence's staged rows: of 1,
+// 2, 4 and 8 at the path's shape on an H100, 1 and 2 were the fastest,
+// within 1-2% of each other (PERF.md; scripts/wide_d_probe.py builds the
+// others with -DOCO_TAIL_GROUP=P to time them).  What bounds the f64
+// launch is the warps an SM, not the rows' traffic: at 205 registers 8
+// fit whatever the group (launch bounds asking for 10 took 168 registers
+// and 15.1 ms, but spilled 16 bytes a thread in one instance and not the
+// other).
+#ifndef OCO_TAIL_GROUP
+#define OCO_TAIL_GROUP 2
+#endif
+constexpr int kTailGroup = OCO_TAIL_GROUP;
+static_assert(kTailGroup >= 1 && kTailGroup <= 32, "1 to 32 warps a block");
+// Products a warp's line holds (oco_warp.cuh); each lane updates
+// kTailUnroll elements of theta at a time (launch bounds of one block an
+// SM, as K3w's).
+constexpr int kTailLine = 512;
+constexpr int kTailUnroll = 4;
+
+// A block's shared memory, each part a multiple of 16 bytes: the group's
+// thetas and two stages of a row's 16-byte window (shared), then the
+// group's product lines.
+template <typename Z, typename S = oco::compute_t<Z>>
+__host__ __device__ inline long long tail_block_bytes(int d, bool shared) {
+  return (shared ? kTailGroup * prefix_vec_bytes<Z>(d) +
+                       2 * prefix_stage_bytes<Z>(d)
+                 : 0) +
+         kTailGroup * oco::line_elems<S, kTailLine>() *
+             static_cast<long long>(sizeof(S));
+}
+
+template <typename Z, typename Y, bool kShared,
+          typename S = oco::compute_t<Z>>
+__global__ void __launch_bounds__(kTailGroup * 32, 1)
+smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
+                       const S* __restrict__ scales,
+                       const int* __restrict__ perm,
+                       const int* __restrict__ order,
+                       const int* __restrict__ lengths,
+                       const long long* __restrict__ switch_t,
+                       const S* __restrict__ comp, long long B, long long G,
+                       long long T, int d, S* __restrict__ regret,
+                       S* state) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Group grp's sorted thresholds k0 .. k0 + kTailGroup - 1 of the
+  // sequence in the order's place `slot`.
+  const long long grp = blockIdx.x / B, slot = blockIdx.x % B;
+  const long long k0 = grp * kTailGroup;
+  const long long b = order[slot];
+  const int len = lengths[b];
+  // Each thread reads the group's switch rounds: the block's first round
+  // and its warp's; a tail is rounds tau + 1 .. len - 1, empty unless
+  // tau + 1 < len.
+  int first = len, start = len;
+  long long i = 0;
+  for (int w = 0; w < kTailGroup && k0 + w < G; ++w) {
+    const long long iw = perm[k0 + w] * B + b;
+    const long long tau = switch_t[iw];
+    const int s = tau + 1 < len ? static_cast<int>(tau) + 1 : len;
+    first = min(first, s);
+    if (w == warp) {
+      start = s;
+      i = iw;
+    }
+  }
+  // A block with no tail leaves whole, before any barrier; past the
+  // shared boundary no barrier spans the block's warps.
+  if (first == len || (!kShared && start == len)) return;
+  const bool tail = start < len;
+  const int n = d;
+  const long long v = up4(n);
+  S* th = kShared ? reinterpret_cast<S*>(smem) + warp * v
+                  : state + ((k0 + warp) * B + slot) * v;
+  unsigned char* stages =
+      smem + (kShared ? kTailGroup * v * static_cast<long long>(sizeof(S))
+                      : 0);
+  const long long stage_bytes = prefix_stage_bytes<Z>(n);
+  S* line = reinterpret_cast<S*>(stages + (kShared ? 2 * stage_bytes : 0)) +
+            warp * oco::line_elems<S, kTailLine>();
+  const Z* rows = z + b * T * n;
+  const Y* labels = y + b * T;
+
+  // Row t into stage t & 1: the 16-byte chunks around it (each holds an
+  // element of the row, so it lies in that element's page), split over
+  // the block's threads; the row lies at byte (its address & 15) of the
+  // stage.
+  const auto fetch = [&](int t) {
+    const auto a = reinterpret_cast<unsigned long long>(
+        rows + static_cast<long long>(t) * n);
+    const auto* src = reinterpret_cast<const uint4*>(a & ~15ull);
+    auto* dst = reinterpret_cast<uint4*>(stages + (t & 1) * stage_bytes);
+    const long long chunks =
+        ((a & 15) + n * static_cast<long long>(sizeof(Z)) + 15) / 16;
+    for (long long c = threadIdx.x; c < chunks; c += blockDim.x)
+      oco::copy_async(dst + c, src + c);
+  };
+  // Row t as the lanes read it: staged, or (past the boundary) the rows.
+  const auto row = [&](int t) -> const Z* {
+    const Z* r = rows + static_cast<long long>(t) * n;
+    if constexpr (kShared)
+      return reinterpret_cast<const Z*>(
+          stages + (t & 1) * stage_bytes +
+          (reinterpret_cast<unsigned long long>(r) & 15));
+    else
+      return r;
+  };
+
+  for (int j = lane; j < n; j += 32) th[j] = S(0);
+  S cum = tail ? regret[i] : S(0);
+  S y_next = tail ? S(oco::widen(labels[start])) : S(0);
+  S sc_next = tail ? scales[start] : S(0);
+  const int t_lo = kShared ? first : start;
+  if constexpr (kShared) {
+    fetch(t_lo);
+    oco::commit_copies();
+  }
+  for (int t = t_lo; t < len; ++t) {
+    if constexpr (kShared) {
+      oco::wait_copies<0>();
+      __syncthreads();  // row t landed; row t - 1's stage is free
+      if (t + 1 < len) fetch(t + 1);
+      oco::commit_copies();
+      if (t < start) continue;
+    }
+    const Z* zr = row(t);
+    const auto z_at = [&](int j) { return S(oco::widen(zr[j])); };
+    const S yt = y_next, sc = sc_next;
+    if (t + 1 < len) {
+      y_next = S(oco::widen(labels[t + 1]));
+      sc_next = scales[t + 1];
+    }
+    // The action x = sc theta, times f where it projects: ftrl_action_scaled
+    // and hinge_step's dot; then update.
+    S f;
+    bool proj;
+    const S q = oco::ftrl_q<kTailLine>(line, n, lane, sc, th, z_at, f, proj);
+    const S diff = q - yt;
+    cum = cum + S(0.5) * oco::oabs(diff);
+    const S g = oco::half_sign(diff);
+    for (int j0 = lane; j0 < n; j0 += 32 * kTailUnroll) {
+      S zj[kTailUnroll], tj[kTailUnroll];
+#pragma unroll
+      for (int u = 0; u < kTailUnroll; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < n) {
+          zj[u] = z_at(j);
+          tj[u] = th[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTailUnroll; ++u)
+        if (j0 + 32 * u < n) th[j0 + 32 * u] = tj[u] + g * zj[u];
+    }
+    __syncwarp();
+  }
+  if (tail && lane == 0) regret[i] = cum - comp[b];
+}
+
+// The largest d whose block fits shared memory with the thetas and the
+// stages.
+template <typename Z>
+int tail_max_shared_d() {
+  return oco::max_shared_d(
+      [](int d) { return tail_block_bytes<Z>(d, true); });
+}
+
+// K6bw's block at d: kTailGroup warps, the thetas and the stages in shared
+// memory up to tail_max_shared_d(); past it up4(d) elements of the state
+// buffer a (threshold, sequence) pair.
+template <typename Z>
+oco::WarpPlan tail_plan(int d) {
+  oco::WarpPlan p{};
+  p.warps = kTailGroup;
+  p.shared = d <= tail_max_shared_d<Z>();
+  p.smem = tail_block_bytes<Z>(d, p.shared);
+  p.state = p.shared ? 0 : up4(d);
+  return p;
+}
+
+// K6bw's kernel for a plan.
+template <typename Z, typename Y>
+auto tail_wide(const oco::WarpPlan& p) {
+  return p.shared ? &smart_tail_wide_kernel<Z, Y, true>
+                  : &smart_tail_wide_kernel<Z, Y, false>;
+}
+
+template <typename Z, typename Y, typename S>
+int launch_tails_wide(const Z* z, const Y* y, const S* scales,
+                      const int* perm, const int* order, const int* lengths,
+                      const long long* switch_t, const S* comp, long long B,
+                      long long G, long long T, int d, S* regret, S* state,
+                      cudaStream_t s) {
+  const oco::WarpPlan p = tail_plan<Z>(d);
+  if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
+  const long long grid = (G + kTailGroup - 1) / kTailGroup * B;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return oco::launch_with_smem(
+      tail_wide<Z, Y>(p), static_cast<unsigned int>(grid), p.warps * 32,
+      static_cast<size_t>(p.smem), s, z, y, scales, perm, order, lengths,
+      switch_t, comp, B, G, T, d, regret, state);
 }
 
 // K6a.  Inputs: z (B, T, d) and y (B, T) contiguous, sorted (G,) the
@@ -510,34 +733,44 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
   return err != cudaSuccess ? err : launched;
 }
 
-// K6b.  Inputs: z, y, order, lengths as K6a's; scales (T,) the per-round
-// FTRL scales -(eta / sqrt(t)); switch_t and comp from K6a.  In and out:
-// regret (G, B), K6a's on entry, with every tail played on return.
-// Returns the cudaError_t of the launch.
+// K6b.  Inputs: z, y, perm, order, lengths as K6a's; scales (T,) the
+// per-round FTRL scales -(eta / sqrt(t)); switch_t and comp from K6a.  In
+// and out: regret (G, B), K6a's on entry, with every tail played on
+// return.  Returns the cudaError_t of the launch.
 template <typename Z, typename Y>
 int launch_tails(const void* z, const void* y, const void* scales,
-                 const void* order, const void* lengths, const void* switch_t,
-                 const void* comp, long long B, long long G, long long T,
-                 int d, void* regret, void* state, void* stream) {
+                 const void* perm, const void* order, const void* lengths,
+                 const void* switch_t, const void* comp, long long B,
+                 long long G, long long T, int d, void* regret, void* state,
+                 void* stream) {
   using S = oco::compute_t<Z>;
   if (B < 1 || G < 1 || T < 1) return cudaErrorInvalidValue;
-  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32 * ((G + kTailWarps - 1) / kTailWarps);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const oco::TileShape ts =
-      oco::tile_shape<Z, Y>(d, kTailWarps, kTailStageBytes, 1);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* zp = static_cast<const Z*>(z);
+  const auto* yp = static_cast<const Y*>(y);
+  const auto* sp = static_cast<const S*>(scales);
+  const auto* op = static_cast<const int*>(order);
+  const auto* lp = static_cast<const int*>(lengths);
+  const auto* tp = static_cast<const long long*>(switch_t);
+  const auto* cp = static_cast<const S*>(comp);
+  auto* rp = static_cast<S*>(regret);
   int err = cudaSuccess;
   const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    err = oco::launch_with_smem(
-        smart_tail_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
-        kTailWarps * 32, oco::ring_bytes<D>(ts),
-        static_cast<cudaStream_t>(stream), static_cast<const Z*>(z),
-        static_cast<const Y*>(y), static_cast<const S*>(scales),
-        static_cast<const int*>(order), static_cast<const int*>(lengths),
-        static_cast<const long long*>(switch_t),
-        static_cast<const S*>(comp), B, G, T, ts, static_cast<S*>(regret),
-        static_cast<S*>(state));
+    if constexpr (D == oco::kWideD) {
+      err = launch_tails_wide<Z, Y, S>(
+          zp, yp, sp, static_cast<const int*>(perm), op, lp, tp, cp, B, G, T,
+          d, rp, static_cast<S*>(state), s);
+    } else {
+      const oco::TileShape ts =
+          oco::tile_shape<Z, Y>(d, kTailWarps, kTailStageBytes, 1);
+      err = oco::launch_with_smem(
+          smart_tail_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
+          kTailWarps * 32, oco::ring_bytes<D>(ts), s, zp, yp, sp, op, lp, tp,
+          cp, B, G, T, ts, rp);
+    }
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -548,15 +781,24 @@ int occupancy(int tails, int d, int* out) {
   int err = cudaSuccess;
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
+    const auto measure = [&](auto kernel, int threads, size_t smem) {
+      err = oco::occupancy(kernel, threads, smem, out);
+      if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, smem);
+    };
     if (tails) {
-      const oco::TileShape ts =
-          oco::tile_shape<S, S>(d, kTailWarps, kTailStageBytes, 1);
-      const size_t smem = oco::ring_bytes<D>(ts);
-      err = oco::occupancy(smart_tail_kernel<S, S, D>, kTailWarps * 32, smem,
-                           out);
-      if (err == cudaSuccess)
-        err = oco::local_bytes(smart_tail_kernel<S, S, D>, out + 2, smem);
-    } else if constexpr (D != oco::kWideD) {
+      if constexpr (D == oco::kWideD) {
+        const oco::WarpPlan p = tail_plan<Z>(d);
+        measure(tail_wide<Z, Y>(p), p.warps * 32,
+                static_cast<size_t>(p.smem));
+      } else {
+        const oco::TileShape ts =
+            oco::tile_shape<S, S>(d, kTailWarps, kTailStageBytes, 1);
+        measure(smart_tail_kernel<S, S, D>, kTailWarps * 32,
+                oco::ring_bytes<D>(ts));
+      }
+      return;
+    }
+    if constexpr (D != oco::kWideD) {
       err = oco::occupancy(smart_prefix_kernel<S, S, D>, kPrefixThreads, 0,
                            out);
       if (err == cudaSuccess)
@@ -582,7 +824,9 @@ int occupancy(int tails, int d, int* out) {
 // the compute type; any d >= 1.  state: a scratch buffer of the compute
 // type (ops/game.py::wide_state_elems), else unused (may be null): for
 // K6a where oco_smart_prefix_plan asks for one (d past its max_shared_d),
-// `state` * B elements; for K6b past d = 512, 2 * d * G * B.
+// `state` * B elements; for K6b where oco_smart_tail_plan asks for one,
+// `state` * G * B.  K6b takes K6a's perm (K6bw plays its tails by sorted
+// threshold).
 #define OCO_SMART_SWEEP_ENTRIES(SUFFIX, Z, Y)                               \
   extern "C" int oco_smart_prefix_##SUFFIX(                                 \
       const void* z, const void* y, const void* sorted, const void* perm,   \
@@ -594,12 +838,12 @@ int occupancy(int tails, int d, int* out) {
                                stream);                                     \
   }                                                                         \
   extern "C" int oco_smart_tails_##SUFFIX(                                  \
-      const void* z, const void* y, const void* scales, const void* order,  \
-      const void* lengths, const void* switch_t, const void* comp,          \
-      long long B, long long G, long long T, int d, void* regret,           \
-      void* state, void* stream) {                                          \
-    return launch_tails<Z, Y>(z, y, scales, order, lengths, switch_t, comp, \
-                              B, G, T, d, regret, state, stream);           \
+      const void* z, const void* y, const void* scales, const void* perm,   \
+      const void* order, const void* lengths, const void* switch_t,         \
+      const void* comp, long long B, long long G, long long T, int d,       \
+      void* regret, void* state, void* stream) {                            \
+    return launch_tails<Z, Y>(z, y, scales, perm, order, lengths, switch_t, \
+                              comp, B, G, T, d, regret, state, stream);     \
   }
 OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
 
@@ -608,8 +852,9 @@ OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
 
 // Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
 // thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
-// K6a (tails 0; K6aw at its plan's block) or K6b (tails 1) launch at
-// feature dimension d on the current card with z in `storage`.  Returns
+// K6a (tails 0; K6aw at its plan's block) or K6b (tails 1; K6bw at its
+// plan's block) launch at feature dimension d on the current card with z
+// in `storage`.  Returns
 // the cudaError_t.
 extern "C" int oco_smart_sweep_occupancy(int storage, int tails, int d,
                                          int* out) {
@@ -651,4 +896,27 @@ extern "C" int oco_smart_prefix_plan(int storage, int d, long long* out) {
   out[3] = p.state;
   out[4] = max_d;
   return err;
+}
+
+// K6bw's plan at d > 512 with z in `storage` on the current card: warps
+// (tails) a block (out[0]), bytes of dynamic shared memory a block
+// (out[1]), 1 if the thetas and the stages lie in shared memory (out[2]),
+// elements of the state buffer a (threshold, sequence) pair, 0 where
+// shared (out[3]), and the largest d whose block fits shared memory
+// (out[4]).  Returns cudaErrorInvalidValue for d <= 512 or an unknown
+// storage, else cudaSuccess.
+extern "C" int oco_smart_tail_plan(int storage, int d, long long* out) {
+  if (d <= OCO_LARGE_D || storage < 0 || storage > 2)
+    return cudaErrorInvalidValue;
+  const oco::WarpPlan p = storage == 0   ? tail_plan<float>(d)
+                          : storage == 1 ? tail_plan<double>(d)
+                                         : tail_plan<oco::bf16>(d);
+  out[0] = p.warps;
+  out[1] = p.smem;
+  out[2] = p.shared ? 1 : 0;
+  out[3] = p.state;
+  out[4] = storage == 0   ? tail_max_shared_d<float>()
+           : storage == 1 ? tail_max_shared_d<double>()
+                          : tail_max_shared_d<oco::bf16>();
+  return cudaSuccess;
 }

@@ -47,9 +47,10 @@ here takes any d on the card: past ``cuda_build.MAX_D`` = 512 each
 launches its wide instance (K1w, K3w, K3ew, K4w, K5w, K7w), whose state
 lies in a device buffer of ``wide_state_elems`` elements that the wrapper
 allocates (a buffer that does not fit raises as ``torch.empty`` raises);
-K1w, K3w, K4w, K6aw and K7w keep it in shared memory while their plans
-(``regret_plan``, ``packed_plan``, ``stream_plan``, ``prefix_plan``,
-``synthetic_plan``) say a block's state fits, and need no buffer there.
+K1w, K3w, K3ew, K4w, K6aw, K6bw and K7w keep it in shared memory while
+their plans (``regret_plan``, ``packed_plan``, ``stream_plan``,
+``prefix_plan``, ``tail_plan``, ``synthetic_plan``) say a block's state
+fits, and need no buffer there.
 K1, K4 and K5 play the same round (``oco::game_round``), K3 and K3e its
 action and hinge step, so a sweep column, a sequence fed in chunks or a
 packed game equals K1 bit for bit.
@@ -210,35 +211,37 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1,
 
     - K2w: theta and x of the FTL track and of each of ``plays`` (G)
       thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
-    - K3ew: x, ``d B`` (theta is the output);
     - K5w: theta of each of ``plays`` (E) settings a sequence, and a w a
       sequence for each group of ``SWEEP_WARPS`` settings,
       ``(E + ceil(E / SWEEP_WARPS)) d B`` (no x: the final FTL action is
       written over theta);
-    - K6bw: theta and x of each of ``plays`` (G) thresholds' tails,
-      ``2 d G B`` (a slot for every pair, switched or not);
-    - K1w, K3w, K4w, K6aw, K7w: what the library's plan asks for
-      (``regret_plan`` with ``plays`` plays a sequence, ``packed_plan``,
-      ``stream_plan``, ``prefix_plan``, ``synthetic_plan``): none while a
-      block's state fits its shared memory, past that the plan's ``state``
-      elements a sequence, laid out (B, state).
+    - K1w, K3w, K3ew, K4w, K6aw, K7w: what the library's plan asks for
+      (``regret_plan`` with ``plays`` plays a sequence, ``packed_plan``
+      for K3w and K3ew, ``stream_plan``, ``prefix_plan``,
+      ``synthetic_plan``): none while a block's state fits its shared
+      memory, past that the plan's ``state`` elements a sequence, laid out
+      (B, state);
+    - K6bw: ``tail_plan``'s: none while a block's state fits, past that
+      its ``state`` elements for each of ``plays`` (G) thresholds of a
+      sequence, laid out (G B, state).
     """
     if kernel not in WIDE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}; the hinge kernels are "
                          f"{WIDE_KERNELS}")
     if d <= cuda_build.MAX_D:
         return 0
-    plan = {"K3": packed_plan, "K4": stream_plan,
+    plan = {"K3": packed_plan, "K3e": packed_plan, "K4": stream_plan,
             "K6a": prefix_plan}.get(kernel)
     if plan is not None:
         return plan(d, dtype)["state"] * B
     if kernel == "K1":
         return regret_plan(d, plays, dtype)["state"] * B
+    if kernel == "K6b":
+        return tail_plan(d, dtype)["state"] * plays * B
     if kernel == "K7":
         return synthetic_plan(d)["state"] * B
-    vectors = {"K2": 2 * (1 + plays) + 1, "K3e": 1,
-               "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS,
-               "K6b": 2 * plays}[kernel]
+    vectors = {"K2": 2 * (1 + plays) + 1,
+               "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS}[kernel]
     return vectors * d * B
 
 
@@ -468,11 +471,12 @@ def synthetic_plan(d: int, alg_flag: int = 0) -> dict:
 
 
 def packed_plan(d: int, dtype) -> dict:
-    """K3w's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with z
-    in ``dtype`` (``oco_packed_plan``; see ``_plan``): a warp a sequence,
-    32 bytes of z a block at each (t, j), theta and the block's two row
-    stages in shared memory up to ``max_shared_d``; past it theta in the
-    state buffer, ``state`` elements a sequence."""
+    """K3w's (and K3ew's) block at feature dimension ``d`` >
+    ``cuda_build.MAX_D`` with z in ``dtype`` (``oco_packed_plan``; see
+    ``_plan``): a warp a sequence, 32 bytes of z a block at each (t, j),
+    theta and the block's two row stages in shared memory up to
+    ``max_shared_d``; past it theta in the state buffer, ``state``
+    elements a sequence."""
     return _plan("K3w", cuda_build.load().oco_packed_plan,
                  storage_code(dtype), d)
 
@@ -503,6 +507,17 @@ def prefix_plan(d: int, dtype) -> dict:
     sequence, theta, w and the warp's row stage in shared memory up to
     ``max_shared_d``; past it theta and w in the state buffer."""
     return _plan("K6aw", cuda_build.load().oco_smart_prefix_plan,
+                 storage_code(dtype), d)
+
+
+def tail_plan(d: int, dtype) -> dict:
+    """K6bw's block at feature dimension ``d`` > ``cuda_build.MAX_D`` with
+    z in ``dtype`` (``oco_smart_tail_plan``; see ``_plan``): a warp a tail,
+    ``warps`` consecutive sorted thresholds of one sequence a block, their
+    thetas and the block's two row stages in shared memory up to
+    ``max_shared_d``; past it theta in the state buffer, ``state``
+    elements a (threshold, sequence) pair."""
+    return _plan("K6bw", cuda_build.load().oco_smart_tail_plan,
                  storage_code(dtype), d)
 
 

@@ -25,7 +25,8 @@ kernel's order of operations.  A wrapper runs the plain version on a CPU
 tensor, at any d, and launches the kernel on a CUDA tensor; there is no
 fallback between them.  K2, K6a and K6b take any d on the card (past 512
 their wide instances K2w, K6aw and K6bw, whose state lies in a device
-buffer the wrapper allocates, ``game.wide_state_elems``).  K6 computes
+buffer the wrapper allocates, ``game.wide_state_elems``, or for K6aw and
+K6bw in shared memory while their plans say it fits).  K6 computes
 what K2's FTL and tail warps compute, in the same order, so a sweep column
 equals K2 bit for bit.
 
@@ -539,23 +540,24 @@ def launch_smart_prefix(z, y, ordered, perm, order, lengths,
     return partial, tau, comp
 
 
-def launch_smart_tails(z, y, scales, order, lengths, switch_t, comp,
+def launch_smart_tails(z, y, scales, perm, order, lengths, switch_t, comp,
                        regret) -> None:
     """Launch kernel K6b on K6a's outputs (``launch_smart_prefix``, with the
-    same sequence ``order``) and the ``(1, T)`` scale table of the scalar
-    eta (``game.sweep_scales``): ``regret`` ``(G, B)`` holds K6a's
-    ``partial`` and is turned into the regrets in place."""
+    same threshold columns ``perm`` (int32) in sorted order and sequence
+    ``order``) and the ``(1, T)`` scale table of the scalar eta
+    (``game.sweep_scales``): ``regret`` ``(G, B)`` holds K6a's ``partial``
+    and is turned into the regrets in place."""
     global SWEEP_TAIL_LAUNCHES
     B, T, d = z.shape
     G = switch_t.shape[0]
     fn = getattr(cuda_build.load(),
                  f"oco_smart_tails_{storage_suffix(z.dtype, y.dtype)}")
     with torch.cuda.device(z.device):
-        state = wide_state("K6b", B, d, G, regret.dtype, z.device)
+        state = wide_state("K6b", B, d, G, z.dtype, z.device)
         err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(),
-                 order.data_ptr(), lengths.data_ptr(), switch_t.data_ptr(),
-                 comp.data_ptr(), B, G, T, d, regret.data_ptr(),
-                 data_ptr(state),
+                 perm.data_ptr(), order.data_ptr(), lengths.data_ptr(),
+                 switch_t.data_ptr(), comp.data_ptr(), B, G, T, d,
+                 regret.data_ptr(), data_ptr(state),
                  torch.cuda.current_stream(z.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"SMART sweep tail kernel launch failed: "
@@ -569,13 +571,13 @@ def launch_smart_sweep(z, y, thresholds, eta: float, lengths, replay: bool):
     (int32) as ``smart_sweep`` prepares them.  Returns
     ``(regret (G, B), switch_t (G, B))``."""
     ordered, perm = torch.sort(thresholds, stable=True)
+    perm = perm.to(torch.int32)
     order = length_order(lengths)
-    regret, tau, comp = launch_smart_prefix(z, y, ordered,
-                                            perm.to(torch.int32), order,
+    regret, tau, comp = launch_smart_prefix(z, y, ordered, perm, order,
                                             lengths, replay)
     scales = sweep_scales(torch.full((1,), eta, dtype=compute_dtype(z),
                                      device=z.device), z.shape[1])
-    launch_smart_tails(z, y, scales, order, lengths, tau, comp, regret)
+    launch_smart_tails(z, y, scales, perm, order, lengths, tau, comp, regret)
     return regret, tau
 
 

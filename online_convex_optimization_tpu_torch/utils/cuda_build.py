@@ -67,6 +67,7 @@ _SIGNATURES = {
     "oco_synthetic_plan": [_I, _I, _P],
     "oco_packed_plan": [_I, _I, _P],
     "oco_smart_prefix_plan": [_I, _I, _P],
+    "oco_smart_tail_plan": [_I, _I, _P],
     "oco_regret_plan": [_I, _I, _I, _P],
     "oco_stream_plan": [_I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
@@ -86,7 +87,7 @@ for _ty in STORAGE_SUFFIXES:
         f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P] * 3,
         f"oco_smart_prefix_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
                                    [_P] * 5,
-        f"oco_smart_tails_{_ty}": [_P] * 7 + [_LL] * 3 + [_I] + [_P] * 3,
+        f"oco_smart_tails_{_ty}": [_P] * 8 + [_LL] * 3 + [_I] + [_P] * 3,
         f"oco_play_stream_{_ty}": [_P, _P, _P, _P, _LL, _LL, _LL, _I] +
                                   [_P] * 10,
         f"oco_play_packed_{_ty}": [_P, _P, _P, _LL, _LL, _I, _I] +

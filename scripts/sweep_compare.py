@@ -109,15 +109,16 @@ def staged(z, y, lengths, grid, ths, order):
             z, y, ordered, perm, order, lengths, False),
         # In place on a scratch buffer: each launch plays the same tails.
         "K6b": lambda: smart.launch_smart_tails(
-            z, y, scales6, order, lengths, tau, comp, buf),
-        "K6 digest": lambda: tails_digest(z, y, scales6, order, lengths,
-                                          part, tau, comp),
+            z, y, scales6, perm, order, lengths, tau, comp, buf),
+        "K6 digest": lambda: tails_digest(z, y, scales6, perm, order,
+                                          lengths, part, tau, comp),
     }
 
 
-def tails_digest(z, y, scales, order, lengths, part, tau, comp):
+def tails_digest(z, y, scales, perm, order, lengths, part, tau, comp):
     out = part.clone()
-    smart.launch_smart_tails(z, y, scales, order, lengths, tau, comp, out)
+    smart.launch_smart_tails(z, y, scales, perm, order, lengths, tau, comp,
+                             out)
     return digest((out.t(), tau.t()))
 
 

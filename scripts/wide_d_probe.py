@@ -7,7 +7,7 @@ shared memory and state buffer.
     python3 <path to>/scripts/wide_d_probe.py [--d 1024]
         [--cases k1f64 k1f32 k2 k4 k4ftrl k4ftl k3 k3bf16 k5f64 k5f32 k6
                  k6f32 k7ftrl k7ftl adds]
-        [--reps 3]
+        [--reps 3] [--tail-groups 1 2 8]
 
 Its inputs come from ``data/device.py``'s generators and fixed seeds (the
 sweep, packed and synthetic cases from ``chip_smoke.py`` phase 16's own
@@ -37,7 +37,11 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 - ``k5f64``, ``k5f32``: K5 on phase 16's sweep data, B = 1,024, T = 1,024
   (lengths in [512, 1,024]), E = 64 (eta 0.05 .. 4.0);
 - ``k6``, ``k6f32``: K6a and K6b on the f64 (f32) sweep data, G = 16
-  (sqrt(2T)/16 .. sqrt(2T)), eta = sqrt(2);
+  (sqrt(2T)/16 .. sqrt(2T)), eta = sqrt(2); with ``--tail-groups``, K6bw
+  also at each of those group sizes P (tails a block): the K6 source built
+  alone with -DOCO_TAIL_GROUP=P under build/wide_d_probe/ (nvcc, the
+  library's flags, all at once), its entry called as the wrapper calls the
+  library's, its digest equal to the library's;
 - ``k7ftrl``, ``k7ftl``: K7 at phase 16's seed, T = 1,000, lane_batch
   2,048 (16,384 sequences);
 - ``adds`` (once, not per d): the latency of a dependent float32 and
@@ -49,12 +53,13 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 Each time is the median (min, max) of ``--reps`` CUDA-event timed calls
 after a warm-up call.  Bounds: ``chip_smoke.py``'s (inputs read once,
 outputs written once, its operation counts over the H100 SXM's peaks).
-K1, K3, K4, K5, K6a and K7 also print their design's own floor: K5w's theta
-stream (two reads and one write of d elements a pair-round, at 3.35
-TB/s); K7w's one-lane sums (2 d dependent adds a sequence-round, one warp
-instruction each, at ``chip_smoke.py``'s WARP_ISSUE_PER_S); K3w's and
-K6aw's from ``chip_smoke.py``'s ``packed_wide_floor`` and
-``prefix_wide_floor``; K1w's and K4w's (FTL's two chains of d dependent
+K1, K3, K3e, K4, K5, K6a, K6b and K7 also print their design's own
+floor: K5w's theta stream (two reads and one write of d elements a
+pair-round, at 3.35 TB/s); K7w's one-lane sums (2 d dependent adds a
+sequence-round, one warp instruction each, at ``chip_smoke.py``'s
+WARP_ISSUE_PER_S); K3w's, K3ew's, K6aw's and K6bw's from
+``chip_smoke.py``'s ``packed_wide_floor``, ``prefix_wide_floor`` and
+``tail_wide_floor``; K1w's and K4w's (FTL's two chains of d dependent
 adds a round, times the waves of sequences their plans fit on the card)
 from its ``wide_plan_fields``, with their plans.  Run from a checkout
 whose ``chip_smoke.py`` lacks these, it prints no such floor.  Prints one line a case, then
@@ -64,6 +69,7 @@ all of them as one JSON line.  Needs one CUDA card.
 import argparse
 import ctypes
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -113,6 +119,10 @@ try:   # K1w's and K4w's plans and floors, where the checkout has them
     from chip_smoke import wide_plan_fields  # noqa: E402
 except ImportError:
     wide_plan_fields = None
+try:   # K3ew's and K6bw's floors, where the checkout has them
+    from chip_smoke import eta_scales, tail_wide_floor  # noqa: E402
+except ImportError:
+    eta_scales = tail_wide_floor = None
 from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
     random_game_batch,
     random_time_major_batch,
@@ -181,7 +191,8 @@ def state_bytes(kernel, B, d, plays, dtype) -> int:
     """The launch's state buffer in bytes (z stored in ``dtype``)."""
     size = game.compute_dtype(dtype).itemsize
     planned = {"K3": "packed_plan", "K6a": "packed_plan",
-               "K1": "regret_plan", "K4": "stream_plan"}
+               "K1": "regret_plan", "K4": "stream_plan",
+               "K3e": "packed_plan", "K6b": "tail_plan"}
     if kernel in planned and hasattr(game, planned[kernel]):
         return game.wide_state_elems(kernel, B, d, plays, dtype) * size
     return game.wide_state_elems(kernel, B, d, plays) * size
@@ -278,6 +289,9 @@ def k3(d, reps, pair):
             "K3e": lambda: game.launch_play_packed_eta(z_tm, y_tm, per_seq)}
     share = (packed_projecting_share(z_tm, y_tm, scales)
              if packed_projecting_share else None)
+    eta_share = (packed_projecting_share(z_tm, y_tm,
+                                         eta_scales(per_seq, WPK_T))
+                 if eta_scales else None)
     res = {}
     for key, fn in runs.items():
         outs = fn()
@@ -294,6 +308,9 @@ def k3(d, reps, pair):
                 packed_wide_floor(WPK_B, WPK_T, d, bd,
                                   None if key == "K3 FTL" else share),
                 projecting_share=share)
+        if key == "K3e" and eta_share is not None:
+            res[key].update(packed_wide_floor(WPK_B, WPK_T, d, bd, eta_share),
+                            projecting_share=eta_share)
     return res
 
 
@@ -315,8 +332,68 @@ def k5(d, dtype, reps):
             "state_bytes": state_bytes("K5", WSW_B, d, WSW_E, dtype)}
 
 
-def k6(d, dtype, reps):
-    """K6a and K6b on the sweep data, each timed alone."""
+def tail_libraries(groups) -> dict:
+    """K6's source built alone with -DOCO_TAIL_GROUP=P for each P of
+    ``groups`` (all at once) under build/wide_d_probe/, its K6b entries
+    and plan declared: {P: the loaded library}."""
+    src = os.path.join(cuda_build.SRC_DIR, "smart_sweep_kernel.cu")
+    out_dir = os.path.join(os.path.dirname(cuda_build.BUILD_DIR),
+                           "wide_d_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {P: os.path.join(out_dir, f"libtails_p{P}.so") for P in groups}
+    procs = {P: subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DOCO_TAIL_GROUP={P}",
+         "-shared", src, "-o", path], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for P, path in paths.items()}
+    libs = {}
+    for P, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"wide_d_probe: nvcc -DOCO_TAIL_GROUP={P} "
+                             f"failed:\n{log}")
+        so = ctypes.CDLL(paths[P])
+        for name in ("oco_smart_tails_f64", "oco_smart_tails_f32",
+                     "oco_smart_tail_plan", "oco_smart_sweep_occupancy"):
+            getattr(so, name).argtypes = cuda_build._SIGNATURES[name]
+        libs[P] = so
+    return libs
+
+
+def launch_tails(z, y, scales, perm, order, ln, tau, comp, regret):
+    """``launch_smart_tails`` in the checkout's signature (K6a's perm
+    since K6bw plays its tails by sorted threshold)."""
+    if "perm" in inspect.signature(smart.launch_smart_tails).parameters:
+        smart.launch_smart_tails(z, y, scales, perm, order, ln, tau, comp,
+                                 regret)
+    else:
+        smart.launch_smart_tails(z, y, scales, order, ln, tau, comp, regret)
+
+
+def tails_at_group(so, z, y, scales, perm, order, ln, tau, comp, regret):
+    """K6b's entry of a library built at another group size, called as the
+    wrapper calls the library's: the state buffer its plan asks for."""
+    B, T, d = z.shape
+    G = tau.shape[0]
+    plan = (ctypes.c_longlong * 5)()
+    err = so.oco_smart_tail_plan(game.storage_code(z.dtype), d, plan)
+    if err:
+        raise RuntimeError(f"oco_smart_tail_plan: cudaError {err}")
+    state = (torch.empty(plan[3] * G * B, dtype=game.compute_dtype(z),
+                         device=DEV) if plan[3] else None)
+    fn = getattr(so, f"oco_smart_tails_{game.storage_suffix(z.dtype, y.dtype)}")
+    err = fn(z.data_ptr(), y.data_ptr(), scales.data_ptr(), perm.data_ptr(),
+             order.data_ptr(), ln.data_ptr(), tau.data_ptr(), comp.data_ptr(),
+             B, G, T, d, regret.data_ptr(), game.data_ptr(state),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"oco_smart_tails: cudaError {err}")
+    return {"warps": plan[0], "smem_bytes": plan[1], "shared": bool(plan[2]),
+            "max_shared_d": plan[4]}
+
+
+def k6(d, dtype, reps, tail_libs=None):
+    """K6a and K6b on the sweep data, each timed alone; K6b also at the
+    group sizes of ``tail_libs`` ({P: library})."""
     z, y, ln = wsw_batch(dtype, WSW_B, WSW_T, d, dtype)
     ths = wsw_thresholds(WSW_T, WSW_G, dtype)
     ordered, perm = torch.sort(ths, stable=True)
@@ -337,16 +414,38 @@ def k6(d, dtype, reps):
                    "state_bytes": state_bytes("K6a", WSW_B, d, WSW_G,
                                               dtype)}}
     regret = part.clone()
-    smart.launch_smart_tails(z, y, scales, order, ln, tau, comp, regret)
-    tails = lambda: smart.launch_smart_tails(z, y, scales, order, ln, tau,
-                                             comp, part.clone())
+    launch_tails(z, y, scales, perm, order, ln, tau, comp, regret)
+    tails = lambda: launch_tails(z, y, scales, perm, order, ln, tau, comp,
+                                 part.clone())
+    occupancy = launch_shape("K6", d, dtype, 1)
+    floor = (tail_wide_floor(tau.t(), ln, d, dtype,
+                             occupancy["warps_per_sm"])
+             if tail_wide_floor and d > 512 else {})
+    plan = (game.tail_plan(d, dtype) if hasattr(game, "tail_plan")
+            and d > 512 else {})
     res["K6b"] = {"ms": time_ms(tails, reps=reps),
                   **sweep_bounds("K6b", ln, counts, dtype, d, WSW_E,
-                                 WSW_G)[1],
+                                 WSW_G)[1], **floor,
                   "digest": digest((regret,)),
                   "tails": counts["tail_pairs"],
-                  "occupancy": launch_shape("K6", d, dtype, 1),
+                  "group": plan.get("warps"),
+                  "occupancy": occupancy,
                   "state_bytes": state_bytes("K6b", WSW_B, d, WSW_G, dtype)}
+    for P, so in (tail_libs or {}).items():
+        out = part.clone()
+        at = tails_at_group(so, z, y, scales, perm, order, ln, tau, comp, out)
+        fn = lambda: tails_at_group(so, z, y, scales, perm, order, ln, tau,
+                                    comp, part.clone())
+        occ = game.occupancy("K6bw", so.oco_smart_sweep_occupancy,
+                             game.storage_code(dtype), 1, d, shared=True)
+        res[f"K6b P={P}"] = {
+            **res["K6b"], "ms": time_ms(fn, reps=reps), "group": P,
+            "plan": at, "digest": digest((out,)),
+            "occupancy": dict(zip(("registers", "warps_per_sm",
+                                   "local_bytes", "shared_bytes"), occ))}
+        if tail_wide_floor:
+            res[f"K6b P={P}"].update(tail_wide_floor(tau.t(), ln, d, dtype,
+                                                     occ[1]))
     return res
 
 
@@ -408,7 +507,7 @@ def add_latency(reps) -> dict:
     return res
 
 
-def run_case(name, d, reps):
+def run_case(name, d, reps, tail_libs=None):
     """One case's entries, keyed by kernel (several for k3 and k6)."""
     B, T, dtype = SHAPES[name]
     if name in ("k4", "k4ftrl", "k4ftl"):
@@ -421,7 +520,7 @@ def run_case(name, d, reps):
         return {name: k5(d, dtype, reps)}
     if name in ("k6", "k6f32"):
         return {(f"{key} f32" if name == "k6f32" else key): res
-                for key, res in k6(d, dtype, reps).items()}
+                for key, res in k6(d, dtype, reps, tail_libs).items()}
     if name in ("k7ftrl", "k7ftl"):
         return {name: k7(d, int(name == "k7ftl"), reps)}
     z, y = batch(B, T, d, dtype, 11 if dtype == torch.float64 else 12)
@@ -435,6 +534,9 @@ def main() -> int:
                         default=[*SHAPES, "adds"],
                         choices=[*SHAPES, "adds"])
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--tail-groups", type=int, nargs="*", default=[],
+                        help="K6bw group sizes to build and time besides "
+                             "the library's (k6, k6f32)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wide_d_probe: needs a CUDA card")
@@ -451,12 +553,15 @@ def main() -> int:
                   f"{res['ns_per_add']} ns an add ({res['cycles']} cycles "
                   f"for {res['adds']} adds; {res['ms'][0]:.4f} ms)",
                   flush=True)
+    tail_libs = (tail_libraries(args.tail_groups)
+                 if args.tail_groups and {"k6", "k6f32"} & set(args.cases)
+                 else None)
     for d in args.d:
         cases = [c for c in args.cases
                  if c != "adds" and (d <= 1024 or c == "k1f64")]
         for name in cases:
             B, T, dtype = SHAPES[name]
-            for key, res in run_case(name, d, args.reps).items():
+            for key, res in run_case(name, d, args.reps, tail_libs).items():
                 torch.cuda.empty_cache()
                 key = f"{key} d={d}"
                 res["shape"] = {"B": B, "T": T, "d": d,
@@ -471,7 +576,9 @@ def main() -> int:
                       f"buffer {res['state_bytes']} B; digest "
                       f"{res['digest']}"
                       + (f"; switched {res['switched']}" if "switched" in res
-                         else ""), flush=True)
+                         else "")
+                      + (f"; P = {res['group']} tails a block"
+                         if res.get("group") else ""), flush=True)
     print(json.dumps(out))
     return 0
 

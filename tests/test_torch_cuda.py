@@ -328,7 +328,8 @@ def test_redesigned_sweeps_match_plain_at_ragged_shapes(cuda, dtype, d,
     assert torch.equal(tau_a.t(), want_tau)
     scales = game.sweep_scales(eta.reshape(1), 203)
     tails = part.clone()
-    smart.launch_smart_tails(zt, yt, scales, order, lt, tau_a, comp, tails)
+    smart.launch_smart_tails(zt, yt, scales, perm, order, lt, tau_a, comp,
+                             tails)
     want_tails = smart.smart_tails_reference(zt, yt, scales[0], lt, want_tau,
                                              want_part, want_comp)
     pairs = ((got5, want5), (got6, want6), (part.t(), want_part),
@@ -1666,6 +1667,241 @@ def test_k1w_k4w_plans_fit_a_block(cuda, pair):
                lambda: game.regret_plan(1024, 9, zt)):
         with pytest.raises(RuntimeError, match="plan failed"):
             fn()
+
+
+# ------------------------------------ K3ew and K6bw: a sequence or a tail a warp
+
+def _shifted(t):
+    """A contiguous copy of ``t`` one element into its storage: a bf16
+    tensor 2 bytes and an int8 one 1 byte off a 4-byte boundary, f32 4
+    bytes and f64 8 bytes off a 16-byte one."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
+K6BW_THS = np.array([0.3, -1.0, 0.05, 0.15, 1e30, 0.6, 0.1])
+
+
+def _k3ew_k6bw_vs_plain(cuda, pair, d, T, contract, B=77, shift=False):
+    """K3ew (eta 0.3 to 4.0 a sequence, so that rounds project) and K6bw
+    (alone on the plain prefix's outputs, then K6 whole; eta = 4 and
+    thresholds ``K6BW_THS`` times sqrt(2T), which switch at round 0, early,
+    late and never) against their plain versions on the stored values in
+    every bit, at B sequences with ragged lengths (zero rows past them on
+    the packed API); each launch's state buffer is the one its plan asks
+    for.  ``shift`` plays copies of the rows and labels that start one
+    element into their storage (``_shifted``)."""
+    z, y, lengths = _batch(B, T, d, seed=d + 41, contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    dtype = zf.dtype
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    ths = torch.as_tensor(K6BW_THS * math.sqrt(2.0 * T), dtype=dtype,
+                          device=cuda)
+    G = ths.shape[0]
+    assert game.wide_state_elems("K3e", B, d, 1, pair[0]) == (
+        game.packed_plan(d, pair[0])["state"] * B)
+    assert game.wide_state_elems("K6b", B, d, G, pair[0]) == (
+        game.tail_plan(d, pair[0])["state"] * G * B)
+    zk, yk = (_shifted(zs), _shifted(ys)) if shift else (zs, ys)
+    before = (game.PACKED_ETA_LAUNCHES, smart.SWEEP_TAIL_LAUNCHES)
+    part, tau, comp = smart.smart_prefix_reference(zf, yf, ths, ln,
+                                                   replay=not contract)
+    perm = torch.sort(ths, stable=True)[1].to(torch.int32)
+    scales = game.sweep_scales(torch.tensor([4.0], dtype=dtype, device=cuda),
+                               T)
+    got = part.t().contiguous()
+    smart.launch_smart_tails(zk, yk, scales, perm, game.length_order(ln), ln,
+                             tau.t().contiguous(), comp, got)
+    want = smart.smart_tails_reference(zf, yf, scales[0], ln, tau, part,
+                                       comp)
+    assert torch.equal(got.t(), want), ("K6bw", pair, d, contract)
+    got = smart.smart_sweep(zk, yk, ths, 4.0, ln)
+    want = smart.smart_sweep_reference(
+        zf, yf, ths, torch.tensor(4.0, dtype=dtype, device=cuda), ln,
+        replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+        "K6", pair, d, contract)
+    valid = (torch.arange(T, device=cuda)[None, :] < ln[:, None].long())
+    z_tm, y_tm = game.time_major(torch.where(valid[..., None], zs, 0),
+                                 torch.where(valid, ys, 0))
+    zf_tm, yf_tm = game.time_major(torch.where(valid[..., None], zf, 0.0),
+                                   torch.where(valid, yf, 0.0))
+    if shift:
+        z_tm, y_tm = _shifted(z_tm), _shifted(y_tm)
+    eta = torch.linspace(0.3, 4.0, B, dtype=dtype, device=cuda)
+    got = game.play_packed_eta(z_tm, y_tm, eta)
+    want = game.play_packed_eta_reference(zf_tm, yf_tm, eta)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+        "K3ew", pair, d, contract)
+    torch.cuda.synchronize()
+    assert (game.PACKED_ETA_LAUNCHES, smart.SWEEP_TAIL_LAUNCHES) == (
+        before[0] + 1, before[1] + 2)
+    return tau, ln
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("d", [513, 1024])
+def test_k3ew_k6bw_equal_plain_in_every_pair(cuda, pair, d):
+    """K3ew and K6bw equal their plain versions in every bit in every
+    storage pair at d = 513 and 1,024, B = 77 (a multiple of no block's
+    warps) and 48 (a full last block), contract and replay data, with
+    tails from round 1 on, pairs that never switch and pairs whose switch
+    leaves no tail."""
+    for contract in (True, False):
+        tau, ln = _k3ew_k6bw_vs_plain(cuda, pair, d, 12, contract)
+        assert bool((tau == 0).any()) and bool((tau == 12).any())
+        assert bool((tau + 1 >= ln[:, None].long()).any())
+    _k3ew_k6bw_vs_plain(cuda, pair, d, 12, True, B=48)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("kernel", ["K3ew", "K6bw"])
+def test_k3ew_k6bw_across_the_shared_boundary(cuda, pair, kernel):
+    """At the largest d whose state fits a block's shared memory (K3ew's
+    plan is K3w's) and one past it (the state buffer the plan asks for),
+    each instance equals its plain version in every bit; its plan says
+    which side it is on."""
+    plan = game.packed_plan if kernel == "K3ew" else game.tail_plan
+    boundary = plan(1024, pair[0])["max_shared_d"]
+    for d, shared in ((boundary, True), (boundary + 1, False)):
+        assert plan(d, pair[0])["shared"] == shared
+        for contract in (True, False):
+            _k3ew_k6bw_vs_plain(cuda, pair, d, 3, contract, B=21)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k3ew_k6bw_read_offset_views(cuda, pair, shared):
+    """K3ew and K6bw (and K6aw before it) on rows and labels that start
+    one element into their storage (bf16 2 bytes off a 4-byte boundary)
+    equal their plain versions in every bit, on both sides of each plan's
+    shared boundary."""
+    zt = pair[0]
+    d = 513 if shared else max(game.packed_plan(1024, zt)["max_shared_d"],
+                               game.tail_plan(1024, zt)["max_shared_d"]) + 1
+    assert game.packed_plan(d, zt)["shared"] == shared
+    assert game.tail_plan(d, zt)["shared"] == shared
+    _k3ew_k6bw_vs_plain(cuda, pair, d, 5, True, B=21, shift=True)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+def test_k3ew_k6bw_plans_fit_a_block(cuda, pair):
+    """K6bw's plan: a warp a tail, its group of 1-8 tails a block; state on
+    the chip exactly up to max_shared_d (past the path's d = 1,024), a
+    block within the H100's 227 KB, no buffer where shared and theta,
+    padded to 4 elements, a (threshold, sequence) pair past it; the
+    occupancy entries report the plans' blocks, K3ew's K3w's; at d = 1,024
+    in f64 at least 8 tails an SM."""
+    zt = pair[0]
+    k6 = game.tail_plan(1024, zt)
+    boundary = k6["max_shared_d"]
+    assert 1 <= k6["warps"] <= 8 and 1024 < boundary < 65536
+    lib = game.cuda_build.load()
+    code = game.storage_code(zt)
+    for d in (513, 1024, 2048, boundary, boundary + 1, 65536):
+        plan = game.tail_plan(d, zt)
+        assert plan["warps"] == k6["warps"]
+        assert plan["shared"] == (d <= boundary), d
+        assert plan["state"] == (0 if plan["shared"] else -(-d // 4) * 4)
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["smem_bytes"] % 16 == 0
+        occ = game.occupancy("K6bw", lib.oco_smart_sweep_occupancy, code, 1,
+                             d, shared=True)
+        assert occ[0] > 0 and occ[1] >= plan["warps"], d
+        assert occ[3] == plan["smem_bytes"], d
+        occ = game.occupancy("K3ew", lib.oco_packed_occupancy, code, 1, d,
+                             shared=True)
+        assert occ[3] == game.packed_plan(d, zt)["smem_bytes"], d
+    if zt == torch.float64:
+        assert smart.sweep_occupancy(True, 1024, zt)[1] >= 8
+    with pytest.raises(RuntimeError, match="plan failed"):
+        game.tail_plan(512, zt)
+
+
+# ------------------------------- offset views through K5w, K6aw, thin narrow
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k5w_k6aw_read_offset_views(cuda, pair, shared):
+    """K5w (its 16-byte row copies where rows and z are 16-byte aligned,
+    else the element path) and K6aw (staging from the row's 16-byte
+    window) on rows and labels that start one element into their storage
+    equal their plain versions in every bit, and K5w the launch on the
+    aligned rows, at d = 1,024 (d times the element a multiple of 16
+    bytes) and past K6aw's shared boundary."""
+    zt = pair[0]
+    d = 1024 if shared else game.prefix_plan(1024, zt)["max_shared_d"] + 1
+    assert game.prefix_plan(d, zt)["shared"] == shared
+    B, T = 21, 5
+    z, y, lengths = _batch(B, T, d, seed=d + 43, contract=True)
+    if zt == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    zk, yk = _shifted(zs), _shifted(ys)
+    assert zk.data_ptr() % 16 != 0 and torch.equal(zk, zs)
+    etas = torch.tensor([0.1, 1.3, 3.7], dtype=zf.dtype, device=cuda)
+    got = game.eta_sweep(zk, yk, etas, ln)
+    assert torch.equal(got, game.eta_sweep_reference(zf, yf, etas, ln))
+    assert torch.equal(got, game.eta_sweep(zs, ys, etas, ln))
+    ths = torch.as_tensor(K6BW_THS * math.sqrt(2.0 * T), dtype=zf.dtype,
+                          device=cuda)
+    ordered, perm = torch.sort(ths, stable=True)
+    got = smart.launch_smart_prefix(zk, yk, ordered, perm.to(torch.int32),
+                                    game.length_order(ln), ln, False)
+    want = smart.smart_prefix_reference(zf, yf, ths, ln)
+    assert all(torch.equal(g.t() if g.ndim == 2 else g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("pair", STORAGE_PAIRS)
+@pytest.mark.parametrize("d", [5, 3, 65])
+def test_narrow_thin_kernels_read_offset_views(cuda, pair, d):
+    """K1-K6's thin instances on narrow rows and labels that start one
+    element into their storage (bf16 2 bytes, int8 1 byte off a 4-byte
+    boundary: the windows of ``oco_tiles.cuh`` and the time-major words)
+    equal the float32 instance on the same values in every bit."""
+    B, T = 150, 77
+    z, y, lengths = _batch(B, T, d, seed=97 + d)
+    zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    zk, yk = _shifted(zs), _shifted(ys)
+    assert yk.data_ptr() % 4 != 0 and torch.equal(zk, zs)
+    assert zk.data_ptr() % 4 == (2 if pair[0] == torch.bfloat16 else 0)
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    fl = game.per_sequence(np.arange(B) % 2, B, torch.int32, cuda)
+    et = torch.linspace(0.3, 2.5, B, device=cuda)
+    th = torch.linspace(0.5, 6.0, B, device=cuda)
+    sc = game.ftrl_scales(T, 1.3, device=cuda)
+    c0 = game.zero_stream_carry(B, d, device=cuda)
+    grid = [0.5, 1.3, 2.0]
+    z_tm, y_tm = (_shifted(t) for t in game.time_major(zs, ys))
+    zf_tm, yf_tm = game.time_major(zf, yf)
+    cases = [
+        lambda a, b, a_tm, b_tm: game.regrets_fused(a, b, fl, et, ln),
+        lambda a, b, a_tm, b_tm: smart.smart_regrets(a, b, th, 1.2, ln),
+        lambda a, b, a_tm, b_tm: (game.eta_sweep(a, b, grid, ln),),
+        lambda a, b, a_tm, b_tm: smart.smart_sweep(a, b, grid, 1.2, ln),
+        lambda a, b, a_tm, b_tm: game.play_packed(a_tm, b_tm, sc),
+        lambda a, b, a_tm, b_tm: game.play_packed_eta(a_tm, b_tm, et),
+        lambda a, b, a_tm, b_tm: game.play_stream(a_tm, b_tm, et, 9, c0,
+                                                  alg_flag=fl),
+    ]
+    for i, case in enumerate(cases):
+        got = case(zk, yk, z_tm, y_tm)
+        want = case(zf, yf, zf_tm, yf_tm)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (i, pair)
 
 
 @pytest.mark.parametrize("d", [513, 1024])

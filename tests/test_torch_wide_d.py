@@ -229,7 +229,8 @@ def _seq_plan(state, shared):
 
 
 def _k3_plan(d, shared):
-    """K3w's: theta, padded to 4 elements."""
+    """K3w's and K3ew's: theta, padded to 4 elements; K6bw's the same a
+    (threshold, sequence) pair."""
     return _seq_plan(-(-d // 4) * 4, shared)
 
 
@@ -258,23 +259,27 @@ def _stand_in_plans(monkeypatch, shared):
     monkeypatch.setattr(game, "prefix_plan",
                         lambda dd, dtype=torch.float64: _k6a_plan(dd,
                                                                   shared))
+    monkeypatch.setattr(game, "tail_plan",
+                        lambda dd, dtype=torch.float64: _k3_plan(dd, shared))
 
 
 @pytest.mark.parametrize("d", [513, 1024, 8192])
 def test_new_state_buffer_sizes_past_512(monkeypatch, d):
-    # K3ew: x (theta is the output); K5w: theta a (sequence, setting)
-    # pair and w a sequence for each group of 16 settings (no x); K6bw:
-    # theta and x a (sequence, threshold) pair; K1w, K3w, K4w, K6aw, K7w:
+    # K5w: theta a (sequence, setting) pair and w a sequence for each
+    # group of 16 settings (no x); K1w, K3w, K3ew, K4w, K6aw, K6bw, K7w:
     # what the library's plan asks for, none where a block's state fits
-    # shared memory.
+    # shared memory (K3ew K3w's plan; K6bw theta a (sequence, threshold)
+    # pair past it).
     assert game.SWEEP_WARPS == 16
-    assert game.wide_state_elems("K3e", 2048, d) == d * 2048
     assert game.wide_state_elems("K5", 1024, d, 64) == (64 + 4) * d * 1024
     assert game.wide_state_elems("K5", 77, d, 11) == (11 + 1) * d * 77
     assert game.wide_state_elems("K5", 77, d, 17) == (17 + 2) * d * 77
-    assert game.wide_state_elems("K6b", 1024, d, 16) == 2 * d * 16 * 1024
     for shared in (True, False):
         _stand_in_plans(monkeypatch, shared)
+        assert game.wide_state_elems("K3e", 2048, d) == (
+            _k3_plan(d, shared)["state"] * 2048)
+        assert game.wide_state_elems("K6b", 1024, d, 16) == (
+            _k3_plan(d, shared)["state"] * 16 * 1024)
         assert game.wide_state_elems("K7", 16_384, d) == (
             _k7_plan(d, shared)["state"] * 16_384)
         assert game.wide_state_elems("K3", 2048, d) == (
@@ -337,9 +342,9 @@ def _launch(kernel, d):
             z, y, torch.ones(2, dtype=f64), torch.arange(2, dtype=torch.int32),
             order, lengths, False),
         "K6b": lambda: smart.launch_smart_tails(
-            z, y, scales[:1], order, lengths,
-            torch.zeros((2, B), dtype=torch.int64), torch.zeros(B, dtype=f64),
-            torch.zeros((2, B), dtype=f64)),
+            z, y, scales[:1], torch.arange(2, dtype=torch.int32), order,
+            lengths, torch.zeros((2, B), dtype=torch.int64),
+            torch.zeros(B, dtype=f64), torch.zeros((2, B), dtype=f64)),
         "K7": lambda: game.launch_synthetic(0, 1.0, T, 1, d, 0,
                                             torch.device("cpu")),
     }[kernel]
@@ -383,10 +388,12 @@ def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
                             cuda_stream=0))
     monkeypatch.setattr(smart, "wide_state", spy)
     monkeypatch.setattr(game, "wide_state", spy)
-    # K1w's, K3w's, K4w's, K6aw's and K7w's buffers follow the library's
-    # plans: here ones that keep the state in device memory (the plans
-    # that keep it on the chip need none: tests/test_torch_wide_redesign.py
-    # and tests/test_torch_wide_redesign_k1k4.py).
+    # K1w's, K3w's, K3ew's, K4w's, K6aw's, K6bw's and K7w's buffers follow
+    # the library's plans: here ones that keep the state in device memory
+    # (the plans that keep it on the chip need none:
+    # tests/test_torch_wide_redesign.py,
+    # tests/test_torch_wide_redesign_k1k4.py and
+    # tests/test_torch_wide_redesign_k3e_k6b.py).
     _stand_in_plans(monkeypatch, False)
     name, plays, seqs, (module, counter) = ENTRIES[kernel]
     before = getattr(module, counter)
