@@ -188,11 +188,15 @@ non-zero without printing a result):
                tol=2e-4, with the iterations each row took (one-block
                continued calls: the rows at or below tol must be the rows
                those calls saw converge); at B=1 T=9,216 (200 fixed
-               iterations) the streaming instance on the rows past 8,192
-               entries and the resident one on the others: both launch
-               counts, every row against the plain version (5e-4), rows p
-               < 8,192 against the launch on z[:, :8192] (bit for bit), the
-               streaming instance's time (the launch less that launch); the
+               iterations) the resident instance's two-row shape on the
+               rows past 8,192 entries and its four-row shape on the
+               others: the launch counts, every row against the plain
+               version (5e-4), rows p < 8,192 against the launch on z[:,
+               :8192] (bit for bit), the two-row shape's time (the launch
+               less that launch); at B=1 T=16,385 the streaming instance on
+               the one row past 16,384 entries: the same checks against the
+               plain version and the launch on z[:, :16384], its time the
+               launch less that launch; the
                ``--exact --exact-solver kernel`` driver at one horizon T =
                4,200 (one run, one random family, --g-runs 4) against the
                auto route at phase 11's f32 scoring bound; (b) K9w:
@@ -221,7 +225,8 @@ non-zero without printing a result):
                the card's tests hold them to the plain mirror's).
   15. wide d  — K1, K2 and K4 past d = 512 (their wide instances K1w, K2w,
                K4w; K1w a play a warp and K4w a sequence a warp, theta in
-               shared memory; K2w's state in a (d, slots) device buffer):
+               shared memory; K2w two launches, its FTL track a warp a
+               sequence, then its tails a warp each):
                the main path at
                full width with the counts set to 0 just before it
                (``regret_plays`` with FTRL and FTL as two plays at B=1,024
@@ -237,7 +242,7 @@ non-zero without printing a result):
                in every chunk, and at d=1,024 in f32 (the plain versions'
                index-order sums loop over d in Python, 50-95 ms a round at
                d=1,024, so the path shapes cannot carry them); T=200 plays
-               4 of the kernels' 64-round chunks, as the path plays 16; at
+               4 of K1w's 64-round chunks, as the path plays 16; at
                full width, identities of one launch each, in every bit:
                K4w over 4 chunks equals one K1w launch (f64, B=256,
                T=1,024, d=1,024), K2w with a threshold no sequence reaches
@@ -250,11 +255,12 @@ non-zero without printing a result):
                the upcast values (B=2,048, T=1,024); the path shapes timed
                (regenerated from their seeds, digests equal to the main
                path's) with their bounds, registers, warps an SM and local
-               frames, the last the same at every d past 512; K1w's and
-               K4w's plans (warps a block, shared memory a block, state
-               buffer bytes, the shared boundary) and design floors (FTL's
-               two chains of d dependent adds a round over the rounds,
-               times the waves of sequences the plan fits on the card).
+               frames, the last the same at every d past 512; K1w's, K2w's
+               and K4w's plans (warps a block, shared memory a block, state
+               buffer bytes, the shared boundary; K2w's tail launch's block
+               too) and design floors (FTL's two chains of d dependent adds
+               a round over the rounds, times the waves of sequences the
+               plan fits on the card; K2w's tails one chain a tail round).
   16. wide d sweeps — K3, K3e, K5, K6a, K6b and K7 past d = 512 (their wide
                instances K3w, K3ew, K5w, K6aw, K6bw, K7w): the main path
                with the counts set to 0 just before it (ftrl_eta_sweep,
@@ -305,15 +311,17 @@ resident warps an SM (K9's and K10's text lines also print the
 --fmad=false issue floor, which is arithmetic and stays out of the
 kernels line).  The narrow instances of phase 13 have an entry each
 (name ``... (K1, bfloat16 z, int8 y: oco_*_bf16i8)``), with K1 at
-bench.py's shape.  K10l's two instances, K9w and K8w (phase 14) have an
-entry each at their path shapes (K10l resident: B=2 T=8192, 200
-iterations; K10l streaming: B=1 T=9,216, 200 iterations; K9w: d=64,
+bench.py's shape.  K10l's resident instance's two shapes, its streaming
+instance, K9w and K8w (phase 14) have an entry each at their path shapes
+(K10l resident, four rows a block: B=2 T=8192, 200 iterations; two rows a
+block: B=1 T=9,216; K10l streaming: B=1 T=16,385; K9w: d=64,
 65,536 problems, f32; K8w: d=64, B=4,096 T=1,024, f32), their errors
 and plain times from the plain versions on the same inputs (K8w's on
 every 4th sequence, in calls of 512 sequences, summed).  K1w, K2w and
 K4w (phase 15) have an entry each at their path shapes (K1w and K2w
 f64, B=1,024 T=1,000 d=1,024; K4w f32, B=2,048 d=1,024, the 4 chunks'
-launches together; K1w and K4w with their plans and design floors),
+launches together; K1w, K2w and K4w with their plans and design
+floors),
 their errors from the cut shapes' plain checks and
 their plain times at the cut shape d=1,024 T=32 f64, as their
 ``max_abs_err_at`` and ``plain_ms_at`` keys say (at the path's T=1,000
@@ -3248,8 +3256,10 @@ def phase_storage():
 # --------------------------------------------------------------- phase 14
 # K10l: rows past the register instances' 4,096 entries.
 LONG_B, LONG_T, LONG_ITERS = 2, 8192, 200
-# K10l's streaming instance: the rows past the resident instance's 8,192.
-STREAM_T = 9216
+# K10l's resident instance's two-row shape: the rows past its four-row
+# shape's 8,192; its streaming instance: the rows past 16,384.
+RESIDENT_LONG_T = 9216
+STREAM_T = 16385
 # K9w and K8w: d past the thin instances' 32.
 K9W_PATH = ((64, 64, 1024, 0), (128, 16, 1024, 512))   # d, B, T, first row
 K9W_D256 = (256, 4, 1024, 1024)
@@ -3431,26 +3441,31 @@ def k10_long():
     return launches, out
 
 
-def k10_stream():
-    """K10l's streaming instance: B = 1, T = 9,216, d = 5, 200 fixed
-    iterations through ``admm_all_prefixes_l2`` (the rows past 8,192
-    entries on it, the other long rows on the resident instance): both
-    launch counts, every row against the plain version (5e-4), rows p <
-    8,192 against the launch on z[:, :8192] (bit for bit); its time (the
-    launch less that launch), bound, registers and warps an SM."""
-    T, cap = STREAM_T, admm.RESIDENT_ROWS
+def k10_past(T, cap, name):
+    """K10l's rows past ``cap`` entries (B = 1, d = 5, 200 fixed
+    iterations) through ``admm_all_prefixes_l2``: the launch counts of
+    instance ``name`` (``"resident_long"``, the resident instance's two-row
+    shape, or ``"long"``, its streaming instance), every row against the
+    plain version (5e-4), rows p < cap against the launch on z[:, :cap]
+    (bit for bit); its time (the launch less that launch), bound,
+    registers and warps an SM."""
     z, y = exact_batch(1, T, D, 141)
     admm.LONG_LAUNCHES = admm.RESIDENT_LAUNCHES = 0
+    admm.RESIDENT_LONG_LAUNCHES = 0
     X, res, st = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS, tol=0.0)
     torch.cuda.synchronize()
-    launches = admm.LONG_LAUNCHES - admm.RESIDENT_LAUNCHES
+    counts = {"long": admm.LONG_LAUNCHES - admm.RESIDENT_LAUNCHES,
+              "resident_long": admm.RESIDENT_LONG_LAUNCHES,
+              "resident": admm.RESIDENT_LAUNCHES
+              - admm.RESIDENT_LONG_LAUNCHES}
+    launches = counts[name]
     print(f"[14 wide] admm_all_prefixes_l2 B=1 T={T} d={D} f32, {LONG_ITERS} "
-          f"fixed iterations: K10l launches {admm.LONG_LAUNCHES}, streaming "
-          f"{launches}, resident {admm.RESIDENT_LAUNCHES} (K10 instances "
+          f"fixed iterations: K10l launches {admm.LONG_LAUNCHES}, by "
+          f"instance {json.dumps(counts)} (K10 instances "
           f"{admm.kernel_instances(T)})")
-    check(launches == 1 and admm.RESIDENT_LAUNCHES == 1,
-          f"admm_all_prefixes_l2 at T = {T} did not launch each K10l "
-          "instance once")
+    want = {n: int(n in admm.kernel_instances(T)) for n in counts}
+    check(counts == want, f"admm_all_prefixes_l2 at T = {T} did not launch "
+                          f"each K10l instance its rows need once")
     Lpk = admm.admm_prologue(z)
     (res_p, st_p), p_ms = timed_once(
         lambda: admm.admm_all_prefixes_l2_reference(
@@ -3458,15 +3473,15 @@ def k10_stream():
             alpha=1.7))
     err = max_err(st + (res.reshape(-1),), st_p + (res_p,))
     rows = torch.arange(T, device="cuda") >= cap
-    err_stream = max(float((a[rows].double() - b[rows].double()).abs().max())
-                     for a, b in zip(st + (res.reshape(-1),), st_p + (res_p,)))
+    err_past = max(float((a[rows].double() - b[rows].double()).abs().max())
+                   for a, b in zip(st + (res.reshape(-1),), st_p + (res_p,)))
     del st_p, res_p
     torch.cuda.empty_cache()
-    print(f"[14 wide] K10l streaming and resident vs plain (s, u, x, w, v, "
-          f"res): max_abs_err={err:.3e} over every row, {err_stream:.3e} "
-          f"over the rows past {cap} entries (bound {TOL[torch.float32]:g});"
-          f" plain PyTorch {p_ms:.1f} ms (one call)")
-    check(err <= TOL[torch.float32], "K10l streaming instance vs plain")
+    print(f"[14 wide] K10l {name} and the shorter rows' instances vs plain "
+          f"(s, u, x, w, v, res): max_abs_err={err:.3e} over every row, "
+          f"{err_past:.3e} over the rows past {cap} entries (bound "
+          f"{TOL[torch.float32]:g}); plain PyTorch {p_ms:.1f} ms (one call)")
+    check(err <= TOL[torch.float32], f"K10l {name} vs plain")
     zc, yc = z[:, :cap].contiguous(), y[:, :cap].contiguous()
     Xc, rc, stc = admm.admm_all_prefixes_l2(zc, yc, iters=LONG_ITERS,
                                             tol=0.0)
@@ -3479,7 +3494,7 @@ def k10_stream():
         same = same and torch.equal(a.reshape(ac.shape), ac)
     print(f"[14 wide] rows p < {cap} of the T={T} launch equal the launch on "
           f"z[:, :{cap}] in every bit: {same}")
-    check(same, f"K10's rows p < 8192 differ between T = {T} and 8192")
+    check(same, f"K10's rows p < {cap} differ between T = {T} and {cap}")
     del st, stc
     torch.cuda.empty_cache()
     kw = dict(iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
@@ -3488,18 +3503,31 @@ def k10_stream():
     f_ms = time_ms(lambda: admm.launch_admm(z, y, Lpk, **kw), reps=3)[0]
     s_ms = time_ms(lambda: admm.launch_admm(zc, yc, Lpkc, **kw), reps=3)[0]
     ops = long_row_ops(1, T, D, LONG_ITERS, cap, T)
-    regs, warps = admm.kernel_occupancy(T, D)["long"]
+    regs, warps = admm.kernel_occupancy(T, D)[name]
     out = {"max_abs_err": err, "ms": f_ms - s_ms, "plain_ms": p_ms,
            "library_ms": None,
            **bound(long_row_bytes(z, y, Lpk, cap, T), ops, torch.float32),
            "registers": regs, "warps_per_sm": warps}
-    print(f"[14 wide] K10l streaming B=1 T={T} d={D} f32, {LONG_ITERS} fixed "
+    shape = ""
+    if name == "resident_long":
+        plan = admm.resident_plan(D, name)
+        shape = (f"; {plan['rows']} rows a block of {plan['threads']} "
+                 f"threads ({plan['group_rows']} a group, "
+                 f"{plan['entries']} entries a thread a row, "
+                 f"{plan['register_entries']} of its entries in registers, "
+                 f"{plan['shared_entries']} in shared memory), a ring of "
+                 f"{plan['stages']} entries a thread of a group, "
+                 f"{plan['smem_bytes']} + {plan['static_bytes']} bytes of "
+                 f"shared memory")
+        out.update(rows_per_block=plan["rows"],
+                   shared_bytes=plan["smem_bytes"] + plan["static_bytes"])
+    print(f"[14 wide] K10l {name} B=1 T={T} d={D} f32, {LONG_ITERS} fixed "
           f"iterations, rows of {cap + 1}..{T} entries: {out['ms']:.4f} ms "
           f"(the launch {f_ms:.4f} ms less the launch on z[:, :{cap}] "
           f"{s_ms:.4f} ms); bound {out['bound_ms']:.4f} ms by "
           f"{out['bound_by']}; --fmad=false issue floor "
           f"{ops / FP32_ISSUE_PER_S * 1e3:.4f} ms; {regs} registers a "
-          f"thread, {warps} warps an SM")
+          f"thread, {warps} warps an SM{shape}")
     return launches, out
 
 
@@ -3878,7 +3906,9 @@ def phase_wide(tmp):
     t = time.perf_counter()
     k10l = k10_long()
     torch.cuda.empty_cache()
-    k10s = k10_stream()
+    k10r = k10_past(RESIDENT_LONG_T, admm.RESIDENT_ROWS, "resident_long")
+    torch.cuda.empty_cache()
+    k10s = k10_past(STREAM_T, admm.RESIDENT_LONG_ROWS, "long")
     torch.cuda.empty_cache()
     exact_kernel_route_past_4096(tmp)
     walls["K10l"] = time.perf_counter() - t
@@ -3891,19 +3921,19 @@ def phase_wide(tmp):
     walls["K8w"] = time.perf_counter() - t
     print(f"[14 wide] phase wall {sum(walls.values()):.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())})")
-    return ({"K10l": k10l[0], "K10ls": k10s[0], "K9w": k9w[0],
-             "K8w": k8w[0]},
-            {"K10l": k10l[1], "K10ls": k10s[1], "K9w": k9w[1],
-             "K8w": k8w[1]})
+    return ({"K10l": k10l[0], "K10lr": k10r[0], "K10ls": k10s[0],
+             "K9w": k9w[0], "K8w": k8w[0]},
+            {"K10l": k10l[1], "K10lr": k10r[1], "K10ls": k10s[1],
+             "K9w": k9w[1], "K8w": k8w[1]})
 
 
 # --------------------------------------------------------------- phase 15
 # K1w, K2w, K4w: d past 512.  The plain checks' cut shapes (d, T) at
-# WIDE_CUT_B sequences, f64 (and f32 at WIDE_D); the path shapes.  K1w and
-# K2w play a launch in chunks of WIDE_CHUNK rounds (oco_tiles.cuh
-# kMaxChunk), so the first cut shape plays 4 of them: its stages are
-# reused, its barriers' parity flips, and K2w's tails take switches
-# published in earlier chunks, as on the path's 16.
+# WIDE_CUT_B sequences, f64 (and f32 at WIDE_D); the path shapes.  K1w
+# plays a launch in chunks of WIDE_CHUNK rounds (oco_tiles.cuh kMaxChunk),
+# so the first cut shape plays 4 of them: its stages are reused and its
+# barriers' parity flips, as on the path's 16; K2w's tails start at
+# switches spread over those rounds.
 WIDE_CUT_B = 77
 WIDE_CHUNK = 64
 WIDE_CUT = ((513, 200), (1024, 32), (1500, 32))
@@ -4019,7 +4049,8 @@ def wide_main_path():
           f"threshold, mean tau "
           f"{[round(float(t.double().mean()), 2) for t in tau]}; digests "
           f"{json.dumps(digests)}")
-    check(launches == {"K1w": 3, "K2w": 1, "K4w": WIDE_K4_CHUNKS},
+    # K2w is two launches a call: its FTL track, then its tails.
+    check(launches == {"K1w": 3, "K2w": 2, "K4w": WIDE_K4_CHUNKS},
           f"phase 15's path launches {launches}")
     check(bool((tau < T).any()), "no K2w pair switched on the path")
     check(all(bool(torch.isfinite(t).all()) for t in res),
@@ -4241,15 +4272,53 @@ def wide_plan_fields(name, B, d, dtype, occ, rounds, chains=2) -> dict:
                                f"sequences"}
 
 
+def k2w_plan_fields(B, d, dtype, tau, lengths) -> dict:
+    """K2w's two launches' plans at d, for its (G, B) switch rounds ``tau``
+    (the FTL launch's block first, then
+    the tail launch's: its warps, shared memory, registers, warps an SM
+    and local frame), the state buffer, the shared boundary (the lower of
+    the two), and its design floor: the FTL launch's (``prefix_wide_floor``)
+    plus the tails' (``tail_wide_floor`` at the tail launch's warps an
+    SM)."""
+    ftl = game.plays_plan(d, dtype, tails=False)
+    tail = game.plays_plan(d, dtype, tails=True)
+    occ = smart.plays_occupancy(True, d, dtype)
+    first = prefix_wide_floor(lengths, d, dtype)
+    second = tail_wide_floor(tau.t(), lengths, d, dtype, occ[1])
+    return {"warps_per_block": ftl["warps"],
+            "shared_bytes": ftl["smem_bytes"],
+            "state_on_chip": ftl["shared"] and tail["shared"],
+            "on_chip_to_d": min(ftl["max_shared_d"], tail["max_shared_d"]),
+            "buffer_bytes": game.wide_state_elems(
+                "K2", B, d, tau.shape[0], dtype) * item(dtype),
+            "tail_warps_per_block": tail["warps"],
+            "tail_shared_bytes": tail["smem_bytes"],
+            "tail_registers": occ[0], "tail_warps_per_sm": occ[1],
+            "tail_local_bytes": occ[2],
+            "design_floor_ms": first["design_floor_ms"]
+            + second["design_floor_ms"],
+            "design_floor_by": f"the FTL launch, {first['design_floor_by']} "
+                               f"({first['design_floor_ms']:.4f} ms), then "
+                               f"the tails, "
+                               f"{second['design_floor_by']}"}
+
+
 def wide_plan_text(plan) -> str:
-    """A timing line's words for ``wide_plan_fields`` (none for K2w)."""
+    """A timing line's words for ``wide_plan_fields`` and
+    ``k2w_plan_fields``."""
     if not plan:
         return ""
+    tails = ("" if "tail_warps_per_block" not in plan else
+             f"; its tail launch {plan['tail_warps_per_block']} warp(s) a "
+             f"block, {plan['tail_shared_bytes']} B of shared memory a "
+             f"block, {plan['tail_registers']} registers, "
+             f"{plan['tail_warps_per_sm']} warps an SM, local frame "
+             f"{plan['tail_local_bytes']} B")
     return (f"; {plan['warps_per_block']} warps a block, "
             f"{plan['shared_bytes']} B of shared memory a block, state "
             f"{'on the chip' if plan['state_on_chip'] else 'in the buffer'} "
             f"(on the chip to d = {plan['on_chip_to_d']}), state buffer "
-            f"{plan['buffer_bytes']} B; design floor "
+            f"{plan['buffer_bytes']} B{tails}; design floor "
             f"{plan['design_floor_ms']:.4f} ms ({plan['design_floor_by']})")
 
 
@@ -4277,7 +4346,8 @@ def wide_timing(digests, tau):
             runs["K2w"] = (
                 lambda: smart.launch_smart(z, y, ths, *table, ln, False),
                 wide_k2_bound(B, T, d, tau, dtype),
-                wide_occupancy("K2w", d, dtype), "k2", {})
+                wide_occupancy("K2w", d, dtype), "k2",
+                k2w_plan_fields(B, d, dtype, tau, ln))
         for name, (fn, bd, occ, dig, plan) in runs.items():
             outs = fn()
             ms = time_ms(fn, reps=3, warm=True)
@@ -5085,8 +5155,16 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": wide_launches["K10l"], **wide_timing["K10l"]},
+        {"name": "admm_resident_kernel, two-row shape (K10l resident: K10's "
+                 "rows of 8,193 to 16,384 entries, two a block, s and u on "
+                 "the chip)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": wide_launches["K10lr"], **wide_timing["K10lr"]},
         {"name": "admm_long_kernel (K10l streaming: K10's rows longer than "
-                 "8,192 entries, a block a row, s and u streamed)",
+                 "16,384 entries, a block a row, s and u streamed)",
          "route": "cuda",
          "source":
              "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
@@ -5112,10 +5190,13 @@ def main() -> int:
          "source": "online_convex_optimization_tpu_torch/csrc/regret_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_game.py:226",
          "launches": wide_d_launches["K1w"], **wide_d_timing["K1w"]},
-        {"name": "smart_kernel (K2w: K2 past d = 512, state in a (d, slots) "
-                 "device buffer)",
+        {"name": "smart_prefix_wide_kernel then smart_tail_wide_kernel in "
+                 "their K2 mode (K2w: K2 past d = 512 in two launches, the "
+                 "FTL track a warp a sequence, then each switched pair's "
+                 "tail a warp, theta and w in shared memory)",
          "route": "cuda",
-         "source": "online_convex_optimization_tpu_torch/csrc/smart_kernel.cu",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/smart_sweep_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_smart.py:108",
          "launches": wide_d_launches["K2w"], **wide_d_timing["K2w"]},
         {"name": "stream_wide_kernel (K4w: K4 past d = 512, a sequence a "

@@ -18,28 +18,33 @@
 // long row's bits depend on its length alone, whichever instance takes it.
 //
 // The resident instance (admm_resident_kernel), rows of up to
-// kResidentRows = 8,192 entries: a block holds R = 4 rows of one replicate
-// (lengths top, top - 1, ...; the longest rows' blocks first) and keeps
-// their s and u on the chip for the whole launch, read from s0, u0 once
-// and written to s, u once.  Its 512 threads are two groups of 256, each
-// taking two of the rows, 32 entries a thread a row: of a thread's 64
-// entries of s and u, the first 16 live in registers and the other 48 in
-// shared memory (192 KB a block).  y_t and z_t come once for all four rows
-// from a ring of entries in the remaining shared memory (5 stages at d =
-// 5, 3 at d = 8), which thread i of the first group fills by cp.async
-// stages - 1 entries ahead in its cyclic order of entries; thread i of the
-// second group reads the same stage, the two warps meeting at a named
-// barrier once an entry.  So the next pass's first entries are in flight
-// during the barriers and the d x d steps.  The four rows' d x d steps
-// run side by side on lanes 0-3 of warp 0.  A row that stops (tol > 0)
-// keeps its state and waits at the barriers until the block's last row
+// kResidentLongRows = 16,384 entries in two shapes of one block: a block
+// holds R rows of one replicate (lengths top, top - 1, ...; the longest
+// rows' blocks first) and keeps their s and u on the chip for the whole
+// launch, read from s0, u0 once and written to s, u once.  Its 512
+// threads are two groups of 256, each taking RG of the rows, M entries a
+// thread a row: rows of 4,097 to kResidentRows = 8,192 entries four a
+// block (RG = 2, M = 32), rows of 8,193 to 16,384 two a block (RG = 1, M
+// = 64).  Of a thread's 64 entries of s and u, the first 16 live in
+// registers and the other 48 in shared memory (192 KB a block).  y_t and
+// z_t come once for all the rows from a ring of entries in the remaining
+// shared memory (5 stages at d = 5, 3 at d = 8; a replicate's rows are
+// prefixes of one sequence), which thread i of the first group fills by
+// cp.async stages - 1 entries ahead in its cyclic order of entries; thread
+// i of the second group reads the same stage, the two warps meeting at a
+// named barrier once an entry.  So the next pass's first entries are in
+// flight during the barriers and the d x d steps.  The rows' d x d steps
+// run side by side on lanes 0 .. R - 1 of warp 0.  A row that stops (tol >
+// 0) keeps its state and waits at the barriers until the block's last row
 // stops.
 //
 // The streaming instance (admm_long_kernel), rows longer than that: a
 // block of 8 warps a row, longest first.  Its s and u stay in the (B*T, T)
 // state arrays the launch reads and writes: each iteration streams the
 // row's entries once (kLongUnroll of a thread's entries loaded before any
-// is stored), reading s, u, z_t and y_t and writing s and u.
+// is stored), reading s, u, z_t and y_t and writing s and u.  No path
+// shape has such rows (PERF.md; ROADMAP queues a design that keeps them
+// on the chip across a cluster's blocks).
 //
 // What bounds K10l on an H100: operations, about 4d + 13 an entry an
 // iteration (issued one by one under --fmad=false, so twice their time at
@@ -256,24 +261,29 @@ admm_long_kernel(const float* __restrict__ z, const float* __restrict__ y,
 }
 
 // ----------------------------------------------------- the resident instance
-// Rows up to this length take the resident instance: kResidentM entries
-// of s and u a thread a row, on the chip for the whole launch.
+// Rows up to these lengths take the resident instance's two shapes, on the
+// chip for the whole launch: up to kResidentRows four a block, up to
+// kResidentLongRows two a block.
 constexpr int kResidentRows = 8192;
-constexpr int kResidentM = kResidentRows / kThreads;
+constexpr int kResidentLongRows = 16384;
 
-// The resident block's shape.  G = 2 groups of kThreads threads, each
-// group holding RG = 2 of the block's R = 4 row slots (group g the slots g
-// RG .. g RG + RG - 1); thread i of a group takes entry t = i + kThreads m
-// of each of its rows.  Of a thread's RG x kResidentM entries of s and u
-// (row-major: its first row's entries, then the next row's), the first QR
-// = 16 live in registers and the rest in shared memory
+// A resident block's shape.  G = 2 groups of kThreads threads, each group
+// holding RG of the block's R = G RG row slots (group g the slots g RG ..
+// g RG + RG - 1); thread i of a group takes entry t = i + kThreads m, m <
+// M, of each of its rows.  The shape takes the rows of lo + 1 .. M
+// kThreads entries, lo = M kThreads / 2.  Of a thread's RG x M entries of
+// s and u (row-major: its first row's entries, then the next row's), the
+// first QR = 16 live in registers and the rest in shared memory
 // (oco_admm_resident_plan reports the shape).
-template <int D>
+template <int D, int RG_, int M_>
 struct Resident {
   static constexpr int G = 2;
-  static constexpr int RG = 2;
+  static constexpr int RG = RG_;
+  static constexpr int M = M_;
   static constexpr int QR = 16;
   static constexpr int R = G * RG;
+  static constexpr int hi = M * kThreads;
+  static constexpr int lo = hi / 2;
   static constexpr int threads = G * kThreads;
   static constexpr int C = Dim<D>::cap;
   using RowsT = Rows<D, R, R * OCO_ADMM_WARPS>;
@@ -281,17 +291,25 @@ struct Resident {
   // statics, the s and u entries past QR and a margin; the rest is the
   // ring, whose stage is one entry (y and z) of every thread of a group.
   static constexpr int kBlockSmem = 232448;
-  static constexpr int kStateBytes =
-      (RG * kResidentM - QR) * 2 * threads * 4;
+  static constexpr int kStateBytes = (RG * M - QR) * 2 * threads * 4;
   static constexpr int kStageBytes = (C + 1) * kThreads * 4;
   static constexpr int kFree =
       kBlockSmem - static_cast<int>(sizeof(RowsT)) - kStateBytes - 256;
   static constexpr int stages = kFree / kStageBytes > 8 ? 8
                                                         : kFree / kStageBytes;
   static_assert(stages >= 2, "the resident rows leave no room for a ring");
-  static_assert(QR > 0 && QR <= RG * kResidentM, "QR out of range");
+  static_assert(QR > 0 && QR <= RG * M, "QR out of range");
   static constexpr int smem = kStateBytes + stages * kStageBytes;
 };
+// Rows of kLongRows + 1 .. kResidentRows, and of kResidentRows + 1 ..
+// kResidentLongRows: the same 64 entries of s and u a thread.
+template <int D>
+using ResidentShort = Resident<D, 2, kResidentRows / kThreads>;
+template <int D>
+using ResidentLong = Resident<D, 1, kResidentLongRows / kThreads>;
+static_assert(ResidentShort<5>::lo == kLongRows &&
+                  ResidentLong<5>::lo == kResidentRows,
+              "the shapes take consecutive rows");
 
 __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -334,11 +352,12 @@ __device__ __forceinline__ void each_row(F&& f) {
   }
 }
 
-// Whether entry m lies inside every row of a resident block: the block's
-// rows are longer than kLongRows, so each thread's entries t = i +
-// kThreads m < kLongRows, m < kLongRows / kThreads, belong to all of them.
+// Whether entry m lies inside every row of a resident block of shape P:
+// the block's rows are longer than P::lo, so each thread's entries t = i +
+// kThreads m < P::lo, m < P::lo / kThreads, belong to all of them.
+template <typename P>
 __device__ __forceinline__ constexpr bool inside_every_row(int m) {
-  return m < kLongRows / kThreads;
+  return m < P::lo / kThreads;
 }
 
 // Waits at named barrier id with count threads (a whole number of warps,
@@ -347,17 +366,17 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// K10l's resident instance: R rows of one replicate a block, of lengths
-// top, top - 1, ..., down to L_lo + 1 (the blocks of the longest rows
-// first, B replicates interleaved).  Thread i of group g takes entries t =
+// K10l's resident instance in shape P: R rows of one replicate a block, of
+// lengths top, top - 1, ..., down to L_lo + 1 (the blocks of the longest
+// rows first, B replicates interleaved).  Thread i of group g takes entries t =
 // i + kThreads m of each of the group's rows, in increasing m (the
 // streaming instance's map), keeping their s and u in registers (its first
 // QR entries) or in shared memory, and reads y_t and z_t once for all of
 // them from a ring of entries in shared memory, which thread i of group 0
 // fills by cp.async stages - 1 entries ahead; the G threads i of the
 // groups (warps w, w + 8) meet at named barrier 1 + w once an entry.
-template <int D>
-__global__ void __launch_bounds__(Resident<D>::threads, 1)
+template <int D, typename P>
+__global__ void __launch_bounds__(P::threads, 1)
 admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
                      const float* __restrict__ Lpk,
                      const float* __restrict__ s0,
@@ -370,8 +389,7 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
                      float* __restrict__ s_out, float* __restrict__ u_out,
                      float* __restrict__ x_out, float* __restrict__ w_out,
                      float* __restrict__ v_out, float* __restrict__ res_out) {
-  using P = Resident<D>;
-  constexpr int C = P::C, G = P::G, RG = P::RG, QR = P::QR, M = kResidentM;
+  constexpr int C = P::C, G = P::G, RG = P::RG, QR = P::QR, M = P::M;
   constexpr int NS = P::stages, NT = P::threads;
   extern __shared__ float dyn[];
   float* const ss = dyn;                    // [RG M - QR][NT]
@@ -397,7 +415,7 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
   // of its warp's lane 0, so that the G warps that share a ring's entries
   // pass the same barriers.
   const int mt = (top - (i - lane) + kThreads - 1) / kThreads;
-  SplitClock clk(1);
+  SplitClock clk(RG == 1 ? 2 : 1);
 
   for (int k = tid; k < rows * ntri; k += NT) {
     const int r = k / ntri;
@@ -539,7 +557,7 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
         const float e =
             fabsf((predict<D>(x[k], zt, n) - yt) - s_at(kc, mc));
         // A stopped row's maximum is not published.
-        if constexpr (inside_every_row(decltype(mc)::value)) {
+        if constexpr (inside_every_row<P>(decltype(mc)::value)) {
           pri[k] = nan_max(pri[k], e);
         } else {
           const bool ok = ((go >> k) & 1) && t < top - (g * RG + k);
@@ -610,7 +628,7 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
           // Selects, not a branch, keep the entry's rows in one basic
           // block, so their chains interleave.  Inside every row only a
           // stopped row's state needs one: its sums are not published.
-          constexpr bool inside = inside_every_row(decltype(mc)::value);
+          constexpr bool inside = inside_every_row<P>(decltype(mc)::value);
           const bool ok = ((go >> k) & 1) &&
                           (inside || t < top - (g * RG + k));
           float& s = s_at(kc, mc);
@@ -681,10 +699,10 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
 // build told to (oco_admm_split_route) leaves every long row to the
 // streaming instance.
 #ifdef OCO_ADMM_SPLIT
-int g_resident_rows = kResidentRows;
+int g_resident_rows = kResidentLongRows;
 int resident_rows() { return g_resident_rows; }
 #else
-constexpr int resident_rows() { return kResidentRows; }
+constexpr int resident_rows() { return kResidentLongRows; }
 #endif
 
 // Launches the streaming instance on the rows longer than cap (none where
@@ -708,53 +726,77 @@ int launch_stream(const Args& a, int cap, cudaStream_t stream,
   return err;
 }
 
-// Opts the resident instance in to its shared memory.
-template <int D>
+// Opts a resident shape in to its shared memory.
+template <int D, typename P>
 int prepare_resident() {
   return static_cast<int>(cudaFuncSetAttribute(
-      admm_resident_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Resident<D>::smem));
+      admm_resident_kernel<D, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem));
 }
 
-// Launches the resident instance on the rows with kLongRows < L <= hi
+// Launches resident shape P on the rows with P::lo < L <= min(hi, P::hi)
 // (none where there are none).
-template <int D>
+template <int D, typename P>
 int launch_resident(const Args& a, int hi, cudaStream_t stream,
                     int* launched) {
-  if (hi <= kLongRows) return cudaSuccess;
-  constexpr int R = Resident<D>::R;
+  const int top = hi < P::hi ? hi : P::hi;
+  if (top <= P::lo) return cudaSuccess;
   const long long blocks =
-      static_cast<long long>((hi - kLongRows + R - 1) / R) * a.B;
+      static_cast<long long>((top - P::lo + P::R - 1) / P::R) * a.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  int err = prepare_resident<D>();
+  int err = prepare_resident<D, P>();
   if (err != cudaSuccess) return err;
-  admm_resident_kernel<D><<<static_cast<unsigned>(blocks),
-                            Resident<D>::threads, Resident<D>::smem,
-                            stream>>>(
-      a.z, a.y, a.Lpk, a.s0, a.u0, a.x0, a.w0, a.v0, a.B, a.T, a.d,
-      kLongRows, hi, a.iters, a.check_every, a.tol, a.kappa, a.alpha,
-      a.beta, a.s, a.u, a.x, a.w, a.v, a.res);
+  admm_resident_kernel<D, P><<<static_cast<unsigned>(blocks), P::threads,
+                               P::smem, stream>>>(
+      a.z, a.y, a.Lpk, a.s0, a.u0, a.x0, a.w0, a.v0, a.B, a.T, a.d, P::lo,
+      top, a.iters, a.check_every, a.tol, a.kappa, a.alpha, a.beta, a.s,
+      a.u, a.x, a.w, a.v, a.res);
   err = static_cast<int>(cudaGetLastError());
   if (err == cudaSuccess) {
     ++launched[0];
     ++launched[1];
     ++launched[2];
+    if (P::RG == 1) ++launched[3];
   }
   return err;
 }
 
 // The rows longer than the resident instance's capacity first, then the
-// resident rows.
+// resident rows, longest first.
 template <int D>
 int launch_d(const Args& a, cudaStream_t stream, int* launched) {
   const int cap = resident_rows();
-  const int err = launch_stream<D>(a, cap, stream, launched);
-  if (err != cudaSuccess) return err;
-  return launch_resident<D>(a, a.T < cap ? a.T : cap, stream, launched);
+  const int hi = a.T < cap ? a.T : cap;
+  int err = launch_stream<D>(a, cap, stream, launched);
+  if (err == cudaSuccess)
+    err = launch_resident<D, ResidentLong<D>>(a, hi, stream, launched);
+  if (err == cudaSuccess)
+    err = launch_resident<D, ResidentShort<D>>(a, hi, stream, launched);
+  return err;
+}
+
+// Registers a thread (out[0]) and resident warps an SM (out[1]) of
+// resident shape P.
+template <int D, typename P>
+int occupancy_resident(int* out) {
+  cudaFuncAttributes attr;
+  int err = prepare_resident<D, P>();
+  if (err == cudaSuccess)
+    err = static_cast<int>(
+        cudaFuncGetAttributes(&attr, admm_resident_kernel<D, P>));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, admm_resident_kernel<D, P>, P::threads, P::smem));
+  out[0] = err == cudaSuccess ? attr.numRegs : 0;
+  out[1] = blocks * P::threads / 32;
+  return err;
 }
 
 // Registers a thread and resident warps an SM of the streaming instance
-// (out[0], out[1]) and of the resident instance (out[2], out[3]).
+// (out[0], out[1]), of the resident instance's rows up to kResidentRows
+// (out[2], out[3]) and of its rows up to kResidentLongRows (out[4],
+// out[5]).
 template <int D>
 int occupancy_d(int* out) {
   cudaFuncAttributes attr;
@@ -766,18 +808,10 @@ int occupancy_d(int* out) {
         &blocks, admm_long_kernel<D>, kThreads, 0));
   out[0] = err == cudaSuccess ? attr.numRegs : 0;
   out[1] = blocks * OCO_ADMM_WARPS;
-  if (err != cudaSuccess) return err;
-  err = prepare_resident<D>();
   if (err == cudaSuccess)
-    err = static_cast<int>(
-        cudaFuncGetAttributes(&attr, admm_resident_kernel<D>));
-  blocks = 0;
+    err = occupancy_resident<D, ResidentShort<D>>(out + 2);
   if (err == cudaSuccess)
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, admm_resident_kernel<D>, Resident<D>::threads,
-        Resident<D>::smem));
-  out[2] = err == cudaSuccess ? attr.numRegs : 0;
-  out[3] = blocks * Resident<D>::threads / 32;
+    err = occupancy_resident<D, ResidentLong<D>>(out + 4);
   return err;
 }
 
@@ -794,6 +828,7 @@ int occupancy_long(int d, int T, int* out) {
   const int err = d == 5 ? occupancy_d<5>(out) : occupancy_d<0>(out);
   if (T <= resident_rows()) out[1] = 0;
   if (T <= kLongRows) out[3] = 0;
+  if (T <= kResidentRows) out[5] = 0;
   return err;
 }
 
@@ -801,32 +836,42 @@ int occupancy_long(int d, int T, int* out) {
 
 namespace {
 
-template <int D>
+template <typename P>
 int resident_plan(int* out) {
-  using P = Resident<D>;
-  const int plan[] = {P::R, P::G, P::RG, P::threads, kResidentM, P::QR,
-                      P::RG * kResidentM - P::QR, P::stages, P::smem,
-                      static_cast<int>(sizeof(typename P::RowsT))};
-  for (int k = 0; k < 10; ++k) out[k] = plan[k];
+  const int plan[] = {P::R, P::G, P::RG, P::threads, P::M, P::QR,
+                      P::RG * P::M - P::QR, P::stages, P::smem,
+                      static_cast<int>(sizeof(typename P::RowsT)),
+                      P::lo, P::hi};
+  for (int k = 0; k < 12; ++k) out[k] = plan[k];
   return 0;
+}
+
+template <int D>
+int resident_plan_d(int shape, int* out) {
+  return shape == 0   ? resident_plan<ResidentShort<D>>(out)
+         : shape == 1 ? resident_plan<ResidentLong<D>>(out)
+                      : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // K10l's resident block at feature dimension d (the d = 5 instance or the
-// generic one): rows, groups of kThreads threads, rows a group, threads,
-// a thread's entries of a row, of its entries those in registers and those
-// in shared memory, the ring's stages, and the dynamic and static shared
-// bytes, into out[0..9].  Returns 0.
-extern "C" int oco_admm_resident_plan(int d, int* out) {
-  return d == 5 ? resident_plan<5>(out) : resident_plan<0>(out);
+// generic one) in shape 0 (rows of 4,097 to 8,192 entries) or 1 (rows of
+// 8,193 to 16,384): rows, groups of kThreads threads, rows a group,
+// threads, a thread's entries of a row, of its entries those in registers
+// and those in shared memory, the ring's stages, the dynamic and static
+// shared bytes, and the row lengths (lo, hi] the shape takes, into
+// out[0..11].  Returns 0, or cudaErrorInvalidValue for another shape.
+extern "C" int oco_admm_resident_plan(int d, int shape, int* out) {
+  return d == 5 ? resident_plan_d<5>(shape, out)
+                : resident_plan_d<0>(shape, out);
 }
 
 #ifdef OCO_ADMM_SPLIT
 // Probe builds only: with stream_all, every long row takes the streaming
 // instance (the design before the resident one).
 extern "C" void oco_admm_split_route(int stream_all) {
-  g_resident_rows = stream_all ? kLongRows : kResidentRows;
+  g_resident_rows = stream_all ? kLongRows : kResidentLongRows;
 }
 
 // Probe builds only: copies K10l's clocks by instance and phase
@@ -834,7 +879,7 @@ extern "C" void oco_admm_split_route(int stream_all) {
 extern "C" int oco_admm_split(unsigned long long* out) {
   int err = static_cast<int>(cudaMemcpyFromSymbol(
       out, admm_split_clocks, sizeof(admm_split_clocks)));
-  unsigned long long zero[2 * kAdmmPhases] = {};
+  unsigned long long zero[3 * kAdmmPhases] = {};
   if (err == cudaSuccess)
     err = static_cast<int>(cudaMemcpyToSymbol(admm_split_clocks, zero,
                                               sizeof(zero)));

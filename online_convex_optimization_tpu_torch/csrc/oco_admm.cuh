@@ -27,12 +27,15 @@ struct Args {
 
 // K10l on the rows longer than kLongRows (admm_long_kernel.cu): launches
 // its streaming instance on the rows past the resident instance's
-// capacity, then the resident instance on the others, where T has such
-// rows, adding each launch to launched[0] and to launched[1] and the
-// resident one also to launched[2] (the C entry's counts), and returns the
-// cudaError_t; occupancy_long sets the registers a thread and resident
-// warps an SM of the streaming instance (out[0], out[1]) and of the
-// resident one (out[2], out[3]) at T (0 warps where T has no such rows).
+// capacity, then the resident instance's two shapes on the others (rows
+// up to 16,384 entries, then up to 8,192), where T has such rows, adding
+// each launch to launched[0] and to launched[1], the resident ones also to
+// launched[2] and the two-row shape's to launched[3] (the C entry's
+// counts), and returns the cudaError_t;
+// occupancy_long sets the registers a thread and resident warps an SM of
+// the streaming instance (out[0], out[1]) and of the resident shapes
+// (out[2], out[3] for rows up to 8,192; out[4], out[5] up to 16,384) at T
+// (0 warps where T has no such rows).
 int launch_long(const Args& a, cudaStream_t stream, int* launched);
 int occupancy_long(int d, int T, int* out);
 
@@ -88,8 +91,9 @@ __device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
 // clock64 span since the warp's last mark to phase p's total, span(p, t0)
 // the span since t0 without moving the last mark (lane 0 of each warp;
 // flush() adds them to admm_split_clocks[instance] at the end of the
-// block, instance 0 the streaming kernel, 1 the resident one).  The
-// library's build compiles the marks to nothing.
+// block, instance 0 the streaming kernel, 1 the resident one's rows up to
+// 8,192 entries, 2 its rows up to 16,384).  The library's build compiles
+// the marks to nothing.
 enum AdmmPhase {
   kAdmmStep,      // waiting for the d x d steps and their barrier
   kAdmmLoad,      // a pass waiting on its loads of z, y, s and u
@@ -100,7 +104,7 @@ enum AdmmPhase {
   kAdmmPhases
 };
 #ifdef OCO_ADMM_SPLIT
-__device__ unsigned long long admm_split_clocks[2][kAdmmPhases];
+__device__ unsigned long long admm_split_clocks[3][kAdmmPhases];
 __device__ int admm_split_sink;
 struct SplitClock {
   int inst;

@@ -39,12 +39,12 @@
 // wide instance keeps no array in its frame: each thread's vectors lie in
 // a device buffer that the wrapper allocates, laid out (d, slots), element
 // j of slot i at j * slots + i (Strided), so that the 32 lanes of a warp
-// touch 32 neighbouring words as the local frame's interleaving does; its
-// rows are read from global memory where they are used and widened on
-// read (Widened).  Its frame does not grow with d and adds nothing to the
-// large instance's reservation.  K2w and K5w keep that design; K1w, K3w,
-// K3ew, K4w, K6aw, K6bw and K7w play a sequence (K1w a play, K6bw a tail)
-// on a warp with its vectors in shared memory (oco_warp.cuh).
+// touch 32 neighbouring words as the local frame's interleaving does.  Its
+// frame does not grow with d and adds nothing to the large instance's
+// reservation.  K5w keeps that design; K1w, K2w (K6aw's and K6bw's
+// kernels), K3w, K3ew, K4w, K6aw, K6bw and K7w play a sequence (K1w a
+// play, K6bw a tail) on a warp with its vectors in shared memory
+// (oco_warp.cuh).
 #define OCO_MAX_D 64
 #define OCO_LARGE_D 512
 #define OCO_THREADS 128
@@ -121,30 +121,6 @@ struct Strided {
   }
 };
 
-// A row in storage type Z read as the compute type S, element by element
-// (exact), with a stride between its elements: the wide instance's rows.
-template <typename S, typename Z>
-struct Widened {
-  const Z* p;
-  long long stride;
-  __device__ __forceinline__ S operator[](int j) const {
-    return S(widen(p[j * stride]));
-  }
-};
-
-// A thread's state vector v (0, 1, ...): its array `arr` (D >= -1), or,
-// in the wide instance, vector v of slot i in `buf`, which holds the
-// vectors one after another, each laid out (d, slots).
-template <int D, typename S>
-__device__ __forceinline__ auto state_vec(S* arr, S* buf, int v, long long i,
-                                          long long slots, int n) {
-  if constexpr (D == kWideD)
-    return Strided<S>{buf + static_cast<long long>(v) * n * slots + i,
-                      slots};
-  else
-    return arr;
-}
-
 // Calls launch(std::integral_constant<int, D>()) with the instance that
 // takes d >= 1: d = 5, the generic, the large-d or (past OCO_LARGE_D) the
 // wide instance; returns the launch's cudaError_t, cudaErrorInvalidValue
@@ -177,8 +153,9 @@ __device__ __forceinline__ S half_sign(S diff) {
 }
 
 // The helpers below take a thread's vectors as arrays (pointers) or, in
-// the wide instance, as Strided / Widened views, with the same arithmetic
-// in the same order.  A wide vector lies in device memory, so a loop that
+// K5w's wide instance (dot and scaled, through its comparators), as
+// Strided views, with the same arithmetic in the same order.  A wide
+// vector lies in device memory, so a loop that
 // loads an element and then uses it would wait a memory latency an
 // element: the wide instance's loops go kWideBlock elements at a time, the
 // block's loads first (ahead of any store), then its arithmetic in index
@@ -267,35 +244,16 @@ __device__ __forceinline__ S hinge_step(X x, ZR zr, S yt, int n, S& cum) {
 }
 
 // The subgradient update theta += g * z_t and, unless w is null (K2's
-// FTRL tails), the identity statistic w += y_t * z_t.
+// FTRL tails), the identity statistic w += y_t * z_t.  No wide instance
+// calls it (K5w updates in passes of its own).
 template <typename S, int D, typename TH, typename W, typename ZR>
 __device__ __forceinline__ void update(TH th, W w, ZR zr, S g, S yt, int n) {
+  static_assert(D != kWideD, "no wide instance updates through update");
   constexpr bool kW = !std::is_same<W, std::nullptr_t>::value;
-  if constexpr (D == kWideD) {
-    for (int j0 = 0; j0 < n; j0 += kWideBlock) {
-      S t[kWideBlock], u[kWideBlock], z[kWideBlock];
 #pragma unroll
-      for (int k = 0; k < kWideBlock; ++k) {
-        if (j0 + k < n) {
-          t[k] = th[j0 + k];
-          z[k] = zr[j0 + k];
-          if constexpr (kW) u[k] = w[j0 + k];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kWideBlock; ++k) {
-        if (j0 + k < n) {
-          th[j0 + k] = t[k] + g * z[k];
-          if constexpr (kW) w[j0 + k] = u[k] + yt * z[k];
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      th[j] = th[j] + g * zr[j];
-      if constexpr (kW) w[j] = w[j] + yt * zr[j];
-    }
+  for (int j = 0; j < n; ++j) {
+    th[j] = th[j] + g * zr[j];
+    if constexpr (kW) w[j] = w[j] + yt * zr[j];
   }
 }
 

@@ -33,9 +33,8 @@
 // used, and cannot fault.
 //
 // The large-d instance (D == -1, d > 64), whose rows do not fit a stage,
-// reads each row from global memory as it plays it (play_rows_global); so
-// does the wide instance (D == kWideD, d > 512) of every kernel here,
-// through a Widened view of the row.
+// reads each row from global memory as it plays it (play_rows_global).  No
+// wide instance (D == kWideD, d > 512) plays through these helpers.
 #pragma once
 
 #include <climits>
@@ -245,8 +244,7 @@ inline int local_bytes(K kernel, int* out, size_t smem = 0) {
 // order, each thread reading its own rows from global memory, with scale =
 // scale_row[t] (0 where scale_row is null).  The instances with registers
 // for two rows (D >= 0) load round t + 1's row before they play round t,
-// so the load's latency overlaps a round; the wide instance passes a
-// Widened view of the row, which holds nothing in the thread's frame.
+// so the load's latency overlaps a round.
 template <typename S, int D, typename Z, typename Y, typename F>
 __device__ __forceinline__ void play_rows_global(
     const Z* __restrict__ z, const Y* __restrict__ y,
@@ -260,12 +258,9 @@ __device__ __forceinline__ void play_rows_global(
     yt = S(widen(y[b * T + t]));
     scale = scale_row != nullptr ? scale_row[t] : S(0);
   };
+  static_assert(D != kWideD, "no wide instance plays rows here");
   S yt, scale;
-  if constexpr (D == kWideD) {
-    for (int t = lo; t < hi; ++t)
-      fn(t, Widened<S, Z>{z + (b * T + t) * n, 1}, S(widen(y[b * T + t])),
-         scale_row != nullptr ? scale_row[t] : S(0));
-  } else if constexpr (D < 0) {
+  if constexpr (D < 0) {
     for (int t = lo; t < hi; ++t) {
       load(t, zr, yt, scale);
       fn(t, static_cast<const S*>(zr), yt, scale);
@@ -539,14 +534,14 @@ enum class ChunkRole {
 // `consumers` (warps) the same.  The large-d instance (D == -1) stages
 // nothing: it passes fn its global row (widened into local memory where z
 // is narrow), and keeps the pipeline's barriers only to order the trail
-// after the leads; the wide instance (D == kWideD) passes a Widened view
-// of the global row, which holds nothing in the thread's frame.
+// after the leads.
 template <typename S, int D, int kStages, typename Z, typename Y,
           typename Lo, typename F>
 __device__ __forceinline__ void play_chunks(
     const Z* __restrict__ z, const Y* __restrict__ y, long long b,
     long long B, long long T, const ChunkShape& cs, int hi, ChunkRole role,
     int leads, int consumers, unsigned char* smem, Lo&& lo_of, F&& fn) {
+  static_assert(D != kWideD, "no wide instance plays chunks");
   const int n = D > 0 ? D : cs.n;
   const int lane = threadIdx.x & 31;
   // Three mbarriers a stage: full, empty, done.
@@ -643,10 +638,6 @@ __device__ __forceinline__ void play_chunks(
           row += n;
           ++label;
         }
-      } else if constexpr (D == kWideD) {
-        for (int t = t0 + k_lo; t < t0 + k_hi; ++t)
-          fn(t, Widened<S, Z>{z + (b * T + t) * n, 1},
-             S(widen(y[b * T + t])));
       } else if constexpr (kWidenGlobal) {
         for (int t = t0 + k_lo; t < t0 + k_hi; ++t) {
           const Z* src = z + (b * T + t) * n;

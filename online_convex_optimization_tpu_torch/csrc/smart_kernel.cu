@@ -48,15 +48,33 @@
 // and is widened on read: a narrow launch equals the f32 launch on the
 // upcast values in every bit.
 //
-// Past d = 512 (K2w, the wide instance, D == oco::kWideD) warp k < 1 + G
-// keeps theta and x as vectors 0 and 1 of slot k * B + b in the caller's
-// state buffer, laid out (d, (1 + G) * B), and the FTL warp its w as
-// vector 2, laid out (d, B) after them (oco::state_vec); rows are read from
-// the caller's (B, T, d) z where they are used and widened on read.  The
-// mbarriers of play_chunks still order each tail after the FTL
-// warp, and the producer warp, which copies nothing there, stays in the
-// block for them.  Same helpers, same order: K2w equals its plain version
-// bit for bit at any d, with a local frame that does not grow with d.
+// Past d = 512 K2 is K2w: K6's two wide kernels in a K2 mode
+// (smart_sweep_kernel.cu, entries oco_smart_plays_ftl_* and
+// oco_smart_plays_tails_*; the wrapper ops/smart.py::launch_smart launches
+// both), since column g of K6 is K2 run with threshold g, bit for bit.  A
+// block of this kernel (a sequence a lane, 1 + G warps of it, each thread
+// holding its vectors in a (d, slots) device buffer) left the card nearly
+// empty at the path's width (B = 1,024: 32 blocks of 4 warps on 132 SMs,
+// a memory round trip per 8 elements of each sum).  The design:
+//   - the FTL launch is K6aw's kernel (smart_prefix_wide_kernel, kPlays):
+//     a warp a sequence, theta and w in shared memory, x never stored, the
+//     switch test's <x, w> beside the next round's <z, x>; each sequence's
+//     thresholds sorted on the device (a stable sort along G, as K6a's
+//     list), walked by the same pointer: each threshold's first crossing,
+//     the tie lead >= threshold kept.  It writes comp, the switch rounds
+//     and F at each switch, and for the pairs with no tail their sum (F)
+//     and action (the final FTL action s theta, or zeros where the switch
+//     came at the last valid round);
+//   - the tail launch is K6bw's kernel (smart_tail_wide_kernel, kPlays), a
+//     tail a block with shorter product lines, so that the path's 1,024
+//     tails fill one wave of 8 warps an SM: each switched pair's FTRL tail
+//     from F at its switch with its sequence's row of the scale table,
+//     writing the raw sum and the tail's last action (the scale, then the
+//     projection where ||x||^2 > 1).
+// Both launches take the sequences longest first (game.length_order, on
+// the device).  At the path's shape (f64, B = 1,024, T = 1,000, d =
+// 1,024) the FTL launch's two one-lane chains of d adds a round and the
+// longest tail's one chain bound the pair of launches (PERF.md).
 #include <climits>
 
 #include "oco_tiles.cuh"
@@ -79,8 +97,8 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
              const int* __restrict__ eidx, const int* __restrict__ lengths,
              long long B, long long T, int G, oco::ChunkShape ts, int replay,
              S* __restrict__ cum_out, S* __restrict__ comp_out,
-             S* __restrict__ x_last, long long* __restrict__ switch_t,
-             S* state) {
+             S* __restrict__ x_last, long long* __restrict__ switch_t) {
+  static_assert(D != oco::kWideD, "K2w is K6's wide kernels in K2 mode");
   constexpr int C = oco::Cap<D>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   // Warp 0's switch rounds (INT_MAX until a threshold is passed) and the
@@ -110,24 +128,9 @@ smart_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const oco::ChunkRole role =
       ftl ? oco::ChunkRole::kLead
           : (g_tail < G ? oco::ChunkRole::kTrail : oco::ChunkRole::kProducer);
-  // The warp's vectors: arrays, or (wide) its slot of the state buffer
-  // (w the FTL warp's alone).
-  S th_a[C], w_a[C], x_a[C];
-  const bool mine = b >= 0 && role != oco::ChunkRole::kProducer;
-  const long long slots = static_cast<long long>(1 + G) * B;
-  const long long own = mine ? warp * B + b : 0;
-  const auto th = oco::state_vec<D>(th_a, state, 0, own, slots, n);
-  const auto x = oco::state_vec<D>(x_a, state, 1, own, slots, n);
-  const auto w = oco::state_vec<D>(w_a, state, 2 * (1 + G),
-                                   ftl ? own : 0, B, n);
-  if (D != oco::kWideD || mine) {
+  S th[C], w[C], x[C];
 #pragma unroll
-    for (int j = 0; j < n; ++j) th[j] = x[j] = S(0);
-  }
-  if (D != oco::kWideD || (mine && ftl)) {
-#pragma unroll
-    for (int j = 0; j < n; ++j) w[j] = S(0);
-  }
+  for (int j = 0; j < n; ++j) th[j] = x[j] = w[j] = S(0);
   S F = S(0), cnt = S(0), cum = S(0);
   S thr[kMaxThresholds];
   long long tau[kMaxThresholds];
@@ -217,42 +220,46 @@ template <typename Z, typename Y>
 int launch(const void* z, const void* y, const void* thresholds,
            const void* scales, const void* eidx, const void* lengths,
            long long B, long long T, int G, int d, int replay, void* cum,
-           void* comp, void* x_last, void* switch_t, void* state,
-           void* stream) {
+           void* comp, void* x_last, void* switch_t, void* stream) {
   using S = oco::compute_t<Z>;
-  if (B < 1 || T < 1 || T >= INT_MAX || G < 1 || G > kMaxThresholds)
+  if (B < 1 || T < 1 || T >= INT_MAX || G < 1 || G > kMaxThresholds ||
+      d > OCO_LARGE_D)
     return cudaErrorInvalidValue;
-  if (d > OCO_LARGE_D && state == nullptr) return cudaErrorInvalidValue;
   const long long blocks = (B + 31) / 32;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   int err = cudaSuccess;
   const int launched = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<Z, Y, D>(d, kStageBytes);
-    err = oco::launch_with_smem(
-        smart_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
-        (2 + G) * 32, oco::chunk_ring_bytes<D>(ts, kStages),
-        static_cast<cudaStream_t>(stream), static_cast<const Z*>(z),
-        static_cast<const Y*>(y), static_cast<const S*>(thresholds),
-        static_cast<const S*>(scales), static_cast<const int*>(eidx),
-        static_cast<const int*>(lengths), B, T, G, ts, replay,
-        static_cast<S*>(cum), static_cast<S*>(comp), static_cast<S*>(x_last),
-        static_cast<long long*>(switch_t), static_cast<S*>(state));
+    if constexpr (D != oco::kWideD) {
+      const oco::ChunkShape ts = oco::chunk_shape<Z, Y, D>(d, kStageBytes);
+      err = oco::launch_with_smem(
+          smart_kernel<Z, Y, D>, static_cast<unsigned int>(blocks),
+          (2 + G) * 32, oco::chunk_ring_bytes<D>(ts, kStages),
+          static_cast<cudaStream_t>(stream), static_cast<const Z*>(z),
+          static_cast<const Y*>(y), static_cast<const S*>(thresholds),
+          static_cast<const S*>(scales), static_cast<const int*>(eidx),
+          static_cast<const int*>(lengths), B, T, G, ts, replay,
+          static_cast<S*>(cum), static_cast<S*>(comp),
+          static_cast<S*>(x_last), static_cast<long long*>(switch_t));
+    }
   });
   return err != cudaSuccess ? err : launched;
 }
 
 template <typename S>
 int occupancy(int G, int d, int* out) {
-  if (G < 1 || G > kMaxThresholds) return cudaErrorInvalidValue;
+  if (G < 1 || G > kMaxThresholds || d > OCO_LARGE_D)
+    return cudaErrorInvalidValue;
   int err = cudaSuccess;
   const int checked = oco::launch_for_any_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
-    const size_t smem = oco::chunk_ring_bytes<D>(ts, kStages);
-    err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32, smem, out);
-    if (err == cudaSuccess) err = oco::local_bytes(smart_kernel<S, S, D>,
-                                                   out + 2, smem);
+    if constexpr (D != oco::kWideD) {
+      const oco::ChunkShape ts = oco::chunk_shape<S, S, D>(d, kStageBytes);
+      const size_t smem = oco::chunk_ring_bytes<D>(ts, kStages);
+      err = oco::occupancy(smart_kernel<S, S, D>, (2 + G) * 32, smem, out);
+      if (err == cudaSuccess)
+        err = oco::local_bytes(smart_kernel<S, S, D>, out + 2, smem);
+    }
   });
   return err != cudaSuccess ? err : checked;
 }
@@ -263,27 +270,33 @@ int occupancy(int G, int d, int* out) {
 // OCO_STORAGE_PAIRS (the suffix); in the compute type thresholds (G, B)
 // and scales (E, T) the FTRL scales -(eta_e / sqrt(t)); eidx (B,) int32
 // each sequence's row of scales, lengths (B,) int32 with 0 <= len <= T;
-// 1 <= G <= 4; any d >= 1.  Outputs: cum_loss (G, B), comp_loss (B,),
-// x_last (G, B, d) in the compute type, switch_t (G, B) int64 (T where a
-// pair never switches).  state: past d = 512 a scratch buffer of
-// (2 * (1 + G) + 1) * d * B elements of the compute type
-// (ops/game.py::wide_state_elems), else unused (may be null).  Returns the
-// cudaError_t of the launch.
+// 1 <= G <= 4; 1 <= d <= 512 (past it K2w's two launches,
+// smart_sweep_kernel.cu).  Outputs: cum_loss (G, B), comp_loss (B,), x_last
+// (G, B, d) in the compute type, switch_t (G, B) int64 (T where a pair
+// never switches).  Returns the cudaError_t of the launch.
 #define OCO_SMART_ENTRY(SUFFIX, Z, Y)                                        \
   extern "C" int oco_smart_regrets_##SUFFIX(                                 \
       const void* z, const void* y, const void* thresholds,                  \
       const void* scales, const void* eidx, const void* lengths, long long B, \
       long long T, int G, int d, int replay, void* cum, void* comp,          \
-      void* x_last, void* switch_t, void* state, void* stream) {             \
+      void* x_last, void* switch_t, void* stream) {                          \
     return launch<Z, Y>(z, y, thresholds, scales, eidx, lengths, B, T, G, d, \
-                        replay, cum, comp, x_last, switch_t, state, stream); \
+                        replay, cum, comp, x_last, switch_t, stream);        \
   }
 OCO_STORAGE_PAIRS(OCO_SMART_ENTRY)
+
+extern "C" int oco_smart_plays_occupancy(int storage, int tails, int d,
+                                         int* out);
 
 // Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
 // thread's local frame (out[2]) and of a block's shared memory (out[3]) of a
 // launch with G thresholds a sequence at feature dimension d on the current
-// card; f64 nonzero for the float64 instance.  Returns the cudaError_t.
+// card (past d = 512 K2w's FTL launch at its plan's block); f64 nonzero for
+// the float64 instance.  Returns the cudaError_t.
 extern "C" int oco_smart_occupancy(int f64, int G, int d, int* out) {
+  if (d > OCO_LARGE_D)
+    return G < 1 || G > kMaxThresholds
+               ? cudaErrorInvalidValue
+               : oco_smart_plays_occupancy(f64 ? 1 : 0, 0, d, out);
   return f64 ? occupancy<double>(G, d, out) : occupancy<float>(G, d, out);
 }

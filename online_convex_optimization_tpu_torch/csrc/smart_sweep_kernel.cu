@@ -120,6 +120,10 @@
 // sequence) pair, each warp reading its rows from global memory with no
 // barrier: the library's plan (oco_smart_tail_plan) reports the boundary
 // and the block, and the wrapper allocates the buffer it asks for.
+//
+// K2w (K2 past d = 512) is these two wide kernels in their K2 mode
+// (kPlays; smart_kernel.cu's note): each sequence's own thresholds, the
+// sums without comp, the last actions, one tail a block.
 #include "oco_tiles.cuh"
 #include "oco_warp.cuh"
 
@@ -144,7 +148,7 @@ smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                     const int* __restrict__ lengths, long long B, long long G,
                     long long T, int d, int replay, S* __restrict__ regret,
                     long long* __restrict__ switch_t,
-                    S* __restrict__ comp_out, S* state) {
+                    S* __restrict__ comp_out) {
   constexpr int C = oco::Cap<D>::value;
   const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
@@ -153,11 +157,7 @@ smart_prefix_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   const int len = lengths[b];
   const int n = D > 0 ? D : d;
 
-  // The sequence's vectors: arrays, or (wide) its slot of the state buffer.
-  S th_a[C], w_a[C], x_a[C];
-  const auto th = oco::state_vec<D>(th_a, state, 0, slot, B, n);
-  const auto w = oco::state_vec<D>(w_a, state, 1, slot, B, n);
-  const auto x = oco::state_vec<D>(x_a, state, 2, slot, B, n);
+  S th[C], w[C], x[C];
 #pragma unroll
   for (int j = 0; j < n; ++j) th[j] = w[j] = x[j] = S(0);
   S F = S(0), cnt = S(0);
@@ -226,7 +226,9 @@ __host__ __device__ inline long long prefix_warp_bytes(int d, bool shared) {
          oco::line_elems<S, kPrefixLine>() * static_cast<long long>(sizeof(S));
 }
 
-template <typename Z, typename Y, bool kShared,
+// kPlays: K2w's FTL launch (see the source note of smart_kernel.cu's
+// entry), with each sequence's own thresholds and the raw sums.
+template <typename Z, typename Y, bool kShared, bool kPlays,
           typename S = oco::compute_t<Z>>
 __global__ void __launch_bounds__(kPrefixWarps * 32, 1)
 smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
@@ -237,7 +239,8 @@ smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                          long long G, long long T, int d, int replay,
                          S* __restrict__ regret,
                          long long* __restrict__ switch_t,
-                         S* __restrict__ comp_out, S* state) {
+                         S* __restrict__ comp_out, S* __restrict__ x_last,
+                         S* state) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long slot =
@@ -256,6 +259,10 @@ smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       line + oco::line_elems<S, kPrefixLine>());
   const Z* rows = z + b * T * n;
   const Y* labels = y + b * T;
+  // The k-th lowest threshold's place in sorted and perm: one list for
+  // every sequence (K6), or the sequence's own column of the (G, B) lists
+  // (K2).
+  const auto at = [&](long long k) { return kPlays ? k * B + b : k; };
 
   // Row t into the stage: the 16-byte chunks around it (each holds an
   // element of the row, so it lies in that element's page), the row at
@@ -292,7 +299,7 @@ smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   S F = S(0), cnt = S(0);
   S s = S(0);                  // x = s theta, the pre-update FTL action
   long long k = 0, k_last = 0;   // thresholds passed; passed before round len-1
-  S next = sorted[0];            // the lowest threshold not yet passed
+  S next = sorted[at(0)];        // the lowest threshold not yet passed
   S q = S(0), xw = S(0), yt = S(0);
   bool xw_final = false;         // xw is <x, w> of the final x and w
   if (len > 0) {
@@ -360,11 +367,11 @@ smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       const S lead = F - L;
       while (k < G && lead >= next) {
         if (lane == 0) {
-          const long long i = perm[k] * B + b;
+          const long long i = perm[at(k)] * B + b;
           switch_t[i] = t;
           regret[i] = F;
         }
-        if (++k < G) next = sorted[k];
+        if (++k < G) next = sorted[at(k)];
       }
     }
     xw_final = walk && !more;
@@ -387,12 +394,21 @@ smart_prefix_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
       });
     comp = S(0.5) * (cnt - xw);
   }
+  if constexpr (kPlays) {
+    // The pairs with no tail: one that never switched keeps the final FTL
+    // action, one that switched at its last valid round played no FTRL
+    // action.
+    for (long long m = k_last; m < G; ++m) {
+      S* xs = x_last + (perm[at(m)] * B + b) * n;
+      for (int j = lane; j < n; j += 32) xs[j] = m >= k ? s * th[j] : S(0);
+    }
+  }
   if (lane != 0) return;
   comp_out[b] = comp;
   for (long long m = k_last; m < G; ++m) {
-    const long long i = perm[m] * B + b;
+    const long long i = perm[at(m)] * B + b;
     if (m >= k) switch_t[i] = T;
-    regret[i] = F - comp;
+    regret[i] = kPlays ? F : F - comp;
   }
 }
 
@@ -404,43 +420,43 @@ int prefix_max_shared_d() {
       [](int d) { return prefix_warp_bytes<Z>(d, true); });
 }
 
+// K6aw's (or K2w's FTL launch's) kernel, with theta, w and the stage in
+// shared memory or not.
+template <typename Z, typename Y, bool kPlays>
+auto prefix_wide(bool shared) {
+  return shared ? &smart_prefix_wide_kernel<Z, Y, true, kPlays>
+                : &smart_prefix_wide_kernel<Z, Y, false, kPlays>;
+}
+
 // K6aw's plan at d: theta, w and the stage in shared memory up to
 // prefix_max_shared_d(), and the warps a block that keep the most warps
 // resident an SM (oco::best_block).
-template <typename Z, typename Y>
+template <typename Z, typename Y, bool kPlays = false>
 int prefix_plan(int d, oco::WarpPlan* p) {
   if (d <= OCO_LARGE_D) return cudaErrorInvalidValue;
   p->shared = d <= prefix_max_shared_d<Z>();
   p->state = p->shared ? 0 : 2 * up4(d);
-  const auto kernel = p->shared ? &smart_prefix_wide_kernel<Z, Y, true>
-                                : &smart_prefix_wide_kernel<Z, Y, false>;
-  return oco::best_block(kernel, kPrefixWarps,
+  return oco::best_block(prefix_wide<Z, Y, kPlays>(p->shared), kPrefixWarps,
                          prefix_warp_bytes<Z>(d, p->shared), p);
 }
 
-template <typename Z, typename Y, typename S>
+template <typename Z, typename Y, typename S, bool kPlays = false>
 int launch_prefix_wide(const Z* z, const Y* y, const S* sorted,
                        const int* perm, const int* order, const int* lengths,
                        long long B, long long G, long long T, int d,
                        int replay, S* regret, long long* switch_t, S* comp,
-                       S* state, cudaStream_t s) {
+                       S* x_last, S* state, cudaStream_t s) {
   oco::WarpPlan p{};
-  const int err = prefix_plan<Z, Y>(d, &p);
+  const int err = prefix_plan<Z, Y, kPlays>(d, &p);
   if (err != cudaSuccess) return err;
   if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
   const long long grid = (B + p.warps - 1) / p.warps;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto g = static_cast<unsigned int>(grid);
-  const auto smem = static_cast<size_t>(p.smem);
-  return p.shared
-             ? oco::launch_with_smem(smart_prefix_wide_kernel<Z, Y, true>, g,
-                                     p.warps * 32, smem, s, z, y, sorted,
-                                     perm, order, lengths, B, G, T, d, replay,
-                                     regret, switch_t, comp, state)
-             : oco::launch_with_smem(smart_prefix_wide_kernel<Z, Y, false>,
-                                     g, p.warps * 32, smem, s, z, y, sorted,
-                                     perm, order, lengths, B, G, T, d, replay,
-                                     regret, switch_t, comp, state);
+  return oco::launch_with_smem(
+      prefix_wide<Z, Y, kPlays>(p.shared), static_cast<unsigned int>(grid),
+      p.warps * 32, static_cast<size_t>(p.smem), s, z, y, sorted, perm,
+      order, lengths, B, G, T, d, replay, regret, switch_t, comp, x_last,
+      state);
 }
 
 // K6b: 32 sequences (lane) x kTailWarps thresholds (warp) a block.
@@ -505,46 +521,62 @@ static_assert(kTailGroup >= 1 && kTailGroup <= 32, "1 to 32 warps a block");
 // SM, as K3w's).
 constexpr int kTailLine = 512;
 constexpr int kTailUnroll = 4;
+// K2w's tail launch plays one tail a block (its sequences' tails share no
+// rounds on the main path, where one threshold a sequence switches) with
+// lines of kPlaysTailLine products: a block of 26,672 bytes at d = 1,024
+// in f64, so that its 8 warps an SM (by registers) fit shared memory too
+// and the path's 1,024 tails run in one wave (lines of 512 would hold 7).
+constexpr int kPlaysTailLine = 256;
+template <bool kPlays>
+constexpr int kTailP = kPlays ? 1 : kTailGroup;
+template <bool kPlays>
+constexpr int kTailL = kPlays ? kPlaysTailLine : kTailLine;
 
 // A block's shared memory, each part a multiple of 16 bytes: the group's
 // thetas and two stages of a row's 16-byte window (shared), then the
 // group's product lines.
-template <typename Z, typename S = oco::compute_t<Z>>
+template <typename Z, bool kPlays = false, typename S = oco::compute_t<Z>>
 __host__ __device__ inline long long tail_block_bytes(int d, bool shared) {
-  return (shared ? kTailGroup * prefix_vec_bytes<Z>(d) +
+  return (shared ? kTailP<kPlays> * prefix_vec_bytes<Z>(d) +
                        2 * prefix_stage_bytes<Z>(d)
                  : 0) +
-         kTailGroup * oco::line_elems<S, kTailLine>() *
+         kTailP<kPlays> * oco::line_elems<S, kTailL<kPlays>>() *
              static_cast<long long>(sizeof(S));
 }
 
-template <typename Z, typename Y, bool kShared,
+// kPlays: K2w's tail launch (see the source note of smart_kernel.cu's
+// entry): each sequence's own sorted thresholds and row of the (E, T)
+// scale table (eidx), the raw sum and the last action.
+template <typename Z, typename Y, bool kShared, bool kPlays,
           typename S = oco::compute_t<Z>>
-__global__ void __launch_bounds__(kTailGroup * 32, 1)
+__global__ void __launch_bounds__(kTailP<kPlays> * 32, 1)
 smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
                        const S* __restrict__ scales,
+                       const int* __restrict__ eidx,
                        const int* __restrict__ perm,
                        const int* __restrict__ order,
                        const int* __restrict__ lengths,
                        const long long* __restrict__ switch_t,
                        const S* __restrict__ comp, long long B, long long G,
                        long long T, int d, S* __restrict__ regret,
-                       S* state) {
+                       S* __restrict__ x_last, S* state) {
+  constexpr int P = kTailP<kPlays>, kLine = kTailL<kPlays>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // Group grp's sorted thresholds k0 .. k0 + kTailGroup - 1 of the
-  // sequence in the order's place `slot`.
+  // Group grp's sorted thresholds k0 .. k0 + P - 1 of the sequence in the
+  // order's place `slot` (their place in perm as prefix_wide's `at`).
   const long long grp = blockIdx.x / B, slot = blockIdx.x % B;
-  const long long k0 = grp * kTailGroup;
+  const long long k0 = grp * P;
   const long long b = order[slot];
   const int len = lengths[b];
+  const auto at = [&](long long k) { return kPlays ? k * B + b : k; };
   // Each thread reads the group's switch rounds: the block's first round
   // and its warp's; a tail is rounds tau + 1 .. len - 1, empty unless
   // tau + 1 < len.
   int first = len, start = len;
   long long i = 0;
-  for (int w = 0; w < kTailGroup && k0 + w < G; ++w) {
-    const long long iw = perm[k0 + w] * B + b;
+  for (int w = 0; w < P && k0 + w < G; ++w) {
+    const long long iw = perm[at(k0 + w)] * B + b;
     const long long tau = switch_t[iw];
     const int s = tau + 1 < len ? static_cast<int>(tau) + 1 : len;
     first = min(first, s);
@@ -562,13 +594,13 @@ smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   S* th = kShared ? reinterpret_cast<S*>(smem) + warp * v
                   : state + ((k0 + warp) * B + slot) * v;
   unsigned char* stages =
-      smem + (kShared ? kTailGroup * v * static_cast<long long>(sizeof(S))
-                      : 0);
+      smem + (kShared ? P * v * static_cast<long long>(sizeof(S)) : 0);
   const long long stage_bytes = prefix_stage_bytes<Z>(n);
   S* line = reinterpret_cast<S*>(stages + (kShared ? 2 * stage_bytes : 0)) +
-            warp * oco::line_elems<S, kTailLine>();
+            warp * oco::line_elems<S, kLine>();
   const Z* rows = z + b * T * n;
   const Y* labels = y + b * T;
+  const S* sc_row = kPlays ? scales + eidx[b] * T : scales;
 
   // Row t into stage t & 1: the 16-byte chunks around it (each holds an
   // element of the row, so it lies in that element's page), split over
@@ -598,7 +630,7 @@ smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
   for (int j = lane; j < n; j += 32) th[j] = S(0);
   S cum = tail ? regret[i] : S(0);
   S y_next = tail ? S(oco::widen(labels[start])) : S(0);
-  S sc_next = tail ? scales[start] : S(0);
+  S sc_next = tail ? sc_row[start] : S(0);
   const int t_lo = kShared ? first : start;
   if constexpr (kShared) {
     fetch(t_lo);
@@ -617,16 +649,19 @@ smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
     const S yt = y_next, sc = sc_next;
     if (t + 1 < len) {
       y_next = S(oco::widen(labels[t + 1]));
-      sc_next = scales[t + 1];
+      sc_next = sc_row[t + 1];
     }
     // The action x = sc theta, times f where it projects: ftrl_action_scaled
     // and hinge_step's dot; then update.
     S f;
     bool proj;
-    const S q = oco::ftrl_q<kTailLine>(line, n, lane, sc, th, z_at, f, proj);
+    const S q = oco::ftrl_q<kLine>(line, n, lane, sc, th, z_at, f, proj);
     const S diff = q - yt;
     cum = cum + S(0.5) * oco::oabs(diff);
     const S g = oco::half_sign(diff);
+    // K2w writes the action of the tail's last round, formed from theta
+    // before its update as the round formed it.
+    S* xs = kPlays && t + 1 == len ? x_last + i * n : nullptr;
     for (int j0 = lane; j0 < n; j0 += 32 * kTailUnroll) {
       S zj[kTailUnroll], tj[kTailUnroll];
 #pragma unroll
@@ -638,56 +673,72 @@ smart_tail_wide_kernel(const Z* __restrict__ z, const Y* __restrict__ y,
         }
       }
 #pragma unroll
-      for (int u = 0; u < kTailUnroll; ++u)
-        if (j0 + 32 * u < n) th[j0 + 32 * u] = tj[u] + g * zj[u];
+      for (int u = 0; u < kTailUnroll; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < n) {
+          th[j] = tj[u] + g * zj[u];
+          if constexpr (kPlays) {
+            if (xs != nullptr) {
+              const S x = sc * tj[u];
+              xs[j] = proj ? f * x : x;
+            }
+          }
+        }
+      }
     }
     __syncwarp();
   }
-  if (tail && lane == 0) regret[i] = cum - comp[b];
+  if (tail && lane == 0) {
+    if constexpr (kPlays)
+      regret[i] = cum;
+    else
+      regret[i] = cum - comp[b];
+  }
 }
 
 // The largest d whose block fits shared memory with the thetas and the
 // stages.
-template <typename Z>
+template <typename Z, bool kPlays = false>
 int tail_max_shared_d() {
   return oco::max_shared_d(
-      [](int d) { return tail_block_bytes<Z>(d, true); });
+      [](int d) { return tail_block_bytes<Z, kPlays>(d, true); });
 }
 
-// K6bw's block at d: kTailGroup warps, the thetas and the stages in shared
-// memory up to tail_max_shared_d(); past it up4(d) elements of the state
-// buffer a (threshold, sequence) pair.
-template <typename Z>
+// K6bw's (or K2w's tail launch's) block at d: kTailP warps, the thetas and
+// the stages in shared memory up to tail_max_shared_d(); past it up4(d)
+// elements of the state buffer a (threshold, sequence) pair.
+template <typename Z, bool kPlays = false>
 oco::WarpPlan tail_plan(int d) {
   oco::WarpPlan p{};
-  p.warps = kTailGroup;
-  p.shared = d <= tail_max_shared_d<Z>();
-  p.smem = tail_block_bytes<Z>(d, p.shared);
+  p.warps = kTailP<kPlays>;
+  p.shared = d <= tail_max_shared_d<Z, kPlays>();
+  p.smem = tail_block_bytes<Z, kPlays>(d, p.shared);
   p.state = p.shared ? 0 : up4(d);
   return p;
 }
 
-// K6bw's kernel for a plan.
-template <typename Z, typename Y>
+// K6bw's (or K2w's tail launch's) kernel for a plan.
+template <typename Z, typename Y, bool kPlays = false>
 auto tail_wide(const oco::WarpPlan& p) {
-  return p.shared ? &smart_tail_wide_kernel<Z, Y, true>
-                  : &smart_tail_wide_kernel<Z, Y, false>;
+  return p.shared ? &smart_tail_wide_kernel<Z, Y, true, kPlays>
+                  : &smart_tail_wide_kernel<Z, Y, false, kPlays>;
 }
 
-template <typename Z, typename Y, typename S>
+template <typename Z, typename Y, typename S, bool kPlays = false>
 int launch_tails_wide(const Z* z, const Y* y, const S* scales,
-                      const int* perm, const int* order, const int* lengths,
-                      const long long* switch_t, const S* comp, long long B,
-                      long long G, long long T, int d, S* regret, S* state,
+                      const int* eidx, const int* perm, const int* order,
+                      const int* lengths, const long long* switch_t,
+                      const S* comp, long long B, long long G, long long T,
+                      int d, S* regret, S* x_last, S* state,
                       cudaStream_t s) {
-  const oco::WarpPlan p = tail_plan<Z>(d);
+  const oco::WarpPlan p = tail_plan<Z, kPlays>(d);
   if (!p.shared && state == nullptr) return cudaErrorInvalidValue;
-  const long long grid = (G + kTailGroup - 1) / kTailGroup * B;
+  const long long grid = (G + p.warps - 1) / p.warps * B;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   return oco::launch_with_smem(
-      tail_wide<Z, Y>(p), static_cast<unsigned int>(grid), p.warps * 32,
-      static_cast<size_t>(p.smem), s, z, y, scales, perm, order, lengths,
-      switch_t, comp, B, G, T, d, regret, state);
+      tail_wide<Z, Y, kPlays>(p), static_cast<unsigned int>(grid),
+      p.warps * 32, static_cast<size_t>(p.smem), s, z, y, scales, eidx, perm,
+      order, lengths, switch_t, comp, B, G, T, d, regret, x_last, state);
 }
 
 // K6a.  Inputs: z (B, T, d) and y (B, T) contiguous, sorted (G,) the
@@ -723,12 +774,12 @@ int launch_prefix(const void* z, const void* y, const void* sorted,
     constexpr int D = decltype(dc)::value;
     if constexpr (D == oco::kWideD)
       err = launch_prefix_wide<Z, Y, S>(zp, yp, sp, pp, op, lp, B, G, T, d,
-                                        replay, rp, tp, cp, st, s);
+                                        replay, rp, tp, cp, nullptr, st, s);
     else
       err = oco::launch_with_smem(smart_prefix_kernel<Z, Y, D>,
                                   static_cast<unsigned int>(blocks),
                                   kPrefixThreads, 0, s, zp, yp, sp, pp, op,
-                                  lp, B, G, T, d, replay, rp, tp, cp, st);
+                                  lp, B, G, T, d, replay, rp, tp, cp);
   });
   return err != cudaSuccess ? err : launched;
 }
@@ -761,8 +812,8 @@ int launch_tails(const void* z, const void* y, const void* scales,
     constexpr int D = decltype(dc)::value;
     if constexpr (D == oco::kWideD) {
       err = launch_tails_wide<Z, Y, S>(
-          zp, yp, sp, static_cast<const int*>(perm), op, lp, tp, cp, B, G, T,
-          d, rp, static_cast<S*>(state), s);
+          zp, yp, sp, nullptr, static_cast<const int*>(perm), op, lp, tp, cp,
+          B, G, T, d, rp, nullptr, static_cast<S*>(state), s);
     } else {
       const oco::TileShape ts =
           oco::tile_shape<Z, Y>(d, kTailWarps, kTailStageBytes, 1);
@@ -806,8 +857,7 @@ int occupancy(int tails, int d, int* out) {
     } else {
       oco::WarpPlan p{};
       err = prefix_plan<Z, Y>(d, &p);
-      const auto kernel = p.shared ? &smart_prefix_wide_kernel<Z, Y, true>
-                                   : &smart_prefix_wide_kernel<Z, Y, false>;
+      const auto kernel = prefix_wide<Z, Y, false>(p.shared);
       const auto smem = static_cast<size_t>(p.smem);
       if (err == cudaSuccess)
         err = oco::occupancy(kernel, p.warps * 32, smem, out);
@@ -846,6 +896,55 @@ int occupancy(int tails, int d, int* out) {
                               comp, B, G, T, d, regret, state, stream);     \
   }
 OCO_STORAGE_PAIRS(OCO_SMART_SWEEP_ENTRIES)
+
+// K2w's two launches, z and y as K6's, d > 512 (smart_kernel.cu's source
+// note).  The FTL launch: sorted (G, B) each sequence's thresholds sorted
+// ascending along G (stable) and perm (G, B) int32 their columns, order
+// and lengths as K6a's; it writes comp (B,), switch_t (G, B) (T where a
+// pair never switches), and cum (G, B): F for a pair that never switched,
+// the FTL losses at the switch for the others; and x_last (G, B, d) of
+// every pair without a tail.  The tail launch, on its outputs with scales
+// (E, T) and eidx (B,) int32 each sequence's row, plays every tail and
+// writes its pair's cum (the start sum plus the tail's losses) and x_last
+// (the tail's last action).  state: where the plans (oco_smart_plays_plan)
+// ask for one, `state` * B elements for the FTL launch and `state` * G * B
+// for the tails, else unused (may be null).  Each returns the cudaError_t
+// of its launch.
+#define OCO_SMART_PLAYS_ENTRIES(SUFFIX, Z, Y)                               \
+  extern "C" int oco_smart_plays_ftl_##SUFFIX(                              \
+      const void* z, const void* y, const void* sorted, const void* perm,   \
+      const void* order, const void* lengths, long long B, long long G,     \
+      long long T, int d, int replay, void* cum, void* switch_t,            \
+      void* comp, void* x_last, void* state, void* stream) {                \
+    using S = oco::compute_t<Z>;                                            \
+    if (B < 1 || G < 1 || T < 1 || T >= INT_MAX) return cudaErrorInvalidValue; \
+    return launch_prefix_wide<Z, Y, S, true>(                               \
+        static_cast<const Z*>(z), static_cast<const Y*>(y),                 \
+        static_cast<const S*>(sorted), static_cast<const int*>(perm),       \
+        static_cast<const int*>(order), static_cast<const int*>(lengths),   \
+        B, G, T, d, replay, static_cast<S*>(cum),                           \
+        static_cast<long long*>(switch_t), static_cast<S*>(comp),           \
+        static_cast<S*>(x_last), static_cast<S*>(state),                    \
+        static_cast<cudaStream_t>(stream));                                 \
+  }                                                                         \
+  extern "C" int oco_smart_plays_tails_##SUFFIX(                            \
+      const void* z, const void* y, const void* scales, const void* eidx,   \
+      const void* perm, const void* order, const void* lengths,             \
+      const void* switch_t, long long B, long long G, long long T, int d,   \
+      void* cum, void* x_last, void* state, void* stream) {                 \
+    using S = oco::compute_t<Z>;                                            \
+    if (B < 1 || G < 1 || T < 1 || T >= INT_MAX || d <= OCO_LARGE_D)        \
+      return cudaErrorInvalidValue;                                         \
+    return launch_tails_wide<Z, Y, S, true>(                                \
+        static_cast<const Z*>(z), static_cast<const Y*>(y),                 \
+        static_cast<const S*>(scales), static_cast<const int*>(eidx),       \
+        static_cast<const int*>(perm), static_cast<const int*>(order),      \
+        static_cast<const int*>(lengths),                                   \
+        static_cast<const long long*>(switch_t), nullptr, B, G, T, d,       \
+        static_cast<S*>(cum), static_cast<S*>(x_last),                      \
+        static_cast<S*>(state), static_cast<cudaStream_t>(stream));         \
+  }
+OCO_STORAGE_PAIRS(OCO_SMART_PLAYS_ENTRIES)
 
 // The storage of an occupancy or plan query: 0 float32, 1 float64, 2 bf16
 // z (with int8 y).
@@ -895,6 +994,70 @@ extern "C" int oco_smart_prefix_plan(int storage, int d, long long* out) {
   out[2] = p.shared ? 1 : 0;
   out[3] = p.state;
   out[4] = max_d;
+  return err;
+}
+
+// K2w's FTL launch's plan (tails 0; K6aw's, with K2w's kernel) or its
+// tail launch's (tails 1; one tail a block) at d > 512 with z in `storage`
+// on the current card, as oco_smart_prefix_plan and oco_smart_tail_plan
+// report theirs.  Returns the cudaError_t (cudaErrorInvalidValue for d <=
+// 512 or an unknown storage).
+extern "C" int oco_smart_plays_plan(int storage, int tails, int d,
+                                    long long* out) {
+  if (d <= OCO_LARGE_D || storage < 0 || storage > 2)
+    return cudaErrorInvalidValue;
+  oco::WarpPlan p{};
+  int err = cudaSuccess, max_d = 0;
+  if (tails) {
+    p = storage == 0   ? tail_plan<float, true>(d)
+        : storage == 1 ? tail_plan<double, true>(d)
+                       : tail_plan<oco::bf16, true>(d);
+    max_d = storage == 0   ? tail_max_shared_d<float, true>()
+            : storage == 1 ? tail_max_shared_d<double, true>()
+                           : tail_max_shared_d<oco::bf16, true>();
+  } else {
+    err = storage == 0   ? prefix_plan<float, float, true>(d, &p)
+          : storage == 1 ? prefix_plan<double, double, true>(d, &p)
+                         : prefix_plan<oco::bf16, signed char, true>(d, &p);
+    max_d = storage == 0   ? prefix_max_shared_d<float>()
+            : storage == 1 ? prefix_max_shared_d<double>()
+                           : prefix_max_shared_d<oco::bf16>();
+  }
+  out[0] = p.warps;
+  out[1] = p.smem;
+  out[2] = p.shared ? 1 : 0;
+  out[3] = p.state;
+  out[4] = max_d;
+  return err;
+}
+
+// Registers a thread (out[0]), resident warps an SM (out[1]), bytes of a
+// thread's local frame (out[2]) and of a block's shared memory (out[3]) of
+// K2w's FTL launch (tails 0) or tail launch (tails 1) at its plan's block,
+// d > 512, z in `storage`.  Returns the cudaError_t.
+extern "C" int oco_smart_plays_occupancy(int storage, int tails, int d,
+                                         int* out) {
+  long long plan[5];
+  int err = oco_smart_plays_plan(storage, tails, d, plan);
+  if (err != cudaSuccess) return err;
+  const bool shared = plan[2] != 0;
+  const auto smem = static_cast<size_t>(plan[1]);
+  const int threads = static_cast<int>(plan[0]) * 32;
+  const auto measure = [&](auto kernel) {
+    err = oco::occupancy(kernel, threads, smem, out);
+    if (err == cudaSuccess) err = oco::local_bytes(kernel, out + 2, smem);
+  };
+  oco::WarpPlan p{};
+  p.shared = shared;
+  if (storage == 0)
+    tails ? measure(tail_wide<float, float, true>(p))
+          : measure(prefix_wide<float, float, true>(shared));
+  else if (storage == 1)
+    tails ? measure(tail_wide<double, double, true>(p))
+          : measure(prefix_wide<double, double, true>(shared));
+  else
+    tails ? measure(tail_wide<oco::bf16, signed char, true>(p))
+          : measure(prefix_wide<oco::bf16, signed char, true>(shared));
   return err;
 }
 

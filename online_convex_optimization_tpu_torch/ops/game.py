@@ -209,8 +209,10 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1,
     ``cuda_build.MAX_D``; past it, vectors of d elements laid out
     (d, slots), a slot per thread's play:
 
-    - K2w: theta and x of the FTL track and of each of ``plays`` (G)
-      thresholds' tails, and the FTL track's w, ``(2 (1 + G) + 1) d B``;
+    - K2w: what its two launches' plans ask for (``plays_plan``): its
+      FTL launch's ``state`` elements a sequence, laid out (B, state),
+      then its tail launch's for each of ``plays`` (G) thresholds of a
+      sequence, laid out (G B, state); none while both fit shared memory;
     - K5w: theta of each of ``plays`` (E) settings a sequence, and a w a
       sequence for each group of ``SWEEP_WARPS`` settings,
       ``(E + ceil(E / SWEEP_WARPS)) d B`` (no x: the final FTL action is
@@ -238,11 +240,12 @@ def wide_state_elems(kernel: str, B: int, d: int, plays: int = 1,
         return regret_plan(d, plays, dtype)["state"] * B
     if kernel == "K6b":
         return tail_plan(d, dtype)["state"] * plays * B
+    if kernel == "K2":
+        return (plays_plan(d, dtype, tails=False)["state"] * B
+                + plays_plan(d, dtype, tails=True)["state"] * plays * B)
     if kernel == "K7":
         return synthetic_plan(d)["state"] * B
-    vectors = {"K2": 2 * (1 + plays) + 1,
-               "K5": plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS}[kernel]
-    return vectors * d * B
+    return (plays + (plays + SWEEP_WARPS - 1) // SWEEP_WARPS) * d * B
 
 
 def wide_state(kernel: str, B: int, d: int, plays: int, dtype, device):
@@ -519,6 +522,15 @@ def tail_plan(d: int, dtype) -> dict:
     elements a (threshold, sequence) pair."""
     return _plan("K6bw", cuda_build.load().oco_smart_tail_plan,
                  storage_code(dtype), d)
+
+
+def plays_plan(d: int, dtype, tails: bool) -> dict:
+    """K2w's FTL launch's block (K6aw's plan for K2w's kernel) or, with
+    ``tails``, its tail launch's (one tail a block, K6bw's kernel) at
+    feature dimension ``d`` > ``cuda_build.MAX_D`` with z in ``dtype``
+    (``oco_smart_plays_plan``; see ``_plan``)."""
+    return _plan("K2w", cuda_build.load().oco_smart_plays_plan,
+                 storage_code(dtype), int(tails), d)
 
 
 def occupancy(kernel: str, fn, *args, shared: bool = False) -> tuple:

@@ -8,7 +8,10 @@ Counterpart of ``online_convex_optimization_tpu/ops/pallas_smart.py``:
   layout, plain version ``smart_regrets_reference``; ``smart_plays``, the
   evaluation's entry, runs G <= 4 thresholds of each sequence in one
   launch (the FTL track once, one FTL action a round, the FTRL tails in
-  warps of their own), plain mirror ``smart_plays_reference``;
+  warps of their own), plain mirror ``smart_plays_reference``; past d =
+  512 (K2w) the launch is two, K6's wide kernels in a K2 mode
+  (``launch_smart_wide``: the FTL track a warp a sequence, then the tails
+  a warp each);
 - ``smart_sweep`` (TPU ``smart_sweep_packed``, kernel
   ``_smart_sweep_kernel``): the regret and switch round of every (sequence,
   threshold) pair with a scalar eta, two launches of
@@ -24,11 +27,10 @@ Each plain version is a loop over T vectorized over the batch, in its
 kernel's order of operations.  A wrapper runs the plain version on a CPU
 tensor, at any d, and launches the kernel on a CUDA tensor; there is no
 fallback between them.  K2, K6a and K6b take any d on the card (past 512
-their wide instances K2w, K6aw and K6bw, whose state lies in a device
-buffer the wrapper allocates, ``game.wide_state_elems``, or for K6aw and
-K6bw in shared memory while their plans say it fits).  K6 computes
-what K2's FTL and tail warps compute, in the same order, so a sweep column
-equals K2 bit for bit.
+K2w and their wide instances K6aw and K6bw, whose state lies in shared
+memory while their plans say it fits, else in a device buffer the wrapper
+allocates, ``game.wide_state_elems``).  K6 computes what K2's FTL and tail
+warps compute, in the same order, so a sweep column equals K2 bit for bit.
 
 Semantics are those of ``models/smart.py`` (the scan the JAX package holds
 against the golden oracle): an always-on FTL track; before the switch, the
@@ -73,6 +75,7 @@ from online_convex_optimization_tpu_torch.ops.game import (
     occupancy,
     per_sequence,
     per_sequence_lengths,
+    plays_plan,
     settings_grid,
     storage_code,
     storage_suffix,
@@ -231,38 +234,91 @@ def launch_smart(z, y, thresholds, scales, eidx, lengths, replay: bool):
     """Launch kernel K2 on contiguous ``(B, T, d)`` / ``(B, T)`` CUDA inputs
     in a ``game.STORAGE`` pair with ``thresholds`` ``(G, B)`` (G <= 4), the
     ``(E, T)`` scale table and each sequence's row ``eidx``
-    (``game.eta_table``), and ``lengths`` (int32).  Returns ``(cum_loss
-    (G, B), comp_loss (B,), x_last (G, B, d), switch_t (G, B))``."""
+    (``game.eta_table``), and ``lengths`` (int32); past d = 512 K2w's two
+    launches (``launch_smart_wide``).  Returns ``(cum_loss (G, B),
+    comp_loss (B,), x_last (G, B, d), switch_t (G, B))``."""
     global LAUNCHES
     B, T, d = z.shape
     G = thresholds.shape[0]
-    fn = getattr(cuda_build.load(),
-                 f"oco_smart_regrets_{storage_suffix(z.dtype, y.dtype)}")
     dtype = compute_dtype(z)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
-        cum = torch.empty((G, B), dtype=dtype, device=z.device)
-        comp = torch.empty((B,), dtype=dtype, device=z.device)
-        x_last = torch.empty((G, B, d), dtype=dtype, device=z.device)
-        tau = torch.empty((G, B), dtype=torch.int64, device=z.device)
-        state = wide_state("K2", B, d, G, dtype, z.device)
+        outs = (torch.empty((G, B), dtype=dtype, device=z.device),
+                torch.empty((B,), dtype=dtype, device=z.device),
+                torch.empty((G, B, d), dtype=dtype, device=z.device),
+                torch.empty((G, B), dtype=torch.int64, device=z.device))
+        if d > cuda_build.MAX_D:
+            launch_smart_wide(z, y, thresholds, scales, eidx, lengths, replay,
+                              outs, stream)
+            return outs
+        fn = getattr(cuda_build.load(),
+                     f"oco_smart_regrets_{storage_suffix(z.dtype, y.dtype)}")
         err = fn(z.data_ptr(), y.data_ptr(), thresholds.data_ptr(),
                  scales.data_ptr(), eidx.data_ptr(), lengths.data_ptr(), B, T,
-                 G, d, int(replay), cum.data_ptr(), comp.data_ptr(),
-                 x_last.data_ptr(), tau.data_ptr(), data_ptr(state),
-                 torch.cuda.current_stream(z.device).cuda_stream)
+                 G, d, int(replay), *(o.data_ptr() for o in outs), stream)
         if err != 0:
             raise RuntimeError(f"SMART kernel launch failed: CUDA error {err}")
         LAUNCHES += 1
-    return cum, comp, x_last, tau
+    return outs
+
+
+def launch_smart_wide(z, y, thresholds, scales, eidx, lengths, replay: bool,
+                      outs, stream) -> None:
+    """K2w, kernel K2 past d = 512, into ``launch_smart``'s outputs
+    ``outs``: K6aw's kernel in its K2 mode (the FTL track a warp a
+    sequence over each sequence's thresholds sorted on the device, comp,
+    the switch rounds and the pairs without a tail), then K6bw's (each
+    switched pair's FTRL tail a block), both over the sequences longest
+    first; two launches, each counted.  Nothing syncs with the host."""
+    global LAUNCHES
+    B, T, d = z.shape
+    G = thresholds.shape[0]
+    lib = cuda_build.load()
+    suffix = storage_suffix(z.dtype, y.dtype)
+    cum, comp, x_last, tau = (o.data_ptr() for o in outs)
+    ordered, perm = torch.sort(thresholds, dim=0, stable=True)
+    perm = perm.to(torch.int32)
+    order = length_order(lengths)
+    # The buffer holds the FTL launch's part, then the tails'.
+    state = wide_state("K2", B, d, G, z.dtype, z.device)
+    n_ftl = plays_plan(d, z.dtype, tails=False)["state"] * B
+    n_all = 0 if state is None else state.numel()
+    ftl_state = state[:n_ftl] if n_ftl else None
+    tail_state = state[n_ftl:] if n_all > n_ftl else None
+    err = getattr(lib, f"oco_smart_plays_ftl_{suffix}")(
+        z.data_ptr(), y.data_ptr(), ordered.data_ptr(), perm.data_ptr(),
+        order.data_ptr(), lengths.data_ptr(), B, G, T, d, int(replay), cum,
+        tau, comp, x_last, data_ptr(ftl_state), stream)
+    if err != 0:
+        raise RuntimeError(f"SMART FTL kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    err = getattr(lib, f"oco_smart_plays_tails_{suffix}")(
+        z.data_ptr(), y.data_ptr(), scales.data_ptr(), eidx.data_ptr(),
+        perm.data_ptr(), order.data_ptr(), lengths.data_ptr(), tau, B, G, T,
+        d, cum, x_last, data_ptr(tail_state), stream)
+    if err != 0:
+        raise RuntimeError(f"SMART tail kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
 
 
 def smart_occupancy(thresholds: int, d: int, dtype) -> tuple:
     """Registers a thread, resident warps an SM and bytes of a thread's
-    local frame of a K2 launch (K2w past 512) with ``thresholds``
-    thresholds a sequence at feature dimension ``d`` on the current
-    card."""
+    local frame of a K2 launch (past 512 K2w's FTL launch) with
+    ``thresholds`` thresholds a sequence at feature dimension ``d`` on the
+    current card."""
     return occupancy("K2", cuda_build.load().oco_smart_occupancy,
                      int(dtype == torch.float64), thresholds, d)
+
+
+def plays_occupancy(tails: bool, d: int, dtype) -> tuple:
+    """``(registers, warps an SM, local frame bytes, shared bytes a
+    block)`` of K2w's FTL launch, or with ``tails`` its tail launch, at
+    feature dimension ``d`` > 512 with z in ``dtype``, at their plans'
+    blocks on the current card."""
+    return occupancy("K2w", cuda_build.load().oco_smart_plays_occupancy,
+                     storage_code(dtype), int(tails), d, shared=True)
 
 
 def sweep_occupancy(tails: bool, d: int, dtype) -> tuple:

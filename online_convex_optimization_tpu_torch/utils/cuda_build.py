@@ -56,7 +56,7 @@ _SIGNATURES = {
                                   _P],
     "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
     "oco_admm_occupancy_f32": [_I, _I, _P],
-    "oco_admm_resident_plan": [_I, _P],
+    "oco_admm_resident_plan": [_I, _I, _P],
     "oco_regrets_occupancy": [_I, _I, _I, _P],
     "oco_smart_occupancy": [_I, _I, _I, _P],
     "oco_stream_occupancy": [_I, _I, _P],
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "oco_packed_plan": [_I, _I, _P],
     "oco_smart_prefix_plan": [_I, _I, _P],
     "oco_smart_tail_plan": [_I, _I, _P],
+    "oco_smart_plays_plan": [_I, _I, _I, _P],
+    "oco_smart_plays_occupancy": [_I, _I, _I, _P],
     "oco_regret_plan": [_I, _I, _I, _P],
     "oco_stream_plan": [_I, _I, _P],
     "oco_trs_occupancy": [_I, _I, _P],
@@ -83,7 +85,11 @@ for _ty in STORAGE_SUFFIXES:
         f"oco_regrets_fused_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
                                     [_P] * 5,
         f"oco_smart_regrets_{_ty}": [_P] * 6 + [_LL, _LL, _I, _I, _I] +
-                                    [_P] * 6,
+                                    [_P] * 5,
+        f"oco_smart_plays_ftl_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
+                                      [_P] * 6,
+        f"oco_smart_plays_tails_{_ty}": [_P] * 8 + [_LL] * 3 + [_I] +
+                                        [_P] * 4,
         f"oco_eta_sweep_{_ty}": [_P] * 5 + [_LL] * 3 + [_I] * 2 + [_P] * 3,
         f"oco_smart_prefix_{_ty}": [_P] * 6 + [_LL] * 3 + [_I] * 2 +
                                    [_P] * 5,

@@ -17,12 +17,14 @@ Cases (``chip_smoke.py`` phase 14's inputs):
   - ``K10l ...``: K10 on ``chip_smoke.py``'s contract data (rows in the
     unit ball, labels sign(<z, u> + 0.3 noise), seed 140 + T), the digest
     of the whole launch's (s, u, x, w, v, res) and the time of the rows
-    past 4,096 entries (the launch less the launch on z[:, :4096]): B = 2,
-    T = 8,192, d = 5 at 200 fixed iterations; the same at tol = 2e-4 with
-    check_every = 100; the same as 100 + 100 iterations from the saved
-    state (its digest must be the first case's); B = 4, T = 4,200 at d = 8
-    (the generic instance); B = 1, T = 12,288, d = 5 (the rows past 8,192
-    entries go to K10l's streaming instance where a resident one exists);
+    past a cut (the launch less the launch on z[:, :cut]): B = 2, T =
+    8,192, d = 5 at 200 fixed iterations, cut 4,096; the same at tol =
+    2e-4 with check_every = 100; the same as 100 + 100 iterations from the
+    saved state (its digest must be the first case's); B = 4, T = 4,200 at
+    d = 8 (the generic instance); B = 1, T = 12,288, d = 5; B = 1, T =
+    9,216 and 16,385, d = 5, cut 8,192 and 16,384 (the rows of 8,193 to
+    16,384 entries take K10l's two-row resident shape where the checkout
+    has one, else its streaming instance);
   - ``K9w d=<d> <dtype>``: the prefix statistics of regression streams
     (seed 160 + d), summed in float64 and stored in the dtype: d = 64, N =
     65,536 (64 streams of 1,024 rows, singular prefixes included); d = 128,
@@ -64,13 +66,16 @@ from online_convex_optimization_tpu_torch.data.device import (  # noqa: E402
 from online_convex_optimization_tpu_torch.ops import admm, trs  # noqa: E402
 
 K9W = ((64, 64, 1024, 0), (128, 16, 1024, 512), (256, 4, 1024, 1024))
-# K10l: (label, B, T, d, iters, tol, split): split runs iters / 2 + iters
-# / 2 from the saved state.
-K10L = (("B=2 T=8192 d=5 200 it", 2, 8192, 5, 200, 0.0, False),
-        ("B=2 T=8192 d=5 200 it tol 2e-4", 2, 8192, 5, 200, 2e-4, False),
-        ("B=2 T=8192 d=5 100+100 it", 2, 8192, 5, 200, 0.0, True),
-        ("B=4 T=4200 d=8 200 it", 4, 4200, 8, 200, 0.0, False),
-        ("B=1 T=12288 d=5 200 it", 1, 12288, 5, 200, 0.0, False))
+# K10l: (label, B, T, d, iters, tol, split, cut): split runs iters / 2 +
+# iters / 2 from the saved state; the time is of the rows past cut.
+K10L = (("B=2 T=8192 d=5 200 it", 2, 8192, 5, 200, 0.0, False, 4096),
+        ("B=2 T=8192 d=5 200 it tol 2e-4", 2, 8192, 5, 200, 2e-4, False,
+         4096),
+        ("B=2 T=8192 d=5 100+100 it", 2, 8192, 5, 200, 0.0, True, 4096),
+        ("B=4 T=4200 d=8 200 it", 4, 4200, 8, 200, 0.0, False, 4096),
+        ("B=1 T=12288 d=5 200 it", 1, 12288, 5, 200, 0.0, False, 4096),
+        ("B=1 T=9216 d=5 200 it", 1, 9216, 5, 200, 0.0, False, 8192),
+        ("B=1 T=16385 d=5 200 it", 1, 16385, 5, 200, 0.0, False, 16384))
 K8W = ((64, torch.float32), (64, torch.float64), (128, torch.float32))
 K8W_B, K8W_T = 4096, 1024
 
@@ -149,7 +154,7 @@ def admm_batch(B, T, d, seed):
 
 
 def k10l(res, reps):
-    for label, B, T, d, iters, tol, split in K10L:
+    for label, B, T, d, iters, tol, split, cut in K10L:
         z, y = admm_batch(B, T, d, 140 + T)
         Lpk = admm.admm_prologue(z)
         kw = dict(tol=tol, check_every=100, rho=1.0, alpha=1.7)
@@ -162,7 +167,7 @@ def k10l(res, reps):
         dig = digest(*st, r)
         del st, r
         torch.cuda.empty_cache()
-        z4, y4 = z[:, :4096].contiguous(), y[:, :4096].contiguous()
+        z4, y4 = z[:, :cut].contiguous(), y[:, :cut].contiguous()
         Lpk4 = admm.admm_prologue(z4)
         full = time_ms(lambda: admm.launch_admm(z, y, Lpk, iters=iters, **kw),
                        reps)

@@ -25,8 +25,12 @@ Cases (each at every ``--d``; ``k1f64`` alone past d = 1,024):
 - ``k1f64``: K1 as ``regret_plays`` launches it, FTRL and FTL as two plays
   of one copy of z, B = 1,024, T = 1,000, f64, eta = sqrt(2);
 - ``k1f32``: the same at B = 2,048, T = 1,024, f32;
-- ``k2``: K2 on ``k1f64``'s data with two thresholds a sequence, sqrt(2T)
-  and T / 4 (the run prints the share of pairs that switched);
+- ``k2``: K2 on ``k1f64``'s data with the main path's two thresholds a
+  sequence, sqrt(2T) and sqrt(2T) / 8 (the run prints the share of pairs
+  that switched); past 512 K2w's two launches together, with its plans,
+  its tail launch's registers, warps an SM, local frame and shared bytes,
+  and its design floor (``chip_smoke.py``'s ``k2w_plan_fields``) where the
+  checkout has them;
 - ``k4``: K4 over 4 chunks of 1,024 rounds generated on the card
   (``random_time_major_batch``), B = 2,048, f32, FTRL and FTL on
   alternate sequences, eta = sqrt(2): the 4 launches timed together;
@@ -119,6 +123,10 @@ try:   # K1w's and K4w's plans and floors, where the checkout has them
     from chip_smoke import wide_plan_fields  # noqa: E402
 except ImportError:
     wide_plan_fields = None
+try:   # K2w's two launches' plans and floor, where the checkout has them
+    from chip_smoke import k2w_plan_fields  # noqa: E402
+except ImportError:
+    k2w_plan_fields = None
 try:   # K3ew's and K6bw's floors, where the checkout has them
     from chip_smoke import eta_scales, tail_wide_floor  # noqa: E402
 except ImportError:
@@ -192,7 +200,7 @@ def state_bytes(kernel, B, d, plays, dtype) -> int:
     size = game.compute_dtype(dtype).itemsize
     planned = {"K3": "packed_plan", "K6a": "packed_plan",
                "K1": "regret_plan", "K4": "stream_plan",
-               "K3e": "packed_plan", "K6b": "tail_plan"}
+               "K3e": "packed_plan", "K6b": "tail_plan", "K2": "plays_plan"}
     if kernel in planned and hasattr(game, planned[kernel]):
         return game.wide_state_elems(kernel, B, d, plays, dtype) * size
     return game.wide_state_elems(kernel, B, d, plays) * size
@@ -228,7 +236,8 @@ def k1(z, y, d, reps):
 def k2(z, y, d, reps):
     B, T, _ = z.shape
     dtype = z.dtype
-    ths = torch.tensor([math.sqrt(2.0 * T), T / 4.0], dtype=dtype,
+    root = math.sqrt(2.0 * T)
+    ths = torch.tensor([root, root / 8.0], dtype=dtype,
                        device=DEV)[:, None].expand(-1, B).contiguous()
     table = game.eta_table(ETA, B, T, dtype, DEV)
     lengths = torch.full((B,), T, dtype=torch.int32, device=DEV)
@@ -238,7 +247,9 @@ def k2(z, y, d, reps):
     tau = outs[3]
     G = tau.shape[0]
     switched = [float((tau[g] < T).double().mean()) for g in range(G)]
-    return {"ms": ms, **wide_k2_bound(B, T, d, tau, dtype),
+    plan = ({} if k2w_plan_fields is None or d <= 512
+            else k2w_plan_fields(B, d, dtype, tau, lengths))
+    return {"ms": ms, **wide_k2_bound(B, T, d, tau, dtype), **plan,
             "digest": digest(outs),
             "switched": switched,
             "occupancy": launch_shape("K2", d, dtype, G),

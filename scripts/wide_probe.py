@@ -30,8 +30,9 @@ builds K10's two sources with ``-DOCO_ADMM_SPLIT`` (the clock64 marks of
 ``csrc/oco_admm.cuh``) into ``build/wide_probe/`` and runs K10 at 200
 fixed iterations, d = 5: one block of K10l alone on each SM (B = 1 and as
 many long rows as the SMs' blocks hold) and at full occupancy (B = 2, T =
-8,192, phase 14's shape), then B = 1 at T = 12,288, where both K10l
-instances run.  For each K10l instance it prints a row iteration's clocks
+8,192, phase 14's shape), then B = 1 at T = 9,216 (the rows past 8,192
+on the resident instance's two-row shape) and at T = 16,385, where every
+K10l instance runs.  For each K10l instance it prints a row iteration's clocks
 a warp by phase: the wait for the d x d step and its barrier, a pass's
 wait on its loads, its arithmetic, the reduce-scatter with its barrier,
 the rest, and the d x d steps' own chain, with the probe build's outputs
@@ -191,7 +192,7 @@ def split():
 
 K10L_PHASES = ("step", "load", "arith", "publish", "other", "chain")
 # K10l's instances, in the order of the probe build's clocks.
-LONG_INSTANCES = ("long", "resident")
+LONG_INSTANCES = ("long", "resident", "resident_long")
 
 
 def k10l_split_library():
@@ -239,17 +240,17 @@ def k10l_split(stream_all):
     # block holds resident_plan's rows).
     alone = sms * (1 if stream_all else admm.resident_plan(d)["rows"])
     cases = [("one block an SM", 1, admm.LONG_ROWS + alone),
-             ("full occupancy", 2, 8192)]
+             ("full occupancy", 2, 8192), ("rows past 8,192", 1, 9216)]
     if not stream_all:
-        cases.append(("both instances", 1, 12288))
+        cases.append(("every instance", 1, admm.RESIDENT_LONG_ROWS + 1))
     for label, B, T in cases:
         z, y = k10l_batch(B, T, d, 140)
         Lpk = admm.admm_prologue(z)
         outs = [torch.empty((B * T, T), device="cuda") for _ in range(2)] + \
             [torch.empty((B * T, d), device="cuda") for _ in range(3)] + \
             [torch.empty(B * T, device="cuda")]
-        launched = (ctypes.c_int * 3)()
-        clocks = (ctypes.c_ulonglong * (2 * len(K10L_PHASES)))()
+        launched = (ctypes.c_int * 4)()
+        clocks = (ctypes.c_ulonglong * (3 * len(K10L_PHASES)))()
         for _ in range(2):         # the first launch warms; its clocks drop
             assert so.oco_admm_split(clocks) == 0
             assert so.oco_admm_all_prefixes_f32(
@@ -270,7 +271,7 @@ def k10l_split(stream_all):
             if rows == 0 or sum(c) == 0:
                 continue
             per_block = 1 if name == "long" else \
-                admm.resident_plan(d)["rows"]
+                admm.resident_plan(d, name)["rows"]
             blocks = B * -(-max(hi - lo, 0) // per_block)
             warp_iters = rows * 8 * iters
             body = sum(c[:5])

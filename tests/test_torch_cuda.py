@@ -9,6 +9,7 @@ torch, numpy and the port, so it also runs where JAX is not installed:
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import functools
 import math
 
 import numpy as np
@@ -195,7 +196,10 @@ def test_kernel_rejects_d_above_max(cuda):
         game.synthetic_regrets(0, 1.0, T=4, lane_batch=1, d=513,
                                device=cuda)]
     torch.cuda.synchronize()
-    assert [getattr(m, n) for m, n in counters] == [n + 1 for n in before]
+    # K2w is two launches: its FTL track, then its tails.
+    rises = [2 if (m, n) == (smart, "LAUNCHES") else 1 for m, n in counters]
+    assert [getattr(m, n) for m, n in counters] == [
+        b + r for b, r in zip(before, rises)]
     assert all(bool(torch.isfinite(o).all()) for o in outs)
     assert float(outs[5].abs().max()) == 0.0 == float(outs[6].abs().max())
 
@@ -1009,8 +1013,9 @@ def _wide_vs_plain(cuda, pair, d, contract, T, ths, cuts):
                                                 fl, et, lo, want_carry)
     assert all(torch.equal(g, w) for g, w in zip(carry, want_carry))
     torch.cuda.synchronize()
+    # K2w is two launches: its FTL track, then its tails.
     assert (game.LAUNCHES, smart.LAUNCHES, game.STREAM_LAUNCHES) == (
-        before[0] + 2, before[1] + 1, before[2] + len(cuts) - 1)
+        before[0] + 2, before[1] + 2, before[2] + len(cuts) - 1)
     return got[3], ln
 
 
@@ -1032,9 +1037,9 @@ def test_wide_kernels_equal_plain_bit_for_bit(cuda, pair, d, contract):
     assert bool((tau[0] < T).any()) and bool((tau[1] == T).all())
 
 
-# K1w and K2w play a launch in chunks of 64 rounds (oco_tiles.cuh
-# kMaxChunk): T = 200 plays 4, so that stages are reused, the barriers'
-# parity flips and K2w's tails take switches published in earlier chunks.
+# K1w plays a launch in chunks of 64 rounds (oco_tiles.cuh kMaxChunk): T =
+# 200 plays 4, so that stages are reused and the barriers' parity flips;
+# K2w's tails start at switches spread over those rounds.
 WIDE_CHUNK = 64
 
 
@@ -1146,7 +1151,7 @@ def test_wide_entry_points_on_the_card(cuda):
             game.simulate_linear_auto(zt, yt, 0, 1.3))
     torch.cuda.synchronize()
     assert game.LAUNCHES == before[0] + 2
-    assert smart.LAUNCHES == before[1] + 1
+    assert smart.LAUNCHES == before[1] + 2      # K2w's two launches
     assert game.STREAM_LAUNCHES == before[2] + 2 * len(range(0, T, 8))
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert _max_err((got.cpu(),), (want,)) <= TOL[torch.float64]
@@ -1828,6 +1833,148 @@ def test_k3ew_k6bw_plans_fit_a_block(cuda, pair):
         game.tail_plan(512, zt)
 
 
+# ------------------ K2w: K6aw's and K6bw's kernels in K2 mode, two launches
+
+def _k2w_thresholds(T, B, dtype, cuda):
+    """Four thresholds a sequence, spread over the sequences: two equal,
+    one early, one out of reach, times sqrt(2T)."""
+    spread = torch.linspace(0.5, 1.5, B, dtype=torch.float64, device=cuda)
+    rows = torch.stack([0.05 * spread, 0.3 * spread, 0.3 * spread,
+                        torch.full_like(spread, 1e30)])
+    return (rows * math.sqrt(2.0 * T)).to(dtype)
+
+
+def _k2w_vs_plain(cuda, pair, d, T, contract, B=77, shift=False):
+    """K2w (``smart_plays`` past d = 512: its FTL launch, then its tails;
+    four thresholds a sequence, two of them equal) against
+    ``smart_plays_reference`` on the stored values in every bit (cum,
+    comp, x_last, switch_t), B sequences with ragged lengths; a narrow
+    pair also against the f32 launch on the upcast values.  ``shift``
+    plays copies of the rows and labels that start one element into their
+    storage (``_shifted``).  The state buffer is the one the two plans ask
+    for.  Returns the switch rounds and the lengths."""
+    z, y, lengths = _batch(B, T, d, seed=d + 43, contract=True)
+    if not contract:
+        z = 1.5 * z / np.maximum(1.0, np.linalg.norm(z, axis=-1,
+                                                     keepdims=True))
+    if pair[0] == torch.float64:
+        zs, ys = _to((z, y), cuda, torch.float64)
+        zf, yf = zs, ys
+    else:
+        zs, ys, zf, yf = _stored(z, y, pair, cuda)
+    dtype = zf.dtype
+    ln = game.per_sequence(lengths, B, torch.int32, cuda)
+    assert game.in_contract(zs, ys, ln) == contract
+    ths = _k2w_thresholds(T, B, dtype, cuda)
+    G = ths.shape[0]
+    assert game.wide_state_elems("K2", B, d, G, pair[0]) == (
+        game.plays_plan(d, pair[0], tails=False)["state"] * B
+        + game.plays_plan(d, pair[0], tails=True)["state"] * G * B)
+    zk, yk = (_shifted(zs), _shifted(ys)) if shift else (zs, ys)
+    before = smart.LAUNCHES
+    got = smart.smart_plays(zk, yk, ths, 1.3, ln, not contract)
+    torch.cuda.synchronize()
+    assert smart.LAUNCHES == before + 2
+    eta = game.per_sequence(1.3, B, dtype, cuda)
+    want = smart.smart_plays_reference(zf, yf, ths, eta, ln,
+                                       replay=not contract)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+        "K2w", pair, d, contract)
+    if zs.dtype != zf.dtype or ys.dtype != yf.dtype:
+        wide = smart.smart_plays(zf, yf, ths, 1.3, ln, not contract)
+        assert all(torch.equal(g, w) for g, w in zip(got, wide)), (
+            "K2w narrow", pair, d)
+    return got[3], ln
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("d", [513, 1024])
+def test_k2w_equals_plain_in_every_pair(cuda, pair, d):
+    """K2w equals ``smart_plays_reference`` in every bit in every storage
+    pair at d = 513 and 1,024, B = 77, contract and replay data, with
+    switches at round 0, later and never, switches that leave no tail
+    (the last valid round) and sequences of length 0; each narrow pair
+    equals the f32 launch on the upcast values."""
+    for contract in (True, False):
+        tau, ln = _k2w_vs_plain(cuda, pair, d, 12, contract)
+        ln = ln[None].long()
+        assert bool((tau == 0).any()) and bool((tau == 12).any())
+        assert bool(((tau < 12) & (tau + 1 >= ln)).any())
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("tails", [False, True])
+def test_k2w_across_the_shared_boundary(cuda, pair, tails):
+    """At the largest d whose state fits a block's shared memory in K2w's
+    FTL launch (K6aw's boundary) or its tail launch, and one past it (the
+    state buffer the plan asks for), K2w equals its plain version in every
+    bit; the plan says which side it is on."""
+    boundary = game.plays_plan(1024, pair[0], tails)["max_shared_d"]
+    for d, shared in ((boundary, True), (boundary + 1, False)):
+        assert game.plays_plan(d, pair[0], tails)["shared"] == shared
+        for contract in (True, False):
+            _k2w_vs_plain(cuda, pair, d, 3, contract, B=21)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k2w_reads_offset_views(cuda, pair, shared):
+    """K2w on rows and labels that start one element into their storage
+    (bf16 and int8 off a 4-byte boundary, f32 and f64 off 16 bytes) equals
+    its plain version in every bit, on both sides of its plans' shared
+    boundaries."""
+    zt = pair[0]
+    d = 513 if shared else max(
+        game.plays_plan(1024, zt, tails)["max_shared_d"]
+        for tails in (False, True)) + 1
+    for tails in (False, True):
+        assert game.plays_plan(d, zt, tails)["shared"] == shared
+    _k2w_vs_plain(cuda, pair, d, 5, True, B=21, shift=True)
+
+
+@pytest.mark.parametrize("pair", ALL_PAIRS)
+def test_k2w_plans_fit_a_block(cuda, pair):
+    """K2w's FTL launch plans as K6aw does (its block, shared memory,
+    boundary and state) for its own kernel; its tail launch plays a tail
+    a block, state on the chip exactly up to its max_shared_d (past the
+    path's d = 1,024), theta padded to 4 elements a pair past it; the
+    occupancy entries report the plans' blocks (K2's own entry the FTL
+    launch's past 512); at d = 1,024 in f64 both hold 8 warps an SM, so
+    that the path's 1,024 sequences and 1,024 tails each run in one wave
+    on 132 SMs."""
+    zt = pair[0]
+    compute = game.compute_dtype(zt)
+    tail = game.plays_plan(1024, zt, True)
+    boundary = tail["max_shared_d"]
+    assert tail["warps"] == 1 and 1024 < boundary < 65536
+    for d in (513, 1024, 2048, boundary, boundary + 1, 65536):
+        ftl = game.plays_plan(d, zt, False)
+        k6a = game.prefix_plan(d, zt)
+        for key in ("shared", "state", "max_shared_d"):
+            assert ftl[key] == k6a[key], (key, d)
+        assert ftl["smem_bytes"] * k6a["warps"] == \
+            k6a["smem_bytes"] * ftl["warps"], d
+        plan = game.plays_plan(d, zt, True)
+        assert plan["warps"] == 1
+        assert plan["shared"] == (d <= boundary), d
+        assert plan["state"] == (0 if plan["shared"] else -(-d // 4) * 4)
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["smem_bytes"] % 16 == 0
+        for tails, p in ((False, ftl), (True, plan)):
+            occ = smart.plays_occupancy(tails, d, zt)
+            assert occ[0] > 0 and occ[1] >= p["warps"], (tails, d)
+            assert occ[3] == p["smem_bytes"], (tails, d)
+        if zt == compute:
+            assert smart.smart_occupancy(2, d, compute) == \
+                smart.plays_occupancy(False, d, zt)[:3]
+    if zt == torch.float64:
+        for tails in (False, True):
+            assert smart.plays_occupancy(tails, 1024, zt)[1] >= 8
+    for tails in (False, True):
+        with pytest.raises(RuntimeError, match="plan failed"):
+            game.plays_plan(512, zt, tails)
+
+
 # ------------------------------- offset views through K5w, K6aw, thin narrow
 
 @pytest.mark.parametrize("pair", ALL_PAIRS)
@@ -2018,24 +2165,28 @@ def test_admm_long_rows_keep_the_identities(cuda, tol):
 @pytest.mark.parametrize("d,tol", [(5, 0.0), (5, 2e-4), (8, 0.0), (3, 2e-4)])
 def test_admm_long_instances_match_plain(cuda, d, tol):
     """At T = 8,200 K10l's resident instance takes the rows of 4,097 to
-    8,192 entries and its streaming instance the eight longer ones: four
-    launches, two of them K10l's, one resident; every row within 5e-4 of
+    8,192 entries four a block and the eight longer ones two a block: four
+    launches, two of them K10l's, both resident; every row within 5e-4 of
     the plain version, at the d = 5 instance and the generic one."""
     z, y = _admm_batch(1, 8200, d, seed=50 + d, cuda=cuda)
     kw = dict(iters=100, tol=tol, check_every=50)
-    before = (admm.LAUNCHES, admm.LONG_LAUNCHES, admm.RESIDENT_LAUNCHES)
+    before = (admm.LAUNCHES, admm.LONG_LAUNCHES, admm.RESIDENT_LAUNCHES,
+              admm.RESIDENT_LONG_LAUNCHES)
     X, res, state = admm.admm_all_prefixes_l2(z, y, **kw)
     torch.cuda.synchronize()
-    assert admm.kernel_instances(8200) == ["long", "resident", 16, 8]
+    assert admm.kernel_instances(8200) == ["resident_long", "resident", 16,
+                                           8]
     assert (admm.LAUNCHES - before[0], admm.LONG_LAUNCHES - before[1],
-            admm.RESIDENT_LAUNCHES - before[2]) == (4, 2, 1)
+            admm.RESIDENT_LAUNCHES - before[2],
+            admm.RESIDENT_LONG_LAUNCHES - before[3]) == (4, 2, 2, 1)
     res_p, state_p = admm.admm_all_prefixes_l2_reference(
         z, y, admm.admm_prologue(z), rho=1.0, alpha=1.7, **kw)
     assert _max_err(state, state_p) <= TOL[torch.float32]
     assert _max_err((res.reshape(-1),), (res_p,)) <= TOL[torch.float32]
     occ = admm.kernel_occupancy(8200, d)
-    assert occ["long"][1] > 0
-    assert occ["resident"][1] == 8 * admm.resident_plan(d)["groups"]
+    assert occ["long"][1] == 0
+    for name in ("resident", "resident_long"):
+        assert occ[name][1] == 8 * admm.resident_plan(d, name)["groups"]
 
 
 @pytest.mark.parametrize("d,stages", [(5, 5), (8, 3), (3, 3)])
@@ -2058,12 +2209,84 @@ def test_resident_plan_fits_a_block(cuda, d, stages):
     assert admm.LONG_ROWS // 256 >= 16 > plan["stages"]
 
 
+@pytest.mark.parametrize("d", [5, 8])
+def test_resident_long_plan_fits_a_block(cuda, d):
+    """K10l's two-row resident shape as its source sizes it: two rows in
+    two groups of 256 threads, 64 entries a thread a row, the same 16 of a
+    thread's 64 in registers and 48 in shared memory as the four-row shape,
+    its ring as deep, within a block's 227 KB; rows of 8,193 to 16,384
+    entries."""
+    short, plan = admm.resident_plan(d), admm.resident_plan(d,
+                                                            "resident_long")
+    assert (plan["rows"], plan["groups"], plan["group_rows"],
+            plan["threads"], plan["entries"], plan["register_entries"],
+            plan["shared_entries"]) == (2, 2, 1, 512, 64, 16, 48)
+    assert (plan["lo"], plan["hi"]) == (admm.RESIDENT_ROWS,
+                                        admm.RESIDENT_LONG_ROWS)
+    assert (short["lo"], short["hi"]) == (admm.LONG_ROWS, admm.RESIDENT_ROWS)
+    assert plan["stages"] == short["stages"]
+    assert plan["smem_bytes"] == short["smem_bytes"]
+    assert plan["static_bytes"] < short["static_bytes"]
+    assert plan["smem_bytes"] + plan["static_bytes"] <= trs.H100_SMEM_OPTIN
+
+
+@functools.lru_cache(maxsize=None)
+def _k10l_stream_route():
+    """K10's two sources built with -DOCO_ADMM_SPLIT and routed so that
+    every row past 4,096 entries takes K10l's streaming instance
+    (``scripts/wide_probe.py``'s probe build, once a process)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts",
+                        "wide_probe.py")
+    spec = importlib.util.spec_from_file_location("wide_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    so = probe.k10l_split_library()
+    so.oco_admm_split_route(1)
+    return so
+
+
+@pytest.mark.parametrize("T,instances", [
+    (9216, ["resident_long", "resident", 16, 8]),
+    (16385, ["long", "resident_long", "resident", 16, 8])])
+def test_k10l_rows_past_8192_equal_the_streaming_route(cuda, T, instances):
+    """The rows of 8,193 to 16,384 entries on the two-row resident shape
+    (and at T = 16,385 the one longer row on the streaming instance) equal
+    the launch that streams every long row (the probe build's route, the
+    design before the resident shapes) in every output bit, d = 5, 200
+    fixed iterations."""
+    import ctypes
+    so = _k10l_stream_route()
+    z, y = _admm_batch(1, T, 5, seed=61, cuda=cuda)
+    Lpk = admm.admm_prologue(z)
+    outs = [torch.empty((T, T), device=cuda) for _ in range(2)] + \
+        [torch.empty((T, 5), device=cuda) for _ in range(3)] + \
+        [torch.empty(T, device=cuda)]
+    launched = (ctypes.c_int * 4)()
+    assert so.oco_admm_all_prefixes_f32(
+        z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *[None] * 5, 1, T, 5,
+        200, 100, 0.0, 0.5, 1.7, 1.0 - 1.7, *(a.data_ptr() for a in outs),
+        torch.cuda.current_stream().cuda_stream, launched) == 0
+    assert list(launched) == [3, 1, 0, 0]
+    before = (admm.LONG_LAUNCHES, admm.RESIDENT_LAUNCHES,
+              admm.RESIDENT_LONG_LAUNCHES)
+    res, st = admm.launch_admm(z, y, Lpk, iters=200, tol=0.0,
+                               check_every=100, rho=1.0, alpha=1.7)
+    torch.cuda.synchronize()
+    assert admm.kernel_instances(T) == instances
+    assert (admm.LONG_LAUNCHES - before[0], admm.RESIDENT_LAUNCHES - before[1],
+            admm.RESIDENT_LONG_LAUNCHES - before[2]) == (
+        len(instances) - 2, 2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(outs, (*st, res)))
+
+
 @pytest.mark.parametrize("tol", [0.0, 2e-4])
 def test_admm_long_instances_keep_the_identities(cuda, tol):
     """Rows p < T' of a T = 8,200 launch equal the launch on z[:, :T'] in
-    every bit, for T' = 8,192 (no streaming rows) and 4,203 (the resident
-    rows in other row slots); 50 + 50 iterations equal 100; a replicate
-    alone equals its rows in the batch."""
+    every bit, for T' = 8,192 (no rows of the two-row shape) and 4,203
+    (the four-row shape's rows in other row slots); 50 + 50 iterations
+    equal 100; a replicate alone equals its rows in the batch."""
     z, y = _admm_batch(2, 8200, 5, seed=46, cuda=cuda)
     kw = dict(tol=tol, check_every=50)
     X, res, st = admm.admm_all_prefixes_l2(z, y, iters=100, **kw)

@@ -187,12 +187,10 @@ def test_no_state_buffer_up_to_512(d):
 
 @pytest.mark.parametrize("d", [513, 1024, 8192])
 def test_state_buffer_sizes_past_512(monkeypatch, d):
-    # K2w: theta, x for the FTL track and each tail, w once.  K1w and K4w:
-    # what the library's plans ask for, none where a block's state fits
-    # shared memory, else the plays' thetas and w (K1w) or theta and w
-    # (K4w) a sequence.
-    assert game.wide_state_elems("K2", 1024, d, 2) == 7 * d * 1024
-    assert game.wide_state_elems("K2", 77, d, 4) == 11 * d * 77
+    # K1w, K2w and K4w: what the library's plans ask for, none where a
+    # block's state fits shared memory, else the plays' thetas and w (K1w),
+    # theta and w (K4w), or K2w's two launches' (its FTL track's theta and
+    # w a sequence, then each tail's theta a (threshold, sequence) pair).
     up4 = -(-d // 4) * 4
     for shared in (True, False):
         _stand_in_plans(monkeypatch, shared)
@@ -201,11 +199,14 @@ def test_state_buffer_sizes_past_512(monkeypatch, d):
                 0 if shared else (plays + 1) * up4 * B)
         assert game.wide_state_elems("K4", 2048, d, 1) == (
             0 if shared else 2 * up4 * 2048)
+        for B, G in ((1024, 2), (77, 4)):
+            assert game.wide_state_elems("K2", B, d, G) == (
+                0 if shared else (2 + G) * up4 * B)
     # The slots reach 2^31 elements at B = 131,072, d = 8,192: the kernels
     # index in 64 bits.
     assert game.wide_state_elems("K4", 131_072, 8192) == 2 ** 31
     buf = game.wide_state("K2", 3, d, 2, torch.float32, "cpu")
-    assert buf.shape == (7 * d * 3,) and buf.dtype == torch.float32
+    assert buf.shape == (4 * up4 * 3,) and buf.dtype == torch.float32
     with pytest.raises(ValueError, match="unknown kernel K8"):
         game.wide_state_elems("K8", 8, d)
 
@@ -261,6 +262,12 @@ def _stand_in_plans(monkeypatch, shared):
                                                                   shared))
     monkeypatch.setattr(game, "tail_plan",
                         lambda dd, dtype=torch.float64: _k3_plan(dd, shared))
+
+    def plays_plan(dd, dtype, tails):
+        return (_k3_plan if tails else _k6a_plan)(dd, shared)
+
+    monkeypatch.setattr(game, "plays_plan", plays_plan)
+    monkeypatch.setattr(smart, "plays_plan", plays_plan)
 
 
 @pytest.mark.parametrize("d", [513, 1024, 8192])
@@ -398,6 +405,26 @@ def test_wide_kernels_take_any_d(monkeypatch, kernel, d):
     name, plays, seqs, (module, counter) = ENTRIES[kernel]
     before = getattr(module, counter)
     _launch(kernel, d)()
+    if kernel == "K2":
+        # The thin K2 keeps no state; K2w is two launches, the FTL track's
+        # and the tails', on the two parts of one buffer.
+        wide = d > cuda_build.MAX_D
+        assert getattr(module, counter) == before + 1 + wide
+        assert [c[0] for c in lib.calls] == (
+            ["oco_smart_plays_ftl_f64", "oco_smart_plays_tails_f64"] if wide
+            else [name])
+        assert all(d in args for _, args in lib.calls)
+        if not wide:
+            assert not buffers
+            return
+        ((k, n, dd, p, dtype, _), buf), = buffers
+        assert (k, n, dd, p) == (kernel, seqs, d, plays)
+        n_ftl = _k6a_plan(d, False)["state"] * seqs
+        assert buf.numel() == game.wide_state_elems(kernel, seqs, d, plays)
+        assert buf.numel() > n_ftl > 0 and buf.dtype == torch.float64
+        assert lib.calls[0][1][-2] == buf.data_ptr()
+        assert lib.calls[1][1][-2] == buf.data_ptr() + 8 * n_ftl
+        return
     assert getattr(module, counter) == before + 1
     assert [c[0] for c in lib.calls] == [name]
     args = lib.calls[0][1]
