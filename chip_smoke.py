@@ -193,10 +193,15 @@ non-zero without printing a result):
                others: the launch counts, every row against the plain
                version (5e-4), rows p < 8,192 against the launch on z[:,
                :8192] (bit for bit), the two-row shape's time (the launch
-               less that launch); at B=1 T=16,385 the streaming instance on
-               the one row past 16,384 entries: the same checks against the
-               plain version and the launch on z[:, :16384], its time the
-               launch less that launch; the
+               less that launch); at B=1 T=20,480 the one-row block on the
+               4,096 rows past 16,384 entries and at B=1 T=36,864 on the
+               20,480 rows past 16,384, of which the 4,096 past 32,768 are
+               timed, and at B=1 T=38,913 the streaming instance on the one
+               row past 38,912: the same checks against the plain version
+               and the launch on z[:, :16384] (z[:, :32768], z[:, :38912]),
+               each one's time the launch less that launch, with its bound,
+               issue floor, registers, warps an SM, cluster size and shared
+               bytes; the
                ``--exact --exact-solver kernel`` driver at one horizon T =
                4,200 (one run, one random family, --g-runs 4) against the
                auto route at phase 11's f32 scoring bound; (b) K9w:
@@ -311,10 +316,12 @@ resident warps an SM (K9's and K10's text lines also print the
 --fmad=false issue floor, which is arithmetic and stays out of the
 kernels line).  The narrow instances of phase 13 have an entry each
 (name ``... (K1, bfloat16 z, int8 y: oco_*_bf16i8)``), with K1 at
-bench.py's shape.  K10l's resident instance's two shapes, its streaming
-instance, K9w and K8w (phase 14) have an entry each at their path shapes
-(K10l resident, four rows a block: B=2 T=8192, 200 iterations; two rows a
-block: B=1 T=9,216; K10l streaming: B=1 T=16,385; K9w: d=64,
+bench.py's shape.  K10l's resident instance's two shapes, its one-row
+block (twice: at B=1 T=20,480 the rows past 16,384, at B=1 T=36,864
+those past 32,768), its streaming instance, K9w and K8w (phase 14) have
+an entry each at their path shapes (K10l resident, four rows a block:
+B=2 T=8192, 200 iterations; two rows a block: B=1 T=9,216; K10l
+streaming: B=1 T=38,913, its one row past 38,912; K9w: d=64,
 65,536 problems, f32; K8w: d=64, B=4,096 T=1,024, f32), their errors
 and plain times from the plain versions on the same inputs (K8w's on
 every 4th sequence, in calls of 512 sequences, summed).  K1w, K2w and
@@ -541,8 +548,14 @@ def bound(n_bytes: float, ops: float, dtype) -> dict:
 
 
 def max_err(got, want) -> float:
-    return max(float((g.double() - w.double()).abs().max())
-               for g, w in zip(got, want))
+    """The largest |g - w| over every pair, in float64 and 2^27 elements
+    at a time (K10l's (T, T) states at T = 38,913 leave no room for whole
+    float64 copies), NaN if any difference is NaN."""
+    parts = [(a.double() - b.double()).abs().max().cpu()
+             for g, w in zip(got, want)
+             for a, b in zip(g.reshape(-1).split(1 << 27),
+                             w.reshape(-1).split(1 << 27))]
+    return float(torch.stack(parts).max())
 
 
 # ---------------------------------------------------------------- phase 1
@@ -3257,9 +3270,13 @@ def phase_storage():
 # K10l: rows past the register instances' 4,096 entries.
 LONG_B, LONG_T, LONG_ITERS = 2, 8192, 200
 # K10l's resident instance's two-row shape: the rows past its four-row
-# shape's 8,192; its streaming instance: the rows past 16,384.
+# shape's 8,192; its one-row block: the rows past 16,384, and at
+# ONE_ROW_LONG_T those past ONE_ROW_LONG_CUT; its streaming instance: the
+# one row past the one-row block's 38,912 entries.
 RESIDENT_LONG_T = 9216
-STREAM_T = 16385
+ONE_ROW_T = 20480
+ONE_ROW_LONG_T, ONE_ROW_LONG_CUT = 36864, 32768
+STREAM_T = admm.RESIDENT_ONE_ROWS + 1
 # K9w and K8w: d past the thin instances' 32.
 K9W_PATH = ((64, 64, 1024, 0), (128, 16, 1024, 512))   # d, B, T, first row
 K9W_D256 = (256, 4, 1024, 1024)
@@ -3445,16 +3462,19 @@ def k10_past(T, cap, name):
     """K10l's rows past ``cap`` entries (B = 1, d = 5, 200 fixed
     iterations) through ``admm_all_prefixes_l2``: the launch counts of
     instance ``name`` (``"resident_long"``, the resident instance's two-row
-    shape, or ``"long"``, its streaming instance), every row against the
-    plain version (5e-4), rows p < cap against the launch on z[:, :cap]
-    (bit for bit); its time (the launch less that launch), bound,
-    registers and warps an SM."""
+    shape, ``"resident_one"``, its one-row block, or ``"long"``, its
+    streaming instance), every row against the plain version (5e-4), rows
+    p < cap against the launch on z[:, :cap] (bit for bit); its time (the
+    launch less that launch), bound, issue floor, registers, warps an SM,
+    and the block's shape."""
     z, y = exact_batch(1, T, D, 141)
     admm.LONG_LAUNCHES = admm.RESIDENT_LAUNCHES = 0
-    admm.RESIDENT_LONG_LAUNCHES = 0
+    admm.RESIDENT_LONG_LAUNCHES = admm.RESIDENT_ONE_LAUNCHES = 0
     X, res, st = admm.admm_all_prefixes_l2(z, y, iters=LONG_ITERS, tol=0.0)
     torch.cuda.synchronize()
-    counts = {"long": admm.LONG_LAUNCHES - admm.RESIDENT_LAUNCHES,
+    counts = {"long": admm.LONG_LAUNCHES - admm.RESIDENT_LAUNCHES
+                      - admm.RESIDENT_ONE_LAUNCHES,
+              "resident_one": admm.RESIDENT_ONE_LAUNCHES,
               "resident_long": admm.RESIDENT_LONG_LAUNCHES,
               "resident": admm.RESIDENT_LAUNCHES
               - admm.RESIDENT_LONG_LAUNCHES}
@@ -3464,13 +3484,19 @@ def k10_past(T, cap, name):
           f"instance {json.dumps(counts)} (K10 instances "
           f"{admm.kernel_instances(T)})")
     want = {n: int(n in admm.kernel_instances(T)) for n in counts}
-    check(counts == want, f"admm_all_prefixes_l2 at T = {T} did not launch "
-                          f"each K10l instance its rows need once")
+    check(counts == want and admm.LONG_LAUNCHES == sum(want.values()),
+          f"admm_all_prefixes_l2 at T = {T} did not launch each K10l "
+          f"instance its rows need once")
     Lpk = admm.admm_prologue(z)
+    # The kernel's state waits on the host while the plain version runs:
+    # at T = 38,913 the two do not fit on the card together.
+    st = tuple(a.cpu() for a in st)
+    torch.cuda.empty_cache()
     (res_p, st_p), p_ms = timed_once(
         lambda: admm.admm_all_prefixes_l2_reference(
             z, y, Lpk, iters=LONG_ITERS, tol=0.0, check_every=100, rho=1.0,
             alpha=1.7))
+    st = tuple(a.cuda() for a in st)
     err = max_err(st + (res.reshape(-1),), st_p + (res_p,))
     rows = torch.arange(T, device="cuda") >= cap
     err_past = max(float((a[rows].double() - b[rows].double()).abs().max())
@@ -3507,8 +3533,8 @@ def k10_past(T, cap, name):
     out = {"max_abs_err": err, "ms": f_ms - s_ms, "plain_ms": p_ms,
            "library_ms": None,
            **bound(long_row_bytes(z, y, Lpk, cap, T), ops, torch.float32),
+           "issue_floor_ms": ops / FP32_ISSUE_PER_S * 1e3,
            "registers": regs, "warps_per_sm": warps}
-    shape = ""
     if name == "resident_long":
         plan = admm.resident_plan(D, name)
         shape = (f"; {plan['rows']} rows a block of {plan['threads']} "
@@ -3519,15 +3545,29 @@ def k10_past(T, cap, name):
                  f"{plan['stages']} entries a thread of a group, "
                  f"{plan['smem_bytes']} + {plan['static_bytes']} bytes of "
                  f"shared memory")
-        out.update(rows_per_block=plan["rows"],
+        out.update(rows_per_block=plan["rows"], cluster=1,
                    shared_bytes=plan["smem_bytes"] + plan["static_bytes"])
+    elif name == "resident_one":
+        plan = admm.row_plan(D, T)
+        shape = (f"; {plan['cluster']} block of {plan['threads']} threads a "
+                 f"row, {plan['entries']} entries a thread at most, "
+                 f"{plan['register_entries']} in registers, "
+                 f"{plan['shared_entries']} in shared memory, a ring of "
+                 f"{plan['stages']} entries a thread, {plan['smem_bytes']} + "
+                 f"{plan['static_bytes']} bytes of shared memory, rows of "
+                 f"{plan['lo'] + 1}..{plan['hi']} entries")
+        out.update(rows_per_block=1, cluster=plan["cluster"],
+                   shared_bytes=plan["smem_bytes"] + plan["static_bytes"])
+    else:
+        shape = "; a block of 256 threads a row, s and u in device memory"
+        out.update(rows_per_block=1, cluster=1)
     print(f"[14 wide] K10l {name} B=1 T={T} d={D} f32, {LONG_ITERS} fixed "
           f"iterations, rows of {cap + 1}..{T} entries: {out['ms']:.4f} ms "
           f"(the launch {f_ms:.4f} ms less the launch on z[:, :{cap}] "
           f"{s_ms:.4f} ms); bound {out['bound_ms']:.4f} ms by "
           f"{out['bound_by']}; --fmad=false issue floor "
-          f"{ops / FP32_ISSUE_PER_S * 1e3:.4f} ms; {regs} registers a "
-          f"thread, {warps} warps an SM{shape}")
+          f"{out['issue_floor_ms']:.4f} ms; {regs} registers a thread, "
+          f"{warps} warps an SM{shape}")
     return launches, out
 
 
@@ -3908,7 +3948,11 @@ def phase_wide(tmp):
     torch.cuda.empty_cache()
     k10r = k10_past(RESIDENT_LONG_T, admm.RESIDENT_ROWS, "resident_long")
     torch.cuda.empty_cache()
-    k10s = k10_past(STREAM_T, admm.RESIDENT_LONG_ROWS, "long")
+    k10o = k10_past(ONE_ROW_T, admm.RESIDENT_LONG_ROWS, "resident_one")
+    torch.cuda.empty_cache()
+    k10p = k10_past(ONE_ROW_LONG_T, ONE_ROW_LONG_CUT, "resident_one")
+    torch.cuda.empty_cache()
+    k10s = k10_past(STREAM_T, admm.RESIDENT_ONE_ROWS, "long")
     torch.cuda.empty_cache()
     exact_kernel_route_past_4096(tmp)
     walls["K10l"] = time.perf_counter() - t
@@ -3921,10 +3965,12 @@ def phase_wide(tmp):
     walls["K8w"] = time.perf_counter() - t
     print(f"[14 wide] phase wall {sum(walls.values()):.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())})")
-    return ({"K10l": k10l[0], "K10lr": k10r[0], "K10ls": k10s[0],
-             "K9w": k9w[0], "K8w": k8w[0]},
-            {"K10l": k10l[1], "K10lr": k10r[1], "K10ls": k10s[1],
-             "K9w": k9w[1], "K8w": k8w[1]})
+    return ({"K10l": k10l[0], "K10lr": k10r[0], "K10lo": k10o[0],
+             "K10lp": k10p[0], "K10ls": k10s[0], "K9w": k9w[0],
+             "K8w": k8w[0]},
+            {"K10l": k10l[1], "K10lr": k10r[1], "K10lo": k10o[1],
+             "K10lp": k10p[1], "K10ls": k10s[1], "K9w": k9w[1],
+             "K8w": k8w[1]})
 
 
 # --------------------------------------------------------------- phase 15
@@ -5163,8 +5209,23 @@ def main() -> int:
              "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",
          "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
          "launches": wide_launches["K10lr"], **wide_timing["K10lr"]},
+        {"name": "admm_row_kernel, one-row block (K10l: K10's rows of "
+                 "16,385 to 38,912 entries, a block a row, s and u on the "
+                 "chip; at T = 20,480, rows past 16,384)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/admm_row_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": wide_launches["K10lo"], **wide_timing["K10lo"]},
+        {"name": "admm_row_kernel, one-row block at T = 36,864 (K10l: the "
+                 "rows past 32,768 entries)",
+         "route": "cuda",
+         "source":
+             "online_convex_optimization_tpu_torch/csrc/admm_row_kernel.cu",
+         "replaces": "online_convex_optimization_tpu/ops/pallas_admm.py:77",
+         "launches": wide_launches["K10lp"], **wide_timing["K10lp"]},
         {"name": "admm_long_kernel (K10l streaming: K10's rows longer than "
-                 "16,384 entries, a block a row, s and u streamed)",
+                 "38,912 entries, a block a row, s and u streamed)",
          "route": "cuda",
          "source":
              "online_convex_optimization_tpu_torch/csrc/admm_long_kernel.cu",

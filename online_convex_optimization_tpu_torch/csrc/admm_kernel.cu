@@ -1,9 +1,11 @@
 // K10: all-prefix exact-FTL hinge ADMM on the l2 ball; each (replicate,
 // prefix) row's entries are split across 1-8 warps by the row's own length,
 // and each row's d x d step runs on one lane.  Rows longer than kLongRows
-// take K10l (admm_long_kernel.cu): its resident instance, s and u on the
-// chip for the whole launch, and past 16,384 entries its streaming one, s
-// and u in device memory; the arithmetic they share is in oco_admm.cuh.
+// take K10l (admm_long_kernel.cu, admm_row_kernel.cu): its resident
+// shapes, s and u on the chip for the whole launch, up to two rows a block
+// to 16,384 entries and a block a row to 38,912, and past that its
+// streaming instance, s and u in device memory; the arithmetic they share
+// is in oco_admm.cuh.
 //
 // Replaces the TPU kernel online_convex_optimization_tpu/ops/pallas_admm.py
 // _admm_kernel, entry admm_all_prefixes_l2.  Python wrapper, prologue and
@@ -437,18 +439,21 @@ int occupancy(int d, int L_hi, int* out) {
 // and res (B*T) the final residuals; launched[0] the number of kernels
 // launched (1; 2 for T > 2048: the NT = 16 rows, then the NT = 8 ones; 3
 // for T > 4096: the long rows first; 4 for T > 8192: K10l's resident
-// shapes; 5 for T > 16384: its streaming instance too), launched[1] the
-// launches of K10l among them (0 to 3), launched[2] those of its resident
-// shapes (0, 1 or 2), launched[3] those of its shape for rows of 8,193 to
-// 16,384 entries (0 or 1).  1 <= d <= 8,
-// T >= 1, check_every >= 1.  Returns the cudaError_t of the launches.
+// shapes; 5 for T > 16384: its one-row block too; 6 for T > 38912: its
+// streaming instance too), launched[1] the launches of K10l among them,
+// launched[2] those of its shapes of four and two rows a block (0, 1 or
+// 2), launched[3] those of its shape for rows of 8,193 to 16,384 entries
+// (0 or 1), launched[4] those of its one-row block (rows of 16,385 to
+// 38,912; 0 or 1) and launched[5] a probe build's clusters (0 here).  1 <=
+// d <= 8, T >= 1, check_every >= 1.  Returns the cudaError_t of the
+// launches.
 extern "C" int oco_admm_all_prefixes_f32(
     const void* z, const void* y, const void* Lpk, const void* s0,
     const void* u0, const void* x0, const void* w0, const void* v0, int B,
     int T, int d, int iters, int check_every, float tol, float kappa,
     float alpha, float beta, void* s, void* u, void* x, void* w, void* v,
     void* res, void* stream, int* launched) {
-  launched[0] = launched[1] = launched[2] = launched[3] = 0;
+  for (int k = 0; k < 6; ++k) launched[k] = 0;
   if (B < 1 || T < 1 || d < 1 || d > OCO_ADMM_MAX_D || iters < 0 ||
       check_every < 1)
     return cudaErrorInvalidValue;
@@ -465,10 +470,11 @@ extern "C" int oco_admm_all_prefixes_f32(
 // For a launch at T with feature dimension d: out[0], out[1] the registers
 // a thread and resident warps an SM of the NT = 8 instance (rows up to
 // kSplit), out[2], out[3] those of the NT = 16 instance, out[4], out[5]
-// those of K10l's streaming instance, out[6], out[7] those of its
-// resident instance's rows up to 8,192 entries and out[8], out[9] its rows
-// up to 16,384 (0 warps where T needs none of an instance's rows).
-// Returns a cudaError_t.
+// those of K10l's resident shape of rows up to 8,192 entries, out[6],
+// out[7] of rows up to 16,384, out[8], out[9] of its one-row block (rows
+// up to 38,912) and out[10], out[11] of its streaming instance (longer
+// rows), 0 warps where T needs none of an instance's rows.  Returns a
+// cudaError_t.
 extern "C" int oco_admm_occupancy_f32(int d, int T, int* out) {
   if (T < 1 || d < 1 || d > OCO_ADMM_MAX_D) return cudaErrorInvalidValue;
   const int hi = T < kLongRows ? T : kLongRows;

@@ -38,13 +38,20 @@
 // 0) keeps its state and waits at the barriers until the block's last row
 // stops.
 //
-// The streaming instance (admm_long_kernel), rows longer than that: a
-// block of 8 warps a row, longest first.  Its s and u stay in the (B*T, T)
-// state arrays the launch reads and writes: each iteration streams the
-// row's entries once (kLongUnroll of a thread's entries loaded before any
-// is stored), reading s, u, z_t and y_t and writing s and u.  No path
-// shape has such rows (PERF.md; ROADMAP queues a design that keeps them
-// on the chip across a cluster's blocks).
+// Rows of kResidentLongRows + 1 to kResidentOneRows = 38,912 entries take
+// admm_row_kernel.cu, a block a row, with the same map of entries to
+// threads.
+//
+// The streaming instance (admm_long_kernel), the rows past 38,912 entries:
+// a block of 8 warps a row.  Its s and u stay in the (B*T, T) state arrays
+// the launch reads and writes: each iteration streams the row's entries
+// once (kLongUnroll of a thread's entries loaded before any is stored),
+// reading s, u, z_t and y_t and writing s and u.  It was measured faster
+// than both designs of a cluster of blocks holding a row on the chip
+// (admm_row_kernel.cu, probe builds; PERF.md) past the one-row block's
+// reach.  It is also the
+// card's bit-for-bit reference of every other long-row instance
+// (scripts/wide_probe.py k10l_split_library, oco_admm_split_route).
 //
 // What bounds K10l on an H100: operations, about 4d + 13 an entry an
 // iteration (issued one by one under --fmad=false, so twice their time at
@@ -127,7 +134,7 @@ admm_long_kernel(const float* __restrict__ z, const float* __restrict__ y,
   float* urow = u_out + row * T;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  SplitClock clk(0);
+  SplitClock clk(kInstStream);
 
   for (int i = threadIdx.x; i < ntri; i += kThreads)
     S.L[0][i] = Lpk[row * ntri + i];
@@ -284,6 +291,7 @@ struct Resident {
   static constexpr int R = G * RG;
   static constexpr int hi = M * kThreads;
   static constexpr int lo = hi / 2;
+  static constexpr int clock = RG == 1 ? kInstTwo : kInstFour;
   static constexpr int threads = G * kThreads;
   static constexpr int C = Dim<D>::cap;
   using RowsT = Rows<D, R, R * OCO_ADMM_WARPS>;
@@ -310,38 +318,6 @@ using ResidentLong = Resident<D, 1, kResidentLongRows / kThreads>;
 static_assert(ResidentShort<5>::lo == kLongRows &&
                   ResidentLong<5>::lo == kResidentRows,
               "the shapes take consecutive rows");
-
-__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's newest copy groups are pending.
-template <int N>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <int K>
-using Int = std::integral_constant<int, K>;
-
-// Calls f(Int<m>()) for m = K .. M - 1 while m < mt, in order (a
-// compile-time m, so a register row's s[m] stays in registers).
-template <int K, int M, typename F>
-__device__ __forceinline__ void each_entry(int mt, F&& f) {
-  if constexpr (K < M) {
-    if (K < mt) {
-      f(Int<K>());
-      each_entry<K + 1, M>(mt, f);
-    }
-  }
-}
 
 // Calls f(Int<r>()) for r = K .. R - 1 in order.
 template <int K, int R, typename F>
@@ -415,7 +391,7 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
   // of its warp's lane 0, so that the G warps that share a ring's entries
   // pass the same barriers.
   const int mt = (top - (i - lane) + kThreads - 1) / kThreads;
-  SplitClock clk(RG == 1 ? 2 : 1);
+  SplitClock clk(P::clock);
 
   for (int k = tid; k < rows * ntri; k += NT) {
     const int r = k / ntri;
@@ -695,14 +671,21 @@ admm_resident_kernel(const float* __restrict__ z, const float* __restrict__ y,
   clk.flush();
 }
 
-// The longest row the resident instance takes in this process: a probe
-// build told to (oco_admm_split_route) leaves every long row to the
-// streaming instance.
-#ifdef OCO_ADMM_SPLIT
-int g_resident_rows = kResidentLongRows;
-int resident_rows() { return g_resident_rows; }
+// The route of the long rows in this process: the library's always; a
+// probe build's as oco_admm_split_route sets it.
+enum Route {
+  kRouteLibrary,      // the library's instances
+  kRouteStreamAll,    // every row past 4,096 entries on the streaming kernel
+  kRouteClusterA,     // rows past 38,912 on the cluster's design (a)
+  kRouteClusterB,     // ... on its design (b)
+  kRouteStreamPast,   // rows past 16,384 on the streaming kernel
+  kRoutes
+};
+#ifdef OCO_ADMM_ROUTES
+int g_route = kRouteLibrary;
+int route() { return g_route; }
 #else
-constexpr int resident_rows() { return kResidentLongRows; }
+constexpr int route() { return kRouteLibrary; }
 #endif
 
 // Launches the streaming instance on the rows longer than cap (none where
@@ -761,13 +744,32 @@ int launch_resident(const Args& a, int hi, cudaStream_t stream,
   return err;
 }
 
-// The rows longer than the resident instance's capacity first, then the
-// resident rows, longest first.
+// The rows past the one-row block's reach (kResidentOneRows entries) on
+// the streaming instance first, then the one-row block's (admm_row_kernel
+// .cu), then the resident shapes' rows, longest first.  The streaming
+// instance keeps the rows past 38,912 entries because it was measured
+// faster there than both designs of the cluster (PERF.md); a probe build's
+// route may send the rows past 16,384 (or 4,096) elsewhere.
 template <int D>
 int launch_d(const Args& a, cudaStream_t stream, int* launched) {
-  const int cap = resident_rows();
+  const int r = route();
+  const int cap = r == kRouteStreamAll ? kLongRows : kResidentLongRows;
+  int err = cudaSuccess;
+  if (r == kRouteLibrary) {
+    err = launch_stream<D>(a, oco_admm::kResidentOneRows, stream, launched);
+    if (err == cudaSuccess)
+      err = oco_admm::launch_past(a, cap, stream, launched);
+  }
+#ifdef OCO_ADMM_ROUTES
+  if (r == kRouteStreamAll || r == kRouteStreamPast)
+    err = launch_stream<D>(a, cap, stream, launched);
+  if (r == kRouteClusterA || r == kRouteClusterB) {
+    err = oco_admm::launch_clusters(a, r == kRouteClusterB, stream, launched);
+    if (err == cudaSuccess)
+      err = oco_admm::launch_past(a, cap, stream, launched);
+  }
+#endif
   const int hi = a.T < cap ? a.T : cap;
-  int err = launch_stream<D>(a, cap, stream, launched);
   if (err == cudaSuccess)
     err = launch_resident<D, ResidentLong<D>>(a, hi, stream, launched);
   if (err == cudaSuccess)
@@ -793,12 +795,10 @@ int occupancy_resident(int* out) {
   return err;
 }
 
-// Registers a thread and resident warps an SM of the streaming instance
-// (out[0], out[1]), of the resident instance's rows up to kResidentRows
-// (out[2], out[3]) and of its rows up to kResidentLongRows (out[4],
-// out[5]).
+// Registers a thread (out[0]) and resident warps an SM (out[1]) of the
+// streaming instance.
 template <int D>
-int occupancy_d(int* out) {
+int occupancy_stream(int* out) {
   cudaFuncAttributes attr;
   int err = static_cast<int>(
       cudaFuncGetAttributes(&attr, admm_long_kernel<D>));
@@ -808,10 +808,6 @@ int occupancy_d(int* out) {
         &blocks, admm_long_kernel<D>, kThreads, 0));
   out[0] = err == cudaSuccess ? attr.numRegs : 0;
   out[1] = blocks * OCO_ADMM_WARPS;
-  if (err == cudaSuccess)
-    err = occupancy_resident<D, ResidentShort<D>>(out + 2);
-  if (err == cudaSuccess)
-    err = occupancy_resident<D, ResidentLong<D>>(out + 4);
   return err;
 }
 
@@ -825,10 +821,17 @@ int launch_long(const Args& a, cudaStream_t stream, int* launched) {
 }
 
 int occupancy_long(int d, int T, int* out) {
-  const int err = d == 5 ? occupancy_d<5>(out) : occupancy_d<0>(out);
-  if (T <= resident_rows()) out[1] = 0;
-  if (T <= kLongRows) out[3] = 0;
-  if (T <= kResidentRows) out[5] = 0;
+  int err = d == 5 ? occupancy_resident<5, ResidentShort<5>>(out)
+                   : occupancy_resident<0, ResidentShort<0>>(out);
+  if (err == cudaSuccess)
+    err = d == 5 ? occupancy_resident<5, ResidentLong<5>>(out + 2)
+                 : occupancy_resident<0, ResidentLong<0>>(out + 2);
+  if (err == cudaSuccess) err = row_occupancy(d, T, kResidentLongRows, out + 4);
+  if (err == cudaSuccess)
+    err = d == 5 ? occupancy_stream<5>(out + 6) : occupancy_stream<0>(out + 6);
+  if (T <= kLongRows) out[1] = 0;
+  if (T <= kResidentRows) out[3] = 0;
+  if (T <= kResidentOneRows) out[7] = 0;
   return err;
 }
 
@@ -867,22 +870,39 @@ extern "C" int oco_admm_resident_plan(int d, int shape, int* out) {
                 : resident_plan_d<0>(shape, out);
 }
 
-#ifdef OCO_ADMM_SPLIT
-// Probe builds only: with stream_all, every long row takes the streaming
-// instance (the design before the resident one).
-extern "C" void oco_admm_split_route(int stream_all) {
-  g_resident_rows = stream_all ? kLongRows : kResidentLongRows;
+// K10l's one-row block that takes a row of 16,384 < L <= 38,912 entries
+// at feature dimension d (the d = 5 instance or the generic one): blocks
+// a cluster (1), threads a block, a thread's entries (the most the block
+// holds), of those in registers and in shared memory, the ring's stages,
+// the dynamic and static shared bytes, and the row lengths (lo, hi] the
+// block takes, into out[0..9].  Returns a cudaError_t
+// (cudaErrorInvalidValue for another L).
+extern "C" int oco_admm_row_plan(int d, int L, int* out) {
+  return oco_admm::row_plan(d, kResidentLongRows, L, out);
 }
 
+#ifdef OCO_ADMM_ROUTES
+// Probe builds only: the route of the long rows (enum Route; 0 the
+// library's, 1 every row past 4,096 entries on the streaming instance, the
+// design before the resident shapes, 4 the rows past 16,384 on it, the
+// routing before the one-row block).
+extern "C" void oco_admm_split_route(int mode) {
+  g_route = mode >= 0 && mode < kRoutes ? mode : kRouteLibrary;
+}
+#endif
+
+#ifdef OCO_ADMM_SPLIT
 // Probe builds only: copies K10l's clocks by instance and phase
-// (admm_split_clocks) into out and zeroes them.  Returns a cudaError_t.
+// (admm_split_clocks, AdmmInstance by AdmmPhase) into out and zeroes them.
+// Returns a cudaError_t.
 extern "C" int oco_admm_split(unsigned long long* out) {
   int err = static_cast<int>(cudaMemcpyFromSymbol(
       out, admm_split_clocks, sizeof(admm_split_clocks)));
-  unsigned long long zero[3 * kAdmmPhases] = {};
+  unsigned long long zero[kAdmmInstances * kAdmmPhases] = {};
   if (err == cudaSuccess)
     err = static_cast<int>(cudaMemcpyToSymbol(admm_split_clocks, zero,
                                               sizeof(zero)));
+  if (err == cudaSuccess) err = oco_admm::row_split(out);
   return err;
 }
 #endif

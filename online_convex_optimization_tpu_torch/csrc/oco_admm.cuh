@@ -1,8 +1,10 @@
 // K10's shared parts: the constants, the per-entry and d x d arithmetic
-// (the register instances' and the long-row instance's, in one place so
-// that both compute a row's steps alike) and the launch arguments.  The
-// register instances are in admm_kernel.cu, the long-row instance K10l in
-// admm_long_kernel.cu; ops/admm.py is their wrapper and plain version.
+// (the register instances' and the long-row instances', in one place so
+// that all compute a row's steps alike), the ring's copy helpers and the
+// launch arguments.  The register instances are in admm_kernel.cu, the
+// long-row instance K10l in admm_long_kernel.cu (its shapes of up to two
+// rows a block) and admm_row_kernel.cu (its one-row block and its cluster
+// of blocks); ops/admm.py is their wrapper and plain version.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,12 +13,26 @@
 
 #define OCO_ADMM_MAX_D 8
 #define OCO_ADMM_WARPS 8
+// A build with the clock marks is a probe build (see SplitClock below).
+#if defined(OCO_ADMM_SPLIT) && !defined(OCO_ADMM_ROUTES)
+#define OCO_ADMM_ROUTES
+#endif
 
 namespace oco_admm {
 
 // Rows up to this length take the register instances (8 warps x 32 lanes x
 // 16 entries), longer rows the long-row instance (ops/admm.py LONG_ROWS).
 constexpr int kLongRows = 32 * OCO_ADMM_WARPS * 16;
+
+// K10l's one-row block (admm_row_kernel.cu): a thread's entries of s and
+// u in registers and in the block's shared memory, kRowEntries in all, so
+// the block takes rows of up to kResidentOneRows entries.  Longer rows take
+// the streaming instance (admm_long_kernel.cu; measured faster there than
+// the cluster of blocks, which probe builds keep, PERF.md).
+constexpr int kRowQR = 64;
+constexpr int kRowMS = 88;
+constexpr int kRowEntries = kRowQR + kRowMS;
+constexpr int kResidentOneRows = kRowEntries * 32 * OCO_ADMM_WARPS;
 
 struct Args {
   const float *z, *y, *Lpk, *s0, *u0, *x0, *w0, *v0;
@@ -26,18 +42,43 @@ struct Args {
 };
 
 // K10l on the rows longer than kLongRows (admm_long_kernel.cu): launches
-// its streaming instance on the rows past the resident instance's
-// capacity, then the resident instance's two shapes on the others (rows
-// up to 16,384 entries, then up to 8,192), where T has such rows, adding
-// each launch to launched[0] and to launched[1], the resident ones also to
-// launched[2] and the two-row shape's to launched[3] (the C entry's
-// counts), and returns the cudaError_t;
+// the streaming instance on the rows past kResidentOneRows entries, the
+// one-row block on the rows past 16,384 (launch_past, admm_row_kernel.cu),
+// then the resident instance's two shapes (rows up to 16,384 entries, then
+// up to 8,192), where T has such rows, adding each launch to launched[0]
+// and to launched[1], the shapes of up to two rows a block also to
+// launched[2] and the two-row shape's to launched[3], the one-row block's
+// to launched[4] and a probe build's clusters' to launched[5] (the C
+// entry's counts), and returns the cudaError_t;
 // occupancy_long sets the registers a thread and resident warps an SM of
-// the streaming instance (out[0], out[1]) and of the resident shapes
-// (out[2], out[3] for rows up to 8,192; out[4], out[5] up to 16,384) at T
-// (0 warps where T has no such rows).
+// the resident shapes (out[0], out[1] for rows up to 8,192; out[2],
+// out[3] up to 16,384), of the one-row block (out[4], out[5]) and of the
+// streaming instance (out[6], out[7]) at T (0 warps where T has no such
+// rows).
 int launch_long(const Args& a, cudaStream_t stream, int* launched);
 int occupancy_long(int d, int T, int* out);
+
+// K10l's rows of lo + 1 .. kResidentOneRows entries on the one-row block
+// (admm_row_kernel.cu); counts as launch_long.  row_occupancy: the
+// registers a thread and resident warps an SM of the one-row block
+// (out[0], out[1]) for a launch at T.  row_plan: the block's shape (see
+// oco_admm_row_plan), cudaErrorInvalidValue unless lo < L <=
+// kResidentOneRows.
+int launch_past(const Args& a, int lo, cudaStream_t stream, int* launched);
+int row_occupancy(int d, int T, int lo, int* out);
+int row_plan(int d, int lo, int L, int* out);
+#ifdef OCO_ADMM_ROUTES
+// Probe builds only: the rows past kResidentOneRows entries on a cluster
+// of blocks a row, in design (a) (spread false) or (b), clusters of the
+// most blocks first; counts as launch_long, the clusters' launches also
+// in launched[5].
+int launch_clusters(const Args& a, bool spread, cudaStream_t stream,
+                    int* launched);
+#endif
+// The probe build's clocks of the one-row block and of the cluster, added
+// into out[kInstOne .. kInstCluster][kAdmmPhases] and zeroed; returns a
+// cudaError_t.
+int row_split(unsigned long long* out);
 
 }  // namespace oco_admm
 
@@ -86,14 +127,23 @@ __device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
   return e + __shfl_xor_sync(kFull, e, 1);
 }
 
-// A probe build of K10l (scripts/wide_probe.py --k10l-split,
-// -DOCO_ADMM_SPLIT) splits each warp's clocks by phase: mark(p) adds the
-// clock64 span since the warp's last mark to phase p's total, span(p, t0)
-// the span since t0 without moving the last mark (lane 0 of each warp;
-// flush() adds them to admm_split_clocks[instance] at the end of the
-// block, instance 0 the streaming kernel, 1 the resident one's rows up to
-// 8,192 entries, 2 its rows up to 16,384).  The library's build compiles
-// the marks to nothing.
+// A probe build of K10l (scripts/wide_probe.py, -DOCO_ADMM_ROUTES) keeps
+// the instances the library no longer routes rows to and lets the caller
+// choose the route (oco_admm_split_route); -DOCO_ADMM_SPLIT adds clock
+// marks: each warp's clocks by phase, mark(p) adding the clock64 span
+// since the warp's last mark to phase p's total, span(p, t0) the span
+// since t0 without moving the last mark (lane 0 of each warp; flush() adds
+// them to admm_split_clocks[instance] at the end of the block, instances
+// as AdmmInstance names them).  The library's build compiles the marks to
+// nothing.
+enum AdmmInstance {
+  kInstStream,    // the streaming kernel (probe builds only)
+  kInstFour,      // the resident shape of four rows a block
+  kInstTwo,       // of two rows a block
+  kInstOne,       // the one-row block
+  kInstCluster,   // the cluster of blocks a row (probe builds only)
+  kAdmmInstances
+};
 enum AdmmPhase {
   kAdmmStep,      // waiting for the d x d steps and their barrier
   kAdmmLoad,      // a pass waiting on its loads of z, y, s and u
@@ -104,7 +154,7 @@ enum AdmmPhase {
   kAdmmPhases
 };
 #ifdef OCO_ADMM_SPLIT
-__device__ unsigned long long admm_split_clocks[3][kAdmmPhases];
+__device__ unsigned long long admm_split_clocks[kAdmmInstances][kAdmmPhases];
 __device__ int admm_split_sink;
 struct SplitClock {
   int inst;
@@ -147,6 +197,40 @@ struct SplitClock {
   __device__ __forceinline__ void flush() {}
 };
 #endif
+
+// cp.async of one float into shared memory (the resident instances'
+// rings of y and z entries).
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest copy groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int K>
+using Int = std::integral_constant<int, K>;
+
+// Calls f(Int<m>()) for m = K .. M - 1 while m < mt, in order (a
+// compile-time m, so a register row's s[m] stays in registers).
+template <int K, int M, typename F>
+__device__ __forceinline__ void each_entry(int mt, F&& f) {
+  if constexpr (K < M) {
+    if (K < mt) {
+      f(Int<K>());
+      each_entry<K + 1, M>(mt, f);
+    }
+  }
+}
 
 template <int D>
 struct Dim {

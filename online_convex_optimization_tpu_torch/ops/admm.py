@@ -32,12 +32,12 @@ CPU tensor and launches the kernel on a CUDA tensor, for ``d <= MAX_D``
 kernel splits each row across warps by the row's own length, so a row's
 result does not depend on T: a launch on ``z[:, :T]`` gives rows ``p < T``
 of a launch on longer ``z`` bit for bit.  Rows longer than ``LONG_ROWS``
-take K10l: up to ``RESIDENT_LONG_ROWS`` entries its resident instance,
-which keeps s and u on the chip for the whole launch (four rows a block up
-to ``RESIDENT_ROWS``, two past it), and past that its streaming instance,
-whose s and u stream through device memory each iteration; all map a
-row's entries to threads alike, so a row's bits do not depend on which one
-takes it.  The state, ``8 B T^2`` bytes, is the
+take K10l: up to ``RESIDENT_ONE_ROWS`` entries its resident shapes,
+which keep s and u on the chip for the whole launch (four rows a block up
+to ``RESIDENT_ROWS``, two up to ``RESIDENT_LONG_ROWS``, one a block past
+that, ``row_plan``), and past that its streaming instance, whose s and u
+stream through device memory each iteration; all map a row's entries to
+threads alike, so a row's bits do not depend on which one takes it.  The state, ``8 B T^2`` bytes, is the
 only limit on T, and an allocation the card cannot hold raises its own
 error.
 """
@@ -59,24 +59,29 @@ MAX_D = 8
 # each) take the long-row instance K10l (csrc/oco_admm.cuh kLongRows,
 # csrc/admm_long_kernel.cu).
 LONG_ROWS = 4096
-# Rows up to these lengths among them take K10l's resident instance, whose
-# s and u stay on the chip for the whole launch: four rows a block up to
-# RESIDENT_ROWS, two a block up to RESIDENT_LONG_ROWS; longer rows its
-# streaming instance (csrc/admm_long_kernel.cu kResidentRows,
-# kResidentLongRows).
+# Rows up to these lengths among them take K10l's resident shapes, whose s
+# and u stay on the chip for the whole launch: four rows a block up to
+# RESIDENT_ROWS, two a block up to RESIDENT_LONG_ROWS (csrc/
+# admm_long_kernel.cu kResidentRows, kResidentLongRows), a block a row up
+# to RESIDENT_ONE_ROWS (csrc/oco_admm.cuh kResidentOneRows); longer rows
+# its streaming instance (measured faster there than a cluster of blocks
+# holding a row, PERF.md).
 RESIDENT_ROWS = 8192
 RESIDENT_LONG_ROWS = 16384
+RESIDENT_ONE_ROWS = 38912
 
 # Kernel launches of K10 in this process, as the C entry reports them (one
 # a call, two past T = 2048: the 16-entries-a-lane rows, then the rest;
 # three past LONG_ROWS: the long rows first; four past RESIDENT_ROWS: the
 # resident instance's two shapes; five past RESIDENT_LONG_ROWS: K10l's
-# streaming instance first), of those the launches of K10l, of those the
-# resident instance's, and of those its two-row shape's.
+# one-row block first; six past RESIDENT_ONE_ROWS: its streaming instance
+# before that), of those the launches of K10l, of those the shapes of four
+# and two rows a block, of those the two-row shape's; the one-row block's.
 LAUNCHES = 0
 LONG_LAUNCHES = 0
 RESIDENT_LAUNCHES = 0
 RESIDENT_LONG_LAUNCHES = 0
+RESIDENT_ONE_LAUNCHES = 0
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
@@ -150,27 +155,34 @@ def check_kernel_envelope(T: int, d: int) -> None:
                          f"any d")
 
 
+# K10's instances in launch order, with the row lengths (lo, hi] each
+# takes (hi None: any longer row).
+INSTANCES = {"long": (RESIDENT_ONE_ROWS, None),
+             "resident_one": (RESIDENT_LONG_ROWS, RESIDENT_ONE_ROWS),
+             "resident_long": (RESIDENT_ROWS, RESIDENT_LONG_ROWS),
+             "resident": (LONG_ROWS, RESIDENT_ROWS),
+             16: (2048, LONG_ROWS), 8: (0, 2048)}
+
+
 def kernel_instances(T: int) -> list:
     """K10's instances a launch at T runs, in launch order (the C entry's
     map of rows to instances): ``"long"`` (K10l's streaming instance) for
-    the rows longer than ``RESIDENT_LONG_ROWS``, ``"resident_long"`` (K10l's
-    resident instance, two rows a block) for the rows of ``RESIDENT_ROWS +
-    1`` to ``RESIDENT_LONG_ROWS`` entries, ``"resident"`` (four rows a
-    block) for the rows of ``LONG_ROWS + 1`` to ``RESIDENT_ROWS``, ``16``
-    for the rows of 2,049 to 4,096 entries, ``8`` for the rest."""
-    return [name for name in ("long", "resident_long", "resident", 16, 8)
+    the rows longer than ``RESIDENT_ONE_ROWS``, ``"resident_one"`` (its
+    block a row) for the rows of ``RESIDENT_LONG_ROWS + 1`` to
+    ``RESIDENT_ONE_ROWS`` entries, ``"resident_long"`` (two rows a block)
+    for the rows of ``RESIDENT_ROWS + 1`` to ``RESIDENT_LONG_ROWS``,
+    ``"resident"`` (four rows a block) for the rows of ``LONG_ROWS + 1`` to
+    ``RESIDENT_ROWS``, ``16`` for the rows of 2,049 to 4,096 entries, ``8``
+    for the rest."""
+    return [name for name in INSTANCES
             if instance_rows(name, T)[1] > instance_rows(name, T)[0]]
 
 
 def instance_rows(name, T: int) -> tuple:
     """The row lengths ``(lo, hi]`` that instance ``name`` (as
     ``kernel_instances`` names them) takes in a launch at T."""
-    bounds = {"long": (RESIDENT_LONG_ROWS, T),
-              "resident_long": (RESIDENT_ROWS, RESIDENT_LONG_ROWS),
-              "resident": (LONG_ROWS, RESIDENT_ROWS),
-              16: (2048, LONG_ROWS), 8: (0, 2048)}
-    lo, hi = bounds[name]
-    return lo, max(lo, min(hi, T))
+    lo, hi = INSTANCES[name]
+    return lo, max(lo, T if hi is None else min(hi, T))
 
 
 def resident_plan(d: int, name: str = "resident") -> dict:
@@ -193,6 +205,28 @@ def resident_plan(d: int, name: str = "resident") -> dict:
     return dict(zip(("rows", "groups", "group_rows", "threads", "entries",
                      "register_entries", "shared_entries", "stages",
                      "smem_bytes", "static_bytes", "lo", "hi"), out))
+
+
+def row_plan(d: int, L: int) -> dict:
+    """K10l's one-row block, which takes a row of ``RESIDENT_LONG_ROWS < L
+    <= RESIDENT_ONE_ROWS`` entries (instance ``"resident_one"``), at
+    feature dimension d (the d = 5 instance or the generic one), as its
+    source sizes it (``csrc/admm_row_kernel.cu`` ``RowShape``): blocks a
+    cluster (1), threads a block, the entries of s and u a thread the shape
+    holds, of those in registers and in shared memory, the ring's stages,
+    the bytes of shared memory (``smem_bytes`` dynamic, ``static_bytes``
+    the row's factor, x, w, v, partial sums and maxima), the row lengths
+    ``(lo, hi]`` it takes.  Raises for any other L: the longer rows take
+    the streaming instance."""
+    check_kernel_envelope(L, d)
+    out = (ctypes.c_int * 10)()
+    err = cuda_build.load().oco_admm_row_plan(d, L, out)
+    if err != 0:
+        raise RuntimeError(f"K10l's one-row block does not take a row of "
+                           f"{L} entries: CUDA error {err}")
+    return dict(zip(("cluster", "threads", "entries", "register_entries",
+                     "shared_entries", "stages", "smem_bytes",
+                     "static_bytes", "lo", "hi"), out))
 
 
 def _cho_solve_rows(L, rhs, d):
@@ -315,7 +349,8 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
                 rho: float, alpha: float, state0: Optional[State] = None):
     """Launch kernel K10 on contiguous float32 CUDA inputs; returns ``(res
     (B*T,), state)``."""
-    global LAUNCHES, LONG_LAUNCHES, RESIDENT_LAUNCHES, RESIDENT_LONG_LAUNCHES
+    global LAUNCHES, LONG_LAUNCHES, RESIDENT_LAUNCHES, \
+        RESIDENT_LONG_LAUNCHES, RESIDENT_ONE_LAUNCHES
     B, T, d = z.shape
     check_kernel_envelope(T, d)
     lib = cuda_build.load()
@@ -329,7 +364,7 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
         st0 = ([a.contiguous() for a in state0] if state0 is not None
                else None)
         ptrs0 = [a.data_ptr() for a in st0] if st0 is not None else [None] * 5
-        launched = (ctypes.c_int * 4)()
+        launched = (ctypes.c_int * 6)()
         err = lib.oco_admm_all_prefixes_f32(
             z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *ptrs0, B, T, d,
             iters, check_every, tol, 0.5 / rho, alpha, 1.0 - alpha,
@@ -340,25 +375,26 @@ def launch_admm(z, y, Lpk, *, iters: int, tol: float, check_every: int,
         LONG_LAUNCHES += launched[1]
         RESIDENT_LAUNCHES += launched[2]
         RESIDENT_LONG_LAUNCHES += launched[3]
+        RESIDENT_ONE_LAUNCHES += launched[4]
         if err != 0:
             raise RuntimeError(f"ADMM kernel launch failed: CUDA error {err}")
     return res, (s, u, x, w, v)
 
 
 def kernel_occupancy(T: int, d: int) -> dict:
-    """Registers a thread and resident warps an SM of K10's five
-    instances for a launch at ``(T, d)`` on the current card: ``{8: (regs,
-    warps), 16: (regs, warps), "long": (regs, warps), "resident": (regs,
-    warps), "resident_long": (regs, warps)}``, keyed as
-    ``kernel_instances`` names them (0 warps where T has no such row)."""
+    """Registers a thread and resident warps an SM of K10's six instances
+    for a launch at ``(T, d)`` on the current card: ``{8: (regs, warps),
+    16: ..., "resident": ..., "resident_long": ..., "resident_one": ...,
+    "long": ...}``, keyed as ``kernel_instances`` names them (0 warps where
+    T has no such row)."""
     check_kernel_envelope(T, d)
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 12)()
     err = cuda_build.load().oco_admm_occupancy_f32(d, T, out)
     if err != 0:
         raise RuntimeError(f"K10 occupancy query failed: CUDA error {err}")
     return {8: (out[0], out[1]), 16: (out[2], out[3]),
-            "long": (out[4], out[5]), "resident": (out[6], out[7]),
-            "resident_long": (out[8], out[9])}
+            "resident": (out[4], out[5]), "resident_long": (out[6], out[7]),
+            "resident_one": (out[8], out[9]), "long": (out[10], out[11])}
 
 
 def admm_all_prefixes_l2(z: torch.Tensor, y: torch.Tensor, *,
@@ -416,8 +452,8 @@ def feasible_actions(X) -> np.ndarray:
     return X / np.maximum(np.linalg.norm(X, axis=-1, keepdims=True), 1.0)
 
 
-__all__ = ["LONG_ROWS", "MAX_D", "RESIDENT_LONG_ROWS", "RESIDENT_ROWS",
-           "admm_all_prefixes_l2",
+__all__ = ["INSTANCES", "LONG_ROWS", "MAX_D", "RESIDENT_LONG_ROWS",
+           "RESIDENT_ONE_ROWS", "RESIDENT_ROWS", "admm_all_prefixes_l2",
            "admm_all_prefixes_l2_reference", "admm_prologue",
            "feasible_actions", "instance_rows", "kernel_instances",
-           "kernel_occupancy", "resident_plan"]
+           "kernel_occupancy", "resident_plan", "row_plan"]

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "oco_admm_all_prefixes_f32": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P] * 8,
     "oco_admm_occupancy_f32": [_I, _I, _P],
     "oco_admm_resident_plan": [_I, _I, _P],
+    "oco_admm_row_plan": [_I, _I, _P],
     "oco_regrets_occupancy": [_I, _I, _I, _P],
     "oco_smart_occupancy": [_I, _I, _I, _P],
     "oco_stream_occupancy": [_I, _I, _P],

@@ -24,7 +24,10 @@ Cases (``chip_smoke.py`` phase 14's inputs):
     d = 8 (the generic instance); B = 1, T = 12,288, d = 5; B = 1, T =
     9,216 and 16,385, d = 5, cut 8,192 and 16,384 (the rows of 8,193 to
     16,384 entries take K10l's two-row resident shape where the checkout
-    has one, else its streaming instance);
+    has one, else its streaming instance); B = 1, T = 20,480 and 36,864,
+    d = 5, cut 16,384 and 32,768 (the rows past 16,384 entries take K10l's
+    one-row block where the checkout has one, else its streaming
+    instance);
   - ``K9w d=<d> <dtype>``: the prefix statistics of regression streams
     (seed 160 + d), summed in float64 and stored in the dtype: d = 64, N =
     65,536 (64 streams of 1,024 rows, singular prefixes included); d = 128,
@@ -75,7 +78,9 @@ K10L = (("B=2 T=8192 d=5 200 it", 2, 8192, 5, 200, 0.0, False, 4096),
         ("B=4 T=4200 d=8 200 it", 4, 4200, 8, 200, 0.0, False, 4096),
         ("B=1 T=12288 d=5 200 it", 1, 12288, 5, 200, 0.0, False, 4096),
         ("B=1 T=9216 d=5 200 it", 1, 9216, 5, 200, 0.0, False, 8192),
-        ("B=1 T=16385 d=5 200 it", 1, 16385, 5, 200, 0.0, False, 16384))
+        ("B=1 T=16385 d=5 200 it", 1, 16385, 5, 200, 0.0, False, 16384),
+        ("B=1 T=20480 d=5 200 it", 1, 20480, 5, 200, 0.0, False, 16384),
+        ("B=1 T=36864 d=5 200 it", 1, 36864, 5, 200, 0.0, False, 32768))
 K8W = ((64, torch.float32), (64, torch.float64), (128, torch.float32))
 K8W_B, K8W_T = 4096, 1024
 

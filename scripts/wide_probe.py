@@ -26,26 +26,47 @@ and the per-problem work.
 
     python3 scripts/wide_probe.py --k10l-split
 
-builds K10's two sources with ``-DOCO_ADMM_SPLIT`` (the clock64 marks of
-``csrc/oco_admm.cuh``) into ``build/wide_probe/`` and runs K10 at 200
-fixed iterations, d = 5: one block of K10l alone on each SM (B = 1 and as
-many long rows as the SMs' blocks hold) and at full occupancy (B = 2, T =
-8,192, phase 14's shape), then B = 1 at T = 9,216 (the rows past 8,192
-on the resident instance's two-row shape) and at T = 16,385, where every
-K10l instance runs.  For each K10l instance it prints a row iteration's clocks
-a warp by phase: the wait for the d x d step and its barrier, a pass's
-wait on its loads, its arithmetic, the reduce-scatter with its barrier,
-the rest, and the d x d steps' own chain, with the probe build's outputs
-held to the library's in every bit.  ``--stream-all`` routes every long
-row to the streaming instance (the design the resident instance replaced)
-and skips the last case.
+builds K10's three sources with ``-DOCO_ADMM_SPLIT`` (the clock64 marks of
+``csrc/oco_admm.cuh``, and the routes of ``-DOCO_ADMM_ROUTES``) into
+``build/wide_probe/k10l_split/`` and runs K10 at 200 fixed iterations, d =
+5: one block of K10l alone on each SM (B = 1 and as many long rows as the
+SMs' blocks hold) and at full occupancy (B = 2, T = 8,192, phase 14's
+shape), then B = 1 at T = 9,216 (the rows past 8,192 on the resident
+instance's two-row shape), at T = 20,480 and 36,864 (the rows past 16,384
+on the one-row block) and at T = 43,008, where every K10l instance runs
+(the rows past 38,912 on the streaming instance).  For
+each K10l instance it prints a row iteration's clocks a warp by phase: the
+wait for the d x d step and its barrier, a pass's wait on its loads (the
+one-row block and the cluster count it in their passes), its arithmetic,
+the reduce-scatter with its barrier (and the cluster's hand-overs), the
+rest, and the d x d steps' own chain, with the probe build's outputs held
+to the library's in every bit.  ``--stream-all`` routes every long row to
+the streaming instance (the design the resident instance replaced) and
+skips the last three cases; ``--route NAME`` takes another of the probe
+build's routes (``ROUTES``: ``cluster_a`` for the cluster's design (a));
+``--past`` runs the last three cases alone.
+
+    python3 scripts/wide_probe.py --k10l-shapes [--reps N]
+
+builds the three sources with ``-DOCO_ADMM_ROUTES`` alone (no marks) into
+``build/wide_probe/k10l_routes/`` and times the rows past 16,384 entries
+on each route the probe build offers, in turns within one call: at B = 1,
+T = 20,480 the one-row block (the library's) and the streaming instance;
+at T = 36,864 the one-row block and
+the streaming instance on the rows past 32,768; at T = 43,008 the
+cluster's designs (a) and (b) and the streaming instance (the library's
+there) on the rows past 38,912; each as the launch less the launch on
+z[:, :cut], with the outputs held to the library's in every bit;
+``--routes a,b`` times those routes alone.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -191,29 +212,69 @@ def split():
 
 
 K10L_PHASES = ("step", "load", "arith", "publish", "other", "chain")
-# K10l's instances, in the order of the probe build's clocks.
-LONG_INSTANCES = ("long", "resident", "resident_long")
+# K10l's instances, in the order of the probe build's clocks
+# (csrc/oco_admm.cuh AdmmInstance).
+LONG_INSTANCES = ("long", "resident", "resident_long", "resident_one",
+                  "cluster")
+# The probe build's routes of the long rows (csrc/admm_long_kernel.cu
+# Route): the library's; every row past 4,096 entries on the streaming
+# instance; the rows past 38,912 on the cluster's design (a) or (b); the
+# rows past 16,384 on the streaming instance (the routing before the
+# one-row block).
+ROUTES = {"library": 0, "stream_all": 1, "cluster_a": 2, "cluster_b": 3,
+          "stream_past": 4}
+K10L_SOURCES = ("admm_kernel.cu", "admm_long_kernel.cu", "admm_row_kernel.cu")
+# --k10l-shapes: (B, T, cut, routes) - the rows past cut timed on each route.
+K10L_SHAPES = ((1, 20480, 16384, ("library", "stream_past")),
+               (1, 36864, 32768, ("library", "stream_past")),
+               (1, 43008, 38912, ("cluster_a", "cluster_b", "library")))
 
 
-def k10l_split_library():
-    """The probe build of K10: ``csrc/admm_kernel.cu`` and
-    ``csrc/admm_long_kernel.cu`` with the clock64 marks compiled in."""
-    out = os.path.join(REPO, "build", "wide_probe")
+@functools.lru_cache(maxsize=None)
+def k10l_probe_library(split=True):
+    """A probe build of K10: its three sources with ``-DOCO_ADMM_ROUTES``
+    (the instances the library no longer routes rows to, and
+    ``oco_admm_split_route``), and with ``split`` the clock64 marks too
+    (``-DOCO_ADMM_SPLIT``, ``oco_admm_split``); one nvcc a source, all
+    started together, under ``build/wide_probe/``."""
+    name = "k10l_split" if split else "k10l_routes"
+    out = os.path.join(REPO, "build", "wide_probe", name)
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "libk10l_split.so")
-    run = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-                          "-DOCO_ADMM_SPLIT", "-shared", "-o", lib,
-                          *(os.path.join(cuda_build.SRC_DIR, f) for f in
-                            ("admm_kernel.cu", "admm_long_kernel.cu"))],
-                         capture_output=True, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(f"the K10l probe build failed:\n{run.stderr}")
+    lib = os.path.join(out, f"lib{name}.so")
+    flag = "-DOCO_ADMM_SPLIT" if split else "-DOCO_ADMM_ROUTES"
+    srcs = [os.path.join(cuda_build.SRC_DIR, f) for f in K10L_SOURCES]
+    objs = [os.path.join(out, f + ".o") for f in K10L_SOURCES]
+    stamp = os.path.join(out, "sources.sha256")
+    key = cuda_build.source_hash() + flag
+    built = os.path.exists(lib) and os.path.exists(stamp)
+    if built:
+        with open(stamp) as f:
+            built = f.read().strip() == key
+    if not built:
+        with open(os.path.join(out, "build.log"), "w") as log:
+            try:
+                cuda_build._run_all(
+                    [[cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                      *flag.split(), "-c", src, "-o", obj]
+                     for src, obj in zip(srcs, objs)], log)
+                cuda_build._run_all([[cuda_build._nvcc(), "-shared", "-o",
+                                      lib, *objs]], log)
+            except RuntimeError as e:
+                raise RuntimeError(f"the K10l probe build failed: {e}") from e
+        with open(stamp, "w") as f:
+            f.write(key)
     so = ctypes.CDLL(lib)
     so.oco_admm_all_prefixes_f32.argtypes = \
         cuda_build._SIGNATURES["oco_admm_all_prefixes_f32"]
-    so.oco_admm_split.argtypes = [ctypes.c_void_p]
     so.oco_admm_split_route.argtypes = [ctypes.c_int]
+    if split:
+        so.oco_admm_split.argtypes = [ctypes.c_void_p]
     return so
+
+
+def k10l_split_library():
+    """The probe build of K10 with the clock64 marks compiled in."""
+    return k10l_probe_library(True)
 
 
 def k10l_batch(B, T, d, seed):
@@ -231,9 +292,29 @@ def k10l_batch(B, T, d, seed):
     return z.float().contiguous(), y.float().contiguous()
 
 
-def k10l_split(stream_all):
+def k10l_outputs(B, T, d):
+    """K10's outputs (s, u, x, w, v, res) for a launch at (B, T, d)."""
+    return [torch.empty((B * T, T), device="cuda") for _ in range(2)] + \
+        [torch.empty((B * T, d), device="cuda") for _ in range(3)] + \
+        [torch.empty(B * T, device="cuda")]
+
+
+def k10l_launch(so, z, y, Lpk, outs, iters, tol=0.0):
+    """One launch of the probe build's C entry; returns its counts."""
+    B, T, d = z.shape
+    launched = (ctypes.c_int * 6)()
+    err = so.oco_admm_all_prefixes_f32(
+        z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *[None] * 5, B, T, d,
+        iters, 100, tol, 0.5, 1.7, 1.0 - 1.7, *(a.data_ptr() for a in outs),
+        torch.cuda.current_stream().cuda_stream, launched)
+    if err != 0:
+        raise RuntimeError(f"K10 probe launch failed: CUDA error {err}")
+    return list(launched)
+
+
+def k10l_split(stream_all, route="library", past=False):
     so = k10l_split_library()
-    so.oco_admm_split_route(int(stream_all))
+    so.oco_admm_split_route(ROUTES["stream_all" if stream_all else route])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     iters, d = 200, 5
     # One block alone on each SM: as many long rows as SMs (a resident
@@ -242,38 +323,52 @@ def k10l_split(stream_all):
     cases = [("one block an SM", 1, admm.LONG_ROWS + alone),
              ("full occupancy", 2, 8192), ("rows past 8,192", 1, 9216)]
     if not stream_all:
-        cases.append(("every instance", 1, admm.RESIDENT_LONG_ROWS + 1))
+        cases += [("rows past 16,384", 1, 20480),
+                  ("rows past 32,768", 1, 36864),
+                  ("every instance", 1, 43008)]
+    if past:
+        cases = cases[-3:]
     for label, B, T in cases:
         z, y = k10l_batch(B, T, d, 140)
         Lpk = admm.admm_prologue(z)
-        outs = [torch.empty((B * T, T), device="cuda") for _ in range(2)] + \
-            [torch.empty((B * T, d), device="cuda") for _ in range(3)] + \
-            [torch.empty(B * T, device="cuda")]
-        launched = (ctypes.c_int * 4)()
-        clocks = (ctypes.c_ulonglong * (3 * len(K10L_PHASES)))()
+        outs = k10l_outputs(B, T, d)
+        n_clocks = len(LONG_INSTANCES) * len(K10L_PHASES)
+        clocks = (ctypes.c_ulonglong * n_clocks)()
         for _ in range(2):         # the first launch warms; its clocks drop
             assert so.oco_admm_split(clocks) == 0
-            assert so.oco_admm_all_prefixes_f32(
-                z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *[None] * 5, B,
-                T, d, iters, 100, 0.0, 0.5, 1.7, 1.0 - 1.7,
-                *(a.data_ptr() for a in outs),
-                torch.cuda.current_stream().cuda_stream, launched) == 0
+            k10l_launch(so, z, y, Lpk, outs, iters)
             torch.cuda.synchronize()
         assert so.oco_admm_split(clocks) == 0
         res, st = admm.launch_admm(z, y, Lpk, iters=iters, tol=0.0,
                                    check_every=100, rho=1.0, alpha=1.7)
         same = all(torch.equal(a, b) for a, b in zip(outs, (*st, res)))
+        del st, res
         for inst, name in enumerate(LONG_INSTANCES):
             c = clocks[inst * len(K10L_PHASES):(inst + 1) * len(K10L_PHASES)]
-            lo, hi = ((admm.LONG_ROWS, T) if stream_all
-                      else admm.instance_rows(name, T))
+            if stream_all:
+                lo, hi = admm.LONG_ROWS, T
+            elif name in admm.INSTANCES:
+                lo, hi = admm.instance_rows(name, T)
+            elif name == "cluster":
+                lo, hi = admm.RESIDENT_ONE_ROWS, max(T, admm.RESIDENT_ONE_ROWS)
+            else:
+                continue
             rows = B * max(hi - lo, 0)
             if rows == 0 or sum(c) == 0:
                 continue
-            per_block = 1 if name == "long" else \
-                admm.resident_plan(d, name)["rows"]
+            if name in ("resident", "resident_long"):
+                per_block = admm.resident_plan(d, name)["rows"]
+            else:
+                per_block = 1
             blocks = B * -(-max(hi - lo, 0) // per_block)
-            warp_iters = rows * 8 * iters
+            # The cluster's warps: a block's 8 a row and cluster block.
+            # (design (b)'s blocks a cluster, each holding the one-row
+            # block's entries; design (a)'s other blocks compute nothing and
+            # report none).
+            cl = 1
+            if name == "cluster" and route == "cluster_b":
+                cl = -(-hi // admm.RESIDENT_ONE_ROWS)
+            warp_iters = rows * 8 * cl * iters
             body = sum(c[:5])
             print(f"K10l {name} ({label}, B={B} T={T} d={d}, {iters} "
                   f"iterations, rows of {lo + 1}..{hi} entries), probe "
@@ -285,8 +380,67 @@ def k10l_split(stream_all):
                   + f"; the d x d steps' chain {c[5] / (blocks * iters):.0f}"
                   f" clocks a block iteration ({per_block} row(s) a block,"
                   f" side by side on lanes of warp 0)", flush=True)
-        del z, y, Lpk, outs, st, res
+        del z, y, Lpk, outs
         torch.cuda.empty_cache()
+
+
+def k10l_shapes(reps, only=None):
+    """K10l's rows past 16,384 entries on each route of the probe build
+    (no clock marks), d = 5, 200 fixed iterations: the time of the rows
+    past the cut (the launch less the launch on z[:, :cut], CUDA events,
+    median of reps after a warm-up), the routes in turn (a, b, c, c, b,
+    a), and whether every route's outputs equal the library's in every
+    bit; then one JSON line."""
+    so = k10l_probe_library(False)
+    iters, d = 200, 5
+    res = {}
+    for B, T, cut, routes in K10L_SHAPES:
+        routes = tuple(r for r in routes if only is None or r in only)
+        if not routes:
+            continue
+        z, y = k10l_batch(B, T, d, 140 + T)
+        zc, yc = z[:, :cut].contiguous(), y[:, :cut].contiguous()
+        Lpk, Lpkc = admm.admm_prologue(z), admm.admm_prologue(zc)
+        outs, outc = k10l_outputs(B, T, d), k10l_outputs(B, cut, d)
+        r_lib, st = admm.launch_admm(z, y, Lpk, iters=iters, tol=0.0,
+                                     check_every=100, rho=1.0, alpha=1.7)
+        want = [a.clone() for a in (*st, r_lib)]
+        del st, r_lib
+        torch.cuda.empty_cache()
+        times = {r: {"full": [], "cut": []} for r in routes}
+        for r in (*routes, *reversed(routes)):
+            so.oco_admm_split_route(ROUTES[r])
+            counts = k10l_launch(so, z, y, Lpk, outs, iters)
+            torch.cuda.synchronize()
+            times[r]["equal"] = all(torch.equal(a, b)
+                                    for a, b in zip(outs, want))
+            times[r]["launched"] = counts
+            for key, args in (("full", (z, y, Lpk, outs)),
+                              ("cut", (zc, yc, Lpkc, outc))):
+                for _ in range(reps):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    k10l_launch(so, *args, iters)
+                    end.record()
+                    end.synchronize()
+                    times[r][key].append(start.elapsed_time(end))
+        so.oco_admm_split_route(ROUTES["library"])
+        for r in routes:
+            t = times[r]
+            full = sorted(t["full"])[len(t["full"]) // 2]
+            short = sorted(t["cut"])[len(t["cut"]) // 2]
+            t["ms"] = full - short
+            label = f"K10l B={B} T={T} rows past {cut}: {r}"
+            res[label] = t
+            print(f"{label}: {t['ms']:.4f} ms (the launch {full:.4f} "
+                  f"[{min(t['full']):.4f}..{max(t['full']):.4f}] less the "
+                  f"launch on z[:, :{cut}] {short:.4f}); launches "
+                  f"{t['launched']}; equal to the library's in every bit "
+                  f"{t['equal']}", flush=True)
+        del z, y, zc, yc, Lpk, Lpkc, outs, outc, want
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
 
 
 def main() -> int:
@@ -301,7 +455,20 @@ def main() -> int:
         split()
         return 0
     if "--k10l-split" in sys.argv[1:]:
-        k10l_split("--stream-all" in sys.argv[1:])
+        route = "library"
+        if "--route" in sys.argv:
+            route = sys.argv[sys.argv.index("--route") + 1]
+        k10l_split("--stream-all" in sys.argv[1:], route,
+                   "--past" in sys.argv[1:])
+        return 0
+    if "--k10l-shapes" in sys.argv[1:]:
+        reps = 5
+        if "--reps" in sys.argv:
+            reps = int(sys.argv[sys.argv.index("--reps") + 1])
+        only = None
+        if "--routes" in sys.argv:
+            only = sys.argv[sys.argv.index("--routes") + 1].split(",")
+        k10l_shapes(reps, only)
         return 0
     timings()
     census()

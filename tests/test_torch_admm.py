@@ -228,8 +228,9 @@ def test_plain_matches_jax_xla_path_past_the_register_rows():
                                     (8192, ["resident", 16, 8]),
                                     (8193, ["resident_long", "resident", 16,
                                             8]),
-                                    (16385, ["long", "resident_long",
-                                             "resident", 16, 8])])
+                                    (16385, ["resident_one",
+                                             "resident_long", "resident", 16,
+                                             8])])
 def test_row_to_instance_map(T, want):
     """The wrapper's mirror of the C entry's map of rows to instances, in
     launch order, and its boundaries as the CUDA source states them."""

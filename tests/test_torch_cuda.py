@@ -2184,7 +2184,7 @@ def test_admm_long_instances_match_plain(cuda, d, tol):
     assert _max_err(state, state_p) <= TOL[torch.float32]
     assert _max_err((res.reshape(-1),), (res_p,)) <= TOL[torch.float32]
     occ = admm.kernel_occupancy(8200, d)
-    assert occ["long"][1] == 0
+    assert occ["resident_one"][1] == 0 and occ["long"][1] == 0
     for name in ("resident", "resident_long"):
         assert occ[name][1] == 8 * admm.resident_plan(d, name)["groups"]
 
@@ -2232,8 +2232,8 @@ def test_resident_long_plan_fits_a_block(cuda, d):
 
 @functools.lru_cache(maxsize=None)
 def _k10l_stream_route():
-    """K10's two sources built with -DOCO_ADMM_SPLIT and routed so that
-    every row past 4,096 entries takes K10l's streaming instance
+    """K10's sources built with -DOCO_ADMM_SPLIT and routed so that every
+    row past 4,096 entries takes K10l's streaming instance
     (``scripts/wide_probe.py``'s probe build, once a process)."""
     import importlib.util
     import os
@@ -2247,38 +2247,145 @@ def _k10l_stream_route():
     return so
 
 
-@pytest.mark.parametrize("T,instances", [
-    (9216, ["resident_long", "resident", 16, 8]),
-    (16385, ["long", "resident_long", "resident", 16, 8])])
-def test_k10l_rows_past_8192_equal_the_streaming_route(cuda, T, instances):
-    """The rows of 8,193 to 16,384 entries on the two-row resident shape
-    (and at T = 16,385 the one longer row on the streaming instance) equal
-    the launch that streams every long row (the probe build's route, the
-    design before the resident shapes) in every output bit, d = 5, 200
-    fixed iterations."""
+def _k10l_outputs(T, d, cuda):
+    return [torch.empty((T, T), device=cuda) for _ in range(2)] + \
+        [torch.empty((T, d), device=cuda) for _ in range(3)] + \
+        [torch.empty(T, device=cuda)]
+
+
+def _k10l_probe_launch(so, z, y, Lpk, outs, iters, tol, state0=None):
+    """One launch of the probe build's C entry on (1, T, d); its counts."""
     import ctypes
+    _, T, d = z.shape
+    launched = (ctypes.c_int * 6)()
+    ptrs0 = [a.data_ptr() for a in state0] if state0 else [None] * 5
+    assert so.oco_admm_all_prefixes_f32(
+        z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *ptrs0, 1, T, d, iters,
+        100, tol, 0.5, 1.7, 1.0 - 1.7, *(a.data_ptr() for a in outs),
+        torch.cuda.current_stream().cuda_stream, launched) == 0
+    return list(launched)
+
+
+@pytest.mark.parametrize("T,instances,tol", [
+    (9216, ["resident_long", "resident", 16, 8], 0.0),
+    (20480, ["resident_one", "resident_long", "resident", 16, 8], 0.0),
+    (20480, ["resident_one", "resident_long", "resident", 16, 8], 2e-4),
+    (36864, ["resident_one", "resident_long", "resident", 16, 8], 0.0),
+    (38944, ["long", "resident_one", "resident_long", "resident", 16, 8],
+     0.0),
+    (38944, ["long", "resident_one", "resident_long", "resident", 16, 8],
+     2e-4)])
+def test_k10l_rows_past_8192_equal_the_streaming_route(cuda, T, instances,
+                                                       tol):
+    """The rows of 8,193 to 16,384 entries on the two-row resident shape,
+    and at T = 20,480, 36,864 and 38,944 those of 16,385 to 38,912 on the
+    one-row block (at T = 38,944 the 32 longer rows on the streaming
+    instance), equal the launch that streams every long row (the probe
+    build's route, the design before the resident shapes) in every output
+    bit, d = 5, 200 iterations, fixed and at the route's tol."""
     so = _k10l_stream_route()
+    so.oco_admm_split_route(1)
     z, y = _admm_batch(1, T, 5, seed=61, cuda=cuda)
     Lpk = admm.admm_prologue(z)
-    outs = [torch.empty((T, T), device=cuda) for _ in range(2)] + \
-        [torch.empty((T, 5), device=cuda) for _ in range(3)] + \
-        [torch.empty(T, device=cuda)]
-    launched = (ctypes.c_int * 4)()
-    assert so.oco_admm_all_prefixes_f32(
-        z.data_ptr(), y.data_ptr(), Lpk.data_ptr(), *[None] * 5, 1, T, 5,
-        200, 100, 0.0, 0.5, 1.7, 1.0 - 1.7, *(a.data_ptr() for a in outs),
-        torch.cuda.current_stream().cuda_stream, launched) == 0
-    assert list(launched) == [3, 1, 0, 0]
+    outs = _k10l_outputs(T, 5, cuda)
+    assert _k10l_probe_launch(so, z, y, Lpk, outs, 200, tol) == \
+        [3, 1, 0, 0, 0, 0]
     before = (admm.LONG_LAUNCHES, admm.RESIDENT_LAUNCHES,
-              admm.RESIDENT_LONG_LAUNCHES)
-    res, st = admm.launch_admm(z, y, Lpk, iters=200, tol=0.0,
+              admm.RESIDENT_LONG_LAUNCHES, admm.RESIDENT_ONE_LAUNCHES)
+    res, st = admm.launch_admm(z, y, Lpk, iters=200, tol=tol,
                                check_every=100, rho=1.0, alpha=1.7)
     torch.cuda.synchronize()
     assert admm.kernel_instances(T) == instances
     assert (admm.LONG_LAUNCHES - before[0], admm.RESIDENT_LAUNCHES - before[1],
-            admm.RESIDENT_LONG_LAUNCHES - before[2]) == (
-        len(instances) - 2, 2, 1)
+            admm.RESIDENT_LONG_LAUNCHES - before[2],
+            admm.RESIDENT_ONE_LAUNCHES - before[3]) == (
+        len(instances) - 2, 2, 1, int("resident_one" in instances))
     assert all(torch.equal(a, b) for a, b in zip(outs, (*st, res)))
+
+
+@pytest.mark.parametrize("route,tol", [(2, 0.0), (2, 2e-4), (3, 0.0),
+                                       (3, 2e-4)])
+def test_k10l_cluster_designs_equal_the_streaming_route(cuda, route, tol):
+    """The probe build's thread-block cluster (route 2: design (a), the
+    first block computing; route 3: design (b), the partial sums handed
+    block to block) on the rows past the one-row block's 38,912 entries at
+    T = 38,944, with the one-row block below, equals the route that streams
+    every long row in every output bit, d = 5, 200 iterations fixed and at
+    the route's tol; its launch counts one cluster launch, and 100 + 100
+    iterations from the saved state equal 200 on it."""
+    so = _k10l_stream_route()
+    T = 38944
+    z, y = _admm_batch(1, T, 5, seed=62, cuda=cuda)
+    Lpk = admm.admm_prologue(z)
+    ref = _k10l_outputs(T, 5, cuda)
+    so.oco_admm_split_route(1)
+    _k10l_probe_launch(so, z, y, Lpk, ref, 200, tol)
+    got = _k10l_outputs(T, 5, cuda)
+    try:
+        so.oco_admm_split_route(route)
+        assert _k10l_probe_launch(so, z, y, Lpk, got, 200, tol) == \
+            [6, 4, 2, 1, 1, 1]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        if tol == 0.0:
+            half = _k10l_outputs(T, 5, cuda)
+            _k10l_probe_launch(so, z, y, Lpk, half, 100, tol)
+            _k10l_probe_launch(so, z, y, Lpk, got, 100, tol, half[:5])
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    finally:
+        so.oco_admm_split_route(1)
+
+
+@pytest.mark.parametrize("T,d", [(16500, 5), (16500, 8), (32900, 3)])
+def test_k10l_past_16384_match_plain_and_continue(cuda, T, d):
+    """The one-row block (rows of 16,385 to 38,912 entries), at the d = 5
+    instance and the generic one: every row within 5e-4 of the plain
+    version at 40 fixed iterations, one launch of the block, and 20 + 20
+    iterations from the saved state equal 40 in every bit."""
+    z, y = _admm_batch(1, T, d, seed=70 + d, cuda=cuda)
+    before = admm.RESIDENT_ONE_LAUNCHES
+    X, res, st = admm.admm_all_prefixes_l2(z, y, iters=40, tol=0.0)
+    torch.cuda.synchronize()
+    assert admm.RESIDENT_ONE_LAUNCHES == before + 1
+    assert "resident_one" in admm.kernel_instances(T)
+    res_p, st_p = admm.admm_all_prefixes_l2_reference(
+        z, y, admm.admm_prologue(z), iters=40, tol=0.0, check_every=100,
+        rho=1.0, alpha=1.7)
+    assert _max_err(st, st_p) <= TOL[torch.float32]
+    assert _max_err((res.reshape(-1),), (res_p,)) <= TOL[torch.float32]
+    del st_p, res_p
+    torch.cuda.empty_cache()
+    _, _, st1 = admm.admm_all_prefixes_l2(z, y, iters=20, tol=0.0)
+    Xc, rc, stc = admm.admm_all_prefixes_l2(z, y, iters=20, tol=0.0,
+                                            state0=st1)
+    assert torch.equal(Xc, X) and torch.equal(rc, res)
+    assert all(torch.equal(a, b) for a, b in zip(stc, st))
+
+
+@pytest.mark.parametrize("d", [5, 8])
+def test_k10l_row_plan_matches_occupancy(cuda, d):
+    """K10l's one-row block as the source sizes it (``admm.row_plan``) and
+    as the occupancy API reports it: 256 threads, 64 + 88 entries a
+    thread, one block of 8 warps an SM, its shared memory within a block's
+    227 KB, rows of 16,385 to 38,912 entries; the streaming instance on the
+    longer rows; no plan outside that range."""
+    for L in (16385, 20000, 38912):
+        plan = admm.row_plan(d, L)
+        assert (plan["cluster"], plan["threads"], plan["entries"],
+                plan["register_entries"], plan["shared_entries"],
+                plan["lo"], plan["hi"]) == (
+            1, 256, 152, 64, 88, admm.RESIDENT_LONG_ROWS,
+            admm.RESIDENT_ONE_ROWS)
+        assert plan["smem_bytes"] + plan["static_bytes"] <= \
+            trs.H100_SMEM_OPTIN
+        assert plan["stages"] >= 4
+    occ = admm.kernel_occupancy(40000, d)
+    assert occ["resident_one"][1] == 8 and occ["long"][1] > 0
+    assert admm.kernel_occupancy(36864, d)["long"][1] == 0
+    for L in (admm.RESIDENT_LONG_ROWS, admm.RESIDENT_ONE_ROWS + 1):
+        with pytest.raises(RuntimeError):
+            admm.row_plan(d, L)
 
 
 @pytest.mark.parametrize("tol", [0.0, 2e-4])

@@ -49,8 +49,8 @@ def test_resident_rows_match_the_source():
     assert re.search(r"constexpr int kResidentRows = 8192;", src)
     assert admm.RESIDENT_ROWS == 8192 and admm.LONG_ROWS == 4096
     assert admm.instance_rows("resident", 8192) == (4096, 8192)
-    assert admm.instance_rows("long", 8192) == (16384, 16384)
-    assert admm.instance_rows("long", 12288) == (16384, 16384)
+    assert admm.instance_rows("resident_one", 8192) == (16384, 16384)
+    assert admm.instance_rows("long", 12288) == (38912, 38912)
     assert admm.instance_rows("resident_long", 12288) == (8192, 12288)
 
 

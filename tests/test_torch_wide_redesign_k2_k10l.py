@@ -560,8 +560,8 @@ def test_two_row_resident_shape_equals_streaming_schedule(d, tol, iters, B):
 def test_resident_shapes_match_the_source():
     """The wrapper's row map against the CUDA source: the four-row shape
     (RG = 2, M = 32) to 8,192 entries, the two-row shape (RG = 1, M = 64)
-    to 16,384, both 64 entries of s and u a thread, the streaming instance
-    past 16,384."""
+    to 16,384, both 64 entries of s and u a thread, the one-row block past
+    16,384."""
     src = _source("admm_long_kernel.cu")
     assert re.search(r"constexpr int kResidentLongRows = 16384;", src)
     assert re.search(r"using ResidentShort = Resident<D, 2, kResidentRows "
@@ -572,8 +572,8 @@ def test_resident_shapes_match_the_source():
     assert 2 * (admm.RESIDENT_ROWS // 256) == admm.RESIDENT_LONG_ROWS // 256
     assert admm.instance_rows("resident_long", 9216) == (8192, 9216)
     assert admm.instance_rows("resident_long", 20000) == (8192, 16384)
-    assert admm.instance_rows("long", 16385) == (16384, 16385)
+    assert admm.instance_rows("resident_one", 16385) == (16384, 16385)
     assert admm.kernel_instances(9216) == ["resident_long", "resident", 16,
                                            8]
-    assert admm.kernel_instances(16385) == ["long", "resident_long",
+    assert admm.kernel_instances(16385) == ["resident_one", "resident_long",
                                             "resident", 16, 8]
